@@ -39,6 +39,7 @@ def run_case(recipe):
         truth=bench.flow_truth_metrics(jfr, *jf),
         theta=(np.asarray(jr.theta), np.asarray(jfr.theta)),
         steps=(jax_steps(jr), jax_steps(jfr)),
+        results=(jr, jfr),
     )
     tr, tfr = t_cascade(tm, tt, **recipe), t_cascade(tf[0], tf[1], **recipe)
     out["torch"] = dict(

@@ -42,9 +42,9 @@ def test_torch_cascade_result_layout(case):
 
 @pytest.mark.parametrize("option,item", [
     (dict(flow_model="unet"), "item 11"),
-    (dict(flow_rebase=True), "item 9"),
-    (dict(final_warp="exact"), "item 9"),
-    (dict(moment_init="pa"), "item 9"),
+    (dict(flow_depth=2), "item 11"),
+    (dict(flow_compose=False), "item 11"),
+    (dict(flow_remat=True), "item 11"),
     (dict(matrix_optimizer="lm"), "item 10"),
 ])
 def test_torch_cascade_unported_options_raise(option, item):
@@ -59,3 +59,8 @@ def test_torch_cascade_rejects_bad_options():
         register_cascade(vol, vol, **dict(reduced_recipe(), moment_init="PA"))
     with pytest.raises(ValueError, match="matrix_levels"):
         register_cascade(vol, vol, **dict(reduced_recipe(), matrix_levels=0))
+    with pytest.raises(ValueError, match="final_warp"):
+        register_cascade(vol, vol, **dict(reduced_recipe(), final_warp="blocked"))
+    with pytest.raises(ValueError, match="flow_residual_disp"):
+        register_cascade(vol, vol, **dict(reduced_recipe(), flow_rebase=True,
+                                          flow_residual_disp=9))

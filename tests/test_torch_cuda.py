@@ -1,5 +1,6 @@
-"""K1 and the slice on the GPU: the kernel against its plain version, and
-the port's cascade on the card against the same cascade on the CPU.
+"""K1, K2 and the slice on the GPU: the kernels against their plain
+versions, and the port's cascade on the card against the same cascade on the
+CPU.
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from torchregister_tpu_torch.ops.cuda import sweep as k1
+from torchregister_tpu_torch.ops.cuda import warp as k2
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +108,64 @@ def test_torch_cuda_cascade_matches_cpu(dev):
         assert abs(sum(gpu.steps[stage]) - sum(cpu.steps[stage])) <= 4
     assert abs(rmse_reduction_pct(gpu.warped.cpu(), mov, tgt)
                - rmse_reduction_pct(cpu.warped, mov, tgt)) <= 2.0
+
+
+# ------------------------------------------------------------------ K2
+
+
+def _k2_case(dev, C, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randn((C,) + shape, generator=gen, device=dev)
+    return src, gen
+
+
+@pytest.mark.parametrize("shape", [(17, 19, 23), (1, 31, 26)], ids=["3d", "one_plane"])
+def test_torch_cuda_warp_affine_matches_plain(dev, shape):
+    """The kernel runs the plain version's f32 operations in the same order
+    (no FMA contraction): equal to the bit, padding and all."""
+    src, gen = _k2_case(dev, 3, shape, 1)
+    M = torch.eye(3, device=dev) + 0.3 * torch.randn((3, 3), generator=gen, device=dev)
+    t = 4.0 * torch.randn((3,), generator=gen, device=dev)
+    mt = k2.pack_affine(M, t)
+    k2.reset_counts()
+    out = k2.warp_affine_launch(src, mt)
+    assert (k2.affine_launches, k2.flow_launches) == (1, 0)
+    torch.testing.assert_close(out, k2.warp_plain(src, mt=mt), rtol=0, atol=0)
+
+
+def test_torch_cuda_warp_flow_matches_plain(dev):
+    src, gen = _k2_case(dev, 2, (18, 20, 22), 2)
+    flow = 12.0 * torch.randn((3, 18, 20, 22), generator=gen, device=dev)
+    k2.reset_counts()
+    out = k2.warp_flow_launch(src, flow)
+    assert (k2.affine_launches, k2.flow_launches) == (0, 1)
+    torch.testing.assert_close(out, k2.warp_plain(src, flow=flow), rtol=0, atol=0)
+
+
+def test_torch_cuda_exact_warps_match_cpu(dev):
+    """``warp_affine_fast`` / ``warp_flow_fast`` (2D and 3D, batch folded)
+    on the card against the same calls on the CPU."""
+    from torchregister_tpu_torch.ops.blocked import warp_affine_fast, warp_flow_fast
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    gen = torch.Generator().manual_seed(3)
+    for spatial, params in (((20, 21, 22), [0.2, -0.1, 0.15, 0.05, -0.03, 0.08]),
+                            ((30, 27), [0.3, 0.1, -0.2])):
+        mov = torch.randn((2, 2) + spatial, generator=gen)
+        theta = rigid_theta(torch.tensor(params))[None]
+        flow = 3.0 * torch.randn((2, len(spatial)) + spatial, generator=gen)
+        for fn, args in ((warp_affine_fast, (theta, mov)), (warp_flow_fast, (mov, flow))):
+            got = fn(*(a.to(dev) for a in args))
+            assert got.is_cuda
+            torch.testing.assert_close(got.cpu(), fn(*args), rtol=0, atol=1e-5)
+
+
+def test_torch_cuda_warp_rejects_bad_inputs(dev):
+    src, _ = _k2_case(dev, 1, (8, 8, 8), 4)
+    mt = k2.pack_affine(torch.eye(3, device=dev), torch.zeros(3, device=dev))
+    with pytest.raises(TypeError):
+        k2.warp(src.half(), mt=mt)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.warp_affine_launch(src.transpose(1, 3), mt)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        k2.warp_affine_launch(src, mt.cpu())

@@ -190,8 +190,8 @@ def test_torch_engine_options_not_ported(pair):
     mov, tgt = (_t(a) for a in pair)
     with pytest.raises(NotImplementedError, match="item 10"):
         t_rigid(mov, tgt, criterions=["mse"], grad_edges=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_affine(mov, tgt, criterions=["mse"], grad_edges=False, method="exact")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_affine(mov, tgt, criterions=["mse"], grad_edges=True, method="exact")
     with pytest.raises(NotImplementedError, match="item 10"):
         t_rigid(mov, tgt, grad_edges=False)  # the default stack includes NMI
     with pytest.raises(NotImplementedError, match="item 11"):

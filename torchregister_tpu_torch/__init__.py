@@ -2,6 +2,56 @@
 
 The JAX package ``torchregister_tpu`` is the reference; this package mirrors
 its module paths (``ops/pallas/sweep.py`` <-> ``ops/cuda/sweep.py``) and
-imports no JAX. Entry point of the ported slice:
-``torchregister_tpu_torch.engines.cascade.register_cascade``.
+imports no JAX. The public surface, for what is ported:
+
+    import torchregister_tpu_torch as tr
+    warping = tr.Register(mode='rigid', device='cuda', criterion=['mse', 'ncc'])
+    warping.optim(moving, target, lr=1e-5, max_epochs=500)
+    warped = warping(moving)
+    field = tr.norm(abs(warping.theta))
 """
+from .api import Register, norm
+from .config import AffineConfig, CascadeConfig, FlowConfig, RigidConfig
+from .engines.affine import affine_register
+from .engines.cascade import CascadeResult, register_cascade
+from .engines.common import RegistrationResult
+from .engines.flow import FlowResult, flow_register
+from .engines.rigid import rigid_register
+from .losses import get_criterion, mse, ncc, ssd
+from .ops.blocked import warp_affine_fast, warp_flow_fast
+from .ops.resample import grid_sample, warp_affine, warp_flow
+from .ops.transforms import compose_theta, identity_theta, rigid_theta
+from .utils.io import load_transform, save_transform
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Register",
+    "norm",
+    "RigidConfig",
+    "AffineConfig",
+    "FlowConfig",
+    "CascadeConfig",
+    "rigid_register",
+    "affine_register",
+    "flow_register",
+    "register_cascade",
+    "CascadeResult",
+    "RegistrationResult",
+    "FlowResult",
+    "warp_affine",
+    "warp_flow",
+    "warp_affine_fast",
+    "warp_flow_fast",
+    "grid_sample",
+    "rigid_theta",
+    "identity_theta",
+    "compose_theta",
+    "mse",
+    "ncc",
+    "ssd",
+    "get_criterion",
+    "save_transform",
+    "load_transform",
+    "__version__",
+]

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 
 from ..losses import resolve_criteria, weighted_loss
+from ..ops.blocked import warp_affine_fast
+from ..ops.resample import warp_affine
 from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import identity_theta
 from .common import (
@@ -35,8 +37,9 @@ def affine_register(
 ) -> tuple[torch.Tensor, RegistrationResult]:
     """Register ``moving [1,1,*S]`` onto ``target`` with a full affine
     matrix; returns ``(warped_best, result)``. ``init_theta`` (``[1, d,
-    d+1]`` or flat) warm-starts, identity by default."""
-    check_engine_options(grad_edges, method)
+    d+1]`` or flat) warm-starts, identity by default. ``method`` as in
+    :func:`rigid_register`."""
+    check_engine_options(grad_edges)
     criteria, w = resolve_criteria(criterions, weights)
     loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
@@ -45,13 +48,15 @@ def affine_register(
         params0 = identity_theta(ndim, device=moving.device).reshape(-1)
     else:
         params0 = init_theta.to(torch.float32).reshape(-1)
+    separable = method == "separable"
     windows = resolve_sweep_windows(
         params0.detach().cpu().double().numpy().reshape(ndim, ndim + 1), spatial,
-        max_shift)
+        max_shift) if separable else None
 
     def loss_fn(params):
-        warped = _warp_affine_separable(params.reshape(1, ndim, ndim + 1), moving,
-                                        max_shift=windows)
+        theta = params.reshape(1, ndim, ndim + 1)
+        warped = (_warp_affine_separable(theta, moving, max_shift=windows) if separable
+                  else warp_affine(theta, moving))
         return loss(target, warped)
 
     final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
@@ -62,6 +67,8 @@ def affine_register(
         final_params=final_params, best_params=best_params, losses=losses,
         best_loss=best_loss, param_history=hist, steps=steps,
     )
+    if not separable:
+        return warp_affine_fast(result.best_theta, moving), result
     with torch.no_grad():
         warped_best = _warp_affine_separable(result.best_theta, moving,
                                              max_shift=windows)

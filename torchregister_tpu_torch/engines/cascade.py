@@ -5,10 +5,14 @@ Coarse-to-fine: the matrix stages optimize a near-identity residual at each
 pyramid level on an image warped once with the theta so far, and compose
 (``theta <- theta ∘ residual``); one full-resolution re-warp hands the
 result to the direct-field flow stage, which runs its own pyramid with
-warm-started fields; a final flow warp gives the registered image.
+warm-started fields (or, with ``flow_rebase``, zero-init residual fields on a
+once-rebased input); a final flow warp gives the registered image. With
+``final_warp='exact'`` the full-resolution matrix warp and the final flow
+warp run on kernel K2 (``ops/blocked.py``) with ``grid_sample`` semantics.
 
 Torch runs eagerly, so ``make_cascade_fn`` has no counterpart. Options whose
-code is not ported yet raise ``NotImplementedError`` naming the ROADMAP item.
+code is not ported yet (the U-Net flow stage and its knobs, the LM matrix
+optimizer) raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,10 +22,11 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..ops.blocked import warp_affine_fast, warp_flow_fast
 from ..ops.resize import downsample_avg
 from ..ops.separable import _warp_affine_separable, warp_flow_separable
 from ..ops.transforms import compose_theta, identity_theta
-from ..utils.pyramid import build_pyramid, upsample_flow
+from ..utils.pyramid import build_pyramid, compose_flows_separable, upsample_flow
 from .affine import affine_register
 from .common import check_sweep_windows
 from .flow import flow_register
@@ -39,8 +44,11 @@ class CascadeResult(NamedTuple):
     steps: Optional[dict] = None
 
 
-def _level_warp(theta, moving_level):
-    """Full-transform re-warp: the window covers the whole displacement."""
+def _level_warp(theta, moving_level, exact: bool = False):
+    """Full-transform re-warp: exact on K2, or separable with a window that
+    covers the whole displacement."""
+    if exact:
+        return warp_affine_fast(theta, moving_level)
     S = max(moving_level.shape[2:])
     with torch.no_grad():
         return _warp_affine_separable(theta, moving_level, max_shift=max(8, S // 3))
@@ -66,13 +74,18 @@ def register_cascade(
     weights=None,
     optimizer: str = "adam",
     n: float = 8,
+    flow_depth: int | None = None,
+    seed: int = 0,
     residual_shift: int = 8,
     final_warp: str = "separable",
     flow_max_size: int = 160,
     flow_dtype: str = "float32",
     level_decay: float = 2.0,
+    flow_remat: bool = False,
     flow_max_disp: int = 8,
     matrix_dtype: str = "float32",
+    flow_attention: bool = True,
+    flow_norm: bool = True,
     matrix_stop_rel: float | None = None,
     matrix_patience: int = 25,
     matrix_levels: int | None = None,
@@ -82,25 +95,37 @@ def register_cascade(
     flow_smooth=None,
     flow_stop_rel: float | None = None,
     flow_patience: int = 25,
+    flow_compose: bool = True,
     flow_levels: int | None = None,
     flow_criterions=None,
     flow_rebase: bool = False,
+    flow_residual_disp: int = 4,
 ) -> CascadeResult:
     """Coarse-to-fine rigid→affine→flow registration of one pair
     ``[1, 1, *S]``; options as in the JAX package.
 
     ``n`` is the U-Net width divisor and has no effect in field mode (the
-    U-Net is not ported yet); ``flow_model`` must be ``'field'``.
+    U-Net is not ported yet); ``flow_model`` must be ``'field'``, and the
+    U-Net knobs (``flow_depth``, ``flow_remat``, ``flow_attention``,
+    ``flow_norm``, ``flow_compose``, ``seed``) must keep their defaults.
+
+    ``flow_rebase=True`` optimizes each finer flow level as a zero-init
+    residual under the ``flow_residual_disp`` window on an input warped once
+    with the upsampled total field, and composes ``total <- residual ∘
+    total``.
     """
     if flow_model != "field" and "flow" in stages:
         _not_ported(f"flow_model={flow_model!r}", "11 (U-Net parity mode)")
-    if flow_rebase:
-        _not_ported("flow_rebase=True", "9 (remaining cascade options)")
-    if final_warp != "separable":
-        _not_ported(f"final_warp={final_warp!r}", "9 (exact resampling, kernel K2)")
-    if moment_init == "pa":
-        _not_ported("moment_init='pa'", "9 (ops/moments.pa_rigid_params)")
-    if moment_init not in (False, True, "com"):
+    unet_knobs = dict(flow_depth=(flow_depth, None), flow_remat=(flow_remat, False),
+                      flow_attention=(flow_attention, True), flow_norm=(flow_norm, True),
+                      flow_compose=(flow_compose, True), seed=(seed, 0))
+    for name, (value, default) in unet_knobs.items():
+        if value != default:
+            _not_ported(f"{name}={value!r}", "11 (U-Net parity mode)")
+    if final_warp not in ("separable", "exact"):
+        raise ValueError(f"final_warp must be 'separable' or 'exact' (got {final_warp!r})")
+    exact = final_warp == "exact"
+    if moment_init not in (False, True, "com", "pa"):
         raise ValueError(f"moment_init must be False, True, 'com', or 'pa' "
                          f"(got {moment_init!r})")
     m_opt = optimizer if matrix_optimizer is None else matrix_optimizer
@@ -134,6 +159,9 @@ def register_cascade(
     def level_shift(i, mov_l):
         if i == 0:  # the coarsest level sees the full initial misalignment
             S = max(mov_l.shape[2:])
+            if moment_init == "pa" and "rigid" in stages:
+                # principal axes seed large rotations: cover ~60-90 degrees
+                return max(residual_shift, S // 2 + 4)
             if moment_init and ndim == 3 and "rigid" in stages:
                 # the CoM init pre-matches the bulk translation; the bounded
                 # 3D translation is <= S/8 voxels, plus rotation margin
@@ -148,13 +176,16 @@ def register_cascade(
         return [max(1, int(round(total * x / s))) for x in w]
 
     if "rigid" in stages:
-        from ..ops.moments import com_rigid_params
+        from ..ops.moments import com_rigid_params, pa_rigid_params
 
         budgets = level_budgets(rigid_epochs, m_levels)
         losses, steps["rigid"] = [], []
         for i, (mov_l, tgt_l) in enumerate(zip(mov_pyr[:m_levels], tgt_pyr[:m_levels])):
             base = _level_warp(theta, mov_l) if i else mov_l
-            init_params = com_rigid_params(base, tgt_l) if i == 0 and moment_init else None
+            init_params = None
+            if i == 0 and moment_init:
+                init_params = (pa_rigid_params(base, tgt_l) if moment_init == "pa"
+                               else com_rigid_params(base, tgt_l))
             _, res = rigid_register(
                 base, tgt_l, lr=rigid_lr, epochs=budgets[i], criterions=list(criterions),
                 weights=weights, grad_edges=False, optimizer=m_opt, init="identity",
@@ -185,7 +216,7 @@ def register_cascade(
         affine_losses = torch.cat(losses)
 
     # one full-resolution resample through the composed matrix transform
-    warped = _level_warp(theta, moving)
+    warped = _level_warp(theta, moving, exact)
 
     flow = None
     scale = 1
@@ -199,6 +230,9 @@ def register_cascade(
             flow_levels = min(2, levels)
         if flow_levels < 1:
             raise ValueError(f"flow_levels must be >= 1 (got {flow_levels})")
+        if flow_rebase and not 1 <= flow_residual_disp <= flow_max_disp:
+            raise ValueError(f"flow_residual_disp must be in [1, flow_max_disp="
+                             f"{flow_max_disp}] (got {flow_residual_disp})")
         # clamp the depth so the coarsest level keeps >= 8 voxels per axis
         min_s = min(flow_in.shape[2:])
         requested_levels = flow_levels
@@ -213,44 +247,72 @@ def register_cascade(
             raise ValueError(f"flow_smooth tuple has {len(smooths)} entries for "
                              f"{flow_levels} flow levels")
         budgets = level_budgets(flow_epochs, flow_levels)
-        params = None
+        params = total_flow = None
         losses, steps["flow"] = [], []
         for li, ((f_in, f_tgt), eps) in enumerate(zip(zip(f_pyr_in, f_pyr_tgt), budgets)):
+            base_in, level_disp = f_in, flow_max_disp
             if params is not None:
                 # warm start: upsample the field (voxel units rescaled)
                 params = upsample_flow(params, f_in.shape[2:])
+                if flow_rebase:
+                    # one warp bakes the total so far into the level input; its
+                    # window covers the worst-case upsampled composite (each
+                    # upsample doubles voxel magnitudes), since what falls
+                    # outside a one-shot warp is lost for good
+                    total_flow = params
+                    rebase_win = flow_max_disp * 2**li + flow_residual_disp * (2**li - 2)
+                    with torch.no_grad():
+                        base_in = warp_flow_separable(f_in, total_flow, max_disp=rebase_win)
+                    params, level_disp = None, flow_residual_disp
             _, fres = flow_register(
-                f_in, f_tgt, lr=flow_lr, max_epochs=eps,
+                base_in, f_tgt, lr=flow_lr, max_epochs=eps,
                 criterions=list(flow_criterions), weights=weights, optimizer=optimizer,
-                dtype=flow_dtype, init_params=params, max_disp=flow_max_disp,
+                dtype=flow_dtype, init_params=params, max_disp=level_disp,
                 flow_model="field", smooth=smooths[li], stop_rel=flow_stop_rel,
                 patience=flow_patience,
                 check_disp=False,  # one end-of-run check below
             )
             params = fres.params
+            if flow_rebase and total_flow is not None:
+                # fold the residual into the total ("total, then residual"):
+                # the resample displacement is the residual, so its window does
+                with torch.no_grad():
+                    total_flow = compose_flows_separable(total_flow, fres.flow,
+                                                         max_disp=flow_residual_disp)
+                params = total_flow
             losses.append(fres.losses)
             steps["flow"].append(fres.steps)
-        flow = fres.flow
+        flow = total_flow if total_flow is not None else fres.flow
         flow_losses = torch.cat(losses)
         if scale > 1:
             flow = upsample_flow(flow, warped.shape[2:])
-        final_bound = flow_max_disp * scale
-        with torch.no_grad():
-            warped = warp_flow_separable(warped, flow, max_disp=final_bound)
+        if flow_rebase:
+            # worst-case composed total at the finest flow grid: the coarse
+            # window doubled per upsample plus each level's doubled residual
+            final_bound = (flow_max_disp * 2 ** (flow_levels - 1)
+                           + flow_residual_disp * (2 ** (flow_levels - 1) - 1)) * scale
+        else:
+            final_bound = flow_max_disp * scale
+        if exact:
+            warped = warp_flow_fast(warped, flow)
+        else:
+            with torch.no_grad():
+                warped = warp_flow_separable(warped, flow, max_disp=final_bound)
 
-    # end-of-run window checks (one host read of theta and of max |flow|)
-    check_sweep_windows(theta, moving.shape[2:], max(8, max(moving.shape[2:]) // 3),
-                        "register_cascade (composed theta)")
-    if flow is not None:
-        maxd = float(torch.max(torch.abs(flow)))
-        if maxd > final_bound:
-            warnings.warn(
-                f"register_cascade: recovered flow reaches {maxd:.1f} voxels but the "
-                f"final sweep window is {final_bound}; displacements beyond it "
-                "contribute zero. Raise flow_max_disp.",
-                RuntimeWarning,
-                stacklevel=2,
-            )
+    if not exact:  # an exact warp has no window to outgrow
+        # end-of-run window checks (one host read of theta and of max |flow|)
+        check_sweep_windows(theta, moving.shape[2:], max(8, max(moving.shape[2:]) // 3),
+                            "register_cascade (composed theta)")
+        if flow is not None:
+            maxd = float(torch.max(torch.abs(flow)))
+            if maxd > final_bound:
+                warnings.warn(
+                    f"register_cascade: recovered flow reaches {maxd:.1f} voxels but "
+                    f"the final sweep window is {final_bound}; displacements beyond it "
+                    "contribute zero. Raise flow_max_disp or use final_warp='exact'.",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
 
     return CascadeResult(warped=warped, theta=theta, flow=flow,
                          rigid_losses=rigid_losses, affine_losses=affine_losses,

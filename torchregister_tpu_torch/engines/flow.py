@@ -6,7 +6,10 @@ against the similarity stack plus a diffusion regularizer. The loop stops
 when the recorded loss is ``<= stop_crit``, after ``max_epochs``, or (with
 ``stop_rel``) after ``patience`` steps in which the step's loss did not
 improve on the reference loss by ``stop_rel`` — the step's loss, not the
-best loss as in the matrix engines. The U-Net mode is not ported yet.
+best loss as in the matrix engines. ``method='separable'`` warps by sweeps
+inside ``max_disp``; any other ``method`` warps with the exact
+``ops/resample.warp_flow``, in the loop and for the returned image, as in the
+JAX package. The U-Net mode is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ..losses import resolve_criteria, weighted_loss
+from ..ops.resample import warp_flow
 from ..ops.separable import warp_flow_separable
 from .common import make_optimizer
 from .rigid import check_engine_options
@@ -74,7 +78,7 @@ def flow_register(
         raise NotImplementedError(
             f"flow_model={flow_model!r} is not ported yet: ROADMAP queue 1 item 11 "
             "(U-Net parity mode, kernel K3)")
-    check_engine_options(grad_edges, method)
+    check_engine_options(grad_edges)
     criteria, w = resolve_criteria(criterions, weights)
     loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
@@ -87,6 +91,12 @@ def flow_register(
             stacklevel=2,
         )
     img_dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+    def warp(src, flow):
+        if method == "separable":
+            return warp_flow_separable(src, flow, max_disp=max_disp)
+        return warp_flow(src, flow)
+
     mov_s, tgt_s = moving.to(img_dt), target.to(img_dt)
     if init_params is None:
         init_params = torch.zeros((moving.shape[0], ndim) + tuple(moving.shape[2:]),
@@ -100,7 +110,7 @@ def flow_register(
     i = 0
     while i < max_epochs and last > stop_crit and (factor is None or since < patience):
         opt.zero_grad(set_to_none=True)
-        sim = loss(tgt_s, warp_flow_separable(mov_s, params, max_disp=max_disp))
+        sim = loss(tgt_s, warp(mov_s, params))
         total = sim + smooth * _diffusion_energy(params) if smooth > 0.0 else sim
         total.backward()
         loss_val = np.float32(total.item())
@@ -115,9 +125,9 @@ def flow_register(
         i += 1
     flow = params.detach()
     with torch.no_grad():
-        warped = warp_flow_separable(moving, flow, max_disp=max_disp)
+        warped = warp(moving, flow)  # method-consistent final warp
     maxd = torch.max(torch.abs(flow))
-    if check_disp:
+    if check_disp and method == "separable":
         maxd_host = float(maxd)
         if maxd_host > max_disp:
             warnings.warn(

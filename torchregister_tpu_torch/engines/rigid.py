@@ -1,12 +1,15 @@
 """Rigid (SE(2)/SE(3)) registration engine (counterpart of
 ``torchregister_tpu/engines/rigid.py``): a 6-vector (3D) or 3-vector (2D) of
 raw parameters mapped by :func:`rigid_theta` and optimized through the
-separable warp."""
+separable warp (``method='separable'``) or the exact resampler (any other
+``method``, as in the JAX package)."""
 from __future__ import annotations
 
 import torch
 
 from ..losses import resolve_criteria, weighted_loss
+from ..ops.blocked import warp_affine_fast
+from ..ops.resample import warp_affine
 from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import rigid_theta, rigid_theta_np
 from .common import (
@@ -17,16 +20,12 @@ from .common import (
 )
 
 
-def check_engine_options(grad_edges: bool, method: str) -> None:
+def check_engine_options(grad_edges: bool) -> None:
     """Raise for the engine options whose code is not ported yet."""
     if grad_edges:
         raise NotImplementedError(
             "grad_edges=True needs the Sobel edge filter, not ported yet: ROADMAP "
             "queue 1 item 10 (ops/edge.py); pass grad_edges=False")
-    if method != "separable":
-        raise NotImplementedError(
-            f"method={method!r} needs the exact resampler, not ported yet: ROADMAP "
-            "queue 1 item 9 (kernel K2)")
 
 
 def init_rigid_params(ndim: int, generator: torch.Generator | None = None,
@@ -58,19 +57,24 @@ def rigid_register(
 ) -> tuple[torch.Tensor, RegistrationResult]:
     """Register ``moving [1,1,*S]`` onto ``target`` with a rigid transform;
     returns ``(warped_best, result)``. ``max_shift`` bounds the sweep;
-    by default the windows cover the concrete init theta."""
-    check_engine_options(grad_edges, method)
+    by default the windows cover the concrete init theta. Under
+    ``method='exact'`` the loop warps with ``ops/resample.warp_affine`` and
+    ``warped_best`` comes from K2 (``warp_affine_fast``)."""
+    check_engine_options(grad_edges)
     criteria, w = resolve_criteria(criterions, weights)
     loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
     spatial = tuple(moving.shape[2:])
     if init_params is None:
         init_params = init_rigid_params(ndim, generator, init, moving.device)
-    windows = resolve_sweep_windows(rigid_theta_np(init_params), spatial, max_shift)
+    separable = method == "separable"
+    windows = (resolve_sweep_windows(rigid_theta_np(init_params), spatial, max_shift)
+               if separable else None)
 
     def loss_fn(params):
-        warped = _warp_affine_separable(rigid_theta(params)[None], moving,
-                                        max_shift=windows)
+        theta = rigid_theta(params)[None]
+        warped = (_warp_affine_separable(theta, moving, max_shift=windows) if separable
+                  else warp_affine(theta, moving))
         return loss(target, warped)
 
     final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
@@ -81,6 +85,8 @@ def rigid_register(
         final_params=final_params, best_params=best_params, losses=losses,
         best_loss=best_loss, param_history=hist, steps=steps,
     )
+    if not separable:
+        return warp_affine_fast(result.best_theta, moving), result
     with torch.no_grad():
         warped_best = _warp_affine_separable(result.best_theta, moving,
                                              max_shift=windows)

@@ -16,20 +16,13 @@ show that its path went through the kernel; :func:`reset_counts` zeroes them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "sweep.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from ... import native
+
+SOURCE = native.PKG / "csrc" / "sweep.cu"
 
 fwd_launches = 0
 bwd_launches = 0
@@ -44,34 +37,9 @@ def reset_counts() -> None:
     bwd_launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: K1 is built from csrc/sweep.cu with the "
-                       "CUDA toolkit")
-
-
 def build() -> Path:
-    """Compile ``csrc/sweep.cu`` into ``_build/`` (keyed by the source's hash,
-    so an edited source never loads a stale library) and return its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"sweep_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    return lib
+    """Compile ``csrc/sweep.cu`` into ``_build/`` and return its path."""
+    return native.build_cuda(SOURCE, "sweep")
 
 
 def _lib():

@@ -1,14 +1,23 @@
-"""Centre-of-mass initialization for the matrix stages (counterpart of
-``torchregister_tpu/ops/moments.py``; the principal-axes init is not ported
-yet).
+"""Closed-form inits for the matrix stages (counterpart of
+``torchregister_tpu/ops/moments.py``): centre of mass, and principal axes.
 
 theta maps output normalized coords to source normalized coords, rows ordered
 (x, y, z) = reversed array axes. For ``warped(x) = moving(x + t)``, matching
 mass centres needs ``t = com(moving) - com(target)``.
+
+Principal axes: for ``t(x) = m(R x + b)`` the weighted coordinate moments
+transform as ``com_t = R^T (com_m - b)`` and ``C_t = R^T C_m R``, so with
+eigenframes ``C = F diag(lam) F^T`` (ascending) ``R = F_m F_t^T`` and
+``b = com_m - R com_t``. Eigenvector signs are fixed by the third central
+moment along each axis, handedness by flipping the least-skewed axis. Near
+isotropic or symmetric volumes make the frame unobservable; the init then
+keeps the CoM translation with zero rotation. No host branching.
 """
 from __future__ import annotations
 
 import torch
+
+from .grid import _axis_coords
 
 
 def center_of_mass(img: torch.Tensor) -> torch.Tensor:
@@ -44,3 +53,68 @@ def com_rigid_params(moving: torch.Tensor, target: torch.Tensor,
     if ndim == 3:
         return torch.cat([zeros, torch.atanh(torch.clamp(t / max_translate, -0.96, 0.96))])
     return torch.cat([zeros, t])
+
+
+def coordinate_moments(img: torch.Tensor):
+    """``(com [d], cov [d, d], frame [d, d], lam [d], skew [d])`` of ``img
+    [1, 1, *S]`` in normalized coordinates, theta row order (x first).
+    ``frame`` columns are covariance eigenvectors (ascending ``lam``), each
+    sign-fixed so its third central moment ``skew`` is non-negative, with a
+    right-handed frame restored by flipping the least-skewed axis."""
+    w = torch.abs(img[0, 0]).to(torch.float32)
+    total = torch.sum(w) + 1e-12
+    d = w.ndim
+
+    def bcast(a, axis):
+        shape = [1] * d
+        shape[axis] = -1
+        return a.reshape(shape)
+
+    coords = [_axis_coords(s, False, device=w.device) for s in w.shape]
+    com = torch.stack([torch.sum(w * bcast(coords[a], a)) / total for a in range(d)])
+    centered = [bcast(coords[a], a) - com[a] for a in range(d)]
+    cov = torch.stack([torch.stack([torch.sum(w * centered[a] * centered[b]) / total
+                                    for b in range(d)]) for a in range(d)])
+    lam, F = torch.linalg.eigh(cov)  # ascending; columns are eigenvectors
+    skew = torch.stack([
+        torch.sum(w * sum(centered[a] * F[a, j] for a in range(d)) ** 3) / total
+        for j in range(d)])
+    F = F * torch.where(skew < 0, -1.0, 1.0)[None, :]
+    skew = torch.abs(skew)
+    det = torch.linalg.det(F)
+    least = torch.arange(d, device=w.device) == torch.argmin(skew)
+    F = F * torch.where((det < 0) & least, -1.0, 1.0)[None, :]
+    # array order (z, y, x) -> theta order (x, y, z): reverse the axes
+    return (torch.flip(com, (0,)), torch.flip(cov, (0, 1)), torch.flip(F, (0,)), lam,
+            skew)
+
+
+def pa_rigid_params(moving: torch.Tensor, target: torch.Tensor,
+                    max_translate: float = 0.25, gap_tol: float = 0.08,
+                    skew_tol: float = 0.05) -> torch.Tensor:
+    """Raw rigid params from principal axes and centres of mass; zero
+    rotation (the CoM init) when either volume's relative eigengaps are below
+    ``gap_tol`` or an axis' skewness is below ``skew_tol`` of its
+    ``lam^1.5``. Euler angles as :func:`ops.transforms.rigid_theta_3d`
+    builds them."""
+    ndim = moving.ndim - 2
+    com_m, _, F_m, lam_m, skew_m = coordinate_moments(moving)
+    com_t, _, F_t, lam_t, skew_t = coordinate_moments(target)
+
+    def reliable(lam, skew):
+        lam = torch.clamp(lam, min=0.0)  # PSD up to eigh noise
+        gaps = torch.diff(lam) / (lam[-1] + 1e-12)
+        norm_skew = skew / (lam ** 1.5 + 1e-12)
+        return torch.all(gaps > gap_tol) & torch.all(norm_skew > skew_tol)
+
+    ok = reliable(lam_m, skew_m) & reliable(lam_t, skew_t)
+    eye = torch.eye(ndim, dtype=torch.float32, device=F_m.device)
+    R = torch.where(ok, F_m @ F_t.T, eye)
+    b = com_m - R @ com_t
+    if ndim == 3:
+        psi = torch.asin(-torch.clamp(R[2, 0], -1.0, 1.0))
+        th = torch.atan2(R[1, 0], R[0, 0])
+        phi = torch.atan2(R[2, 1], R[2, 2])
+        raw_t = torch.atanh(torch.clamp(b / max_translate, -0.96, 0.96))
+        return torch.cat([torch.stack([psi, th, phi]), raw_t])
+    return torch.cat([torch.atan2(R[1, 0], R[0, 0])[None], b])

@@ -1,15 +1,19 @@
 """Exact multilinear resampling (``grid_sample`` semantics, zeros padding).
 
-Counterpart of ``torchregister_tpu/ops/resample.py``, on PyTorch's own
-``F.affine_grid``/``F.grid_sample`` (the JAX module is plain XLA, not a Pallas
-kernel). In the slice it serves the synthetic pair generators and the
-degenerate-theta path of ``warp_affine_separable``.
+Counterpart of ``torchregister_tpu/ops/resample.py`` (plain XLA there, not a
+Pallas kernel): differentiable plain PyTorch on ``F.grid_sample``, with the
+same values as the JAX package's ``multilinear_sample`` (out-of-range corners
+contribute 0). It serves the engines' in-loop ``method='exact'``, the
+synthetic pair generators and the degenerate-theta path of
+``warp_affine_separable``. The forward-only exact warps of the user surface
+run on kernel K2 (``ops/blocked.py``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .grid import affine_grid, identity_index_grid
 from .transforms import as_matrix
 
 
@@ -23,9 +27,10 @@ def grid_sample(src: torch.Tensor, grid: torch.Tensor,
 
 def warp_affine(theta: torch.Tensor, moving: torch.Tensor,
                 align_corners: bool = False) -> torch.Tensor:
-    """Resample ``moving [N, C, *S]`` through the affine grid of ``theta``."""
+    """Resample ``moving [N, C, *S]`` through the affine grid of ``theta``
+    (``[N, d, d+1]`` or flat)."""
     theta = as_matrix(theta).to(torch.float32)
-    grid = F.affine_grid(theta, list(moving.shape), align_corners=align_corners)
+    grid = affine_grid(theta, moving.shape[2:], align_corners)
     return grid_sample(moving, grid, align_corners)
 
 
@@ -34,9 +39,7 @@ def warp_flow(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     channel ``i`` along spatial dim ``i``), zeros padding."""
     spatial = src.shape[2:]
     d = len(spatial)
-    axes = [torch.arange(s, dtype=torch.float32, device=flow.device) for s in spatial]
-    ident = torch.stack(torch.meshgrid(*axes, indexing="ij"))  # [d, *S]
-    coords = ident[None] + flow.to(torch.float32)
+    coords = identity_index_grid(spatial, device=flow.device)[None] + flow.to(torch.float32)
     sizes = torch.tensor(list(spatial), dtype=torch.float32, device=flow.device)
     norm = (2.0 * coords + 1.0) / sizes.view((1, d) + (1,) * d) - 1.0
     grid = torch.flip(torch.movedim(norm, 1, -1), dims=(-1,))  # x first

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.grid import identity_index_grid
 from .ops.resample import warp_affine, warp_flow
 from .ops.separable import affine_to_index_map
 from .ops.transforms import rigid_theta
@@ -119,8 +120,7 @@ def make_flow_truth_pair(shape=(240, 240, 240), seed=1, max_disp=7.0,
 def total_sampling_map(theta, flow, spatial) -> torch.Tensor:
     """``phi(x) = A(x + f(x))`` in index space, ``[d, *S]``."""
     d = len(spatial)
-    axes = [torch.arange(s, dtype=torch.float32, device=theta.device) for s in spatial]
-    ident = torch.stack(torch.meshgrid(*axes, indexing="ij"))
+    ident = identity_index_grid(spatial, device=theta.device)
     y = ident if flow is None else ident + flow[0]
     M, t = affine_to_index_map(theta[0].to(torch.float32), spatial, align_corners=False)
     return torch.einsum("ij,j...->i...", M, y) + t.reshape((d,) + (1,) * d)
