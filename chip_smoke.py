@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds kernels K1 (the sweep resampler, ``torchregister_tpu_torch/csrc/
-sweep.cu``) and K2 (the exact trilinear warp, ``csrc/warp.cu``) from the
-checkout, holds each against its plain PyTorch version on the card, drives
-the port's paths with quality gates (the recipe cascade on the 240³ pairs;
-the CLI's register/apply round trip on NIfTI files; ``Register`` rigid, then
-flow), and times each kernel against its plain version. Any failure raises,
-so the exit code is non-zero.
+sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``) and K3 (the
+valid 3x3x3 convolution of the U-Net, ``csrc/conv3d.cu``) from the checkout,
+holds each against its plain PyTorch version on the card, drives the port's
+paths with quality gates (the recipe cascade on the 240³ pairs; the CLI's
+register/apply round trip on NIfTI files; ``Register`` rigid, then flow; the
+U-Net parity cascade on the 240³ deformable pair; ``Register`` in U-Net mode
+at the reference width), and times each kernel against its plain version.
+Any failure raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
 
@@ -19,6 +21,7 @@ against one pass of the plain version.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import tempfile
@@ -31,12 +34,16 @@ import torch
 from torchregister_tpu_torch import Register
 from torchregister_tpu_torch.__main__ import main as cli
 from torchregister_tpu_torch.engines.cascade import register_cascade
+from torchregister_tpu_torch.engines.flow import flow_register
+from torchregister_tpu_torch.ops.cuda import conv3d as k3
 from torchregister_tpu_torch.ops.cuda import sweep as k1
 from torchregister_tpu_torch.ops.cuda import warp as k2
+from torchregister_tpu_torch.ops.resize import downsample_avg
 from torchregister_tpu_torch.ops.separable import affine_to_index_map
 from torchregister_tpu_torch.ops.transforms import rigid_theta
 from torchregister_tpu_torch.synthetic import (
     RECIPE,
+    RECIPE_UNET,
     cubic_resize,
     flow_truth_metrics,
     make_flow_truth_pair,
@@ -44,6 +51,9 @@ from torchregister_tpu_torch.synthetic import (
     rmse_reduction_pct,
 )
 from torchregister_tpu_torch.utils import volio
+
+# the plain versions compared with K3 run in cuDNN: full f32, no TF32
+torch.backends.cudnn.allow_tf32 = False
 
 DEV = "cuda"
 GATES = dict(rmse_reduction_pct=98.5, flow_truth_rmse_reduction_pct=97.0,
@@ -53,11 +63,36 @@ REPLACES = {
     "sweep_bwd": "torchregister_tpu/ops/pallas/sweep.py:134",
     "warp_affine": "torchregister_tpu/ops/pallas/roigather.py:145",
     "warp_flow": "torchregister_tpu/ops/pallas/roigather.py:145",
+    # K3 serves both Pallas variants (A: whole planes, C: H strips), in the
+    # forward and, on the padded cotangent, in the input gradient
+    "conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:174",
+    "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:174",
 }
+ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
+                 "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "warp_affine": "torchregister_tpu_torch/csrc/warp.cu",
-           "warp_flow": "torchregister_tpu_torch/csrc/warp.cu"}
+           "warp_flow": "torchregister_tpu_torch/csrc/warp.cu",
+           "conv3d_fwd": "torchregister_tpu_torch/csrc/conv3d.cu",
+           "conv3d_dgrad": "torchregister_tpu_torch/csrc/conv3d.cu"}
+# The U-Net parity cascade's gates on the 240³ deformable-truth pair. The JAX
+# package's TPU run read 68.55 % / 3.023 vox / 0.879 vox (BENCH_r05.json);
+# the margin covers initial weights drawn from another random generator.
+UNET_GATES = dict(unet_flow_truth_rmse_reduction_pct=62.0, unet_flow_field_err_vox=3.4,
+                  unet_flow_field_err_observable_vox=1.1)
+UNET_TPU = dict(unet_flow_truth_rmse_reduction_pct=68.55, unet_flow_field_err_vox=3.023,
+                unet_flow_field_err_observable_vox=0.879)
+# Adam at lr 0.3 on the U-Net's weights is chaotic: the frameworks' f32
+# rounding, and the order of the atomic sums in K1's backward and in
+# index_select's, send runs of the same seed apart (13 runs on an H100:
+# 63.1-76.3 %, 2.93-3.55 vox, 0.56-1.05 vox; one in ten above the field-error
+# gate). One run is a sample of that spread, so the gates hold the median of
+# five.
+UNET_RUNS = 5
+# Register in U-Net mode at 240³ with the reference's width divisor n=32
+# (depth 4, channels 2/4/8/16/32): SGD steps at the API's default lr
+REGISTER_UNET_STEPS = 30
 # Register rigid at 240³ (Adam from the identity, the cascade's coarse
 # window S/4): 150 steps at lr 1e-2 reach 99.97 % on make_pair (H100)
 REGISTER_RIGID = dict(lr=1e-2, max_epochs=150)
@@ -82,13 +117,14 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both kernels' nvcc runs at once, then load them."""
+    """Every kernel's nvcc run at once, then load them."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (k1, k2)))
-    k1._lib()
-    k2._lib()
-    print(f"[build] K1 and K2 built in {time.perf_counter() - t0:.2f} s -> "
+    mods = (k1, k2, k3)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        libs = list(pool.map(lambda m: m.build(), mods))
+    for m in mods:
+        m._lib()
+    print(f"[build] K1, K2 and K3 built in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(lib.name for lib in libs)}", flush=True)
 
 
@@ -295,6 +331,73 @@ def phase_k2() -> dict:
     return {"warp_affine": max(aff), "warp_flow": max(fl)}
 
 
+def unet_conv_shapes(edge: int, n: float, depth: int, in_c: int = 1) -> list:
+    """``(Ci, Co, input edge)`` of every 3x3x3 convolution of the U-Net's
+    forward on a cube of ``edge`` voxels (``models/attention_unet.py``:
+    each double conv eats 4 voxels, max pooling halves, a decoder level
+    convolves at its skip's size)."""
+    ch = [max(1, int(64 * 2**i / n)) for i in range(depth + 1)]
+    out, skips, s, c = [], [], edge, in_c
+    for i in range(depth):
+        out += [(c, ch[i], s), (ch[i], ch[i], s - 2)]
+        s -= 4
+        skips.append(s)
+        s //= 2
+        c = ch[i]
+    out += [(c, ch[depth], s), (ch[depth], ch[depth], s - 2)]
+    for j in range(depth - 1, -1, -1):
+        out += [(2 * ch[j], ch[j], skips[j]), (ch[j], ch[j], skips[j] - 2)]
+    return out
+
+
+# the U-Net cascade's 120³ flow level (n=8, depth 2) and Register's 240³
+# network (n=32, depth 4), the latter checked on z-slabs of 10 planes
+K3_CASES = ([(ci, co, e, None) for ci, co, e in unet_conv_shapes(120, 8, 2)]
+            + [(ci, co, e, 10) for ci, co, e in unet_conv_shapes(240, 32, 4)])
+
+
+def _check_k3(ci, co, edge, slab, dtype) -> tuple[float, float]:
+    """K3's forward launch, then the autograd Function's dx (K3 on the padded
+    cotangent) and dw (torch contractions), against the plain version and
+    autograd through it (cuDNN with TF32 off). Each error is relative to the
+    largest reference value; f32 tolerance 1e-5 (summation order), bf16 one
+    bf16 rounding (2^-7 of the largest value: both sum in f32 and round once).
+    Returns the largest absolute deviations, forward and dx."""
+    gen = torch.Generator(device=DEV).manual_seed(1000 * ci + 10 * co + edge)
+    z = edge if slab is None else slab
+    x = torch.randn((1, ci, z, edge, edge), generator=gen, device=DEV).to(dtype)
+    w = (torch.randn((3, 3, 3, ci, co), generator=gen, device=DEV)
+         / math.sqrt(27 * ci)).to(dtype)
+    g = torch.randn((1, co, z - 2, edge - 2, edge - 2), generator=gen, device=DEV).to(dtype)
+    out, ref = k3.conv_launch(x, w), k3.conv3x3x3_plain(x, w)
+    grads = []
+    for fn in (k3.conv3x3x3, k3.conv3x3x3_plain):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xs, ws), (xs, ws), g))
+    torch.cuda.synchronize()
+    (dx, dw), (rdx, rdw) = grads
+    rel = (_rel_err(out, ref), _rel_err(dx, rdx), _rel_err(dw, rdw))
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    label = (f"{ci}->{co} edge {edge}{'' if slab is None else f' (z-slab {slab})'} "
+             f"{str(dtype).replace('torch.', '')}")
+    print(f"[k3] {label}: rel fwd {rel[0]:.3e}, dx {rel[1]:.3e}, dw {rel[2]:.3e} "
+          f"(tol {tol:g})", flush=True)
+    if out.dtype != dtype or dx.dtype != dtype or not max(rel) < tol:
+        raise AssertionError(f"K3 {label} disagrees with the plain version: {rel}")
+    return _max_err(out, ref), _max_err(dx, rdx)
+
+
+def phase_k3() -> dict:
+    """K3 against its plain version at every convolution of both U-Net
+    paths, f32 and bf16."""
+    fwd = dgrad = 0.0
+    for ci, co, edge, slab in K3_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            f, d = _check_k3(ci, co, edge, slab, dtype)
+            fwd, dgrad = max(fwd, f), max(dgrad, d)
+    return {"conv3d_fwd": fwd, "conv3d_dgrad": dgrad}
+
+
 def _on_cuda(res) -> None:
     for name, v in res._asdict().items():
         if isinstance(v, torch.Tensor) and not v.is_cuda:
@@ -352,12 +455,14 @@ def phase_main_path() -> dict:
 
 def _counts() -> dict:
     return {"sweep_fwd": k1.fwd_launches, "sweep_bwd": k1.bwd_launches,
-            "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches}
+            "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
+            "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches}
 
 
 def _reset_counts() -> None:
     k1.reset_counts()
     k2.reset_counts()
+    k3.reset_counts()
 
 
 def _need(launches: dict, names, path: str) -> None:
@@ -437,6 +542,102 @@ def phase_register() -> tuple[dict, float]:
         raise AssertionError(f"Register flow output disagrees with warp_plain: {rel:.3e}")
     _need(launches, ("sweep_fwd", "sweep_bwd", "warp_affine", "warp_flow"), "Register")
     return launches, err
+
+
+def _level_ms_per_step(moving, target, steps: int = 20) -> list:
+    """ms per U-Net optimizer step at each flow level of RECIPE_UNET on the
+    240³ pair (halved to 120³, then 60³ and 120³), fresh net with a zero
+    head, Adam, all ``steps`` steps; host clock around a synchronised run."""
+    mov, tgt = downsample_avg(moving, 2), downsample_avg(target, 2)
+    out = []
+    for m, t in ((downsample_avg(mov, 2), downsample_avg(tgt, 2)), (mov, tgt)):
+        kw = dict(lr=RECIPE_UNET["flow_lr"], criterions=list(RECIPE_UNET["criterions"]),
+                  optimizer="adam", n=RECIPE_UNET["n"], depth=2, zero_head=True,
+                  stop_crit=float("-inf"), check_disp=False)
+        flow_register(m, t, max_epochs=2, **kw)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flow_register(m, t, max_epochs=steps, **kw)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0) / steps)
+    return out
+
+
+def phase_unet() -> dict:
+    """The U-Net parity cascade (RECIPE_UNET) on the 240³ deformable-truth
+    pair, ``UNET_RUNS`` times (the first is the warm-up, the second the timed
+    run), gated on the median of each quality field; then the matrix stages
+    alone on the same pair, the floor a working U-Net must clearly beat."""
+    fmov, ftgt, theta_true, flow_true = make_flow_truth_pair(device=DEV)
+    names = list(UNET_GATES)
+    runs = []
+    _reset_counts()
+    for i in range(UNET_RUNS):
+        t0 = time.perf_counter()
+        res = register_cascade(fmov, ftgt, **RECIPE_UNET)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _on_cuda(res)
+        _finite(res, tuple(fmov.shape))
+        q = dict(zip(names, flow_truth_metrics(res, fmov, ftgt, theta_true, flow_true)))
+        runs.append(q)
+        print(f"[unet] run {i}{' (warm-up)' if i == 0 else ''}: {wall:.3f} s, steps "
+              f"{res.steps}; {json.dumps(q)}", flush=True)
+    launches = _counts()
+    quality = {k: float(np.median([q[k] for q in runs])) for k in names}
+    floor_res = register_cascade(fmov, ftgt, **{**RECIPE_UNET, "stages": ("rigid", "affine")})
+    floor = dict(zip(names, flow_truth_metrics(floor_res, fmov, ftgt, theta_true, flow_true)))
+    ms = _level_ms_per_step(fmov, ftgt)
+    print(f"[unet] flow ms/step at 60³, 120³: {ms[0]:.2f}, {ms[1]:.2f}", flush=True)
+    print(f"[unet] median quality of {UNET_RUNS} runs: {json.dumps(quality)}", flush=True)
+    print(f"[unet] the JAX package on the TPU: {json.dumps(UNET_TPU)}; gates "
+          f"{json.dumps(UNET_GATES)}", flush=True)
+    print(f"[unet] matrix stages alone (no flow): {json.dumps(floor)}", flush=True)
+    print(f"[unet] launches: {json.dumps(launches)}", flush=True)
+    _need(launches, ("sweep_fwd", "sweep_bwd", "conv3d_fwd", "conv3d_dgrad"), "the U-Net cascade")
+    if quality["unet_flow_truth_rmse_reduction_pct"] < UNET_GATES[
+            "unet_flow_truth_rmse_reduction_pct"]:
+        raise AssertionError(f"U-Net deformable gate failed: {quality}")
+    for k in ("unet_flow_field_err_vox", "unet_flow_field_err_observable_vox"):
+        if quality[k] > UNET_GATES[k]:
+            raise AssertionError(f"U-Net map error gate {k} failed: {quality}")
+    if not quality["unet_flow_truth_rmse_reduction_pct"] > floor[
+            "unet_flow_truth_rmse_reduction_pct"] + 5.0:
+        raise AssertionError(f"the U-Net does not beat the matrix stages alone: "
+                             f"{quality} vs {floor}")
+    return launches
+
+
+def phase_register_unet() -> dict:
+    """``Register(mode='flow', flow_model='unet')`` at 240³ with ``n=32``
+    (depth 4): a finite flow of the volume's shape, ms per step, K3."""
+    moving, target = make_pair((SIZE,) * 3, device=DEV)
+    reg = Register(mode="flow", flow_model="unet", device=DEV, criterion=["mse", "ncc"])
+    reg.optim(moving, target, max_epochs=2, n=32)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    # stop_crit -inf: every step runs
+    reg.optim(moving, target, max_epochs=REGISTER_UNET_STEPS, n=32, stop_crit=float("-inf"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = reg(moving)
+    torch.cuda.synchronize()
+    launches = _counts()
+    depth = sum(1 for k in reg.result.params if k.startswith("enc") and k.endswith(
+        "Conv_0.kernel"))
+    steps = int(reg.result.steps)
+    losses = reg.losses[:steps].cpu().numpy()
+    print(f"[register-unet] n=32 depth {depth}: {steps} steps in {t1 - t0:.2f} s "
+          f"({1e3 * (t1 - t0) / steps:.1f} ms/step), loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; launches {json.dumps(launches)}", flush=True)
+    if tuple(reg.theta.shape) != (1, 3) + (SIZE,) * 3 or not bool(
+            torch.isfinite(reg.theta).all()) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("Register U-Net flow or output is not finite of the right shape")
+    if depth != 4 or steps != REGISTER_UNET_STEPS:
+        raise AssertionError(f"Register U-Net ran depth {depth}, {steps} steps")
+    _need(launches, ("conv3d_fwd", "conv3d_dgrad", "warp_flow"), "Register U-Net")
+    return launches
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
@@ -546,34 +747,70 @@ def phase_k2_times() -> dict:
     return times
 
 
+def phase_k3_times() -> dict:
+    """One K3 forward and one dgrad launch, and one dw (``k3.wgrad``), against
+    the plain version (cuDNN with TF32 off: ``F.conv3d``,
+    ``torch.nn.grad.conv3d_input`` and ``conv3d_weight``) at two of the
+    U-Net cascade's 120³-level shapes, f32, CUDA events."""
+    rows = {}
+    for ci, co, edge in ((8, 8, 118), (32, 16, 54)):
+        gen = torch.Generator(device=DEV).manual_seed(ci + co + edge)
+        x = torch.randn((1, ci, edge, edge, edge), generator=gen, device=DEV)
+        w = torch.randn((3, 3, 3, ci, co), generator=gen, device=DEV) / math.sqrt(27 * ci)
+        g = torch.randn((1, co) + (edge - 2,) * 3, generator=gen, device=DEV)
+        gp = torch.nn.functional.pad(g, (2, 2) * 3)
+        w_t = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+        wt = w.permute(4, 3, 0, 1, 2).contiguous()
+        with torch.no_grad():
+            row = {"fwd_ms": _time_ms(lambda: k3.conv_launch(x, w)),
+                   "plain_fwd_ms": _time_ms(lambda: torch.nn.functional.conv3d(x, wt)),
+                   "dgrad_ms": _time_ms(lambda: k3.conv_launch(gp, w_t, dgrad=True)),
+                   "plain_dgrad_ms": _time_ms(
+                       lambda: torch.nn.grad.conv3d_input(x.shape, wt, g)),
+                   "dw_ms": _time_ms(lambda: k3.wgrad(x, g)),
+                   "plain_dw_ms": _time_ms(
+                       lambda: torch.nn.grad.conv3d_weight(x, wt.shape, g))}
+        rows[f"{ci}->{co} edge {edge}"] = row
+        print(f"[times] K3 {ci}->{co} edge {edge} f32: {json.dumps(row)}", flush=True)
+    return rows
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     errs = phase_kernels()
     errs.update(phase_k2())
+    errs.update(phase_k3())
     launches = phase_main_path()
     with tempfile.TemporaryDirectory() as tmp:
         paths = [launches, phase_cli(tmp)]
     reg_launches, reg_err = phase_register()
     paths.append(reg_launches)
     errs["warp_flow"] = max(errs["warp_flow"], reg_err)
+    paths += [phase_unet(), phase_register_unet()]
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     rows = phase_times()
     k2_times = phase_k2_times()
+    k3_row = phase_k3_times()["8->8 edge 118"]
     # per-launch times at the fine flow level's shape (240³, K=8, f32)
     flow_row = next(r for r in rows if r["S"] == 240 and r["K"] == 8)
     times = {"sweep_fwd": {"ms": flow_row["fwd_ms"], "plain_ms": flow_row["plain_fwd_ms"]},
              "sweep_bwd": {"ms": flow_row["bwd_ms"], "plain_ms": flow_row["plain_bwd_ms"]},
-             **k2_times}
+             **k2_times,
+             "conv3d_fwd": {"ms": k3_row["fwd_ms"], "plain_ms": k3_row["plain_fwd_ms"]},
+             "conv3d_dgrad": {"ms": k3_row["dgrad_ms"], "plain_ms": k3_row["plain_dgrad_ms"]}}
     timed_at = {"sweep_fwd": "one launch, 240^3 K=8 f32, mean of axes 0-2",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
-                "warp_flow": "one launch, 240^3 f32, smooth field |flow|<=8"}
+                "warp_flow": "one launch, 240^3 f32, smooth field |flow|<=8",
+                "conv3d_fwd": "one launch, 8->8 at 118^3 f32; plain: cuDNN, TF32 off"}
     timed_at["sweep_bwd"] = timed_at["sweep_fwd"]
+    timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": errs[name], "ms": times[name]["ms"],
-         "plain_ms": times[name]["plain_ms"], "timed_at": timed_at[name]}
+         "plain_ms": times[name]["plain_ms"], "timed_at": timed_at[name],
+         **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})}
         for name in REPLACES
     ]
     print(smi)

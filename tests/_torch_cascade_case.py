@@ -1,6 +1,10 @@
 """Shared case for the whole-slice parity tests (``test_torch_cascade*.py``):
 ``bench.RECIPE`` reduced in epochs and levels, run on the same 24³ pairs by
-the JAX package's ``register_cascade`` and by the port's."""
+the JAX package's ``register_cascade`` and by the port's; and
+:func:`carry_jax_unet_init`, which starts the port's U-Nets from the JAX
+package's initial weights."""
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 
@@ -64,3 +68,34 @@ def assert_close(out, theta_atol, steps_tol, rmse_tol, truth_rmse_tol, vox_tol):
     assert abs(tr - jr) <= truth_rmse_tol, (tr, jr)
     assert abs(te - je) <= vox_tol, (te, je)
     assert abs(to - jo) <= vox_tol, (to, jo)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_unet_init(ndim, in_c, n, depth, use_attention, use_norm, seed):
+    import jax
+
+    from torchregister_tpu.models.attention_unet import AttentionUNet as JUNet
+    from torchregister_tpu.models.attention_unet import max_depth_for
+
+    edge = next(s for s in range(8, 512) if max_depth_for((s,) * ndim) >= depth)
+    net = JUNet(ndim=ndim, in_c=in_c, n=n, depth=depth, use_attention=use_attention,
+                use_norm=use_norm)
+    x = jnp.zeros((1, in_c) + (edge,) * ndim, jnp.float32)
+    return jax.tree.map(np.asarray, jax.jit(net.init)(jax.random.key(seed), x)["params"])
+
+
+def carry_jax_unet_init(monkeypatch):
+    """Make every fresh port U-Net start from the JAX package's initial
+    weights for the same seed: ``AttentionUNet.reset_parameters`` loads
+    ``flax init(jax.random.key(seed))`` (the key the JAX engines use; the
+    values depend on the architecture, not on the input's size)."""
+    from torchregister_tpu_torch import convert
+    from torchregister_tpu_torch.models.attention_unet import AttentionUNet
+
+    def reset(self, generator=None):
+        seed = 0 if generator is None else generator.initial_seed()
+        params = _jax_unet_init(self.ndim, self.in_c, float(self.n), self.depth,
+                                self.use_attention, self.use_norm, seed)
+        self.load_state_dict(convert.unet_params(params))
+
+    monkeypatch.setattr(AttentionUNet, "reset_parameters", reset)

@@ -24,13 +24,12 @@ PAIRS = [(tcfg.RigidConfig, rigid_register, jcfg.RigidConfig),
          (tcfg.CascadeConfig, register_cascade, jcfg.CascadeConfig)]
 IDS = ["rigid", "affine", "flow", "cascade"]
 
-# JAX engine arguments of code the port does not have yet: the unused `per`,
-# the chunked progress runner (queue 1 item 5) and the U-Net (item 11)
+# JAX engine arguments of code the port does not have yet: the unused `per`
+# and the chunked progress runner (queue 1 item 5)
 NOT_PORTED = {
     "RigidConfig": {"per", "progress_every"},
     "AffineConfig": {"per", "progress_every"},
-    "FlowConfig": {"n", "in_c", "depth", "remat", "use_attention", "use_norm",
-                   "progress_every", "zero_head"},
+    "FlowConfig": {"progress_every"},
     "CascadeConfig": set(),
 }
 

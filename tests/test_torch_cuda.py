@@ -1,6 +1,6 @@
-"""K1, K2 and the slice on the GPU: the kernels against their plain
-versions, and the port's cascade on the card against the same cascade on the
-CPU.
+"""K1, K2, K3 and the slice on the GPU: the kernels against their plain
+versions, and the port's cascades (field and U-Net flow) on the card against
+the same cascades on the CPU.
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -169,3 +169,78 @@ def test_torch_cuda_warp_rejects_bad_inputs(dev):
         k2.warp_affine_launch(src.transpose(1, 3), mt)
     with pytest.raises(ValueError, match="same CUDA device"):
         k2.warp_affine_launch(src, mt.cpu())
+
+
+# ------------------------------------------------------------------ K3
+
+
+@pytest.mark.parametrize("ci,co,shape", [(1, 8, (9, 12, 13)), (8, 8, (7, 10, 40)),
+                                         (16, 32, (5, 27, 35)), (32, 16, (6, 19, 8)),
+                                         (3, 11, (4, 70, 33))])
+@pytest.mark.parametrize("N", [1, 2])
+def test_torch_cuda_conv3d_matches_plain(dev, ci, co, shape, N):
+    """K3 forward (raw launch) and the Function's dx (K3) and dw against the
+    plain version and autograd through it, cuDNN with TF32 off: f32 sums in
+    another order, 1e-5 of the largest value. Co = 11 leaves a ragged
+    output-channel chunk; the shapes leave ragged tiles in y and x."""
+    torch.backends.cudnn.allow_tf32 = False
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+
+    gen = torch.Generator(device=dev).manual_seed(ci * co + N)
+    x = torch.randn((N, ci) + shape, generator=gen, device=dev)
+    w = torch.randn((3, 3, 3, ci, co), generator=gen, device=dev) / (27 * ci) ** 0.5
+    g = torch.randn((N, co) + tuple(s - 2 for s in shape), generator=gen, device=dev)
+    k3.reset_counts()
+    out = k3.conv_launch(x, w)
+    assert (k3.fwd_launches, k3.dgrad_launches) == (1, 0)
+    ref = k3.conv3x3x3_plain(x, w)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    grads = []
+    for fn in (k3.conv3x3x3, k3.conv3x3x3_plain):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xs, ws), (xs, ws), g))
+    assert k3.dgrad_launches == 1
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_torch_cuda_conv3d_bf16_and_bad_inputs(dev):
+    """bf16 in and out, summed in f32 and rounded once: one bf16 rounding
+    (2^-7 of the largest value) from the plain version. The launcher refuses
+    other dtypes, strided input and mixed devices."""
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((1, 8, 6, 20, 37), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3, 3, 3, 8, 8), generator=gen, device=dev) / 15).to(torch.bfloat16)
+    out, ref = k3.conv_launch(x, w), k3.conv3x3x3_plain(x, w)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=2.0**-7 * float(ref.float().abs().max()))
+    with pytest.raises(TypeError):
+        k3.conv_launch(x.half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.conv_launch(x.float().transpose(3, 4), w.float())
+    with pytest.raises(ValueError, match="same CUDA device"):
+        k3.conv_launch(x, w.cpu())
+
+
+def test_torch_cuda_unet_cascade_runs_k3(dev):
+    """The U-Net flow stage on the card at 48³ launches K3 forward and dgrad
+    and ends finite, with quality near the same run on the CPU (Adam's
+    trajectories part in rounding: 3 points)."""
+    from torchregister_tpu_torch.engines.cascade import register_cascade
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+    from torchregister_tpu_torch.synthetic import (RECIPE_UNET, flow_truth_metrics,
+                                                   make_flow_truth_pair)
+
+    pair = make_flow_truth_pair((48, 48, 48), max_disp=3.0, rigid=(0.0,) * 6)
+    recipe = {**RECIPE_UNET, "stages": ("flow",), "flow_epochs": 60, "flow_lr": 0.01}
+    cpu = register_cascade(pair[0], pair[1], **recipe)
+    k3.reset_counts()
+    gpu = register_cascade(pair[0].to(dev), pair[1].to(dev), **recipe)
+    assert k3.fwd_launches > 0 and k3.dgrad_launches > 0
+    assert gpu.flow.is_cuda and bool(torch.isfinite(gpu.warped).all())
+    q_gpu = flow_truth_metrics(gpu, *(a.to(dev) for a in pair))
+    q_cpu = flow_truth_metrics(cpu, *pair)
+    assert abs(q_gpu[0] - q_cpu[0]) <= 3.0, (q_gpu, q_cpu)

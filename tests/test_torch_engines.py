@@ -17,12 +17,14 @@ import optax
 import pytest
 import torch
 
+import bench
 from torchregister_tpu.engines import common as jc
 from torchregister_tpu.engines.affine import affine_register as j_affine
 from torchregister_tpu.engines.flow import flow_register as j_flow
 from torchregister_tpu.engines.rigid import rigid_register as j_rigid
+from torchregister_tpu.models.attention_unet import AttentionUNet as JUNet
 from torchregister_tpu.ops.transforms import rigid_theta as j_rigid_theta
-from torchregister_tpu_torch import convert
+from torchregister_tpu_torch import convert, synthetic
 from torchregister_tpu_torch.engines import common as tc
 from torchregister_tpu_torch.engines.affine import affine_register as t_affine
 from torchregister_tpu_torch.engines.flow import _diffusion_energy, flow_register as t_flow
@@ -194,8 +196,74 @@ def test_torch_engine_options_not_ported(pair):
         t_affine(mov, tgt, criterions=["mse"], grad_edges=True, method="exact")
     with pytest.raises(NotImplementedError, match="item 10"):
         t_rigid(mov, tgt, grad_edges=False)  # the default stack includes NMI
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_flow(mov, tgt, criterions=["mse"], flow_model="unet")
+
+
+# ------------------------------------------------------------- flow (U-Net)
+
+
+def _flow_truth_pairs(shape, max_disp):
+    """``bench.py``'s deformable-truth pair without its rigid part, and the
+    port's (the same numpy draws)."""
+    rigid = (0.0,) * 6
+    return (bench.make_flow_truth_pair(shape, max_disp=max_disp, rigid=rigid),
+            synthetic.make_flow_truth_pair(shape, max_disp=max_disp, rigid=rigid))
+
+
+def test_torch_flow_register_unet_sgd_matches_jax():
+    """24³, depth 1, SGD from JAX's own initial weights with the flow head
+    zeroed (the cascade's residual start: the field begins at 0, inside the
+    sweep window): every step's loss, the executed steps (plateau stop), the
+    flow and the trained weights. Losses rtol 3e-4: the frameworks' gradients
+    differ by their f32 rounding (JAX's tap path is the coarser, ~1e-4 of the
+    largest gradient), measured 1.1e-4 here; the flow within 1e-3 of its
+    largest value (measured 2e-4)."""
+    (jm, jt, _, _), (tm, tt, _, _) = _flow_truth_pairs((24, 24, 24), 2.0)
+    net = JUNet(ndim=3, n=8, depth=1)
+    params = jax.tree.map(np.asarray, jax.jit(net.init)(jax.random.key(3), jm)["params"])
+    for k in ("out_kernel", "out_bias"):
+        params[k] = np.zeros_like(params[k])
+    kw = dict(lr=5e-3, max_epochs=15, criterions=["mse", "ncc"], optimizer="sgd", n=8,
+              depth=1, stop_rel=1e-3, patience=4, max_disp=4, check_disp=False)
+    jw, jres = j_flow(jm, jt, init_params=params, **kw)
+    tw, tres = t_flow(tm, tt, init_params=convert.unet_params(params), **kw)
+    assert tres.steps == int(jres.steps) == 15
+    tl, jl = tres.losses.numpy(), np.asarray(jres.losses)
+    np.testing.assert_allclose(tl, jl, rtol=3e-4)
+    assert jl[-1] < 0.95 * jl[0]  # the weights moved
+    scale = float(np.max(np.abs(np.asarray(jres.flow))))
+    np.testing.assert_allclose(tres.flow.numpy(), np.asarray(jres.flow), rtol=0,
+                               atol=1e-3 * scale)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=0, atol=1e-4)
+    # FlowResult.params is the trained state, and carries back to a JAX tree
+    ref = convert._flatten(jax.tree.map(np.asarray, jres.params))
+    for k, v in convert._flatten(convert.unet_tree(tres.params)).items():
+        np.testing.assert_allclose(v, ref[k], rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+def test_torch_flow_register_unet_options():
+    """Port-side U-Net options at 16³: ``remat`` recomputes the same numbers,
+    a bf16 network keeps an f32 flow, ``zero_head`` starts from the identity
+    (the first loss is the unwarped pair's), a volume too small for any depth
+    raises, and a ``generator`` fixes the initial weights."""
+    m, t = make_pair((16, 16, 16), seed=2)
+    kw = dict(lr=1e-2, max_epochs=3, criterions=["mse", "ncc"], optimizer="sgd", n=16,
+              max_disp=4, check_disp=False)
+    _, plain = t_flow(m, t, **kw)
+    _, remat = t_flow(m, t, remat=True, **kw)
+    torch.testing.assert_close(remat.losses, plain.losses, rtol=0, atol=0)
+    _, again = t_flow(m, t, generator=torch.Generator().manual_seed(0), **kw)
+    torch.testing.assert_close(again.flow, plain.flow, rtol=0, atol=0)
+    _, bf = t_flow(m, t, dtype="bfloat16", **kw)
+    assert bf.flow.dtype == torch.float32 and bool(torch.isfinite(bf.flow).all())
+    _, zero = t_flow(m, t, zero_head=True, **dict(kw, max_epochs=1))
+    with pytest.warns(RuntimeWarning, match="barely moves a direct field"):
+        _, field0 = t_flow(m, t, flow_model="field", **dict(kw, max_epochs=1, lr=0.0))
+    torch.testing.assert_close(zero.losses, field0.losses, rtol=0, atol=0)
+    assert set(plain.params) >= {"enc1.Conv_0.kernel", "out_kernel", "out_bias"}
+    with pytest.raises(ValueError, match="too small"):
+        t_flow(m[..., :8, :8, :8], t[..., :8, :8, :8], **kw)
+    with pytest.raises(ValueError, match="flow_model"):
+        t_flow(m, t, flow_model="mlp", **kw)
 
 
 # ------------------------------------------------------------ flow (field)

@@ -9,7 +9,8 @@ it is exact (``grid_sample`` semantics) whatever ``method`` the optimization
 used.
 
 ``device`` is a torch device (or its name): ``None`` keeps a tensor's own
-device and puts numpy input on the CPU. ``init='random'`` draws from a
+device and puts numpy input on the CPU. ``init='random'`` and the U-Net's
+initial weights (``mode='flow', flow_model='unet'``) draw from a
 ``torch.Generator`` seeded by ``seed`` (so not the JAX package's numbers).
 ``criterion=None`` is the reference stack with NMI, which is not ported yet
 and raises ``NotImplementedError``.
@@ -95,19 +96,20 @@ class Register:
               n: float = 32, per: float = 0.1, stop_crit: float = 1e-4) -> "Register":
         """Estimate the transform warping ``moving [1, 1, *S]`` onto
         ``target``; returns ``self``. ``lr=None`` is 1e-5, or 0.3 for a
-        field-mode flow (Adam steps in voxels). ``n`` (U-Net width divisor)
-        and ``per`` are accepted for parity and unused in the ported modes."""
-        del n, per
+        field-mode flow (Adam steps in voxels). ``n`` is the U-Net's width
+        divisor (64/n channels at the top level); ``per`` is accepted for
+        parity and unused."""
+        del per
         if lr is None:
             lr = 0.3 if (self.mode == "flow" and self.flow_model == "field") else 1e-5
         moving = self._put(moving)
         target = self._put(target)
         if self.mode == "flow":
             _, res = flow_register(
-                moving, target, lr=lr, max_epochs=max_epochs, criterions=self.criterion,
+                moving, target, lr=lr, max_epochs=max_epochs, n=n, criterions=self.criterion,
                 weights=self.weight, stop_crit=stop_crit, optimizer=self.optimizer,
-                method=self.method, max_disp=self.max_disp, flow_model=self.flow_model,
-                smooth=self.smooth)
+                generator=torch.Generator().manual_seed(self.seed), method=self.method,
+                max_disp=self.max_disp, flow_model=self.flow_model, smooth=self.smooth)
             self.theta = res.flow
         elif self.mode == "affine":
             _, res = affine_register(

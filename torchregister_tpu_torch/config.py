@@ -9,8 +9,9 @@
 ``tests/test_torch_config.py`` pins each dataclass to its engine's signature
 by introspection, and to the JAX package's dataclass. The fields are the
 port's engine arguments: options of the JAX engines that exist only for code
-not ported yet (the U-Net's ``n``/``depth``/..., the chunked progress runner's
-``progress_every``) and the unused ``per`` are not fields here.
+not ported yet (the chunked progress runner's ``progress_every``) and the
+unused ``per`` are not fields here; nor are the engines' random generators,
+which stand where the JAX engines take a ``key``.
 
 Usage::
 
@@ -83,18 +84,25 @@ class FlowConfig:
     lr: float = 1e-3
     max_epochs: int = 2000
     stop_crit: float = 1e-4
+    n: float = 1  # U-Net width divisor
+    in_c: int = 1
     criterions: Any = None
     weights: Any = None
     grad_edges: bool = False
     optimizer: str = "sgd"
+    depth: Optional[int] = None  # None -> max_depth_for the volume
     method: str = "separable"
     max_disp: int = 8
     dtype: str = "float32"
+    remat: bool = False  # recompute the U-Net forward in the backward
     check_disp: bool = True
+    use_attention: bool = True
+    use_norm: bool = True
     flow_model: str = "unet"  # 'field' = direct dense-field optimization
     smooth: float = 0.0  # field-mode diffusion weight
     stop_rel: Optional[float] = None
     patience: int = 25
+    zero_head: bool = False  # zero-init U-Net flow head
 
     def run(self, moving, target, **overrides):
         from .engines.flow import flow_register
@@ -136,7 +144,7 @@ class CascadeConfig:
     matrix_optimizer: Optional[str] = None  # None -> `optimizer`
     moment_init: Union[bool, str] = False  # True/'com' = centre of mass, 'pa' = axes
     flow_model: str = "field"
-    flow_smooth: Optional[float] = None  # None -> 0.5 (field mode)
+    flow_smooth: Optional[float] = None  # None -> 0.5 field, 0.0 unet
     flow_stop_rel: Optional[float] = None
     flow_patience: int = 25
     flow_compose: bool = True

@@ -4,15 +4,19 @@
 Coarse-to-fine: the matrix stages optimize a near-identity residual at each
 pyramid level on an image warped once with the theta so far, and compose
 (``theta <- theta ∘ residual``); one full-resolution re-warp hands the
-result to the direct-field flow stage, which runs its own pyramid with
-warm-started fields (or, with ``flow_rebase``, zero-init residual fields on a
-once-rebased input); a final flow warp gives the registered image. With
+result to the flow stage, which runs its own pyramid. In field mode the
+levels warm-start the field (or, with ``flow_rebase``, fit zero-init
+residual fields on a once-rebased input). In U-Net mode each finer level
+warps its input once with the upsampled total flow, trains a fresh network
+(zero head, weights from ``seed``) on the residual and composes ``total <-
+residual ∘ total`` exactly (``flow_compose``; without it the levels
+warm-start one network). A final flow warp gives the registered image. With
 ``final_warp='exact'`` the full-resolution matrix warp and the final flow
 warp run on kernel K2 (``ops/blocked.py``) with ``grid_sample`` semantics.
 
-Torch runs eagerly, so ``make_cascade_fn`` has no counterpart. Options whose
-code is not ported yet (the U-Net flow stage and its knobs, the LM matrix
-optimizer) raise ``NotImplementedError`` naming the ROADMAP item.
+Torch runs eagerly, so ``make_cascade_fn`` has no counterpart. The LM matrix
+optimizer is not ported yet and raises ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ from ..ops.blocked import warp_affine_fast, warp_flow_fast
 from ..ops.resize import downsample_avg
 from ..ops.separable import _warp_affine_separable, warp_flow_separable
 from ..ops.transforms import compose_theta, identity_theta
-from ..utils.pyramid import build_pyramid, compose_flows_separable, upsample_flow
+from ..models.attention_unet import max_depth_for
+from ..utils.pyramid import (build_pyramid, compose_flows, compose_flows_separable,
+                             upsample_flow)
 from .affine import affine_register
 from .common import check_sweep_windows
 from .flow import flow_register
@@ -104,24 +110,21 @@ def register_cascade(
     """Coarse-to-fine rigid→affine→flow registration of one pair
     ``[1, 1, *S]``; options as in the JAX package.
 
-    ``n`` is the U-Net width divisor and has no effect in field mode (the
-    U-Net is not ported yet); ``flow_model`` must be ``'field'``, and the
-    U-Net knobs (``flow_depth``, ``flow_remat``, ``flow_attention``,
-    ``flow_norm``, ``flow_compose``, ``seed``) must keep their defaults.
+    ``flow_model='unet'`` runs the U-Net flow stage: ``n`` divides its
+    widths, ``flow_depth`` (default: ``max_depth_for`` the coarsest flow
+    level, one depth for all levels) sets its depth, ``flow_remat``,
+    ``flow_attention`` and ``flow_norm`` pass to ``flow_register``, and every
+    level's fresh weights come from ``torch.Generator().manual_seed(seed)``.
+    ``flow_smooth=None`` resolves to 0.5 in field mode and 0.0 in U-Net mode.
 
-    ``flow_rebase=True`` optimizes each finer flow level as a zero-init
+    ``flow_rebase=True`` (field mode) optimizes each finer flow level as a zero-init
     residual under the ``flow_residual_disp`` window on an input warped once
     with the upsampled total field, and composes ``total <- residual ∘
     total``.
     """
-    if flow_model != "field" and "flow" in stages:
-        _not_ported(f"flow_model={flow_model!r}", "11 (U-Net parity mode)")
-    unet_knobs = dict(flow_depth=(flow_depth, None), flow_remat=(flow_remat, False),
-                      flow_attention=(flow_attention, True), flow_norm=(flow_norm, True),
-                      flow_compose=(flow_compose, True), seed=(seed, 0))
-    for name, (value, default) in unet_knobs.items():
-        if value != default:
-            _not_ported(f"{name}={value!r}", "11 (U-Net parity mode)")
+    if flow_model not in ("unet", "field"):
+        raise ValueError(f"flow_model must be 'unet' or 'field' (got {flow_model!r})")
+    unet = flow_model == "unet"
     if final_warp not in ("separable", "exact"):
         raise ValueError(f"final_warp must be 'separable' or 'exact' (got {final_warp!r})")
     exact = final_warp == "exact"
@@ -138,7 +141,7 @@ def register_cascade(
     target = target.to(torch.float32)
     ndim = moving.ndim - 2
     if flow_smooth is None:
-        flow_smooth = 0.5
+        flow_smooth = 0.0 if unet else 0.5
     if flow_criterions is None:
         flow_criterions = criterions
 
@@ -230,6 +233,9 @@ def register_cascade(
             flow_levels = min(2, levels)
         if flow_levels < 1:
             raise ValueError(f"flow_levels must be >= 1 (got {flow_levels})")
+        if flow_rebase and unet:
+            raise ValueError("flow_rebase=True requires flow_model='field' (U-Net mode "
+                             "composes residuals through flow_compose)")
         if flow_rebase and not 1 <= flow_residual_disp <= flow_max_disp:
             raise ValueError(f"flow_residual_disp must be in [1, flow_max_disp="
                              f"{flow_max_disp}] (got {flow_residual_disp})")
@@ -246,12 +252,25 @@ def register_cascade(
         if len(smooths) != flow_levels:
             raise ValueError(f"flow_smooth tuple has {len(smooths)} entries for "
                              f"{flow_levels} flow levels")
+        if unet and flow_depth is None:
+            # one depth for every level: a warm start needs one structure
+            flow_depth = max_depth_for(f_pyr_in[0].shape[2:])
+        compose = unet and flow_compose
         budgets = level_budgets(flow_epochs, flow_levels)
         params = total_flow = None
         losses, steps["flow"] = [], []
         for li, ((f_in, f_tgt), eps) in enumerate(zip(zip(f_pyr_in, f_pyr_tgt), budgets)):
             base_in, level_disp = f_in, flow_max_disp
-            if params is not None:
+            if compose and total_flow is not None:
+                # warp the level input once with the flow so far and fit a
+                # fresh net to the residual; the window covers the composed
+                # magnitude, each coarser level's doubled per upsample
+                total_flow = upsample_flow(total_flow, f_in.shape[2:])
+                with torch.no_grad():
+                    base_in = warp_flow_separable(
+                        f_in, total_flow, max_disp=flow_max_disp * (2 ** (li + 1) - 2))
+                params = None
+            elif not unet and params is not None:
                 # warm start: upsample the field (voxel units rescaled)
                 params = upsample_flow(params, f_in.shape[2:])
                 if flow_rebase:
@@ -266,14 +285,20 @@ def register_cascade(
                     params, level_disp = None, flow_residual_disp
             _, fres = flow_register(
                 base_in, f_tgt, lr=flow_lr, max_epochs=eps,
-                criterions=list(flow_criterions), weights=weights, optimizer=optimizer,
-                dtype=flow_dtype, init_params=params, max_disp=level_disp,
-                flow_model="field", smooth=smooths[li], stop_rel=flow_stop_rel,
-                patience=flow_patience,
+                criterions=list(flow_criterions), weights=weights, n=n,
+                depth=flow_depth, generator=torch.Generator().manual_seed(seed),
+                optimizer=optimizer, dtype=flow_dtype, init_params=params,
+                remat=flow_remat, max_disp=level_disp, use_attention=flow_attention,
+                use_norm=flow_norm, flow_model=flow_model, smooth=smooths[li],
+                stop_rel=flow_stop_rel, patience=flow_patience, zero_head=compose,
                 check_disp=False,  # one end-of-run check below
             )
             params = fres.params
-            if flow_rebase and total_flow is not None:
+            if compose:
+                # applying total_flow then fres.flow == applying the composite
+                total_flow = (fres.flow if total_flow is None
+                              else compose_flows(total_flow, fres.flow))
+            elif flow_rebase and total_flow is not None:
                 # fold the residual into the total ("total, then residual"):
                 # the resample displacement is the residual, so its window does
                 with torch.no_grad():
@@ -286,7 +311,11 @@ def register_cascade(
         flow_losses = torch.cat(losses)
         if scale > 1:
             flow = upsample_flow(flow, warped.shape[2:])
-        if flow_rebase:
+        if compose:
+            # level j contributes <= flow_max_disp * 2^(L-1-j) at the finest
+            # flow grid: flow_max_disp * (2^L - 1) summed
+            final_bound = flow_max_disp * scale * (2 ** flow_levels - 1)
+        elif flow_rebase:
             # worst-case composed total at the finest flow grid: the coarse
             # window doubled per upsample plus each level's doubled residual
             final_bound = (flow_max_disp * 2 ** (flow_levels - 1)

@@ -1,9 +1,10 @@
 """Where the time of the recipe cascade goes on a CUDA device.
 
-    python -m torchregister_tpu_torch.profile_cascade
+    python -m torchregister_tpu_torch.profile_cascade [--unet]
 
 For the 240³ rigid pair and deformable-truth pair of :mod:`.synthetic` under
-``RECIPE``, after one warm-up cascade each:
+``RECIPE`` (with ``--unet``: the deformable pair alone under ``RECIPE_UNET``,
+the U-Net flow stage), after one warm-up cascade each:
 
 1. ``wall``: the wall time of ``RUNS`` cascades, no profiler, no extra syncs;
 2. ``stages``: one cascade with each of its stage functions wrapped in a
@@ -24,6 +25,7 @@ Prints one JSON object per line. Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import statistics
@@ -37,7 +39,8 @@ from .ops.separable import affine_to_index_map
 
 RUNS = 5
 _STAGES = ("build_pyramid", "rigid_register", "compose_theta", "_level_warp",
-           "affine_register", "flow_register", "upsample_flow", "warp_flow_separable")
+           "affine_register", "flow_register", "upsample_flow", "warp_flow_separable",
+           "compose_flows")
 
 
 def _sync_ms(fn, *args, **kwargs):
@@ -90,12 +93,12 @@ def _map_bf16(theta, flow, spatial):
     return torch.einsum("ij,j...->i...", rnd(M), rnd(y)) + t.reshape((d,) + (1,) * d)
 
 
-def _profile(moving, target, wall_s: list) -> dict:
+def _profile(moving, target, wall_s: list, recipe: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        _, ms = _sync_ms(cascade.register_cascade, moving, target, **synthetic.RECIPE)
+        _, ms = _sync_ms(cascade.register_cascade, moving, target, **recipe)
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
@@ -110,7 +113,7 @@ def _profile(moving, target, wall_s: list) -> dict:
             cur_hi = max(cur_hi, hi)
     union = (union + cur_hi - cur_lo) / 1e6  # us -> s
     top = sorted(prof.key_averages(), key=lambda a: a.self_device_time_total,
-                 reverse=True)[:12]
+                 reverse=True)[:16]
     return {
         "profiled_wall_s": ms / 1e3,
         "device_events": len(dev),
@@ -123,23 +126,30 @@ def _profile(moving, target, wall_s: list) -> dict:
     }
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--unet", action="store_true",
+                    help="the U-Net recipe on the deformable pair")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cascade needs a CUDA device")
-    moving, target = synthetic.make_pair(device="cuda")
+    recipe = synthetic.RECIPE_UNET if args.unet else synthetic.RECIPE
     fmov, ftgt, theta_true, flow_true = synthetic.make_flow_truth_pair(device="cuda")
-    for pair, (mov, tgt) in (("rigid", (moving, target)), ("deformable", (fmov, ftgt))):
-        cascade.register_cascade(mov, tgt, **synthetic.RECIPE)  # warm-up
-        wall_s = [_sync_ms(cascade.register_cascade, mov, tgt, **synthetic.RECIPE)[1] / 1e3
+    pairs = [("deformable", (fmov, ftgt))]
+    if not args.unet:
+        pairs.insert(0, ("rigid", synthetic.make_pair(device="cuda")))
+    for pair, (mov, tgt) in pairs:
+        cascade.register_cascade(mov, tgt, **recipe)  # warm-up
+        wall_s = [_sync_ms(cascade.register_cascade, mov, tgt, **recipe)[1] / 1e3
                   for _ in range(RUNS)]
         print(json.dumps({"pair": pair, "wall_s": wall_s,
                           "median_wall_s": statistics.median(wall_s)}), flush=True)
         records: list = []
         with _timed_stages(records):
-            res, ms = _sync_ms(cascade.register_cascade, mov, tgt, **synthetic.RECIPE)
+            res, ms = _sync_ms(cascade.register_cascade, mov, tgt, **recipe)
         print(json.dumps({"pair": pair, "stages_total_ms": ms, "steps": res.steps,
                           "stages": records}), flush=True)
-        print(json.dumps({"pair": pair, "profile": _profile(mov, tgt, wall_s)}),
+        print(json.dumps({"pair": pair, "profile": _profile(mov, tgt, wall_s, recipe)}),
               flush=True)
         if pair == "deformable":
             f32 = synthetic.flow_truth_metrics(res, fmov, ftgt, theta_true, flow_true)

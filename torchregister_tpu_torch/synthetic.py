@@ -1,8 +1,9 @@
 """Synthetic registration pairs, their scoring and the cascade recipe.
 
 Counterparts of ``bench.py``'s ``make_pair``, ``make_flow_truth_pair``,
-``total_sampling_map``, ``flow_truth_metrics`` and ``RECIPE`` (same values,
-same seeds: the volumes come from the same numpy draws).
+``total_sampling_map``, ``flow_truth_metrics``, ``RECIPE`` and the U-Net
+control's recipe (same values, same seeds: the volumes come from the same
+numpy draws).
 """
 from __future__ import annotations
 
@@ -42,6 +43,11 @@ RECIPE = dict(
     flow_stop_rel=1e-3,
     flow_patience=25,
 )
+
+# The U-Net parity control (bench.py:run_cascade_unet): RECIPE with the
+# reference's flow model on the half-resolution, 2-level, 300-epoch geometry.
+RECIPE_UNET = {**RECIPE, "flow_model": "unet", "flow_smooth": None,
+               "flow_max_size": 160, "flow_levels": 2, "flow_epochs": 300}
 
 
 def make_pair(shape=(240, 240, 240), seed=0, device="cpu"):

@@ -7,6 +7,7 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..ops.resample import warp_flow
 from ..ops.resize import downsample_avg
 from ..ops.separable import warp_flow_separable
 
@@ -30,6 +31,13 @@ def upsample_flow(flow: torch.Tensor, out_spatial: Sequence[int]) -> torch.Tenso
     scale = torch.tensor([o / i for o, i in zip(out_spatial, in_spatial)],
                          dtype=flow.dtype, device=flow.device)
     return out * scale.view((1, -1) + (1,) * len(out_spatial))
+
+
+def compose_flows(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
+    """Flow equal to applying ``first`` then ``second`` (both ``[N, d, *S]``,
+    voxels): ``second(x) + first(x + second(x))``, with ``first`` resampled
+    by the exact ``ops/resample.warp_flow``."""
+    return second + warp_flow(first, second)
 
 
 def compose_flows_separable(first: torch.Tensor, second: torch.Tensor,
