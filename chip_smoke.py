@@ -1,22 +1,30 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds kernels K1 (the sweep resampler, ``torchregister_tpu_torch/csrc/
-sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``) and K3 (the
-valid 3x3x3 convolution of the U-Net, ``csrc/conv3d.cu``) from the checkout,
-holds each against its plain PyTorch version on the card, drives the port's
-paths with quality gates (the recipe cascade on the 240³ pairs; the CLI's
-register/apply round trip on NIfTI files; ``Register`` rigid, then flow; the
-U-Net parity cascade on the 240³ deformable pair; ``Register`` in U-Net mode
-at the reference width), and times each kernel against its plain version.
-Any failure raises, so the exit code is non-zero.
+sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``), K3 (the valid
+3x3x3 convolution of the U-Net and the Sobel edge filter, ``csrc/conv3d.cu``)
+and K2b (the compact ROI gather of the exact warp's compact-block route,
+``csrc/roigather.cu``) from the checkout, holds each against its plain
+PyTorch version on the card, drives the port's paths with quality gates (the
+recipe cascade on the 240³ pairs; the CLI's register/apply round trip on
+NIfTI files; ``Register`` rigid, then flow; the U-Net parity cascade on the
+240³ deformable pair; ``Register`` in U-Net mode at the reference width;
+``Register`` with the reference's default criteria and its exact warp on the
+compact route; the matrix engines with their own defaults, edge filter and
+default criteria), and times each kernel against its plain version and the
+one PyTorch call that computes the same function, where there is one. Any
+failure raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels with their launches on the paths (counts
 set to 0 just before each path and read just after), their largest absolute
-deviation from the plain version over all checks, and the time of one launch
-against one pass of the plain version.
+deviation from the plain version over all checks, the time of one launch
+against one pass of the plain version and of the library call, and the
+least time the card could take for the same work (``bound_ms``: the bytes
+the function must move over 3.35 TB/s, or its f32 operations over 67
+TFLOP/s, whichever is larger).
 """
 from __future__ import annotations
 
@@ -33,11 +41,18 @@ import torch
 
 from torchregister_tpu_torch import Register
 from torchregister_tpu_torch.__main__ import main as cli
+from torchregister_tpu_torch.engines.affine import affine_register
 from torchregister_tpu_torch.engines.cascade import register_cascade
 from torchregister_tpu_torch.engines.flow import flow_register
+from torchregister_tpu_torch.engines.rigid import rigid_register
+from torchregister_tpu_torch.losses.nmi import branch_calls, nmi_loss
+from torchregister_tpu_torch.ops import blocked
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
+from torchregister_tpu_torch.ops.cuda import roigather as k2b
 from torchregister_tpu_torch.ops.cuda import sweep as k1
 from torchregister_tpu_torch.ops.cuda import warp as k2
+from torchregister_tpu_torch.ops.edge import edge_filter, edge_magnitude
+from torchregister_tpu_torch.ops.grid import affine_grid
 from torchregister_tpu_torch.ops.resize import downsample_avg
 from torchregister_tpu_torch.ops.separable import affine_to_index_map
 from torchregister_tpu_torch.ops.transforms import rigid_theta
@@ -67,6 +82,7 @@ REPLACES = {
     # forward and, on the padded cotangent, in the input gradient
     "conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:174",
     "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:174",
+    "roigather": "torchregister_tpu/ops/pallas/roigather.py:49",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203"}
@@ -75,7 +91,12 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "warp_affine": "torchregister_tpu_torch/csrc/warp.cu",
            "warp_flow": "torchregister_tpu_torch/csrc/warp.cu",
            "conv3d_fwd": "torchregister_tpu_torch/csrc/conv3d.cu",
-           "conv3d_dgrad": "torchregister_tpu_torch/csrc/conv3d.cu"}
+           "conv3d_dgrad": "torchregister_tpu_torch/csrc/conv3d.cu",
+           "roigather": "torchregister_tpu_torch/csrc/roigather.cu"}
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory and
+# f32 outside the tensor cores (the kernels sum in f32 FMAs, no TF32)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 # The U-Net parity cascade's gates on the 240³ deformable-truth pair. The JAX
 # package's TPU run read 68.55 % / 3.023 vox / 0.879 vox (BENCH_r05.json);
 # the margin covers initial weights drawn from another random generator.
@@ -102,6 +123,21 @@ REGISTER_RIGID = dict(lr=1e-2, max_epochs=150)
 # exact final warp then samples. 0.1 reaches 99.12 % (H100).
 CLI_FLOW_LR = "0.1"
 SIZE = 240  # the user path's volumes: make_pair's published size
+# make_pair's rigid transform (synthetic.make_pair), whose 10³ output tiles
+# each fit a 16³ source window of the ROI route
+PAIR_RIGID = (0.06, -0.04, 0.05, 0.2, -0.15, 0.1)
+# the matrix engines with their own defaults (grad_edges=True, the default
+# criteria, SGD at lr 1e-5, rigid from a random init): steps of each engine
+ENGINE_STEPS = 30
+# nmi_loss on the card against the CPU at the default stack's shapes (the
+# 240³ image resized to 200³, 8 patches of 100³, 16 M samples splatted) at
+# the tolerances of tests/test_torch_cuda.py. The loss is 1000 |NMI - 1| and
+# the reference's pooled "joint" makes NMI 1 wherever the two marginals
+# match: for the pair itself at the default bandwidth 3.0, another order of
+# the splat's sums (the card's atomics) moves the value and the gradient by
+# percents. So the check pairs the target with the square of the moving
+# image, whose marginals differ, at a bandwidth that resolves the unit range.
+NMI_CHECK = dict(bandwidth=0.05, value_rtol=3e-5, grad_atol=3e-4)
 
 
 def phase_device() -> str:
@@ -119,12 +155,12 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel's nvcc run at once, then load them."""
     t0 = time.perf_counter()
-    mods = (k1, k2, k3)
+    mods = (k1, k2, k3, k2b)
     with ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m.build(), mods))
     for m in mods:
         m._lib()
-    print(f"[build] K1, K2 and K3 built in {time.perf_counter() - t0:.2f} s -> "
+    print(f"[build] K1, K2, K3 and K2b built in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(lib.name for lib in libs)}", flush=True)
 
 
@@ -354,6 +390,13 @@ def unet_conv_shapes(edge: int, n: float, depth: int, in_c: int = 1) -> list:
 # network (n=32, depth 4), the latter checked on z-slabs of 10 planes
 K3_CASES = ([(ci, co, e, None) for ci, co, e in unet_conv_shapes(120, 8, 2)]
             + [(ci, co, e, 10) for ci, co, e in unet_conv_shapes(240, 32, 4)])
+# the Sobel filter of the engines' grad_edges: 1 -> 9 channels on the
+# reflect-padded 240³ image, f32 only (the second chunk of output channels
+# holds one channel), on a z-slab of 10 planes as the 240³ net: over the whole
+# volume dw sums 14 M products an entry and sits 1.01e-5 from cuDNN's (H100).
+# The path runs the forward alone, held whole against the CPU in
+# [engines-default].
+K3_EDGE_CASE = (1, 9, SIZE + 2, 10)
 
 
 def _check_k3(ci, co, edge, slab, dtype) -> tuple[float, float]:
@@ -389,13 +432,66 @@ def _check_k3(ci, co, edge, slab, dtype) -> tuple[float, float]:
 
 def phase_k3() -> dict:
     """K3 against its plain version at every convolution of both U-Net
-    paths, f32 and bf16."""
+    paths, f32 and bf16, and at the edge filter's, f32."""
+    cases = [(c, dtype) for c in K3_CASES for dtype in (torch.float32, torch.bfloat16)]
     fwd = dgrad = 0.0
-    for ci, co, edge, slab in K3_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            f, d = _check_k3(ci, co, edge, slab, dtype)
-            fwd, dgrad = max(fwd, f), max(dgrad, d)
+    for case, dtype in cases + [(K3_EDGE_CASE, torch.float32)]:
+        f, d = _check_k3(*case, dtype)
+        fwd, dgrad = max(fwd, f), max(dgrad, d)
     return {"conv3d_fwd": fwd, "conv3d_dgrad": dgrad}
+
+
+def _pair_theta() -> torch.Tensor:
+    return rigid_theta(torch.tensor(PAIR_RIGID, device=DEV))[None]
+
+
+def _check_k2b(label, vol, scal) -> float:
+    """One raw K2b launch against its plain version on the same tensors: a
+    copy, so the difference must be exactly 0."""
+    out, ref = k2b.roigather_launch(vol, scal), k2b.roigather_plain(vol, scal)
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    print(f"[k2b] {label}: T={scal.shape[0]}, max|d| {err:.3e} (tol 0)", flush=True)
+    if err != 0.0 or tuple(out.shape) != (scal.shape[0], k2b.CW, k2b.AW * k2b.BW):
+        raise AssertionError(f"K2b {label} disagrees with its plain version: {err:.3e}")
+    return err
+
+
+def _roi_scalars(theta, spatial):
+    sup = blocked._roi_supports(theta[0].double().cpu().numpy(), spatial, False)
+    return torch.from_numpy(sup[0]).to(DEV)
+
+
+def phase_k2b() -> dict:
+    """K2b against its plain version at 240³ on make_pair's moving image with
+    the windows of make_pair's rigid transform, on ragged shapes, and on
+    scalars whose windows leave the volume; then the compact route against
+    K2 (``warp_affine_fast`` with the route off) at 240³, tolerance 1e-5 of
+    the largest value; and a transform the route declines."""
+    moving, _ = make_pair((SIZE,) * 3, device=DEV)
+    theta = _pair_theta()
+    errs = [_check_k2b(f"{SIZE}³ make_pair", moving[0, 0], _roi_scalars(theta, (SIZE,) * 3))]
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    for shape in ((45, 50, 41), (33, 40, 37)):
+        vol = torch.rand(shape, generator=gen, device=DEV)
+        errs.append(_check_k2b(f"{'x'.join(map(str, shape))}", vol, _roi_scalars(theta, shape)))
+    vol = torch.rand((40, 36, 44), generator=gen, device=DEV)
+    wild = torch.randint(-3, 6, (500, 5), generator=gen, device=DEV, dtype=torch.int32)
+    wild[:, 4] = torch.randint(-20, 44, (500,), generator=gen, device=DEV, dtype=torch.int32)
+    errs.append(_check_k2b("40x36x44 windows past every face (zeros)", vol, wild))
+
+    ref = blocked.warp_affine_fast(theta, moving)  # K2: the route is off by default
+    out = blocked.warp_affine_roi(theta, moving)  # the compact route: K2b and the hats
+    torch.cuda.synchronize()
+    rel = _rel_err(out, ref)
+    print(f"[k2b] compact route vs K2 at {SIZE}³: rel {rel:.3e} (tol 1e-5)", flush=True)
+    if out is None or not rel < 1e-5:
+        raise AssertionError(f"the compact route disagrees with K2: {rel:.3e}")
+    zoom = torch.tensor([[[2.0, 0, 0, 0], [0, 2.0, 0, 0], [0, 0, 2.0, 0]]], device=DEV)
+    if blocked.warp_affine_roi(zoom, moving) is not None:
+        raise AssertionError("the ROI route took a 2x zoom, whose support outgrows its windows")
+    print("[k2b] a 2x zoom: the route declines (None)", flush=True)
+    return {"roigather": max(errs)}
 
 
 def _on_cuda(res) -> None:
@@ -456,13 +552,15 @@ def phase_main_path() -> dict:
 def _counts() -> dict:
     return {"sweep_fwd": k1.fwd_launches, "sweep_bwd": k1.bwd_launches,
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
-            "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches}
+            "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
+            "roigather": k2b.launches}
 
 
 def _reset_counts() -> None:
     k1.reset_counts()
     k2.reset_counts()
     k3.reset_counts()
+    k2b.reset_counts()
 
 
 def _need(launches: dict, names, path: str) -> None:
@@ -640,6 +738,140 @@ def phase_register_unet() -> dict:
     return launches
 
 
+def phase_register_default() -> dict:
+    """``Register(mode='rigid')`` with ``criterion=None`` (MSE + NCC(100) +
+    NMI(1000)) at 240³, its exact warp on the compact ROI route (K2b and
+    the hats), with the [register] phase's lr and epochs under Adam from the
+    identity; the NMI branches the run took; then ``nmi_loss`` on the pair
+    on the card against the CPU (``NMI_CHECK``)."""
+    moving, target = make_pair((SIZE,) * 3, device=DEV)
+    routes = blocked.ROIGATHER_ENABLED, blocked.ROIGATHER_FUSED
+    blocked.ROIGATHER_ENABLED, blocked.ROIGATHER_FUSED = True, False
+    try:
+        kw = dict(mode="rigid", device=DEV, criterion=None, optimizer="adam",
+                  init="identity", max_shift=SIZE // 4)
+        Register(**kw).optim(moving, target, **dict(REGISTER_RIGID, max_epochs=3))  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        branch_calls.update(binned=0, exact=0)
+        t0 = time.perf_counter()
+        reg = Register(**kw).optim(moving, target, **REGISTER_RIGID)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = reg(moving)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _counts()
+        branches = dict(branch_calls)
+    finally:
+        blocked.ROIGATHER_ENABLED, blocked.ROIGATHER_FUSED = routes
+    steps = int(reg.result.steps)
+    pct = rmse_reduction_pct(out, moving, target)
+    print(f"[register-default] criterion=None, {REGISTER_RIGID}: {steps} steps in "
+          f"{t1 - t0:.2f} s ({1e3 * (t1 - t0) / steps:.2f} ms/step), NMI branch calls "
+          f"{json.dumps(branches)}; "
+          f"__call__ on the compact route {1e3 * (t2 - t1):.1f} ms; RMSE reduction "
+          f"{pct:.3f} % (gate {GATES['rmse_reduction_pct']}); launches "
+          f"{json.dumps(launches)}", flush=True)
+    if not bool(torch.isfinite(out).all()) or tuple(out.shape) != tuple(moving.shape):
+        raise AssertionError("Register's default-criteria output is not finite")
+    if pct < GATES["rmse_reduction_pct"]:
+        raise AssertionError(f"Register default-criteria RMSE gate failed: {pct:.3f} %")
+    _need(launches, ("sweep_fwd", "sweep_bwd", "roigather"), "Register with criterion=None")
+    if sum(branches.values()) < steps:
+        raise AssertionError(f"the default criteria ran NMI {branches} times in {steps} steps")
+    _check_nmi(target, moving)
+    return launches
+
+
+def _check_nmi(y, yp) -> None:
+    """``nmi_loss(y, yp²)`` and its gradient in ``yp²`` on the card against
+    the CPU at ``NMI_CHECK``'s bandwidth (binned: the atomic splat of 16 M
+    samples) and tolerances; ``nmi_loss(y, yp)`` at the default bandwidth,
+    the term the run optimized, printed from both."""
+    bw = NMI_CHECK["bandwidth"]
+    out = []
+    for d in (DEV, "cpu"):
+        branch_calls.update(binned=0, exact=0)
+        p = (yp * yp).to(d).requires_grad_(True)
+        loss = nmi_loss(y.to(d), p, bandwidth=bw)
+        loss.backward()
+        with torch.no_grad():
+            default = float(nmi_loss(y.to(d), yp.to(d)))
+        out.append((float(loss.detach()), p.grad.cpu(), dict(branch_calls), default))
+    (lg, gg, bg, dg), (lc, gc, bc, dc) = out
+    rel = abs(lg - lc) / abs(lc)
+    grel = _max_err(gg, gc) / float(gc.abs().max())
+    print(f"[register-default] nmi_loss(target, moving²) at {SIZE}³ (patch 100), bandwidth "
+          f"{bw}: card {lg:.7f}, "
+          f"CPU {lc:.7f}, rel {rel:.3e} (tol {NMI_CHECK['value_rtol']:g}); gradient "
+          f"{grel:.3e} of its largest entry (tol {NMI_CHECK['grad_atol']:g}); branches "
+          f"{json.dumps(bg)}; at the default bandwidth 3.0: card {dg:.3e}, CPU {dc:.3e}",
+          flush=True)
+    if bg != bc or not bg["binned"]:
+        raise AssertionError(f"nmi_loss took other branches on the card: {bg} vs {bc}")
+    if not (rel < NMI_CHECK["value_rtol"] and grel < NMI_CHECK["grad_atol"]):
+        raise AssertionError(f"nmi_loss on the card disagrees with the CPU: {rel:.3e}, {grel:.3e}")
+    if not (math.isfinite(dg) and math.isfinite(dc)):
+        raise AssertionError(f"nmi_loss at the default bandwidth is not finite: {dg}, {dc}")
+
+
+def phase_engines_default() -> dict:
+    """``rigid_register`` and ``affine_register`` at 240³ with their own
+    defaults (``grad_edges=True``: both images through the Sobel filter on
+    K3; ``criterions=None``; SGD at lr 1e-5; rigid from a seeded random
+    init), ``ENGINE_STEPS`` steps each: finite losses, every step run; then
+    the Sobel filter of the moving image on the card against the CPU."""
+    moving, target = make_pair((SIZE,) * 3, device=DEV)
+    _reset_counts()
+    rows = {}
+    for name, fn, kw in (
+            ("rigid", rigid_register,
+             dict(generator=torch.Generator(device=DEV).manual_seed(0))),
+            ("affine", affine_register, {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warped, res = fn(moving, target, epochs=ENGINE_STEPS, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = res.losses[:res.steps].cpu().numpy()
+        rows[name] = dict(steps=res.steps, s=round(dt, 3),
+                          ms_per_step=round(1e3 * dt / res.steps, 2),
+                          loss_first=float(losses[0]), loss_last=float(losses[-1]))
+        if res.steps != ENGINE_STEPS or not np.isfinite(losses).all() or not bool(
+                torch.isfinite(warped).all()):
+            raise AssertionError(f"{name}_register with its defaults: {rows[name]}")
+    launches = _counts()
+    print(f"[engines-default] {json.dumps(rows)} (wall time includes the edge filter of "
+          f"both images); launches {json.dumps(launches)}", flush=True)
+    _need(launches, ("sweep_fwd", "sweep_bwd", "conv3d_fwd"), "the engines' defaults")
+    _check_edges(moving)
+    return launches
+
+
+def _check_edges(img) -> None:
+    """``edge_magnitude`` and ``edge_filter`` of ``img`` on the card (K3)
+    against the same calls on the CPU (the plain convolution): the magnitude
+    at rtol 1e-5 and atol 1e-5, the mask equal everywhere but within 1e-5 of
+    a threshold, where a rounding flips a voxel. The atol: each Sobel
+    response sums 27 f32 products (sum of |weights| 32 on a unit-range
+    image) and cancels where it is small, so its rounding, over the
+    magnitude's range, reaches ~1e-6 where no relative bound holds (2.2e-6
+    at 240³, H100)."""
+    mag, ref = edge_magnitude(img).cpu(), edge_magnitude(img.cpu())
+    mask, ref_mask = edge_filter(img).cpu(), edge_filter(img.cpu())
+    off = int((~torch.isclose(mag, ref, rtol=1e-5, atol=1e-5)).sum())
+    near = ((ref - 0.2).abs() <= 1e-5) | ((ref - 0.9).abs() <= 1e-5)
+    flips = int(((mask != ref_mask) & ~near).sum())
+    print(f"[engines-default] edge filter at {SIZE}³, card vs CPU: magnitude max|d| "
+          f"{_max_err(mag, ref):.3e}, {off} voxels past rtol and atol 1e-5; mask share "
+          f"{float(mask.mean()):.4f}, {flips} flips away from the thresholds "
+          f"({int(near.sum())} voxels within 1e-5 of one)", flush=True)
+    if off or flips or not 0.0 < float(ref_mask.mean()) < 1.0:
+        raise AssertionError(f"the edge filter on the card disagrees with the CPU: {off} "
+                             f"magnitudes, {flips} mask voxels")
+
+
 def _time_ms(fn, iters=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -775,41 +1007,125 @@ def phase_k3_times() -> dict:
     return rows
 
 
+def _bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move over the memory rate and its f32 operations over the
+    f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_k2b_times() -> dict:
+    """One K2b launch at 240³ with make_pair's rigid windows (T = 13824)
+    against its plain version and one advanced-indexing gather with the
+    indices made beforehand (the library call); then the compact route end
+    to end (K2b and the hat einsums, host work included) against K2 on the
+    same transform. CUDA events."""
+    moving, _ = make_pair((SIZE,) * 3, device=DEV)
+    vol = moving[0, 0].contiguous()
+    theta = _pair_theta()
+    scal = _roi_scalars(theta, (SIZE,) * 3)
+    s = scal.long()
+    ab = torch.arange(k2b.AW * k2b.BW, device=DEV)
+    flat = ((((8 * s[:, 0] + s[:, 2])[:, None, None] + ab // k2b.BW) * SIZE
+             + (8 * s[:, 1] + s[:, 3])[:, None, None] + ab % k2b.BW) * SIZE
+            + s[:, 4][:, None, None] + torch.arange(k2b.CW, device=DEV)[None, :, None])
+    with torch.no_grad():
+        row = {"ms": _time_ms(lambda: k2b.roigather_launch(vol, scal)),
+               "plain_ms": _time_ms(lambda: k2b.roigather_plain(vol, scal), iters=5),
+               "library_ms": _time_ms(lambda: torch.take(vol, flat)),
+               "route_ms": _time_ms(lambda: blocked.warp_affine_roi(theta, moving), iters=5),
+               "k2_same_theta_ms": _time_ms(lambda: blocked.warp_affine_fast(theta, moving))}
+    T = scal.shape[0]
+    row.update(_bound(4.0 * (vol.numel() + T * k2b.CW * k2b.AW * k2b.BW) + scal.numel() * 4, 0))
+    print(f"[times] K2b at {SIZE}³, T={T}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def _library_times() -> dict:
+    """The one PyTorch call that computes each kernel's function, where there
+    is one, at the shapes of the kernel's own timing: ``F.grid_sample``
+    (trilinear, zeros padding, on a grid made beforehand) for K2's two modes;
+    cuDNN with TF32 off for K3's forward and input gradient (the same calls
+    as K3's plain version). K1's windowed 1-D resample along one axis has
+    none: ``grid_sample`` does not zero a tap past the window."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    src = torch.rand((1, 1) + (SIZE,) * 3, generator=gen, device=DEV)
+    theta = rigid_theta(torch.tensor(SELFTEST_THETA, device=DEV))[None]
+    grid_a = affine_grid(theta, (SIZE,) * 3)
+    flow = _smooth_flow(SIZE, 8.0, 10)
+    o = torch.arange(SIZE, dtype=torch.float32, device=DEV)
+    idx = torch.stack(torch.meshgrid(o, o, o, indexing="ij")) + flow
+    grid_f = ((2.0 * idx + 1.0) / SIZE - 1.0).flip(0).permute(1, 2, 3, 0)[None].contiguous()
+    with torch.no_grad():
+        out = {n: _time_ms(lambda g=g: F.grid_sample(src, g, mode="bilinear",
+                                                      padding_mode="zeros",
+                                                      align_corners=False))
+               for n, g in (("warp_affine", grid_a), ("warp_flow", grid_f))}
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     errs = phase_kernels()
     errs.update(phase_k2())
     errs.update(phase_k3())
+    errs.update(phase_k2b())
     launches = phase_main_path()
     with tempfile.TemporaryDirectory() as tmp:
         paths = [launches, phase_cli(tmp)]
     reg_launches, reg_err = phase_register()
     paths.append(reg_launches)
     errs["warp_flow"] = max(errs["warp_flow"], reg_err)
-    paths += [phase_unet(), phase_register_unet()]
+    paths += [phase_unet(), phase_register_unet(), phase_register_default(),
+              phase_engines_default()]
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     rows = phase_times()
     k2_times = phase_k2_times()
     k3_row = phase_k3_times()["8->8 edge 118"]
+    k2b_row = phase_k2b_times()
+    library = _library_times()
     # per-launch times at the fine flow level's shape (240³, K=8, f32)
     flow_row = next(r for r in rows if r["S"] == 240 and r["K"] == 8)
     times = {"sweep_fwd": {"ms": flow_row["fwd_ms"], "plain_ms": flow_row["plain_fwd_ms"]},
              "sweep_bwd": {"ms": flow_row["bwd_ms"], "plain_ms": flow_row["plain_bwd_ms"]},
              **k2_times,
              "conv3d_fwd": {"ms": k3_row["fwd_ms"], "plain_ms": k3_row["plain_fwd_ms"]},
-             "conv3d_dgrad": {"ms": k3_row["dgrad_ms"], "plain_ms": k3_row["plain_dgrad_ms"]}}
+             "conv3d_dgrad": {"ms": k3_row["dgrad_ms"], "plain_ms": k3_row["plain_dgrad_ms"]},
+             "roigather": k2b_row}
+    vox, conv_out, conv_in = SIZE**3, 116**3, 118**3
+    # bytes: each input read once, each output written once; operations:
+    # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
+    # of its adjoint, ~60 per voxel of a trilinear warp (8 weights, 8
+    # products, 8 sums, the coordinates)
+    bounds = {"sweep_fwd": _bound(3 * 4.0 * vox, 6.0 * vox),  # src, q -> out
+              "sweep_bwd": _bound(5 * 4.0 * vox, 10.0 * vox),  # g, src, q -> dsrc, dq
+              "warp_affine": _bound(2 * 4.0 * vox, 60.0 * vox),  # src -> out
+              "warp_flow": _bound(5 * 4.0 * vox, 60.0 * vox),  # src, 3-channel flow -> out
+              # 8->8 at 118³: x and w -> out; dgrad: the padded cotangent -> dx
+              "conv3d_fwd": _bound(4.0 * (8 * conv_in + 8 * conv_out + 27 * 64),
+                                   2.0 * 27 * 64 * conv_out),
+              "conv3d_dgrad": _bound(4.0 * (8 * 120**3 + 8 * conv_in + 27 * 64),
+                                     2.0 * 27 * 64 * conv_in),
+              "roigather": {k: k2b_row[k] for k in ("bound_ms", "bound_by")}}
+    library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
+                   conv3d_dgrad=k3_row["plain_dgrad_ms"], roigather=k2b_row["library_ms"])
     timed_at = {"sweep_fwd": "one launch, 240^3 K=8 f32, mean of axes 0-2",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
                 "warp_flow": "one launch, 240^3 f32, smooth field |flow|<=8",
-                "conv3d_fwd": "one launch, 8->8 at 118^3 f32; plain: cuDNN, TF32 off"}
+                "conv3d_fwd": "one launch, 8->8 at 118^3 f32; plain: cuDNN, TF32 off",
+                "roigather": "one launch, 240^3 f32, make_pair's rigid windows, T=13824"}
     timed_at["sweep_bwd"] = timed_at["sweep_fwd"]
     timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": errs[name], "ms": times[name]["ms"],
-         "plain_ms": times[name]["plain_ms"], "timed_at": timed_at[name],
+         "plain_ms": times[name]["plain_ms"], **bounds[name], "library_ms": library[name],
+         "timed_at": timed_at[name],
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})}
         for name in REPLACES
     ]

@@ -32,7 +32,7 @@ def _both(mode, pair, opt_kw, **kw):
     mov, tgt = pair
     regs = []
     for pkg, conv in ((jtr, jnp.asarray), (ttr, torch.from_numpy)):
-        reg = pkg.Register(mode=mode, **kw)
+        reg = pkg.Register(mode=mode, **kw, **({"device": "cpu"} if pkg is ttr else {}))
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)  # SGD on a field
             reg.optim(conv(mov), conv(tgt), **opt_kw)
@@ -73,8 +73,8 @@ def test_torch_register_call_runs_k2_plain_on_cpu(pair):
     """``__call__`` is the exact warp on every channel at once; on a CPU
     tensor it is K2's plain version, with no launch."""
     mov, tgt = (torch.from_numpy(a) for a in pair)
-    reg = ttr.Register(mode="rigid", init="identity", **{k: v for k, v in MATRIX.items()
-                                                         if k != "init"})
+    reg = ttr.Register(mode="rigid", init="identity", device="cpu",
+                       **{k: v for k, v in MATRIX.items() if k != "init"})
     reg.optim(mov, tgt, lr=2e-3, max_epochs=5)
     k2.reset_counts()
     three = torch.cat([mov, 2 * mov, -mov], dim=1)
@@ -87,36 +87,60 @@ def test_torch_register_call_runs_k2_plain_on_cpu(pair):
 
 def test_torch_register_devices_and_inputs(pair):
     mov, tgt = pair
-    reg = ttr.Register(mode="rigid", criterion=["mse"], init="identity", max_shift=6)
+    reg = ttr.Register(mode="rigid", criterion=["mse"], init="identity", max_shift=6,
+                       device="cpu")
     reg.optim(mov.astype(np.float64), tgt, lr=1e-3, max_epochs=2)  # numpy -> CPU, f32
     assert reg.theta.device.type == "cpu" and reg.theta.dtype == torch.float32
     assert reg(mov).device.type == "cpu"
     with pytest.raises(RuntimeError, match="optim"):
-        ttr.Register(mode="affine")(mov)
+        ttr.Register(mode="affine", device="cpu")(mov)
     with pytest.raises(ValueError):
         ttr.Register(mode="bogus")
     with pytest.raises(ValueError):
         ttr.Register(method="blocked")
     if not torch.cuda.is_available():
+        # device=None means the card, as the JAX package's None means its
+        # accelerator: it never moves to the CPU by itself
+        for device in ("cuda", None):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                ttr.Register(device=device)
         with pytest.raises(RuntimeError, match="CUDA"):
-            ttr.Register(device="cuda")
+            ttr.Register()
 
 
 def test_torch_register_random_init_is_seeded(pair):
     mov, tgt = (torch.from_numpy(a) for a in pair)
     thetas = []
     for seed in (3, 3, 4):
-        reg = ttr.Register(mode="rigid", criterion=["mse"], seed=seed, max_shift=16)
+        reg = ttr.Register(mode="rigid", criterion=["mse"], seed=seed, max_shift=16,
+                           device="cpu")
         reg.optim(mov, tgt, lr=1e-5, max_epochs=1)
         thetas.append(reg.result.param_history[0])
     assert torch.equal(thetas[0], thetas[1]) and not torch.equal(thetas[0], thetas[2])
     assert bool(((thetas[0] >= 0) & (thetas[0] < 1)).all())
 
 
-def test_torch_register_default_criterion_waits_for_nmi(pair):
-    reg = ttr.Register(mode="rigid", init="identity")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        reg.optim(*pair, max_epochs=1)
+def test_torch_register_default_criterion_waits_for_nmi():
+    """``criterion=None`` runs the reference stack MSE + NCC(100) +
+    NMI(1000) at its default NMI patch size (100): on a 2D pair (a 3D one
+    would splat 200³ voxels a step in the JAX package), rigid under SGD from
+    the identity, against the JAX package. Tolerances of the matrix tests
+    above."""
+    rng = np.random.default_rng(4)
+    g = np.meshgrid(np.linspace(-1, 1, 36), np.linspace(-1, 1, 40), indexing="ij")
+    mov, tgt = np.zeros((2, 1, 1, 36, 40), np.float32)
+    for _ in range(6):  # blobs, and the same blobs moved by up to 1.5 pixels
+        c, w, d = rng.uniform(-0.5, 0.5, 2), rng.uniform(0.12, 0.3), rng.uniform(-0.08, 0.08, 2)
+        mov[0, 0] += np.exp(-((g[0] - c[0]) ** 2 + (g[1] - c[1]) ** 2) / (2 * w**2))
+        tgt[0, 0] += np.exp(-((g[0] - c[0] - d[0]) ** 2 + (g[1] - c[1] - d[1]) ** 2)
+                            / (2 * w**2))
+    jreg, treg = _both("rigid", (mov, tgt), dict(lr=2e-3, max_epochs=20), optimizer="sgd",
+                       init="identity", max_shift=6)
+    assert int(treg.result.steps) == int(jreg.result.steps) == 20
+    np.testing.assert_allclose(treg.losses.numpy(), np.asarray(jreg.losses), rtol=1e-3,
+                               atol=3e-4)
+    np.testing.assert_allclose(treg.theta.numpy(), np.asarray(jreg.theta), atol=1e-4)
+    assert treg.losses[-1] < treg.losses[0]
 
 
 def test_torch_register_transform_round_trip(pair, tmp_path):
@@ -132,18 +156,19 @@ def test_torch_register_transform_round_trip(pair, tmp_path):
     np.testing.assert_allclose(np.asarray(other(jnp.asarray(mov))),
                                treg(mov).numpy(), rtol=1e-4, atol=1e-4)
     j_save(str(tmp_path / "j.npz"), jreg)
-    back = ttr.Register(mode="rigid")
+    back = ttr.Register(mode="rigid", device="cpu")
     ttr.load_transform(str(tmp_path / "j.npz"), back)
     np.testing.assert_allclose(back(mov).numpy(), np.asarray(jreg(jnp.asarray(mov))),
                                rtol=1e-4, atol=1e-4)
 
 
 def test_torch_register_debug_report(pair, capsys):
-    reg = ttr.Register(mode="rigid", debug=True, **MATRIX)
+    reg = ttr.Register(mode="rigid", debug=True, device="cpu", **MATRIX)
     reg.optim(*pair, lr=2e-3, max_epochs=12)
     out = capsys.readouterr().out
     assert "mode=rigid epochs=12" in out and out.count("  epoch ") == 11
-    freg = ttr.Register(mode="flow", criterion=["mse"], debug=True, max_disp=4)
+    freg = ttr.Register(mode="flow", criterion=["mse"], debug=True, max_disp=4,
+                        device="cpu")
     freg.optim(*pair, max_epochs=3)
     assert "flow did not converge within 3 epochs" in capsys.readouterr().out
 
@@ -153,3 +178,33 @@ def test_torch_norm():
     np.testing.assert_allclose(ttr.norm(torch.from_numpy(x)).numpy(),
                                np.asarray(jtr.norm(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
     assert ttr.norm("not an image") is None
+
+
+def test_torch_register_debug_preflight_and_progress(pair, capsys):
+    """Under ``debug``: the NMI pre-flight raises on a non-finite input with
+    the JAX package's message (with the user's NMI keywords), and the
+    matrix and flow loops print progress at the JAX package's epochs."""
+    import re
+
+    from torchregister_tpu_torch.losses import get_criterion
+
+    mov, tgt = pair
+    bad = mov.copy()
+    bad[0, 0, 3, 3, 3] = np.nan
+    nmi8 = get_criterion("nmi", patch_size=8, bins=32)
+    reg = ttr.Register(mode="rigid", criterion=["mse", nmi8], debug=True, device="cpu")
+    with pytest.raises(FloatingPointError, match="non-finite input to NMI"):
+        reg.optim(bad, tgt, max_epochs=2)
+    epochs = {}
+    for name, pkg, kw in (("jax", jtr, {}), ("torch", ttr, dict(device="cpu"))):
+        capsys.readouterr()
+        pkg.Register(mode="rigid", debug=True, **MATRIX, **kw).optim(mov, tgt, lr=2e-3,
+                                                                     max_epochs=25)
+        pkg.Register(mode="flow", criterion=["mse"], debug=True, max_disp=4, **kw).optim(
+            mov, tgt, max_epochs=12)
+        out = capsys.readouterr().out
+        epochs[name] = [re.findall(rf"\[{label}\] epoch (\d+)/", out)
+                        for label in ("rigid_register", "flow_register")]
+    assert epochs["torch"] == epochs["jax"] == [
+        [str(e) for e in (2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 25)],
+        [str(e) for e in range(1, 13)]]

@@ -74,18 +74,18 @@ UNET_CASES = {"flow_model": (32, 2, 12), "flow_depth": (96, 1, 12),
     (dict(flow_depth=2), "item 11"),
     (dict(flow_compose=False), "item 11"),
     (dict(flow_remat=True), "item 11"),
-    (dict(matrix_optimizer="lm"), "item 10"),
+    pytest.param(dict(matrix_optimizer="lm"), "item 14", id="option4-item 10"),
 ])
 def test_torch_cascade_unported_options_raise(option, item, monkeypatch):
-    """The options that came with ROADMAP queue 1 items 10 and 11. The LM
-    matrix optimizer (item 10) still raises. The U-Net options (item 11) run,
+    """The options of ROADMAP queue 1 items 11 and 14. The LM matrix
+    optimizer (item 14) still raises. The U-Net options (item 11) run,
     each held against the JAX package's cascade on a 2D pair, U-Net flow
     stage only, SGD at lr 0.01, every fresh network starting from JAX's
     initial weights for the seed: the executed steps, every loss within the
     engines' tolerance (rtol 1e-3, atol 3e-4: NCC's alpha turns the
     frameworks' f32 rounding into ~1e-4) and the flow within 1e-2 of its
     largest value."""
-    if item == "item 10":
+    if item == "item 14":
         vol = torch.zeros((1, 1, 16, 16, 16))
         with pytest.raises(NotImplementedError, match=item):
             register_cascade(vol, vol, **dict(reduced_recipe(), **option))

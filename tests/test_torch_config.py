@@ -1,7 +1,7 @@
 """The port's config dataclasses: pinned to the port's engine signatures by
 introspection (the drift pin of ``tests/test_config.py``) and to the JAX
-package's dataclasses, field for field, except the fields of code not ported
-yet, which are listed here."""
+package's dataclasses, field for field, except the JAX engines' unused
+``per``, which the port's engines do not take."""
 import dataclasses
 import inspect
 
@@ -24,12 +24,11 @@ PAIRS = [(tcfg.RigidConfig, rigid_register, jcfg.RigidConfig),
          (tcfg.CascadeConfig, register_cascade, jcfg.CascadeConfig)]
 IDS = ["rigid", "affine", "flow", "cascade"]
 
-# JAX engine arguments of code the port does not have yet: the unused `per`
-# and the chunked progress runner (queue 1 item 5)
+# JAX engine arguments the port's engines do not take: the unused `per`
 NOT_PORTED = {
-    "RigidConfig": {"per", "progress_every"},
-    "AffineConfig": {"per", "progress_every"},
-    "FlowConfig": {"progress_every"},
+    "RigidConfig": {"per"},
+    "AffineConfig": {"per"},
+    "FlowConfig": set(),
     "CascadeConfig": set(),
 }
 

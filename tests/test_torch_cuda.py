@@ -1,6 +1,6 @@
-"""K1, K2, K3 and the slice on the GPU: the kernels against their plain
-versions, and the port's cascades (field and U-Net flow) on the card against
-the same cascades on the CPU.
+"""K1, K2, K3, K2b and the slices on the GPU: the kernels against their plain
+versions, the port's cascades (field and U-Net flow) and criteria on the card
+against the same calls on the CPU, and ``Register``'s default device.
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -176,13 +176,14 @@ def test_torch_cuda_warp_rejects_bad_inputs(dev):
 
 @pytest.mark.parametrize("ci,co,shape", [(1, 8, (9, 12, 13)), (8, 8, (7, 10, 40)),
                                          (16, 32, (5, 27, 35)), (32, 16, (6, 19, 8)),
-                                         (3, 11, (4, 70, 33))])
+                                         (3, 11, (4, 70, 33)), (1, 9, (12, 30, 35))])
 @pytest.mark.parametrize("N", [1, 2])
 def test_torch_cuda_conv3d_matches_plain(dev, ci, co, shape, N):
     """K3 forward (raw launch) and the Function's dx (K3) and dw against the
     plain version and autograd through it, cuDNN with TF32 off: f32 sums in
-    another order, 1e-5 of the largest value. Co = 11 leaves a ragged
-    output-channel chunk; the shapes leave ragged tiles in y and x."""
+    another order, 1e-5 of the largest value. Co = 11 and the Sobel filter's
+    Co = 9 leave a ragged output-channel chunk; the shapes leave ragged
+    tiles in y and x."""
     torch.backends.cudnn.allow_tf32 = False
     from torchregister_tpu_torch.ops.cuda import conv3d as k3
 
@@ -244,3 +245,130 @@ def test_torch_cuda_unet_cascade_runs_k3(dev):
     q_gpu = flow_truth_metrics(gpu, *(a.to(dev) for a in pair))
     q_cpu = flow_truth_metrics(cpu, *pair)
     assert abs(q_gpu[0] - q_cpu[0]) <= 3.0, (q_gpu, q_cpu)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 40, 37, 45), (2, 3, 12, 20, 17), (2, 1, 30, 41)])
+def test_torch_cuda_edge_filter_matches_cpu(dev, shape):
+    """The Sobel filter on the card (K3, 1 -> 9 channels) against the CPU:
+    the magnitude at rtol 1e-5, the mask equal away from the thresholds."""
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+    from torchregister_tpu_torch.ops.edge import edge_filter, edge_magnitude
+    from torchregister_tpu_torch.synthetic import make_pair
+
+    if len(shape) == 5 and shape[:2] == (1, 1):
+        x = make_pair(shape[2:])[0]
+    else:
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(sum(shape)))
+    k3.reset_counts()
+    mag = edge_magnitude(x.to(dev))
+    assert k3.fwd_launches == 1
+    ref = edge_magnitude(x)
+    torch.testing.assert_close(mag.cpu(), ref, rtol=1e-5, atol=1e-6)
+    away = ((ref - 0.2).abs() > 1e-5) & ((ref - 0.9).abs() > 1e-5)
+    mask = edge_filter(x.to(dev))
+    assert mask.is_cuda
+    assert torch.equal(mask.cpu()[away], edge_filter(x)[away])
+
+
+# ------------------------------------------------------------------ K2b
+
+
+@pytest.mark.parametrize("shape", [(45, 50, 41), (33, 40, 37), (56, 48, 44)])
+def test_torch_cuda_roigather_matches_plain(dev, shape):
+    """K2b is a copy: equal to its plain version to the bit, on the windows
+    of a rigid transform and on windows past every face (zeros there)."""
+    import numpy as np
+
+    from torchregister_tpu_torch.ops import blocked
+    from torchregister_tpu_torch.ops.cuda import roigather as k2b
+    from torchregister_tpu_torch.ops.transforms import rigid_theta_np
+
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    vol = torch.randn(shape, generator=gen, device=dev)
+    theta = rigid_theta_np(np.array([0.2, -0.1, 0.15, 0.05, -0.03, 0.08]))
+    scal = torch.from_numpy(blocked._roi_supports(theta, shape, False)[0]).to(dev)
+    wild = torch.randint(-3, 8, (300, 5), generator=gen, device=dev, dtype=torch.int32)
+    k2b.reset_counts()
+    for sc in (scal, wild):
+        torch.testing.assert_close(k2b.roigather_launch(vol, sc), k2b.roigather_plain(vol, sc),
+                                   rtol=0, atol=0)
+    assert k2b.launches == 2
+
+
+def test_torch_cuda_roigather_rejects_bad_inputs(dev):
+    from torchregister_tpu_torch.ops.cuda import roigather as k2b
+
+    vol = torch.rand((20, 20, 20), device=dev)
+    scal = torch.zeros((4, 5), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        k2b.roigather(vol.to(torch.bfloat16), scal)
+    with pytest.raises(TypeError):
+        k2b.roigather(vol, scal.long())
+    with pytest.raises(ValueError, match="same CUDA device"):
+        k2b.roigather_launch(vol, scal.cpu())
+
+
+@pytest.mark.parametrize("shape,align", [((48, 48, 48), False), ((45, 50, 41), True)])
+def test_torch_cuda_compact_route_matches_k2(dev, shape, align, monkeypatch):
+    """``warp_affine_roi``'s compact route (K2b and the hat einsums) against
+    K2 on a smooth pair, 1e-5 of the largest value: the hats sum the same
+    corners in another order from an index map rounded once from float64;
+    ``warp_affine_fast`` takes the route when it is enabled and runs K2b,
+    and with ``ROIGATHER_FUSED`` (the fused form, K2) it runs K2 alone."""
+    from torchregister_tpu_torch.ops import blocked
+    from torchregister_tpu_torch.ops.cuda import roigather as k2b
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+    from torchregister_tpu_torch.synthetic import make_pair
+
+    moving = make_pair(shape, device=dev)[0]
+    theta = rigid_theta(torch.tensor([0.2, -0.1, 0.15, 0.05, -0.03, 0.08], device=dev))[None]
+    ref = blocked.warp_affine_fast(theta, moving, align)
+    monkeypatch.setattr(blocked, "ROIGATHER_ENABLED", True)
+    k2b.reset_counts()
+    torch.testing.assert_close(blocked.warp_affine_fast(theta, moving, align), ref,
+                               rtol=0, atol=0)
+    assert k2b.launches == 0
+    monkeypatch.setattr(blocked, "ROIGATHER_FUSED", False)
+    out = blocked.warp_affine_fast(theta, moving, align)
+    assert k2b.launches == 1 and out.is_cuda
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+# ------------------------------------------------------------------ criteria, API
+
+
+def test_torch_cuda_nmi_loss_matches_cpu(dev):
+    """``nmi_loss`` (binned path, scatter-add splat) on the card against the
+    CPU: value within 3e-5 and gradient within 3e-4 of its largest entry. The
+    loss is 1000 |NMI - 1|, a difference of near-equal f32 numbers, and the
+    card's atomics sum the histogram in another order (the CPU tests hold
+    the CPU path to the JAX package at the same tolerances)."""
+    from torchregister_tpu_torch.losses.nmi import nmi_loss
+
+    gen = torch.Generator().manual_seed(3)
+    y = torch.rand((1, 1, 24, 20, 22), generator=gen)
+    yp = 0.7 * y + 0.3 * torch.rand(y.shape, generator=gen)
+    out = []
+    for d in ("cpu", dev):
+        p = yp.to(d).clone().requires_grad_(True)
+        loss = nmi_loss(y.to(d), p, patch_size=8, bandwidth=0.05)
+        loss.backward()
+        out.append((float(loss), p.grad.cpu()))
+    (lc, gc), (lg, gg) = out
+    assert lg == pytest.approx(lc, rel=3e-5)
+    torch.testing.assert_close(gg, gc, rtol=0, atol=3e-4 * float(gc.abs().max()))
+
+
+def test_torch_cuda_register_default_device_is_cuda(dev):
+    """``Register()`` with ``device=None`` runs on the card: numpy input
+    lands there, and so do the transform and the warped image."""
+    import numpy as np
+
+    from torchregister_tpu_torch import Register
+    from torchregister_tpu_torch.synthetic import make_pair
+
+    mov, tgt = (a.numpy() for a in make_pair((24, 24, 24)))
+    reg = Register(mode="rigid", criterion=["mse"], init="identity", optimizer="adam")
+    assert reg.device.type == "cuda"
+    reg.optim(mov, tgt, lr=1e-2, max_epochs=5)
+    assert reg.theta.is_cuda and reg(np.asarray(mov)).is_cuda

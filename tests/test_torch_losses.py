@@ -74,10 +74,24 @@ def test_torch_get_criterion():
 
 @pytest.mark.parametrize("name", ["nmi", "lncc"])
 def test_torch_unported_criteria_raise(name):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tl.get_criterion(name)
+    """The names that raised before NMI and LNCC were ported resolve to the
+    port's functions and agree with the JAX package's by name, with and
+    without keywords (NMI at patch 4, bandwidth 0.05 on the unit range: its
+    binned path; a small patch keeps the JAX splat quick)."""
+    assert tl.get_criterion(name) is getattr(tl, "nmi_loss" if name == "nmi" else name)
+    kw = dict(patch_size=4, bandwidth=0.05) if name == "nmi" else dict(win=4)
+    (jy, jyp), (ty, typ) = _pair("float32", seed=5)
+    jy, jyp, ty, typ = (jnp.abs(jy), jnp.abs(jyp), ty.abs(), typ.abs())
+    got = float(tl.get_criterion(name, **kw)(ty, typ))
+    assert got == pytest.approx(float(jl.get_criterion(name, **kw)(jy, jyp)), rel=3e-5)
 
 
 def test_torch_default_stack_raises_until_nmi_is_ported():
-    with pytest.raises(NotImplementedError, match="NMI"):
-        tl.resolve_criteria(None, None)
+    """``None`` is the reference stack MSE, NCC(100), NMI(1000) with weights
+    0.33 each, as in the JAX package."""
+    crits, w = tl.resolve_criteria(None, None)
+    jcrits, jw = jl.resolve_criteria(None, None)
+    assert crits == tl.default_criteria() == (tl.mse, tl.ncc, tl.nmi_loss)
+    assert w == jw == tl.DEFAULT_WEIGHTS
+    assert [c.__name__ for c in crits] == [c.__name__ for c in jcrits]
+    assert tl.resolve_criteria(None, [1.0, 2.0, 3.0])[1] == (1.0, 2.0, 3.0)

@@ -5,7 +5,7 @@ its module paths (``ops/pallas/sweep.py`` <-> ``ops/cuda/sweep.py``) and
 imports no JAX. The public surface, for what is ported:
 
     import torchregister_tpu_torch as tr
-    warping = tr.Register(mode='rigid', device='cuda', criterion=['mse', 'ncc'])
+    warping = tr.Register(mode='rigid')  # the card; MSE + NCC + NMI
     warping.optim(moving, target, lr=1e-5, max_epochs=500)
     warped = warping(moving)
     field = tr.norm(abs(warping.theta))
@@ -17,8 +17,9 @@ from .engines.cascade import CascadeResult, register_cascade
 from .engines.common import RegistrationResult
 from .engines.flow import FlowResult, flow_register
 from .engines.rigid import rigid_register
-from .losses import get_criterion, mse, ncc, ssd
+from .losses import get_criterion, lncc, mse, ncc, nmi, nmi_loss, ssd
 from .ops.blocked import warp_affine_fast, warp_flow_fast
+from .ops.edge import edge_filter
 from .ops.resample import grid_sample, warp_affine, warp_flow
 from .ops.transforms import compose_theta, identity_theta, rigid_theta
 from .utils.io import load_transform, save_transform
@@ -44,12 +45,16 @@ __all__ = [
     "warp_affine_fast",
     "warp_flow_fast",
     "grid_sample",
+    "edge_filter",
     "rigid_theta",
     "identity_theta",
     "compose_theta",
     "mse",
     "ncc",
     "ssd",
+    "lncc",
+    "nmi",
+    "nmi_loss",
     "get_criterion",
     "save_transform",
     "load_transform",

@@ -149,7 +149,9 @@ def main(argv=None) -> int:
     r.add_argument("--flow-lr", type=float, default=None,
                    help="flow-stage lr (default 0.3: direct-field steps are in voxels)")
     r.add_argument("--n", type=float, default=8, help="U-Net width divisor")
-    r.add_argument("--criterion", nargs="*", help="e.g. mse ncc ssd")
+    r.add_argument("--criterion", nargs="*",
+                   help="e.g. mse ncc nmi lncc ssd (default: mse ncc for the cascade, "
+                        "the reference stack mse ncc nmi otherwise)")
     r.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     r.add_argument("--grad-edges", action="store_true")
     r.add_argument("--flow-dtype", default="float32", choices=["float32", "bfloat16"])

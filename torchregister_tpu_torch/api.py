@@ -8,12 +8,16 @@ channels of ``[1, C, *S]`` at once through kernel K2 (``ops/blocked.py``), so
 it is exact (``grid_sample`` semantics) whatever ``method`` the optimization
 used.
 
-``device`` is a torch device (or its name): ``None`` keeps a tensor's own
-device and puts numpy input on the CPU. ``init='random'`` and the U-Net's
-initial weights (``mode='flow', flow_model='unet'``) draw from a
-``torch.Generator`` seeded by ``seed`` (so not the JAX package's numbers).
-``criterion=None`` is the reference stack with NMI, which is not ported yet
-and raises ``NotImplementedError``.
+``device`` is a torch device (or its name). ``None`` means the card,
+``cuda``, as the JAX package's ``None`` means its default device, the
+accelerator: without a CUDA device the constructor raises, and the CPU runs
+only when asked for (``device='cpu'``). Every input moves to that device.
+``init='random'`` and the U-Net's initial weights (``mode='flow',
+flow_model='unet'``) draw from a ``torch.Generator`` seeded by ``seed`` (so
+not the JAX package's numbers). ``criterion=None`` is the reference stack,
+MSE + NCC(100) + NMI(1000). ``debug=True`` checks the NMI criterion on the
+inputs before the loop, prints progress every tenth of the epochs and
+reports after it.
 """
 from __future__ import annotations
 
@@ -67,10 +71,10 @@ class Register:
         if flow_model not in ("unet", "field"):
             raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
         self.mode = mode
-        self.device = None if device is None else torch.device(device)
-        if self.device is not None and self.device.type == "cuda" \
-                and not torch.cuda.is_available():
-            raise RuntimeError(f"Register(device={device!r}): no CUDA device")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Register(device={device!r}) runs on the card: no CUDA "
+                               "device (pass device='cpu' to run on the CPU)")
         self.criterion = criterion
         self.weight = weight
         self.grad_edges = grad_edges
@@ -104,18 +108,23 @@ class Register:
             lr = 0.3 if (self.mode == "flow" and self.flow_model == "field") else 1e-5
         moving = self._put(moving)
         target = self._put(target)
+        if self.debug:
+            self._preflight(moving, target)
+        matrix_progress = max(1, max_epochs // 10) if self.debug else None
+        flow_progress = min(100, max(1, max_epochs // 10)) if self.debug else None
         if self.mode == "flow":
             _, res = flow_register(
                 moving, target, lr=lr, max_epochs=max_epochs, n=n, criterions=self.criterion,
                 weights=self.weight, stop_crit=stop_crit, optimizer=self.optimizer,
                 generator=torch.Generator().manual_seed(self.seed), method=self.method,
-                max_disp=self.max_disp, flow_model=self.flow_model, smooth=self.smooth)
+                max_disp=self.max_disp, flow_model=self.flow_model, smooth=self.smooth,
+                progress_every=flow_progress)
             self.theta = res.flow
         elif self.mode == "affine":
             _, res = affine_register(
                 moving, target, lr=lr, epochs=max_epochs, criterions=self.criterion,
                 weights=self.weight, grad_edges=self.grad_edges, optimizer=self.optimizer,
-                method=self.method, max_shift=self.max_shift)
+                method=self.method, max_shift=self.max_shift, progress_every=matrix_progress)
             self.theta = res.best_theta
         else:
             _, res = rigid_register(
@@ -123,7 +132,7 @@ class Register:
                 weights=self.weight, grad_edges=self.grad_edges, optimizer=self.optimizer,
                 init=self.init,
                 generator=torch.Generator(device=moving.device).manual_seed(self.seed),
-                method=self.method, max_shift=self.max_shift)
+                method=self.method, max_shift=self.max_shift, progress_every=matrix_progress)
             self.theta = res.best_theta
         self.result = res
         self.losses = res.losses
@@ -143,8 +152,21 @@ class Register:
 
     def _put(self, x) -> torch.Tensor:
         x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
-        x = x.to(torch.float32)
-        return x if self.device is None else x.to(self.device)
+        return x.to(device=self.device, dtype=torch.float32)
+
+    def _preflight(self, moving, target) -> None:
+        """Under ``debug``: evaluate each NMI criterion of the stack once on
+        the inputs, with the user's own keywords (a custom bandwidth or bin
+        count is what makes the KDE go non-finite), and raise naming the
+        failing stage instead of optimizing on NaN. The loop stays unchecked."""
+        from .losses import resolve_criteria
+        from .losses.nmi import nmi_loss, nmi_loss_checked
+
+        crits, _ = resolve_criteria(self.criterion, self.weight)
+        for c in crits:
+            if getattr(c, "func", c) is nmi_loss:
+                with torch.no_grad():
+                    nmi_loss_checked(moving, target, **(getattr(c, "keywords", None) or {}))
 
     def _report(self):
         """Debug report: first/last/best loss, 11 marks of the loss and

@@ -8,10 +8,9 @@
 
 ``tests/test_torch_config.py`` pins each dataclass to its engine's signature
 by introspection, and to the JAX package's dataclass. The fields are the
-port's engine arguments: options of the JAX engines that exist only for code
-not ported yet (the chunked progress runner's ``progress_every``) and the
-unused ``per`` are not fields here; nor are the engines' random generators,
-which stand where the JAX engines take a ``key``.
+port's engine arguments: the JAX engines' unused ``per`` is not a field here,
+nor are the engines' random generators, which stand where the JAX engines
+take a ``key``.
 
 Usage::
 
@@ -48,6 +47,7 @@ class RigidConfig:
     check_window: bool = True
     stop_rel: Optional[float] = None  # plateau early stop
     patience: int = 25
+    progress_every: Optional[int] = None  # print progress every N epochs
 
     def run(self, moving, target, **overrides):
         from .engines.rigid import rigid_register
@@ -70,6 +70,7 @@ class AffineConfig:
     check_window: bool = True
     stop_rel: Optional[float] = None
     patience: int = 25
+    progress_every: Optional[int] = None
 
     def run(self, moving, target, **overrides):
         from .engines.affine import affine_register
@@ -103,6 +104,7 @@ class FlowConfig:
     stop_rel: Optional[float] = None
     patience: int = 25
     zero_head: bool = False  # zero-init U-Net flow head
+    progress_every: Optional[int] = None
 
     def run(self, moving, target, **overrides):
         from .engines.flow import flow_register

@@ -1,12 +1,14 @@
 """Affine registration engine (counterpart of
 ``torchregister_tpu/engines/affine.py``): the parameters are theta itself, a
-flat identity-initialized ``[d*(d+1)]`` vector."""
+flat identity-initialized ``[d*(d+1)]`` vector. ``grad_edges`` as in
+``engines/rigid.py``."""
 from __future__ import annotations
 
 import torch
 
 from ..losses import resolve_criteria, weighted_loss
 from ..ops.blocked import warp_affine_fast
+from ..ops.edge import edge_filter
 from ..ops.resample import warp_affine
 from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import identity_theta
@@ -16,7 +18,6 @@ from .common import (
     optimize_scan,
     resolve_sweep_windows,
 )
-from .rigid import check_engine_options
 
 
 def affine_register(
@@ -34,12 +35,15 @@ def affine_register(
     check_window: bool = True,
     stop_rel: float | None = None,
     patience: int = 25,
+    progress_every: int | None = None,
 ) -> tuple[torch.Tensor, RegistrationResult]:
     """Register ``moving [1,1,*S]`` onto ``target`` with a full affine
     matrix; returns ``(warped_best, result)``. ``init_theta`` (``[1, d,
-    d+1]`` or flat) warm-starts, identity by default. ``method`` as in
-    :func:`rigid_register`."""
-    check_engine_options(grad_edges)
+    d+1]`` or flat) warm-starts, identity by default. ``method`` and
+    ``progress_every`` as in :func:`rigid_register`."""
+    if grad_edges:
+        moving = edge_filter(moving)
+        target = edge_filter(target)
     criteria, w = resolve_criteria(criterions, weights)
     loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
@@ -60,7 +64,8 @@ def affine_register(
         return loss(target, warped)
 
     final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
-        loss_fn, params0, optimizer, lr, epochs, stop_rel, patience)
+        loss_fn, params0, optimizer, lr, epochs, stop_rel, patience,
+        progress_every, "affine_register")
     result = RegistrationResult(
         final_theta=final_params.reshape(1, ndim, ndim + 1),
         best_theta=best_params.reshape(1, ndim, ndim + 1),

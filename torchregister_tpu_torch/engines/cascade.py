@@ -133,7 +133,7 @@ def register_cascade(
                          f"(got {moment_init!r})")
     m_opt = optimizer if matrix_optimizer is None else matrix_optimizer
     if m_opt == "lm":
-        _not_ported("matrix_optimizer='lm'", "10 (engines/second_order.py)")
+        _not_ported("matrix_optimizer='lm'", "14 (engines/second_order.py)")
     if matrix_levels is not None and matrix_levels < 1:
         raise ValueError(f"matrix_levels must be >= 1 (got {matrix_levels})")
 

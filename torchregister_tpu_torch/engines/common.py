@@ -40,14 +40,22 @@ def make_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
         return torch.optim.Adam(params, lr=lr)
     if name == "lm":
         raise NotImplementedError(
-            "optimizer 'lm' is not ported yet: ROADMAP queue 1 item 10 "
+            "optimizer 'lm' is not ported yet: ROADMAP queue 1 item 14 "
             "(engines/second_order.py)")
     raise ValueError(f"unknown optimizer {name!r} (use 'sgd' or 'adam')")
 
 
+def _print_progress(label: str, i: int, epochs: int, best_loss, params) -> None:
+    ptxt = np.array2string(params.detach().cpu().numpy().ravel(), precision=4,
+                           separator=", ")
+    print(f"[{label}] epoch {i}/{epochs} best_loss={float(best_loss):.6g} params={ptxt}",
+          flush=True)
+
+
 def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
                   params0: torch.Tensor, optimizer: str, lr: float, epochs: int,
-                  stop_rel: float | None = None, patience: int = 25):
+                  stop_rel: float | None = None, patience: int = 25,
+                  progress_every: int | None = None, label: str = "optimize_scan"):
     """Run up to ``epochs`` optimizer steps of ``loss_fn`` on one flat
     parameter tensor.
 
@@ -57,6 +65,10 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
     improved on the reference loss by ``stop_rel`` (relative) for
     ``patience`` steps; the reference resets to the best loss whenever it
     does. Host comparisons run in float32, like the JAX carry.
+
+    ``progress_every=N`` prints the epoch, the best loss and the current
+    parameters every N steps and where the plateau stop fires (the JAX
+    package's ``run_with_progress`` lines).
     """
     device = params0.device
     params = params0.detach().to(torch.float32).clone().requires_grad_(True)
@@ -71,6 +83,10 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
     i = 0
     while i < epochs:
         if factor is not None and since >= patience and best_loss > ref_loss * factor:
+            if progress_every:
+                if i % progress_every:
+                    _print_progress(label, i, epochs, best_loss, params)
+                print(f"[{label}] plateau early-stop at epoch {i}", flush=True)
             break
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(params)
@@ -88,6 +104,8 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
             else:
                 since += 1
         i += 1
+        if progress_every and (i % progress_every == 0 or i == epochs):
+            _print_progress(label, i, epochs, best_loss, params)
     return (params.detach(), best_params, torch.tensor(best_loss, device=device),
             torch.from_numpy(losses).to(device), hist, i)
 

@@ -28,10 +28,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..losses import resolve_criteria, weighted_loss
 from ..models.attention_unet import AttentionUNet, max_depth_for
+from ..ops.edge import edge_filter
 from ..ops.resample import warp_flow
 from ..ops.separable import warp_flow_separable
 from .common import make_optimizer
-from .rigid import check_engine_options
 
 
 class FlowResult(NamedTuple):
@@ -107,6 +107,7 @@ def flow_register(
     stop_rel: float | None = None,
     patience: int = 25,
     zero_head: bool = False,
+    progress_every: int | None = None,
 ) -> tuple[torch.Tensor, FlowResult]:
     """Deformable registration of ``moving [1, in_c, *S]`` onto ``target``;
     returns ``(warped, FlowResult)``.
@@ -125,11 +126,15 @@ def flow_register(
     ``utils.pyramid.upsample_flow`` across resolutions).
 
     With ``check_disp`` a RuntimeWarning fires when the field outgrows
-    ``max_disp``.
+    ``max_disp``. ``grad_edges=True`` registers the images' Sobel edge
+    masks (``ops/edge.py``). ``progress_every=N`` prints the loss every N
+    steps and the cause of an early stop.
     """
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
-    check_engine_options(grad_edges)
+    if grad_edges:
+        moving = edge_filter(moving)
+        target = edge_filter(target)
     criteria, w = resolve_criteria(criterions, weights)
     loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
@@ -189,6 +194,14 @@ def flow_register(
                 since += 1
         last = loss_val
         i += 1
+        if progress_every and (i % progress_every == 0 or i == max_epochs):
+            print(f"[flow_register] epoch {i}/{max_epochs} loss={last:.6g}", flush=True)
+    if progress_every and i < max_epochs:
+        if i % progress_every:
+            print(f"[flow_register] epoch {i}/{max_epochs} loss={last:.6g}", flush=True)
+        cause = (f"loss <= {stop_crit:g}" if last <= stop_crit
+                 else f"plateau (stop_rel={stop_rel}, patience={patience})")
+        print(f"[flow_register] stopped at epoch {i} ({cause})", flush=True)
     with torch.no_grad():
         flow = predict(moving).detach()
         warped = warp(moving, flow)  # method-consistent final warp

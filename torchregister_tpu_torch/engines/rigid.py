@@ -2,13 +2,17 @@
 ``torchregister_tpu/engines/rigid.py``): a 6-vector (3D) or 3-vector (2D) of
 raw parameters mapped by :func:`rigid_theta` and optimized through the
 separable warp (``method='separable'``) or the exact resampler (any other
-``method``, as in the JAX package)."""
+``method``, as in the JAX package). ``grad_edges=True`` (the default)
+registers the Sobel edge masks of both images (``ops/edge.py``) instead of
+the images, and the returned image is the warped mask, as in the JAX
+package."""
 from __future__ import annotations
 
 import torch
 
 from ..losses import resolve_criteria, weighted_loss
 from ..ops.blocked import warp_affine_fast
+from ..ops.edge import edge_filter
 from ..ops.resample import warp_affine
 from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import rigid_theta, rigid_theta_np
@@ -18,14 +22,6 @@ from .common import (
     optimize_scan,
     resolve_sweep_windows,
 )
-
-
-def check_engine_options(grad_edges: bool) -> None:
-    """Raise for the engine options whose code is not ported yet."""
-    if grad_edges:
-        raise NotImplementedError(
-            "grad_edges=True needs the Sobel edge filter, not ported yet: ROADMAP "
-            "queue 1 item 10 (ops/edge.py); pass grad_edges=False")
 
 
 def init_rigid_params(ndim: int, generator: torch.Generator | None = None,
@@ -54,13 +50,17 @@ def rigid_register(
     check_window: bool = True,
     stop_rel: float | None = None,
     patience: int = 25,
+    progress_every: int | None = None,
 ) -> tuple[torch.Tensor, RegistrationResult]:
     """Register ``moving [1,1,*S]`` onto ``target`` with a rigid transform;
     returns ``(warped_best, result)``. ``max_shift`` bounds the sweep;
     by default the windows cover the concrete init theta. Under
     ``method='exact'`` the loop warps with ``ops/resample.warp_affine`` and
-    ``warped_best`` comes from K2 (``warp_affine_fast``)."""
-    check_engine_options(grad_edges)
+    ``warped_best`` comes from K2 (``warp_affine_fast``).
+    ``progress_every=N`` prints progress every N steps."""
+    if grad_edges:
+        moving = edge_filter(moving)
+        target = edge_filter(target)
     criteria, w = resolve_criteria(criterions, weights)
     loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
@@ -78,7 +78,8 @@ def rigid_register(
         return loss(target, warped)
 
     final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
-        loss_fn, init_params, optimizer, lr, epochs, stop_rel, patience)
+        loss_fn, init_params, optimizer, lr, epochs, stop_rel, patience,
+        progress_every, "rigid_register")
     result = RegistrationResult(
         final_theta=rigid_theta(final_params)[None],
         best_theta=rigid_theta(best_params)[None],

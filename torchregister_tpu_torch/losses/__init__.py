@@ -1,8 +1,10 @@
 """Similarity criteria and the weighted-sum combinator (counterpart of
 ``torchregister_tpu/losses/__init__.py``).
 
-Criteria are called as ``criterion(target, warped)``. Names not ported yet
-(``nmi``, ``lncc``) raise ``NotImplementedError``.
+Criteria are called as ``criterion(target, warped)``. ``None`` stands for the
+reference's default stack, MSE + NCC(100) + NMI(1000) with weights
+``[0.33, 0.33, 0.33]``; a user's criterion list is used as given (the
+reference discards it, warpings.py:36-40).
 """
 from __future__ import annotations
 
@@ -11,15 +13,12 @@ from typing import Callable, Sequence
 
 import torch
 
-from .similarity import mse, ncc, ssd
+from .nmi import get_pdf, kde_pdf, nmi, nmi_loss
+from .similarity import lncc, mse, ncc, ssd
 
 Criterion = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
-_REGISTRY = {"mse": mse, "ssd": ssd, "ncc": ncc}
-_NOT_PORTED = {
-    "nmi": "ROADMAP queue 1 item 10 (losses/nmi.py)",
-    "lncc": "ROADMAP queue 1 item 10 (lncc)",
-}
+_REGISTRY = {"mse": mse, "ssd": ssd, "ncc": ncc, "lncc": lncc, "nmi": nmi_loss}
 
 DEFAULT_WEIGHTS = (0.33, 0.33, 0.33)
 
@@ -36,9 +35,6 @@ def get_criterion(spec, **kwargs) -> Criterion:
         return spec
     if isinstance(spec, str):
         key = spec.lower()
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"criterion {spec!r} is not ported yet: {_NOT_PORTED[key]}")
         if key not in _REGISTRY:
             raise KeyError(f"unknown criterion {spec!r}; known: {sorted(_REGISTRY)}")
         if not kwargs:
@@ -48,10 +44,8 @@ def get_criterion(spec, **kwargs) -> Criterion:
 
 
 def default_criteria() -> tuple[Criterion, ...]:
-    """The reference default stack is MSE, NCC(100), NMI(1000); NMI is not
-    ported yet, so this raises."""
-    raise NotImplementedError(
-        f"the default criterion stack includes NMI, not ported yet: {_NOT_PORTED['nmi']}")
+    """The reference default stack (warpings.py:37): MSE, NCC(100), NMI(1000)."""
+    return (mse, ncc, nmi_loss)
 
 
 def weighted_loss(criteria: Sequence[Criterion], weights: Sequence[float]) -> Criterion:
@@ -90,4 +84,5 @@ def resolve_criteria(criterion, weight):
 
 
 __all__ = ["get_criterion", "default_criteria", "weighted_loss", "resolve_criteria",
-           "mse", "ssd", "ncc", "DEFAULT_WEIGHTS"]
+           "mse", "ssd", "ncc", "lncc", "nmi", "nmi_loss", "get_pdf", "kde_pdf",
+           "DEFAULT_WEIGHTS"]
