@@ -2,18 +2,21 @@
 
 Builds kernels K1 (the sweep resampler, ``torchregister_tpu_torch/csrc/
 sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``), K3 (the valid
-3x3x3 convolution of the U-Net and the Sobel edge filter, ``csrc/conv3d.cu``)
-and K2b (the compact ROI gather of the exact warp's compact-block route,
-``csrc/roigather.cu``) from the checkout, holds each against its plain
-PyTorch version on the card, drives the port's paths with quality gates (the
-recipe cascade on the 240³ pairs; the CLI's register/apply round trip on
-NIfTI files; ``Register`` rigid, then flow; the U-Net parity cascade on the
-240³ deformable pair; ``Register`` in U-Net mode at the reference width;
-``Register`` with the reference's default criteria and its exact warp on the
-compact route; the matrix engines with their own defaults, edge filter and
-default criteria), and times each kernel against its plain version and the
-one PyTorch call that computes the same function, where there is one. Any
-failure raises, so the exit code is non-zero.
+3x3x3 convolution of the U-Net and the Sobel edge filter, ``csrc/conv3d.cu``),
+K2b (the compact ROI gather of the exact warp's compact-block route,
+``csrc/roigather.cu``) and the benchmark probes' kernels (``csrc/
+hatgather.cu``: P1-P5 of ``benchmarks/probe_hatgather.py``; ``csrc/
+roi_fetch.cu``: the fetch of ``benchmarks/probe_roi_stages.py``) from the
+checkout, holds each against its plain PyTorch version on the card, drives
+the port's paths with quality gates (the recipe cascade on the 240³ pairs;
+the CLI's register/apply round trip on NIfTI files; ``Register`` rigid, then
+flow; the U-Net parity cascade on the 240³ deformable pair, which must repeat
+to the bit; ``Register`` in U-Net mode at the reference width; ``Register``
+with the reference's default criteria and its exact warp on the compact
+route; the matrix engines with their own defaults, edge filter and default
+criteria; the two probe scripts' entry points), and times each kernel against its plain
+version and the one PyTorch call that computes the same function, where
+there is one. Any failure raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
 
@@ -56,6 +59,9 @@ from torchregister_tpu_torch.ops.grid import affine_grid
 from torchregister_tpu_torch.ops.resize import downsample_avg
 from torchregister_tpu_torch.ops.separable import affine_to_index_map
 from torchregister_tpu_torch.ops.transforms import rigid_theta
+from torchregister_tpu_torch.probes import checked_index
+from torchregister_tpu_torch.probes import hatgather as hg
+from torchregister_tpu_torch.probes import roi_stages as rs
 from torchregister_tpu_torch.synthetic import (
     RECIPE,
     RECIPE_UNET,
@@ -83,16 +89,26 @@ REPLACES = {
     "conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:174",
     "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:174",
     "roigather": "torchregister_tpu/ops/pallas/roigather.py:49",
+    # the benchmark probes: one kernel serves P2 and P4 (the same slab copy
+    # at two slab sizes)
+    "block_permute_add": "benchmarks/probe_hatgather.py:34",
+    "slab_gather": "benchmarks/probe_hatgather.py:69",
+    "slab_sum": "benchmarks/probe_hatgather.py:131",
+    "slice_transpose": "benchmarks/probe_hatgather.py:270",
+    "roi_fetch": "benchmarks/probe_roi_stages.py:69",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
-                 "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203"}
+                 "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
+                 "slab_gather": "benchmarks/probe_hatgather.py:222"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "warp_affine": "torchregister_tpu_torch/csrc/warp.cu",
            "warp_flow": "torchregister_tpu_torch/csrc/warp.cu",
            "conv3d_fwd": "torchregister_tpu_torch/csrc/conv3d.cu",
            "conv3d_dgrad": "torchregister_tpu_torch/csrc/conv3d.cu",
-           "roigather": "torchregister_tpu_torch/csrc/roigather.cu"}
+           "roigather": "torchregister_tpu_torch/csrc/roigather.cu",
+           **{name: "torchregister_tpu_torch/csrc/hatgather.cu" for name in hg.KERNELS},
+           "roi_fetch": "torchregister_tpu_torch/csrc/roi_fetch.cu"}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory and
 # f32 outside the tensor cores (the kernels sum in f32 FMAs, no TF32)
 HBM_BYTES_PER_S = 3.35e12
@@ -104,13 +120,14 @@ UNET_GATES = dict(unet_flow_truth_rmse_reduction_pct=62.0, unet_flow_field_err_v
                   unet_flow_field_err_observable_vox=1.1)
 UNET_TPU = dict(unet_flow_truth_rmse_reduction_pct=68.55, unet_flow_field_err_vox=3.023,
                 unet_flow_field_err_observable_vox=0.879)
-# Adam at lr 0.3 on the U-Net's weights is chaotic: the frameworks' f32
-# rounding, and the order of the atomic sums in K1's backward and in
-# index_select's, send runs of the same seed apart (13 runs on an H100:
-# 63.1-76.3 %, 2.93-3.55 vox, 0.56-1.05 vox; one in ten above the field-error
-# gate). One run is a sample of that spread, so the gates hold the median of
-# five.
-UNET_RUNS = 5
+# Adam at lr 0.3 on the U-Net's weights is chaotic: a last-bit difference
+# in a gradient grows into another plateau stop. With atomic sums in K1's
+# backward and in index_select's (and cuDNN free to pick a nondeterministic
+# algorithm), 13 runs of one seed on an H100 spread over 63.1-76.3 %. Every
+# sum on the path now runs in a fixed order, so two runs must agree to the
+# bit (the first is the warm-up, the second the timed run), and the gates
+# hold that one value.
+UNET_RUNS = 2
 # Register in U-Net mode at 240³ with the reference's width divisor n=32
 # (depth 4, channels 2/4/8/16/32): SGD steps at the API's default lr
 REGISTER_UNET_STEPS = 30
@@ -155,12 +172,13 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel's nvcc run at once, then load them."""
     t0 = time.perf_counter()
-    mods = (k1, k2, k3, k2b)
+    mods = (k1, k2, k3, k2b, hg, rs)
     with ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m.build(), mods))
     for m in mods:
         m._lib()
-    print(f"[build] K1, K2, K3 and K2b built in {time.perf_counter() - t0:.2f} s -> "
+    print(f"[build] K1, K2, K3, K2b and the probes built in "
+          f"{time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(lib.name for lib in libs)}", flush=True)
 
 
@@ -494,6 +512,79 @@ def phase_k2b() -> dict:
     return {"roigather": max(errs)}
 
 
+def _probe_inputs() -> dict:
+    """Each probe kernel's inputs at the probe's own sizes, index data
+    checked on the host and put on the card: ``{name: (args, atol)}``. P2's
+    and P4's slabs include the last valid origin; P3's 13824 origins (240³
+    bench fetch) come with the last valid one and (0, 0) appended, the
+    fetch's scalars (240³, the probe's theta) with the last valid block
+    origin appended. The copies must match to the bit; the sums at their
+    stated atol (``hg.P3_ATOL``, ``rs.FETCH_ATOL``)."""
+    dev = torch.device(DEV)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.arange(16 * 256, dtype=torch.float32, device=dev).reshape(16, 256)
+    vol64 = torch.rand((64, 64, 256), generator=gen).to(dev)
+    p2 = [[3, 5], [11, 0], [0, 23], [9, 9], [64 - 14, 64 - 16], [17, 31]]
+    p4 = [[3, 5], [11, 0], [0, 23], [9, 9], [64 - 16, 64 - 16]]
+    vol240 = torch.rand((SIZE, SIZE, 256), generator=gen).to(dev)
+    T = (SIZE // 10) ** 3
+    p3 = np.concatenate([hg.p3_origins(SIZE, T), [[SIZE - 14, SIZE - 16], [0, 0]]])
+    slab = torch.rand((32, 32, 256), generator=gen).to(dev)
+    p5 = [[0, 0, 3], [9, 13, 240 - 16], [18, 16, 0], [18, 16, 240]]
+    _, _, scal, volp = rs.stage_inputs(SIZE, dev)
+    last = volp.shape[0] // rs.QB - rs.NB
+    scal = np.concatenate([scal, [[last, last, 0, 0, 0]]]).astype(np.int32)
+
+    def orgs(o, B, vol):
+        return checked_index(o, (0, 1), (vol.shape[0] - B[0], vol.shape[1] - B[1]), "orgs", dev)
+
+    return {
+        "block_permute_add": ((x, checked_index([1, 0], (0,), (1,), "order", dev)[:, 0]), 0.0),
+        "slab_gather": ((vol64, orgs(p2, (14, 16), vol64), 14, 16), 0.0),
+        "slab_gather_p4": ((vol64, orgs(p4, (16, 16), vol64), 16, 16), 0.0),
+        "slab_sum": ((vol240, orgs(p3, (14, 16), vol240), 14, 16), hg.P3_ATOL),
+        "slice_transpose": ((slab, checked_index(p5, (0, 1, 2), (18, 16, 240), "starts", dev),
+                             14, 16, 16, 256), 0.0),
+        "roi_fetch": ((volp, rs.check_scalars(volp, scal)), rs.FETCH_ATOL),
+    }
+
+
+PROBE_FNS = {"block_permute_add": (hg.block_permute_add_launch, hg.block_permute_add_plain),
+             "slab_gather": (hg.slab_gather_launch, hg.slab_gather_plain),
+             "slab_gather_p4": (hg.slab_gather_launch, hg.slab_gather_plain),
+             "slab_sum": (hg.slab_sum_launch, hg.slab_sum_plain),
+             "slice_transpose": (hg.slice_transpose_launch, hg.slice_transpose_plain),
+             "roi_fetch": (rs.roi_fetch_launch, rs.roi_fetch_plain)}
+
+
+def phase_probes(inputs: dict) -> tuple[dict, dict]:
+    """Each probe kernel against its plain version at the probe's own sizes
+    (``_probe_inputs``); then the path: both probe modules' ``main`` (P1-P5, and
+    the ROI stages at 240³), counts set to 0 just before and read just
+    after. Returns the largest deviations and the path's launches."""
+    errs = {}
+    for case, (args, atol) in inputs.items():
+        launch, plain = PROBE_FNS[case]
+        out, ref = launch(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = _max_err(out, ref)
+        name = "slab_gather" if case == "slab_gather_p4" else case
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"[probes] {case}: out {tuple(out.shape)}, max|d| {err:.3e} (tol {atol:g})",
+              flush=True)
+        if out.shape != ref.shape or not err <= atol:
+            raise AssertionError(f"{case} disagrees with its plain version: {err:.3e}")
+    _reset_counts()
+    hg.main(["p1", "p2", "p3", "p4", "p5"])
+    rs.main()
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"[probes] the probe entry points' launches: {json.dumps(launches)}", flush=True)
+    _need(launches, (*hg.KERNELS, "roi_fetch", "roigather", "warp_affine"),
+          "the probe entry points")
+    return errs, launches
+
+
 def _on_cuda(res) -> None:
     for name, v in res._asdict().items():
         if isinstance(v, torch.Tensor) and not v.is_cuda:
@@ -553,14 +644,12 @@ def _counts() -> dict:
     return {"sweep_fwd": k1.fwd_launches, "sweep_bwd": k1.bwd_launches,
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
-            "roigather": k2b.launches}
+            "roigather": k2b.launches, **hg.launches, "roi_fetch": rs.launches}
 
 
 def _reset_counts() -> None:
-    k1.reset_counts()
-    k2.reset_counts()
-    k3.reset_counts()
-    k2b.reset_counts()
+    for m in (k1, k2, k3, k2b, hg, rs):
+        m.reset_counts()
 
 
 def _need(launches: dict, names, path: str) -> None:
@@ -664,8 +753,9 @@ def _level_ms_per_step(moving, target, steps: int = 20) -> list:
 def phase_unet() -> dict:
     """The U-Net parity cascade (RECIPE_UNET) on the 240³ deformable-truth
     pair, ``UNET_RUNS`` times (the first is the warm-up, the second the timed
-    run), gated on the median of each quality field; then the matrix stages
-    alone on the same pair, the floor a working U-Net must clearly beat."""
+    run), which must give the same steps, flow and quality fields to the bit,
+    gated on that quality; then the matrix stages alone on the same pair, the
+    floor a working U-Net must clearly beat."""
     fmov, ftgt, theta_true, flow_true = make_flow_truth_pair(device=DEV)
     names = list(UNET_GATES)
     runs = []
@@ -678,16 +768,21 @@ def phase_unet() -> dict:
         _on_cuda(res)
         _finite(res, tuple(fmov.shape))
         q = dict(zip(names, flow_truth_metrics(res, fmov, ftgt, theta_true, flow_true)))
-        runs.append(q)
+        runs.append((res.steps, res.flow, q))
         print(f"[unet] run {i}{' (warm-up)' if i == 0 else ''}: {wall:.3f} s, steps "
               f"{res.steps}; {json.dumps(q)}", flush=True)
     launches = _counts()
-    quality = {k: float(np.median([q[k] for q in runs])) for k in names}
+    steps, flow, quality = runs[0]
+    repeat = all(st == steps and torch.equal(fl, flow) and q == quality for st, fl, q in runs)
+    print(f"[unet] {UNET_RUNS} runs equal to the bit (steps, flow, quality): {repeat}",
+          flush=True)
+    if not repeat:
+        raise AssertionError("the U-Net cascade does not repeat to the bit from one seed")
     floor_res = register_cascade(fmov, ftgt, **{**RECIPE_UNET, "stages": ("rigid", "affine")})
     floor = dict(zip(names, flow_truth_metrics(floor_res, fmov, ftgt, theta_true, flow_true)))
     ms = _level_ms_per_step(fmov, ftgt)
     print(f"[unet] flow ms/step at 60³, 120³: {ms[0]:.2f}, {ms[1]:.2f}", flush=True)
-    print(f"[unet] median quality of {UNET_RUNS} runs: {json.dumps(quality)}", flush=True)
+    print(f"[unet] quality: {json.dumps(quality)}", flush=True)
     print(f"[unet] the JAX package on the TPU: {json.dumps(UNET_TPU)}; gates "
           f"{json.dumps(UNET_GATES)}", flush=True)
     print(f"[unet] matrix stages alone (no flow): {json.dumps(floor)}", flush=True)
@@ -1043,6 +1138,88 @@ def phase_k2b_times() -> dict:
     return row
 
 
+def _touched_rows(orgs: np.ndarray, Bz: int, By: int, Z: int, Y: int) -> int:
+    """The (z, y) rows of a [Z, Y, X] volume that slabs (Bz, By) at ``orgs``
+    read: the input the function needs, each row once."""
+    mask = np.zeros((Z, Y), bool)
+    for z, y in orgs:
+        mask[z:z + Bz, y:y + By] = True
+    return int(mask.sum())
+
+
+def phase_probe_times(inputs: dict) -> dict:
+    """One launch of each probe kernel against one pass of its plain
+    version and, for the copies (P2, P4, P5), one ``torch.take`` with the
+    indices made beforehand (P5's on the slab with a zero appended for the
+    empty lanes), at the probe's own sizes (``_probe_inputs``), CUDA events.
+    Bounds: the bytes the function needs (each row or block it reads once,
+    its output written once) over 3.35 TB/s; P1, P2, P4 and P5 move a few MB
+    at most, so their real floor is the launch itself (a few microseconds).
+    P1, P3 and the fetch have no one PyTorch call that computes them."""
+    rows = {}
+    for case, (args, _) in inputs.items():
+        launch, plain = PROBE_FNS[case]
+        with torch.no_grad():
+            rows[case] = {"ms": _time_ms(lambda: launch(*args)),
+                          "plain_ms": _time_ms(lambda: plain(*args), iters=3),
+                          "library_ms": None}
+    takes = {}
+    for case in ("slab_gather", "slab_gather_p4"):
+        vol, orgs, Bz, By = inputs[case][0]
+        z, y = hg._slab_index(orgs, Bz, By)
+        flat = ((z[..., None] * vol.shape[1] + y[..., None]) * vol.shape[2]
+                + torch.arange(vol.shape[2], device=DEV))
+        takes[case] = (vol, flat)
+    slab, starts, Bz, By, CW, lanes = inputs["slice_transpose"][0]
+    s = starts.long()
+    r = torch.arange(lanes, device=DEV)
+    flat = (((s[:, 0, None] + r // By) * slab.shape[1] + s[:, 1, None] + r % By)[:, None, :]
+            * slab.shape[2] + s[:, 2, None, None] + torch.arange(CW, device=DEV)[None, :, None])
+    flat = torch.where(r < Bz * By, flat, slab.numel())  # the appended zero
+    takes["slice_transpose"] = (torch.cat([slab.flatten(), torch.zeros(1, device=DEV)]), flat)
+    for case, (src, flat) in takes.items():
+        # the library call computes the same function: the same values
+        if not torch.equal(torch.take(src, flat), PROBE_FNS[case][0](*inputs[case][0])):
+            raise AssertionError(f"torch.take does not compute {case}")
+        rows[case]["library_ms"] = _time_ms(lambda: torch.take(src, flat))
+
+    def slab_bytes(case, out_rows):
+        vol, orgs, Bz, By = inputs[case][0][:4]
+        o = orgs.cpu().numpy()
+        need = _touched_rows(o, Bz, By, *vol.shape[:2]) * vol.shape[2]
+        return 4.0 * (need + o.shape[0] * out_rows * vol.shape[2] + o.size)
+
+    x, order = inputs["block_permute_add"][0]
+    bounds = {"block_permute_add": 4.0 * (order.numel() * 8 * x.shape[1] * 2 + order.numel()),
+              "slab_gather": slab_bytes("slab_gather", 14 * 16),
+              "slab_gather_p4": slab_bytes("slab_gather_p4", 16 * 16),
+              "slab_sum": slab_bytes("slab_sum", 8)}
+    # P5 reads each window element once (distinct ones counted) and writes
+    # [T, CW, lanes]
+    touched = np.zeros(tuple(slab.shape), bool)
+    for dz, dy, ox in s.cpu().numpy():
+        touched[dz:dz + Bz, dy:dy + By, ox:ox + CW] = True
+    bounds["slice_transpose"] = 4.0 * (touched.sum() + s.shape[0] * (CW * lanes + 3))
+    volp, scal = inputs["roi_fetch"][0]
+    sc = scal.cpu().numpy()
+    blocks = np.zeros((volp.shape[0] // rs.QB, volp.shape[1] // rs.QB), bool)
+    for zq, yq in sc[:, :2]:
+        blocks[zq:zq + rs.NB, yq:yq + rs.NB] = True
+    bounds["roi_fetch"] = 4.0 * (blocks.sum() * rs.QB * rs.QB * volp.shape[2]
+                                 + sc.shape[0] * (rs.LANES + 5))
+    for case, nbytes in bounds.items():
+        rows[case].update(_bound(nbytes, 0.0), bytes=nbytes)
+    T = inputs["slab_sum"][0][1].shape[0]
+    logical = T * 14 * 16 * 256 * 4.0
+    rows["slab_sum"]["logical_TBps"] = logical / (rows["slab_sum"]["ms"] * 1e9)
+    T = sc.shape[0]
+    logical = T * 9 * rs.QB * rs.QB * volp.shape[2] * 4.0
+    rows["roi_fetch"]["logical_TBps"] = logical / (rows["roi_fetch"]["ms"] * 1e9)
+    for case, row in rows.items():
+        print(f"[times] probe {case}: {json.dumps(row)}", flush=True)
+    return rows
+
+
 def _library_times() -> dict:
     """The one PyTorch call that computes each kernel's function, where there
     is one, at the shapes of the kernel's own timing: ``F.grid_sample``
@@ -1074,6 +1251,9 @@ def main() -> None:
     errs.update(phase_k2())
     errs.update(phase_k3())
     errs.update(phase_k2b())
+    probe_inputs = _probe_inputs()
+    probe_errs, probe_launches = phase_probes(probe_inputs)
+    errs.update(probe_errs)
     launches = phase_main_path()
     with tempfile.TemporaryDirectory() as tmp:
         paths = [launches, phase_cli(tmp)]
@@ -1081,12 +1261,13 @@ def main() -> None:
     paths.append(reg_launches)
     errs["warp_flow"] = max(errs["warp_flow"], reg_err)
     paths += [phase_unet(), phase_register_unet(), phase_register_default(),
-              phase_engines_default()]
+              phase_engines_default(), probe_launches]
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     rows = phase_times()
     k2_times = phase_k2_times()
     k3_row = phase_k3_times()["8->8 edge 118"]
     k2b_row = phase_k2b_times()
+    probe_rows = phase_probe_times(probe_inputs)
     library = _library_times()
     # per-launch times at the fine flow level's shape (240³, K=8, f32)
     flow_row = next(r for r in rows if r["S"] == 240 and r["K"] == 8)
@@ -1095,7 +1276,8 @@ def main() -> None:
              **k2_times,
              "conv3d_fwd": {"ms": k3_row["fwd_ms"], "plain_ms": k3_row["plain_fwd_ms"]},
              "conv3d_dgrad": {"ms": k3_row["dgrad_ms"], "plain_ms": k3_row["plain_dgrad_ms"]},
-             "roigather": k2b_row}
+             "roigather": k2b_row,
+             **{name: probe_rows[name] for name in (*hg.KERNELS, "roi_fetch")}}
     vox, conv_out, conv_in = SIZE**3, 116**3, 118**3
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
@@ -1110,14 +1292,22 @@ def main() -> None:
                                    2.0 * 27 * 64 * conv_out),
               "conv3d_dgrad": _bound(4.0 * (8 * 120**3 + 8 * conv_in + 27 * 64),
                                      2.0 * 27 * 64 * conv_in),
-              "roigather": {k: k2b_row[k] for k in ("bound_ms", "bound_by")}}
+              "roigather": {k: k2b_row[k] for k in ("bound_ms", "bound_by")},
+              **{name: {k: probe_rows[name][k] for k in ("bound_ms", "bound_by")}
+                 for name in (*hg.KERNELS, "roi_fetch")}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
-                   conv3d_dgrad=k3_row["plain_dgrad_ms"], roigather=k2b_row["library_ms"])
+                   conv3d_dgrad=k3_row["plain_dgrad_ms"], roigather=k2b_row["library_ms"],
+                   **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")})
     timed_at = {"sweep_fwd": "one launch, 240^3 K=8 f32, mean of axes 0-2",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
                 "warp_flow": "one launch, 240^3 f32, smooth field |flow|<=8",
                 "conv3d_fwd": "one launch, 8->8 at 118^3 f32; plain: cuDNN, TF32 off",
-                "roigather": "one launch, 240^3 f32, make_pair's rigid windows, T=13824"}
+                "roigather": "one launch, 240^3 f32, make_pair's rigid windows, T=13824",
+                "block_permute_add": "one launch, P1: [16, 256] f32, order [1, 0]",
+                "slab_gather": "one launch, P2: 6 slabs (14, 16, 256) of [64, 64, 256]",
+                "slab_sum": "one launch, P3: 13826 slabs (14, 16, 256) of [240, 240, 256]",
+                "slice_transpose": "one launch, P5: 4 tiles of a [32, 32, 256] slab",
+                "roi_fetch": "one launch, 240^3 padded to 256^3, the probe's theta, T=13825"}
     timed_at["sweep_bwd"] = timed_at["sweep_fwd"]
     timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
     kernels = [

@@ -108,6 +108,21 @@ def test_torch_register_devices_and_inputs(pair):
             ttr.Register()
 
 
+@pytest.mark.parametrize("name", ["tpu", "gpu", "GPU", "Tpu"])
+def test_torch_register_accelerator_names(name, monkeypatch):
+    """The JAX package's accelerator names mean the card; without one they
+    raise the "no CUDA device" error that ``'cuda'`` raises (no fall-back to
+    the CPU)."""
+    from torchregister_tpu_torch.api import _resolve_device
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttr.Register(device=name)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert _resolve_device(name) == torch.device("cuda")
+    assert _resolve_device("cpu") == torch.device("cpu")
+
+
 def test_torch_register_random_init_is_seeded(pair):
     mov, tgt = (torch.from_numpy(a) for a in pair)
     thetas = []

@@ -1,6 +1,8 @@
-"""K1, K2, K3, K2b and the slices on the GPU: the kernels against their plain
-versions, the port's cascades (field and U-Net flow) and criteria on the card
-against the same calls on the CPU, and ``Register``'s default device.
+"""K1, K2, K3, K2b, the probe kernels and the slices on the GPU: the kernels
+against their plain versions, the port's cascades (field and U-Net flow) and
+criteria on the card against the same calls on the CPU, ``Register``'s
+default device, the U-Net cascade's repeat to the bit and both probe modules'
+``main``.
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -372,3 +374,174 @@ def test_torch_cuda_register_default_device_is_cuda(dev):
     assert reg.device.type == "cuda"
     reg.optim(mov, tgt, lr=1e-2, max_epochs=5)
     assert reg.theta.is_cuda and reg(np.asarray(mov)).is_cuda
+
+
+# ------------------------------------------------------------------ determinism
+
+
+def test_torch_cuda_sweep_backward_repeats_to_the_bit(dev):
+    """K1's dsrc sums many outputs into each source voxel (coordinates
+    bunched on a few positions); its fixed-order adjoint gives the same bits
+    on every run, along each axis, f32 and bf16."""
+    for dim in (2, 3, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            src, q = _case(dev, (1, 1, 30, 33, 35), dim, 6, dtype, dim)
+            q = torch.floor(q / 3.0) * 3.0 + 0.37  # many outputs share each tap
+            g = torch.randn(src.shape, generator=torch.Generator(device=dev).manual_seed(dim),
+                            device=dev).to(dtype)
+            runs = [k1.sweep_bwd(g, src, q, dim, 6) for _ in range(3)]
+            for dsrc, dq in runs[1:]:
+                assert torch.equal(dsrc, runs[0][0]) and torch.equal(dq, runs[0][1])
+
+
+def test_torch_cuda_nearest_resize_backward_repeats_to_the_bit(dev):
+    """The attention gates' nearest upsampling: its backward sums each
+    source's run of outputs in a fixed order (``index_select``'s own
+    backward adds with atomics), the same bits on every run and within
+    rounding of ``index_select``'s gradient."""
+    from torchregister_tpu_torch.ops.resize import axis_nearest_resize
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 26, 27, 25), generator=gen, device=dev)
+    g = torch.randn((2, 26, 80, 25), generator=gen, device=dev)
+    grads = []
+    for _ in range(3):
+        xs = x.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(axis_nearest_resize(xs, 2, 80), xs, g)[0])
+    assert all(torch.equal(gr, grads[0]) for gr in grads[1:])
+    xs = x.clone().requires_grad_(True)
+    idx = (torch.arange(80, device=dev) * 27) // 80
+    ref = torch.autograd.grad(torch.index_select(xs, 2, idx), xs, g)[0]
+    torch.testing.assert_close(grads[0], ref, rtol=0, atol=1e-6)
+
+
+def test_torch_cuda_unet_cascade_repeats_to_the_bit(dev):
+    """A reduced U-Net cascade (48³, every stage, U-Net flow at two levels)
+    twice from one seed: the same executed steps, flow and quality fields
+    to the bit."""
+    from torchregister_tpu_torch.engines.cascade import register_cascade
+    from torchregister_tpu_torch.synthetic import (RECIPE_UNET, flow_truth_metrics,
+                                                   make_flow_truth_pair)
+
+    pair = [a.to(dev) for a in make_flow_truth_pair((48, 48, 48), max_disp=3.0)]
+    recipe = {**RECIPE_UNET, "rigid_epochs": 40, "affine_epochs": 20, "flow_epochs": 40}
+    runs = []
+    for _ in range(2):
+        res = register_cascade(pair[0], pair[1], **recipe)
+        runs.append((res.steps, res.flow, flow_truth_metrics(res, *pair)))
+    (steps0, flow0, q0), (steps1, flow1, q1) = runs
+    assert steps0 == steps1 and q0 == q1
+    assert torch.equal(flow0, flow1)
+
+
+def test_torch_cuda_unet_deterministic_mode(dev, monkeypatch):
+    """The reduced U-Net cascade under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the one op
+    torch flags as lacking a deterministic implementation is max pooling's
+    backward. It adds each output's gradient to its window's argmax with an
+    atomic, but the U-Net pools 2x2x2 windows at stride 2, which do not
+    overlap, so every input receives at most one addend and the sum has no
+    order. (The mode does not see the port's own kernels; the cascade's
+    repeat to the bit is the test above.)"""
+    import warnings
+
+    from torchregister_tpu_torch.engines.cascade import register_cascade
+    from torchregister_tpu_torch.synthetic import RECIPE_UNET, make_flow_truth_pair
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    pair = [a.to(dev) for a in make_flow_truth_pair((48, 48, 48), max_disp=3.0)]
+    recipe = {**RECIPE_UNET, "rigid_epochs": 10, "affine_epochs": 10, "flow_epochs": 10}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            register_cascade(pair[0], pair[1], **recipe)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have")[0] for w in caught
+                      if "deterministic" in str(w.message)})
+    assert flagged == ["max_pool3d_with_indices_backward_cuda"]
+
+
+# ------------------------------------------------------------------ probes
+
+
+def _probe_case(dev, name):
+    """(kernel, plain, inputs with index data checked on the card, atol) at
+    the probe's own sizes (P3 and the fetch reduced to 80 and 96 voxels a
+    side), with slabs at the last valid origin."""
+    import numpy as np
+
+    from torchregister_tpu_torch.probes import checked_index
+    from torchregister_tpu_torch.probes import hatgather as hg
+    from torchregister_tpu_torch.probes import roi_stages as rs
+
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    if name == "block_permute_add":
+        x = torch.rand((16, 256), generator=gen, device=dev)
+        order = checked_index([1, 0, 1], (0,), (1,), "order", dev)[:, 0]
+        return hg.block_permute_add_launch, hg.block_permute_add_plain, (x, order), 0.0
+    if name in ("slab_gather", "slab_gather_16", "slab_sum"):
+        size = 80 if name == "slab_sum" else 64
+        B = (14, 16) if name != "slab_gather_16" else (16, 16)
+        vol = torch.rand((size, size, 256), generator=gen, device=dev)
+        orgs = np.concatenate([hg.p3_origins(size, 40, *B),
+                               [[size - B[0], size - B[1]], [0, 0]]]).astype(np.int32)
+        orgs = checked_index(orgs, (0, 1), (size - B[0], size - B[1]), "orgs", dev)
+        if name == "slab_sum":
+            return hg.slab_sum_launch, hg.slab_sum_plain, (vol, orgs, *B), hg.P3_ATOL
+        return hg.slab_gather_launch, hg.slab_gather_plain, (vol, orgs, *B), 0.0
+    if name == "slice_transpose":
+        slab = torch.rand((32, 32, 256), generator=gen, device=dev)
+        starts = checked_index([[0, 0, 3], [9, 13, 224], [18, 16, 0], [18, 16, 240]],
+                               (0, 1, 2), (18, 16, 240), "starts", dev)
+        return (hg.slice_transpose_launch, hg.slice_transpose_plain,
+                (slab, starts, 14, 16, 16, 256), 0.0)
+    _, _, scal, volp = rs.stage_inputs(96, dev)
+    return rs.roi_fetch_launch, rs.roi_fetch_plain, (volp, rs.check_scalars(volp, scal)), \
+        rs.FETCH_ATOL
+
+
+@pytest.mark.parametrize("name", ["block_permute_add", "slab_gather", "slab_gather_16",
+                                  "slab_sum", "slice_transpose", "roi_fetch"])
+def test_torch_cuda_probe_kernel_matches_plain(dev, name):
+    """Each probe kernel against its plain version: the copies (P1, P2, P4,
+    P5) to the bit, the sums (P3, fetch) at their stated atol."""
+    launch, plain, args, atol = _probe_case(dev, name)
+    out, ref = launch(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+
+
+def test_torch_cuda_probe_mains_run(dev, capsys):
+    """Both probe modules' ``main`` on the card; every new kernel launched."""
+    from torchregister_tpu_torch.probes import hatgather as hg
+    from torchregister_tpu_torch.probes import roi_stages as rs
+
+    hg.reset_counts()
+    rs.reset_counts()
+    hg.main(["p1", "p2", "p3", "p4", "p5"])
+    rs.main()
+    assert min(hg.launches.values()) > 0 and rs.launches > 0
+    out = capsys.readouterr().out
+    assert out.count("OK") == 6 and "fetch only" in out
+
+
+def test_torch_cuda_probe_origins_out_of_range_raise(dev):
+    from torchregister_tpu_torch.probes import hatgather as hg
+    from torchregister_tpu_torch.probes import roi_stages as rs
+
+    vol = torch.rand((64, 64, 256), device=dev)
+    with pytest.raises(ValueError, match="leaves"):
+        hg.slab_gather(vol, [[64 - 13, 0]], 14, 16)
+    with pytest.raises(ValueError, match="leaves"):
+        hg.slab_sum(vol, [[0, -1]], 14, 16)
+    with pytest.raises(ValueError, match="leaves"):
+        hg.block_permute_add(torch.rand((16, 256), device=dev), [2, 0])
+    with pytest.raises(ValueError, match="leaves"):
+        hg.slice_transpose(vol[:32, :32], [[0, 0, 241]])
+    with pytest.raises(ValueError, match="leaves"):
+        rs.roi_fetch(torch.rand((64, 64, 128), device=dev), [[6, 0, 0, 0, 0]])
+    with pytest.raises(ValueError, match="host data"):
+        hg.slab_gather(vol, torch.zeros((1, 2), dtype=torch.int32, device=dev), 14, 16)

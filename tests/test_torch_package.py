@@ -47,7 +47,8 @@ def test_torch_port_sources_name_no_jax():
 
 
 def test_torch_kernel_source_ships_with_the_package():
-    for source in ("sweep.cu", "warp.cu", "conv3d.cu", "roigather.cu"):
+    for source in ("sweep.cu", "warp.cu", "conv3d.cu", "roigather.cu", "hatgather.cu",
+                   "roi_fetch.cu"):
         assert (PKG / "csrc" / source).is_file()
     assert "torchregister_tpu_torch" in setuptools.find_packages(str(ROOT),
                                                                  exclude=("tests",))

@@ -134,6 +134,14 @@ def test_torch_warp_flow_batch_rules():
     got = tb.warp_flow_fast(_t(mov), _t(flow)).numpy()
     np.testing.assert_allclose(
         got, np.asarray(jb.warp_flow_fast(jnp.asarray(mov), jnp.asarray(flow))), **TOL)
+    # max_disp, the JAX package's block bound, changes nothing on K2
+    bound = float(np.ceil(np.abs(flow).max()))
+    np.testing.assert_array_equal(tb.warp_flow_fast(_t(mov), _t(flow), max_disp=4).numpy(),
+                                  got)
+    np.testing.assert_allclose(
+        tb.warp_flow_fast(_t(mov), _t(flow), max_disp=bound).numpy(),
+        np.asarray(jb.warp_flow_fast(jnp.asarray(mov), jnp.asarray(flow), max_disp=bound)),
+        **TOL)
     with pytest.raises(ValueError, match="batch"):
         tb.warp_flow_fast(_t(mov), _t(flow[:1]))
 

@@ -10,7 +10,8 @@ used.
 
 ``device`` is a torch device (or its name). ``None`` means the card,
 ``cuda``, as the JAX package's ``None`` means its default device, the
-accelerator: without a CUDA device the constructor raises, and the CPU runs
+accelerator; the JAX package's accelerator names ``'tpu'`` and ``'gpu'`` (any
+case) mean the card too. Without a CUDA device those raise, and the CPU runs
 only when asked for (``device='cpu'``). Every input moves to that device.
 ``init='random'`` and the U-Net's initial weights (``mode='flow',
 flow_model='unet'``) draw from a ``torch.Generator`` seeded by ``seed`` (so
@@ -28,6 +29,20 @@ from .engines.affine import affine_register
 from .engines.flow import flow_register
 from .engines.rigid import rigid_register
 from .ops.blocked import warp_affine_fast, warp_flow_fast
+
+
+def _resolve_device(device, caller: str = "Register") -> torch.device:
+    """The torch device of ``caller(device=...)``: ``None``, ``'tpu'`` and
+    ``'gpu'`` (any case) mean ``cuda``; anything else goes to
+    ``torch.device``. No fall-back: a CUDA device without a card raises."""
+    name = device
+    if device is None or (isinstance(device, str) and device.lower() in ("tpu", "gpu")):
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}(device={name!r}) runs on the card: no CUDA "
+                           "device (pass device='cpu' to run on the CPU)")
+    return device
 
 
 def norm(x):
@@ -71,10 +86,7 @@ class Register:
         if flow_model not in ("unet", "field"):
             raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
         self.mode = mode
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"Register(device={device!r}) runs on the card: no CUDA "
-                               "device (pass device='cpu' to run on the CPU)")
+        self.device = _resolve_device(device)
         self.criterion = criterion
         self.weight = weight
         self.grad_edges = grad_edges

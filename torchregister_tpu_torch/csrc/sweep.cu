@@ -25,10 +25,18 @@
 //
 // Backward: dq = g * diff (same masks), and dsrc is the adjoint of the
 // two-tap gather: g*(1-fr) is added at q0 and g*fr at q0+1. Several outputs
-// of a row hit the same source index, so each block owns a tile of
-// TO rows x TI inner columns x X and accumulates it in shared memory with
-// shared-memory atomics, then writes the tile once (f32 sums, one rounding
-// to the image dtype). No global atomics.
+// of a row hit the same source index, so each block owns a tile of at most
+// 32 columns (TO rows x TI inner columns) x X, accumulates it in shared
+// memory and writes it once (f32 sums, one rounding to the image dtype).
+// No atomics: every sum is taken in one fixed order, so the gradient repeats
+// to the bit from run to run. (Atomic adds land in whatever order the
+// threads reach them, and the rounding of a float sum depends on its order;
+// the U-Net's training amplifies such last-bit differences into different
+// plateau stops.) The block walks its rows in chunks of 8 positions: every
+// thread loads one element of the chunk (coalesced along inner, or along x
+// when inner is 1), writes its dq and stages its two weighted taps in
+// shared memory; then one thread per column adds the chunk's taps to its
+// column in ascending x, the floor tap before the ceil tap.
 //
 // diff is recomputed in the backward from src instead of being saved by the
 // forward: the backward has to read the tile's taps anyway for the scatter
@@ -96,54 +104,84 @@ __global__ void sweep_fwd_kernel(const T* __restrict__ src, const float* __restr
   }
 }
 
+constexpr int kThreads = 256;
+constexpr int kCols = 32;                 // columns of a backward tile
+constexpr int kChunk = kThreads / kCols;  // positions of each column per chunk
+
 template <typename T>
 __global__ void sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src,
                                  const float* __restrict__ q, T* __restrict__ dsrc,
                                  float* __restrict__ dq, long long outer, int X,
-                                 long long inner, int K, int TO, int TI) {
-  extern __shared__ float acc[];  // [TO][X][TI]
-  long long n_inner_tiles = (inner + TI - 1) / TI;
-  long long o0 = (long long)(blockIdx.x / n_inner_tiles) * TO;
-  long long i0 = (long long)(blockIdx.x % n_inner_tiles) * TI;
-  int n = TO * X * TI;
-  if (dsrc) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x) acc[e] = 0.0f;
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    int ti = e % TI;
-    int x = (e / TI) % X;
-    int to = e / (TI * X);
-    long long o = o0 + to, i = i0 + ti;
-    if (o >= outer || i >= inner) continue;
-    long long row = o * X;
-    long long idx = (row + x) * inner + i;
-    Taps t = taps_of(q[idx], x, X, K);
-    float gv = load_f(g, idx);
-    if (dsrc) {
-      if (t.mf) atomicAdd(&acc[(to * X + t.xf) * TI + ti], gv * (1.0f - t.fr));
-      if (t.mc) atomicAdd(&acc[(to * X + t.xf + 1) * TI + ti], gv * t.fr);
+                                 long long inner, int K, int TO, int TI, int XP) {
+  extern __shared__ float acc[];  // [TO][XP][TI], rows padded to XP >= X
+  __shared__ int s_f[kThreads], s_c[kThreads];      // tap positions, -1: none
+  __shared__ float s_wf[kThreads], s_wc[kThreads];  // weighted taps
+  const long long n_inner_tiles = (inner + TI - 1) / TI;
+  const long long o0 = (long long)(blockIdx.x / n_inner_tiles) * TO;
+  const long long i0 = (long long)(blockIdx.x % n_inner_tiles) * TI;
+  const int tid = threadIdx.x;
+  if (dsrc)
+    for (int e = tid; e < TO * XP * TI; e += blockDim.x) acc[e] = 0.0f;
+  // this thread's element of each chunk: column (to, ti), position x0 + xl
+  const int ti = tid % TI;
+  const int xl = (tid / TI) % kChunk;
+  const int to = tid / (TI * kChunk);
+  const long long o = o0 + to, i = i0 + ti;
+  const bool staged = to < TO;  // its slot xl * kCols + col exists
+  const bool live = staged && o < outer && i < inner;
+  const int col = to * TI + ti;
+  // the column this thread adds, if tid < TO * TI
+  const bool adder = tid < TO * TI && o0 + tid / TI < outer && i0 + tid % TI < inner;
+  float* column = acc + (tid / TI) * XP * TI + tid % TI;
+  for (int x0 = 0; x0 < X; x0 += kChunk) {
+    const int x = x0 + xl;
+    int f = -1, c = -1;
+    float wf = 0.0f, wc = 0.0f;
+    if (live && x < X) {
+      const long long row = o * X;
+      const long long idx = (row + x) * inner + i;
+      const Taps t = taps_of(q[idx], x, X, K);
+      const float gv = load_f(g, idx);
+      if (t.mf) { f = t.xf; wf = gv * (1.0f - t.fr); }
+      if (t.mc) { c = t.xf + 1; wc = gv * t.fr; }
+      if (dq) {
+        float vf = t.mf ? load_f(src, (row + t.xf) * inner + i) : 0.0f;
+        float vc = t.mc ? load_f(src, (row + t.xf + 1) * inner + i) : 0.0f;
+        dq[idx] = gv * (vc - vf);
+      }
     }
-    if (dq) {
-      float vf = t.mf ? load_f(src, (row + t.xf) * inner + i) : 0.0f;
-      float vc = t.mc ? load_f(src, (row + t.xf + 1) * inner + i) : 0.0f;
-      dq[idx] = gv * (vc - vf);
+    if (!dsrc) continue;
+    __syncthreads();  // acc zeroed; the previous chunk's stage consumed
+    if (staged) {
+      const int slot = xl * kCols + col;
+      s_f[slot] = f; s_c[slot] = c; s_wf[slot] = wf; s_wc[slot] = wc;
+    }
+    __syncthreads();
+    if (adder) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        const int slot = k * kCols + tid;
+        const int ff = s_f[slot], cc = s_c[slot];
+        if (ff >= 0) column[ff * TI] += s_wf[slot];
+        if (cc >= 0) column[cc * TI] += s_wc[slot];
+      }
     }
   }
   if (!dsrc) return;
   __syncthreads();
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    int ti = e % TI;
-    int x = (e / TI) % X;
-    int to = e / (TI * X);
-    long long o = o0 + to, i = i0 + ti;
-    if (o >= outer || i >= inner) continue;
-    store_f(dsrc, (o * X + x) * inner + i, acc[e]);
+  for (int e = tid; e < TO * X * TI; e += blockDim.x) {
+    const int ei = e % TI;
+    const int ex = (e / TI) % X;
+    const int eo = e / (TI * X);
+    const long long oo = o0 + eo, ii = i0 + ei;
+    if (oo >= outer || ii >= inner) continue;
+    store_f(dsrc, (oo * X + ex) * inner + ii, acc[(eo * XP + ex) * TI + ei]);
   }
 }
 
-constexpr int kThreads = 256;
-constexpr int kSmemBytes = 48 * 1024;  // no opt-in attribute needed below this
+// the backward's dynamic tile: with the 4 KB static stage it stays under the
+// 48 KB a block may use without the opt-in attribute
+constexpr int kAccBytes = 44 * 1024;
 
 int fwd_grid(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
@@ -161,25 +199,28 @@ int launch_fwd(const void* src, const void* q, void* out, void* diff, long long 
   return (int)cudaGetLastError();
 }
 
+// Row pitch of the backward's shared tile: odd when a warp's adders span
+// several rows (TI < 32), so their columns fall in different banks.
+int bwd_pitch(int X, int TI) { return TI >= kCols ? X : (X | 1); }
+
 template <typename T>
 int launch_bwd(const void* g, const void* src, const void* q, void* dsrc, void* dq,
                long long outer, int X, long long inner, int K, cudaStream_t stream) {
   if (outer * X * inner == 0) return 0;
   // Tile: up to 32 inner columns (coalesced along inner); rows fill the rest
-  // of a 32-wide tile when inner is narrow (inner == 1 for the last axis).
-  int TI = inner < 32 ? (int)inner : 32;
-  int TO = 32 / TI;
-  if (TO < 1) TO = 1;
+  // of the 32 columns when inner is narrow (inner == 1 for the last axis).
+  int TI = inner < kCols ? (int)inner : kCols;
+  int TO = kCols / TI;
   if ((long long)TO > outer) TO = (int)outer;
-  while (TO > 1 && (long long)TO * TI * X * 4 > kSmemBytes) TO /= 2;
-  while (TI > 1 && (long long)TO * TI * X * 4 > kSmemBytes) TI /= 2;
-  size_t smem = (size_t)TO * TI * X * 4;
-  if (smem > (size_t)kSmemBytes) return (int)cudaErrorInvalidValue;
+  auto bytes = [&]() { return (long long)TO * TI * bwd_pitch(X, TI) * 4; };
+  while (TO > 1 && bytes() > kAccBytes) TO /= 2;
+  while (TI > 1 && bytes() > kAccBytes) TI /= 2;
+  if (bytes() > kAccBytes) return (int)cudaErrorInvalidValue;
   long long tiles = ((outer + TO - 1) / TO) * ((inner + TI - 1) / TI);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  sweep_bwd_kernel<T><<<(unsigned)tiles, kThreads, dsrc ? smem : 0, stream>>>(
+  sweep_bwd_kernel<T><<<(unsigned)tiles, kThreads, dsrc ? (size_t)bytes() : 0, stream>>>(
       (const T*)g, (const T*)src, (const float*)q, (T*)dsrc, (float*)dq, outer, X,
-      inner, K, TO, TI);
+      inner, K, TO, TI, bwd_pitch(X, TI));
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,11 @@ a TPU matter (XLA fuses the tap path's backward there) and has no counterpart.
 The 2D convolutions, the transposed convolution and the 1x1 contractions are
 torch ops, as they are XLA ops in the JAX package. cuDNN's TF32 is switched
 off at import (``torch.backends.cudnn.allow_tf32 = False``), as
-``ops/transforms.py`` does for matmuls, so an f32 U-Net computes in f32.
+``ops/transforms.py`` does for matmuls, so an f32 U-Net computes in f32, and
+cuDNN is held to its deterministic algorithms
+(``torch.backends.cudnn.deterministic = True``): the transposed
+convolution's weight gradient may otherwise take one that sums with atomics,
+and a U-Net run would not repeat to the bit.
 
 ``dtype`` is the compute dtype (parameters stay f32). Initial weights come
 from :meth:`AttentionUNet.reset_parameters` with a ``torch.Generator``: flax's
@@ -36,6 +40,7 @@ from ..ops.pad import pad_spatial
 from ..ops.resize import axis_nearest_resize
 
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
 
 # flax's truncated-normal variance correction: the std of a standard normal
 # truncated at ±2

@@ -167,14 +167,18 @@ def warp_affine_fast(theta: torch.Tensor, moving: torch.Tensor,
     return k2.warp(moving[0], mt=k2.pack_affine(M, t))[None]
 
 
-def warp_flow_fast(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_flow_fast(src: torch.Tensor, flow: torch.Tensor,
+                   max_disp: float | None = None) -> torch.Tensor:
     """Exact flow warp of ``src [N, C, *S]`` by ``flow [N, d, *S]`` (voxels,
-    channel ``i`` along spatial dim ``i``; cast to f32)."""
+    channel ``i`` along spatial dim ``i``; cast to f32). ``max_disp`` is the
+    JAX package's static bound on the displacement, from which it sizes its
+    gather blocks; K2 reads each voxel's corners directly and needs no block
+    bound, so the argument is accepted and changes nothing."""
     if flow.shape[0] != src.shape[0]:
         raise ValueError(
             f"warp_flow_fast: src batch {src.shape[0]} != flow batch "
             f"{flow.shape[0]} (one flow field per source element)")
     if src.shape[0] > 1:
-        return torch.cat([warp_flow_fast(src[i:i + 1], flow[i:i + 1])
+        return torch.cat([warp_flow_fast(src[i:i + 1], flow[i:i + 1], max_disp)
                           for i in range(src.shape[0])])
     return k2.warp(src[0], flow=flow[0].to(torch.float32))[None]
