@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds kernels K1 (the sweep resampler, ``torchregister_tpu_torch/csrc/
-sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``), K3 (the valid
-3x3x3 convolution of the U-Net and the Sobel edge filter, ``csrc/conv3d.cu``),
+sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``), K3 (the 3x3x3
+convolution of the U-Net and the Sobel edge filter, forward and input
+gradient, and its weight gradient, ``csrc/conv3d.cu``),
 K2b (the compact ROI gather of the exact warp's compact-block route,
 ``csrc/roigather.cu``) and the benchmark probes' kernels (``csrc/
 hatgather.cu``: P1-P5 of ``benchmarks/probe_hatgather.py``; ``csrc/
@@ -27,7 +28,9 @@ deviation from the plain version over all checks, the time of one launch
 against one pass of the plain version and of the library call, and the
 least time the card could take for the same work (``bound_ms``: the bytes
 the function must move over 3.35 TB/s, or its f32 operations over 67
-TFLOP/s, whichever is larger).
+TFLOP/s, whichever is larger; for K3's three kernels, which run f32 on the
+tensor cores as three TF32 products, the operations over 495/3 TFLOP/s, with
+the f32 FMA bound beside it as ``fma_bound_ms``).
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from torchregister_tpu_torch.engines.cascade import register_cascade
 from torchregister_tpu_torch.engines.flow import flow_register
 from torchregister_tpu_torch.engines.rigid import rigid_register
 from torchregister_tpu_torch.losses.nmi import branch_calls, nmi_loss
+from torchregister_tpu_torch.models.attention_unet import conv3x3x3_shapes
 from torchregister_tpu_torch.ops import blocked
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
 from torchregister_tpu_torch.ops.cuda import roigather as k2b
@@ -85,9 +89,11 @@ REPLACES = {
     "warp_affine": "torchregister_tpu/ops/pallas/roigather.py:145",
     "warp_flow": "torchregister_tpu/ops/pallas/roigather.py:145",
     # K3 serves both Pallas variants (A: whole planes, C: H strips), in the
-    # forward and, on the padded cotangent, in the input gradient
+    # forward and, reading the cotangent with a zero halo of 2, in the input
+    # gradient
     "conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:174",
     "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:174",
+    "conv3d_wgrad": "torchregister_tpu/ops/pallas/conv3d.py:301",
     "roigather": "torchregister_tpu/ops/pallas/roigather.py:49",
     # the benchmark probes: one kernel serves P2 and P4 (the same slab copy
     # at two slab sizes)
@@ -100,19 +106,25 @@ REPLACES = {
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "slab_gather": "benchmarks/probe_hatgather.py:222"}
+# K3's weight gradient replaces XLA code, not a Pallas kernel
+NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST), "
+                         "not a Pallas kernel"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "warp_affine": "torchregister_tpu_torch/csrc/warp.cu",
            "warp_flow": "torchregister_tpu_torch/csrc/warp.cu",
            "conv3d_fwd": "torchregister_tpu_torch/csrc/conv3d.cu",
            "conv3d_dgrad": "torchregister_tpu_torch/csrc/conv3d.cu",
+           "conv3d_wgrad": "torchregister_tpu_torch/csrc/conv3d.cu",
            "roigather": "torchregister_tpu_torch/csrc/roigather.cu",
            **{name: "torchregister_tpu_torch/csrc/hatgather.cu" for name in hg.KERNELS},
            "roi_fetch": "torchregister_tpu_torch/csrc/roi_fetch.cu"}
-# the card's published peaks (NVIDIA H100 SXM data sheet): device memory and
-# f32 outside the tensor cores (the kernels sum in f32 FMAs, no TF32)
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
+# f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
+# three TF32 products (3xTF32), so their f32 rate is a third of TF32's
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F32_3XTF32_FLOP_PER_S = 495e12 / 3
 # The U-Net parity cascade's gates on the 240³ deformable-truth pair. The JAX
 # package's TPU run read 68.55 % / 3.023 vox / 0.879 vox (BENCH_r05.json);
 # the margin covers initial weights drawn from another random generator.
@@ -385,45 +397,28 @@ def phase_k2() -> dict:
     return {"warp_affine": max(aff), "warp_flow": max(fl)}
 
 
-def unet_conv_shapes(edge: int, n: float, depth: int, in_c: int = 1) -> list:
-    """``(Ci, Co, input edge)`` of every 3x3x3 convolution of the U-Net's
-    forward on a cube of ``edge`` voxels (``models/attention_unet.py``:
-    each double conv eats 4 voxels, max pooling halves, a decoder level
-    convolves at its skip's size)."""
-    ch = [max(1, int(64 * 2**i / n)) for i in range(depth + 1)]
-    out, skips, s, c = [], [], edge, in_c
-    for i in range(depth):
-        out += [(c, ch[i], s), (ch[i], ch[i], s - 2)]
-        s -= 4
-        skips.append(s)
-        s //= 2
-        c = ch[i]
-    out += [(c, ch[depth], s), (ch[depth], ch[depth], s - 2)]
-    for j in range(depth - 1, -1, -1):
-        out += [(2 * ch[j], ch[j], skips[j]), (ch[j], ch[j], skips[j] - 2)]
-    return out
-
-
 # the U-Net cascade's 120³ flow level (n=8, depth 2) and Register's 240³
 # network (n=32, depth 4), the latter checked on z-slabs of 10 planes
-K3_CASES = ([(ci, co, e, None) for ci, co, e in unet_conv_shapes(120, 8, 2)]
-            + [(ci, co, e, 10) for ci, co, e in unet_conv_shapes(240, 32, 4)])
+K3_CASES = ([(ci, co, e, None) for ci, co, e in conv3x3x3_shapes(120, 8, 2)]
+            + [(ci, co, e, 10) for ci, co, e in conv3x3x3_shapes(240, 32, 4)])
 # the Sobel filter of the engines' grad_edges: 1 -> 9 channels on the
-# reflect-padded 240³ image, f32 only (the second chunk of output channels
-# holds one channel), on a z-slab of 10 planes as the 240³ net: over the whole
+# reflect-padded 240³ image, f32 only (9 output channels: the kernel pads N
+# to 16 with zeros), on a z-slab of 10 planes as the 240³ net: over the whole
 # volume dw sums 14 M products an entry and sits 1.01e-5 from cuDNN's (H100).
 # The path runs the forward alone, held whole against the CPU in
 # [engines-default].
 K3_EDGE_CASE = (1, 9, SIZE + 2, 10)
 
 
-def _check_k3(ci, co, edge, slab, dtype) -> tuple[float, float]:
-    """K3's forward launch, then the autograd Function's dx (K3 on the padded
-    cotangent) and dw (torch contractions), against the plain version and
-    autograd through it (cuDNN with TF32 off). Each error is relative to the
-    largest reference value; f32 tolerance 1e-5 (summation order), bf16 one
-    bf16 rounding (2^-7 of the largest value: both sum in f32 and round once).
-    Returns the largest absolute deviations, forward and dx."""
+def _check_k3(ci, co, edge, slab, dtype) -> tuple[float, float, float]:
+    """K3's forward launch, then the autograd Function's dx (K3 with padding 2
+    on the cotangent) and dw (the weight-gradient kernel), against the plain
+    version and autograd through it (cuDNN with TF32 off). Each error is
+    relative to the largest reference value; f32 tolerance 1e-5 (summation
+    order), bf16 one bf16 rounding (2^-7 of the largest value: both sum in
+    f32 and round once). Then each of the three launches runs twice more on
+    the same inputs and must give the same bits. Returns the largest
+    absolute deviations: forward, dx, dw."""
     gen = torch.Generator(device=DEV).manual_seed(1000 * ci + 10 * co + edge)
     z = edge if slab is None else slab
     x = torch.randn((1, ci, z, edge, edge), generator=gen, device=DEV).to(dtype)
@@ -441,22 +436,28 @@ def _check_k3(ci, co, edge, slab, dtype) -> tuple[float, float]:
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7
     label = (f"{ci}->{co} edge {edge}{'' if slab is None else f' (z-slab {slab})'} "
              f"{str(dtype).replace('torch.', '')}")
+    w_t = w.flip((0, 1, 2)).transpose(3, 4)
+    launches = {"fwd": lambda: k3.conv_launch(x, w),
+                "dgrad": lambda: k3.conv_launch(g, w_t, pad=2),
+                "wgrad": lambda: k3.wgrad_launch(x, g)}
+    unequal = [name for name, fn in launches.items() if not torch.equal(fn(), fn())]
     print(f"[k3] {label}: rel fwd {rel[0]:.3e}, dx {rel[1]:.3e}, dw {rel[2]:.3e} "
-          f"(tol {tol:g})", flush=True)
+          f"(tol {tol:g}); launches repeat to the bit: {not unequal}", flush=True)
     if out.dtype != dtype or dx.dtype != dtype or not max(rel) < tol:
         raise AssertionError(f"K3 {label} disagrees with the plain version: {rel}")
-    return _max_err(out, ref), _max_err(dx, rdx)
+    if unequal:
+        raise AssertionError(f"K3 {label}: {unequal} differ between two launches")
+    return _max_err(out, ref), _max_err(dx, rdx), _max_err(dw, rdw)
 
 
 def phase_k3() -> dict:
-    """K3 against its plain version at every convolution of both U-Net
-    paths, f32 and bf16, and at the edge filter's, f32."""
+    """K3's three kernels against their plain versions at every convolution
+    of both U-Net paths, f32 and bf16, and at the edge filter's, f32."""
     cases = [(c, dtype) for c in K3_CASES for dtype in (torch.float32, torch.bfloat16)]
-    fwd = dgrad = 0.0
+    errs = [0.0, 0.0, 0.0]
     for case, dtype in cases + [(K3_EDGE_CASE, torch.float32)]:
-        f, d = _check_k3(*case, dtype)
-        fwd, dgrad = max(fwd, f), max(dgrad, d)
-    return {"conv3d_fwd": fwd, "conv3d_dgrad": dgrad}
+        errs = [max(a, b) for a, b in zip(errs, _check_k3(*case, dtype))]
+    return dict(zip(("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"), errs))
 
 
 def _pair_theta() -> torch.Tensor:
@@ -644,6 +645,7 @@ def _counts() -> dict:
     return {"sweep_fwd": k1.fwd_launches, "sweep_bwd": k1.bwd_launches,
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
+            "conv3d_wgrad": k3.wgrad_launches,
             "roigather": k2b.launches, **hg.launches, "roi_fetch": rs.launches}
 
 
@@ -787,7 +789,8 @@ def phase_unet() -> dict:
           f"{json.dumps(UNET_GATES)}", flush=True)
     print(f"[unet] matrix stages alone (no flow): {json.dumps(floor)}", flush=True)
     print(f"[unet] launches: {json.dumps(launches)}", flush=True)
-    _need(launches, ("sweep_fwd", "sweep_bwd", "conv3d_fwd", "conv3d_dgrad"), "the U-Net cascade")
+    _need(launches, ("sweep_fwd", "sweep_bwd", "conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"),
+          "the U-Net cascade")
     if quality["unet_flow_truth_rmse_reduction_pct"] < UNET_GATES[
             "unet_flow_truth_rmse_reduction_pct"]:
         raise AssertionError(f"U-Net deformable gate failed: {quality}")
@@ -829,7 +832,8 @@ def phase_register_unet() -> dict:
         raise AssertionError("Register U-Net flow or output is not finite of the right shape")
     if depth != 4 or steps != REGISTER_UNET_STEPS:
         raise AssertionError(f"Register U-Net ran depth {depth}, {steps} steps")
-    _need(launches, ("conv3d_fwd", "conv3d_dgrad", "warp_flow"), "Register U-Net")
+    _need(launches, ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad", "warp_flow"),
+          "Register U-Net")
     return launches
 
 
@@ -1075,38 +1079,54 @@ def phase_k2_times() -> dict:
 
 
 def phase_k3_times() -> dict:
-    """One K3 forward and one dgrad launch, and one dw (``k3.wgrad``), against
-    the plain version (cuDNN with TF32 off: ``F.conv3d``,
-    ``torch.nn.grad.conv3d_input`` and ``conv3d_weight``) at two of the
-    U-Net cascade's 120³-level shapes, f32, CUDA events."""
+    """K3's three launches (forward; dgrad, padding 2 on the cotangent itself;
+    the weight gradient) against cuDNN with TF32 off (``F.conv3d``,
+    ``torch.nn.grad.conv3d_input`` and ``conv3d_weight``: the forward's plain
+    version and the library calls) and the weight gradient's plain version
+    (27 matmuls) at two of the U-Net cascade's 120³-level shapes, f32, CUDA
+    events, with each shape's bounds."""
     rows = {}
     for ci, co, edge in ((8, 8, 118), (32, 16, 54)):
         gen = torch.Generator(device=DEV).manual_seed(ci + co + edge)
         x = torch.randn((1, ci, edge, edge, edge), generator=gen, device=DEV)
         w = torch.randn((3, 3, 3, ci, co), generator=gen, device=DEV) / math.sqrt(27 * ci)
         g = torch.randn((1, co) + (edge - 2,) * 3, generator=gen, device=DEV)
-        gp = torch.nn.functional.pad(g, (2, 2) * 3)
         w_t = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
         wt = w.permute(4, 3, 0, 1, 2).contiguous()
         with torch.no_grad():
             row = {"fwd_ms": _time_ms(lambda: k3.conv_launch(x, w)),
                    "plain_fwd_ms": _time_ms(lambda: torch.nn.functional.conv3d(x, wt)),
-                   "dgrad_ms": _time_ms(lambda: k3.conv_launch(gp, w_t, dgrad=True)),
+                   "dgrad_ms": _time_ms(lambda: k3.conv_launch(g, w_t, pad=2)),
                    "plain_dgrad_ms": _time_ms(
                        lambda: torch.nn.grad.conv3d_input(x.shape, wt, g)),
-                   "dw_ms": _time_ms(lambda: k3.wgrad(x, g)),
+                   "dw_ms": _time_ms(lambda: k3.wgrad_launch(x, g)),
                    "plain_dw_ms": _time_ms(
-                       lambda: torch.nn.grad.conv3d_weight(x, wt.shape, g))}
+                       lambda: torch.nn.grad.conv3d_weight(x, wt.shape, g)),
+                   "wgrad_plain_ms": _time_ms(lambda: k3.wgrad_plain(x, g), iters=5),
+                   **_k3_bound(ci, co, edge)}
         rows[f"{ci}->{co} edge {edge}"] = row
         print(f"[times] K3 {ci}->{co} edge {edge} f32: {json.dumps(row)}", flush=True)
     return rows
 
 
-def _bound(nbytes: float, flops: float) -> dict:
+def _k3_bound(ci: int, co: int, edge: int) -> dict:
+    """The bound of each of K3's three kernels at ``ci -> co`` on an ``edge``
+    cube: each moves one input of ``ci`` channels, one of ``co`` channels
+    (edge - 2) and the weights once, and does the forward's 2 * 27 * ci * co
+    operations a valid output voxel (dgrad's taps past the cotangent are
+    zero and not counted), f32 on the tensor cores at the 3xTF32 rate; the
+    same over the f32 FMA peak as ``fma_bound_ms``."""
+    nbytes = 4.0 * (ci * edge**3 + co * (edge - 2)**3 + 27 * ci * co)
+    flops = 2.0 * 27 * ci * co * (edge - 2)**3
+    return {**_bound(nbytes, flops, F32_3XTF32_FLOP_PER_S),
+            "fma_bound_ms": _bound(nbytes, flops)["bound_ms"]}
+
+
+def _bound(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes the
-    function must move over the memory rate and its f32 operations over the
-    f32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    function must move over the memory rate and its operations over their
+    peak (f32 outside the tensor cores unless ``flop_per_s`` says other)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1276,9 +1296,10 @@ def main() -> None:
              **k2_times,
              "conv3d_fwd": {"ms": k3_row["fwd_ms"], "plain_ms": k3_row["plain_fwd_ms"]},
              "conv3d_dgrad": {"ms": k3_row["dgrad_ms"], "plain_ms": k3_row["plain_dgrad_ms"]},
+             "conv3d_wgrad": {"ms": k3_row["dw_ms"], "plain_ms": k3_row["wgrad_plain_ms"]},
              "roigather": k2b_row,
              **{name: probe_rows[name] for name in (*hg.KERNELS, "roi_fetch")}}
-    vox, conv_out, conv_in = SIZE**3, 116**3, 118**3
+    vox = SIZE**3
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (8 weights, 8
@@ -1287,21 +1308,21 @@ def main() -> None:
               "sweep_bwd": _bound(5 * 4.0 * vox, 10.0 * vox),  # g, src, q -> dsrc, dq
               "warp_affine": _bound(2 * 4.0 * vox, 60.0 * vox),  # src -> out
               "warp_flow": _bound(5 * 4.0 * vox, 60.0 * vox),  # src, 3-channel flow -> out
-              # 8->8 at 118³: x and w -> out; dgrad: the padded cotangent -> dx
-              "conv3d_fwd": _bound(4.0 * (8 * conv_in + 8 * conv_out + 27 * 64),
-                                   2.0 * 27 * 64 * conv_out),
-              "conv3d_dgrad": _bound(4.0 * (8 * 120**3 + 8 * conv_in + 27 * 64),
-                                     2.0 * 27 * 64 * conv_in),
+              **{name: {k: k3_row[k] for k in ("bound_ms", "bound_by", "fma_bound_ms")}
+                 for name in ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad")},
               "roigather": {k: k2b_row[k] for k in ("bound_ms", "bound_by")},
               **{name: {k: probe_rows[name][k] for k in ("bound_ms", "bound_by")}
                  for name in (*hg.KERNELS, "roi_fetch")}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
-                   conv3d_dgrad=k3_row["plain_dgrad_ms"], roigather=k2b_row["library_ms"],
+                   conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
+                   roigather=k2b_row["library_ms"],
                    **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")})
     timed_at = {"sweep_fwd": "one launch, 240^3 K=8 f32, mean of axes 0-2",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
                 "warp_flow": "one launch, 240^3 f32, smooth field |flow|<=8",
                 "conv3d_fwd": "one launch, 8->8 at 118^3 f32; plain: cuDNN, TF32 off",
+                "conv3d_wgrad": "one launch, 8->8 at 118^3 f32; plain: 27 f32 matmuls; "
+                                "library: cuDNN conv3d_weight, TF32 off",
                 "roigather": "one launch, 240^3 f32, make_pair's rigid windows, T=13824",
                 "block_permute_add": "one launch, P1: [16, 256] f32, order [1, 0]",
                 "slab_gather": "one launch, P2: 6 slabs (14, 16, 256) of [64, 64, 256]",
@@ -1316,7 +1337,8 @@ def main() -> None:
          "max_abs_err": errs[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"], **bounds[name], "library_ms": library[name],
          "timed_at": timed_at[name],
-         **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})}
+         **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
+         **({"note": NOTES[name]} if name in NOTES else {})}
         for name in REPLACES
     ]
     print(smi)

@@ -1,7 +1,9 @@
 """K3's autograd Function (``ops/cuda/conv3d.py``) on the CPU, where it runs
-its plain version, against the JAX package's valid 3x3x3 convolution in both
+its plain versions, against the JAX package's valid 3x3x3 convolution in both
 of its forms: the Pallas kernel ``conv3x3x3`` (interpret mode here, with its
-custom VJP) and ``TapConv``'s tap decomposition.
+custom VJP) and ``TapConv``'s tap decomposition; its input gradient (the plain
+convolution with padding 2) and its weight gradient (``wgrad_plain``) against
+the JAX VJP's and ``_wgrad_xla``.
 
 Tolerances: f32 forwards rtol 1e-5 (both sum 27·Ci f32 products, in another
 order); gradients rtol 1e-4, as the JAX package's own VJP test holds them;
@@ -15,6 +17,7 @@ import jax.numpy as jnp
 import torch
 
 from torchregister_tpu.models.attention_unet import TapConv as JTapConv
+from torchregister_tpu.ops.pallas.conv3d import _wgrad_xla
 from torchregister_tpu.ops.pallas.conv3d import conv3x3x3 as j_conv
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
 
@@ -94,10 +97,69 @@ def test_torch_conv3x3x3_cpu_runs_the_plain_version():
     w = torch.from_numpy(_rand((3, 3, 3, 2, 3), 11, 0.2))
     k3.reset_counts()
     torch.testing.assert_close(k3.conv3x3x3(x, w), k3.conv3x3x3_plain(x, w), rtol=0, atol=0)
-    assert (k3.fwd_launches, k3.dgrad_launches) == (0, 0)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    k3.conv3x3x3(xs, ws).sum().backward()
+    assert (k3.fwd_launches, k3.dgrad_launches, k3.wgrad_launches) == (0, 0, 0)
     with pytest.raises(ValueError, match="CUDA"):
         k3.conv_launch(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.wgrad_launch(x, torch.zeros((1, 3, 3, 4, 5)))
+    with pytest.raises(ValueError, match="g \\[N, Co, Z-2, H-2, W-2\\]"):
+        k3.wgrad_plain(x, torch.zeros((1, 3, 3, 4, 4)))
+    with pytest.raises(ValueError, match="padding 0"):
+        k3.conv3x3x3_plain(x, w, pad=1)
     with pytest.raises(ValueError, match="w \\[3, 3, 3, 2, Co\\]"):
         k3.conv3x3x3(x, w[:, :, :, :1])
     with pytest.raises(ValueError, match=">= 3"):
         k3.conv3x3x3(x[:, :, :2], w)
+
+
+# the U-Net's (Ci, Co) pairs: the Sobel filter's 1 -> 9, the first layers'
+# 1 -> 8 and 1 -> 2, the 120³ level's, the bottleneck's 16 -> 32 and the
+# decoder's 32 -> 16
+UNET_PAIRS = [(1, 9), (1, 8), (1, 2), (8, 8), (8, 16), (16, 32), (32, 16)]
+
+
+@pytest.mark.parametrize("N", [1, 2])
+@pytest.mark.parametrize("ci,co", UNET_PAIRS)
+def test_torch_wgrad_plain_matches_jax_wgrad_xla(ci, co, N):
+    """``wgrad_plain`` (27 f32 matmuls, the weight-gradient kernel's plain
+    version) against ``_wgrad_xla`` summed over the batch."""
+    x = _rand((N, ci, 6, 7, 9), 20 + ci)
+    g = _rand((N, co, 4, 5, 7), 30 + co)
+    ours = k3.wgrad_plain(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    assert ours.shape == (3, 3, 3, ci, co) and ours.dtype == np.float32
+    ref = sum(np.asarray(_wgrad_xla(jnp.asarray(x[n]), jnp.asarray(g[n]))) for n in range(N))
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ci,co", UNET_PAIRS)
+def test_torch_conv3x3x3_dgrad_padding_2_matches_jax_vjp(ci, co):
+    """The Function's backward formulas as the card runs them, on the CPU:
+    dx is the convolution with padding 2 of the cotangent itself (no padded
+    copy), weights flipped in space and Ci, Co swapped; dw the weight
+    gradient. Both against JAX's custom VJP of the Pallas kernel."""
+    x = _rand((ci, 5, 6, 8), 40 + ci)
+    w = _rand((3, 3, 3, ci, co), 50 + co, 0.2)
+    g = _rand((co, 3, 4, 6), 60 + ci + co)
+    _, vjp = jax.vjp(j_conv, jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    w_t = torch.from_numpy(w).flip((0, 1, 2)).transpose(3, 4)
+    dx = k3._conv(torch.from_numpy(g)[None], w_t, 2)[0].numpy()
+    assert dx.shape == x.shape
+    np.testing.assert_allclose(dx, jdx, rtol=1e-4, atol=1e-4)
+    gp = torch.from_numpy(np.pad(g, ((0, 0),) + ((2, 2),) * 3))[None]
+    np.testing.assert_allclose(dx, k3.conv3x3x3_plain(gp, w_t)[0].numpy(), rtol=0, atol=1e-6)
+    dw = k3._wgrad(torch.from_numpy(x)[None], torch.from_numpy(g)[None]).numpy()
+    np.testing.assert_allclose(dw, jdw, rtol=1e-4, atol=1e-4)
+
+
+def test_torch_wgrad_splits():
+    """The weight-gradient kernel's split of the voxels: about 264 blocks
+    (two on each of the H100's 132 SMs) over its chunks of 8 input and up to
+    32 output channels, at least one, never more than the 4 x 32 output tiles."""
+    assert k3.wgrad_splits(1, 8, 8, 118, 118, 118) == 264
+    assert k3.wgrad_splits(1, 32, 16, 54, 54, 54) == 66
+    assert k3.wgrad_splits(1, 16, 32, 27, 27, 27) == 132
+    assert k3.wgrad_splits(1, 1, 8, 5, 6, 7) == 3
+    assert k3.wgrad_splits(2, 1024, 1024, 5, 5, 5) == 1

@@ -12,6 +12,7 @@ card has no JAX, so run this file without the JAX test harness:
 import pytest
 import torch
 
+from torchregister_tpu_torch.models.attention_unet import conv3x3x3_shapes
 from torchregister_tpu_torch.ops.cuda import sweep as k1
 from torchregister_tpu_torch.ops.cuda import warp as k2
 
@@ -181,11 +182,11 @@ def test_torch_cuda_warp_rejects_bad_inputs(dev):
                                          (3, 11, (4, 70, 33)), (1, 9, (12, 30, 35))])
 @pytest.mark.parametrize("N", [1, 2])
 def test_torch_cuda_conv3d_matches_plain(dev, ci, co, shape, N):
-    """K3 forward (raw launch) and the Function's dx (K3) and dw against the
-    plain version and autograd through it, cuDNN with TF32 off: f32 sums in
-    another order, 1e-5 of the largest value. Co = 11 and the Sobel filter's
-    Co = 9 leave a ragged output-channel chunk; the shapes leave ragged
-    tiles in y and x."""
+    """K3 forward (raw launch) and the Function's dx (K3 with padding 2) and
+    dw (the weight-gradient kernel) against the plain version and autograd
+    through it, cuDNN with TF32 off: f32 sums in another order, 1e-5 of the
+    largest value. Co = 11 and the Sobel filter's Co = 9 pad the MMA's N with
+    zeros; the shapes leave ragged tiles in y and x."""
     torch.backends.cudnn.allow_tf32 = False
     from torchregister_tpu_torch.ops.cuda import conv3d as k3
 
@@ -202,21 +203,28 @@ def test_torch_cuda_conv3d_matches_plain(dev, ci, co, shape, N):
     for fn in (k3.conv3x3x3, k3.conv3x3x3_plain):
         xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         grads.append(torch.autograd.grad(fn(xs, ws), (xs, ws), g))
-    assert k3.dgrad_launches == 1
+    assert (k3.dgrad_launches, k3.wgrad_launches) == (1, 1)
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 def test_torch_cuda_conv3d_bf16_and_bad_inputs(dev):
     """bf16 in and out, summed in f32 and rounded once: one bf16 rounding
-    (2^-7 of the largest value) from the plain version. The launcher refuses
-    other dtypes, strided input and mixed devices."""
+    (2^-7 of the largest value) from the plain version, with bf16 weights and
+    with f32 ones. The launcher refuses other dtypes, strided input and mixed
+    devices."""
     from torchregister_tpu_torch.ops.cuda import conv3d as k3
 
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn((1, 8, 6, 20, 37), generator=gen, device=dev).to(torch.bfloat16)
     w = (torch.randn((3, 3, 3, 8, 8), generator=gen, device=dev) / 15).to(torch.bfloat16)
     out, ref = k3.conv_launch(x, w), k3.conv3x3x3_plain(x, w)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=2.0**-7 * float(ref.float().abs().max()))
+    # f32 weights with bf16 x: the f32 path on x widened, rounded once
+    w32 = w.float() * 1.001
+    out, ref = k3.conv_launch(x, w32), k3.conv3x3x3_plain(x, w32)
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=2.0**-7 * float(ref.float().abs().max()))
@@ -229,8 +237,8 @@ def test_torch_cuda_conv3d_bf16_and_bad_inputs(dev):
 
 
 def test_torch_cuda_unet_cascade_runs_k3(dev):
-    """The U-Net flow stage on the card at 48³ launches K3 forward and dgrad
-    and ends finite, with quality near the same run on the CPU (Adam's
+    """The U-Net flow stage on the card at 48³ launches K3 forward, dgrad and
+    the weight gradient and ends finite, with quality near the same run on the CPU (Adam's
     trajectories part in rounding: 3 points)."""
     from torchregister_tpu_torch.engines.cascade import register_cascade
     from torchregister_tpu_torch.ops.cuda import conv3d as k3
@@ -242,11 +250,107 @@ def test_torch_cuda_unet_cascade_runs_k3(dev):
     cpu = register_cascade(pair[0], pair[1], **recipe)
     k3.reset_counts()
     gpu = register_cascade(pair[0].to(dev), pair[1].to(dev), **recipe)
-    assert k3.fwd_launches > 0 and k3.dgrad_launches > 0
+    assert k3.fwd_launches > 0 and k3.dgrad_launches > 0 and k3.wgrad_launches > 0
     assert gpu.flow.is_cuda and bool(torch.isfinite(gpu.warped).all())
     q_gpu = flow_truth_metrics(gpu, *(a.to(dev) for a in pair))
     q_cpu = flow_truth_metrics(cpu, *pair)
     assert abs(q_gpu[0] - q_cpu[0]) <= 3.0, (q_gpu, q_cpu)
+
+
+# every convolution of the U-Net cascade's 120³ level (n=8, depth 2) and of
+# Register's 240³ network (n=32, depth 4, on z-slabs of 10 planes), as
+# chip_smoke.py's K3_CASES: (Ci, Co, edge, z)
+UNET_K3 = ([(ci, co, e, e) for ci, co, e in conv3x3x3_shapes(120, 8, 2)]
+           + [(ci, co, e, 10) for ci, co, e in conv3x3x3_shapes(240, 32, 4)])
+
+
+def _k3_case(dev, ci, co, edge, z, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, ci, z, edge, edge), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((3, 3, 3, ci, co), generator=gen, device=dev) / (27 * ci) ** 0.5).to(dtype)
+    g = torch.randn((1, co, z - 2, edge - 2, edge - 2), generator=gen, device=dev).to(dtype)
+    return x, w, g, w.flip((0, 1, 2)).transpose(3, 4)
+
+
+def _close(got, want, rel):
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rel * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ci,co,edge,z", UNET_K3,
+                         ids=[f"{ci}-{co}-e{e}-z{z}" for ci, co, e, z in UNET_K3])
+def test_torch_cuda_conv3d_kernels_match_plain_at_unet_shapes(dev, ci, co, edge, z, dtype):
+    """K3's three launches at every U-Net convolution against their plain
+    versions (cuDNN with TF32 off; 27 f32 matmuls): the forward and the input
+    gradient (padding 2 on the cotangent) at 1e-5 of the largest value in
+    f32 (sums in another order), one bf16 rounding (2^-7) in bf16 (both sum
+    in f32 and round once); the weight gradient, f32 out of exact bf16
+    products too, at 1e-5."""
+    torch.backends.cudnn.allow_tf32 = False
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+
+    x, w, g, w_t = _k3_case(dev, ci, co, edge, z, dtype, ci * co + edge)
+    rel = 1e-5 if dtype == torch.float32 else 2.0**-7
+    out = k3.conv_launch(x, w)
+    assert out.dtype == dtype
+    _close(out, k3.conv3x3x3_plain(x, w), rel)
+    dx = k3.conv_launch(g, w_t, pad=2)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    _close(dx, k3.conv3x3x3_plain(g, w_t, pad=2), rel)
+    dw = k3.wgrad_launch(x, g)
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    _close(dw, k3.wgrad_plain(x, g), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ci,co,edge,z", [(1, 9, 44, 12), (8, 8, 40, 40), (32, 16, 30, 30)])
+def test_torch_cuda_conv3d_kernels_repeat_to_the_bit(dev, ci, co, edge, z, dtype):
+    """Each of K3's launches, three times on the same inputs: the same bits
+    (no float atomics; partial sums combined in a fixed order)."""
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+
+    x, w, g, w_t = _k3_case(dev, ci, co, edge, z, dtype, 7 * ci + co)
+    for fn in (lambda: k3.conv_launch(x, w), lambda: k3.conv_launch(g, w_t, pad=2),
+               lambda: k3.wgrad_launch(x, g)):
+        runs = [fn() for _ in range(3)]
+        assert all(torch.equal(r, runs[0]) for r in runs[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_torch_cuda_conv3d_dgrad_zero_halo_matches_padded_copy(dev, dtype):
+    """The input gradient reads the cotangent's halo as zeros: bit for bit
+    the valid convolution of the cotangent zero-padded by 2 (the copy the
+    kernel no longer makes), ragged tiles included."""
+    import torch.nn.functional as F
+
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+
+    for ci, co, edge, z in ((8, 16, 37, 9), (16, 8, 21, 21), (2, 1, 50, 6)):
+        _, _, g, w_t = _k3_case(dev, ci, co, edge, z, dtype, ci + co)
+        k3.reset_counts()
+        dx = k3.conv_launch(g, w_t, pad=2)
+        assert (k3.fwd_launches, k3.dgrad_launches) == (0, 1)
+        assert torch.equal(dx, k3.conv_launch(F.pad(g, (2, 2) * 3).contiguous(), w_t))
+
+
+def test_torch_cuda_conv3d_wgrad_rejects_bad_inputs(dev):
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+
+    x = torch.randn((1, 2, 6, 7, 8), device=dev)
+    g = torch.randn((1, 3, 4, 5, 6), device=dev)
+    k3.reset_counts()
+    with pytest.raises(ValueError, match="g \\[N, Co, Z-2, H-2, W-2\\]"):
+        k3.wgrad_launch(x, g[..., 1:])
+    with pytest.raises(TypeError):
+        k3.wgrad_launch(x.half(), g.half())
+    with pytest.raises(ValueError, match="contiguous g"):
+        k3.wgrad_launch(x, g.transpose(3, 4).contiguous().transpose(3, 4))
+    with pytest.raises(ValueError, match="x's dtype"):
+        k3.wgrad_launch(x.to(torch.bfloat16), g)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        k3.wgrad_launch(x, g.cpu())
+    assert k3.wgrad_launches == 0
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 40, 37, 45), (2, 3, 12, 20, 17), (2, 1, 30, 41)])

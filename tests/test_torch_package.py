@@ -50,6 +50,11 @@ def test_torch_kernel_source_ships_with_the_package():
     for source in ("sweep.cu", "warp.cu", "conv3d.cu", "roigather.cu", "hatgather.cu",
                    "roi_fetch.cu"):
         assert (PKG / "csrc" / source).is_file()
+    # K3's source holds its three launches' entry points: the convolution
+    # (forward and input gradient) and the weight gradient
+    conv3d = (PKG / "csrc" / "conv3d.cu").read_text()
+    for entry in ("conv3x3x3(", "conv3x3x3_wgrad("):
+        assert f'extern "C" int {entry}' in conv3d
     assert "torchregister_tpu_torch" in setuptools.find_packages(str(ROOT),
                                                                  exclude=("tests",))
     setup_py = (ROOT / "setup.py").read_text()

@@ -195,6 +195,24 @@ def level_channels(depth: int, n: float) -> list[int]:
     return [max(1, int(64 * (2**i) / n)) for i in range(depth + 1)]
 
 
+def conv3x3x3_shapes(edge: int, n: float, depth: int, in_c: int = 1) -> list:
+    """``(Ci, Co, input edge)`` of every 3x3x3 convolution of the forward on a
+    cube of ``edge`` voxels: each double conv eats 4 voxels, max pooling
+    halves, a decoder level convolves at its skip's size."""
+    ch = level_channels(depth, n)
+    out, skips, s, c = [], [], edge, in_c
+    for i in range(depth):
+        out += [(c, ch[i], s), (ch[i], ch[i], s - 2)]
+        s -= 4
+        skips.append(s)
+        s //= 2
+        c = ch[i]
+    out += [(c, ch[depth], s), (ch[depth], ch[depth], s - 2)]
+    for j in range(depth - 1, -1, -1):
+        out += [(2 * ch[j], ch[j], skips[j]), (ch[j], ch[j], skips[j] - 2)]
+    return out
+
+
 def max_depth_for(spatial: Sequence[int], max_depth: int = 4) -> int:
     """Deepest U-Net depth whose bottleneck double conv still sees >= 5 voxels
     per spatial dim (valid k3 convs eat 4; MaxPool halves with floor)."""

@@ -1,5 +1,5 @@
-"""K3: the valid 3x3x3 convolution kernel (``csrc/conv3d.cu``), its autograd
-Function and its plain version.
+"""K3: the 3x3x3 convolution kernel and its weight-gradient kernel
+(``csrc/conv3d.cu``), their autograd Function and their plain versions.
 
 Counterpart of ``torchregister_tpu/ops/pallas/conv3d.py`` (``conv3x3x3``
 and its custom VJP), in the JAX package's weight layout:
@@ -8,17 +8,21 @@ and its custom VJP), in the JAX package's weight layout:
 
 :func:`conv3x3x3` is a ``torch.autograd.Function`` on any device:
 
-- forward: the kernel on a CUDA tensor, :func:`conv3x3x3_plain` on a CPU one;
-- dx: the same on the cotangent zero-padded by 2, with the weights flipped in
-  space and Ci, Co swapped (a stride-1 transposed convolution);
-- dw: :func:`wgrad`, 27 whole-volume contractions in f32 (torch matmuls,
-  TF32 off), as the JAX package leaves ``_wgrad_xla`` to XLA.
+- forward: the kernel with padding 0 on a CUDA tensor,
+  :func:`conv3x3x3_plain` on a CPU one;
+- dx: the same with padding 2 (reads outside the cotangent are zero), with
+  the weights flipped in space and Ci, Co swapped (a stride-1 transposed
+  convolution);
+- dw: the weight-gradient kernel on a CUDA tensor, :func:`wgrad_plain` (27
+  whole-volume contractions in f32, as the JAX package leaves
+  ``_wgrad_xla`` to XLA) on a CPU one.
 
 So the CPU tests run the Function's own dx and dw formulas. On a CUDA tensor
-the wrapper launches the kernel or raises; there is no fallback.
+each wrapper launches its kernel or raises; there is no fallback.
 
-``fwd_launches`` and ``dgrad_launches`` count kernel launches of the forward
-and of the input gradient; :func:`reset_counts` zeroes them.
+``fwd_launches``, ``dgrad_launches`` and ``wgrad_launches`` count kernel
+launches of the forward, the input gradient and the weight gradient;
+:func:`reset_counts` zeroes them.
 """
 from __future__ import annotations
 
@@ -34,15 +38,23 @@ SOURCE = native.PKG / "csrc" / "conv3d.cu"
 
 fwd_launches = 0
 dgrad_launches = 0
+wgrad_launches = 0
 
 _LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the weight gradient's blocks: two on each of the H100's 132 SMs
+WGRAD_BLOCKS = 264
+# csrc/conv3d.cu: a weight-gradient block takes 8 input channels and up to
+# 32 output channels, and walks output tiles of 4 rows by 32 x (the split only
+# balances the blocks: the kernel works out each block's range itself)
+_WGRAD_CI, _WGRAD_CO, _WGRAD_TILE = 8, 32, (4, 32)
 
 
 def reset_counts() -> None:
-    global fwd_launches, dgrad_launches
+    global fwd_launches, dgrad_launches, wgrad_launches
     fwd_launches = 0
     dgrad_launches = 0
+    wgrad_launches = 0
 
 
 def build() -> Path:
@@ -55,71 +67,132 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3x3.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
+        lib.conv3x3x3.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [ptr]
         lib.conv3x3x3.restype = ctypes.c_int
+        lib.conv3x3x3_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+        lib.conv3x3x3_wgrad.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.ndim != 5 or min(x.shape[2:]) < 3:
-        raise ValueError(f"K3 takes x [N, Ci, Z, H, W] with every spatial size >= 3, "
+def _check_shapes(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> None:
+    if pad not in (0, 2):
+        raise ValueError(f"K3 takes padding 0 (forward) or 2 (input gradient), got {pad}")
+    least = 3 if pad == 0 else 1
+    if x.ndim != 5 or min(x.shape[2:]) < least:
+        raise ValueError(f"K3 takes x [N, Ci, Z, H, W] with every spatial size >= {least}, "
                          f"got {tuple(x.shape)}")
     if w.ndim != 5 or tuple(w.shape[:4]) != (3, 3, 3, x.shape[1]):
         raise ValueError(f"K3 needs w [3, 3, 3, {x.shape[1]}, Co], got {tuple(w.shape)}")
 
 
-def conv_launch(x: torch.Tensor, w: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
-    """Launch the kernel on ``x [N, Ci, Z, H, W]`` (contiguous, CUDA, f32 or
-    bf16) with ``w [3, 3, 3, Ci, Co]``; counts a forward or a dgrad launch."""
-    global fwd_launches, dgrad_launches
-    _check_shapes(x, w)
+def _check_cuda(name: str, x: torch.Tensor, other: torch.Tensor) -> None:
     if x.dtype not in _DTYPES:
-        raise TypeError(f"K3 takes float32 or bfloat16 x, got {x.dtype}")
-    if not (x.is_cuda and w.is_cuda and x.device == w.device):
-        raise ValueError("K3 needs x and w on the same CUDA device")
+        raise TypeError(f"{name} takes float32 or bfloat16 x, got {x.dtype}")
+    if not (x.is_cuda and other.is_cuda and x.device == other.device):
+        raise ValueError(f"{name} needs its operands on the same CUDA device")
     if not x.is_contiguous():
-        raise ValueError("K3 needs a contiguous x")
+        raise ValueError(f"{name} needs a contiguous x")
+
+
+def conv_launch(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> torch.Tensor:
+    """Launch the kernel on ``x [N, Ci, Z, H, W]`` (contiguous, CUDA, f32 or
+    bf16) with ``w [3, 3, 3, Ci, Co]`` and ``pad`` voxels of zeros around
+    ``x``; counts a forward (``pad=0``) or a dgrad (``pad=2``) launch. bf16
+    ``x`` with weights of another dtype runs the f32 path on ``x`` widened
+    (exact) and rounds the output once."""
+    global fwd_launches, dgrad_launches
+    _check_shapes(x, w, pad)
+    _check_cuda("K3", x, w)
+    if x.dtype == torch.bfloat16 and w.dtype != torch.bfloat16:
+        return conv_launch(x.float(), w, pad).to(x.dtype)
     N, Ci, Z, H, W = x.shape
     Co = w.shape[-1]
-    w27 = w.to(torch.float32).reshape(27, Ci, Co).contiguous()
-    out = torch.empty((N, Co, Z - 2, H - 2, W - 2), dtype=x.dtype, device=x.device)
+    wk = w.to(x.dtype).reshape(27, Ci, Co).contiguous()
+    out = torch.empty((N, Co) + tuple(s - 2 + 2 * pad for s in (Z, H, W)), dtype=x.dtype,
+                      device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().conv3x3x3(x.data_ptr(), w27.data_ptr(), out.data_ptr(), N, Ci, Co,
-                              Z, H, W, _DTYPES[x.dtype], stream)
+        rc = _lib().conv3x3x3(x.data_ptr(), wk.data_ptr(), out.data_ptr(), N, Ci, Co,
+                              Z, H, W, pad, _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc} (x {tuple(x.shape)}, "
-                           f"Co {Co})")
-    if dgrad:
+                           f"Co {Co}, pad {pad})")
+    if pad:
         dgrad_launches += 1
     else:
         fwd_launches += 1
     return out
 
 
-def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K3: ``F.conv3d`` in f32 on the weights
-    permuted to ``[Co, Ci, 3, 3, 3]``, rounded once to ``x``'s dtype. (On the
-    card it runs in cuDNN, full f32 only with ``torch.backends.cudnn.
-    allow_tf32 = False``, which ``models/attention_unet.py`` sets.)"""
-    _check_shapes(x, w)
+    permuted to ``[Co, Ci, 3, 3, 3]``, with ``pad`` voxels of zeros, rounded
+    once to ``x``'s dtype. (On the card it runs in cuDNN, full f32 only with
+    ``torch.backends.cudnn.allow_tf32 = False``, which
+    ``models/attention_unet.py`` sets.)"""
+    _check_shapes(x, w, pad)
     wt = w.to(torch.float32).permute(4, 3, 0, 1, 2)
-    return F.conv3d(x.to(torch.float32), wt).to(x.dtype)
+    return F.conv3d(x.to(torch.float32), wt, padding=pad).to(x.dtype)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, dgrad: bool) -> torch.Tensor:
+def _conv(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
     if x.is_cuda:
-        return conv_launch(x.contiguous(), w, dgrad)
+        return conv_launch(x.contiguous(), w, pad)
     if x.device.type == "cpu":
-        return conv3x3x3_plain(x, w)
+        return conv3x3x3_plain(x, w, pad)
     raise RuntimeError(f"K3 has no path for device {x.device}")
 
 
-def wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _check_wgrad_shapes(x: torch.Tensor, g: torch.Tensor) -> None:
+    if (x.ndim != 5 or g.ndim != 5 or min(x.shape[2:]) < 3 or g.shape[0] != x.shape[0]
+            or tuple(g.shape[2:]) != tuple(s - 2 for s in x.shape[2:])):
+        raise ValueError(f"K3's weight gradient takes x [N, Ci, Z, H, W] (every spatial "
+                         f"size >= 3) and g [N, Co, Z-2, H-2, W-2], got {tuple(x.shape)} "
+                         f"and {tuple(g.shape)}")
+
+
+def wgrad_splits(N: int, Ci: int, Co: int, Z: int, H: int, W: int) -> int:
+    """The weight-gradient kernel's blocks along the voxels: about
+    ``WGRAD_BLOCKS`` in all, never more than the output tiles."""
+    ty, tx = _WGRAD_TILE
+    tiles = N * (Z - 2) * -(-(H - 2) // ty) * -(-(W - 2) // tx)
+    per_chunk = min(_WGRAD_CO, 8 * -(-Co // 8))
+    chunks = -(-Ci // _WGRAD_CI) * -(-Co // per_chunk)
+    return max(1, min(tiles, WGRAD_BLOCKS // chunks))
+
+
+def wgrad_launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the weight-gradient kernel: ``dw [3, 3, 3, Ci, Co]`` in f32 of
+    ``x [N, Ci, Z, H, W]`` and ``g [N, Co, Z-2, H-2, W-2]`` (contiguous, CUDA,
+    both f32 or both bf16); counts a wgrad launch."""
+    global wgrad_launches
+    _check_wgrad_shapes(x, g)
+    _check_cuda("K3's weight gradient", x, g)
+    if g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"K3's weight gradient needs a contiguous g of x's dtype "
+                         f"{x.dtype}, got {g.dtype}")
+    N, Ci, Z, H, W = x.shape
+    Co = g.shape[1]
+    splits = wgrad_splits(N, Ci, Co, Z, H, W)
+    ws = torch.empty((splits, 27, Ci, Co), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().conv3x3x3_wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+                                    N, Ci, Co, Z, H, W, splits, _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"K3's weight-gradient launch failed: cudaError {rc} "
+                           f"(x {tuple(x.shape)}, Co {Co}, splits {splits})")
+    wgrad_launches += 1
+    return dw
+
+
+def wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``dw[dz, dy, dx, ci, co] = sum x[n, ci, z+dz, y+dy, x+dx] * g[n, co,
     z, y, x]`` in f32: one ``[Ci, M] @ [M, Co]`` matmul per tap (counterpart
     of ``_wgrad_xla``)."""
+    _check_wgrad_shapes(x, g)
     N, Ci = x.shape[:2]
     Co, Zo, Ho, Wo = g.shape[1:]
     g2 = g.to(torch.float32).transpose(0, 1).reshape(Co, -1)
@@ -132,23 +205,30 @@ def wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, 3, Ci, Co)
 
 
+def _wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        return wgrad_launch(x.contiguous(), g.contiguous())
+    if x.device.type == "cpu":
+        return wgrad_plain(x, g)
+    raise RuntimeError(f"K3's weight gradient has no path for device {x.device}")
+
+
 class _Conv3x3x3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _conv(x, w, dgrad=False)
+        return _conv(x, w, 0)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            gp = F.pad(g, (2, 2) * 3)
             w_t = w.flip((0, 1, 2)).transpose(3, 4)
-            dx = _conv(gp, w_t.to(gp.dtype), dgrad=True).to(x.dtype)
+            dx = _conv(g, w_t.to(g.dtype), 2).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = wgrad(x, g).to(w.dtype)
+            dw = _wgrad(x, g).to(w.dtype)
         return dx, dw
 
 
