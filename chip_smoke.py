@@ -8,16 +8,22 @@ K2b (the compact ROI gather of the exact warp's compact-block route,
 ``csrc/roigather.cu``) and the benchmark probes' kernels (``csrc/
 hatgather.cu``: P1-P5 of ``benchmarks/probe_hatgather.py``; ``csrc/
 roi_fetch.cu``: the fetch of ``benchmarks/probe_roi_stages.py``) from the
-checkout, holds each against its plain PyTorch version on the card, drives
+checkout, holds each against its plain PyTorch version on the card (K1 in
+its dense form and in the affine and flow forms the engines launch, which
+compute each pass's coordinates in the kernel and must equal the dense
+launch on the same coordinates to the bit), drives
 the port's paths with quality gates (the recipe cascade on the 240³ pairs;
 the CLI's register/apply round trip on NIfTI files; ``Register`` rigid, then
 flow; the U-Net parity cascade on the 240³ deformable pair, which must repeat
 to the bit; ``Register`` in U-Net mode at the reference width; ``Register``
 with the reference's default criteria and its exact warp on the compact
 route; the matrix engines with their own defaults, edge filter and default
-criteria; the two probe scripts' entry points), and times each kernel against its plain
-version and the one PyTorch call that computes the same function, where
-there is one. Any failure raises, so the exit code is non-zero.
+criteria; the two probe scripts' entry points; every engine path must launch
+K1's affine or flow form and never its dense form), and times each kernel
+against its plain version and the one PyTorch call that computes the same
+function, where there is one (K1: each form against the dense launch, and
+whole 3-pass warps against the per-pass composition the port ran before,
+``profile_sweep``). Any failure raises, so the exit code is non-zero.
 
     python3 chip_smoke.py
 
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 
 from torchregister_tpu_torch import Register
+from torchregister_tpu_torch import profile_sweep as ps
 from torchregister_tpu_torch.__main__ import main as cli
 from torchregister_tpu_torch.engines.affine import affine_register
 from torchregister_tpu_torch.engines.cascade import register_cascade
@@ -305,6 +312,74 @@ def _check_path_sweep(S, K, dtype, axis) -> tuple[float, float]:
     return _max_err(outs[0], outs[1]), max(_max_err(ds, ref_s), _max_err(dq, ref_q))
 
 
+def _mode_case(S, K, dtype, axis, seed):
+    """A [1, 1, S, S, S] image and cotangent, a table whose row 0 sweeps
+    ``axis`` with slope ~1 and displacements spread over the window and 2
+    voxels past it along the next axis, and a field with displacements
+    drawn over the same span."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    src = torch.rand((1, 1, S, S, S), generator=gen, device=DEV).to(dtype)
+    g = torch.randn(src.shape, generator=gen, device=DEV).to(dtype)
+    coef = 0.02 * (2.0 * torch.rand(3, generator=gen, device=DEV) - 1.0)
+    coef[axis] += 1.0
+    coef[(axis + 1) % 3] = (2.0 * K + 4.0) / (S - 1)
+    offset = torch.tensor([0.37 - (K + 2.0)], device=DEV)
+    table = torch.cat([coef, offset])[None].repeat(3, 1).contiguous()
+    flow = (K + 2.0) * (2.0 * torch.rand((1, 3, S, S, S), generator=gen, device=DEV) - 1.0)
+    return src, g, table, flow
+
+
+def _check_path_modes(S, K, dtype, axis) -> tuple[float, float, float]:
+    """K1's affine and flow forms along ``axis``: against the dense launch on
+    the coordinates the per-pass composition built (forward, dsrc and du
+    equal to the bit), against the plain version (forward, dsrc and du at
+    ``TOL``, relative to the largest reference value; the table row's
+    gradient at 1e-5 of its largest entry: another order of its sums), and
+    against two more runs of their own (every output equal to the bit).
+    Returns the largest absolute deviations from the plain version, forward
+    and backward, and the row gradient's relative one."""
+    src, g, table, flow = _mode_case(S, K, dtype, axis, 7000 + 10 * S + K + axis)
+    dim = 2 + axis
+    runs = [(k1.affine_fwd(src, table, 0, axis, K), *k1.affine_bwd(g, src, table, 0, axis, K),
+             k1.flow_fwd(src, flow, axis, K), *k1.flow_bwd(g, src, flow, axis, K))
+            for _ in range(3)]
+    repeat = all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0]))
+    aout, adsrc, arow, fout, fdsrc, fdu = runs[0]
+    qa = ps.parent_q(src, table, flow, "affine", 0, axis)
+    qf = ps.parent_q(src, table, flow, "flow", 0, axis)
+    (da_s, _), (df_s, df_q) = k1.sweep_bwd(g, src, qa, dim, K), k1.sweep_bwd(g, src, qf, dim, K)
+    bits = {"affine out": torch.equal(aout, k1.sweep_fwd(src, qa, dim, K)[0]),
+            "affine dsrc": torch.equal(adsrc, da_s),
+            "flow out": torch.equal(fout, k1.sweep_fwd(src, qf, dim, K)[0]),
+            "flow dsrc": torch.equal(fdsrc, df_s), "flow du": torch.equal(fdu, df_q[:, 0])}
+    s = src.clone().requires_grad_(True)
+    row = table[0].clone().requires_grad_(True)
+    pa = k1.sweep_affine_plain(s, row[:3], row[3], axis, K)
+    pa_s, pa_row = torch.autograd.grad(pa, (s, row), g)
+    s = src.clone().requires_grad_(True)
+    f = flow.clone().requires_grad_(True)
+    pf = k1.sweep_flow_plain(s, f, axis, K)
+    pf_s, pf_f = torch.autograd.grad(pf, (s, f), g)
+    torch.cuda.synchronize()
+    fwd_pairs = ((aout, pa), (fout, pf))
+    bwd_pairs = ((adsrc, pa_s), (fdsrc, pf_s), (fdu, pf_f[:, axis]))
+    rel = [_rel_err(a, b) for a, b in (*fwd_pairs, *bwd_pairs)]
+    row_rel = _rel_err(arow, pa_row)
+    tol = TOL[dtype]
+    label = f"{S}³ K={K} {str(dtype).replace('torch.', '')} axis {axis}"
+    print(f"[kernel] modes {label}: equal to the dense launch {all(bits.values())}, "
+          f"repeat {repeat}; rel out/dsrc affine {rel[0]:.3e}/{rel[2]:.3e}, flow "
+          f"{rel[1]:.3e}/{rel[3]:.3e}, du {rel[4]:.3e} (tol {tol:g}); row gradient "
+          f"{row_rel:.3e} (tol 1e-5)", flush=True)
+    if not all(bits.values()) or not repeat:
+        raise AssertionError(f"K1 modes {label}: bits {bits}, repeat {repeat}")
+    if not (max(rel) < tol and row_rel < 1e-5):
+        raise AssertionError(f"K1 modes {label} disagree with the plain version: {rel}, "
+                             f"{row_rel:.3e}")
+    return (max(_max_err(a, b) for a, b in fwd_pairs),
+            max(_max_err(a, b) for a, b in bwd_pairs), row_rel)
+
+
 def phase_kernels() -> dict:
     """K1 against its plain version on the card; returns the largest
     absolute deviations seen, forward and backward, f32 and bf16 alike."""
@@ -328,7 +403,14 @@ def phase_kernels() -> dict:
         for axis in range(3):
             f, b = _check_path_sweep(S, K, dtype, axis)
             fwd_err, bwd_err = max(fwd_err, f), max(bwd_err, b)
-    return {"sweep_fwd": fwd_err, "sweep_bwd": bwd_err}
+    # the affine and flow forms (the only ones the engines launch) at the
+    # same shapes and windows
+    row_err = 0.0
+    for S, K, dtype in PATH_SWEEPS:
+        for axis in range(3):
+            f, b, r = _check_path_modes(S, K, dtype, axis)
+            fwd_err, bwd_err, row_err = max(fwd_err, f), max(bwd_err, b), max(row_err, r)
+    return {"sweep_fwd": fwd_err, "sweep_bwd": bwd_err, "sweep_row_grad_rel": row_err}
 
 
 # the JAX bench selftest's rigid transform of the K2 check (bench.py:82)
@@ -607,7 +689,7 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
     print(f"[main] pairs made in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    k1.reset_counts()
+    _reset_counts()
     res = register_cascade(moving, target, **RECIPE)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -616,7 +698,7 @@ def phase_main_path() -> dict:
     wall = time.perf_counter() - t0
     fres = register_cascade(fmov, ftgt, **RECIPE)
     torch.cuda.synchronize()
-    launches = {"sweep_fwd": k1.fwd_launches, "sweep_bwd": k1.bwd_launches}
+    launches = _counts()
 
     for r, m in ((res, moving), (fres, fmov)):
         _on_cuda(r)
@@ -629,9 +711,9 @@ def phase_main_path() -> dict:
     print(f"[main] steps, rigid pair: {res.steps}", flush=True)
     print(f"[main] steps, deformable pair: {fres.steps}", flush=True)
     print(f"[main] quality: {json.dumps(quality)}", flush=True)
-    print(f"[main] K1 launches: {json.dumps(launches)}", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"main path did not run K1: {launches}")
+    k1_launches = {n: v for n, v in launches.items() if n.startswith("sweep")}
+    print(f"[main] K1 launches: {json.dumps(k1_launches)}", flush=True)
+    _need(launches, ("sweep_fwd", "sweep_bwd", *K1_MODES), "the main path")
     if quality["rmse_reduction_pct"] < GATES["rmse_reduction_pct"]:
         raise AssertionError(f"rigid gate failed: {quality}")
     if quality["flow_truth_rmse_reduction_pct"] < GATES["flow_truth_rmse_reduction_pct"]:
@@ -641,8 +723,15 @@ def phase_main_path() -> dict:
     return launches
 
 
+# K1's launches by the form of their coordinates: the engines' paths launch
+# the affine and flow forms only
+K1_MODES = ("sweep_fwd_affine", "sweep_bwd_affine", "sweep_fwd_flow", "sweep_bwd_flow")
+
+
 def _counts() -> dict:
     return {"sweep_fwd": k1.fwd_launches, "sweep_bwd": k1.bwd_launches,
+            **{f"sweep_fwd_{m}": n for m, n in k1.fwd_modes.items()},
+            **{f"sweep_bwd_{m}": n for m, n in k1.bwd_modes.items()},
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
             "conv3d_wgrad": k3.wgrad_launches,
@@ -655,9 +744,14 @@ def _reset_counts() -> None:
 
 
 def _need(launches: dict, names, path: str) -> None:
+    """Each of ``names`` launched on the path; K1's dense form never (the
+    engines' warps compute their coordinates in the kernels)."""
     missing = [n for n in names if launches[n] <= 0]
     if missing:
         raise AssertionError(f"{path} did not launch {missing}: {launches}")
+    dense = {n: launches[n] for n in ("sweep_fwd_dense", "sweep_bwd_dense") if launches[n]}
+    if dense:
+        raise AssertionError(f"{path} launched K1's dense form: {dense}")
 
 
 def phase_cli(tmp: str) -> dict:
@@ -694,7 +788,8 @@ def phase_cli(tmp: str) -> dict:
         raise AssertionError("apply does not reproduce register's output bit for bit")
     if pct < GATES["rmse_reduction_pct"]:
         raise AssertionError(f"CLI cascade RMSE gate failed: {pct:.3f} %")
-    _need(launches, ("sweep_fwd", "sweep_bwd", "warp_affine", "warp_flow"), "the CLI")
+    _need(launches, ("sweep_fwd", "sweep_bwd", *K1_MODES, "warp_affine", "warp_flow"),
+          "the CLI")
     return launches
 
 
@@ -729,7 +824,8 @@ def phase_register() -> tuple[dict, float]:
         raise AssertionError(f"Register rigid RMSE gate failed: {pct:.3f} %")
     if not rel < 1e-5 or not bool(torch.isfinite(flow_out).all()):
         raise AssertionError(f"Register flow output disagrees with warp_plain: {rel:.3e}")
-    _need(launches, ("sweep_fwd", "sweep_bwd", "warp_affine", "warp_flow"), "Register")
+    _need(launches, ("sweep_fwd", "sweep_bwd", *K1_MODES, "warp_affine", "warp_flow"),
+          "Register")
     return launches, err
 
 
@@ -789,8 +885,8 @@ def phase_unet() -> dict:
           f"{json.dumps(UNET_GATES)}", flush=True)
     print(f"[unet] matrix stages alone (no flow): {json.dumps(floor)}", flush=True)
     print(f"[unet] launches: {json.dumps(launches)}", flush=True)
-    _need(launches, ("sweep_fwd", "sweep_bwd", "conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"),
-          "the U-Net cascade")
+    _need(launches, ("sweep_fwd", "sweep_bwd", *K1_MODES, "conv3d_fwd", "conv3d_dgrad",
+                     "conv3d_wgrad"), "the U-Net cascade")
     if quality["unet_flow_truth_rmse_reduction_pct"] < UNET_GATES[
             "unet_flow_truth_rmse_reduction_pct"]:
         raise AssertionError(f"U-Net deformable gate failed: {quality}")
@@ -832,8 +928,9 @@ def phase_register_unet() -> dict:
         raise AssertionError("Register U-Net flow or output is not finite of the right shape")
     if depth != 4 or steps != REGISTER_UNET_STEPS:
         raise AssertionError(f"Register U-Net ran depth {depth}, {steps} steps")
-    _need(launches, ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad", "warp_flow"),
-          "Register U-Net")
+    # a flow-only run: its separable warps are flow passes, none affine
+    _need(launches, ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad", "warp_flow",
+                     "sweep_fwd_flow", "sweep_bwd_flow"), "Register U-Net")
     return launches
 
 
@@ -876,7 +973,8 @@ def phase_register_default() -> dict:
         raise AssertionError("Register's default-criteria output is not finite")
     if pct < GATES["rmse_reduction_pct"]:
         raise AssertionError(f"Register default-criteria RMSE gate failed: {pct:.3f} %")
-    _need(launches, ("sweep_fwd", "sweep_bwd", "roigather"), "Register with criterion=None")
+    _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_fwd_affine", "sweep_bwd_affine",
+                     "roigather"), "Register with criterion=None")
     if sum(branches.values()) < steps:
         raise AssertionError(f"the default criteria ran NMI {branches} times in {steps} steps")
     _check_nmi(target, moving)
@@ -943,7 +1041,8 @@ def phase_engines_default() -> dict:
     launches = _counts()
     print(f"[engines-default] {json.dumps(rows)} (wall time includes the edge filter of "
           f"both images); launches {json.dumps(launches)}", flush=True)
-    _need(launches, ("sweep_fwd", "sweep_bwd", "conv3d_fwd"), "the engines' defaults")
+    _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_fwd_affine", "sweep_bwd_affine",
+                     "conv3d_fwd"), "the engines' defaults")
     _check_edges(moving)
     return launches
 
@@ -985,76 +1084,22 @@ def _time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _warp_case(S, K, dtype):
-    """One 3-pass separable warp (axis 2, 1, 0) with displacements spread
-    over the window, as the slice runs it."""
-    gen = torch.Generator(device=DEV).manual_seed(S + K)
-    src = torch.rand((1, 1, S, S, S), generator=gen, device=DEV).to(dtype)
-    qs = []
-    for axis in (2, 1, 0):
-        shape = [1, 1, 1, 1, 1]
-        shape[2 + axis] = S
-        qs.append((axis, torch.arange(S, dtype=torch.float32, device=DEV).view(shape)
-                   + K * (2.0 * torch.rand((1, 1, S, S, S), generator=gen, device=DEV)
-                          - 1.0)))
-    return src, qs
-
-
-def _warp(src, qs, K, fn):
-    out = src
-    for axis, q in qs:
-        out = fn(out, q, 2 + axis, K)
-    return out
-
-
-def _launch_times(src, qs, K) -> dict:
-    """One launch of each raw kernel against one pass of the plain version
-    (forward; backward by autograd with the graph kept), mean over the three
-    passes of the warp, ms."""
-    times = {"fwd_ms": [], "plain_fwd_ms": [], "bwd_ms": [], "plain_bwd_ms": []}
-    g = torch.ones_like(src)
-    for axis, q in qs:
-        q = q.contiguous()
-        times["fwd_ms"].append(_time_ms(lambda: k1.sweep_fwd(src, q, 2 + axis, K)))
-        times["bwd_ms"].append(_time_ms(lambda: k1.sweep_bwd(g, src, q, 2 + axis, K)))
-        with torch.no_grad():
-            times["plain_fwd_ms"].append(
-                _time_ms(lambda: k1.sweep_plain(src, q, 2 + axis, K)))
-        s = src.clone().requires_grad_(True)
-        qq = q.clone().requires_grad_(True)
-        out = k1.sweep_plain(s, qq, 2 + axis, K)[0]
-        times["plain_bwd_ms"].append(_time_ms(
-            lambda: torch.autograd.grad(out, (s, qq), g, retain_graph=True)))
-        del out
-    return {k: sum(v) / len(v) for k, v in times.items()}
-
-
-def phase_times() -> list:
-    """K1 against the plain version at the slice's shapes, CUDA events: one
-    launch of each kernel (mean over the three axes), and one 3-pass warp
-    through the autograd Function (wrapper included), forward and
-    forward+backward."""
-    plain = lambda s, q, d, K: k1.sweep_plain(s, q, d, K)[0]  # noqa: E731
+def phase_mode_times() -> list:
+    """K1's affine and flow forms at the main path's shapes (``ps.SHAPES``):
+    one launch of each form against the dense launch on the coordinates the
+    per-pass composition built, in turns, and the plain version, with their
+    bounds; one 3-pass warp through the whole-warp Functions against that
+    composition, forward and forward+backward with the warp's parameter
+    requiring grad; the aten operations of one in-loop warp both ways
+    (``profile_sweep``)."""
     rows = []
-    for S, K, dtype in ((60, 11, torch.bfloat16), (120, 6, torch.bfloat16),
-                        (240, 8, torch.float32), (240, 80, torch.float32)):
-        src, qs = _warp_case(S, K, dtype)
-        row = {"S": S, "K": K, "dtype": str(dtype).replace("torch.", "")}
-        row.update(_launch_times(src, qs, K))
-        for name, fn in (("warp3", k1.sweep), ("plain_warp3", plain)):
-            with torch.no_grad():
-                row[f"{name}_fwd_ms"] = _time_ms(lambda: _warp(src, qs, K, fn))
-            qg = [(a, q.clone().requires_grad_(True)) for a, q in qs]
-            sg = src.clone().requires_grad_(True)
-            g = torch.ones_like(src)
-
-            def fwd_bwd():
-                out = _warp(sg, qg, K, fn)
-                torch.autograd.grad(out, [sg] + [q for _, q in qg], g)
-
-            row[f"{name}_fwdbwd_ms"] = _time_ms(fwd_bwd)
-        print(f"[times] {json.dumps(row)}", flush=True)
+    for shape in ps.SHAPES:
+        row = ps.launch_row(*shape)
+        print(f"[times] launch {json.dumps(row)}", flush=True)
         rows.append(row)
+    for shape in ps.SHAPES:
+        print(f"[times] warp3 {json.dumps(ps.warp3_row(*shape))}", flush=True)
+    print(f"[times] ops {json.dumps(ps.op_counts())}", flush=True)
     return rows
 
 
@@ -1264,6 +1309,21 @@ def _library_times() -> dict:
     return out
 
 
+def _sweep_extras(name: str, flow_row: dict, modes: dict, row_err: float) -> dict:
+    """K1's line beside its flow-form time: the dense launch's on the same
+    coordinates, and every form's times and bounds at the path's shapes; the
+    backward's, the largest relative deviation of an affine table row's
+    gradient from autograd through the plain version."""
+    kind = "fwd" if name == "sweep_fwd" else "bwd"
+    keys = (f"{kind}_ms", f"dense_{kind}_ms", f"{kind}_device_ms", f"dense_{kind}_device_ms",
+            f"{kind}_bound_ms", f"dense_{kind}_bound_ms")
+    extras = {"dense_ms": flow_row[f"dense_{kind}_ms"],
+              "modes": {label: {k: r[k] for k in keys} for label, r in modes.items()}}
+    if kind == "bwd":
+        extras["affine_row_grad_max_rel_err"] = row_err
+    return extras
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1283,14 +1343,16 @@ def main() -> None:
     paths += [phase_unet(), phase_register_unet(), phase_register_default(),
               phase_engines_default(), probe_launches]
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
-    rows = phase_times()
+    mode_rows = phase_mode_times()
     k2_times = phase_k2_times()
     k3_row = phase_k3_times()["8->8 edge 118"]
     k2b_row = phase_k2b_times()
     probe_rows = phase_probe_times(probe_inputs)
     library = _library_times()
-    # per-launch times at the fine flow level's shape (240³, K=8, f32)
-    flow_row = next(r for r in rows if r["S"] == 240 and r["K"] == 8)
+    # per-launch times at the fine flow level's shape (240³, K=8, f32): its
+    # flow form, with the dense launch and every form's row beside it
+    flow_row = next(r for r in mode_rows if r["mode"] == "flow")
+    modes = {f"{r['mode']} {r['S']}^3 K={r['K']} {r['dtype']}": r for r in mode_rows}
     times = {"sweep_fwd": {"ms": flow_row["fwd_ms"], "plain_ms": flow_row["plain_fwd_ms"]},
              "sweep_bwd": {"ms": flow_row["bwd_ms"], "plain_ms": flow_row["plain_bwd_ms"]},
              **k2_times,
@@ -1304,8 +1366,9 @@ def main() -> None:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (8 weights, 8
     # products, 8 sums, the coordinates)
-    bounds = {"sweep_fwd": _bound(3 * 4.0 * vox, 6.0 * vox),  # src, q -> out
-              "sweep_bwd": _bound(5 * 4.0 * vox, 10.0 * vox),  # g, src, q -> dsrc, dq
+    bounds = {**{name: {"bound_ms": flow_row[f"{kind}_bound_ms"],
+                        "bound_by": flow_row[f"{kind}_bound_by"]}
+                 for name, kind in (("sweep_fwd", "fwd"), ("sweep_bwd", "bwd"))},
               "warp_affine": _bound(2 * 4.0 * vox, 60.0 * vox),  # src -> out
               "warp_flow": _bound(5 * 4.0 * vox, 60.0 * vox),  # src, 3-channel flow -> out
               **{name: {k: k3_row[k] for k in ("bound_ms", "bound_by", "fma_bound_ms")}
@@ -1317,7 +1380,8 @@ def main() -> None:
                    conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
                    roigather=k2b_row["library_ms"],
                    **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")})
-    timed_at = {"sweep_fwd": "one launch, 240^3 K=8 f32, mean of axes 0-2",
+    timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
+                             "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
                 "warp_flow": "one launch, 240^3 f32, smooth field |flow|<=8",
                 "conv3d_fwd": "one launch, 8->8 at 118^3 f32; plain: cuDNN, TF32 off",
@@ -1338,7 +1402,9 @@ def main() -> None:
          "plain_ms": times[name]["plain_ms"], **bounds[name], "library_ms": library[name],
          "timed_at": timed_at[name],
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
-         **({"note": NOTES[name]} if name in NOTES else {})}
+         **({"note": NOTES[name]} if name in NOTES else {}),
+         **(_sweep_extras(name, flow_row, modes, errs["sweep_row_grad_rel"])
+            if name.startswith("sweep") else {})}
         for name in REPLACES
     ]
     print(smi)

@@ -91,6 +91,227 @@ def test_torch_cuda_sweep_rejects_bad_inputs(dev):
         k1.sweep_fwd(src, q.cpu(), 4, 2)
 
 
+# ------------------------------------------------------------- K1's modes
+# The affine and flow forms compute each pass's coordinates in the kernel.
+# On the coordinates the parent built (``_axis_coord_grid``; ``flow[:, a] +
+# ident``) and handed to the dense launch they give the same bits: forward,
+# dsrc (both add each source's terms in ascending x) and du. The affine
+# table's gradient is reduced in another order: rel 1e-5 of its largest
+# entry against autograd through the plain version.
+
+
+def _modes_case(dev, N, C, spatial, K, dtype, seed):
+    from torchregister_tpu_torch.ops.separable import affine_to_index_map, factor_passes
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randn((N, C) + spatial, generator=gen, device=dev).to(dtype)
+    g = torch.randn(src.shape, generator=gen, device=dev).to(dtype)
+    d = len(spatial)
+    params = (0.2, -0.15, 0.1, 0.15, -0.1, 0.05) if d == 3 else (0.2, 0.1, -0.05)
+    theta = rigid_theta(torch.tensor(params, device=dev))
+    passes = factor_passes(*affine_to_index_map(theta, spatial))
+    table = torch.stack([torch.cat([c, o.reshape(1)]) for _, (c, o) in passes]).contiguous()
+    flow = (K + 2.0) * (2.0 * torch.rand((N, d) + spatial, generator=gen, device=dev) - 1.0)
+    return src, g, [a for a, _ in passes], table, flow
+
+
+def _parent_q(src, table, flow, p, axis):
+    """The dense coordinates the parent built for pass ``p`` (affine) and
+    for the flow pass along ``axis``, expanded to src's shape."""
+    spatial = tuple(src.shape[2:])
+    d = len(spatial)
+    qa = k1._axis_coord_grid(table[p, :d], table[p, d], spatial)
+    ident = torch.arange(spatial[axis], dtype=torch.float32, device=src.device)
+    ident = ident.view(tuple(spatial[axis] if i == axis else 1 for i in range(d)))
+    qf = flow[:, axis][:, None] + ident
+    return (qa.expand(src.shape).contiguous(), qf.expand(src.shape).contiguous())
+
+
+def _check_modes_against_dense(dev, N, C, K, dtype, seed):
+    spatial = (17, 19, 23)
+    src, g, axes, table, flow = _modes_case(dev, N, C, spatial, K, dtype, seed)
+    for p, axis in enumerate(axes):
+        qa, qf = _parent_q(src, table, flow, p, axis)
+        dim = 2 + axis
+        # affine: forward and dsrc to the bit, the row's gradient to 1e-5
+        assert torch.equal(k1.affine_fwd(src, table, p, axis, K), k1.sweep_fwd(src, qa, dim, K)[0])
+        dsrc, drow = k1.affine_bwd(g, src, table, p, axis, K)
+        ref_s, _ = k1.sweep_bwd(g, src, qa, dim, K)
+        assert torch.equal(dsrc, ref_s)
+        row = table[p].clone().requires_grad_(True)
+        out = k1.sweep_affine_plain(src, row[:3], row[3], axis, K)
+        ref_row, = torch.autograd.grad(out, row, g)
+        torch.testing.assert_close(drow, ref_row, rtol=0,
+                                   atol=1e-5 * float(ref_row.abs().max()))
+        # flow: forward, dsrc and du to the bit
+        assert torch.equal(k1.flow_fwd(src, flow, axis, K), k1.sweep_fwd(src, qf, dim, K)[0])
+        dsrc, du = k1.flow_bwd(g, src, flow, axis, K)
+        ref_s, ref_q = k1.sweep_bwd(g, src, qf, dim, K)
+        assert torch.equal(dsrc, ref_s)
+        assert torch.equal(du, ref_q.sum(1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [3, 11, 80])
+@pytest.mark.parametrize("C", [1, 3])
+def test_torch_cuda_sweep_modes_match_dense_launch(dev, dtype, K, C):
+    _check_modes_against_dense(dev, 2, C, K, dtype, 10 * K + C)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [3, 11, 80])
+def test_torch_cuda_sweep_modes_one_image(dev, dtype, K):
+    """N = C = 1, as every engine warp: the flow form's one-image kernel,
+    whose field and du are indexed like the image."""
+    _check_modes_against_dense(dev, 1, 1, K, dtype, 10 * K + 7)
+
+
+def _dsrc_in_ascending_x(g, q, dim, K):
+    """dsrc of the sweep, summed on the host in float32 in the kernel's
+    fixed order: for each source index, its terms in ascending x (an x's
+    floor tap and its ceil tap never reach the same index)."""
+    import numpy as np
+
+    gm = np.moveaxis(g.float().cpu().numpy(), dim, -1)
+    qm = np.moveaxis(q.cpu().numpy(), dim, -1)
+    X = qm.shape[-1]
+    g2, q2 = gm.reshape(-1, X), qm.reshape(-1, X)
+    q0 = np.floor(q2)
+    fr = q2 - q0
+    k = q0 - np.arange(X, dtype=np.float32)
+    mf = (k >= -K) & (k <= K + 1) & (q0 >= 0) & (q0 < X)
+    mc = (k >= -K - 1) & (k <= K) & (q0 + 1 >= 0) & (q0 + 1 < X)
+    wf, wc = g2 * (np.float32(1.0) - fr), g2 * fr
+    acc = np.zeros_like(g2)
+    rows = np.arange(g2.shape[0])
+    for x in range(X):
+        f = q0[:, x].astype(np.int64)
+        for m, tap, w in ((mf[:, x], f, wf[:, x]), (mc[:, x], f + 1, wc[:, x])):
+            acc[rows[m], tap[m]] += w[m]
+    return torch.from_numpy(np.moveaxis(acc.reshape(gm.shape), -1, dim).copy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("folded", [False, True], ids=["monotone", "folded"])
+@pytest.mark.parametrize("K", [3, 11, 80])
+def test_torch_cuda_sweep_bwd_dsrc_in_fixed_order(dev, dtype, folded, K):
+    """The dense backward's dsrc equals the host's ascending-x float32 sum to
+    the bit, on coordinates whose floor index never decreases along the
+    axis (the gather) and on coordinates drawn per voxel (folds: the ordered
+    scatter), with axes long enough for several chunks."""
+    gen = torch.Generator(device=dev).manual_seed(100 * K + folded)
+    for shape, dim in (((1, 2, 150, 5, 7), 2), ((2, 1, 5, 7, 150), 4)):
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        src = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        view = [1] * 5
+        view[dim] = shape[dim]
+        x = torch.arange(shape[dim], dtype=torch.float32, device=dev).view(view)
+        u = (K + 2.0) * (2.0 * torch.rand(shape, generator=gen, device=dev) - 1.0)
+        if not folded:  # slope 0.7 along the axis, an offset per column
+            u = -0.3 * x + u.narrow(dim, 0, 1)
+        q = (x + u).contiguous()
+        dsrc, _ = k1.sweep_bwd(g, src, q, dim, K)
+        ref = _dsrc_in_ascending_x(g, q, dim, K).to(dtype)
+        assert torch.equal(dsrc.cpu(), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_torch_cuda_sweep_modes_2d_and_full_windows(dev, dtype):
+    """2-D images (the view's z of 1) and windows as wide as the axis (the
+    degenerate route of required_windows) against the dense launch."""
+    for spatial, K in (((31, 26), 11), ((40, 37), 40), ((9, 10, 11), 240)):
+        src, g, axes, table, flow = _modes_case(dev, 2, 3, spatial, K, dtype, K)
+        d = len(spatial)
+        for p, axis in enumerate(axes):
+            qa, qf = _parent_q(src, table, flow, p, axis)
+            assert torch.equal(k1.affine_fwd(src, table, p, axis, K),
+                               k1.sweep_fwd(src, qa, 2 + axis, K)[0])
+            assert torch.equal(k1.affine_bwd(g, src, table, p, axis, K)[0],
+                               k1.sweep_bwd(g, src, qa, 2 + axis, K)[0])
+            assert torch.equal(k1.flow_fwd(src, flow, axis, K),
+                               k1.sweep_fwd(src, qf, 2 + axis, K)[0])
+            dsrc, du = k1.flow_bwd(g, src, flow, axis, K)
+            ref_s, ref_q = k1.sweep_bwd(g, src, qf, 2 + axis, K)
+            assert torch.equal(dsrc, ref_s) and torch.equal(du, ref_q.sum(1))
+            row = table[p].clone().requires_grad_(True)
+            ref_row, = torch.autograd.grad(
+                k1.sweep_affine_plain(src, row[:d], row[d], axis, K), row, g)
+            drow = k1.affine_bwd(g, src, table, p, axis, K)[1]
+            torch.testing.assert_close(drow, ref_row, rtol=0,
+                                       atol=1e-5 * float(ref_row.abs().max()))
+
+
+def test_torch_cuda_sweep_modes_repeat_to_the_bit(dev):
+    """Every output of every mode's launches, three runs: the same bits
+    (coordinates bunched so many outputs share each tap)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        src, g, axes, table, _ = _modes_case(dev, 1, 2, (30, 33, 35), 6, dtype, 3)
+        flow = torch.floor(3.0 * torch.rand((1, 3, 30, 33, 35), device=dev)) - 1.37
+        for p, axis in enumerate(axes):
+            runs = [(k1.affine_fwd(src, table, p, axis, 6),
+                     *k1.affine_bwd(g, src, table, p, axis, 6),
+                     k1.flow_fwd(src, flow, axis, 6),
+                     *k1.flow_bwd(g, src, flow, axis, 6)) for _ in range(3)]
+            for run in runs[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+@pytest.mark.parametrize("spatial", [(12, 13, 14), (21, 18)], ids=["3d", "2d"])
+def test_torch_cuda_separable_warps_launch_d_passes(dev, spatial):
+    """``_warp_affine_separable`` with theta requiring grad and
+    ``warp_flow_separable`` with the field requiring grad: d forward and d
+    backward launches each, all of their own mode, none dense; values and
+    gradients against the per-pass plain versions (the CPU's route) on the
+    same tensors (f32: 1e-5 of the largest value, theta's and the field's
+    gradients 1e-4)."""
+    from torchregister_tpu_torch.ops.separable import (_warp_affine_separable,
+                                                       warp_flow_separable)
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    d = len(spatial)
+    src, g, _, _, flow = _modes_case(dev, 1, 1, spatial, 4, torch.float32, 5)
+    params = (0.2, -0.15, 0.1, 0.15, -0.1, 0.05) if d == 3 else (0.2, 0.1, -0.05)
+    theta = rigid_theta(torch.tensor(params, device=dev))[None]
+    for name, warp, param in (
+            ("affine", lambda s, th: _warp_affine_separable(th, s, max_shift=6), theta),
+            ("flow", lambda s, f: warp_flow_separable(s, f, max_disp=4), flow)):
+        grads, outs = [], []
+        for cuda_path in (True, False):
+            s = src.clone().requires_grad_(True)
+            pr = param.clone().requires_grad_(True)
+            k1.reset_counts()
+            if cuda_path:
+                out = warp(s, pr)
+                grads.append(torch.autograd.grad(out, (s, pr), g))
+                assert k1.fwd_modes == {**{m: 0 for m in k1.fwd_modes}, name: d}
+                assert k1.bwd_modes == {**{m: 0 for m in k1.bwd_modes}, name: d}
+                assert (k1.fwd_launches, k1.bwd_launches) == (d, d)
+            else:  # the plain passes: the same warp on CPU copies
+                out = warp(s.cpu(), pr.cpu())
+                grads.append(torch.autograd.grad(out, (s, pr), g.cpu()))
+                out = out.to(dev)
+            outs.append(out.detach())
+        torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                                   atol=1e-5 * float(outs[1].abs().max()))
+        for got, ref, tol in zip(grads[0], grads[1], (1e-5, 1e-4)):
+            torch.testing.assert_close(got, ref, rtol=0, atol=tol * float(ref.abs().max()))
+
+
+def test_torch_cuda_sweep_modes_reject_bad_inputs(dev):
+    src = torch.zeros((1, 1, 8, 9, 10), device=dev)
+    table = torch.zeros((3, 4), device=dev)
+    flow = torch.zeros((1, 3, 8, 9, 10), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.affine_fwd(src.transpose(2, 4), table, 0, 2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.flow_fwd(src, torch.zeros((1, 3, 10, 9, 8), device=dev).transpose(2, 4), 0, 2)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        k1.flow_fwd(src, flow.cpu(), 0, 2)
+    with pytest.raises(ValueError, match="table"):
+        k1.affine_fwd(src, table[:2], 0, 2, 2)
+
+
 def test_torch_cuda_cascade_matches_cpu(dev):
     """The reduced recipe at 24³ on the card (K1) and on the CPU (plain
     version): the same rules, so the same executed steps within 4 per stage

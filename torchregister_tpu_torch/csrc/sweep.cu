@@ -9,48 +9,79 @@
 //   ceil  tap src[q0+1] counts iff k in [-K-1, K  ] and 0 <= q0+1 < X
 //   out  = floor * (1 - fr) + ceil * fr,   diff = ceil - floor
 //
+// Where q comes from. One kernel of each kind takes q from a small functor,
+// in one of three modes:
+//   dense   q[e], a float32 tensor of src's shape (sweep(), the tests, and
+//           the yardstick of the other two);
+//   affine  q = ((t + c0*z) + c1*y) + c2*x (2-D: (t + c0*y) + c1*x), from one
+//           row (coef[d], offset) of a float32 device table: one pass of a
+//           separable affine warp, no dense grid and no host read;
+//   flow    q = u_a(o) + o_a, u_a channel a of a float32 [N, d, *S] field,
+//           read by its strides and broadcast over src's channels.
+// The affine and flow coordinates are evaluated with __fmul_rn/__fadd_rn in
+// the order the plain composition (_axis_coord_grid; flow[:, a] + ident)
+// takes, so nvcc cannot contract a*b+c into an FMA: a coordinate, and so
+// every tap, is equal to the bit to the dense launch's on the grid built
+// that way. The weights and products are written the same way, so the three
+// modes give the same bits on the same coordinates.
+//
 // What bounds it on this card: memory bytes. The Pallas kernel sweeps 2K+2
 // masked terms per voxel because Mosaic has no per-lane gather; here every
-// thread reads its two taps directly, so the cost is O(1) per voxel: a read
-// of q and two (mostly cached) reads of src, one write of out (and of diff if
-// asked). At the slice's windows (K <= 80) nothing is reused across outputs
-// beyond what L1/L2 already catch, so the kernels are plain element-parallel
-// loops with no shared-memory staging in the forward.
+// thread reads its two taps directly, so the forward is O(1) per voxel: src
+// in, out back (plus u in flow mode, q in dense mode). Every kernel sees a
+// tensor as rows [outer, L, inner] along the swept axis. The forward's
+// threads take 32 consecutive inner indices (or, for the last axis, 32
+// consecutive positions) and several rows each, with their loads in flight
+// together; a block of the first kind covers 32 positions of one row, so
+// neighbouring outputs share their taps in L1. Indices come from the block
+// index, with no 64-bit division per element; the affine form finds an
+// element's voxel with 32-bit divisions by multiply and shift.
 //
-// Layout: the swept axis is viewed in place as [outer, X, inner] (strides of
-// a contiguous tensor), so axis 0, 1 and 2 passes of a volume need no
-// transpose. Consecutive threads take consecutive inner indices, which keeps
-// the loads coalesced for every axis (inner == 1 for the last axis, where
-// consecutive threads walk along the row itself).
+// Backward, dense and flow modes: dq (du) = g * diff, and dsrc is the
+// adjoint of the two-tap gather. Several outputs of a row hit the same
+// source index, and the gradient must repeat to the bit (the U-Net's
+// training amplifies last-bit differences into other plateau stops), so
+// there are no atomics: each dsrc[j] adds its terms in ascending x, the
+// floor tap before the ceil tap of one x (only one of the two can hit j),
+// the order of the scatter this kernel replaced, so dsrc is the same to the
+// bit. The block owns 32 columns (rows of the view) and a chunk of 64
+// positions. In one pass over global memory it stages, for the chunk and
+// the window around it (x in [j0-K-1, j0+L+K]), each position's floor index
+// and masks (one int), fr, src and g in shared memory. It then finds, per
+// column, whether the floor index never decreases along x (a field without
+// folds: the x that reach j then form one run). Every thread takes
+// positions of the chunk: dq from the staged taps; on a column without
+// folds, dsrc by walking to the run of x that reach j. A column with folds
+// (any x may reach j; every engine's coordinates are fold-free, a rough
+// field is not) is summed by one thread that adds each staged x's two taps
+// into the chunk's outputs in ascending x: O(1) a tap, where a search over
+// the window would cost O(K) an output.
 //
-// Backward: dq = g * diff (same masks), and dsrc is the adjoint of the
-// two-tap gather: g*(1-fr) is added at q0 and g*fr at q0+1. Several outputs
-// of a row hit the same source index, so each block owns a tile of at most
-// 32 columns (TO rows x TI inner columns) x X, accumulates it in shared
-// memory and writes it once (f32 sums, one rounding to the image dtype).
-// No atomics: every sum is taken in one fixed order, so the gradient repeats
-// to the bit from run to run. (Atomic adds land in whatever order the
-// threads reach them, and the rounding of a float sum depends on its order;
-// the U-Net's training amplifies such last-bit differences into different
-// plateau stops.) The block walks its rows in chunks of 8 positions: every
-// thread loads one element of the chunk (coalesced along inner, or along x
-// when inner is 1), writes its dq and stages its two weighted taps in
-// shared memory; then one thread per column adds the chunk's taps to its
-// column in ascending x, the floor tap before the ceil tap.
+// Backward, affine mode: the same staged kernel, with q computed from the
+// row. dq never reaches memory: each position's g * diff, times each of
+// its coordinates and alone, is summed per thread, then per block in a
+// fixed tree, into a workspace of per-block partials; the last block to
+// finish (an integer counter tells it) sums them in a fixed order: the
+// gradient of the pass's table row (coef[d], offset). No float atomics
+// anywhere.
 //
-// diff is recomputed in the backward from src instead of being saved by the
-// forward: the backward has to read the tile's taps anyway for the scatter
-// positions, re-reading src costs the same bytes as reading a saved diff
-// plane, and the forward then writes one plane instead of two and keeps no
-// extra full-volume buffer alive per pass between forward and backward.
-//
-// Images are f32 or bf16 (the matrix stages sweep bf16 images); q, the
-// weights and all sums are f32 and the output is rounded once.
+// Images are f32 or bf16 (the matrix stages sweep bf16 images); coordinates,
+// weights and all sums are f32 and an image output is rounded once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <climits>
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kLanes = 32;                   // forward: lanes of a tile
+constexpr int kStep = kThreads / kLanes;     // rows a tile steps by
+constexpr int kRows = 4;                     // forward: rows of each thread
+constexpr int kTileRows = kStep * kRows;     // forward: rows of a tile
+constexpr int kFwdMinBlocks = 6;             // forward: blocks an SM (caps its registers)
+constexpr int kCols = 32;                    // backward: columns of a tile
+constexpr int kChunk = 64;                   // backward: positions of a chunk
 
 __device__ __forceinline__ float load_f(const float* p, long long i) { return p[i]; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) {
@@ -61,17 +92,19 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, long long i, float v) 
   p[i] = __float2bfloat16(v);
 }
 
-// Tap positions and masks of one output element (shared by both kernels).
+// Tap positions and masks of one output element (shared by all kernels).
 struct Taps {
   int xf;     // floor tap index q0 (valid only where mf or mc)
   bool mf;    // floor tap counts
   bool mc;    // ceil tap counts
   float fr;   // fractional weight
+  float q0;   // floor(q)
 };
 
 __device__ __forceinline__ Taps taps_of(float q, int x, int X, int K) {
   Taps t;
-  float q0 = floorf(q);
+  const float q0 = floorf(q);
+  t.q0 = q0;
   t.fr = q - q0;
   float k = q0 - (float)x;
   bool in_f = (k >= (float)(-K)) && (k <= (float)(K + 1));
@@ -83,167 +116,623 @@ __device__ __forceinline__ Taps taps_of(float q, int x, int X, int K) {
   return t;
 }
 
-template <typename T>
-__global__ void sweep_fwd_kernel(const T* __restrict__ src, const float* __restrict__ q,
-                                 T* __restrict__ out, float* __restrict__ diff,
-                                 long long n, int X, long long inner, int K) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n; e += stride) {
-    long long i = e % inner;
-    long long ox = e / inner;          // o * X + x
-    int x = (int)(ox % X);
-    long long row = ox - x;            // o * X
-    Taps t = taps_of(q[e], x, X, K);
-    float vf = t.mf ? load_f(src, (row + t.xf) * inner + i) : 0.0f;
-    float vc = t.mc ? load_f(src, (row + t.xf + 1) * inner + i) : 0.0f;
-    // Masked products rather than vf*(1-fr)+vc*fr on zeros: a NaN
-    // coordinate gives 0 like the reference sweep, not NaN.
-    float o = (t.mf ? vf * (1.0f - t.fr) : 0.0f) + (t.mc ? vc * t.fr : 0.0f);
-    store_f(out, e, o);
-    if (diff) diff[e] = vc - vf;
+__device__ __forceinline__ float w_floor(float g, float fr) {
+  return __fmul_rn(g, __fsub_rn(1.0f, fr));
+}
+__device__ __forceinline__ float w_ceil(float g, float fr) { return __fmul_rn(g, fr); }
+
+// out = floor * (1 - fr) + ceil * fr over the taps that count. Masked
+// products rather than products on zeros: a NaN coordinate gives 0 like the
+// reference sweep, not NaN.
+__device__ __forceinline__ float blend(const Taps& t, float vf, float vc) {
+  return __fadd_rn(t.mf ? w_floor(vf, t.fr) : 0.0f, t.mc ? w_ceil(vc, t.fr) : 0.0f);
+}
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1, set on the host).
+struct FastDiv {
+  unsigned d, m, s;
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, m) + (unsigned)n) >> s);
+  }
+};
+
+FastDiv make_div(unsigned d) {
+  unsigned s = 0;
+  while ((1ull << s) < d) ++s;
+  unsigned long long m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return FastDiv{d, (unsigned)m, s};
+}
+
+// Every kernel sees a tensor as rows along the swept axis: [outer, L,
+// inner], element e = (o * L + p) * inner + i at position p of row (o, i).
+struct Rows {
+  long long outer, inner;
+  int L, K;
+};
+
+// An image [N, C, Z, Y, X] (2-D: Z = 1) swept along `axis` (0: z, 1: y,
+// 2: x): what the affine and flow forms need to find an element's voxel.
+struct Img {
+  int Z, Y, X, axis;
+  int C;              // channels of a batch item
+  long long vol;      // voxels of one image
+  FastDiv by_x, by_y, by_z;
+  FastDiv by_ob;      // rows of `outer` per image
+  FastDiv by_c;
+};
+
+Img make_img(int Z, int Y, int X, int axis, int C) {
+  const unsigned ob = axis == 0 ? 1u : (axis == 1 ? (unsigned)Z : (unsigned)Z * Y);
+  return Img{Z, Y, X, axis, C, (long long)Z * Y * X, make_div(X), make_div(Y), make_div(Z),
+             make_div(ob), make_div(C)};
+}
+
+// ------------------------------------------------------------------ modes
+// Each form gives q at an element; the backward asks once per row (o, i)
+// for what stays along it (`col`) and then for q at each position.
+
+struct DenseQ {
+  const float* q;
+  static constexpr bool kRowGrad = false;
+  struct Col {};
+  __device__ void load() {}
+  __device__ float at(long long e, int, int, int) const { return q[e]; }
+  __device__ Col col(int, int) const { return {}; }
+  __device__ float at(const Col&, long long e, int) const { return q[e]; }
+  __device__ long long dq_index(const Col&, long long e) const { return e; }
+};
+
+struct AffineQ {
+  const float* row;  // coef[d], offset
+  int d;
+  Img im;
+  float t, c0, c1, c2;
+  static constexpr bool kRowGrad = true;  // the backward reduces dq to the row
+  struct Col {
+    float pz, py, px;  // the products of the voxel's coordinates (the swept one unused)
+    float z, y, x;     // the coordinates
+  };
+  __device__ void load() {
+    if (d == 3) {
+      c0 = row[0]; c1 = row[1]; c2 = row[2]; t = row[3];
+    } else {  // 2-D: z is 0 and has no term
+      c0 = 0.0f; c1 = row[0]; c2 = row[1]; t = row[2];
+    }
+  }
+  // the voxel (z, y, x) of position p of row (o, i)
+  __device__ __forceinline__ void voxel(int o, int p, int i, int& z, int& y, int& x) const {
+    if (im.axis == 0) {
+      z = p; y = im.by_x.div(i); x = i - y * im.X;
+    } else if (im.axis == 1) {
+      z = o - im.by_z.div(o) * im.Z; y = p; x = i;
+    } else {
+      const int oz = im.by_y.div(o);
+      y = o - oz * im.Y; z = oz - im.by_z.div(oz) * im.Z; x = p;
+    }
+  }
+  // q from the three rounded products, summed in the plain grid's order
+  __device__ __forceinline__ float sum(float pz, float py, float px) const {
+    float q = t;
+    if (d == 3) q = __fadd_rn(q, pz);
+    q = __fadd_rn(q, py);
+    return __fadd_rn(q, px);
+  }
+  __device__ float at(long long, int o, int p, int i) const {
+    int z, y, x;
+    voxel(o, p, i, z, y, x);
+    return sum(__fmul_rn(c0, (float)z), __fmul_rn(c1, (float)y), __fmul_rn(c2, (float)x));
+  }
+  __device__ Col col(int o, int i) const {
+    int z, y, x;
+    voxel(o, 0, i, z, y, x);
+    return {__fmul_rn(c0, (float)z), __fmul_rn(c1, (float)y), __fmul_rn(c2, (float)x),
+            (float)z, (float)y, (float)x};
+  }
+  __device__ float at(const Col& c, long long, int p) const {
+    const int a = im.axis;
+    const float m = __fmul_rn(a == 0 ? c0 : (a == 1 ? c1 : c2), (float)p);
+    return sum(a == 0 ? m : c.pz, a == 1 ? m : c.py, a == 2 ? m : c.px);
+  }
+};
+
+// kOne: one image (N = C = 1), whose field channel and du are indexed like
+// src. A column then needs no offsets, which cost the backward 15 registers
+// and so a block an SM (63 against 48 registers at 240³, K = 8).
+template <bool kOne>
+struct FlowQ {
+  const float* u;      // channel a of the field, batch item 0
+  long long un;        // the field's batch stride
+  Img im;
+  long long dqn, dqc;  // backward: du's batch and channel strides
+  static constexpr bool kRowGrad = false;
+  struct Col {
+    long long u_off;   // u's index of an element: u_off + e
+    long long dq_off;  // du's index of an element: dq_off + e
+  };
+  __device__ void load() {}
+  __device__ float at(long long e, int o, int p, int) const {
+    if constexpr (kOne) return __fadd_rn(u[e], (float)p);
+    const int b = im.by_ob.div(o);
+    return __fadd_rn(u[im.by_c.div(b) * un + (e - (long long)b * im.vol)], (float)p);
+  }
+  __device__ Col col(int o, int) const {
+    if constexpr (kOne) return {0, 0};
+    const int b = im.by_ob.div(o), n = im.by_c.div(b);
+    const long long img = (long long)b * im.vol;
+    return {n * un - img, n * dqn + (b - n * im.C) * dqc - img};
+  }
+  __device__ float at(const Col& c, long long e, int p) const {
+    return __fadd_rn(u[c.u_off + e], (float)p);
+  }
+  __device__ long long dq_index(const Col& c, long long e) const { return c.dq_off + e; }
+};
+
+// --------------------------------------------------------------- tiles
+// The forward and the affine backward tile the rows in one of two ways.
+// inner > 1: lanes take 32 consecutive i, the thread's rows are positions p
+// (so the taps along the axis are reused inside the block), a block is one
+// o. inner == 1 (the last axis): lanes take 32 consecutive p, the thread's
+// rows are rows o.
+
+dim3 tile_grid(const Rows& r) {
+  const bool lanes_p = r.inner == 1;
+  const long long lanes = lanes_p ? r.L : r.inner;
+  const long long rows = lanes_p ? r.outer : r.L;
+  const long long planes = lanes_p ? 1 : r.outer;
+  const long long gy = (rows + kTileRows - 1) / kTileRows;
+  return dim3((unsigned)((lanes + kLanes - 1) / kLanes), (unsigned)(gy < 65535 ? gy : 65535),
+              (unsigned)(planes < 65535 ? planes : 65535));
+}
+
+bool rows_ok(const Rows& r) {
+  return r.outer > 0 && r.inner > 0 && r.L > 0 && r.K >= 0 && r.outer < INT_MAX &&
+         r.inner < INT_MAX && (r.inner == 1 || (r.inner + kLanes - 1) / kLanes < INT_MAX);
+}
+
+// --------------------------------------------------------------- forward
+
+template <typename T, typename Q>
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+sweep_fwd_kernel(const T* __restrict__ src, Q qf, T* __restrict__ out,
+                 float* __restrict__ diff, Rows r) {
+  Q qm = qf;
+  qm.load();
+  const bool lanes_p = r.inner == 1;
+  const long long n_lanes = lanes_p ? r.L : r.inner;
+  const long long n_rows = lanes_p ? r.outer : r.L;
+  const long long n_planes = lanes_p ? 1 : r.outer;
+  const long long lane = (long long)blockIdx.x * kLanes + threadIdx.x % kLanes;
+  if (lane >= n_lanes) return;
+  const int ty = threadIdx.x / kLanes;
+  for (long long plane = blockIdx.z; plane < n_planes; plane += gridDim.z) {
+    for (long long rb = (long long)blockIdx.y * kTileRows; rb < n_rows;
+         rb += (long long)gridDim.y * kTileRows) {
+      long long e[kRows];
+      int o[kRows], p[kRows];
+      bool live[kRows];
+      Taps t[kRows];
+      float qv[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        // a row past the end reads the last row's coordinate and writes nothing
+        const long long rr = rb + ty + k * kStep;
+        live[k] = rr < n_rows;
+        const long long rc = live[k] ? rr : n_rows - 1;
+        o[k] = lanes_p ? (int)rc : (int)plane;
+        p[k] = lanes_p ? (int)lane : (int)rc;
+        const int i = lanes_p ? 0 : (int)lane;
+        e[k] = ((long long)o[k] * r.L + p[k]) * r.inner + i;
+        qv[k] = qm.at(e[k], o[k], p[k], i);
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) t[k] = taps_of(qv[k], p[k], r.L, r.K);
+      float vf[kRows], vc[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const long long row = e[k] - (long long)p[k] * r.inner;
+        vf[k] = live[k] && t[k].mf ? load_f(src, row + t[k].xf * r.inner) : 0.0f;
+        vc[k] = live[k] && t[k].mc ? load_f(src, row + (t[k].xf + 1) * r.inner) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        if (!live[k]) continue;
+        store_f(out, e[k], blend(t[k], vf[k], vc[k]));
+        if (diff) diff[e[k]] = __fsub_rn(vc[k], vf[k]);
+      }
+    }
   }
 }
 
-constexpr int kThreads = 256;
-constexpr int kCols = 32;                 // columns of a backward tile
-constexpr int kChunk = kThreads / kCols;  // positions of each column per chunk
+// ------------------------------------------------------------- backward
 
-template <typename T>
-__global__ void sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src,
-                                 const float* __restrict__ q, T* __restrict__ dsrc,
-                                 float* __restrict__ dq, long long outer, int X,
-                                 long long inner, int K, int TO, int TI, int XP) {
-  extern __shared__ float acc[];  // [TO][XP][TI], rows padded to XP >= X
-  __shared__ int s_f[kThreads], s_c[kThreads];      // tap positions, -1: none
-  __shared__ float s_wf[kThreads], s_wc[kThreads];  // weighted taps
-  const long long n_inner_tiles = (inner + TI - 1) / TI;
-  const long long o0 = (long long)(blockIdx.x / n_inner_tiles) * TO;
-  const long long i0 = (long long)(blockIdx.x % n_inner_tiles) * TI;
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// a warp's float4s summed into lane 0 in a fixed order
+__device__ __forceinline__ float4 warp_sum(float4 v) {
+  for (int wd = 16; wd > 0; wd >>= 1)
+    v = add4(v, make_float4(__shfl_down_sync(0xffffffffu, v.x, wd),
+                            __shfl_down_sync(0xffffffffu, v.y, wd),
+                            __shfl_down_sync(0xffffffffu, v.z, wd),
+                            __shfl_down_sync(0xffffffffu, v.w, wd)));
+  return v;
+}
+
+// The staged backward's tile: kCols columns (TI inner x TO outer, TI a
+// power of 2) by a chunk of L positions, staged with the window around it.
+struct Tile {
+  long long outer, inner;
+  int X, K;
+  int TI, ti_shift, TO;
+  int L, LhM;             // chunk length; staged positions per column (at most)
+  int n_chunks;
+  long long n_inner_tiles, blocks;
+};
+
+// bytes a staged position takes: code, fr, g and src
+constexpr int kStageBytes = 16;
+// the staged backward's dynamic shared memory may exceed the 48 KB default
+constexpr int kStageBudget = 112 * 1024;
+
+long long tile_bytes(int TO, int TI, int LhM) {
+  return (long long)TO * TI * LhM * kStageBytes;
+}
+
+// false when no tile fits the budget
+bool make_tile(const Rows& r, Tile& tl) {
+  const int X = r.L, K = r.K;
+  tl.outer = r.outer; tl.inner = r.inner; tl.X = X; tl.K = K;
+  int TI = 1;
+  while (TI * 2 <= kCols && TI * 2 <= r.inner) TI *= 2;
+  int TO = kCols / TI;
+  tl.L = X < kChunk ? X : kChunk;
+  // a window wider than the chunk would stage its halo more than twice:
+  // stage whole rows, with no halo at all
+  if (2LL * K + 2 > tl.L) tl.L = X;
+  const long long span = (long long)tl.L + 2LL * K + 2;
+  tl.LhM = (int)(span < X ? span : X);
+  while (tile_bytes(TO, TI, tl.LhM) > kStageBudget && TO > 1) TO /= 2;
+  while (tile_bytes(TO, TI, tl.LhM) > kStageBudget && TI > 1) TI /= 2;
+  if (tile_bytes(TO, TI, tl.LhM) > kStageBudget) return false;
+  tl.TI = TI; tl.TO = TO;
+  tl.ti_shift = 0;
+  while ((1 << tl.ti_shift) < TI) ++tl.ti_shift;
+  tl.n_chunks = (X + tl.L - 1) / tl.L;
+  tl.n_inner_tiles = (r.inner + TI - 1) / TI;
+  tl.blocks = ((r.outer + TO - 1) / TO) * tl.n_inner_tiles * tl.n_chunks;
+  return tl.blocks <= 0x7fffffffLL;
+}
+
+// code of a staged position x: (k + K + 2) << 2 | floor counts << 1 | ceil
+// counts, with k = floor(q) - x clamped to [-K-2, K+2] (a NaN q to -K-2);
+// where a tap counts, k is within the window and x + k is its floor index
+__device__ __forceinline__ int tap_code(const Taps& t, int x, int K) {
+  const float k = fminf(fmaxf(t.q0 - (float)x, (float)(-K - 2)), (float)(K + 2));
+  return (((int)k + K + 2) << 2) | ((int)t.mf << 1) | (int)t.mc;
+}
+
+template <typename T, typename Q>
+__global__ void __launch_bounds__(kThreads)
+sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
+                 T* __restrict__ dsrc, float* __restrict__ dq, float4* __restrict__ partials,
+                 unsigned* __restrict__ done, float* __restrict__ drow, Tile tl) {
+  extern __shared__ int smem[];
+  const int n_stage = tl.TO * tl.LhM * tl.TI;        // each array [TO][LhM][TI]
+  int* code = smem;
+  float* s_fr = (float*)(code + n_stage);
+  float* s_src = s_fr + n_stage;
+  float* s_g = s_src + n_stage;
+  // per column: does its floor index x + k never decrease along x?
+  __shared__ int s_mono[kCols];
+  Q qm = qf;
+  qm.load();
   const int tid = threadIdx.x;
-  if (dsrc)
-    for (int e = tid; e < TO * XP * TI; e += blockDim.x) acc[e] = 0.0f;
-  // this thread's element of each chunk: column (to, ti), position x0 + xl
-  const int ti = tid % TI;
-  const int xl = (tid / TI) % kChunk;
-  const int to = tid / (TI * kChunk);
-  const long long o = o0 + to, i = i0 + ti;
-  const bool staged = to < TO;  // its slot xl * kCols + col exists
-  const bool live = staged && o < outer && i < inner;
-  const int col = to * TI + ti;
-  // the column this thread adds, if tid < TO * TI
-  const bool adder = tid < TO * TI && o0 + tid / TI < outer && i0 + tid % TI < inner;
-  float* column = acc + (tid / TI) * XP * TI + tid % TI;
-  for (int x0 = 0; x0 < X; x0 += kChunk) {
-    const int x = x0 + xl;
-    int f = -1, c = -1;
-    float wf = 0.0f, wc = 0.0f;
-    if (live && x < X) {
-      const long long row = o * X;
-      const long long idx = (row + x) * inner + i;
-      const Taps t = taps_of(q[idx], x, X, K);
+  const int chunk = blockIdx.x % tl.n_chunks;
+  const long long tile = blockIdx.x / tl.n_chunks;
+  const long long o0 = (tile / tl.n_inner_tiles) * tl.TO;
+  const long long i0 = (tile % tl.n_inner_tiles) * tl.TI;
+  const int X = tl.X, K = tl.K, TI = tl.TI;
+  const int j0 = chunk * tl.L;
+  // staged positions: the chunk and the window around it (its outputs'
+  // taps reach K + 1 past it, the sources it gathers K + 1 before it)
+  const int s0 = max(0, j0 - K - 1);
+  const int s1 = min(X, j0 + tl.L + K + 1);
+  const int Lh = s1 - s0;
+  // each lane keeps one column (one row (o, i) of the view) for a run of
+  // positions: a warp takes 32 / TI positions of TI columns a step
+  const int lane = tid & 31, w = tid >> 5;
+  const int ti = lane & (TI - 1), pl = lane >> tl.ti_shift;
+  const int P = kLanes >> tl.ti_shift;
+  const int wpc = tl.TO >= 8 ? 1 : 8 / tl.TO;  // warps per column
+  const int to0 = w / wpc, to_step = 8 / wpc;
+  const int p0 = pl + P * (w % wpc), p_step = P * wpc;
+  const long long i = i0 + ti;
+  if (tid < kCols) s_mono[tid] = 1;
+
+  // 1. one pass over global memory: each staged position's coordinate, g
+  //    and src; its taps' code and fr
+  for (int to = to0; to < tl.TO; to += to_step) {
+    const long long o = o0 + to;
+    if (o >= tl.outer || i >= tl.inner) continue;
+    const typename Q::Col c = qm.col((int)o, (int)i);
+    const long long base = o * X * tl.inner + i;
+    const int sb = ti + TI * tl.LhM * to;
+    for (int p = p0; p < Lh; p += p_step) {
+      const int x = s0 + p;
+      const long long idx = base + (long long)x * tl.inner;
+      const float qv = qm.at(c, idx, x);
       const float gv = load_f(g, idx);
-      if (t.mf) { f = t.xf; wf = gv * (1.0f - t.fr); }
-      if (t.mc) { c = t.xf + 1; wc = gv * t.fr; }
-      if (dq) {
-        float vf = t.mf ? load_f(src, (row + t.xf) * inner + i) : 0.0f;
-        float vc = t.mc ? load_f(src, (row + t.xf + 1) * inner + i) : 0.0f;
-        dq[idx] = gv * (vc - vf);
-      }
+      const float sv = load_f(src, idx);
+      const int e = sb + TI * p;
+      const Taps t = taps_of(qv, x, X, K);
+      code[e] = tap_code(t, x, K);
+      s_fr[e] = t.fr;
+      s_src[e] = sv;
+      s_g[e] = gv;
     }
-    if (!dsrc) continue;
-    __syncthreads();  // acc zeroed; the previous chunk's stage consumed
-    if (staged) {
-      const int slot = xl * kCols + col;
-      s_f[slot] = f; s_c[slot] = c; s_wf[slot] = wf; s_wc[slot] = wc;
+  }
+  __syncthreads();
+  // 2. per column: does its floor index x + k never decrease along x?
+  if (dsrc) {
+    for (int to = to0; to < tl.TO; to += to_step) {
+      const int sb = ti + TI * tl.LhM * to;
+      bool mono = true;
+      for (int p = p0; p + 1 < Lh; p += p_step)
+        mono &= (code[sb + TI * p] >> 2) <= (code[sb + TI * (p + 1)] >> 2) + 1;
+      if (!mono) atomicAnd(&s_mono[ti + TI * to], 0);
     }
     __syncthreads();
-    if (adder) {
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const int slot = k * kCols + tid;
-        const int ff = s_f[slot], cc = s_c[slot];
-        if (ff >= 0) column[ff * TI] += s_wf[slot];
-        if (cc >= 0) column[cc * TI] += s_wc[slot];
+  }
+  // 3. each position of the chunk: dq from its staged taps (or its share of
+  //    the table row's gradient); on a column without folds, dsrc by
+  //    gathering the x that hit it
+  float4 sums = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // of dq*z, dq*y, dq*x, dq
+  for (int to = to0; to < tl.TO; to += to_step) {
+    const long long o = o0 + to;
+    if (o >= tl.outer || i >= tl.inner) continue;
+    const typename Q::Col c = qm.col((int)o, (int)i);
+    const long long base = o * X * tl.inner + i;
+    const int sb = ti + TI * tl.LhM * to;
+    for (int jj = p0; jj < tl.L; jj += p_step) {
+      const int j = j0 + jj;
+      if (j >= X) break;
+      const long long idx = base + (long long)j * tl.inner;
+      if (dq || Q::kRowGrad) {
+        const int s = sb + TI * (j - s0);
+        const int cd = code[s];
+        const int f = j + (cd >> 2) - K - 2;
+        const float vf = (cd & 2) ? s_src[sb + TI * (f - s0)] : 0.0f;
+        const float vc = (cd & 1) ? s_src[sb + TI * (f + 1 - s0)] : 0.0f;
+        const float d = __fmul_rn(s_g[s], __fsub_rn(vc, vf));
+        if constexpr (Q::kRowGrad) {
+          const int a = qm.im.axis;
+          sums.x = __fadd_rn(sums.x, __fmul_rn(d, a == 0 ? (float)j : c.z));
+          sums.y = __fadd_rn(sums.y, __fmul_rn(d, a == 1 ? (float)j : c.y));
+          sums.z = __fadd_rn(sums.z, __fmul_rn(d, a == 2 ? (float)j : c.x));
+          sums.w = __fadd_rn(sums.w, d);
+        } else {
+          dq[qm.dq_index(c, idx)] = d;
+        }
       }
+      if (!dsrc || !s_mono[ti + TI * to]) continue;
+      // the x that hit j form one run: walk from a first guess (j minus the
+      // k at j) to its start, then take the run in ascending x (x hits j
+      // only if its floor index is j - 1 or j, inside the window)
+      float acc = 0.0f;
+      const int xlo = max(s0, j - K - 1), xhi = min(s1 - 1, j + K);
+      auto floor_at = [&](int x) { return x + (code[sb + TI * (x - s0)] >> 2) - K - 2; };
+      int x = min(max(2 * j - floor_at(j) - 1, xlo), xhi);
+      while (x > xlo && floor_at(x - 1) >= j - 1) --x;
+      while (x <= xhi && floor_at(x) < j - 1) ++x;
+      for (; x <= xhi; ++x) {
+        const int s = sb + TI * (x - s0);
+        const int cd = code[s];
+        const int f = x + (cd >> 2) - K - 2;
+        if (f > j) break;
+        if ((cd & 2) && f == j) acc = __fadd_rn(acc, w_floor(s_g[s], s_fr[s]));
+        else if ((cd & 1) && f + 1 == j) acc = __fadd_rn(acc, w_ceil(s_g[s], s_fr[s]));
+      }
+      store_f(dsrc, idx, acc);
     }
   }
-  if (!dsrc) return;
-  __syncthreads();
-  for (int e = tid; e < TO * X * TI; e += blockDim.x) {
-    const int ei = e % TI;
-    const int ex = (e / TI) % X;
-    const int eo = e / (TI * X);
-    const long long oo = o0 + eo, ii = i0 + ei;
-    if (oo >= outer || ii >= inner) continue;
-    store_f(dsrc, (oo * X + ex) * inner + ii, acc[(eo * XP + ex) * TI + ei]);
+  // 4. dsrc of the columns with folds: one thread a column adds each staged
+  //    x's taps into the chunk's outputs in ascending x (the gather's order,
+  //    so the same bits), in the column's src stage, which only phase 3 read
+  if (dsrc) {
+    __syncthreads();
+    if (tid < tl.TO * TI && !s_mono[tid] && o0 + (tid >> tl.ti_shift) < tl.outer &&
+        i0 + (tid & (TI - 1)) < tl.inner) {
+      const int sb = (tid & (TI - 1)) + TI * tl.LhM * (tid >> tl.ti_shift);
+      float* acc = s_src + sb;  // acc[TI * (j - j0)]
+      for (int jj = 0; jj < tl.L; ++jj) acc[TI * jj] = 0.0f;
+      for (int x = s0; x < s1; ++x) {
+        const int s = sb + TI * (x - s0);
+        const int cd = code[s];
+        const int f = x + (cd >> 2) - K - 2 - j0;
+        if ((cd & 2) && f >= 0 && f < tl.L)
+          acc[TI * f] = __fadd_rn(acc[TI * f], w_floor(s_g[s], s_fr[s]));
+        if ((cd & 1) && f + 1 >= 0 && f + 1 < tl.L)
+          acc[TI * (f + 1)] = __fadd_rn(acc[TI * (f + 1)], w_ceil(s_g[s], s_fr[s]));
+      }
+    }
+    __syncthreads();
+    for (int to = to0; to < tl.TO; to += to_step) {
+      const long long o = o0 + to;
+      if (o >= tl.outer || i >= tl.inner || s_mono[ti + TI * to]) continue;
+      const long long base = o * X * tl.inner + i;
+      const float* acc = s_src + ti + TI * tl.LhM * to;
+      for (int jj = p0; jj < tl.L && j0 + jj < X; jj += p_step)
+        store_f(dsrc, base + (long long)(j0 + jj) * tl.inner, acc[TI * jj]);
+    }
+  }
+  if constexpr (Q::kRowGrad) {
+    if (!partials) return;
+    // the block's share of the row gradient in a fixed tree: within each
+    // warp by shuffles, then the warps' sums in order
+    __shared__ float4 red[kThreads / 32];
+    __shared__ bool last;
+    sums = warp_sum(sums);
+    if (lane == 0) red[w] = sums;
+    __syncthreads();
+    if (tid == 0) {
+      float4 a = red[0];
+      for (int k = 1; k < kThreads / 32; ++k) a = add4(a, red[k]);
+      partials[blockIdx.x] = a;
+      __threadfence();  // the partial is visible before the count says so
+      last = atomicInc(done, gridDim.x - 1) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    // the last block: every block's partial in a fixed order, whichever
+    // block is last (each thread a strided share, then a tree)
+    __threadfence();
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (unsigned b = tid; b < gridDim.x; b += kThreads) acc = add4(acc, partials[b]);
+    acc = warp_sum(acc);
+    __syncthreads();
+    if (lane == 0) red[w] = acc;
+    __syncthreads();
+    if (tid == 0) {
+      float4 r = red[0];
+      for (int k = 1; k < kThreads / 32; ++k) r = add4(r, red[k]);
+      // row layout (coef[d], offset); 2-D has no z coefficient
+      const float all[4] = {r.x, r.y, r.z, r.w};
+      const int first = qm.d == 3 ? 0 : 1;
+      for (int k = first; k < 4; ++k) drow[k - first] = all[k];
+    }
   }
 }
 
-// the backward's dynamic tile: with the 4 KB static stage it stays under the
-// 48 KB a block may use without the opt-in attribute
-constexpr int kAccBytes = 44 * 1024;
+// ---------------------------------------------------------------- launch
 
-int fwd_grid(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 32;  // grid-stride beyond 32 blocks per SM
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
-template <typename T>
-int launch_fwd(const void* src, const void* q, void* out, void* diff, long long outer,
-               int X, long long inner, int K, cudaStream_t stream) {
-  long long n = outer * X * inner;
-  if (n == 0) return 0;
-  sweep_fwd_kernel<T><<<fwd_grid(n), kThreads, 0, stream>>>(
-      (const T*)src, (const float*)q, (T*)out, (float*)diff, n, X, inner, K);
+template <typename T, typename Q>
+int launch_fwd(const void* src, Q q, void* out, void* diff, const Rows& r,
+               cudaStream_t stream) {
+  if (!rows_ok(r)) return (int)cudaErrorInvalidValue;
+  sweep_fwd_kernel<T, Q><<<tile_grid(r), kThreads, 0, stream>>>(
+      (const T*)src, q, (T*)out, (float*)diff, r);
   return (int)cudaGetLastError();
 }
 
-// Row pitch of the backward's shared tile: odd when a warp's adders span
-// several rows (TI < 32), so their columns fall in different banks.
-int bwd_pitch(int X, int TI) { return TI >= kCols ? X : (X | 1); }
+template <typename Q>
+int fwd_dtype(int dtype, const void* src, Q q, void* out, void* diff, const Rows& r,
+              cudaStream_t s) {
+  if (dtype == 0) return launch_fwd<float>(src, q, out, diff, r, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16>(src, q, out, diff, r, s);
+  return (int)cudaErrorInvalidValue;
+}
 
-template <typename T>
-int launch_bwd(const void* g, const void* src, const void* q, void* dsrc, void* dq,
-               long long outer, int X, long long inner, int K, cudaStream_t stream) {
-  if (outer * X * inner == 0) return 0;
-  // Tile: up to 32 inner columns (coalesced along inner); rows fill the rest
-  // of the 32 columns when inner is narrow (inner == 1 for the last axis).
-  int TI = inner < kCols ? (int)inner : kCols;
-  int TO = kCols / TI;
-  if ((long long)TO > outer) TO = (int)outer;
-  auto bytes = [&]() { return (long long)TO * TI * bwd_pitch(X, TI) * 4; };
-  while (TO > 1 && bytes() > kAccBytes) TO /= 2;
-  while (TI > 1 && bytes() > kAccBytes) TI /= 2;
-  if (bytes() > kAccBytes) return (int)cudaErrorInvalidValue;
-  long long tiles = ((outer + TO - 1) / TO) * ((inner + TI - 1) / TI);
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  sweep_bwd_kernel<T><<<(unsigned)tiles, kThreads, dsrc ? (size_t)bytes() : 0, stream>>>(
-      (const T*)g, (const T*)src, (const float*)q, (T*)dsrc, (float*)dq, outer, X,
-      inner, K, TO, TI, bwd_pitch(X, TI));
+template <typename T, typename Q>
+int launch_bwd(const void* g, const void* src, Q q, void* dsrc, void* dq, void* work,
+               void* drow, const Rows& r, cudaStream_t stream) {
+  Tile tl;
+  if (!rows_ok(r) || !make_tile(r, tl)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)tile_bytes(tl.TO, tl.TI, tl.LhM);
+  static bool opted = false;  // one attribute per instantiation
+  if (!opted) {
+    cudaError_t rc = cudaFuncSetAttribute(sweep_bwd_kernel<T, Q>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          kStageBudget);
+    if (rc != cudaSuccess) return (int)rc;
+    opted = true;
+  }
+  // the affine form's workspace: a counter of finished blocks (16 bytes),
+  // 0 on entry and left 0 (atomicInc wraps), then one partial sum a block
+  unsigned* done = drow ? (unsigned*)work : nullptr;
+  float4* partials = drow ? (float4*)work + 1 : nullptr;
+  sweep_bwd_kernel<T, Q><<<(unsigned)tl.blocks, kThreads, smem, stream>>>(
+      (const T*)g, (const T*)src, q, (T*)dsrc, (float*)dq, partials, done, (float*)drow, tl);
   return (int)cudaGetLastError();
 }
+
+template <typename Q>
+int bwd_dtype(int dtype, const void* g, const void* src, Q q, void* dsrc, void* dq, void* work,
+              void* drow, const Rows& r, cudaStream_t s) {
+  if (dtype == 0) return launch_bwd<float>(g, src, q, dsrc, dq, work, drow, r, s);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(g, src, q, dsrc, dq, work, drow, r, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+bool img_ok(int Z, int Y, int X, int axis, int C) {
+  return Z > 0 && Y > 0 && X > 0 && C > 0 && axis >= 0 && axis <= 2 &&
+         (long long)Z * Y * X < INT_MAX;
+}
+
+// the rows hold one image (N = C = 1)
+bool one_image(const Rows& r, const Img& im) { return r.outer * r.L * r.inner == im.vol; }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16
-// for src/out/g/dsrc; q, diff and dq are always float32. diff, dsrc and dq
-// may be null to skip that output. Returns cudaGetLastError() after launch.
-extern "C" int sweep_fwd(const void* src, const void* q, void* out, void* diff,
-                         long long outer, int X, long long inner, int K, int dtype,
-                         void* stream) {
+// for src/out/g/dsrc; coordinates, fields, tables, diff, dq and du are
+// float32. Output pointers may be null to skip that output. Each returns
+// cudaGetLastError() after its launch(es).
+//
+// Every tensor is seen as rows [outer, L, inner] along the swept axis, with
+// window K. mode 0 (dense): `qp` is q, src's shape. mode 1 (affine): `qp`
+// is a table row (coef[d], offset). mode 2 (flow): `qp` is channel a of the
+// field at batch item 0, `un` the field's batch stride. The affine and flow
+// forms also take the image [N, C, Z, Y, X] (2-D: Z = 1) and its swept
+// `axis` (0: z, 1: y, 2: x) to find each element's voxel.
+extern "C" int sweep_fwd(int mode, const void* src, const void* qp, void* out, void* diff,
+                         long long outer, int L, long long inner, int K, int dtype, int d,
+                         int Z, int Y, int X, int axis, int C, long long un, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_fwd<float>(src, q, out, diff, outer, X, inner, K, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(src, q, out, diff, outer, X, inner, K, s);
+  const Rows r{outer, inner, L, K};
+  if (mode == 0) return fwd_dtype(dtype, src, DenseQ{(const float*)qp}, out, diff, r, s);
+  if (!img_ok(Z, Y, X, axis, C)) return (int)cudaErrorInvalidValue;
+  const Img im = make_img(Z, Y, X, axis, C);
+  if (mode == 1) {
+    if (d != 2 && d != 3) return (int)cudaErrorInvalidValue;
+    return fwd_dtype(dtype, src, AffineQ{(const float*)qp, d, im}, out, diff, r, s);
+  }
+  if (mode == 2) {
+    if (one_image(r, im))
+      return fwd_dtype(dtype, src, FlowQ<true>{(const float*)qp, un, im}, out, diff, r, s);
+    return fwd_dtype(dtype, src, FlowQ<false>{(const float*)qp, un, im}, out, diff, r, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int sweep_bwd(const void* g, const void* src, const void* q, void* dsrc,
-                         void* dq, long long outer, int X, long long inner, int K,
-                         int dtype, void* stream) {
+// Floats of the affine backward's workspace (a counter, then 4 partial
+// sums a block), 0 when no tile fits. The counter must be 0 before the
+// first launch; each launch leaves it 0.
+extern "C" long long sweep_bwd_work(long long outer, int L, long long inner, int K) {
+  const Rows r{outer, inner, L, K};
+  Tile tl;
+  return rows_ok(r) && make_tile(r, tl) ? 4 * (tl.blocks + 1) : 0;
+}
+
+// The backward. dense (mode 0): dq of q's shape. affine (mode 1): the
+// gradient of the pass's table row into `drow` (d + 1 floats), through
+// `work` (sweep_bwd_work floats, its first word 0). flow (mode 2): du to batch n, channel c,
+// voxel s at n*dqn + c*dqc + s (dqc = 0 writes one channel of a field
+// gradient: C must then be 1).
+extern "C" int sweep_bwd(int mode, const void* g, const void* src, const void* qp,
+                         void* dsrc, void* dq, void* work, void* drow, long long outer, int L,
+                         long long inner, int K, int dtype, int d, int Z, int Y, int X,
+                         int axis, int C, long long un, long long dqn, long long dqc,
+                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_bwd<float>(g, src, q, dsrc, dq, outer, X, inner, K, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(g, src, q, dsrc, dq, outer, X, inner, K, s);
+  const Rows r{outer, inner, L, K};
+  if (mode == 0)
+    return bwd_dtype(dtype, g, src, DenseQ{(const float*)qp}, dsrc, dq, nullptr, nullptr, r,
+                     s);
+  if (!img_ok(Z, Y, X, axis, C)) return (int)cudaErrorInvalidValue;
+  const Img im = make_img(Z, Y, X, axis, C);
+  if (mode == 1) {
+    if (d != 2 && d != 3) return (int)cudaErrorInvalidValue;
+    return bwd_dtype(dtype, g, src, AffineQ{(const float*)qp, d, im}, dsrc, nullptr, work,
+                     drow, r, s);
+  }
+  if (mode == 2) {
+    if (one_image(r, im))
+      return bwd_dtype(dtype, g, src, FlowQ<true>{(const float*)qp, un, im, dqn, dqc}, dsrc, dq,
+                       nullptr, nullptr, r, s);
+    return bwd_dtype(dtype, g, src, FlowQ<false>{(const float*)qp, un, im, dqn, dqc}, dsrc, dq,
+                     nullptr, nullptr, r, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

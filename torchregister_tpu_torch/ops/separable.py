@@ -7,22 +7,40 @@ at ``q = coef . o + offset`` inside a static window ``[-K, K+1]``.
 Displacements beyond the window contribute zero; out-of-volume reads are
 zero, as in ``grid_sample``. Dense flow warps are one pass per component.
 
-Every pass goes through kernel K1 (``ops/cuda/sweep.py``); the JAX package's
-three forms of the sweep (unrolled, ``fori`` and Pallas) and their routing
-thresholds exist for the TPU and have no counterpart here.
+Every pass goes through kernel K1 (``ops/cuda/sweep.py``): on the card a
+whole warp is one autograd Function whose kernels compute each pass's
+coordinates themselves (from the pass's (coef, offset) or the flow's
+channel); on the CPU each pass builds its coordinate grid and takes K1's
+plain version. The JAX package's three forms of the sweep (unrolled,
+``fori`` and Pallas) and their routing thresholds exist for the TPU and have
+no counterpart here.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from .cuda.sweep import sweep
+from .cuda.sweep import _axis_coord_grid  # noqa: F401  (the JAX module's name)
+from .cuda.sweep import sweep, sweep_affine_passes, sweep_flow_passes
 from .transforms import as_matrix
 
 # --------------------------------------------------------------------- maps
+
+
+@functools.lru_cache(maxsize=64)
+def _scales(spatial: tuple, align_corners: bool, device: torch.device):
+    """``(scale_out, off_out, scale_in, off_in)`` of a grid, made once per
+    shape and device: an in-loop warp then makes no host-to-device copy,
+    which would wait for the work queued before it."""
+    sizes = torch.tensor(list(spatial), dtype=torch.float32, device=device)
+    if align_corners:
+        return 2.0 / (sizes - 1.0), -torch.ones_like(sizes), (sizes - 1.0) / 2.0, (
+            sizes - 1.0) / 2.0
+    return 2.0 / sizes, 1.0 / sizes - 1.0, sizes / 2.0, sizes / 2.0 - 0.5
 
 
 def affine_to_index_map(theta: torch.Tensor, spatial: Sequence[int],
@@ -30,20 +48,11 @@ def affine_to_index_map(theta: torch.Tensor, spatial: Sequence[int],
     """Normalized theta ``[d, d+1]`` -> index map ``s = M @ o + t`` (array
     axis order, z first)."""
     d = len(spatial)
-    sizes = torch.tensor(list(spatial), dtype=torch.float32, device=theta.device)
     # theta rows/cols are ordered (x, y, z); array axes are (z, y, x)
     A = torch.flip(theta[..., :d], dims=(0, 1))
     b = torch.flip(theta[..., d], dims=(0,))
-    if align_corners:
-        scale_out = 2.0 / (sizes - 1.0)
-        off_out = -torch.ones_like(sizes)
-        scale_in = (sizes - 1.0) / 2.0
-        off_in = (sizes - 1.0) / 2.0
-    else:
-        scale_out = 2.0 / sizes
-        off_out = 1.0 / sizes - 1.0
-        scale_in = sizes / 2.0
-        off_in = sizes / 2.0 - 0.5
+    scale_out, off_out, scale_in, off_in = _scales(tuple(spatial), bool(align_corners),
+                                                   theta.device)
     M = A * scale_in[:, None] * scale_out[None, :]
     t = scale_in * (A @ off_out + b) + off_in
     return M, t
@@ -190,16 +199,6 @@ def sweep_resample_axis(src: torch.Tensor, q: torch.Tensor, axis: int,
     return sweep(src, q, axis + 2, int(max_shift))
 
 
-def _axis_coord_grid(coef: torch.Tensor, offset, spatial) -> torch.Tensor:
-    """``q[o] = coef . o + offset`` over the full grid, shape ``[1, 1, *S]``."""
-    d = len(spatial)
-    q = offset
-    for b in range(d):
-        iota = torch.arange(spatial[b], dtype=torch.float32, device=coef.device)
-        q = q + coef[b] * iota.view(tuple(spatial[b] if i == b else 1 for i in range(d)))
-    return q[None, None]
-
-
 def _warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
                            align_corners: bool = False,
                            max_shift: int | Sequence[int] | None = None
@@ -219,10 +218,7 @@ def _warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
         shifts = [max_shift] * d
     else:
         shifts = list(max_shift)
-    out = moving
-    for (axis, (coef, offset)), K in zip(passes, shifts):
-        out = sweep_resample_axis(out, _axis_coord_grid(coef, offset, spatial), axis, K)
-    return out
+    return sweep_affine_passes(moving, passes, shifts)
 
 
 def warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
@@ -252,12 +248,4 @@ def warp_flow_separable(src: torch.Tensor, flow: torch.Tensor,
                         max_disp: int = 8) -> torch.Tensor:
     """Dense-flow warp by per-component sweeps, x-pass first; pass ``a``
     samples axis ``a`` at ``o_a + flow_a(o)`` (``flow [N, d, *S]``, voxels)."""
-    spatial = tuple(src.shape[2:])
-    d = len(spatial)
-    out = src
-    for axis in range(d - 1, -1, -1):
-        ident = torch.arange(spatial[axis], dtype=torch.float32, device=flow.device)
-        ident = ident.view(tuple(spatial[axis] if i == axis else 1 for i in range(d)))
-        q = flow[:, axis].to(torch.float32)[:, None] + ident
-        out = sweep_resample_axis(out, q, axis, max_disp)
-    return out
+    return sweep_flow_passes(src, flow, max_disp)
