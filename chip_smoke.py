@@ -23,7 +23,11 @@ K1's affine or flow form and never its dense form), and times each kernel
 against its plain version and the one PyTorch call that computes the same
 function, where there is one (K1: each form against the dense launch, and
 whole 3-pass warps against the per-pass composition the port ran before,
-``profile_sweep``). Any failure raises, so the exit code is non-zero.
+``profile_sweep``; the redesigned probe copies also at a device-bound size,
+with their device times), and the host time of each part of a launch (the
+``[times] launch-path`` line: every kernel launches through
+``native.Library.launch``). Any failure raises, so the exit code is
+non-zero.
 
     python3 chip_smoke.py
 
@@ -193,9 +197,9 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     mods = (k1, k2, k3, k2b, hg, rs)
     with ThreadPoolExecutor(len(mods)) as pool:
-        libs = list(pool.map(lambda m: m.build(), mods))
+        libs = list(pool.map(lambda m: m.LIB.build(), mods))
     for m in mods:
-        m._lib()
+        m.LIB.fns()
     print(f"[build] K1, K2, K3, K2b and the probes built in "
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(lib.name for lib in libs)}", flush=True)
@@ -597,12 +601,15 @@ def phase_k2b() -> dict:
 
 def _probe_inputs() -> dict:
     """Each probe kernel's inputs at the probe's own sizes, index data
-    checked on the host and put on the card: ``{name: (args, atol)}``. P2's
+    checked on the host and put on the card: ``{case: (args, atol)}``. P2's
     and P4's slabs include the last valid origin; P3's 13824 origins (240³
     bench fetch) come with the last valid one and (0, 0) appended, the
     fetch's scalars (240³, the probe's theta) with the last valid block
-    origin appended. The copies must match to the bit; the sums at their
-    stated atol (``hg.P3_ATOL``, ``rs.FETCH_ATOL``)."""
+    origin appended. The two redesigned copies also run at a size where the
+    device work dominates (``*_big``, P3's 240 x 240 x 256 volume):
+    ``slab_gather`` at the first 1728 of P3's origins, ``slice_transpose``
+    at 4096 starts from ``default_rng(0)``. The copies must match to the
+    bit; the sums at their stated atol (``hg.P3_ATOL``, ``rs.FETCH_ATOL``)."""
     dev = torch.device(DEV)
     gen = torch.Generator().manual_seed(0)
     x = torch.arange(16 * 256, dtype=torch.float32, device=dev).reshape(16, 256)
@@ -614,6 +621,10 @@ def _probe_inputs() -> dict:
     p3 = np.concatenate([hg.p3_origins(SIZE, T), [[SIZE - 14, SIZE - 16], [0, 0]]])
     slab = torch.rand((32, 32, 256), generator=gen).to(dev)
     p5 = [[0, 0, 3], [9, 13, 240 - 16], [18, 16, 0], [18, 16, 240]]
+    rng = np.random.default_rng(0)
+    big_starts = np.stack([rng.integers(0, SIZE - 14 + 1, BIG_STARTS),
+                           rng.integers(0, SIZE - 16 + 1, BIG_STARTS),
+                           rng.integers(0, 256 - 16 + 1, BIG_STARTS)], axis=-1)
     _, _, scal, volp = rs.stage_inputs(SIZE, dev)
     last = volp.shape[0] // rs.QB - rs.NB
     scal = np.concatenate([scal, [[last, last, 0, 0, 0]]]).astype(np.int32)
@@ -629,15 +640,26 @@ def _probe_inputs() -> dict:
         "slice_transpose": ((slab, checked_index(p5, (0, 1, 2), (18, 16, 240), "starts", dev),
                              14, 16, 16, 256), 0.0),
         "roi_fetch": ((volp, rs.check_scalars(volp, scal)), rs.FETCH_ATOL),
+        "slab_gather_big": ((vol240, orgs(hg.p3_origins(SIZE, BIG_SLABS), (14, 16), vol240),
+                             14, 16), 0.0),
+        "slice_transpose_big": ((vol240, checked_index(big_starts, (0, 1, 2),
+                                                       (SIZE - 14, SIZE - 16, 256 - 16),
+                                                       "starts", dev), 14, 16, 16, 256), 0.0),
     }
 
 
 PROBE_FNS = {"block_permute_add": (hg.block_permute_add_launch, hg.block_permute_add_plain),
              "slab_gather": (hg.slab_gather_launch, hg.slab_gather_plain),
-             "slab_gather_p4": (hg.slab_gather_launch, hg.slab_gather_plain),
              "slab_sum": (hg.slab_sum_launch, hg.slab_sum_plain),
              "slice_transpose": (hg.slice_transpose_launch, hg.slice_transpose_plain),
              "roi_fetch": (rs.roi_fetch_launch, rs.roi_fetch_plain)}
+# the probe cases that run a kernel at another size than its probe's
+CASE_KERNEL = {"slab_gather_p4": "slab_gather", "slab_gather_big": "slab_gather",
+               "slice_transpose_big": "slice_transpose"}
+# the redesigned copies, at the probes' sizes and the device-bound ones
+COPIES = ("slab_gather", "slab_gather_p4", "slice_transpose", "slab_gather_big",
+          "slice_transpose_big")
+BIG_SLABS, BIG_STARTS = 1728, 4096
 
 
 def phase_probes(inputs: dict) -> tuple[dict, dict]:
@@ -647,11 +669,11 @@ def phase_probes(inputs: dict) -> tuple[dict, dict]:
     after. Returns the largest deviations and the path's launches."""
     errs = {}
     for case, (args, atol) in inputs.items():
-        launch, plain = PROBE_FNS[case]
+        name = CASE_KERNEL.get(case, case)
+        launch, plain = PROBE_FNS[name]
         out, ref = launch(*args), plain(*args)
         torch.cuda.synchronize()
         err = _max_err(out, ref)
-        name = "slab_gather" if case == "slab_gather_p4" else case
         errs[name] = max(errs.get(name, 0.0), err)
         print(f"[probes] {case}: out {tuple(out.shape)}, max|d| {err:.3e} (tol {atol:g})",
               flush=True)
@@ -1212,59 +1234,85 @@ def _touched_rows(orgs: np.ndarray, Bz: int, By: int, Z: int, Y: int) -> int:
     return int(mask.sum())
 
 
-def phase_probe_times(inputs: dict) -> dict:
-    """One launch of each probe kernel against one pass of its plain
-    version and, for the copies (P2, P4, P5), one ``torch.take`` with the
-    indices made beforehand (P5's on the slab with a zero appended for the
-    empty lanes), at the probe's own sizes (``_probe_inputs``), CUDA events.
-    Bounds: the bytes the function needs (each row or block it reads once,
-    its output written once) over 3.35 TB/s; P1, P2, P4 and P5 move a few MB
-    at most, so their real floor is the launch itself (a few microseconds).
-    P1, P3 and the fetch have no one PyTorch call that computes them."""
-    rows = {}
-    for case, (args, _) in inputs.items():
-        launch, plain = PROBE_FNS[case]
-        with torch.no_grad():
-            rows[case] = {"ms": _time_ms(lambda: launch(*args)),
-                          "plain_ms": _time_ms(lambda: plain(*args), iters=3),
-                          "library_ms": None}
-    takes = {}
-    for case in ("slab_gather", "slab_gather_p4"):
-        vol, orgs, Bz, By = inputs[case][0]
+def _take_index(case: str, args) -> tuple:
+    """The ``torch.take`` that computes a copy case: its source and its flat
+    indices, made beforehand (P5's on the slab with a zero appended for the
+    empty lanes)."""
+    if CASE_KERNEL.get(case, case) == "slab_gather":
+        vol, orgs, Bz, By = args
         z, y = hg._slab_index(orgs, Bz, By)
-        flat = ((z[..., None] * vol.shape[1] + y[..., None]) * vol.shape[2]
-                + torch.arange(vol.shape[2], device=DEV))
-        takes[case] = (vol, flat)
-    slab, starts, Bz, By, CW, lanes = inputs["slice_transpose"][0]
+        return vol, ((z[..., None] * vol.shape[1] + y[..., None]) * vol.shape[2]
+                     + torch.arange(vol.shape[2], device=DEV))
+    slab, starts, Bz, By, CW, lanes = args
     s = starts.long()
     r = torch.arange(lanes, device=DEV)
     flat = (((s[:, 0, None] + r // By) * slab.shape[1] + s[:, 1, None] + r % By)[:, None, :]
             * slab.shape[2] + s[:, 2, None, None] + torch.arange(CW, device=DEV)[None, :, None])
     flat = torch.where(r < Bz * By, flat, slab.numel())  # the appended zero
-    takes["slice_transpose"] = (torch.cat([slab.flatten(), torch.zeros(1, device=DEV)]), flat)
-    for case, (src, flat) in takes.items():
-        # the library call computes the same function: the same values
-        if not torch.equal(torch.take(src, flat), PROBE_FNS[case][0](*inputs[case][0])):
-            raise AssertionError(f"torch.take does not compute {case}")
-        rows[case]["library_ms"] = _time_ms(lambda: torch.take(src, flat))
+    return torch.cat([slab.flatten(), torch.zeros(1, device=DEV)]), flat
 
-    def slab_bytes(case, out_rows):
-        vol, orgs, Bz, By = inputs[case][0][:4]
+
+def _copy_bytes(case: str, args) -> float:
+    """The bytes a copy case needs: each row (slab_gather) or window element
+    (slice_transpose) its index data touch read once, distinct ones
+    counted, the index data, and its output written once."""
+    if CASE_KERNEL.get(case, case) == "slab_gather":
+        vol, orgs, Bz, By = args
         o = orgs.cpu().numpy()
         need = _touched_rows(o, Bz, By, *vol.shape[:2]) * vol.shape[2]
-        return 4.0 * (need + o.shape[0] * out_rows * vol.shape[2] + o.size)
+        return 4.0 * (need + o.shape[0] * Bz * By * vol.shape[2] + o.size)
+    slab, starts, Bz, By, CW, lanes = args
+    touched = np.zeros(tuple(slab.shape), bool)
+    for dz, dy, ox in starts.cpu().numpy():
+        touched[dz:dz + Bz, dy:dy + By, ox:ox + CW] = True
+    return 4.0 * (touched.sum() + starts.shape[0] * (CW * lanes + 3))
 
+
+def phase_probe_times(inputs: dict) -> dict:
+    """One launch of each probe kernel against one pass of its plain
+    version and, for the copies (P2, P4, P5, each redesigned copy also at
+    its device-bound size), one ``torch.take`` with the indices made
+    beforehand, CUDA events over 20 launches (``ms``); for the copies also
+    the device time of the kernel and of the ``torch.take`` alone
+    (``device_ms``, ``library_device_ms``: ``torch.profiler``'s kernel spans,
+    no host time) and, at the device-bound sizes, one ``zero_`` of the
+    output (``write_only_ms``: its writes alone). Bounds: the bytes the
+    function needs (each row or block it reads once, its output written
+    once) over 3.35 TB/s. P1, P3 and the fetch have no one PyTorch call that
+    computes them."""
+    rows = {}
+    for case, (args, _) in inputs.items():
+        launch, plain = PROBE_FNS[CASE_KERNEL.get(case, case)]
+        with torch.no_grad():
+            rows[case] = {"ms": _time_ms(lambda: launch(*args)),
+                          "plain_ms": _time_ms(lambda: plain(*args), iters=3),
+                          "library_ms": None}
+    takes = {case: _take_index(case, inputs[case][0]) for case in COPIES}
+    for case, (src, flat) in takes.items():
+        # the library call computes the same function: the same values
+        if not torch.equal(torch.take(src, flat), PROBE_FNS[CASE_KERNEL.get(case, case)][0](
+                *inputs[case][0])):
+            raise AssertionError(f"torch.take does not compute {case}")
+        rows[case]["library_ms"] = _time_ms(lambda: torch.take(src, flat))
+        if case.endswith("_big"):  # how near the card's write rate the copy runs
+            out = torch.empty(flat.shape, device=DEV)
+            rows[case]["write_only_ms"] = _time_ms(out.zero_)
+    # the profiler last: once it has run, each launch costs the host more
+    for case, (src, flat) in takes.items():
+        args = inputs[case][0]
+        launch = PROBE_FNS[CASE_KERNEL.get(case, case)][0]
+        rows[case].update(
+            device_ms=ps.device_ms(lambda: launch(*args),
+                                   name=f"{CASE_KERNEL.get(case, case)}_kernel"),
+            library_device_ms=ps.device_ms(lambda: torch.take(src, flat), name=""))
+    del takes
     x, order = inputs["block_permute_add"][0]
     bounds = {"block_permute_add": 4.0 * (order.numel() * 8 * x.shape[1] * 2 + order.numel()),
-              "slab_gather": slab_bytes("slab_gather", 14 * 16),
-              "slab_gather_p4": slab_bytes("slab_gather_p4", 16 * 16),
-              "slab_sum": slab_bytes("slab_sum", 8)}
-    # P5 reads each window element once (distinct ones counted) and writes
-    # [T, CW, lanes]
-    touched = np.zeros(tuple(slab.shape), bool)
-    for dz, dy, ox in s.cpu().numpy():
-        touched[dz:dz + Bz, dy:dy + By, ox:ox + CW] = True
-    bounds["slice_transpose"] = 4.0 * (touched.sum() + s.shape[0] * (CW * lanes + 3))
+              **{case: _copy_bytes(case, inputs[case][0]) for case in COPIES}}
+    vol, orgs, Bz, By = inputs["slab_sum"][0]
+    o = orgs.cpu().numpy()
+    bounds["slab_sum"] = 4.0 * (_touched_rows(o, Bz, By, *vol.shape[:2]) * vol.shape[2]
+                                + o.shape[0] * 8 * vol.shape[2] + o.size)
     volp, scal = inputs["roi_fetch"][0]
     sc = scal.cpu().numpy()
     blocks = np.zeros((volp.shape[0] // rs.QB, volp.shape[1] // rs.QB), bool)
@@ -1274,6 +1322,11 @@ def phase_probe_times(inputs: dict) -> dict:
                                  + sc.shape[0] * (rs.LANES + 5))
     for case, nbytes in bounds.items():
         rows[case].update(_bound(nbytes, 0.0), bytes=nbytes)
+    for case in COPIES:
+        row = rows[case]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if row["device_ms"] is not None:
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
     T = inputs["slab_sum"][0][1].shape[0]
     logical = T * 14 * 16 * 256 * 4.0
     rows["slab_sum"]["logical_TBps"] = logical / (rows["slab_sum"]["ms"] * 1e9)
@@ -1283,6 +1336,60 @@ def phase_probe_times(inputs: dict) -> dict:
     for case, row in rows.items():
         print(f"[times] probe {case}: {json.dumps(row)}", flush=True)
     return rows
+
+
+def phase_launch_path(inputs: dict, calls: int = 2000) -> dict:
+    """Host microseconds per call of one launch through the port's launch
+    path (``native.Library.launch``) of an empty kernel, and of the parts
+    of the path every wrapper took before it: the device guard, the Stream
+    object, the ctypes call (alone, and with the CUDA launch), ``torch.empty``
+    on the card; also one whole ``slab_gather_launch`` at P2's size. Each
+    over ``calls`` calls after a warm-up, host clock, one synchronise at the
+    end; each measured twice, the list in order and reversed."""
+    t = torch.empty(1, device=DEV)
+    index, dev = t.get_device(), t.device
+    fn = hg.LIB.fns()["empty_launch"]
+    stream = torch.cuda.current_stream().cuda_stream
+    vol, orgs, Bz, By = inputs["slab_gather"][0]
+
+    def old_path():  # the wrappers' launch before the helper
+        with torch.cuda.device(dev):
+            rc = fn(1, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty_launch failed: cudaError {rc}")
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {"helper_us": lambda: hg.LIB.launch("empty_launch", t, 1),
+             "old_path_us": old_path,
+             "ctypes_launch_us": lambda: fn(1, stream),
+             "ctypes_call_us": lambda: fn(0, stream),
+             "device_guard_us": guard,
+             "stream_object_us": lambda: torch.cuda.current_stream(index).cuda_stream,
+             "raw_stream_us": lambda: torch._C._cuda_getCurrentRawStream(index),
+             "current_device_us": torch.cuda.current_device,
+             "raw_device_us": torch._C._cuda_getDevice,
+             "torch_empty_us": lambda: torch.empty(vol.shape, device=dev),
+             "new_empty_us": lambda: vol.new_empty(vol.shape),
+             "slab_gather_launch_us": lambda: hg.slab_gather_launch(vol, orgs, Bz, By)}
+
+    def us(f) -> float:
+        for _ in range(100):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            f()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / calls
+
+    got = {name: [] for name in parts}
+    for name in list(parts) + list(parts)[::-1]:
+        got[name].append(us(parts[name]))
+    print(f"[times] launch-path {json.dumps({'calls': calls, **got})}", flush=True)
+    return got
 
 
 def _library_times() -> dict:
@@ -1324,6 +1431,15 @@ def _sweep_extras(name: str, flow_row: dict, modes: dict, row_err: float) -> dic
     return extras
 
 
+def _copy_extras(name: str, probe_rows: dict) -> dict:
+    """A redesigned copy's line beside its probe-size time: its device time
+    and the library call's, and the same at its device-bound size."""
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms", "write_only_ms", "bound_ms")
+    return {"device_ms": probe_rows[name]["device_ms"],
+            "library_device_ms": probe_rows[name]["library_device_ms"],
+            "device_bound_size": {k: probe_rows[f"{name}_big"][k] for k in keys}}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1343,6 +1459,8 @@ def main() -> None:
     paths += [phase_unet(), phase_register_unet(), phase_register_default(),
               phase_engines_default(), probe_launches]
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
+    # before the profiler first runs (after that each launch costs the host more)
+    phase_launch_path(probe_inputs)
     mode_rows = phase_mode_times()
     k2_times = phase_k2_times()
     k3_row = phase_k3_times()["8->8 edge 118"]
@@ -1389,9 +1507,11 @@ def main() -> None:
                                 "library: cuDNN conv3d_weight, TF32 off",
                 "roigather": "one launch, 240^3 f32, make_pair's rigid windows, T=13824",
                 "block_permute_add": "one launch, P1: [16, 256] f32, order [1, 0]",
-                "slab_gather": "one launch, P2: 6 slabs (14, 16, 256) of [64, 64, 256]",
+                "slab_gather": "one launch, P2: 6 slabs (14, 16, 256) of [64, 64, 256]; "
+                               "device_bound_size: 1728 slabs of [240, 240, 256]",
                 "slab_sum": "one launch, P3: 13826 slabs (14, 16, 256) of [240, 240, 256]",
-                "slice_transpose": "one launch, P5: 4 tiles of a [32, 32, 256] slab",
+                "slice_transpose": "one launch, P5: 4 tiles of a [32, 32, 256] slab; "
+                                   "device_bound_size: 4096 tiles of [240, 240, 256]",
                 "roi_fetch": "one launch, 240^3 padded to 256^3, the probe's theta, T=13825"}
     timed_at["sweep_bwd"] = timed_at["sweep_fwd"]
     timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
@@ -1404,7 +1524,8 @@ def main() -> None:
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
          **({"note": NOTES[name]} if name in NOTES else {}),
          **(_sweep_extras(name, flow_row, modes, errs["sweep_row_grad_rel"])
-            if name.startswith("sweep") else {})}
+            if name.startswith("sweep") else {}),
+         **(_copy_extras(name, probe_rows) if name in COPIES else {})}
         for name in REPLACES
     ]
     print(smi)

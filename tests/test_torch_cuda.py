@@ -1,8 +1,9 @@
 """K1, K2, K3, K2b, the probe kernels and the slices on the GPU: the kernels
 against their plain versions, the port's cascades (field and U-Net flow) and
 criteria on the card against the same calls on the CPU, ``Register``'s
-default device, the U-Net cascade's repeat to the bit and both probe modules'
-``main``.
+default device, the U-Net cascade's repeat to the bit, both probe modules'
+``main`` and the one launch path (a launch under a side stream, a tensor on
+another device than the current one).
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -870,3 +871,107 @@ def test_torch_cuda_probe_origins_out_of_range_raise(dev):
         rs.roi_fetch(torch.rand((64, 64, 128), device=dev), [[6, 0, 0, 0, 0]])
     with pytest.raises(ValueError, match="host data"):
         hg.slab_gather(vol, torch.zeros((1, 2), dtype=torch.int32, device=dev), 14, 16)
+
+
+COPY_CASES = {"p2": (64, 64, 256), "p4": (64, 64, 256), "slab_big": (240, 240, 256),
+              "slab_unaligned": (64, 64, 256), "slab_x_not_4": (40, 36, 250),
+              "p5": (32, 32, 256), "slice_big": (240, 240, 256),
+              "slice_unaligned": (32, 32, 256), "slice_x_not_4": (32, 32, 250),
+              "slice_L_not_4": (32, 32, 256), "slice_big_L_not_4": (240, 240, 256)}
+
+
+def _copy_case(dev, case):
+    """(kernel, plain, inputs) of a case of the redesigned probe copies: the
+    probes' sizes, the device-bound sizes (P3's 240 x 240 x 256 volume), a
+    volume whose data pointer is 4 bytes past a 16-byte boundary, an x
+    extent that is not a multiple of 4, x starts at every residue mod 4 and
+    ``lanes`` that is not a multiple of 4; each kernel's block shapes at
+    both the few slabs or tiles of a probe and the many of the others."""
+    import numpy as np
+
+    from torchregister_tpu_torch.probes import checked_index
+    from torchregister_tpu_torch.probes import hatgather as hg
+
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    Z, Y, X = COPY_CASES[case]
+    if case.endswith("unaligned"):
+        buf = torch.rand(Z * Y * X + 1, generator=gen, device=dev)
+        vol = buf[1:].view(Z, Y, X)
+        assert vol.is_contiguous() and vol.data_ptr() % 16 == 4
+    else:
+        vol = torch.rand((Z, Y, X), generator=gen, device=dev)
+    rng = np.random.default_rng(0)
+    if case.startswith(("p2", "p4", "slab")):
+        # the probes' few slabs (one element a thread) or many (four), plus 2
+        n = {"p2": 4, "p4": 3, "slab_unaligned": 4}.get(case, 40)
+        Bz, By = (16, 16) if case == "p4" else (14, 16)
+        orgs = (hg.p3_origins(Z, 1728) if case == "slab_big" else
+                np.stack([rng.integers(0, Z - Bz + 1, n), rng.integers(0, Y - By + 1, n)], -1))
+        orgs = np.concatenate([orgs, [[Z - Bz, Y - By], [0, 0]]]).astype(np.int32)
+        orgs = checked_index(orgs, (0, 1), (Z - Bz, Y - By), "orgs", dev)
+        return hg.slab_gather_launch, hg.slab_gather_plain, (vol, orgs, Bz, By)
+    Bz, By, CW = 14, 16, 16
+    lanes = 230 if case.endswith("L_not_4") else 256
+    # tiles: 4096 take 256-thread blocks, fewer than 264 take 1024-thread ones
+    n = 4096 if case.startswith("slice_big") else 5 if case == "p5" else 64
+    starts = np.stack([rng.integers(0, Z - Bz + 1, n), rng.integers(0, Y - By + 1, n),
+                       rng.integers(0, X - CW + 1, n)], axis=-1)
+    starts[:4, 2] = [1, 2, 3, 4]  # every residue of x mod 4
+    starts[4] = [Z - Bz, Y - By, X - CW]
+    starts = checked_index(starts, (0, 1, 2), (Z - Bz, Y - By, X - CW), "starts", dev)
+    return hg.slice_transpose_launch, hg.slice_transpose_plain, (vol, starts, Bz, By, CW, lanes)
+
+
+@pytest.mark.parametrize("case", list(COPY_CASES))
+def test_torch_cuda_probe_copies_match_plain_to_the_bit(dev, case):
+    """``slab_gather`` (float4 runs where X % 4 == 0 and both pointers are
+    16-byte aligned, floats otherwise) and ``slice_transpose`` (float4 stores
+    along r where lanes % 4 == 0) equal their plain versions to the bit."""
+    launch, plain, args = _copy_case(dev, case)
+    out, ref = launch(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, ref)
+
+
+def test_torch_cuda_launch_follows_the_current_stream(dev):
+    """A launch under ``torch.cuda.stream(s)`` goes to ``s``: it reads a
+    volume that ``s`` rewrites after a long sleep, and only ``s`` is
+    synchronised before the check (a launch on another stream would read
+    the old volume)."""
+    from torchregister_tpu_torch.probes import checked_index
+    from torchregister_tpu_torch.probes import hatgather as hg
+
+    vol = torch.rand((64, 64, 256), device=dev)
+    new = torch.rand_like(vol)
+    orgs = checked_index([[0, 0], [50, 48], [7, 9]], (0, 1), (50, 48), "orgs", dev)
+    want = hg.slab_gather_plain(new, orgs, 14, 16)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    torch.cuda.current_stream().synchronize()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)
+        vol.copy_(new)
+        out = hg.slab_gather_launch(vol, orgs, 14, 16)
+        done = torch.cuda.Event()
+        done.record(s)
+    assert not done.query()  # still behind the sleep on s
+    s.synchronize()
+    assert done.query() and torch.equal(out, want)
+
+
+def test_torch_cuda_launch_on_another_device(dev):
+    """A tensor on another device than the current one launches on its own
+    device, and the current device stays as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from torchregister_tpu_torch.probes import checked_index
+    from torchregister_tpu_torch.probes import hatgather as hg
+
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        vol = torch.rand((64, 64, 256), device=other)
+        orgs = checked_index([[0, 0], [50, 48]], (0, 1), (50, 48), "orgs", other)
+        out = hg.slab_gather_launch(vol, orgs, 14, 16)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+    assert out.device == other and torch.equal(out, hg.slab_gather_plain(vol, orgs, 14, 16))

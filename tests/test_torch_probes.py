@@ -194,3 +194,46 @@ def test_torch_probe_index_checks():
         checked_index(np.zeros((2, 2), np.float32), (0,), (1,), "x", torch.device("cpu"))
     with pytest.raises(TypeError, match="multiple of 128"):
         rs.roi_fetch(torch.zeros((64, 64, 100)), [[0, 0, 0, 0, 0]])
+
+
+@pytest.mark.parametrize("X", [256, 250])
+def test_torch_probe_slab_gather_plain_matches_dynamic_slices(X):
+    """``slab_gather``'s plain version against ``dynamic_slice`` stacks at
+    origins from ``default_rng(3)`` with the last valid one appended, for an
+    x extent that is a multiple of 4 and one that is not (the kernel's two
+    branches)."""
+    Z, Y = 40, 36
+    vol = jax.random.uniform(jax.random.key(1), (Z, Y, X), jnp.float32)
+    rng = np.random.default_rng(3)
+    orgs = np.concatenate([np.stack([rng.integers(0, Z - 14 + 1, 9),
+                                     rng.integers(0, Y - 16 + 1, 9)], axis=-1),
+                           [[Z - 14, Y - 16]]]).astype(np.int32)
+    got = hg.slab_gather(torch.from_numpy(np.array(vol)), orgs, 14, 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_jax_slabs(vol, orgs, 14, 16)))
+
+
+def _jax_slice_transpose(slab, starts, Bz, By, CW, lanes):
+    """P5's function: each (Bz, By, CW) window as Bz*By rows, transposed to
+    ``[CW, Bz*By]``, zeros up to ``lanes``."""
+    outs = []
+    for dz, dy, ox in starts:
+        win = jax.lax.dynamic_slice(slab, (int(dz), int(dy), int(ox)), (Bz, By, CW))
+        outs.append(jnp.pad(win.reshape(Bz * By, CW).T, ((0, 0), (0, lanes - Bz * By))))
+    return jnp.stack(outs)
+
+
+@pytest.mark.parametrize("X, lanes", [(256, 256), (250, 256), (256, 230)])
+def test_torch_probe_slice_transpose_plain_matches_dynamic_slices(X, lanes):
+    """``slice_transpose``'s plain version against ``dynamic_slice``: x starts
+    at 0, 1, 2 and 3 mod 4 (the kernel's window reads are element-granular),
+    an x extent that is not a multiple of 4, and ``lanes`` that is not (the
+    kernel's scalar stores)."""
+    SZ, SY, Bz, By, CW = 32, 32, 14, 16, 16
+    slab = jax.random.uniform(jax.random.key(2), (SZ, SY, X), jnp.float32)
+    starts = np.asarray([[0, 0, 0], [3, 5, 1], [9, 13, 6], [18, 16, 11], [7, 2, X - CW]],
+                        np.int32)
+    assert sorted(starts[:4, 2] % 4) == [0, 1, 2, 3]
+    got = hg.slice_transpose(torch.from_numpy(np.array(slab)), starts, Bz, By, CW, lanes)
+    want = _jax_slice_transpose(slab, starts, Bz, By, CW, lanes)
+    assert got.shape == (5, CW, lanes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

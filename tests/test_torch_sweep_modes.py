@@ -193,8 +193,8 @@ def _no_build(monkeypatch):
     def fail():
         raise AssertionError("the library was built before the inputs were checked")
 
-    monkeypatch.setattr(k1, "build", fail)
-    monkeypatch.setattr(k1, "_LIB", None)
+    monkeypatch.setattr(k1.LIB, "build", fail)
+    monkeypatch.setattr(k1.LIB, "_fns", None)
 
 
 @pytest.mark.parametrize("case", ["cpu", "table_shape", "table_dtype", "image_dtype",

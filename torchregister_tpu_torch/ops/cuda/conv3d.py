@@ -27,7 +27,6 @@ launches of the forward, the input gradient and the weight gradient;
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +39,6 @@ fwd_launches = 0
 dgrad_launches = 0
 wgrad_launches = 0
 
-_LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the weight gradient's blocks: two on each of the H100's 132 SMs
 WGRAD_BLOCKS = 264
@@ -49,30 +47,16 @@ WGRAD_BLOCKS = 264
 # balances the blocks: the kernel works out each block's range itself)
 _WGRAD_CI, _WGRAD_CO, _WGRAD_TILE = 8, 32, (4, 32)
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIB = native.Library(SOURCE, "conv3d", {"conv3x3x3": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+                                        "conv3x3x3_wgrad": (_I, [_P] * 4 + [_I] * 8 + [_P])})
+
 
 def reset_counts() -> None:
     global fwd_launches, dgrad_launches, wgrad_launches
     fwd_launches = 0
     dgrad_launches = 0
     wgrad_launches = 0
-
-
-def build() -> Path:
-    """Compile ``csrc/conv3d.cu`` into ``_build/`` and return its path."""
-    return native.build_cuda(SOURCE, "conv3d")
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3x3.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [ptr]
-        lib.conv3x3x3.restype = ctypes.c_int
-        lib.conv3x3x3_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
-        lib.conv3x3x3_wgrad.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> None:
@@ -111,13 +95,8 @@ def conv_launch(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> torch.Tensor:
     wk = w.to(x.dtype).reshape(27, Ci, Co).contiguous()
     out = torch.empty((N, Co) + tuple(s - 2 + 2 * pad for s in (Z, H, W)), dtype=x.dtype,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().conv3x3x3(x.data_ptr(), wk.data_ptr(), out.data_ptr(), N, Ci, Co,
-                              Z, H, W, pad, _DTYPES[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed: cudaError {rc} (x {tuple(x.shape)}, "
-                           f"Co {Co}, pad {pad})")
+    LIB.launch("conv3x3x3", x, x.data_ptr(), wk.data_ptr(), out.data_ptr(), N, Ci, Co, Z, H, W,
+               pad, _DTYPES[x.dtype])
     if pad:
         dgrad_launches += 1
     else:
@@ -177,13 +156,8 @@ def wgrad_launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     splits = wgrad_splits(N, Ci, Co, Z, H, W)
     ws = torch.empty((splits, 27, Ci, Co), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().conv3x3x3_wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-                                    N, Ci, Co, Z, H, W, splits, _DTYPES[x.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"K3's weight-gradient launch failed: cudaError {rc} "
-                           f"(x {tuple(x.shape)}, Co {Co}, splits {splits})")
+    LIB.launch("conv3x3x3_wgrad", x, x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+               N, Ci, Co, Z, H, W, splits, _DTYPES[x.dtype])
     wgrad_launches += 1
     return dw
 

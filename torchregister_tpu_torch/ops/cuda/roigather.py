@@ -20,7 +20,6 @@ zeroes it.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 
@@ -35,28 +34,13 @@ CW = 16  # x extent (the output row c)
 
 launches = 0
 
-_LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIB = native.Library(SOURCE, "roigather", {"roigather": (_I, [_P, _P, _P] + [_I] * 4 + [_P])})
 
 
 def reset_counts() -> None:
     global launches
     launches = 0
-
-
-def build() -> Path:
-    """Compile ``csrc/roigather.cu`` into ``_build/`` and return its path."""
-    return native.build_cuda(SOURCE, "roigather")
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.roigather.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.roigather.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
 
 
 def _validate(vol: torch.Tensor, scalars: torch.Tensor) -> None:
@@ -82,13 +66,7 @@ def roigather_launch(vol: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     T = scalars.shape[0]
     Z, Y, X = vol.shape
     out = torch.empty((T, CW, AW * BW), dtype=torch.float32, device=vol.device)
-    with torch.cuda.device(vol.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().roigather(vol.data_ptr(), scalars.data_ptr(), out.data_ptr(), T, Z, Y, X,
-                              stream)
-    if rc != 0:
-        raise RuntimeError(f"K2b launch failed: cudaError {rc} (volume {tuple(vol.shape)}, "
-                           f"T {T})")
+    LIB.launch("roigather", vol, vol.data_ptr(), scalars.data_ptr(), out.data_ptr(), T, Z, Y, X)
     launches += 1
     return out
 

@@ -28,10 +28,8 @@ show that its path went through the kernels and which form ran;
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
-from pathlib import Path
 from typing import Sequence
 
 import torch
@@ -45,10 +43,16 @@ bwd_launches = 0
 fwd_modes = {"dense": 0, "affine": 0, "flow": 0}
 bwd_modes = {"dense": 0, "affine": 0, "flow": 0}
 
-_LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DENSE, _AFFINE, _FLOW = 0, 1, 2
 _INT32 = 2**31 - 1
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = native.Library(SOURCE, "sweep", {
+    "sweep_fwd": (_I, [_I, _P, _P, _P, _P, _L, _I, _L] + [_I] * 8 + [_L, _P]),
+    "sweep_bwd": (_I, [_I] + [_P] * 7 + [_L, _I, _L] + [_I] * 8 + [_L, _L, _L, _P]),
+    "sweep_bwd_work": (_L, [_L, _I, _L, _I]),
+})
 
 
 def reset_counts() -> None:
@@ -60,33 +64,6 @@ def reset_counts() -> None:
             modes[mode] = 0
 
 
-def build() -> Path:
-    """Compile ``csrc/sweep.cu`` into ``_build/`` and return its path."""
-    return native.build_cuda(SOURCE, "sweep")
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sweep_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i32, i64] + [i32] * 8 + [
-            i64, ptr]
-        lib.sweep_fwd.restype = i32
-        lib.sweep_bwd.argtypes = [i32] + [ptr] * 7 + [i64, i32, i64] + [i32] * 8 + [
-            i64, i64, i64, ptr]
-        lib.sweep_bwd.restype = i32
-        lib.sweep_bwd_work.argtypes = [i64, i32, i64, i32]
-        lib.sweep_bwd_work.restype = i64
-        _LIB = lib
-    return _LIB
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"K1 {what} launch failed: cudaError {rc}")
-
-
 def _count(forward: bool, mode: str) -> None:
     global fwd_launches, bwd_launches
     if forward:
@@ -95,14 +72,6 @@ def _count(forward: bool, mode: str) -> None:
     else:
         bwd_launches += 1
         bwd_modes[mode] += 1
-
-
-def _launch_env(t: torch.Tensor):
-    """A guard that makes ``t``'s device current only when it is not, and
-    that device's current stream: taken once per warp."""
-    guard = (contextlib.nullcontext() if t.device.index == torch.cuda.current_device()
-             else torch.cuda.device(t.device))
-    return guard, torch.cuda.current_stream(t.device).cuda_stream
 
 
 @functools.lru_cache(maxsize=256)
@@ -208,87 +177,81 @@ def _channel(t: torch.Tensor, a: int) -> int:
 
 
 # ------------------------------------------------------------ raw launches
-# Each takes validated contiguous CUDA tensors, the library and the stream.
+# Each takes validated contiguous CUDA tensors.
 
 
-def _fwd_dense(lib, stream, src, q, dim, K, diff=None):
+def _fwd_dense(src, q, dim, K, diff=None):
     out = torch.empty_like(src)
     outer, L, inner = _rows(src.shape, dim)
-    rc = lib.sweep_fwd(_DENSE, src.data_ptr(), q.data_ptr(), out.data_ptr(),
-                       None if diff is None else diff.data_ptr(), outer, L, inner, K,
-                       _DTYPES[src.dtype], 0, 1, 1, 1, 0, 1, 0, stream)
-    _check(rc, "forward")
+    LIB.launch("sweep_fwd", src, _DENSE, src.data_ptr(), q.data_ptr(), out.data_ptr(),
+               None if diff is None else diff.data_ptr(), outer, L, inner, K,
+               _DTYPES[src.dtype], 0, 1, 1, 1, 0, 1, 0)
     _count(True, "dense")
     return out
 
 
-def _bwd_dense(lib, stream, g, src, q, dim, K, dsrc, dq):
+def _bwd_dense(g, src, q, dim, K, dsrc, dq):
     outer, L, inner = _rows(src.shape, dim)
-    rc = lib.sweep_bwd(_DENSE, g.data_ptr(), src.data_ptr(), q.data_ptr(),
-                       None if dsrc is None else dsrc.data_ptr(),
-                       None if dq is None else dq.data_ptr(), None, None, outer, L, inner, K,
-                       _DTYPES[src.dtype], 0, 1, 1, 1, 0, 1, 0, 0, 0, stream)
-    _check(rc, "backward")
+    LIB.launch("sweep_bwd", src, _DENSE, g.data_ptr(), src.data_ptr(), q.data_ptr(),
+               None if dsrc is None else dsrc.data_ptr(),
+               None if dq is None else dq.data_ptr(), None, None, outer, L, inner, K,
+               _DTYPES[src.dtype], 0, 1, 1, 1, 0, 1, 0, 0, 0)
     _count(False, "dense")
 
 
-def _fwd_affine(lib, stream, src, table, p, axis, K):
+def _fwd_affine(src, table, p, axis, K):
     out = torch.empty_like(src)
     outer, L, inner, Z, Y, X, vaxis = _image(src.shape, axis)
-    rc = lib.sweep_fwd(_AFFINE, src.data_ptr(), _row(table, p), out.data_ptr(), None,
-                       outer, L, inner, K, _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis,
-                       1, 0, stream)
-    _check(rc, "affine forward")
+    LIB.launch("sweep_fwd", src, _AFFINE, src.data_ptr(), _row(table, p), out.data_ptr(), None,
+               outer, L, inner, K, _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, 1, 0)
     _count(True, "affine")
     return out
 
 
 @functools.lru_cache(maxsize=64)
-def _work_floats(lib, rows, K) -> int:
-    n = lib.sweep_bwd_work(*rows, K)
+def _work_floats(rows, K) -> int:
+    n = LIB.fns()["sweep_bwd_work"](*rows, K)
     if n <= 0:
         raise ValueError(f"K1 has no backward tile for rows {rows} and window {K}")
     return n
 
 
-def _affine_work(lib, src, axes, windows):
+def _affine_work(src, axes, windows):
     """The affine backward's workspace for passes of ``src`` along ``axes``
     with ``windows`` (one for every pass of a warp: the largest), zeroed:
     its first word counts finished blocks, and each launch leaves it 0."""
-    n = max(_work_floats(lib, _rows(src.shape, 2 + a), K) for a, K in zip(axes, windows))
+    n = max(_work_floats(_rows(src.shape, 2 + a), K) for a, K in zip(axes, windows))
     return torch.zeros(n, dtype=torch.float32, device=src.device)
 
 
-def _bwd_affine(lib, stream, g, src, table, p, axis, K, need_src, dtable, work=None):
+def _bwd_affine(g, src, table, p, axis, K, need_src, dtable, work=None):
     """dsrc (or None) of one affine pass; the gradient of the pass's table
     row goes into ``dtable[p]`` when ``dtable`` is given (through ``work``,
     made here when not given)."""
     dsrc = torch.empty_like(src) if need_src else None
     if dtable is not None and work is None:
-        work = _affine_work(lib, src, (axis,), (K,))
+        work = _affine_work(src, (axis,), (K,))
     outer, L, inner, Z, Y, X, vaxis = _image(src.shape, axis)
-    rc = lib.sweep_bwd(_AFFINE, g.data_ptr(), src.data_ptr(), _row(table, p),
-                       None if dsrc is None else dsrc.data_ptr(), None,
-                       None if work is None else work.data_ptr(),
-                       None if dtable is None else _row(dtable, p), outer, L, inner, K,
-                       _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, 1, 0, 0, 0, stream)
-    _check(rc, "affine backward")
+    LIB.launch("sweep_bwd", src, _AFFINE, g.data_ptr(), src.data_ptr(), _row(table, p),
+               None if dsrc is None else dsrc.data_ptr(), None,
+               None if work is None else work.data_ptr(),
+               None if dtable is None else _row(dtable, p), outer, L, inner, K,
+               _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, 1, 0, 0, 0)
     _count(False, "affine")
     return dsrc
 
 
-def _fwd_flow(lib, stream, src, flow, axis, K):
+def _fwd_flow(src, flow, axis, K):
     out = torch.empty_like(src)
     outer, L, inner, Z, Y, X, vaxis = _image(src.shape, axis)
-    rc = lib.sweep_fwd(_FLOW, src.data_ptr(), _channel(flow, axis), out.data_ptr(), None,
-                       outer, L, inner, K, _DTYPES[src.dtype], 0, Z, Y, X, vaxis,
-                       src.shape[1], flow.stride(0), stream)
-    _check(rc, "flow forward")
+    LIB.launch("sweep_fwd", src, _FLOW, src.data_ptr(), _channel(flow, axis), out.data_ptr(),
+               None, outer, L, inner, K, _DTYPES[src.dtype], 0, Z, Y, X, vaxis, src.shape[1],
+               flow.stride(0))
     _count(True, "flow")
     return out
 
 
-def _bwd_flow(lib, stream, g, src, flow, axis, K, need_src, dflow):
+def _bwd_flow(g, src, flow, axis, K, need_src, dflow):
     """dsrc (or None) of one flow pass; the field's gradient goes into
     channel ``axis`` of ``dflow`` when given (summed over src's channels)."""
     C = src.shape[1]
@@ -301,11 +264,9 @@ def _bwd_flow(lib, stream, g, src, flow, axis, K, need_src, dflow):
         else:  # per channel, then summed over the channels
             du = torch.empty(src.shape, dtype=torch.float32, device=src.device)
             du_ptr, dqn, dqc = du.data_ptr(), du.stride(0), du.stride(1)
-    rc = lib.sweep_bwd(_FLOW, g.data_ptr(), src.data_ptr(), _channel(flow, axis),
-                       None if dsrc is None else dsrc.data_ptr(), du_ptr, None, None, outer, L,
-                       inner, K, _DTYPES[src.dtype], 0, Z, Y, X, vaxis, C, flow.stride(0), dqn,
-                       dqc, stream)
-    _check(rc, "flow backward")
+    LIB.launch("sweep_bwd", src, _FLOW, g.data_ptr(), src.data_ptr(), _channel(flow, axis),
+               None if dsrc is None else dsrc.data_ptr(), du_ptr, None, None, outer, L, inner, K,
+               _DTYPES[src.dtype], 0, Z, Y, X, vaxis, C, flow.stride(0), dqn, dqc)
     _count(False, "flow")
     if du is not None:
         dflow[:, axis].copy_(du.sum(1))
@@ -321,10 +282,7 @@ def sweep_fwd(src: torch.Tensor, q: torch.Tensor, dim: int, K: int,
     dtype and ``diff`` (f32, ceil - floor) only when ``with_diff``."""
     _validate(src, q, K)
     diff = torch.empty_like(q) if with_diff else None
-    guard, stream = _launch_env(src)
-    with guard:
-        out = _fwd_dense(_lib(), stream, src, q, dim, int(K), diff)
-    return out, diff
+    return _fwd_dense(src, q, dim, int(K), diff), diff
 
 
 def sweep_bwd(g: torch.Tensor, src: torch.Tensor, q: torch.Tensor, dim: int, K: int,
@@ -336,9 +294,7 @@ def sweep_bwd(g: torch.Tensor, src: torch.Tensor, q: torch.Tensor, dim: int, K: 
         raise ValueError("K1 backward needs a contiguous g shaped and typed as src")
     dsrc = torch.empty_like(src) if need_src else None
     dq = torch.empty_like(q) if need_q else None
-    guard, stream = _launch_env(src)
-    with guard:
-        _bwd_dense(_lib(), stream, g, src, q, dim, int(K), dsrc, dq)
+    _bwd_dense(g, src, q, dim, int(K), dsrc, dq)
     return dsrc, dq
 
 
@@ -348,9 +304,7 @@ def affine_fwd(src: torch.Tensor, table: torch.Tensor, p: int, axis: int,
     ``q = table[p, :d] . o + table[p, d]``."""
     _check_index("the row", p, table.shape[0])
     _validate_table(src, table, [axis] * table.shape[0], [K] * table.shape[0])
-    guard, stream = _launch_env(src)
-    with guard:
-        return _fwd_affine(_lib(), stream, src, table, p, axis, int(K))
+    return _fwd_affine(src, table, p, axis, int(K))
 
 
 def affine_bwd(g: torch.Tensor, src: torch.Tensor, table: torch.Tensor, p: int, axis: int,
@@ -363,9 +317,7 @@ def affine_bwd(g: torch.Tensor, src: torch.Tensor, table: torch.Tensor, p: int, 
         raise ValueError("K1 backward needs a g shaped and typed as src")
     _check_on(src, g=g)
     dtable = torch.empty_like(table) if need_table else None
-    guard, stream = _launch_env(src)
-    with guard:
-        dsrc = _bwd_affine(_lib(), stream, g, src, table, p, axis, int(K), need_src, dtable)
+    dsrc = _bwd_affine(g, src, table, p, axis, int(K), need_src, dtable)
     return dsrc, None if dtable is None else dtable[p]
 
 
@@ -374,9 +326,7 @@ def flow_fwd(src: torch.Tensor, flow: torch.Tensor, axis: int, K: int) -> torch.
     ``q = o_axis + flow[:, axis]`` (``flow [N, d, *S]`` f32)."""
     _check_index("the axis", axis, src.ndim - 2)
     _validate_flow(src, flow, K)
-    guard, stream = _launch_env(src)
-    with guard:
-        return _fwd_flow(_lib(), stream, src, flow, axis, int(K))
+    return _fwd_flow(src, flow, axis, int(K))
 
 
 def flow_bwd(g: torch.Tensor, src: torch.Tensor, flow: torch.Tensor, axis: int, K: int,
@@ -389,9 +339,7 @@ def flow_bwd(g: torch.Tensor, src: torch.Tensor, flow: torch.Tensor, axis: int, 
         raise ValueError("K1 backward needs a g shaped and typed as src")
     _check_on(src, g=g)
     dflow = torch.empty_like(flow) if need_flow else None
-    guard, stream = _launch_env(src)
-    with guard:
-        dsrc = _bwd_flow(_lib(), stream, g, src, flow, axis, int(K), need_src, dflow)
+    dsrc = _bwd_flow(g, src, flow, axis, int(K), need_src, dflow)
     return dsrc, None if dflow is None else dflow[:, axis]
 
 
@@ -434,12 +382,9 @@ class _SeparableAffine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, table, axes, windows):
         _validate_table(src, table, axes, windows)
-        lib = _lib()
-        guard, stream = _launch_env(src)
         outs = [src]
-        with guard:
-            for p, (axis, K) in enumerate(zip(axes, windows)):
-                outs.append(_fwd_affine(lib, stream, outs[-1], table, p, axis, K))
+        for p, (axis, K) in enumerate(zip(axes, windows)):
+            outs.append(_fwd_affine(outs[-1], table, p, axis, K))
         ctx.save_for_backward(table, *outs[:-1])
         ctx.axes, ctx.windows = axes, windows
         return outs[-1]
@@ -448,18 +393,15 @@ class _SeparableAffine(torch.autograd.Function):
     def backward(ctx, g):
         table, *ins = ctx.saved_tensors
         need_src, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
-        lib = _lib()
-        guard, stream = _launch_env(table)
         dtable = torch.empty_like(table) if need_table else None
-        work = _affine_work(lib, ins[0], ctx.axes, ctx.windows) if need_table else None
+        work = _affine_work(ins[0], ctx.axes, ctx.windows) if need_table else None
         g = g.to(ins[0].dtype).contiguous()
-        with guard:
-            for p in reversed(range(len(ins))):
-                want_src = p > 0 or need_src
-                if not (want_src or need_table):
-                    break
-                g = _bwd_affine(lib, stream, g, ins[p], table, p, ctx.axes[p],
-                                ctx.windows[p], want_src, dtable, work)
+        for p in reversed(range(len(ins))):
+            want_src = p > 0 or need_src
+            if not (want_src or need_table):
+                break
+            g = _bwd_affine(g, ins[p], table, p, ctx.axes[p], ctx.windows[p], want_src, dtable,
+                            work)
         return g if need_src else None, dtable, None, None
 
 
@@ -471,13 +413,10 @@ class _SeparableFlow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, flow, K):
         _validate_flow(src, flow, K)
-        lib = _lib()
-        guard, stream = _launch_env(src)
         d = src.ndim - 2
         outs = [src]
-        with guard:
-            for axis in range(d - 1, -1, -1):
-                outs.append(_fwd_flow(lib, stream, outs[-1], flow, axis, K))
+        for axis in range(d - 1, -1, -1):
+            outs.append(_fwd_flow(outs[-1], flow, axis, K))
         ctx.save_for_backward(flow, *outs[:-1])
         ctx.K = K
         return outs[-1]
@@ -486,18 +425,14 @@ class _SeparableFlow(torch.autograd.Function):
     def backward(ctx, g):
         flow, *ins = ctx.saved_tensors
         need_src, need_flow = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
-        lib = _lib()
-        guard, stream = _launch_env(flow)
         d = len(ins)
         dflow = torch.empty_like(flow) if need_flow else None
         g = g.to(ins[0].dtype).contiguous()
-        with guard:
-            for p in reversed(range(d)):  # pass p swept axis d - 1 - p
-                want_src = p > 0 or need_src
-                if not (want_src or need_flow):
-                    break
-                g = _bwd_flow(lib, stream, g, ins[p], flow, d - 1 - p, ctx.K, want_src,
-                              dflow)
+        for p in reversed(range(d)):  # pass p swept axis d - 1 - p
+            want_src = p > 0 or need_src
+            if not (want_src or need_flow):
+                break
+            g = _bwd_flow(g, ins[p], flow, d - 1 - p, ctx.K, want_src, dflow)
         return g if need_src else None, dflow, None
 
 

@@ -18,7 +18,6 @@ show that its path went through the kernel; :func:`reset_counts` zeroes them.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 
@@ -29,30 +28,16 @@ SOURCE = native.PKG / "csrc" / "warp.cu"
 affine_launches = 0
 flow_launches = 0
 
-_LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIB = native.Library(SOURCE, "warp", {
+    name: (_I, [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P])
+    for name in ("warp_affine", "warp_flow")})
 
 
 def reset_counts() -> None:
     global affine_launches, flow_launches
     affine_launches = 0
     flow_launches = 0
-
-
-def build() -> Path:
-    """Compile ``csrc/warp.cu`` into ``_build/`` and return its path."""
-    return native.build_cuda(SOURCE, "warp")
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for fn in (lib.warp_affine, lib.warp_flow):
-            fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
 
 
 def pack_affine(M: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -88,12 +73,7 @@ def _validate(src: torch.Tensor, aux: torch.Tensor, what: str, shape) -> None:
 def _launch(name: str, src: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
     C, Z, Y, X = src.shape
     out = torch.empty_like(src)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_lib(), name)(src.data_ptr(), out.data_ptr(), aux.data_ptr(),
-                                   C, Z, Y, X, stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 {name} launch failed: cudaError {rc}")
+    LIB.launch(name, src, src.data_ptr(), out.data_ptr(), aux.data_ptr(), C, Z, Y, X)
     return out
 
 

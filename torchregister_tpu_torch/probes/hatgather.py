@@ -20,8 +20,10 @@ which the kernels here compute directly (see ``csrc/hatgather.cu``):
 Each public function checks its index data on the host (the probes' origins
 are host data) and dispatches by device: the plain version for a CPU tensor,
 the kernel for a CUDA tensor, otherwise it raises. ``*_launch`` launches on
-index data already checked by :func:`..checked_index` and counts the launch
-in ``launches``; :func:`reset_counts` zeroes the counts. f32 only.
+index data already checked by :func:`..checked_index` (the tensors' dtypes,
+contiguity and device checked again, each raising), launches through the
+port's one launch path (``native.Library.launch``) and counts the launch in
+``launches``; :func:`reset_counts` zeroes the counts. f32 only.
 
 Each probe function runs on the card unless given ``device='cpu'`` and
 raises when its check fails: on the card a failure is a fault (the JAX
@@ -31,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,10 +47,17 @@ KERNELS = ("block_permute_add", "slab_gather", "slab_sum", "slice_transpose")
 # P3's tolerance against its plain version: both sum 224 terms in [0, 1) in
 # f32 in different orders (the kernel each plane's 16 rows, then the planes)
 P3_ATOL = 1e-4
+F32, I32 = torch.float32, torch.int32
 
 launches = dict.fromkeys(KERNELS, 0)
 
-_LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each entry: the inputs' and the output's pointers, its ints, the stream
+LIB = native.Library(SOURCE, "hatgather", {
+    **{name: (_I, [_P] * 3 + [_I] * n_int + [_P])
+       for name, n_int in zip(KERNELS, (3, 5, 6, 7))},
+    "empty_launch": (_I, [_I, _P]),  # the launch floor (chip_smoke.py's launch path)
+})
 
 
 def reset_counts() -> None:
@@ -57,33 +65,12 @@ def reset_counts() -> None:
         launches[name] = 0
 
 
-def build() -> Path:
-    """Compile ``csrc/hatgather.cu`` into ``_build/`` and return its path."""
-    return native.build_cuda(SOURCE, "hatgather")
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, n_int in zip(KERNELS, (3, 5, 6, 7)):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr] + [i32] * n_int + [ptr]
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _launch(name: str, out: torch.Tensor, tensors, ints) -> torch.Tensor:
-    if not all(t.is_cuda and t.device == out.device and t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors on one CUDA device")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_lib(), name)(*(t.data_ptr() for t in tensors), out.data_ptr(), *ints,
-                                   stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+def _launch(name: str, out_shape, vol: torch.Tensor, idx: torch.Tensor, ints) -> torch.Tensor:
+    """Check ``vol`` (f32) and ``idx`` (int32), allocate the f32 output on
+    their device and launch ``name``."""
+    native.check_operands(name, (vol, F32), (idx, I32))
+    out = vol.new_empty(out_shape)
+    LIB.launch(name, vol, vol.data_ptr(), idx.data_ptr(), out.data_ptr(), *ints)
     launches[name] += 1
     return out
 
@@ -106,8 +93,8 @@ def _dispatch(launch, plain, x: torch.Tensor, *args):
 
 def block_permute_add_launch(x: torch.Tensor, order: torch.Tensor,
                              rows: int = 8) -> torch.Tensor:
-    out = torch.empty((order.shape[0] * rows, x.shape[1]), dtype=x.dtype, device=x.device)
-    return _launch("block_permute_add", out, (x, order), (order.shape[0], rows, x.shape[1]))
+    n, W = order.shape[0], x.shape[1]
+    return _launch("block_permute_add", (n * rows, W), x, order, (n, rows, W))
 
 
 def block_permute_add_plain(x: torch.Tensor, order: torch.Tensor,
@@ -130,8 +117,7 @@ def block_permute_add(x: torch.Tensor, order, rows: int = 8) -> torch.Tensor:
 
 def slab_gather_launch(vol: torch.Tensor, orgs: torch.Tensor, Bz: int, By: int) -> torch.Tensor:
     T, (_, Y, X) = orgs.shape[0], vol.shape
-    out = torch.empty((T, Bz, By, X), dtype=vol.dtype, device=vol.device)
-    return _launch("slab_gather", out, (vol, orgs), (T, Y, X, Bz, By))
+    return _launch("slab_gather", (T, Bz, By, X), vol, orgs, (T, Y, X, Bz, By))
 
 
 def _slab_index(orgs: torch.Tensor, Bz: int, By: int):
@@ -163,8 +149,7 @@ def slab_gather(vol: torch.Tensor, orgs, Bz: int, By: int) -> torch.Tensor:
 def slab_sum_launch(vol: torch.Tensor, orgs: torch.Tensor, Bz: int, By: int,
                     rows: int = 8) -> torch.Tensor:
     T, (_, Y, X) = orgs.shape[0], vol.shape
-    out = torch.empty((T, rows, X), dtype=vol.dtype, device=vol.device)
-    return _launch("slab_sum", out, (vol, orgs), (T, Y, X, Bz, By, rows))
+    return _launch("slab_sum", (T, rows, X), vol, orgs, (T, Y, X, Bz, By, rows))
 
 
 def slab_sum_plain(vol: torch.Tensor, orgs: torch.Tensor, Bz: int, By: int,
@@ -186,8 +171,8 @@ def slab_sum(vol: torch.Tensor, orgs, Bz: int, By: int, rows: int = 8) -> torch.
 def slice_transpose_launch(slab: torch.Tensor, starts: torch.Tensor, Bz: int, By: int,
                            CW: int, lanes: int) -> torch.Tensor:
     T, (_, SY, X) = starts.shape[0], slab.shape
-    out = torch.empty((T, CW, lanes), dtype=slab.dtype, device=slab.device)
-    return _launch("slice_transpose", out, (slab, starts), (T, SY, X, Bz, By, CW, lanes))
+    return _launch("slice_transpose", (T, CW, lanes), slab, starts,
+                   (T, SY, X, Bz, By, CW, lanes))
 
 
 def slice_transpose_plain(slab: torch.Tensor, starts: torch.Tensor, Bz: int, By: int,

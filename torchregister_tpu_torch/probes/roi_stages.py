@@ -23,7 +23,6 @@ it. :func:`stages` runs on the card unless given ``device='cpu'``.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +46,8 @@ FETCH_ATOL = 5e-4
 
 launches = 0
 
-_LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIB = native.Library(SOURCE, "roi_fetch", {"roi_fetch": (_I, [_P, _P, _P, _I, _I, _I, _P])})
 
 
 def reset_counts() -> None:
@@ -55,39 +55,15 @@ def reset_counts() -> None:
     launches = 0
 
 
-def build() -> Path:
-    """Compile ``csrc/roi_fetch.cu`` into ``_build/`` and return its path."""
-    return native.build_cuda(SOURCE, "roi_fetch")
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.roi_fetch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-        lib.roi_fetch.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
 def roi_fetch_launch(volp: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on ``volp [Zp, Yp, Xp]`` (f32, CUDA) with scalars
     ``[T, 5]`` already checked by :func:`check_scalars`."""
     global launches
-    if not (volp.is_cuda and scal.is_cuda and volp.device == scal.device
-            and volp.is_contiguous() and scal.is_contiguous()):
-        raise ValueError("roi_fetch needs contiguous volp and scalars on one CUDA device")
+    native.check_operands("roi_fetch", (volp, torch.float32), (scal, torch.int32))
     T = scal.shape[0]
     _, Yp, Xp = volp.shape
     out = torch.empty((T, 1, LANES), dtype=torch.float32, device=volp.device)
-    with torch.cuda.device(volp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().roi_fetch(volp.data_ptr(), scal.data_ptr(), out.data_ptr(), T, Yp, Xp,
-                              stream)
-    if rc != 0:
-        raise RuntimeError(f"roi_fetch launch failed: cudaError {rc} (volp "
-                           f"{tuple(volp.shape)}, T {T})")
+    LIB.launch("roi_fetch", volp, volp.data_ptr(), scal.data_ptr(), out.data_ptr(), T, Yp, Xp)
     launches += 1
     return out
 

@@ -65,10 +65,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float | None:
-    """The mean device time of the K1 kernels one call of ``fn`` launches
+def device_ms(fn, iters: int = 20, name: str = "sweep_") -> float | None:
+    """The mean device time of the kernels whose names hold ``name`` (K1's
+    by default; ``""``: every kernel) that one call of ``fn`` launches
     (``torch.profiler``'s kernel spans, no host time); None (not measured)
-    when the profiler records no K1 kernel in three profiles, as CUPTI
+    when the profiler records no such kernel in three profiles, as CUPTI
     now and then drops a short profile's device records."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,7 +81,7 @@ def device_ms(fn, iters: int = 20) -> float | None:
                 fn()
             torch.cuda.synchronize()
         spans = [e.time_range for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and "sweep_" in e.name]
+                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
         if spans:
             return sum(r.end - r.start for r in spans) / 1e3 / iters
     return None
@@ -143,8 +144,6 @@ def _bounds(mode: str, S: int, dtype) -> dict:
 def launch_row(mode: str, S: int, K: int, dtype) -> dict:
     """One launch of each form, mean over the three passes of the warp: the
     raw launches (no input checks)."""
-    lib = k1._lib()
-    stream = torch.cuda.current_stream().cuda_stream
     src, g, _, axes, table, flow = case(mode, S, K, dtype)
     keys = ["fwd_ms", "dense_fwd_ms", "bwd_ms", "dense_bwd_ms", "fwd_device_ms",
             "dense_fwd_device_ms", "bwd_device_ms", "dense_bwd_device_ms", "plain_fwd_ms",
@@ -152,32 +151,31 @@ def launch_row(mode: str, S: int, K: int, dtype) -> dict:
     per_axis = {k: {} for k in keys}
     dtable = torch.empty_like(table)
     dflow = torch.empty_like(flow)
-    work = k1._affine_work(lib, src, axes, [K] * len(axes))
+    work = k1._affine_work(src, axes, [K] * len(axes))
     s = src.clone().requires_grad_(True)
 
     def dense_bwd(q, dim):
         dsrc, dq = torch.empty_like(src), torch.empty_like(q)
-        k1._bwd_dense(lib, stream, g, src, q, dim, K, dsrc, dq)
+        k1._bwd_dense(g, src, q, dim, K, dsrc, dq)
         return dsrc, dq
 
     for p, axis in enumerate(axes):
         dim = 2 + axis
         q = parent_q(src, table, flow, mode, p, axis)
         if mode == "affine":
-            fwd = lambda: k1._fwd_affine(lib, stream, src, table, p, axis, K)  # noqa: E731
-            bwd = lambda: k1._bwd_affine(lib, stream, g, src, table, p, axis, K, True,  # noqa: E731
-                                         dtable, work)
+            fwd = lambda: k1._fwd_affine(src, table, p, axis, K)  # noqa: E731
+            bwd = lambda: k1._bwd_affine(g, src, table, p, axis, K, True, dtable,  # noqa: E731
+                                         work)
             row = table[p].clone().requires_grad_(True)
             plain = lambda x: k1.sweep_affine_plain(x, row[:3], row[3], axis, K)  # noqa: E731
             wrt = (s, row)
         else:
-            fwd = lambda: k1._fwd_flow(lib, stream, src, flow, axis, K)  # noqa: E731
-            bwd = lambda: k1._bwd_flow(lib, stream, g, src, flow, axis, K, True,  # noqa: E731
-                                       dflow)
+            fwd = lambda: k1._fwd_flow(src, flow, axis, K)  # noqa: E731
+            bwd = lambda: k1._bwd_flow(g, src, flow, axis, K, True, dflow)  # noqa: E731
             fl = flow.clone().requires_grad_(True)
             plain = lambda x: k1.sweep_flow_plain(x, fl, axis, K)  # noqa: E731
             wrt = (s, fl)
-        launches = {"dense_fwd": lambda: k1._fwd_dense(lib, stream, src, q, dim, K),
+        launches = {"dense_fwd": lambda: k1._fwd_dense(src, q, dim, K),
                     "fwd": fwd, "dense_bwd": lambda: dense_bwd(q, dim), "bwd": bwd}
         t = in_turns({f"{n}_ms": launches[n] for n in ("dense_fwd", "fwd")})
         t.update(in_turns({f"{n}_ms": launches[n] for n in ("dense_bwd", "bwd")}))
