@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds kernels K1 (the sweep resampler, ``torchregister_tpu_torch/csrc/
-sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``), K3 (the 3x3x3
+sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``: affine output
+tiles that stage their source box in shared memory, and the direct route of
+the flow mode, 2-D images and boxes that do not fit), K3 (the 3x3x3
 convolution of the U-Net and the Sobel edge filter, forward and input
 gradient, and its weight gradient, ``csrc/conv3d.cu``),
 K2b (the compact ROI gather of the exact warp's compact-block route,
@@ -57,6 +59,7 @@ import torch
 
 from torchregister_tpu_torch import Register
 from torchregister_tpu_torch import profile_sweep as ps
+from torchregister_tpu_torch import warp_cases as wc
 from torchregister_tpu_torch.__main__ import main as cli
 from torchregister_tpu_torch.engines.affine import affine_register
 from torchregister_tpu_torch.engines.cascade import register_cascade
@@ -72,7 +75,6 @@ from torchregister_tpu_torch.ops.cuda import warp as k2
 from torchregister_tpu_torch.ops.edge import edge_filter, edge_magnitude
 from torchregister_tpu_torch.ops.grid import affine_grid
 from torchregister_tpu_torch.ops.resize import downsample_avg
-from torchregister_tpu_torch.ops.separable import affine_to_index_map
 from torchregister_tpu_torch.ops.transforms import rigid_theta
 from torchregister_tpu_torch.probes import checked_index
 from torchregister_tpu_torch.probes import hatgather as hg
@@ -80,7 +82,6 @@ from torchregister_tpu_torch.probes import roi_stages as rs
 from torchregister_tpu_torch.synthetic import (
     RECIPE,
     RECIPE_UNET,
-    cubic_resize,
     flow_truth_metrics,
     make_flow_truth_pair,
     make_pair,
@@ -163,9 +164,6 @@ REGISTER_RIGID = dict(lr=1e-2, max_epochs=150)
 # exact final warp then samples. 0.1 reaches 99.12 % (H100).
 CLI_FLOW_LR = "0.1"
 SIZE = 240  # the user path's volumes: make_pair's published size
-# make_pair's rigid transform (synthetic.make_pair), whose 10³ output tiles
-# each fit a 16³ source window of the ROI route
-PAIR_RIGID = (0.06, -0.04, 0.05, 0.2, -0.15, 0.1)
 # the matrix engines with their own defaults (grad_edges=True, the default
 # criteria, SGD at lr 1e-5, rigid from a random init): steps of each engine
 ENGINE_STEPS = 30
@@ -417,69 +415,143 @@ def phase_kernels() -> dict:
     return {"sweep_fwd": fwd_err, "sweep_bwd": bwd_err, "sweep_row_grad_rel": row_err}
 
 
-# the JAX bench selftest's rigid transform of the K2 check (bench.py:82)
-SELFTEST_THETA = (0.15, -0.12, 0.1, 0.12, -0.08, 0.06)
+def _same_bits(out, ref) -> bool:
+    """The same bits, NaN where the other has NaN."""
+    nan = torch.isnan(out)
+    return out.shape == ref.shape and bool(torch.equal(nan, torch.isnan(ref))) and bool(
+        torch.equal(out.view(torch.int32)[~nan], ref.view(torch.int32)[~nan]))
 
 
-def _mt(theta, spatial):
-    M, t = affine_to_index_map(theta[0], spatial)
-    return k2.pack_affine(M, t)
-
-
-def _smooth_flow(S, max_disp, seed):
-    """A band-limited field (cubic upsample of a 6³ draw), |flow| <= max_disp."""
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    coarse = torch.randn((3, 6, 6, 6), generator=gen, device=DEV)
-    flow = cubic_resize(coarse, (S, S, S))
-    return (flow * (max_disp / torch.max(torch.abs(flow)))).contiguous()
-
-
-def _check_k2(label, src, mt=None, flow=None) -> float:
-    """One raw launch against ``warp_plain`` on the same tensors; tolerance
-    1e-5 of max |src| (both run the same f32 operations in the same order)."""
+def _check_k2(label, src, route, mt=None, flow=None) -> float:
+    """One launch against ``warp_plain`` on the same tensors, equal to the bit
+    (both run the same f32 operations in the same order), and the kernel's
+    count of staged blocks equal to ``tile_boxes``'s: every block staged
+    (``route='staged'``) or none (``'direct'``)."""
+    k2.reset_counts()
     if src.ndim == 3:  # 2D [C, Y, X]: through the wrapper, one z plane
         out = k2.warp(src, mt=mt)
-        ref = k2.warp_plain(src[:, None], mt=mt)[:, 0]
+        src, out = src[:, None], out[:, None]
     elif flow is None:
-        out, ref = k2.warp_affine_launch(src, mt), k2.warp_plain(src, mt=mt)
+        out = k2.warp_affine_launch(src, mt)
     else:
-        out, ref = k2.warp_flow_launch(src, flow), k2.warp_plain(src, flow=flow)
+        out = k2.warp_flow_launch(src, flow)
+    ref = k2.warp_plain(src, mt=mt, flow=flow)
+    boxes = k2.tile_boxes(src.shape, mt=mt, flow=flow)
     torch.cuda.synchronize()
-    err = _max_err(out, ref)
-    rel = err / max(float(torch.max(torch.abs(src))), 1e-30)
+    staged, want, tiles = k2.staged_blocks(), int(boxes["staged"].sum()), k2.tiles_launched
+    err = _max_err(torch.nan_to_num(out), torch.nan_to_num(ref))
     zeros = float(torch.mean((out == 0).float()))
-    print(f"[k2] {label}: max|d| {err:.3e}, rel {rel:.3e} (tol 1e-5); zero share "
-          f"{zeros:.3f}", flush=True)
-    if not rel < 1e-5:
-        raise AssertionError(f"K2 {label} disagrees with warp_plain: {rel:.3e}")
+    print(f"[k2] {label}: max|d| {err:.3e} (equal to the bit: {_same_bits(out, ref)}); "
+          f"staged blocks {staged} of {tiles}; zero share {zeros:.3f}", flush=True)
+    if not _same_bits(out, ref):
+        raise AssertionError(f"K2 {label} differs from warp_plain: {err:.3e}")
+    if staged != want or tiles != boxes["staged"].numel():
+        raise AssertionError(f"K2 {label}: {staged} of {tiles} blocks staged, tile_boxes "
+                             f"says {want} of {boxes['staged'].numel()}")
+    if not {"staged": staged == tiles, "direct": staged == 0}[route]:
+        raise AssertionError(f"K2 {label} is a {route} case: {staged} of {tiles} staged")
     return err
 
 
+def _check_k2_wide(C: int = 160) -> None:
+    """The 64-bit route: C * 240³ >= 2^31 elements (8.8 GB in, 8.8 GB out),
+    each mode and route once; channels 0 and C-1 against ``warp_plain`` on
+    those channels alone, which give the same bits."""
+    S = SIZE
+    src = torch.rand((C, S, S, S), generator=torch.Generator(device=DEV).manual_seed(7),
+                     device=DEV)
+    ends = src[[0, C - 1]]
+    theta = rigid_theta(torch.tensor(wc.SELFTEST_THETA, device=DEV))[None]
+    for label, route, mt, flow in (
+            ("affine selftest theta", "staged", wc.index_map(theta, (S,) * 3), None),
+            ("affine 90° zoom 2", "direct", wc.index_map(wc.rot90_zoom2().to(DEV), (S,) * 3),
+             None),
+            ("flow smooth |flow|<=8", "direct", None, wc.smooth_flow(S, 8.0, 6, DEV))):
+        k2.reset_counts()
+        out = (k2.warp_affine_launch(src, mt) if flow is None
+               else k2.warp_flow_launch(src, flow))
+        ref = k2.warp_plain(ends, mt=mt, flow=flow)
+        want = int(k2.tile_boxes(ends.shape, mt=mt, flow=flow)["staged"].sum())
+        torch.cuda.synchronize()
+        staged, tiles = k2.staged_blocks(), k2.tiles_launched
+        same = bool(torch.equal(out[[0, C - 1]], ref))
+        del out
+        print(f"[k2] C={C} at {S}³ (64-bit offsets), {label}: channels 0 and {C - 1} equal "
+              f"to the bit: {same}; staged blocks {staged} of {tiles}", flush=True)
+        routed = {"staged": staged == tiles, "direct": staged == 0}[route]
+        if not same or staged != want or not routed:
+            raise AssertionError(f"K2 C={C} {label}: bits {same}, {staged} of {tiles} staged, "
+                                 f"tile_boxes says {want}")
+    del src, ends
+    torch.cuda.empty_cache()
+
+
+def _check_k2_flow_wide(S: int = 1100) -> None:
+    """The flow mode's 64-bit route at C = 1: the image holds 1100³ < 2^31
+    elements, the field 3 * 1100³ (16 GB), whose third channel starts past
+    2^31 (a width chosen from the image alone reads elsewhere; at 900³ the
+    channel's start, 2 * 900³, stays below 2^31). The last 8 planes against
+    ``sample_plain`` at their own coordinates, computed as ``warp_plain``
+    computes them (the same bits)."""
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    src = torch.rand((1, S, S, S), generator=gen, device=DEV)
+    flow = torch.randn((3, S, S, S), generator=gen, device=DEV).mul_(3.0)
+    k2.reset_counts()
+    out = k2.warp_flow_launch(src, flow)
+    z0 = S - 8
+    p = [torch.arange(a, S, dtype=torch.float32, device=DEV) for a in (z0, 0, 0)]
+    p = [v.view([-1 if a == b else 1 for b in range(3)]) for a, v in enumerate(p)]
+    ref = k2.sample_plain(src, [p[s] + flow[s, z0:] for s in range(3)])
+    torch.cuda.synchronize()
+    staged, tiles = k2.staged_blocks(), k2.tiles_launched
+    same = bool(torch.equal(out[:, z0:], ref))
+    print(f"[k2] flow C=1 at {S}³ (a field of 3·{S}³ >= 2^31 elements, 64-bit offsets): "
+          f"planes {z0}-{S - 1} equal to the bit: {same}; staged blocks {staged} of {tiles}",
+          flush=True)
+    del src, flow, out
+    torch.cuda.empty_cache()
+    if not same or staged != 0:
+        raise AssertionError(f"K2 flow at {S}³: bits {same}, {staged} of {tiles} staged")
+
+
 def phase_k2() -> dict:
-    """K2 against its plain version at the shapes the user path gives it."""
+    """K2 against its plain version at the shapes the user path gives it:
+    the affine mode's staged and direct routes, the flow mode (direct), 2-D,
+    NaN and far coordinates, and the 64-bit offsets."""
     gen = torch.Generator(device=DEV).manual_seed(5)
-    theta = rigid_theta(torch.tensor(SELFTEST_THETA, device=DEV))[None]
+    theta = rigid_theta(torch.tensor(wc.SELFTEST_THETA, device=DEV))[None]
     S = SIZE
     vol = torch.rand((1, S, S, S), generator=gen, device=DEV)
-    aff = [_check_k2(f"affine {S}³ selftest theta", vol, mt=_mt(theta, (S,) * 3))]
+    aff = [_check_k2(f"affine {S}³ selftest theta", vol, "staged",
+                     mt=wc.index_map(theta, (S,) * 3))]
+    aff.append(_check_k2(f"affine {S}³ make_pair's rigid", vol, "staged",
+                         mt=wc.index_map(_pair_theta(), (S,) * 3)))
     small = torch.rand((1, 50, 47, 44), generator=gen, device=DEV)
-    aff.append(_check_k2("affine 50x47x44 selftest theta", small,
-                         mt=_mt(theta, (50, 47, 44))))
+    aff.append(_check_k2("affine 50x47x44 selftest theta", small, "staged",
+                         mt=wc.index_map(theta, (50, 47, 44))))
     out_theta = torch.tensor([[[1.0, 0, 0, 0.9], [0, 1.0, 0, -0.8], [0, 0, 1.0, 0.5]]],
                              device=DEV)  # pushes part of the output past the volume
-    aff.append(_check_k2(f"affine {S}³ zeros padding", vol, mt=_mt(out_theta, (S,) * 3)))
+    aff.append(_check_k2(f"affine {S}³ zeros padding", vol, "staged",
+                         mt=wc.index_map(out_theta, (S,) * 3)))
+    aff.append(_check_k2(f"affine {S}³ 90° zoom 2", vol, "direct",
+                         mt=wc.index_map(wc.rot90_zoom2().to(DEV), (S,) * 3)))
     theta2 = rigid_theta(torch.tensor((0.3, 0.1, -0.2), device=DEV))[None]
     img = torch.rand((1, S, S), generator=gen, device=DEV)
-    aff.append(_check_k2(f"affine {S}² 2D", img, mt=_mt(theta2, (S, S))))
+    aff.append(_check_k2(f"affine {S}² 2D", img, "direct", mt=wc.index_map(theta2, (S, S))))
     batch = torch.rand((3, S, S, S), generator=gen, device=DEV)
-    aff.append(_check_k2(f"affine {S}³ folded batch C=3", batch, mt=_mt(theta, (S,) * 3)))
-    flow = _smooth_flow(S, 8.0, 6)
-    fl = [_check_k2(f"flow {S}³ smooth |flow|<=8", vol, flow=flow)]
+    aff.append(_check_k2(f"affine {S}³ folded batch C=3", batch, "staged",
+                         mt=wc.index_map(theta, (S,) * 3)))
+    flow = wc.smooth_flow(S, 8.0, 6, DEV)
+    # the flow mode takes the direct route everywhere (PERF.md §6, K2)
+    fl = [_check_k2(f"flow {S}³ smooth |flow|<=8", vol, "direct", flow=flow)]
     # outward zoom by 1.25 plus the smooth field: samples past all six faces
-    o = torch.arange(S, dtype=torch.float32, device=DEV) - (S - 1) / 2
-    grid = torch.stack(torch.meshgrid(o, o, o, indexing="ij"))
-    fl.append(_check_k2(f"flow {S}³ past every face", vol,
-                        flow=(0.25 * grid + flow).contiguous()))
+    fl.append(_check_k2(f"flow {S}³ past every face", vol, "direct",
+                        flow=(wc.zoom_grid(S, DEV) + flow).contiguous()))
+    torn = flow.clone()
+    torn[0, 100, 100, 100], torn[2, 30, 200, 7] = float("nan"), 1e30
+    fl.append(_check_k2(f"flow {S}³ a NaN and a 1e30", vol, "direct", flow=torn))
+    _check_k2_wide()
+    _check_k2_flow_wide()
     return {"warp_affine": max(aff), "warp_flow": max(fl)}
 
 
@@ -547,7 +619,9 @@ def phase_k3() -> dict:
 
 
 def _pair_theta() -> torch.Tensor:
-    return rigid_theta(torch.tensor(PAIR_RIGID, device=DEV))[None]
+    """make_pair's rigid transform, whose 10³ output tiles each fit a 16³
+    source window of the ROI route."""
+    return rigid_theta(torch.tensor(wc.PAIR_RIGID, device=DEV))[None]
 
 
 def _check_k2b(label, vol, scal) -> float:
@@ -1126,23 +1200,61 @@ def phase_mode_times() -> list:
 
 
 def phase_k2_times() -> dict:
-    """One K2 launch against one pass of ``warp_plain`` at 240³ (f32, one
-    channel), CUDA events: affine mode with the selftest theta, flow mode
-    with a smooth field of |flow| <= 8."""
+    """One K2 launch at 240³ (f32, one channel) against one pass of
+    ``warp_plain`` and one ``F.grid_sample`` (trilinear, zeros padding) on a
+    grid made beforehand, the library call: CUDA events (``ms``), and the
+    kernels' device time (``device_ms``, ``torch.profiler``); the bound (the
+    source and the field read once, the output written once, at 3.35 TB/s)
+    and its share of the device time; the share of blocks that staged
+    their box. Affine mode with the selftest theta, flow mode with a smooth
+    field of |flow| <= 8."""
+    F = torch.nn.functional
     gen = torch.Generator(device=DEV).manual_seed(9)
     src = torch.rand((1, SIZE, SIZE, SIZE), generator=gen, device=DEV)
-    mt = _mt(rigid_theta(torch.tensor(SELFTEST_THETA, device=DEV))[None], (SIZE,) * 3)
-    flow = _smooth_flow(SIZE, 8.0, 10)
+    theta = rigid_theta(torch.tensor(wc.SELFTEST_THETA, device=DEV))[None]
+    mt = wc.index_map(theta, (SIZE,) * 3)
+    flow = wc.smooth_flow(SIZE, 8.0, 10, DEV)
+    o = torch.arange(SIZE, dtype=torch.float32, device=DEV)
+    idx = torch.stack(torch.meshgrid(o, o, o, indexing="ij")) + flow
+    grids = {"warp_affine": affine_grid(theta, (SIZE,) * 3),
+             "warp_flow": ((2.0 * idx + 1.0) / SIZE - 1.0).flip(0).permute(1, 2, 3, 0)[None]
+             .contiguous()}
+    del idx
+    vol = src[None]
     times = {}
     with torch.no_grad():
-        for name, launch, plain in (
-                ("warp_affine", lambda: k2.warp_affine_launch(src, mt),
-                 lambda: k2.warp_plain(src, mt=mt)),
-                ("warp_flow", lambda: k2.warp_flow_launch(src, flow),
-                 lambda: k2.warp_plain(src, flow=flow))):
-            times[name] = {"ms": _time_ms(launch), "plain_ms": _time_ms(plain, iters=5)}
+        for name, aux in (("warp_affine", {"mt": mt}), ("warp_flow", {"flow": flow})):
+            launch = getattr(k2, f"{name}_launch")
+
+            def kernel(aux=aux, launch=launch):
+                return launch(src, *aux.values())
+
+            def library(g=grids[name]):
+                return F.grid_sample(vol, g, mode="bilinear", padding_mode="zeros",
+                                     align_corners=False)
+            k2.reset_counts()
+            kernel()
+            torch.cuda.synchronize()
+            row = {"ms": _time_ms(kernel),
+                   "plain_ms": _time_ms(lambda aux=aux: k2.warp_plain(src, **aux), iters=5),
+                   "library_ms": _time_ms(library),
+                   "staged_share": k2.staged_blocks() / k2.tiles_launched}
+            row.update(device_ms=ps.device_ms(kernel, name="warp_kernel"),
+                       library_device_ms=ps.device_ms(library, name="grid_sampler"),
+                       **pw_bound(name))
+            row["bound_share"] = (row["bound_ms"] / row["device_ms"] if row["device_ms"]
+                                  else None)
+            times[name] = row
     print(f"[times] K2 at 240³: {json.dumps(times)}", flush=True)
     return times
+
+
+def pw_bound(name: str) -> dict:
+    """K2's bound at 240³, one channel: bytes (the source, the field in the
+    flow mode, the output) against ~60 f32 operations a voxel (8 weights, 8
+    products, 8 sums, the coordinates)."""
+    planes = 2 + (3 if name == "warp_flow" else 0)
+    return _bound(planes * 4.0 * SIZE**3, 60.0 * SIZE**3)
 
 
 def phase_k3_times() -> dict:
@@ -1392,30 +1504,6 @@ def phase_launch_path(inputs: dict, calls: int = 2000) -> dict:
     return got
 
 
-def _library_times() -> dict:
-    """The one PyTorch call that computes each kernel's function, where there
-    is one, at the shapes of the kernel's own timing: ``F.grid_sample``
-    (trilinear, zeros padding, on a grid made beforehand) for K2's two modes;
-    cuDNN with TF32 off for K3's forward and input gradient (the same calls
-    as K3's plain version). K1's windowed 1-D resample along one axis has
-    none: ``grid_sample`` does not zero a tap past the window."""
-    F = torch.nn.functional
-    gen = torch.Generator(device=DEV).manual_seed(9)
-    src = torch.rand((1, 1) + (SIZE,) * 3, generator=gen, device=DEV)
-    theta = rigid_theta(torch.tensor(SELFTEST_THETA, device=DEV))[None]
-    grid_a = affine_grid(theta, (SIZE,) * 3)
-    flow = _smooth_flow(SIZE, 8.0, 10)
-    o = torch.arange(SIZE, dtype=torch.float32, device=DEV)
-    idx = torch.stack(torch.meshgrid(o, o, o, indexing="ij")) + flow
-    grid_f = ((2.0 * idx + 1.0) / SIZE - 1.0).flip(0).permute(1, 2, 3, 0)[None].contiguous()
-    with torch.no_grad():
-        out = {n: _time_ms(lambda g=g: F.grid_sample(src, g, mode="bilinear",
-                                                      padding_mode="zeros",
-                                                      align_corners=False))
-               for n, g in (("warp_affine", grid_a), ("warp_flow", grid_f))}
-    return out
-
-
 def _sweep_extras(name: str, flow_row: dict, modes: dict, row_err: float) -> dict:
     """K1's line beside its flow-form time: the dense launch's on the same
     coordinates, and every form's times and bounds at the path's shapes; the
@@ -1429,6 +1517,11 @@ def _sweep_extras(name: str, flow_row: dict, modes: dict, row_err: float) -> dic
     if kind == "bwd":
         extras["affine_row_grad_max_rel_err"] = row_err
     return extras
+
+
+# K2's line beside its event time: its device time and the library call's,
+# the share of the bound, the share of blocks that staged their box
+K2_EXTRAS = ("device_ms", "library_device_ms", "bound_share", "staged_share")
 
 
 def _copy_extras(name: str, probe_rows: dict) -> dict:
@@ -1466,29 +1559,27 @@ def main() -> None:
     k3_row = phase_k3_times()["8->8 edge 118"]
     k2b_row = phase_k2b_times()
     probe_rows = phase_probe_times(probe_inputs)
-    library = _library_times()
+    library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
     # per-launch times at the fine flow level's shape (240³, K=8, f32): its
     # flow form, with the dense launch and every form's row beside it
     flow_row = next(r for r in mode_rows if r["mode"] == "flow")
     modes = {f"{r['mode']} {r['S']}^3 K={r['K']} {r['dtype']}": r for r in mode_rows}
     times = {"sweep_fwd": {"ms": flow_row["fwd_ms"], "plain_ms": flow_row["plain_fwd_ms"]},
              "sweep_bwd": {"ms": flow_row["bwd_ms"], "plain_ms": flow_row["plain_bwd_ms"]},
-             **k2_times,
+             **{name: {k: k2_times[name][k] for k in ("ms", "plain_ms")}
+                for name in ("warp_affine", "warp_flow")},
              "conv3d_fwd": {"ms": k3_row["fwd_ms"], "plain_ms": k3_row["plain_fwd_ms"]},
              "conv3d_dgrad": {"ms": k3_row["dgrad_ms"], "plain_ms": k3_row["plain_dgrad_ms"]},
              "conv3d_wgrad": {"ms": k3_row["dw_ms"], "plain_ms": k3_row["wgrad_plain_ms"]},
              "roigather": k2b_row,
              **{name: probe_rows[name] for name in (*hg.KERNELS, "roi_fetch")}}
-    vox = SIZE**3
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
-    # of its adjoint, ~60 per voxel of a trilinear warp (8 weights, 8
-    # products, 8 sums, the coordinates)
+    # of its adjoint, ~60 per voxel of a trilinear warp (pw_bound)
     bounds = {**{name: {"bound_ms": flow_row[f"{kind}_bound_ms"],
                         "bound_by": flow_row[f"{kind}_bound_by"]}
                  for name, kind in (("sweep_fwd", "fwd"), ("sweep_bwd", "bwd"))},
-              "warp_affine": _bound(2 * 4.0 * vox, 60.0 * vox),  # src -> out
-              "warp_flow": _bound(5 * 4.0 * vox, 60.0 * vox),  # src, 3-channel flow -> out
+              **{name: pw_bound(name) for name in ("warp_affine", "warp_flow")},
               **{name: {k: k3_row[k] for k in ("bound_ms", "bound_by", "fma_bound_ms")}
                  for name in ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad")},
               "roigather": {k: k2b_row[k] for k in ("bound_ms", "bound_by")},
@@ -1525,7 +1616,8 @@ def main() -> None:
          **({"note": NOTES[name]} if name in NOTES else {}),
          **(_sweep_extras(name, flow_row, modes, errs["sweep_row_grad_rel"])
             if name.startswith("sweep") else {}),
-         **(_copy_extras(name, probe_rows) if name in COPIES else {})}
+         **(_copy_extras(name, probe_rows) if name in COPIES else {}),
+         **({k: k2_times[name][k] for k in K2_EXTRAS} if name in k2_times else {})}
         for name in REPLACES
     ]
     print(smi)

@@ -396,6 +396,124 @@ def test_torch_cuda_warp_rejects_bad_inputs(dev):
         k2.warp_affine_launch(src, mt.cpu())
 
 
+def _rigid_mt(dev, params, spatial):
+    from torchregister_tpu_torch.warp_cases import index_map
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    return index_map(rigid_theta(torch.tensor(params, device=dev))[None], spatial)
+
+
+def _tile_case(dev, case):
+    """``(src [C, Z, Y, X], mt, flow, route)``: the kernel's view of a case,
+    and the route its blocks must take (``staged``: every block, ``direct``:
+    none)."""
+    from torchregister_tpu_torch.warp_cases import SELFTEST_THETA, index_map, rot90_zoom2
+
+    gen = torch.Generator(device=dev).manual_seed(sum(map(ord, case)))
+
+    def vol(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def shift_flow(spatial, noise=0.5):  # a steady shift plus noise: small boxes
+        base = torch.tensor([1.3, -2.7, 0.6], device=dev).view(3, 1, 1, 1)
+        return (base + noise * (2 * torch.rand((3,) + spatial, generator=gen, device=dev)
+                                - 1)).contiguous()
+
+    def zoom(spatial, by):  # 0.15 * (o - centre): samples past every face
+        o = [torch.arange(n, dtype=torch.float32, device=dev) - (n - 1) / 2 for n in spatial]
+        return (by * torch.stack(torch.meshgrid(*o, indexing="ij"))).contiguous()
+
+    cube = (48, 48, 48)
+    if case == "affine_staged":
+        return vol(1, *cube), _rigid_mt(dev, SELFTEST_THETA, cube), None, "staged"
+    if case == "affine_direct":  # 90° about z, zoom 2: boxes of 32³
+        return vol(1, *cube), index_map(rot90_zoom2().to(dev), cube), None, "direct"
+    if case == "affine_far":  # every coordinate past 2^13: direct
+        mt = k2.pack_affine(torch.eye(3, device=dev), torch.tensor([0.0, 2e4, 0.0], device=dev))
+        return vol(1, *cube), mt, None, "direct"
+    if case == "affine_far_staged":  # boxes just inside -2^13, x 3 floats past 16 bytes
+        mt = k2.pack_affine(torch.eye(3, device=dev),
+                            torch.tensor([-8150.3, 0.7, 3.6], device=dev))
+        return vol(1, *cube), mt, None, "staged"
+    if case == "flow_smooth":  # the flow mode takes the direct route everywhere
+        return vol(1, *cube), None, shift_flow(cube), "direct"
+    if case == "flow_tears":
+        return vol(1, *cube), None, 12.0 * vol(3, *cube), "direct"
+    if case == "ragged_50x47x44":
+        spatial = (50, 47, 44)
+        return vol(1, *spatial), _rigid_mt(dev, SELFTEST_THETA, spatial), None, "staged"
+    if case == "one_plane":  # Z == 1: 1 x 8 x 32 tiles, ragged, direct
+        return vol(2, 1, 45, 37), _rigid_mt(dev, (0.3, 0.1, -0.2), (45, 37)), None, "direct"
+    if case == "x_not_multiple_of_4":
+        spatial = (35, 35, 35)
+        return vol(1, *spatial), _rigid_mt(dev, SELFTEST_THETA, spatial), None, "staged"
+    if case == "src_4_bytes_off_16":
+        buf = torch.randn(1 + 32**3, generator=gen, device=dev)
+        src = buf[1:].view(1, 32, 32, 32)
+        assert src.data_ptr() % 16 == 4 and src.is_contiguous()
+        return src, _rigid_mt(dev, SELFTEST_THETA, (32, 32, 32)), None, "staged"
+    if case == "c3":
+        spatial = (40, 40, 40)
+        return vol(3, *spatial), _rigid_mt(dev, SELFTEST_THETA, spatial), None, "staged"
+    if case == "affine_past_every_face":  # a zoom out by 1.15
+        theta = torch.cat([1.15 * torch.eye(3, device=dev), torch.zeros((3, 1), device=dev)],
+                          1)[None]
+        return vol(1, *cube), index_map(theta, cube), None, "staged"
+    if case == "flow_past_every_face":
+        return vol(1, *cube), None, (zoom(cube, 0.15) + shift_flow(cube, 0.2)).contiguous(), \
+            "direct"
+    if case == "flow_nan_and_1e30":
+        flow = shift_flow(cube)
+        flow[0, 5, 6, 7], flow[2, 40, 20, 30] = float("nan"), 1e30
+        return vol(1, *cube), None, flow, "direct"
+    raise KeyError(case)
+
+
+TILE_CASES = ("affine_staged", "affine_direct", "affine_far", "affine_far_staged",
+              "flow_smooth", "flow_tears",
+              "ragged_50x47x44", "one_plane", "x_not_multiple_of_4", "src_4_bytes_off_16", "c3",
+              "affine_past_every_face", "flow_past_every_face", "flow_nan_and_1e30")
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_torch_cuda_warp_tiles_match_plain_on_their_route(dev, case):
+    """Each case equals ``warp_plain`` to the bit (NaN where it has NaN),
+    and the kernel's count of staged blocks equals ``tile_boxes``'s and
+    shows the route the case is there for."""
+    src, mt, flow, route = _tile_case(dev, case)
+    k2.reset_counts()
+    out = k2.warp_affine_launch(src, mt) if flow is None else k2.warp_flow_launch(src, flow)
+    ref = k2.warp_plain(src, mt=mt, flow=flow)
+    boxes = k2.tile_boxes(src.shape, mt=mt, flow=flow)
+    staged, tiles = k2.staged_blocks(), k2.tiles_launched
+    assert tiles == boxes["staged"].numel()
+    assert staged == int(boxes["staged"].sum())
+    assert {"staged": staged == tiles, "direct": staged == 0}[route], (staged, tiles)
+    nan = torch.isnan(out)
+    assert torch.equal(nan, torch.isnan(ref))
+    assert torch.equal(out.view(torch.int32)[~nan], ref.view(torch.int32)[~nan])
+
+
+def test_torch_cuda_warp_follows_the_current_stream(dev):
+    """K2 under ``torch.cuda.stream(s)`` launches on ``s``: it reads a
+    volume that ``s`` rewrites after a long sleep."""
+    src, mt, _, _ = _tile_case(dev, "affine_staged")
+    new = torch.randn_like(src)
+    want = k2.warp_plain(new, mt=mt)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    torch.cuda.current_stream().synchronize()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)
+        src.copy_(new)
+        out = k2.warp_affine_launch(src, mt)
+        done = torch.cuda.Event()
+        done.record(s)
+    assert not done.query()
+    s.synchronize()
+    assert done.query() and torch.equal(out, want)
+
+
 # ------------------------------------------------------------------ K3
 
 

@@ -17,84 +17,294 @@
 // materialized; (M, t) arrive as 12 floats in device memory, so a caller
 // computes them on the card and never reads them back.
 //
-// What the Pallas kernel works around and this one does not need: a TPU has
-// no per-lane gather, so K2 fetched each 10^3 output tile's 16^3 support with
-// 9 quantized block DMAs, restacked it with one-hot MXU products and
-// contracted it with hat matrices, and declined any transform whose support
-// outgrew its static windows. On Hopper a thread reads its 8 corners
-// directly, so there are no tiles, no windows and no decline: every
-// transform and size takes the same path.
+// What bounds it on this card: memory bytes. At 240^3 f32 the affine mode
+// must read the source and write the output once, 110.6 MB (0.033 ms at 3.35
+// TB/s); the flow mode reads the 3-channel field too, 276.5 MB (0.083 ms).
+// A thread per voxel that reads its 8 corners from global memory is far from
+// that: the corners of a warp's outputs spread over several source rows and
+// planes under a rotation, and the index arithmetic (64-bit divisions and
+// offsets, float-integer conversions on the card's slow conversion unit)
+// costs more issue slots than the arithmetic of the sample.
 //
-// What bounds it on this card: memory bytes. Per voxel and channel it reads
-// the 8 corners (neighbouring threads read neighbouring x, so for a smooth
-// map the corners of a warp are shared through L1/L2 and each source byte
-// comes from device memory about once) and writes one value; the flow mode
-// reads 12 more bytes of field per voxel. The design: one thread per output
-// voxel, consecutive threads on consecutive x (coalesced writes and mostly
-// coalesced reads), all channels looped inside the thread so the 8 weights
-// and offsets are computed once, source and field read through the
-// read-only cache, 64-bit offsets (a batch folded into channels passes 2^31
-// elements at 240^3 once C >= 156).
+// The design. A block of 256 threads owns one output tile, its origin taken
+// from blockIdx with no division; each thread walks a column of the tile (x
+// fastest across threads, so loads of the field and stores of the output
+// coalesce), its z and y as exact floats stepped by 1 and its offset stepped
+// by a plane: no division or conversion per voxel. Offsets are 32-bit when
+// every tensor a launch indexes holds fewer than 2^31 elements: C*Z*Y*X for
+// the image and the output, and 3*Z*Y*X for the flow mode's field (a
+// template; 64-bit otherwise).
+//   Affine mode, 3-D tiles of 16^3, the staged route. The box: each q_s is a
+//   chain of round-to-nearest products and sums of z, y and x, each monotone
+//   in its operands, so over a tile it is monotone in each of z, y and x and
+//   takes its least and greatest values at the tile's corners; the floors at
+//   the 8 corners give exactly the box [min, max + 1] that holds every
+//   corner of every voxel. When the box fits 24 x 24 x 24 floats (x with 3
+//   to spare for the shift to a 16-byte boundary) and lies within +-2^13,
+//   where the box offsets below are exact in f32, the block counts itself in
+//   `staged` (one atomicAdd), copies the box into shared memory with cp.async
+//   (16-byte copies where X % 4 == 0 and src is 16-byte aligned, 4-byte
+//   otherwise) and writes zeros where the box leaves the volume, so that a
+//   corner outside the volume reads the 0 its range test would give. Each
+//   thread then reads its 8 corners at fixed offsets from one base in shared
+//   memory, (fz*24 + fy)*24 + fx - base computed in exact f32 and turned
+//   into an int without a conversion: no range test and no 64-bit offset a
+//   corner. C > 1 stages and gathers channel by channel.
+//   The direct route, for an affine tile whose box does not fit (a zoom out,
+//   a large rotation, a coordinate far out; a NaN map), for the flow mode
+//   (8 x 8 x 32 tiles) and for 2-D images (1 x 8 x 32): the 8 corners from
+//   global memory through the read-only cache, each behind its range test.
+//   Staging did not pay there: a field's box is known only after the field
+//   is read, and that round trip and the lower occupancy under a box cost
+//   more than the gathers save (PERF.md §6, K2).
+// Both routes run the same f32 operations in the same order on the same
+// values, so they give the same bits.
 //
-// Rounding: every product and sum is an explicit round-to-nearest f32
-// operation (__fmul_rn / __fadd_rn, never contracted into an FMA), in the
-// order written above, so the plain PyTorch version in ops/cuda/warp.py,
-// which runs the same elementwise operations, gives the same bits.
+// Rounding: every product and sum of the sample is an explicit
+// round-to-nearest f32 operation (__fmul_rn / __fadd_rn, never contracted
+// into an FMA), in the order written above, so the plain PyTorch version in
+// ops/cuda/warp.py, which runs the same elementwise operations, gives the
+// same bits. q is computed per voxel as written, never stepped.
 //
 // Images and fields are f32. A 2D image is a volume with Z == 1 and
 // q_z == 0: the z = 0 corner has weight 1 and the z = 1 corner is outside.
+//
+// The tiles, the box and the route are the constants kTile, kBox, kFlowTile
+// and kStageAffine below; ops/cuda/warp.py:tile_boxes mirrors them, and
+// profile_warp.py builds variants of those lines for its ablations.
 
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+// (z, y, x): the affine mode's 3-D tile and the most of its box that shared
+// memory holds, the flow mode's 3-D tile; whether the affine tiles stage
+// their box (false: every block takes the direct route)
+constexpr int kTile[3] = {16, 16, 16}, kBox[3] = {24, 24, 24};
+constexpr int kFlowTile[3] = {8, 8, 32};
+constexpr bool kStageAffine = true;
+// blocks an SM (__launch_bounds__): a staged block's box (54 KB at 24^3)
+// leaves room for 4, which 64 registers a thread allow; a direct block has
+// no box, and 6 blocks (40 registers) read the field fastest (PERF.md §6, K2)
+constexpr int kStagedBlocks = 4, kDirectBlocks = 6;
+constexpr float kFar = 8192.0f;      // 2^13: a staged box lies within +-kFar
+constexpr float kInt = 8388608.0f;   // 2^23: v + kInt holds v in its low bits
+constexpr float kExact = 16777216.0f;  // 2^24: integers below it are exact in f32
+constexpr int kIntBits = 0x4B000000; // the bits of kInt
+constexpr int kMaxSize = 1 << 22;    // sizes beyond it are refused
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
-template <bool kFlow>
-__global__ void warp_kernel(const float* __restrict__ src, float* __restrict__ out,
-                            const float* __restrict__ mt, const float* __restrict__ flow,
-                            long long C, int Z, int Y, int X) {
-  const long long nvox = (long long)Z * Y * X;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const int size[3] = {Z, Y, X};
-  float m[12];
+// An integer-valued float v in [0, 2^23) as an int, without the conversion
+// unit.
+__device__ __forceinline__ int small_int(float v) {
+  return __float_as_int(__fadd_rn(v, kInt)) - kIntBits;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// fn(pz, py, v) for each voxel of the tile that this thread owns and that
+// lies in the volume: column x, rows y0 + threadIdx.x / TX + j * kThreads/TX,
+// every plane. The coordinates pz, py are stepped as floats (exact
+// integers), v as an offset: no conversion or division per voxel.
+template <int TZ, int TY, int TX, typename Idx, typename Fn>
+__device__ __forceinline__ void for_voxels(int z0, int y0, int x, int Z, int Y, int X, Fn fn) {
+  constexpr int kRows = kThreads / TX;
+  static_assert(kThreads % TX == 0 && TY % kRows == 0, "tile");
+  if (x >= X) return;
+  const int zn = min(TZ, Z - z0);
+  const Idx plane = (Idx)Y * X;
+#pragma unroll
+  for (int j = 0; j < TY / kRows; ++j) {
+    const int y = y0 + threadIdx.x / TX + j * kRows;
+    if (y >= Y) return;
+    const float py = (float)y;
+    float pz = (float)z0;
+    Idx v = ((Idx)z0 * Y + y) * X + x;
+#pragma unroll 2
+    for (int k = 0; k < zn; ++k, pz = add(pz, 1.0f), v += plane) fn(pz, py, v);
+  }
+}
+
+// The box (ez planes from lz, ey rows from ly, BX columns from xa) of one
+// channel's plane into box ([BZ][BY][BX]) with cp.async; zeros outside the
+// volume. A warp takes a plane, each lane one 16-byte piece of every
+// kRowsPerPass-th row.
+template <int BY, int BX, typename Idx>
+__device__ __forceinline__ void stage(float* box, const float* plane, int Z, int Y, int X,
+                                      int lz, int ly, int xa, int ez, int ey, bool vec) {
+  constexpr int kPieces = BX / 4, kRowsPerPass = 32 / kPieces;
+  static_assert(kRowsPerPass > 0, "a box row of at most 32 pieces");
+  const int lane = threadIdx.x % 32;
+  if (lane >= kRowsPerPass * kPieces) return;
+  const int r0 = lane / kPieces, i = 4 * (lane % kPieces);
+  const int gx = xa + i;
+  const bool whole = vec && gx >= 0 && gx + 4 <= X;  // one 16-byte copy
+  for (int bz = threadIdx.x / 32; bz < ez; bz += kThreads / 32) {
+    const int gz = lz + bz;
+    const bool zin = (unsigned)gz < (unsigned)Z;
+    for (int by = r0; by < ey; by += kRowsPerPass) {
+      const int gy = ly + by;
+      float* dst = box + (bz * BY + by) * BX + i;
+      if (zin && (unsigned)gy < (unsigned)Y) {
+        const float* g = plane + ((Idx)gz * Y + gy) * X + gx;
+        if (whole) {
+          cp_async16(dst, g);
+        } else {
+          for (int j = 0; j < 4; ++j) {
+            if ((unsigned)(gx + j) < (unsigned)X) cp_async4(dst + j, g + j);
+            else dst[j] = 0.0f;
+          }
+        }
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+// kStage: affine 3-D tiles, which stage their box; every other launch (the
+// flow mode, 2-D images) takes the direct route everywhere and has no box.
+template <bool kFlow, typename Idx, int TZ, int TY, int TX, bool kStage, int BZ, int BY,
+          int BX, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    warp_kernel(const float* __restrict__ src, float* __restrict__ out,
+                const float* __restrict__ mt, const float* __restrict__ flow, int C, int Z,
+                int Y, int X, bool vec, int* __restrict__ staged) {
+  static_assert(!(kStage && kFlow), "the flow mode never stages");
+  constexpr int PZ = BY * BX;
+  // |fz*PZ + fy*BX + fx| and the base (x shifted down by at most 3), plus kInt
+  static_assert(BX % 4 == 0 && (PZ + BX + 1) * (kFar + 4) + kInt < kExact,
+                "exact box offsets");
+  extern __shared__ float4 smem[];
+  float* box = reinterpret_cast<float*>(smem);
+  const Idx nvox = (Idx)Z * Y * X;
+  const int z0 = blockIdx.z * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
+  const int x = x0 + threadIdx.x % TX;
+  const float px = (float)x;
+  float m[12], ax[3];
   if (!kFlow) {
     for (int i = 0; i < 12; ++i) m[i] = __ldg(mt + i);
+    for (int s = 0; s < 3; ++s) ax[s] = mul(m[4 * s + 2], px);  // the same product
   }
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < nvox;
-       v += stride) {
-    const int x = (int)(v % X);
-    const long long zy = v / X;
-    const int y = (int)(zy % Y);
-    const int z = (int)(zy / Y);
-    const float p[3] = {(float)z, (float)y, (float)x};
-    float w[3][2];
-    long long idx[3][2];
-    bool ok[3][2];
-    for (int s = 0; s < 3; ++s) {
-      float q;
-      if (kFlow) {
-        q = add(p[s], __ldg(flow + s * nvox + v));
-      } else {
-        q = add(add(add(mul(m[4 * s], p[0]), mul(m[4 * s + 1], p[1])),
-                    mul(m[4 * s + 2], p[2])),
-                m[4 * s + 3]);
+  // q_s of the voxel (pz, py, x) at offset v, as the note above writes it
+  auto coords = [&](float q[3], float pz, float py, Idx v) {
+    if (kFlow) {
+      const float p[3] = {pz, py, px};
+      for (int s = 0; s < 3; ++s) q[s] = add(p[s], __ldg(flow + s * nvox + v));
+    } else {
+      for (int s = 0; s < 3; ++s)
+        q[s] = add(add(add(mul(m[4 * s], pz), mul(m[4 * s + 1], py)), ax[s]), m[4 * s + 3]);
+    }
+  };
+
+  if constexpr (kStage) {
+    // The box from the floors at the tile's 8 corners (the note above); a
+    // NaN corner (a NaN map) sends the block to the direct route.
+    __shared__ float red[6];
+    if (threadIdx.x < 32) {
+      const int t = threadIdx.x & 7;
+      const float c[3] = {(float)((t & 4) ? min(z0 + TZ, Z) - 1 : z0),
+                          (float)((t & 2) ? min(y0 + TY, Y) - 1 : y0),
+                          (float)((t & 1) ? min(x0 + TX, X) - 1 : x0)};
+      for (int s = 0; s < 3; ++s) {
+        float fmax = floorf(add(add(add(mul(m[4 * s], c[0]), mul(m[4 * s + 1], c[1])),
+                                    mul(m[4 * s + 2], c[2])),
+                                m[4 * s + 3]));
+        float fmin = isnan(fmax) ? -INFINITY : fmax;
+        for (int o = 4; o > 0; o >>= 1) {
+          fmin = fminf(fmin, __shfl_xor_sync(0xffffffffu, fmin, o));
+          fmax = fmaxf(fmax, __shfl_xor_sync(0xffffffffu, fmax, o));
+        }
+        if (threadIdx.x == 0) red[s] = fmin, red[3 + s] = fmax;
       }
-      const float f = floorf(q);
-      const float fr = __fsub_rn(q, f);
+    }
+    __syncthreads();
+    bool fits = true;
+    int lo[3], ext[3];
+    for (int s = 0; s < 3; ++s) {
+      // false for a NaN and past +-kFar
+      fits = fits && red[s] >= -kFar && red[3 + s] < kFar;
+      lo[s] = fits ? (int)red[s] : 0;
+      ext[s] = fits ? (int)red[3 + s] - lo[s] + 2 : 0;
+    }
+    // x: room for the shift to a 16-byte boundary
+    if (fits && ext[0] <= BZ && ext[1] <= BY && ext[2] + 3 <= BX) {
+      if (threadIdx.x == 0) atomicAdd(staged, 1);
+      const int xa = lo[2] - (vec ? (lo[2] & 3) : 0);  // the box's x, 16-byte aligned
+      // the corner f at box + (fz*BY + fy)*BX + fx - base, exact in f32,
+      // with kInt folded in as small_int adds it
+      const float boff = __fadd_rn((float)-(lo[0] * PZ + lo[1] * BX + xa), kInt);
+      for (int c = 0; c < C; ++c) {
+        if (c > 0) __syncthreads();  // the previous channel's gathers are done
+        stage<BY, BX, Idx>(box, src + c * nvox, Z, Y, X, lo[0], lo[1], xa, ext[0], ext[1], vec);
+        __syncthreads();
+        for_voxels<TZ, TY, TX, Idx>(z0, y0, x, Z, Y, X, [&](float pz, float py, Idx v) {
+          float q[3], f[3], w[3][2];
+          coords(q, pz, py, v);
+          for (int s = 0; s < 3; ++s) {
+            f[s] = floorf(q[s]);
+            const float fr = __fsub_rn(q[s], f[s]);
+            w[s][0] = __fsub_rn(1.0f, fr);
+            w[s][1] = fr;
+          }
+          // (the clamp only guards the read: a staged tile's q are finite)
+          const float o = fmaxf(__fadd_rn(fmaf(f[0], (float)PZ, fmaf(f[1], (float)BX, f[2])),
+                                          boff),
+                                kInt);
+          const float* b = box + (__float_as_int(o) - kIntBits);
+          float acc = 0.0f;
+          for (int i = 0; i < 2; ++i)
+            for (int j = 0; j < 2; ++j)
+              for (int k = 0; k < 2; ++k) {
+                const float wc = mul(mul(w[0][i], w[1][j]), w[2][k]);
+                acc = add(acc, mul(b[i * PZ + j * BX + k], wc));
+              }
+          out[c * nvox + v] = acc;
+        });
+      }
+      return;
+    }
+  }
+
+  const float size1[3] = {(float)(Z - 1), (float)(Y - 1), (float)(X - 1)};
+  for_voxels<TZ, TY, TX, Idx>(z0, y0, x, Z, Y, X, [&](float pz, float py, Idx v) {
+    float q[3], w[3][2];
+    Idx idx[3][2];
+    bool ok[3][2];
+    coords(q, pz, py, v);
+    for (int s = 0; s < 3; ++s) {
+      const float f = floorf(q[s]);
+      const float fr = __fsub_rn(q[s], f);
       w[s][0] = __fsub_rn(1.0f, fr);
       w[s][1] = fr;
-      // Range tests in float (false for NaN); the index is formed only for
-      // an in-range corner, so a far-out coordinate never overflows an int.
+      // Range tests in float (false for NaN); the index is taken only for an
+      // in-range corner (below 2^22), so a far-out coordinate never reaches it.
       for (int i = 0; i < 2; ++i) {
-        const float c = add(f, (float)i);
-        ok[s][i] = c >= 0.0f && c <= (float)(size[s] - 1);
-        idx[s][i] = ok[s][i] ? (long long)c : 0;
+        const float cs = add(f, (float)i);
+        ok[s][i] = cs >= 0.0f && cs <= size1[s];
+        idx[s][i] = ok[s][i] ? (Idx)small_int(cs) : 0;
       }
     }
     float wc[8];
-    long long off[8];
+    Idx off[8];
     bool in[8];
     for (int i = 0; i < 2; ++i)
       for (int j = 0; j < 2; ++j)
@@ -104,7 +314,7 @@ __global__ void warp_kernel(const float* __restrict__ src, float* __restrict__ o
           in[n] = ok[0][i] && ok[1][j] && ok[2][k];
           off[n] = (idx[0][i] * Y + idx[1][j]) * X + idx[2][k];
         }
-    for (long long c = 0; c < C; ++c) {
+    for (int c = 0; c < C; ++c) {
       const float* plane = src + c * nvox;
       float acc = 0.0f;
       for (int n = 0; n < 8; ++n) {
@@ -113,39 +323,83 @@ __global__ void warp_kernel(const float* __restrict__ src, float* __restrict__ o
       }
       out[c * nvox + v] = acc;
     }
-  }
+  });
 }
 
-constexpr int kThreads = 256;
+template <bool kFlow, typename Idx, int TZ, int TY, int TX, bool kStage, int BZ, int BY,
+          int BX, int kMinBlocks>
+int launch_tiles(const float* src, float* out, const float* mt, const float* flow, int C,
+                 int Z, int Y, int X, int* staged, cudaStream_t stream) {
+  auto kernel = warp_kernel<kFlow, Idx, TZ, TY, TX, kStage, BZ, BY, BX, kMinBlocks>;
+  constexpr int kBytes = kStage ? (int)sizeof(float) * BZ * BY * BX : 0;
+  if (kBytes > 48 * 1024) {
+    constexpr int kMaxDevices = 64;
+    static bool ready[kMaxDevices];  // the shared-memory attribute, once per device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices || !ready[dev]) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < kMaxDevices) ready[dev] = true;
+    }
+  }
+  const bool vec = X % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  const dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY, (Z + TZ - 1) / TZ);
+  kernel<<<grid, kThreads, kBytes, stream>>>(src, out, mt, flow, C, Z, Y, X, vec, staged);
+  return (int)cudaGetLastError();
+}
 
-int grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 32;  // grid-stride beyond 32 blocks per SM
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+// The affine mode's 3-D tiles stage a box of up to kBox; the flow mode's
+// 3-D tiles and every 2-D (Z == 1) tile, 1 x 8 x 32, take the direct route
+// (PERF.md §6, K2: staging lost there).
+template <bool kFlow, typename Idx>
+int launch_mode(const float* s, float* o, const float* m, const float* f, int c, int Z, int Y,
+                int X, int* st, cudaStream_t stream) {
+  constexpr int BZ = kBox[0], BY = kBox[1], BX = kBox[2];
+  if (Z == 1)
+    return launch_tiles<kFlow, Idx, 1, 8, 32, false, BZ, BY, BX, kDirectBlocks>(
+        s, o, m, f, c, Z, Y, X, st, stream);
+  if constexpr (kFlow)
+    return launch_tiles<kFlow, Idx, kFlowTile[0], kFlowTile[1], kFlowTile[2], false, BZ, BY, BX,
+                        kDirectBlocks>(s, o, m, f, c, Z, Y, X, st, stream);
+  else
+    return launch_tiles<kFlow, Idx, kTile[0], kTile[1], kTile[2], kStageAffine, BZ, BY, BX,
+                        kStageAffine ? kStagedBlocks : kDirectBlocks>(s, o, m, f, c, Z, Y, X, st,
+                                                                      stream);
 }
 
 template <bool kFlow>
-int launch(const void* src, void* out, const void* mt, const void* flow, long long C,
-           int Z, int Y, int X, cudaStream_t stream) {
-  long long nvox = (long long)Z * Y * X;
+int launch(const void* src, void* out, const void* mt, const void* flow, long long C, int Z,
+           int Y, int X, void* staged, cudaStream_t stream) {
+  const long long nvox = (long long)Z * Y * X;
+  if (C < 0 || C > 0x7fffffffLL || Z < 0 || Y < 0 || X < 0 || Z > kMaxSize ||
+      Y > kMaxSize || X > kMaxSize)
+    return (int)cudaErrorInvalidValue;
   if (nvox == 0 || C == 0) return 0;
-  warp_kernel<kFlow><<<grid_for(nvox), kThreads, 0, stream>>>(
-      (const float*)src, (float*)out, (const float*)mt, (const float*)flow, C, Z, Y, X);
-  return (int)cudaGetLastError();
+  const float *s = (const float*)src, *m = (const float*)mt, *f = (const float*)flow;
+  // the largest tensor the launch indexes: the image and the output (C
+  // channels) or the flow mode's field (3)
+  const long long planes = kFlow && C < 3 ? 3 : C;
+  if (planes * nvox < (1LL << 31))
+    return launch_mode<kFlow, int>(s, (float*)out, m, f, (int)C, Z, Y, X, (int*)staged, stream);
+  return launch_mode<kFlow, long long>(s, (float*)out, m, f, (int)C, Z, Y, X, (int*)staged,
+                                       stream);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). src and out are contiguous
-// [C, Z, Y, X] f32; mt is 12 f32 (M row-major with t[s] after row s);
-// flow is contiguous [3, Z, Y, X] f32. Returns cudaGetLastError() after the
-// launch.
+// [C, Z, Y, X] f32, each size at most 2^22; mt is 12 f32 (M row-major with
+// t[s] after row s); flow is contiguous [3, Z, Y, X] f32; staged is one int32
+// on the device, to which each block that stages its box adds 1. Returns
+// cudaGetLastError() after the launch.
 extern "C" int warp_affine(const void* src, void* out, const void* mt, long long C, int Z,
-                           int Y, int X, void* stream) {
-  return launch<false>(src, out, mt, nullptr, C, Z, Y, X, (cudaStream_t)stream);
+                           int Y, int X, void* staged, void* stream) {
+  return launch<false>(src, out, mt, nullptr, C, Z, Y, X, staged, (cudaStream_t)stream);
 }
 
 extern "C" int warp_flow(const void* src, void* out, const void* flow, long long C, int Z,
-                         int Y, int X, void* stream) {
-  return launch<true>(src, out, nullptr, flow, C, Z, Y, X, (cudaStream_t)stream);
+                         int Y, int X, void* staged, void* stream) {
+  return launch<true>(src, out, nullptr, flow, C, Z, Y, X, staged, (cudaStream_t)stream);
 }

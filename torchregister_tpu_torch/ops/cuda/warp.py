@@ -13,11 +13,17 @@ tensor launches the kernel (built from the package's own source at first
 use) or raises. There is no fallback from the kernel to the plain version.
 
 ``affine_launches`` and ``flow_launches`` count kernel launches, so a run can
-show that its path went through the kernel; :func:`reset_counts` zeroes them.
+show that its path went through the kernel; ``tiles_launched`` counts the
+blocks (output tiles) those launches ran, and :func:`staged_blocks` reads how
+many of them staged their source box in shared memory (a device counter: the
+read syncs, so nothing on the main path calls it); :func:`reset_counts`
+zeroes all of them. :func:`tile_boxes` is the plain mirror of the kernel's
+tiles, boxes and routes.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -25,19 +31,45 @@ from ... import native
 
 SOURCE = native.PKG / "csrc" / "warp.cu"
 
+# the kernel's compile-time tiles (csrc/warp.cu's kTile, kFlowTile, kBox,
+# kFar): the affine mode's 3-D tiles, which stage their box (at most BOX) in
+# shared memory; the flow mode's 3-D tiles and every 2-D (Z == 1) tile,
+# which take the direct route everywhere
+TILE_3D, TILE_FLOW, TILE_2D, BOX = (16, 16, 16), (8, 8, 32), (1, 8, 32), (24, 24, 24)
+FAR = 2.0**13  # a staged box lies within +-FAR
+
 affine_launches = 0
 flow_launches = 0
+tiles_launched = 0
+_staged: dict = {}  # device index -> int32 [1], the kernel's count of staged blocks
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = native.Library(SOURCE, "warp", {
-    name: (_I, [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P])
+    name: (_I, [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P])
     for name in ("warp_affine", "warp_flow")})
 
 
 def reset_counts() -> None:
-    global affine_launches, flow_launches
+    global affine_launches, flow_launches, tiles_launched
     affine_launches = 0
     flow_launches = 0
+    tiles_launched = 0
+    for counter in _staged.values():
+        counter.zero_()
+
+
+def staged_blocks() -> int:
+    """The blocks that took the staged route since :func:`reset_counts`, on
+    every device (reads the device counters: syncs)."""
+    return sum(int(counter.item()) for counter in _staged.values())
+
+
+def tile_shape(Z: int, flow: bool = False) -> tuple:
+    return TILE_2D if Z == 1 else TILE_FLOW if flow else TILE_3D
+
+
+def _tiles(shape, flow: bool) -> int:
+    return math.prod(-(-n // t) for n, t in zip(shape, tile_shape(shape[0], flow)))
 
 
 def pack_affine(M: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -71,9 +103,16 @@ def _validate(src: torch.Tensor, aux: torch.Tensor, what: str, shape) -> None:
 
 
 def _launch(name: str, src: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+    global tiles_launched
     C, Z, Y, X = src.shape
     out = torch.empty_like(src)
-    LIB.launch(name, src, src.data_ptr(), out.data_ptr(), aux.data_ptr(), C, Z, Y, X)
+    index = src.get_device()
+    counter = _staged.get(index)
+    if counter is None:
+        counter = _staged[index] = torch.zeros(1, dtype=torch.int32, device=src.device)
+    LIB.launch(name, src, src.data_ptr(), out.data_ptr(), aux.data_ptr(), C, Z, Y, X,
+               counter.data_ptr())
+    tiles_launched += _tiles((Z, Y, X), name == "warp_flow")
     return out
 
 
@@ -97,23 +136,67 @@ def warp_flow_launch(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def warp_plain(src: torch.Tensor, mt: torch.Tensor | None = None,
-               flow: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of K2 on ``src [C, Z, Y, X]``: the 8-corner
-    gather of the JAX package's ``multilinear_sample``, with the kernel's
-    operations in the kernel's order (so the two agree to the bit)."""
-    C, Z, Y, X = src.shape
-    sizes = (Z, Y, X)
-    p = [torch.arange(s, dtype=torch.float32, device=src.device).view(
+def _coords(sizes, device, mt, flow) -> list:
+    """Each output voxel's source coordinate per axis, ``[Z, Y, X]`` f32, in
+    the kernel's order of operations."""
+    p = [torch.arange(s, dtype=torch.float32, device=device).view(
         [s if a == b else 1 for b in range(3)]) for a, s in enumerate(sizes)]
     if flow is None:
         q = [mt[4 * s] * p[0] + mt[4 * s + 1] * p[1] + mt[4 * s + 2] * p[2] + mt[4 * s + 3]
              for s in range(3)]
     else:
         q = [p[s] + flow[s] for s in range(3)]
+    return [qs.expand(sizes) for qs in q]
+
+
+def tile_boxes(src_shape, mt: torch.Tensor | None = None,
+               flow: torch.Tensor | None = None) -> dict:
+    """The plain mirror of the kernel's box rule for ``src [C, Z, Y, X]``
+    (the kernel's view: a 2D image is one z plane) with ``mt`` or ``flow
+    [3, Z, Y, X]``, on their device. Per output tile (``tile_shape``, in
+    a ``[nz, ny, nx]`` grid; ragged at the far faces): ``lo`` and ``hi``
+    ``[nz, ny, nx, 3]`` (f32), the least floored coordinate per axis and the
+    greatest plus one over the tile's voxels, NaN skipped (``lo > hi`` where
+    every coordinate is NaN); ``staged`` ``[nz, ny, nx]``, the kernel's
+    route: an affine 3-D tile whose box lies within +-``FAR`` and whose
+    extent ``hi - lo + 1`` fits ``BOX`` (x with 3 to spare, for the shift to
+    a 16-byte boundary). The card never calls it; tests and
+    ``chip_smoke.py`` do."""
+    Z, Y, X = (int(n) for n in src_shape[-3:])
+    tile = tile_shape(Z, flow is not None)
+    device = mt.device if flow is None else flow.device
+    f = torch.stack([torch.floor(qs) for qs in _coords((Z, Y, X), device, mt, flow)], -1)
+    n = [-(-size // t) for size, t in zip((Z, Y, X), tile)]
+    pad = [0, 0] + [v for a in (2, 1, 0) for v in (0, n[a] * tile[a] - (Z, Y, X)[a])]
+    f = torch.nn.functional.pad(f, pad, value=float("nan"))
+    f = f.view(n[0], tile[0], n[1], tile[1], n[2], tile[2], 3)
+    nan = torch.isnan(f)
+    lo = torch.where(nan, torch.inf, f).amin(dim=(1, 3, 5))
+    fmax = torch.where(nan, -torch.inf, f).amax(dim=(1, 3, 5))
+    fits = ((lo <= fmax) & (lo >= -FAR) & (fmax < FAR)).all(-1)
+    ext = torch.where(fits[..., None], fmax.double() - lo.double() + 2.0, 0.0)
+    room = torch.tensor([BOX[0], BOX[1], BOX[2] - 3.0], dtype=torch.float64, device=device)
+    staged = fits & (ext <= room).all(-1) & (flow is None and Z > 1)
+    return {"tile": tile, "lo": lo, "hi": fmax + 1.0, "staged": staged}
+
+
+def warp_plain(src: torch.Tensor, mt: torch.Tensor | None = None,
+               flow: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K2 on ``src [C, Z, Y, X]``: the 8-corner
+    gather of the JAX package's ``multilinear_sample``, with the kernel's
+    operations in the kernel's order (so the two agree to the bit)."""
+    return sample_plain(src, _coords(src.shape[1:], src.device, mt, flow))
+
+
+def sample_plain(src: torch.Tensor, q) -> torch.Tensor:
+    """``src [C, Z, Y, X]`` sampled at the coordinates ``q`` (per axis, f32,
+    one shape ``P``) as K2 samples them: ``[C, *P]``. A check of a few output
+    planes computes their ``q`` and calls this."""
+    C, Z, Y, X = src.shape
+    sizes = (Z, Y, X)
     w, idx, ok = [], [], []
     for s in range(3):
-        qs = q[s].expand(sizes)
+        qs = q[s]
         f = torch.floor(qs)
         fr = qs - f
         w.append((1.0 - fr, fr))
@@ -121,7 +204,7 @@ def warp_plain(src: torch.Tensor, mt: torch.Tensor | None = None,
         ok.append([(c >= 0.0) & (c <= sizes[s] - 1.0) for c in corners])
         idx.append([torch.where(k, c, 0.0).long() for c, k in zip(corners, ok[s])])
     flat = src.reshape(C, -1)
-    out = torch.zeros_like(flat)
+    out = flat.new_zeros((C, q[0].numel()))
     for i in range(2):
         for j in range(2):
             for k in range(2):
@@ -130,7 +213,7 @@ def warp_plain(src: torch.Tensor, mt: torch.Tensor | None = None,
                 off = (idx[0][i] * Y + idx[1][j]) * X + idx[2][k]
                 val = torch.where(inside.reshape(-1), flat[:, off.reshape(-1)], 0.0)
                 out = out + val * wc.reshape(-1)
-    return out.reshape(src.shape)
+    return out.reshape((C,) + tuple(q[0].shape))
 
 
 def warp(src: torch.Tensor, mt: torch.Tensor | None = None,

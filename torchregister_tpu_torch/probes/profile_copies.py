@@ -30,20 +30,14 @@ for each build, each kernel's registers and spill bytes from ``-Xptxas
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from .. import native
-from .. import profile_sweep as ps
-from . import checked_index, time_ms
+from .. import device_ab as ab
+from . import checked_index
 from . import hatgather as hg
 
 ABLATIONS = {"tree": (), "gather_v1": ("-DSLAB_GATHER_V=1",),
@@ -54,48 +48,10 @@ KERNELS = ("slab_gather", "slice_transpose")
 SIZE, BIG_SLABS, BIG_STARTS = 240, 1728, 4096
 
 
-def build(name: str, source: Path, defines) -> tuple[Path, str]:
-    """Compile ``source`` with ``defines`` into ``_build/`` (always anew);
-    return the library and ptxas's report."""
-    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = native.BUILD_DIR / f"hatgather_ab_{name}.so"
-    proc = subprocess.run([native.nvcc(), *native.NVCC_FLAGS, "-Xptxas", "-v", *defines,
-                           "-o", str(lib), str(source)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {name} ({source}) failed:\n{proc.stderr}")
-    return lib, proc.stderr
-
-
 def resources(report: str) -> dict:
     """``{kernel: "N registers, S bytes spill"}`` for the copies' kernels in
-    ptxas's report, names demangled where ``c++filt`` is found."""
-    got, entry, spill = {}, None, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            entry = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and entry:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry and any(k + "_kernel" in entry for k in KERNELS):
-            got[entry] = f"{m.group(1)} registers, {spill} bytes spill"
-    if shutil.which("c++filt") and got:
-        names = subprocess.run(["c++filt"], input="\n".join(got), capture_output=True,
-                               text=True).stdout.split("\n")
-        got = dict(zip(names, got.values()))
-    return got
-
-
-def bind(lib: Path) -> dict:
-    handle = ctypes.CDLL(str(lib))
-    fns = {}
-    for name in KERNELS:
-        fn = getattr(handle, name)
-        fn.restype, fn.argtypes = hg.LIB.entries[name]
-        fns[name] = fn
-    return fns
+    ptxas's report."""
+    return ab.resources(report, KERNELS)
 
 
 def cases(dev: torch.device) -> dict:
@@ -160,15 +116,15 @@ def main(argv=None) -> dict:
     for spec in a.source:
         name, path = spec.split("=", 1)
         builds[name] = (Path(path), ())
-    with ThreadPoolExecutor(len(builds)) as pool:
-        done = dict(zip(builds, pool.map(lambda n: build(n, *builds[n]), builds)))
+    done = ab.build_all("hatgather", builds)
     result = {"device": torch.cuda.get_device_name(0), "builds": {}, "cases": {}}
     for name, (lib, report) in done.items():
         result["builds"][name] = resources(report)
         print(f"[build] {name}: {json.dumps(result['builds'][name])}", flush=True)
     dev = torch.device("cuda")
-    fns = {name: bind(lib) for name, (lib, _) in done.items()}
-    order, calls = list(builds), {}
+    entries = {k: hg.LIB.entries[k] for k in KERNELS}
+    fns = {name: ab.bind(lib, entries) for name, (lib, _) in done.items()}
+    order, calls, outs = list(builds), {}, []
     for case, (kernel, args) in cases(dev).items():
         plain = (hg.slab_gather_plain if kernel == "slab_gather"
                  else hg.slice_transpose_plain)(*args)
@@ -179,19 +135,9 @@ def main(argv=None) -> dict:
             if not torch.equal(out, plain):
                 raise AssertionError(f"{name}'s {kernel} differs from its plain version "
                                      f"at {case}")
-            calls[case, name] = call, kernel, out  # out lives as long as its call
-    turns = order + order[::-1]
-    rows = {case: {"ms": {n: [] for n in order}, "device_ms": {n: [] for n in order}}
-            for case, _ in calls}
-    for name in turns:  # every event timing before any profiler session
-        for (case, n), (call, _, _) in calls.items():
-            if n == name:
-                rows[case]["ms"][name].append(time_ms(call, dev))
-    for name in turns:
-        for (case, n), (call, kernel, _) in calls.items():
-            if n == name:
-                rows[case]["device_ms"][name].append(
-                    ps.device_ms(call, name=f"{kernel}_kernel"))
+            calls[case, name] = call, kernel
+            outs.append(out)  # each output lives as long as its call
+    rows = ab.in_turns(calls, order)
     for case, row in rows.items():
         result["cases"][case] = row
         print(f"[ab] {case}: {json.dumps(row)}", flush=True)

@@ -69,8 +69,9 @@ def device_ms(fn, iters: int = 20, name: str = "sweep_") -> float | None:
     """The mean device time of the kernels whose names hold ``name`` (K1's
     by default; ``""``: every kernel) that one call of ``fn`` launches
     (``torch.profiler``'s kernel spans, no host time); None (not measured)
-    when the profiler records no such kernel in three profiles, as CUPTI
-    now and then drops a short profile's device records."""
+    when no profile of three records such kernels for every call, as CUPTI
+    now and then drops a profile's device records (a span count that is not
+    a multiple of the calls marks a drop)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -82,7 +83,7 @@ def device_ms(fn, iters: int = 20, name: str = "sweep_") -> float | None:
             torch.cuda.synchronize()
         spans = [e.time_range for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-        if spans:
+        if spans and len(spans) % iters == 0:
             return sum(r.end - r.start for r in spans) / 1e3 / iters
     return None
 
