@@ -7,10 +7,13 @@ the flow mode, 2-D images and boxes that do not fit), K3 (the 3x3x3
 convolution of the U-Net and the Sobel edge filter, forward and input
 gradient, and its weight gradient, ``csrc/conv3d.cu``),
 K2b (the compact ROI gather of the exact warp's compact-block route,
-``csrc/roigather.cu``) and the benchmark probes' kernels (``csrc/
-hatgather.cu``: P1-P5 of ``benchmarks/probe_hatgather.py``; ``csrc/
-roi_fetch.cu``: the fetch of ``benchmarks/probe_roi_stages.py``) from the
-checkout, holds each against its plain PyTorch version on the card (K1 in
+``csrc/roigather.cu``), the benchmark probes' kernels (``csrc/
+hatgather.cu``: P1-P5 of ``benchmarks/probe_hatgather.py``, P3 in two
+stages; ``csrc/roi_fetch.cu``: the fetch of ``benchmarks/probe_roi_stages.py``,
+in two stages) and the binned NMI's fixed-order splat (``csrc/splat.cu``)
+from the checkout, holds each against its plain PyTorch version on the card
+(the two-stage sums and the splat also against their order in torch ops, to
+the bit; K1 in
 its dense form and in the affine and flow forms the engines launch, which
 compute each pass's coordinates in the kernel and must equal the dense
 launch on the same coordinates to the bit), drives
@@ -19,7 +22,8 @@ the CLI's register/apply round trip on NIfTI files; ``Register`` rigid, then
 flow; the U-Net parity cascade on the 240³ deformable pair, which must repeat
 to the bit; ``Register`` in U-Net mode at the reference width; ``Register``
 with the reference's default criteria and its exact warp on the compact
-route; the matrix engines with their own defaults, edge filter and default
+route, twice, which must repeat to the bit, and the binned NMI twice; the
+matrix engines with their own defaults, edge filter and default
 criteria; the two probe scripts' entry points; every engine path must launch
 K1's affine or flow form and never its dense form), and times each kernel
 against its plain version and the one PyTorch call that computes the same
@@ -65,16 +69,17 @@ from torchregister_tpu_torch.engines.affine import affine_register
 from torchregister_tpu_torch.engines.cascade import register_cascade
 from torchregister_tpu_torch.engines.flow import flow_register
 from torchregister_tpu_torch.engines.rigid import rigid_register
-from torchregister_tpu_torch.losses.nmi import branch_calls, nmi_loss
+from torchregister_tpu_torch.losses.nmi import _splat_weights, branch_calls, nmi_loss
 from torchregister_tpu_torch.models.attention_unet import conv3x3x3_shapes
 from torchregister_tpu_torch.ops import blocked
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
 from torchregister_tpu_torch.ops.cuda import roigather as k2b
+from torchregister_tpu_torch.ops.cuda import splat as ks
 from torchregister_tpu_torch.ops.cuda import sweep as k1
 from torchregister_tpu_torch.ops.cuda import warp as k2
 from torchregister_tpu_torch.ops.edge import edge_filter, edge_magnitude
 from torchregister_tpu_torch.ops.grid import affine_grid
-from torchregister_tpu_torch.ops.resize import downsample_avg
+from torchregister_tpu_torch.ops.resize import downsample_avg, nearest_resize
 from torchregister_tpu_torch.ops.transforms import rigid_theta
 from torchregister_tpu_torch.probes import checked_index
 from torchregister_tpu_torch.probes import hatgather as hg
@@ -114,13 +119,16 @@ REPLACES = {
     "slab_sum": "benchmarks/probe_hatgather.py:131",
     "slice_transpose": "benchmarks/probe_hatgather.py:270",
     "roi_fetch": "benchmarks/probe_roi_stages.py:69",
+    "splat": "torchregister_tpu/losses/nmi.py:129",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "slab_gather": "benchmarks/probe_hatgather.py:222"}
 # K3's weight gradient replaces XLA code, not a Pallas kernel
 NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST), "
-                         "not a Pallas kernel"}
+                         "not a Pallas kernel",
+         "splat": "replaces the one-hot products of _binned_histogram, XLA code, not a "
+                  "Pallas kernel: the binned NMI's splat, summed in a fixed order"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "warp_affine": "torchregister_tpu_torch/csrc/warp.cu",
@@ -130,7 +138,8 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "conv3d_wgrad": "torchregister_tpu_torch/csrc/conv3d.cu",
            "roigather": "torchregister_tpu_torch/csrc/roigather.cu",
            **{name: "torchregister_tpu_torch/csrc/hatgather.cu" for name in hg.KERNELS},
-           "roi_fetch": "torchregister_tpu_torch/csrc/roi_fetch.cu"}
+           "roi_fetch": "torchregister_tpu_torch/csrc/roi_fetch.cu",
+           "splat": "torchregister_tpu_torch/csrc/splat.cu"}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
 # three TF32 products (3xTF32), so their f32 rate is a third of TF32's
@@ -172,9 +181,10 @@ ENGINE_STEPS = 30
 # the tolerances of tests/test_torch_cuda.py. The loss is 1000 |NMI - 1| and
 # the reference's pooled "joint" makes NMI 1 wherever the two marginals
 # match: for the pair itself at the default bandwidth 3.0, another order of
-# the splat's sums (the card's atomics) moves the value and the gradient by
-# percents. So the check pairs the target with the square of the moving
-# image, whose marginals differ, at a bandwidth that resolves the unit range.
+# the splat's sums (the card's kernel against the CPU's scatter) moves the
+# value and the gradient by percents. So the check pairs the target with the
+# square of the moving image, whose marginals differ, at a bandwidth that
+# resolves the unit range.
 NMI_CHECK = dict(bandwidth=0.05, value_rtol=3e-5, grad_atol=3e-4)
 
 
@@ -193,12 +203,12 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel's nvcc run at once, then load them."""
     t0 = time.perf_counter()
-    mods = (k1, k2, k3, k2b, hg, rs)
+    mods = (k1, k2, k3, k2b, hg, rs, ks)
     with ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m.LIB.build(), mods))
     for m in mods:
         m.LIB.fns()
-    print(f"[build] K1, K2, K3, K2b and the probes built in "
+    print(f"[build] K1, K2, K3, K2b, the probes and the NMI splat built in "
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(lib.name for lib in libs)}", flush=True)
 
@@ -736,11 +746,17 @@ COPIES = ("slab_gather", "slab_gather_p4", "slice_transpose", "slab_gather_big",
 BIG_SLABS, BIG_STARTS = 1728, 4096
 
 
-def phase_probes(inputs: dict) -> tuple[dict, dict]:
+# the two-stage sums' order in torch ops: each kernel equals it to the bit
+ORDERED = {"slab_sum": hg.slab_sum_ordered, "roi_fetch": rs.roi_fetch_ordered}
+
+
+def phase_probes(inputs: dict, splat_inputs: dict) -> tuple[dict, dict]:
     """Each probe kernel against its plain version at the probe's own sizes
-    (``_probe_inputs``); then the path: both probe modules' ``main`` (P1-P5, and
-    the ROI stages at 240³), counts set to 0 just before and read just
-    after. Returns the largest deviations and the path's launches."""
+    (``_probe_inputs``), the two-stage sums also against their order in
+    torch ops to the bit; the NMI splat (``_check_splat``); then the path:
+    both probe modules' ``main`` (P1-P5, and the ROI stages at 240³), counts
+    set to 0 just before and read just after. Returns the largest
+    deviations and the path's launches."""
     errs = {}
     for case, (args, atol) in inputs.items():
         name = CASE_KERNEL.get(case, case)
@@ -749,10 +765,15 @@ def phase_probes(inputs: dict) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         err = _max_err(out, ref)
         errs[name] = max(errs.get(name, 0.0), err)
-        print(f"[probes] {case}: out {tuple(out.shape)}, max|d| {err:.3e} (tol {atol:g})",
-              flush=True)
+        bits = name in ORDERED and torch.equal(out, ORDERED[name](*args))
+        note = f", equal to its torch order to the bit: {bits}" if name in ORDERED else ""
+        print(f"[probes] {case}: out {tuple(out.shape)}, max|d| {err:.3e} (tol {atol:g})"
+              f"{note}", flush=True)
         if out.shape != ref.shape or not err <= atol:
             raise AssertionError(f"{case} disagrees with its plain version: {err:.3e}")
+        if name in ORDERED and not bits:
+            raise AssertionError(f"{case} differs from its order in torch ops")
+    errs["splat"] = _check_splat(splat_inputs)
     _reset_counts()
     hg.main(["p1", "p2", "p3", "p4", "p5"])
     rs.main()
@@ -762,6 +783,56 @@ def phase_probes(inputs: dict) -> tuple[dict, dict]:
     _need(launches, (*hg.KERNELS, "roi_fetch", "roigather", "warp_affine"),
           "the probe entry points")
     return errs, launches
+
+
+def _splat_inputs() -> dict:
+    """``{case: (idx, f)}``, the splat's inputs as the default NMI term makes
+    them at 240³ (each image resized to 200³, 8 patches of 100³: 8 rows of
+    1 M samples, not a whole number of the kernel's blocks) on the joint
+    range of make_pair's pair: its moving image, and a constant image at a
+    fractional bin (every sample in one bin, the kernel's worst case)."""
+    moving, target = make_pair((SIZE,) * 3, device=DEV)
+    lo = torch.minimum(moving.min(), target.min())
+    hi = torch.maximum(moving.max(), target.max())
+    return {case: _splat_weights(nearest_resize(img, (200,) * 3).reshape(8, -1), hi, lo)
+            for case, img in (("make_pair", moving),
+                              ("constant", torch.full_like(moving, 0.37)))}
+
+
+def _check_splat(inputs: dict) -> float:
+    """The splat kernel, launched twice, equal to the bit to itself and to
+    its order in torch ops (``splat_ordered``), and within each bin's bound
+    of its plain version (``scatter_add`` a block of samples, atomics on the
+    card): both
+    add a bin's n terms in f32 in different orders, and any order lies
+    within (n - 1) u of the bin's mass (u = 2^-24) from the exact sum, so a
+    bin may differ by 2 n u times its mass (n and the mass counted in f64),
+    which a constant image's one bin approaches. Returns the largest
+    absolute deviation from the plain version."""
+    worst = 0.0
+    for case, (idx, f) in inputs.items():
+        out, again = ks.splat_launch(idx, f), ks.splat_launch(idx, f)
+        ref, ordered = ks.splat_plain(idx, f), ks.splat_ordered(idx, f)
+        i, f64 = idx.long(), f.double()
+        zero = torch.zeros(out.shape, dtype=torch.float64, device=DEV)
+        one = torch.ones_like(f64)
+        n = zero.scatter_add(1, i, one).scatter_add(1, i + 1, one)
+        mass = zero.scatter_add(1, i, 1.0 - f64).scatter_add(1, i + 1, f64)
+        bound = 2.0 * n * 2.0**-24 * mass
+        d = (out.double() - ref.double()).abs()
+        share = float((d / bound.clamp_min(1e-300)).max())
+        err = float(d.max())
+        repeat, same = torch.equal(out, again), torch.equal(out, ordered)
+        print(f"[probes] splat {case}: out {tuple(out.shape)} from {tuple(f.shape)}, "
+              f"{int((n > 0).sum())} bins hit; two launches equal: {repeat}; equal to its "
+              f"torch order: {same}; against the plain version max|d| {err:.3e}, at most "
+              f"{share:.3f} of each bin's bound 2 n u mass", flush=True)
+        if not (repeat and same):
+            raise AssertionError(f"the splat kernel does not repeat its order on {case}")
+        if not bool((d <= bound).all()):
+            raise AssertionError(f"the splat disagrees with its plain version on {case}")
+        worst = max(worst, err)
+    return worst
 
 
 def _on_cuda(res) -> None:
@@ -831,11 +902,12 @@ def _counts() -> dict:
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
             "conv3d_wgrad": k3.wgrad_launches,
-            "roigather": k2b.launches, **hg.launches, "roi_fetch": rs.launches}
+            "roigather": k2b.launches, **hg.launches, "roi_fetch": rs.launches,
+            "splat": ks.launches}
 
 
 def _reset_counts() -> None:
-    for m in (k1, k2, k3, k2b, hg, rs):
+    for m in (k1, k2, k3, k2b, hg, rs, ks):
         m.reset_counts()
 
 
@@ -1030,15 +1102,24 @@ def phase_register_unet() -> dict:
     return launches
 
 
+# timed Register(criterion=None) runs after the phase's warm-up: every sum
+# on the path runs in a fixed order (the NMI splat too), so they must agree
+# to the bit
+REGISTER_DEFAULT_RUNS = 2
+
+
 def phase_register_default() -> dict:
     """``Register(mode='rigid')`` with ``criterion=None`` (MSE + NCC(100) +
     NMI(1000)) at 240³, its exact warp on the compact ROI route (K2b and
     the hats), with the [register] phase's lr and epochs under Adam from the
-    identity; the NMI branches the run took; then ``nmi_loss`` on the pair
-    on the card against the CPU (``NMI_CHECK``)."""
+    identity, ``REGISTER_DEFAULT_RUNS`` times after a short warm-up: the
+    same steps, parameters, losses and output to the bit; the NMI branches
+    the runs took; then ``nmi_loss`` on the pair on the card against the CPU
+    and against itself (``NMI_CHECK``)."""
     moving, target = make_pair((SIZE,) * 3, device=DEV)
     routes = blocked.ROIGATHER_ENABLED, blocked.ROIGATHER_FUSED
     blocked.ROIGATHER_ENABLED, blocked.ROIGATHER_FUSED = True, False
+    runs = []
     try:
         kw = dict(mode="rigid", device=DEV, criterion=None, optimizer="adam",
                   init="identity", max_shift=SIZE // 4)
@@ -1046,63 +1127,81 @@ def phase_register_default() -> dict:
         torch.cuda.synchronize()
         _reset_counts()
         branch_calls.update(binned=0, exact=0)
-        t0 = time.perf_counter()
-        reg = Register(**kw).optim(moving, target, **REGISTER_RIGID)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = reg(moving)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        for _ in range(REGISTER_DEFAULT_RUNS):
+            t0 = time.perf_counter()
+            reg = Register(**kw).optim(moving, target, **REGISTER_RIGID)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = reg(moving)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            runs.append((reg, out, t1 - t0, t2 - t1))
         launches = _counts()
         branches = dict(branch_calls)
     finally:
         blocked.ROIGATHER_ENABLED, blocked.ROIGATHER_FUSED = routes
+    reg, out = runs[0][:2]
     steps = int(reg.result.steps)
     pct = rmse_reduction_pct(out, moving, target)
-    print(f"[register-default] criterion=None, {REGISTER_RIGID}: {steps} steps in "
-          f"{t1 - t0:.2f} s ({1e3 * (t1 - t0) / steps:.2f} ms/step), NMI branch calls "
+    repeat = all(
+        int(r.result.steps) == steps and torch.equal(o, out)
+        and torch.equal(r.result.best_params, reg.result.best_params)
+        and torch.equal(r.result.final_params, reg.result.final_params)
+        and torch.equal(r.losses[:steps], reg.losses[:steps]) for r, o, _, _ in runs)
+    ms = [round(1e3 * dt / steps, 3) for _, _, dt, _ in runs]
+    print(f"[register-default] criterion=None, {REGISTER_RIGID}: {steps} steps, "
+          f"{[round(dt, 3) for _, _, dt, _ in runs]} s ({ms} ms/step), NMI branch calls "
           f"{json.dumps(branches)}; "
-          f"__call__ on the compact route {1e3 * (t2 - t1):.1f} ms; RMSE reduction "
-          f"{pct:.3f} % (gate {GATES['rmse_reduction_pct']}); launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"__call__ on the compact route {[round(1e3 * dc, 1) for *_, dc in runs]} ms; "
+          f"RMSE reduction {pct:.3f} % (gate {GATES['rmse_reduction_pct']}); "
+          f"{REGISTER_DEFAULT_RUNS} runs equal to the bit (steps, parameters, losses, output): "
+          f"{repeat}; launches {json.dumps(launches)}", flush=True)
     if not bool(torch.isfinite(out).all()) or tuple(out.shape) != tuple(moving.shape):
         raise AssertionError("Register's default-criteria output is not finite")
     if pct < GATES["rmse_reduction_pct"]:
         raise AssertionError(f"Register default-criteria RMSE gate failed: {pct:.3f} %")
+    if not repeat:
+        raise AssertionError("Register with criterion=None does not repeat to the bit")
     _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_fwd_affine", "sweep_bwd_affine",
-                     "roigather"), "Register with criterion=None")
-    if sum(branches.values()) < steps:
-        raise AssertionError(f"the default criteria ran NMI {branches} times in {steps} steps")
+                     "roigather", "splat"), "Register with criterion=None")
+    if sum(branches.values()) < REGISTER_DEFAULT_RUNS * steps:
+        raise AssertionError(f"the default criteria ran NMI {branches} times in "
+                             f"{REGISTER_DEFAULT_RUNS} x {steps} steps")
     _check_nmi(target, moving)
     return launches
 
 
 def _check_nmi(y, yp) -> None:
-    """``nmi_loss(y, yp²)`` and its gradient in ``yp²`` on the card against
-    the CPU at ``NMI_CHECK``'s bandwidth (binned: the atomic splat of 16 M
-    samples) and tolerances; ``nmi_loss(y, yp)`` at the default bandwidth,
-    the term the run optimized, printed from both."""
+    """``nmi_loss(y, yp²)`` and its gradient in ``yp²`` on the card twice,
+    equal to the bit (the splat kernel's fixed order), and against the CPU
+    at ``NMI_CHECK``'s bandwidth (binned: the splat of 16 M samples) and
+    tolerances; ``nmi_loss(y, yp)`` at the default bandwidth, the term the
+    run optimized, printed from both."""
     bw = NMI_CHECK["bandwidth"]
     out = []
-    for d in (DEV, "cpu"):
+    for d in (DEV, DEV, "cpu"):
         branch_calls.update(binned=0, exact=0)
         p = (yp * yp).to(d).requires_grad_(True)
         loss = nmi_loss(y.to(d), p, bandwidth=bw)
         loss.backward()
         with torch.no_grad():
             default = float(nmi_loss(y.to(d), yp.to(d)))
-        out.append((float(loss.detach()), p.grad.cpu(), dict(branch_calls), default))
-    (lg, gg, bg, dg), (lc, gc, bc, dc) = out
+        out.append((loss.detach().cpu(), p.grad.cpu(), dict(branch_calls), default))
+    (lg, gg, bg, dg), (lg2, gg2, _, _), (lc, gc, bc, dc) = out
+    repeat = torch.equal(lg, lg2) and torch.equal(gg, gg2)
+    lg, lc = float(lg), float(lc)
     rel = abs(lg - lc) / abs(lc)
     grel = _max_err(gg, gc) / float(gc.abs().max())
     print(f"[register-default] nmi_loss(target, moving²) at {SIZE}³ (patch 100), bandwidth "
-          f"{bw}: card {lg:.7f}, "
+          f"{bw}: card {lg:.7f}, twice equal to the bit (value and gradient): {repeat}; "
           f"CPU {lc:.7f}, rel {rel:.3e} (tol {NMI_CHECK['value_rtol']:g}); gradient "
           f"{grel:.3e} of its largest entry (tol {NMI_CHECK['grad_atol']:g}); branches "
           f"{json.dumps(bg)}; at the default bandwidth 3.0: card {dg:.3e}, CPU {dc:.3e}",
           flush=True)
     if bg != bc or not bg["binned"]:
         raise AssertionError(f"nmi_loss took other branches on the card: {bg} vs {bc}")
+    if not repeat:
+        raise AssertionError("nmi_loss on the card does not repeat to the bit")
     if not (rel < NMI_CHECK["value_rtol"] and grel < NMI_CHECK["grad_atol"]):
         raise AssertionError(f"nmi_loss on the card disagrees with the CPU: {rel:.3e}, {grel:.3e}")
     if not (math.isfinite(dg) and math.isfinite(dc)):
@@ -1138,7 +1237,7 @@ def phase_engines_default() -> dict:
     print(f"[engines-default] {json.dumps(rows)} (wall time includes the edge filter of "
           f"both images); launches {json.dumps(launches)}", flush=True)
     _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_fwd_affine", "sweep_bwd_affine",
-                     "conv3d_fwd"), "the engines' defaults")
+                     "conv3d_fwd", "splat"), "the engines' defaults")
     _check_edges(moving)
     return launches
 
@@ -1391,7 +1490,11 @@ def phase_probe_times(inputs: dict) -> dict:
     output (``write_only_ms``: its writes alone). Bounds: the bytes the
     function needs (each row or block it reads once, its output written
     once) over 3.35 TB/s. P1, P3 and the fetch have no one PyTorch call that
-    computes them."""
+    computes them; their device times (``device_ms``) count every kernel of
+    a launch (the sums' two stages), and P1's row also holds the device span
+    of an empty kernel launched through the same path
+    (``empty_kernel_device_ms``) and the larger of it and P1's byte bound
+    (``floor_bound_ms``)."""
     rows = {}
     for case, (args, _) in inputs.items():
         launch, plain = PROBE_FNS[CASE_KERNEL.get(case, case)]
@@ -1418,6 +1521,15 @@ def phase_probe_times(inputs: dict) -> dict:
                                    name=f"{CASE_KERNEL.get(case, case)}_kernel"),
             library_device_ms=ps.device_ms(lambda: torch.take(src, flat), name=""))
     del takes
+    # the sums' device time, both stages' kernels; P1's, and the span of an
+    # empty kernel launched through the same path: the floor under any launch
+    for case, name in (("slab_sum", "slab_sum_"), ("roi_fetch", "roi_fetch_"),
+                       ("block_permute_add", "block_permute_add_kernel")):
+        args = inputs[case][0]
+        rows[case]["device_ms"] = ps.device_ms(lambda: PROBE_FNS[case][0](*args), name=name)
+    one = torch.empty(1, device=DEV)
+    rows["block_permute_add"]["empty_kernel_device_ms"] = ps.device_ms(
+        lambda: hg.LIB.launch("empty_launch", one, 1), name="empty_kernel")
     x, order = inputs["block_permute_add"][0]
     bounds = {"block_permute_add": 4.0 * (order.numel() * 8 * x.shape[1] * 2 + order.numel()),
               **{case: _copy_bytes(case, inputs[case][0]) for case in COPIES}}
@@ -1434,11 +1546,17 @@ def phase_probe_times(inputs: dict) -> dict:
                                  + sc.shape[0] * (rs.LANES + 5))
     for case, nbytes in bounds.items():
         rows[case].update(_bound(nbytes, 0.0), bytes=nbytes)
-    for case in COPIES:
+    for case in (*COPIES, "slab_sum", "roi_fetch", "block_permute_add"):
         row = rows[case]
         row["bound_share"] = row["bound_ms"] / row["ms"]
         if row["device_ms"] is not None:
             row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+    # P1's bytes take less time than any launch's shortest span
+    p1 = rows["block_permute_add"]
+    if p1["empty_kernel_device_ms"] is not None:
+        p1["floor_bound_ms"] = max(p1["bound_ms"], p1["empty_kernel_device_ms"])
+        if p1["device_ms"] is not None:
+            p1["floor_bound_share"] = p1["floor_bound_ms"] / p1["device_ms"]
     T = inputs["slab_sum"][0][1].shape[0]
     logical = T * 14 * 16 * 256 * 4.0
     rows["slab_sum"]["logical_TBps"] = logical / (rows["slab_sum"]["ms"] * 1e9)
@@ -1447,6 +1565,37 @@ def phase_probe_times(inputs: dict) -> dict:
     rows["roi_fetch"]["logical_TBps"] = logical / (rows["roi_fetch"]["ms"] * 1e9)
     for case, row in rows.items():
         print(f"[times] probe {case}: {json.dumps(row)}", flush=True)
+    return rows
+
+
+def phase_splat_times(inputs: dict) -> dict:
+    """The NMI splat on each case of ``_splat_inputs``: one launch against
+    one pass of its plain version (two ``scatter_add``) and one
+    ``torch.scatter_add`` of both terms on indices made beforehand (the
+    library call), CUDA events (``ms``); then the kernel's and the library
+    call's device time (``torch.profiler``). Bound: idx and f read once and
+    H written once over 3.35 TB/s (its two adds a sample at 67 TFLOP/s take
+    far less)."""
+    rows = {}
+    with torch.no_grad():
+        libs = {}
+        for case, (idx, f) in inputs.items():
+            i = idx.long()
+            both = (torch.zeros((f.shape[0], ks.BINS), device=DEV), torch.cat([i, i + 1], 1),
+                    torch.cat([1.0 - f, f], 1))
+            libs[case] = lambda both=both: torch.scatter_add(both[0], 1, both[1], both[2])
+            rows[case] = {"ms": _time_ms(lambda: ks.splat_launch(idx, f)),
+                          "plain_ms": _time_ms(lambda: ks.splat_plain(idx, f), iters=3),
+                          "library_ms": _time_ms(libs[case], iters=3)}
+        for case, (idx, f) in inputs.items():
+            row = rows[case]
+            row.update(device_ms=ps.device_ms(lambda: ks.splat_launch(idx, f), name="splat_"),
+                       library_device_ms=ps.device_ms(libs[case], iters=3, name=""),
+                       **_bound(4.0 * (2 * f.numel() + f.shape[0] * ks.BINS), 2.0 * f.numel()))
+            if row["device_ms"] is not None:
+                row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+            print(f"[times] splat {case}, {tuple(f.shape)} samples: {json.dumps(row)}",
+                  flush=True)
     return rows
 
 
@@ -1519,6 +1668,20 @@ def _sweep_extras(name: str, flow_row: dict, modes: dict, row_err: float) -> dic
     return extras
 
 
+# the line of the sums, P1 and the splat beside their event times: their
+# device times and bound shares; P1's launch floor; the splat's worst case
+SUM_EXTRAS = ("device_ms", "device_bound_share")
+P1_EXTRAS = ("device_ms", "empty_kernel_device_ms", "floor_bound_ms", "floor_bound_share")
+
+
+def _splat_extras(splat_rows: dict) -> dict:
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms")
+    return {"device_ms": splat_rows["make_pair"]["device_ms"],
+            "library_device_ms": splat_rows["make_pair"]["library_device_ms"],
+            "device_bound_share": splat_rows["make_pair"].get("device_bound_share"),
+            "constant_image": {k: splat_rows["constant"][k] for k in keys}}
+
+
 # K2's line beside its event time: its device time and the library call's,
 # the share of the bound, the share of blocks that staged their box
 K2_EXTRAS = ("device_ms", "library_device_ms", "bound_share", "staged_share")
@@ -1540,8 +1703,8 @@ def main() -> None:
     errs.update(phase_k2())
     errs.update(phase_k3())
     errs.update(phase_k2b())
-    probe_inputs = _probe_inputs()
-    probe_errs, probe_launches = phase_probes(probe_inputs)
+    probe_inputs, splat_inputs = _probe_inputs(), _splat_inputs()
+    probe_errs, probe_launches = phase_probes(probe_inputs, splat_inputs)
     errs.update(probe_errs)
     launches = phase_main_path()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1559,6 +1722,7 @@ def main() -> None:
     k3_row = phase_k3_times()["8->8 edge 118"]
     k2b_row = phase_k2b_times()
     probe_rows = phase_probe_times(probe_inputs)
+    splat_rows = phase_splat_times(splat_inputs)
     library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
     # per-launch times at the fine flow level's shape (240³, K=8, f32): its
     # flow form, with the dense launch and every form's row beside it
@@ -1572,7 +1736,8 @@ def main() -> None:
              "conv3d_dgrad": {"ms": k3_row["dgrad_ms"], "plain_ms": k3_row["plain_dgrad_ms"]},
              "conv3d_wgrad": {"ms": k3_row["dw_ms"], "plain_ms": k3_row["wgrad_plain_ms"]},
              "roigather": k2b_row,
-             **{name: probe_rows[name] for name in (*hg.KERNELS, "roi_fetch")}}
+             **{name: probe_rows[name] for name in (*hg.KERNELS, "roi_fetch")},
+             "splat": splat_rows["make_pair"]}
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (pw_bound)
@@ -1584,11 +1749,13 @@ def main() -> None:
                  for name in ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad")},
               "roigather": {k: k2b_row[k] for k in ("bound_ms", "bound_by")},
               **{name: {k: probe_rows[name][k] for k in ("bound_ms", "bound_by")}
-                 for name in (*hg.KERNELS, "roi_fetch")}}
+                 for name in (*hg.KERNELS, "roi_fetch")},
+              "splat": {k: splat_rows["make_pair"][k] for k in ("bound_ms", "bound_by")}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
                    conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
                    roigather=k2b_row["library_ms"],
-                   **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")})
+                   **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")},
+                   splat=splat_rows["make_pair"]["library_ms"])
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -1603,7 +1770,10 @@ def main() -> None:
                 "slab_sum": "one launch, P3: 13826 slabs (14, 16, 256) of [240, 240, 256]",
                 "slice_transpose": "one launch, P5: 4 tiles of a [32, 32, 256] slab; "
                                    "device_bound_size: 4096 tiles of [240, 240, 256]",
-                "roi_fetch": "one launch, 240^3 padded to 256^3, the probe's theta, T=13825"}
+                "roi_fetch": "one launch, 240^3 padded to 256^3, the probe's theta, T=13825",
+                "splat": "one launch, the default NMI's 8 x 1M samples of make_pair's moving "
+                         "image at 240^3 (resized to 200^3); library: one scatter_add of both "
+                         "terms; constant_image: one bin takes every sample"}
     timed_at["sweep_bwd"] = timed_at["sweep_fwd"]
     timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
     kernels = [
@@ -1617,6 +1787,11 @@ def main() -> None:
          **(_sweep_extras(name, flow_row, modes, errs["sweep_row_grad_rel"])
             if name.startswith("sweep") else {}),
          **(_copy_extras(name, probe_rows) if name in COPIES else {}),
+         **({k: probe_rows[name].get(k) for k in SUM_EXTRAS}
+            if name in ("slab_sum", "roi_fetch") else {}),
+         **({k: probe_rows[name].get(k) for k in P1_EXTRAS}
+            if name == "block_permute_add" else {}),
+         **(_splat_extras(splat_rows) if name == "splat" else {}),
          **({k: k2_times[name][k] for k in K2_EXTRAS} if name in k2_times else {})}
         for name in REPLACES
     ]

@@ -1,7 +1,7 @@
 """The port's config dataclasses: pinned to the port's engine signatures by
 introspection (the drift pin of ``tests/test_config.py``) and to the JAX
-package's dataclasses, field for field, except the JAX engines' unused
-``per``, which the port's engines do not take."""
+package's dataclasses, field for field (the matrix engines' ``per`` too,
+accepted and unused in both packages)."""
 import dataclasses
 import inspect
 
@@ -24,10 +24,10 @@ PAIRS = [(tcfg.RigidConfig, rigid_register, jcfg.RigidConfig),
          (tcfg.CascadeConfig, register_cascade, jcfg.CascadeConfig)]
 IDS = ["rigid", "affine", "flow", "cascade"]
 
-# JAX engine arguments the port's engines do not take: the unused `per`
+# JAX engine arguments the port's engines do not take: none
 NOT_PORTED = {
-    "RigidConfig": {"per"},
-    "AffineConfig": {"per"},
+    "RigidConfig": set(),
+    "AffineConfig": set(),
     "FlowConfig": set(),
     "CascadeConfig": set(),
 }

@@ -2,8 +2,10 @@
 against their plain versions, the port's cascades (field and U-Net flow) and
 criteria on the card against the same calls on the CPU, ``Register``'s
 default device, the U-Net cascade's repeat to the bit, both probe modules'
-``main`` and the one launch path (a launch under a side stream, a tensor on
-another device than the current one).
+``main``, the one launch path (a launch under a side stream, a tensor on
+another device than the current one), and the fixed-order kernels: the
+two-stage sums (P3, the ROI fetch) and the NMI splat, each equal to its
+order in torch ops to the bit.
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -784,10 +786,10 @@ def test_torch_cuda_compact_route_matches_k2(dev, shape, align, monkeypatch):
 
 
 def test_torch_cuda_nmi_loss_matches_cpu(dev):
-    """``nmi_loss`` (binned path, scatter-add splat) on the card against the
+    """``nmi_loss`` (binned path, the splat kernel) on the card against the
     CPU: value within 3e-5 and gradient within 3e-4 of its largest entry. The
     loss is 1000 |NMI - 1|, a difference of near-equal f32 numbers, and the
-    card's atomics sum the histogram in another order (the CPU tests hold
+    card's splat sums the histogram in another order (the CPU tests hold
     the CPU path to the JAX package at the same tolerances)."""
     from torchregister_tpu_torch.losses.nmi import nmi_loss
 
@@ -1093,3 +1095,165 @@ def test_torch_cuda_launch_on_another_device(dev):
         assert torch.cuda.current_device() == 0
     torch.cuda.synchronize(other)
     assert out.device == other and torch.equal(out, hg.slab_gather_plain(vol, orgs, 14, 16))
+
+
+# ---------------------------------------------------- the two-stage sums, splat
+
+# (kernel, volume shape, slabs or tiles, unaligned): P3 at X = 256 (float4)
+# and X = 100 (floats), one slab, more values of oy than its sort takes, an
+# unaligned volume; the fetch at one, two
+# and three folds a lane, one tile, an unaligned volume
+SUM_CASES = {"slab_sum_256": ("slab_sum", (60, 52, 256), 40, False),
+             "slab_sum_unsorted": ("slab_sum", (20, 4120, 8), 40, False),
+             "slab_sum_x100": ("slab_sum", (60, 52, 100), 40, False),
+             "slab_sum_one": ("slab_sum", (30, 31, 256), 1, False),
+             "slab_sum_unaligned": ("slab_sum", (30, 31, 256), 40, True),
+             "fetch_128": ("roi_fetch", (61, 54, 128), 40, False),
+             "fetch_256": ("roi_fetch", (61, 54, 256), 40, False),
+             "fetch_384": ("roi_fetch", (61, 54, 384), 40, False),
+             "fetch_one": ("roi_fetch", (48, 48, 256), 1, False),
+             "fetch_unaligned": ("roi_fetch", (48, 48, 256), 40, True)}
+
+
+def _sum_case(dev, case):
+    """(launch, ordered, plain, args, atol): origins from ``default_rng`` with
+    the last valid one (the last plane and row, the last block) put first,
+    so the one-slab and one-tile cases take it."""
+    import math
+
+    import numpy as np
+
+    from torchregister_tpu_torch.probes import checked_index
+    from torchregister_tpu_torch.probes import hatgather as hg
+    from torchregister_tpu_torch.probes import roi_stages as rs
+
+    kernel, shape, n, unaligned = SUM_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    if unaligned:
+        vol = torch.rand(math.prod(shape) + 1, generator=gen, device=dev)[1:].view(shape)
+        assert vol.is_contiguous() and vol.data_ptr() % 16 == 4
+    else:
+        vol = torch.rand(shape, generator=gen, device=dev)
+    rng = np.random.default_rng(n)
+    if kernel == "slab_sum":
+        Z, Y, _ = shape
+        hi = (Z - 14, Y - 16)
+        orgs = np.stack([rng.integers(0, hi[0] + 1, n), rng.integers(0, hi[1] + 1, n)], -1)
+        orgs[0] = hi
+        orgs = checked_index(orgs.astype(np.int32), (0, 1), hi, "orgs", dev)
+        return (hg.slab_sum_launch, hg.slab_sum_ordered, hg.slab_sum_plain,
+                (vol, orgs, 14, 16), hg.P3_ATOL)
+    hi = (shape[0] // 8 - 3, shape[1] // 8 - 3)
+    scal = np.zeros((n, 5), np.int32)
+    scal[:, 0], scal[:, 1] = rng.integers(0, hi[0] + 1, n), rng.integers(0, hi[1] + 1, n)
+    scal[0, :2] = hi
+    return (rs.roi_fetch_launch, rs.roi_fetch_ordered, rs.roi_fetch_plain,
+            (vol, rs.check_scalars(vol, scal)), rs.FETCH_ATOL)
+
+
+@pytest.mark.parametrize("case", list(SUM_CASES))
+def test_torch_cuda_sums_match_their_order_and_plain(dev, case):
+    """The two-stage ``slab_sum`` and ROI fetch equal their order in torch ops
+    (``slab_sum_ordered``, ``roi_fetch_ordered``, which the CPU tests hold to
+    the one-pass kernels' per-lane loops) to the bit, and their plain
+    versions within ``P3_ATOL`` and ``FETCH_ATOL``; two launches equal to
+    the bit. ``slab_sum_unsorted`` has more than 4096 values of oy, so its
+    slabs run in their own order, not sorted by oy."""
+    launch, ordered, plain, args, atol = _sum_case(dev, case)
+    out, again = launch(*args), launch(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, again)
+    assert torch.equal(out, ordered(*args))
+    torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+
+
+def test_torch_cuda_slab_sum_w_past_2_31(dev):
+    """``slab_sum``'s scratch ``W [Z, Y - 15, X]`` with more than 2^31
+    elements (2050 x 4096 x 256), as has the volume: slabs on the last valid
+    plane and row, and elsewhere, equal the torch order on the slab's own
+    sub-volume to the bit (``W``'s rows there depend only on those planes
+    and rows)."""
+    import numpy as np
+
+    from torchregister_tpu_torch.probes import checked_index
+    from torchregister_tpu_torch.probes import hatgather as hg
+
+    Z, Y, X = 2050, 4096 + 15, 256
+    assert Z * (Y - 15) * X > 2**31
+    vol = torch.rand((Z, Y, X), generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    orgs = np.array([[Z - 14, Y - 16], [Z - 14, 0], [0, Y - 16], [1021, 2047]], np.int32)
+    out = hg.slab_sum_launch(vol, checked_index(orgs, (0, 1), (Z - 14, Y - 16), "orgs", dev),
+                             14, 16)
+    torch.cuda.synchronize()
+    for t, (oz, oy) in enumerate(orgs):
+        sub = vol[oz:oz + 14, oy:oy + 16].contiguous()
+        want = hg.slab_sum_ordered(sub, torch.zeros((1, 2), dtype=torch.int32, device=dev),
+                                   14, 16)
+        assert torch.equal(out[t:t + 1], want), (oz, oy)
+    del vol, out
+    torch.cuda.empty_cache()
+
+
+def _splat_inputs(dev, kind):
+    """``(idx, f)`` as ``nmi_loss`` splats them at its default patch (the
+    image resized to 200³, 8 patches of 100³: 1 M samples a row, not a whole
+    number of the kernel's blocks): ``make_pair``'s moving image at 96³, or
+    a constant image (every sample in one bin, the kernel's worst case), on
+    the joint range of the pair."""
+    import importlib
+
+    from torchregister_tpu_torch.ops.resize import nearest_resize
+    from torchregister_tpu_torch.synthetic import make_pair
+
+    mov, tgt = make_pair((96,) * 3, device=dev)
+    img = mov if kind == "make_pair" else torch.full_like(mov, 0.37)
+    s = nearest_resize(img, (200,) * 3).reshape(8, -1)
+    lo, hi = torch.minimum(mov.min(), tgt.min()), torch.maximum(mov.max(), tgt.max())
+    # the package's ``losses`` exports a function named ``nmi`` over the module
+    tn = importlib.import_module("torchregister_tpu_torch.losses.nmi")
+    return tn._splat_weights(s, hi, lo)
+
+
+@pytest.mark.parametrize("kind", ["make_pair", "constant"])
+def test_torch_cuda_splat_matches_its_order_and_plain(dev, kind):
+    """The splat kernel equals its order in torch ops (``splat_ordered``) to
+    the bit, two launches equal each other, and the plain version (two
+    ``scatter_add``, atomics) lies within ``2 n u`` of each bin's mass (the
+    bound of any order of f32 additions of the bin's n terms, twice)."""
+    from torchregister_tpu_torch.ops.cuda import splat as ks
+
+    idx, f = _splat_inputs(dev, kind)
+    assert f.shape == (8, 10**6) and 10**6 % ks.CHUNK
+    out, again = ks.splat_launch(idx, f), ks.splat_launch(idx, f)
+    ref = ks.splat_plain(idx, f)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, ks.splat_ordered(idx, f))
+    i = idx.long()
+    n = torch.zeros_like(out).scatter_add(1, i, torch.ones_like(f)).scatter_add(
+        1, i + 1, torch.ones_like(f))
+    mass = torch.zeros_like(out).scatter_add(1, i, 1.0 - f).scatter_add(1, i + 1, f)
+    assert bool(((out - ref).abs() <= 2.0 * n * 2.0**-24 * mass * 1.001).all())
+    if kind == "constant":
+        assert int((out > 0).sum()) <= 16
+
+
+def test_torch_cuda_nmi_loss_repeats_to_the_bit(dev):
+    """The binned ``nmi_loss`` on the card launches the splat kernel (never
+    ``scatter_add``) and gives the same value and gradient twice, bit for
+    bit."""
+    from torchregister_tpu_torch.losses.nmi import nmi_loss
+    from torchregister_tpu_torch.ops.cuda import splat as ks
+    from torchregister_tpu_torch.synthetic import make_pair
+
+    mov, tgt = make_pair((64,) * 3, device=dev)
+    out = []
+    ks.reset_counts()
+    for _ in range(2):
+        p = (mov * mov).clone().requires_grad_(True)
+        loss = nmi_loss(tgt, p, bandwidth=0.05)
+        loss.backward()
+        out.append((loss.detach(), p.grad))
+    assert ks.launches == 4  # two marginals a call
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])

@@ -168,6 +168,28 @@ def test_torch_affine_register_sgd_matches_jax(pair):
     _cmp_matrix_results(tres, jres)
 
 
+@pytest.mark.parametrize("engine", ["rigid", "affine"])
+def test_torch_matrix_engines_accept_and_drop_per(pair, engine):
+    """``per=`` as the JAX engines take it (after ``epochs``, by keyword and
+    by position), accepted and unused: the call with ``per=0.3`` equals the
+    call without it to the bit (steps, losses, parameters, warped image),
+    and the JAX engine takes the same call."""
+    mov, tgt = pair
+    tfn, jfn = (t_rigid, j_rigid) if engine == "rigid" else (t_affine, j_affine)
+    kw = dict(criterions=["mse"], grad_edges=False, optimizer="sgd", max_shift=6,
+              check_window=False, **({"init": "identity"} if engine == "rigid" else {}))
+    w0, r0 = tfn(_t(mov), _t(tgt), lr=2e-3, epochs=6, **kw)
+    w1, r1 = tfn(_t(mov), _t(tgt), lr=2e-3, epochs=6, per=0.3, **kw)
+    w2, r2 = tfn(_t(mov), _t(tgt), 2e-3, 6, 0.3, **kw)
+    for w, r in ((w1, r1), (w2, r2)):
+        assert r.steps == r0.steps == 6
+        assert torch.equal(w, w0)
+        for name in ("losses", "best_params", "final_params", "param_history"):
+            assert torch.equal(getattr(r, name), getattr(r0, name)), name
+    _, jres = jfn(jnp.asarray(mov), jnp.asarray(tgt), lr=2e-3, epochs=6, per=0.3, **kw)
+    assert int(jres.steps) == r1.steps
+
+
 def test_torch_rigid_register_bf16_images(pair):
     """bf16 images (the recipe's matrix stages): the JAX sweep and its
     autodiff round every partial sum to bf16, the port's sums run in f32 and

@@ -12,13 +12,14 @@ import torch
 from torchregister_tpu_torch import native
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
 from torchregister_tpu_torch.ops.cuda import roigather as k2b
+from torchregister_tpu_torch.ops.cuda import splat as ksplat
 from torchregister_tpu_torch.ops.cuda import sweep as k1
 from torchregister_tpu_torch.ops.cuda import warp as k2
 from torchregister_tpu_torch.probes import hatgather as hg
 from torchregister_tpu_torch.probes import roi_stages as rs
 
 MODULES = {"sweep": k1, "warp": k2, "conv3d": k3, "roigather": k2b, "hatgather": hg,
-           "roi_fetch": rs}
+           "roi_fetch": rs, "splat": ksplat}
 
 
 def _c_params(source: str, name: str) -> list:

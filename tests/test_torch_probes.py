@@ -237,3 +237,90 @@ def test_torch_probe_slice_transpose_plain_matches_dynamic_slices(X, lanes):
     want = _jax_slice_transpose(slab, starts, Bz, By, CW, lanes)
     assert got.shape == (5, CW, lanes)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------ the two-stage sums' order of adds
+
+
+def _fetch_parent_loop(volp, scal):
+    """The one-pass fetch kernel's per-lane loop (before the two stages), in
+    torch ops over every tile and lane at once: for each of the nine blocks
+    in the order (i, j), its z planes, each plane's y rows and each row's
+    folds, each add an f32 add."""
+    T, Xp = scal.shape[0], volp.shape[2]
+    zq, yq = scal[:, 0].long(), scal[:, 1].long()
+    acc = torch.zeros((T, 128))
+    for i in range(3):
+        for j in range(3):
+            blk = torch.zeros((T, 128))
+            for z in range(8):
+                plane = torch.zeros((T, 128))
+                for y in range(8):
+                    row = volp[8 * (zq + i) + z, 8 * (yq + j) + y]
+                    for h in range(Xp // 128):
+                        plane = plane + row[:, 128 * h:128 * (h + 1)]
+                blk = blk + plane
+            acc = acc + blk
+    return acc[:, None, :]
+
+
+@pytest.mark.parametrize("Xp", [128, 256, 384])
+def test_torch_probe_fetch_two_stages_keep_the_one_pass_order(Xp):
+    """``roi_fetch_ordered`` (block sums, then each tile's nine) equals the
+    one-pass kernel's per-lane loop to the bit, at one, two and three folds
+    a lane, on a volume whose z and y extents are not whole blocks, with
+    tiles at block origin (0, 0), at the last valid one and in between; and
+    it stays within ``FETCH_ATOL`` of the plain version."""
+    gen = torch.Generator().manual_seed(Xp)
+    volp = torch.rand((61, 54, Xp), generator=gen)
+    rng = np.random.default_rng(Xp)
+    scal = np.zeros((23, 5), np.int32)
+    scal[:, 0] = rng.integers(0, 61 // 8 - 3 + 1, 23)
+    scal[:, 1] = rng.integers(0, 54 // 8 - 3 + 1, 23)
+    scal[0, :2], scal[-1, :2] = (0, 0), (61 // 8 - 3, 54 // 8 - 3)
+    scal = rs.check_scalars(volp, scal)
+    got = rs.roi_fetch_ordered(volp, scal)
+    assert torch.equal(got, _fetch_parent_loop(volp, scal))
+    torch.testing.assert_close(got, rs.roi_fetch_plain(volp, scal), rtol=0,
+                               atol=rs.FETCH_ATOL)
+
+
+def test_torch_probe_fetch_two_stages_at_the_probes_scalars():
+    """The same to the bit on the probe's own scalars at 48³ (the JAX
+    package's ``_roi_supports`` of its rigid theta)."""
+    _, _, scal, volp = rs.stage_inputs(48, torch.device("cpu"))
+    scal = rs.check_scalars(volp, scal)
+    assert torch.equal(rs.roi_fetch_ordered(volp, scal), _fetch_parent_loop(volp, scal))
+
+
+def _slab_sum_parent_loop(vol, orgs, Bz, By, rows=8):
+    """The one-pass ``slab_sum`` kernel's per-lane loop, in torch ops over
+    every slab and lane at once: each z plane's By rows in ascending y, the
+    planes in ascending z."""
+    oz, oy = orgs[:, 0].long(), orgs[:, 1].long()
+    acc = torch.zeros((orgs.shape[0], vol.shape[2]))
+    for z in range(Bz):
+        plane = torch.zeros_like(acc)
+        for y in range(By):
+            plane = plane + vol[oz + z, oy + y]
+        acc = acc + plane
+    return acc[:, None, :].expand(-1, rows, -1)
+
+
+@pytest.mark.parametrize("X, Bz, By", [(256, 14, 16), (100, 14, 16), (36, 3, 5)])
+def test_torch_probe_slab_sum_two_stages_keep_the_one_pass_order(X, Bz, By):
+    """``slab_sum_ordered`` (``W`` at every (z, oy), then each slab's Bz rows
+    of it) equals the one-pass kernel's per-lane loop to the bit, with slabs
+    at (0, 0), on the last valid plane and row, and at ``default_rng``
+    origins; and it stays within ``P3_ATOL`` of the plain version."""
+    Z, Y = 30, 41
+    gen = torch.Generator().manual_seed(X + By)
+    vol = torch.rand((Z, Y, X), generator=gen)
+    orgs = np.concatenate([hg.p3_origins(Z, 29, Bz, By) % [Z - Bz + 1, Y - By + 1],
+                           [[0, 0], [Z - Bz, Y - By], [Z - Bz, 0]]]).astype(np.int32)
+    orgs = checked_index(orgs, (0, 1), (Z - Bz, Y - By), "orgs", torch.device("cpu"))
+    got = hg.slab_sum_ordered(vol, orgs, Bz, By)
+    assert got.shape == (32, 8, X)
+    assert torch.equal(got, _slab_sum_parent_loop(vol, orgs, Bz, By))
+    torch.testing.assert_close(got, hg.slab_sum_plain(vol, orgs, Bz, By), rtol=0,
+                               atol=hg.P3_ATOL)

@@ -8,9 +8,9 @@
 
 ``tests/test_torch_config.py`` pins each dataclass to its engine's signature
 by introspection, and to the JAX package's dataclass. The fields are the
-port's engine arguments: the JAX engines' unused ``per`` is not a field here,
-nor are the engines' random generators, which stand where the JAX engines
-take a ``key``.
+port's engine arguments, the matrix engines' unused ``per`` among them as in
+the JAX package; the engines' random generators, which stand where the JAX
+engines take a ``key``, are not fields.
 
 Usage::
 
@@ -37,6 +37,7 @@ class RigidConfig:
 
     lr: float = 1e-5
     epochs: int = 1000
+    per: float = 0.1  # accepted and unused, as by the reference
     criterions: Any = None  # None -> the reference MSE+NCC+NMI stack
     weights: Any = None
     grad_edges: bool = True  # engine-layer default
@@ -61,6 +62,7 @@ class AffineConfig:
 
     lr: float = 1e-5
     epochs: int = 1000
+    per: float = 0.1
     criterions: Any = None
     weights: Any = None
     grad_edges: bool = True  # engine-layer default

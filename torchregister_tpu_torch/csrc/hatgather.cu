@@ -23,12 +23,11 @@
 // and the host's launch path, see native.Library.launch) is their floor. P3
 // is a gather at the exact warp's real size: 13824 slabs of 14 x 16 rows of
 // 1 KB from a 240 x 240 x 256 volume (59 MB), which overlap about 54-fold
-// (3.17 GB of logical reads). Its bound counts the volume read once and the
-// 113 MB output written once; how close it comes shows how much of the
-// overlap L2 (50 MB) serves. At a device-bound size the copies are bound by
-// their bytes: slab_gather by its output (1728 slabs (14, 16, 256) of a
-// 240 x 240 x 256 volume write 396 MB), slice_transpose by its scattered
-// 64-byte window reads and its output.
+// (3.17 GB of logical reads). Its bound counts the rows the slabs touch read
+// once and the 113 MB output written once. At a device-bound size the copies
+// are bound by their bytes: slab_gather by its output (1728 slabs (14, 16,
+// 256) of a 240 x 240 x 256 volume write 396 MB), slice_transpose by its
+// scattered 64-byte window reads and its output.
 //
 // Design. slab_gather: each (slab t, plane z) is one contiguous run of By*X
 // floats (a slab spans the whole x extent), so a block row copies one run
@@ -38,9 +37,21 @@
 // in the C function. A thread moves four elements when the runs alone give
 // the card's 132 SMs a few blocks each, one otherwise (the probes' 84 and 80
 // runs), so both sizes fill the card. block_permute_add: one block per row
-// block, 1024 threads along the rows, plus 1. slab_sum: one block per slab, one thread per x
-// lane, each summing its lane over the slab's rows in a fixed order in f32
-// (each z plane's By rows, then the planes), so a run repeats to the bit.
+// block, 1024 threads along the rows, plus 1. slab_sum: each lane's sum in
+// one fixed order in f32 (each z plane's By rows in ascending y, then the
+// planes in ascending z), so a run repeats to the bit, in two stages that
+// read the volume once instead of 54 times. A z plane's sum over By rows
+// depends only on (z, oy), so stage 1 writes W[z, oy, :] for every oy into a
+// [Z, Y - By + 1, X] scratch from the wrapper (55 MB at P3's size): a
+// thread keeps kSumOut consecutive windows of one x unit in registers and
+// reads each row of their span once. Stage 2 adds each slab's Bz rows of W
+// and writes its R rows with streaming stores. W is larger than L2, and
+// slabs at random origins reread much of it from device memory; so stage
+// 1's first block also sorts the slabs into buckets of oy (a counting sort
+// in shared memory, beside the other blocks' work), and stage 2 runs the
+// slabs bucket by bucket: the slabs of one oy read the same rows of W side
+// by side. Both stages take float4 units when X % 4 == 0 and the pointers
+// are 16-byte aligned, floats otherwise.
 // slice_transpose: the TPU reached the transpose with a one-hot matmul on its
 // matrix unit; here a block stages its (Bz*By) x CW window in shared memory
 // with scalar reads along x (ox is element-granular, so the reads cannot be
@@ -62,7 +73,6 @@
 
 namespace {
 
-constexpr int kLanes = 256;        // slab_sum: one thread per x lane (X <= 256 in one pass)
 constexpr int kPermuteThreads = 1024;  // block_permute_add: a row block in a few passes
 constexpr int kCopyThreads = 256;  // slab_gather's blocks; slice_transpose's on a full card
 constexpr int kFewThreads = 1024;  // slice_transpose's blocks when its tiles are few
@@ -83,6 +93,19 @@ constexpr int kFillBlocks = 2 * 132;  // two blocks on each of the H100's SMs
 #ifndef TRANSPOSE_REG_CAP
 #define TRANSPOSE_REG_CAP 1
 #endif
+// slab_sum: the windows a thread of stage 1 sums, and whether stage 1 also
+// sorts the slabs by oy for stage 2 (probes/profile_sums.py builds the other
+// values beside these)
+#ifndef SLAB_SUM_OUT
+#define SLAB_SUM_OUT 2
+#endif
+#ifndef SLAB_SUM_SORT
+#define SLAB_SUM_SORT 1
+#endif
+constexpr int kSumOut = SLAB_SUM_OUT;
+constexpr int kRowsX = 32, kRowsG = 8;  // stage 1's block: 32 x units by 8 window runs
+constexpr bool kSortSlabs = SLAB_SUM_SORT;
+constexpr int kSortBins = 4096;  // the sort's counts in 16 KB of shared memory
 constexpr int kMaxGridY = 65535;
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -119,23 +142,110 @@ slab_gather_kernel(const T* __restrict__ vol, const int* __restrict__ orgs,
     if (e0 + k * kCopyThreads < run) __stcs(dst + e0 + k * kCopyThreads, v[k]);
 }
 
-__global__ void slab_sum_kernel(const float* __restrict__ vol, const int* __restrict__ orgs,
-                                float* __restrict__ out, int Y, int X, int Bz, int By,
-                                int R) {
-  const int t = blockIdx.x;
-  const int oz = __ldg(orgs + 2 * t), oy = __ldg(orgs + 2 * t + 1);
-  for (int x = threadIdx.x; x < X; x += blockDim.x) {
-    const float* p = vol + ((long long)oz * Y + oy) * X + x;
-    float acc = 0.0f;
-    for (int z = 0; z < Bz; ++z) {
-      float plane = 0.0f;
-#pragma unroll 4
-      for (int y = 0; y < By; ++y) plane += __ldg(p + ((long long)z * Y + y) * X);
-      acc += plane;
+__device__ __forceinline__ void add_to(float& a, const float b) { a += b; }
+__device__ __forceinline__ void add_to(float4& a, const float4 b) {
+  a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+}
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ float4 zero<float4>() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+
+// The slabs in buckets of oy, written to order (stage 1's block 0, its
+// kRowsX * kRowsG threads): counts in shared memory, their exclusive scan
+// by one warp, then each slab's place taken with an atomic. The order of
+// slabs within a bucket changes from run to run; no output bit depends on
+// it (each slab's sum is its own).
+__device__ void sort_by_oy(const int* __restrict__ orgs, int* __restrict__ order, int T, int Yo,
+                           int* cnt) {
+  const int tid = threadIdx.y * kRowsX + threadIdx.x, nt = kRowsX * kRowsG;
+  for (int i = tid; i < Yo; i += nt) cnt[i] = 0;
+  __syncthreads();
+  for (int t = tid; t < T; t += nt) atomicAdd(&cnt[__ldg(orgs + 2 * t + 1)], 1);
+  __syncthreads();
+  if (tid < 32) {
+    const int per = (Yo + 31) / 32, lo = min(tid * per, Yo), hi = min(lo + per, Yo);
+    int sum = 0;
+    for (int i = lo; i < hi; ++i) sum += cnt[i];
+    int incl = sum;
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (tid >= d) incl += v;
     }
-    float* dst = out + (long long)t * R * X + x;
-    for (int r = 0; r < R; ++r) dst[r * X] = acc;
+    int run = incl - sum;
+    for (int i = lo; i < hi; ++i) {
+      const int c = cnt[i];
+      cnt[i] = run;
+      run += c;
+    }
   }
+  __syncthreads();
+  for (int t = tid; t < T; t += nt) order[atomicAdd(&cnt[__ldg(orgs + 2 * t + 1)], 1)] = t;
+}
+
+// slab_sum, stage 1: W[z, oy, :] = the sum of vol[z, oy + y, :] over y < By
+// in ascending y, for every oy < Yo = Y - By + 1. A 1-D grid: block 0 sorts
+// the slabs by oy when sort is set; block 1 + (z * gy + by) * gx + bx's
+// thread (xv, g) takes x unit bx * kRowsX + xv and the kSumOut windows from
+// oy = (by * kRowsG + g) * kSumOut: it reads each row of their span once and
+// adds it to each window that holds it, each window's adds in ascending y.
+template <typename T>
+__global__ void __launch_bounds__(kRowsX * kRowsG)
+slab_sum_rows_kernel(const T* __restrict__ vol, T* __restrict__ W, const int* __restrict__ orgs,
+                     int* __restrict__ order, bool sort, int nslabs, int Y, int Xv, int By,
+                     int Yo, int gx, int gy) {
+  extern __shared__ int cnt[];  // [Yo] in the sorting block
+  if (blockIdx.x == 0) {
+    if (sort) sort_by_oy(orgs, order, nslabs, Yo, cnt);
+    return;
+  }
+  const int b = blockIdx.x - 1;
+  const int bx = b % gx, by = (b / gx) % gy, z = b / (gx * gy);
+  const int xv = bx * kRowsX + threadIdx.x;
+  const int o = (by * kRowsG + threadIdx.y) * kSumOut;
+  if (xv >= Xv || o >= Yo) return;
+  const int n = min(kSumOut, Yo - o);
+  const T* src = vol + ((long long)z * Y + o) * Xv + xv;
+  T acc[kSumOut];
+#pragma unroll
+  for (int j = 0; j < kSumOut; ++j) acc[j] = zero<T>();
+  const int rows = n + By - 1;
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) {
+    const T v = __ldg(src + (long long)r * Xv);
+#pragma unroll
+    for (int j = 0; j < kSumOut; ++j)
+      if (r >= j && r - j < By) add_to(acc[j], v);
+  }
+  T* dst = W + ((long long)z * Yo + o) * Xv + xv;
+#pragma unroll
+  for (int j = 0; j < kSumOut; ++j)
+    if (j < n) dst[(long long)j * Xv] = acc[j];
+}
+
+// slab_sum, stage 2: out[t, r, :] = the sum of W[oz_t + z, oy_t, :] over
+// z < Bz in ascending z, for every r < R, with streaming stores. Thread e
+// takes x unit e % Xv of slab order[e / Xv] (e / Xv without order), so that
+// the slabs of one oy, which read the same rows of W, run side by side.
+template <typename T>
+__global__ void __launch_bounds__(kCopyThreads)
+slab_sum_slabs_kernel(const T* __restrict__ W, const int* __restrict__ orgs,
+                      const int* __restrict__ order, T* __restrict__ out, long long n, int Yo,
+                      int Xv, int Bz, int R) {
+  const long long e = (long long)blockIdx.x * kCopyThreads + threadIdx.x;
+  if (e >= n) return;
+  const int i = (int)(e / Xv), xv = (int)(e - (long long)i * Xv);
+  const int t = order ? __ldg(order + i) : i;
+  const int oz = __ldg(orgs + 2 * t), oy = __ldg(orgs + 2 * t + 1);
+  const long long step = (long long)Yo * Xv;
+  const T* w = W + ((long long)oz * Yo + oy) * Xv + xv;
+  T acc = zero<T>();
+#pragma unroll 7
+  for (int z = 0; z < Bz; ++z) add_to(acc, __ldg(w + z * step));
+  T* dst = out + (long long)t * R * Xv + xv;
+  for (int r = 0; r < R; ++r) __stcs(dst + (long long)r * Xv, acc);
 }
 
 template <bool kVec, int kThreads>
@@ -196,6 +306,25 @@ int gather_runs(const void* vol, const void* orgs, void* out, long long runs, lo
   return done();
 }
 
+template <typename T>
+int sum_slabs(const void* vol, const void* orgs, void* W, void* order, void* out, int T_, int Z,
+              int Y, int Xv, int Bz, int By, int R, cudaStream_t stream) {
+  const int Yo = Y - By + 1;
+  const int gx = (Xv + kRowsX - 1) / kRowsX, gy = (Yo + kRowsG * kSumOut - 1) / (kRowsG * kSumOut);
+  const long long blocks = 1 + (long long)gx * gy * Z;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const bool sort = kSortSlabs && Yo <= kSortBins && T_ > 1;
+  slab_sum_rows_kernel<T><<<(unsigned)blocks, dim3(kRowsX, kRowsG), sort ? Yo * sizeof(int) : 0,
+                            stream>>>((const T*)vol, (T*)W, (const int*)orgs, (int*)order, sort,
+                                      T_, Y, Xv, By, Yo, gx, gy);
+  const long long n = (long long)T_ * Xv;
+  slab_sum_slabs_kernel<T><<<(unsigned)((n + kCopyThreads - 1) / kCopyThreads), kCopyThreads, 0,
+                             stream>>>((const T*)W, (const int*)orgs,
+                                       sort ? (const int*)order : nullptr, (T*)out, n, Yo, Xv,
+                                       Bz, R);
+  return done();
+}
+
 template <bool kVec, int kThreads>
 int transpose(const void* slab, const void* starts, void* out, int T, int SY, int X, int Bz,
               int By, int CW, int L, size_t smem, cudaStream_t stream) {
@@ -239,13 +368,19 @@ extern "C" int slab_gather(const void* vol, const void* orgs, void* out, int T, 
               : gather_runs<float, 1>(vol, orgs, out, runs, run, Y, Xv, Bz, By, s);
 }
 
-// vol [Z, Y, X], orgs [T, 2] -> out [T, R, X]
-extern "C" int slab_sum(const void* vol, const void* orgs, void* out, int T, int Y, int X,
-                        int Bz, int By, int R, void* stream) {
+// vol [Z, Y, X], orgs [T, 2] -> out [T, R, X], through the scratch W
+// [Z, Y - By + 1, X] (16-byte aligned) and order [T] (int32, the slabs in
+// buckets of oy; not read where Y - By + 1 > 4096, and the slabs run in
+// their own order); cudaErrorInvalidValue, launching nothing, for By > Y,
+// an unaligned W or a grid past the card's limits
+extern "C" int slab_sum(const void* vol, const void* orgs, void* W, void* order, void* out,
+                        int T, int Z, int Y, int X, int Bz, int By, int R, void* stream) {
   if ((long long)T * R * X == 0) return 0;
-  slab_sum_kernel<<<T, kLanes, 0, (cudaStream_t)stream>>>(
-      (const float*)vol, (const int*)orgs, (float*)out, Y, X, Bz, By, R);
-  return done();
+  if (Y - By + 1 <= 0 || !aligned16(W)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (X % 4 == 0 && aligned16(vol) && aligned16(out))
+    return sum_slabs<float4>(vol, orgs, W, order, out, T, Z, Y, X / 4, Bz, By, R, s);
+  return sum_slabs<float>(vol, orgs, W, order, out, T, Z, Y, X, Bz, By, R, s);
 }
 
 // slab [SZ, SY, X], starts [T, 3] -> out [T, CW, L], L >= Bz * By

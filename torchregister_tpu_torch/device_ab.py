@@ -75,10 +75,11 @@ def bind(lib: Path, entries: dict) -> dict:
 
 
 def in_turns(calls: dict, order) -> dict:
-    """``calls``: ``{(case, build): (call, kernel)}``, each call one launch.
-    Every call timed with CUDA events (``ms``, host included) and then with
-    ``torch.profiler`` (``device_ms``: the spans of kernels whose names hold
-    ``<kernel>_kernel``), each pass over the builds in ``order`` and then
+    """``calls``: ``{(case, build): (call, name)}``, each call one launch
+    (of one kernel or of a few in sequence). Every call timed with CUDA
+    events (``ms``, host included) and then with ``torch.profiler``
+    (``device_ms``: the spans of the kernels whose names hold ``name``,
+    summed a call), each pass over the builds in ``order`` and then
     reversed, so each gets two readings; every event timing comes before any
     profiler session (a session slows later launches on the host).
     Returns ``{case: {"ms": {build: [a, b]}, "device_ms": {...}}}``."""
@@ -93,5 +94,5 @@ def in_turns(calls: dict, order) -> dict:
     for name in turns:
         for (case, n), (call, kernel) in calls.items():
             if n == name:
-                rows[case]["device_ms"][name].append(ps.device_ms(call, name=f"{kernel}_kernel"))
+                rows[case]["device_ms"][name].append(ps.device_ms(call, name=kernel))
     return rows

@@ -25,6 +25,7 @@ def affine_register(
     target: torch.Tensor,
     lr: float = 1e-5,
     epochs: int = 1000,
+    per: float = 0.1,
     criterions=None,
     weights=None,
     grad_edges: bool = True,
@@ -40,7 +41,9 @@ def affine_register(
     """Register ``moving [1,1,*S]`` onto ``target`` with a full affine
     matrix; returns ``(warped_best, result)``. ``init_theta`` (``[1, d,
     d+1]`` or flat) warm-starts, identity by default. ``method`` and
-    ``progress_every`` as in :func:`rigid_register`."""
+    ``progress_every`` as in :func:`rigid_register`; ``per`` is accepted and
+    unused, as there."""
+    del per
     if grad_edges:
         moving = edge_filter(moving)
         target = edge_filter(target)

@@ -38,6 +38,7 @@ def rigid_register(
     target: torch.Tensor,
     lr: float = 1e-5,
     epochs: int = 1000,
+    per: float = 0.1,
     criterions=None,
     weights=None,
     grad_edges: bool = True,
@@ -57,7 +58,9 @@ def rigid_register(
     by default the windows cover the concrete init theta. Under
     ``method='exact'`` the loop warps with ``ops/resample.warp_affine`` and
     ``warped_best`` comes from K2 (``warp_affine_fast``).
-    ``progress_every=N`` prints progress every N steps."""
+    ``progress_every=N`` prints progress every N steps. ``per`` is accepted
+    for the reference's signature and unused, as in the JAX package."""
+    del per
     if grad_edges:
         moving = edge_filter(moving)
         target = edge_filter(target)

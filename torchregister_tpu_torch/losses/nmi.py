@@ -20,9 +20,13 @@ Two density paths, as in the JAX package: the exact per-voxel KDE
 binned KDE (:func:`kde_pdf_binned`), a linear splat onto 1024 fine bins and
 one small kernel contraction. The JAX package writes the splat as two-level
 one-hot MXU products with a split-bf16 custom VJP, because a scatter
-serializes on a TPU; here it is one ``scatter_add_`` of the two splat weights,
-whose autograd backward (a gather of the cotangent at each voxel's bins) is
-the JAX VJP's f32 product. The auto dispatch (``bandwidth >= 4 * fine bin``)
+serializes on a TPU; here it is ``ops/cuda/splat.splat``: on the card a
+hand-written kernel that adds each bin's terms in an order fixed by the
+samples' positions, so a run repeats to the bit (a ``scatter_add`` there adds
+with float atomics in no fixed order), and on the CPU ``scatter_add`` a
+block of samples.
+Its backward, a gather of the cotangent at each voxel's bins, is the JAX
+VJP's f32 product. The auto dispatch (``bandwidth >= 4 * fine bin``)
 depends on the data: JAX takes it with a ``lax.cond`` on the device, here it
 is read on the host, one device sync per call (:func:`_binned_ok`), and
 counted in ``branch_calls``.
@@ -38,11 +42,12 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.cuda.splat import BINS, splat
 from ..ops.resize import nearest_resize
 
 EPSILON = 1e-10
 _INV_2PI = 1.0 / (2.0 * math.pi)
-_FINE_BINS = 1024  # binned-KDE splat grid
+_FINE_BINS = BINS  # binned-KDE splat grid, the splat kernel's
 # nmi() calls by the density path its host-read branch took
 branch_calls = {"binned": 0, "exact": 0}
 
@@ -102,22 +107,27 @@ def kde_pdf(signals: torch.Tensor, xis: torch.Tensor, bandwidth: float,
     return acc / (h * L)
 
 
-def _binned_histogram(signals: torch.Tensor, x0: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
-    """Linear-splat soft histogram of ``signals [N, L]`` onto ``_FINE_BINS``
+def _splat_weights(signals: torch.Tensor, x0: torch.Tensor,
+                   xe: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each sample's lower fine bin ``idx`` (int32, in ``[0, G - 2]``) and
+    its weight ``f`` on ``idx + 1`` for the splat onto ``_FINE_BINS``
     uniform bins from ``x0`` to ``xe`` (descending here: ``delta`` is
-    negative). Differentiable in ``signals`` through the splat weight ``f``."""
-    n, L = signals.shape
+    negative); ``f`` carries the gradient (d floor = 0)."""
     G = _FINE_BINS
     den = xe - x0
     den = torch.where(torch.abs(den) > 0, den, torch.ones_like(den))
     delta = den / (G - 1)
     p = _clip((signals - x0) / delta, 0.0, G - 1.0)
     i0 = _clip(torch.floor(p), 0.0, G - 2.0)
-    f = p - i0
-    idx = i0.to(torch.int64)
-    out = torch.zeros((n, G), dtype=torch.float32, device=signals.device)
-    out = out.scatter_add(1, idx, 1.0 - f)
-    return out.scatter_add(1, idx + 1, f)
+    return i0.to(torch.int32), p - i0
+
+
+def _binned_histogram(signals: torch.Tensor, x0: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
+    """Linear-splat soft histogram of ``signals [N, L]`` onto ``_FINE_BINS``
+    uniform bins from ``x0`` to ``xe``, differentiable in ``signals``
+    through the splat weight. On the card the splat is the fixed-order
+    kernel (``ops/cuda/splat``)."""
+    return splat(*_splat_weights(signals, x0, xe))
 
 
 def _density_from_hist(H: torch.Tensor, x0, xe, xis: torch.Tensor, bandwidth: float,

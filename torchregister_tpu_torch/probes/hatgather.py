@@ -12,7 +12,9 @@ which the kernels here compute directly (see ``csrc/hatgather.cu``):
 - :func:`slab_gather` (P2 and P4): the ``(Bz, By, X)`` slabs of a volume at
   element-granular ``(z, y)`` origins;
 - :func:`slab_sum` (P3): each slab summed over ``z`` and ``y``, broadcast to
-  ``rows`` rows;
+  ``rows`` rows (the kernel first sums By rows at every (z, oy), then each
+  slab's Bz of those, the slabs of one oy side by side;
+  :func:`slab_sum_ordered` is its order in torch ops);
 - :func:`slice_transpose` (P5): a ``(Bz, By)`` slice of a slab as
   ``Bz*By`` rows, its ``CW`` x-columns from ``ox`` transposed to
   ``[CW, lanes]``, zeros past ``Bz*By``.
@@ -52,10 +54,11 @@ F32, I32 = torch.float32, torch.int32
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# each entry: the inputs' and the output's pointers, its ints, the stream
+# each entry: the inputs', the scratch's (slab_sum) and the output's
+# pointers, its ints, the stream
 LIB = native.Library(SOURCE, "hatgather", {
-    **{name: (_I, [_P] * 3 + [_I] * n_int + [_P])
-       for name, n_int in zip(KERNELS, (3, 5, 6, 7))},
+    **{name: (_I, [_P] * n_ptr + [_I] * n_int + [_P])
+       for name, n_ptr, n_int in zip(KERNELS, (3, 3, 5, 3), (3, 5, 7, 7))},
     "empty_launch": (_I, [_I, _P]),  # the launch floor (chip_smoke.py's launch path)
 })
 
@@ -148,14 +151,42 @@ def slab_gather(vol: torch.Tensor, orgs, Bz: int, By: int) -> torch.Tensor:
 
 def slab_sum_launch(vol: torch.Tensor, orgs: torch.Tensor, Bz: int, By: int,
                     rows: int = 8) -> torch.Tensor:
-    T, (_, Y, X) = orgs.shape[0], vol.shape
-    return _launch("slab_sum", (T, rows, X), vol, orgs, (T, Y, X, Bz, By, rows))
+    """The two-stage kernel; its scratch, ``W [Z, Y - By + 1, X]`` (the
+    By-row sums at every (z, oy)) and the slabs' order by oy ``[T]``, is
+    allocated here."""
+    T, (Z, Y, X) = orgs.shape[0], vol.shape
+    native.check_operands("slab_sum", (vol, F32), (orgs, I32))
+    W = vol.new_empty((Z, Y - By + 1, X))
+    order = orgs.new_empty((T,))
+    out = vol.new_empty((T, rows, X))
+    LIB.launch("slab_sum", vol, vol.data_ptr(), orgs.data_ptr(), W.data_ptr(), order.data_ptr(),
+               out.data_ptr(), T, Z, Y, X, Bz, By, rows)
+    launches["slab_sum"] += 1
+    return out
 
 
 def slab_sum_plain(vol: torch.Tensor, orgs: torch.Tensor, Bz: int, By: int,
                    rows: int = 8) -> torch.Tensor:
     s = slab_gather_plain(vol, orgs, Bz, By).sum(dim=(1, 2))
     return s[:, None, :].expand(-1, rows, -1).contiguous()
+
+
+def slab_sum_ordered(vol: torch.Tensor, orgs: torch.Tensor, Bz: int, By: int,
+                     rows: int = 8) -> torch.Tensor:
+    """The kernel's two stages in torch ops, each add an f32 add of the
+    kernel's, in its order: ``W[z, oy]``, the By rows from ``oy`` in
+    ascending y, at every (z, oy); then each slab's Bz rows of ``W`` in
+    ascending z. Equal to the kernel to the bit on any device."""
+    Z, Y, X = vol.shape
+    Yo = Y - By + 1
+    W = torch.zeros((Z, Yo, X), dtype=torch.float32, device=vol.device)
+    for y in range(By):
+        W = W + vol[:, y:y + Yo]
+    oz, oy = orgs[:, 0].long(), orgs[:, 1].long()
+    acc = torch.zeros((orgs.shape[0], X), dtype=torch.float32, device=vol.device)
+    for z in range(Bz):
+        acc = acc + W[oz + z, oy]
+    return acc[:, None, :].expand(-1, rows, -1).contiguous()
 
 
 def slab_sum(vol: torch.Tensor, orgs, Bz: int, By: int, rows: int = 8) -> torch.Tensor:

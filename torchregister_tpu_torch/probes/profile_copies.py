@@ -135,7 +135,7 @@ def main(argv=None) -> dict:
             if not torch.equal(out, plain):
                 raise AssertionError(f"{name}'s {kernel} differs from its plain version "
                                      f"at {case}")
-            calls[case, name] = call, kernel
+            calls[case, name] = call, f"{kernel}_kernel"
             outs.append(out)  # each output lives as long as its call
     rows = ab.in_turns(calls, order)
     for case, row in rows.items():

@@ -13,7 +13,9 @@ probe pads it (256^3):
 - "fused": K2's affine mode, the whole warp (``ops/blocked.warp_affine_fast``);
 - "fetch only": :func:`roi_fetch`, K2b's quantized fetch without the
   restack: per tile, the nine (8, 8, Xp) blocks at block origins
-  ``(zq + i, yq + j)``, ``i, j < 3``, summed and folded to 128 lanes.
+  ``(zq + i, yq + j)``, ``i, j < 3``, summed and folded to 128 lanes. The
+  kernel sums each block once, then adds each tile's nine block sums
+  (:func:`roi_fetch_ordered` is its order in torch ops).
 
 :func:`roi_fetch` checks ``(zq, yq)`` on the host and dispatches by device:
 the plain version for a CPU tensor, the kernel for a CUDA tensor, otherwise
@@ -47,7 +49,7 @@ FETCH_ATOL = 5e-4
 launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-LIB = native.Library(SOURCE, "roi_fetch", {"roi_fetch": (_I, [_P, _P, _P, _I, _I, _I, _P])})
+LIB = native.Library(SOURCE, "roi_fetch", {"roi_fetch": (_I, [_P] * 4 + [_I] * 4 + [_P])})
 
 
 def reset_counts() -> None:
@@ -61,9 +63,11 @@ def roi_fetch_launch(volp: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
     global launches
     native.check_operands("roi_fetch", (volp, torch.float32), (scal, torch.int32))
     T = scal.shape[0]
-    _, Yp, Xp = volp.shape
-    out = torch.empty((T, 1, LANES), dtype=torch.float32, device=volp.device)
-    LIB.launch("roi_fetch", volp, volp.data_ptr(), scal.data_ptr(), out.data_ptr(), T, Yp, Xp)
+    Zp, Yp, Xp = volp.shape
+    blk = volp.new_empty(((Zp // QB) * (Yp // QB) * LANES,))  # stage 1's block sums
+    out = volp.new_empty((T, 1, LANES))
+    LIB.launch("roi_fetch", volp, volp.data_ptr(), scal.data_ptr(), blk.data_ptr(),
+               out.data_ptr(), T, Zp, Yp, Xp)
     launches += 1
     return out
 
@@ -81,6 +85,30 @@ def roi_fetch_plain(volp: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
             y = (QB * (yq + j))[:, None] + r
             acc = acc + volp[z[:, :, None], y[:, None, :]].sum(dim=(1, 2))
     return acc.reshape(T, Xp // LANES, LANES).sum(dim=1)[:, None, :]
+
+
+def roi_fetch_ordered(volp: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
+    """The kernel's two stages in torch ops, each add an f32 add of the
+    kernel's, in its order: every 8-block's sum (each z plane's y rows, each
+    row's folds in order, then the planes in z order), then each tile's nine
+    block sums in the order (i, j). Equal to the kernel to the bit on any
+    device."""
+    Zp, Yp, Xp = volp.shape
+    nbz, nby, folds = Zp // QB, Yp // QB, Xp // LANES
+    v = volp[:nbz * QB, :nby * QB].reshape(nbz, QB, nby, QB, folds, LANES)
+    plane = torch.zeros((nbz, QB, nby, LANES), dtype=torch.float32, device=volp.device)
+    for y in range(QB):
+        for h in range(folds):
+            plane = plane + v[:, :, :, y, h]
+    blk = torch.zeros((nbz, nby, LANES), dtype=torch.float32, device=volp.device)
+    for z in range(QB):
+        blk = blk + plane[:, z]
+    zq, yq = scal[:, 0].long(), scal[:, 1].long()
+    acc = torch.zeros((scal.shape[0], LANES), dtype=torch.float32, device=volp.device)
+    for i in range(NB):
+        for j in range(NB):
+            acc = acc + blk[zq + i, yq + j]
+    return acc[:, None, :]
 
 
 def check_scalars(volp: torch.Tensor, scal) -> torch.Tensor:

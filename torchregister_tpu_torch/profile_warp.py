@@ -174,7 +174,7 @@ def main(argv=None) -> dict:
                     raise AssertionError(f"{case}: {staged} staged blocks on the card, "
                                          f"tile_boxes says {int(boxes['staged'].sum())}")
                 shares[case] = staged / tiles
-            calls[case, name] = call, "warp"
+            calls[case, name] = call, "warp_kernel"
             outs.append(out)  # each output lives as long as its call
     for case, row in ab.in_turns(calls, order).items():
         row.update(bound_ms=bounds[case], staged_share=shares[case])
