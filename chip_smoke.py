@@ -20,7 +20,12 @@ launch on the same coordinates to the bit), drives
 the port's paths with quality gates (the recipe cascade on the 240³ pairs;
 the CLI's register/apply round trip on NIfTI files; ``Register`` rigid, then
 flow; the U-Net parity cascade on the 240³ deformable pair, which must repeat
-to the bit; ``Register`` in U-Net mode at the reference width; ``Register``
+to the bit; ``make_cascade_fn`` on the recipe's two pairs and the U-Net
+control, each engine level's step captured once as a CUDA graph and
+replayed, equal to ``register_cascade`` to the bit (``[cascade-fn]``); the
+engines' tensor-op Adam against ``torch.optim.Adam`` on the card
+(``[adam]``), and last, after every timing, the busy share of both
+(``[busy]``); ``Register`` in U-Net mode at the reference width; ``Register``
 with the reference's default criteria and its exact warp on the compact
 route, twice, which must repeat to the bit, and the binned NMI twice; the
 matrix engines with their own defaults, edge filter and default
@@ -39,7 +44,8 @@ non-zero.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels with their launches on the paths (counts
-set to 0 just before each path and read just after), their largest absolute
+set to 0 just before each path and read just after; a graph's replays add
+the launches it captured), their largest absolute
 deviation from the plain version over all checks, the time of one launch
 against one pass of the plain version and of the library call, and the
 least time the card could take for the same work (``bound_ms``: the bytes
@@ -50,6 +56,7 @@ the f32 FMA bound beside it as ``fma_bound_ms``).
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -66,11 +73,14 @@ from torchregister_tpu_torch import profile_sweep as ps
 from torchregister_tpu_torch import warp_cases as wc
 from torchregister_tpu_torch.__main__ import main as cli
 from torchregister_tpu_torch.engines.affine import affine_register
-from torchregister_tpu_torch.engines.cascade import register_cascade
+from torchregister_tpu_torch.engines import common as engine_common
+from torchregister_tpu_torch.engines.cascade import make_cascade_fn, register_cascade
+from torchregister_tpu_torch.engines.common import make_optimizer
 from torchregister_tpu_torch.engines.flow import flow_register
 from torchregister_tpu_torch.engines.rigid import rigid_register
 from torchregister_tpu_torch.losses.nmi import _splat_weights, branch_calls, nmi_loss
 from torchregister_tpu_torch.models.attention_unet import conv3x3x3_shapes
+from torchregister_tpu_torch.profile_cascade import busy_profile
 from torchregister_tpu_torch.ops import blocked
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
 from torchregister_tpu_torch.ops.cuda import roigather as k2b
@@ -161,6 +171,9 @@ UNET_TPU = dict(unet_flow_truth_rmse_reduction_pct=68.55, unet_flow_field_err_vo
 # bit (the first is the warm-up, the second the timed run), and the gates
 # hold that one value.
 UNET_RUNS = 2
+# [unet]'s value while the engines stepped with torch.optim.Adam's foreach
+# form, before their tensor-op Adam (H100)
+UNET_FOREACH_PCT = 71.23863
 # Register in U-Net mode at 240³ with the reference's width divisor n=32
 # (depth 4, channels 2/4/8/16/32): SGD steps at the API's default lr
 REGISTER_UNET_STEPS = 30
@@ -997,6 +1010,153 @@ def phase_register() -> tuple[dict, float]:
     return launches, err
 
 
+def _cascade_fn_pair(label, recipe, m, t, gates) -> dict:
+    """One pair through ``register_cascade`` (the reference, then timed) and
+    through ``make_cascade_fn``'s ``fn`` twice (capture, then replay only):
+    both of ``fn``'s results equal the reference to the bit."""
+    fn = make_cascade_fn(**recipe)
+    ref = register_cascade(m, t, **recipe)  # also the warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    register_cascade(m, t, **recipe)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    first = fn(m, t)  # captures every engine level's step
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _reset_counts()
+    engine_common.reset_counts()
+    t0 = time.perf_counter()
+    res = fn(m, t)  # copies its inputs in and replays
+    torch.cuda.synchronize()
+    wall_fn = time.perf_counter() - t0
+    launches, reads = _counts(), dict(engine_common.host_reads)
+    same = {}
+    for name in ref._fields:
+        a = getattr(ref, name)
+        for run, r in (("capture", first), ("replay", res)):
+            b = getattr(r, name)
+            same[f"{run}.{name}"] = (a == b if not isinstance(a, torch.Tensor)
+                                     else _same_bits(b, a))
+    graphs = fn.graphs.counts()
+    print(f"[cascade-fn] {label}: {len(graphs)} step graphs captured, replays "
+          f"{sum(r for _, r in graphs.values())} ({json.dumps(graphs)}); steps {res.steps}; "
+          f"host reads of the stop state {json.dumps(reads)}; peak memory of the capturing "
+          f"call {peak:.3f} GiB; wall after warm-up: register_cascade {wall_ref:.3f} s, "
+          f"fn {wall_fn:.3f} s; equal to register_cascade to the bit: {all(same.values())}; "
+          f"launches of the replaying call {json.dumps(launches)}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"make_cascade_fn differs from register_cascade on {label}: "
+                             f"{[k for k, v in same.items() if not v]}")
+    if any(c != 1 or r <= 0 for c, r in graphs.values()):
+        raise AssertionError(f"a level's step was not captured once and replayed: {graphs}")
+    _on_cuda(res)
+    _finite(res, tuple(m.shape))
+    gates(res)
+    return launches, (label, recipe, m, t, wall_ref, wall_fn)
+
+
+def phase_cascade_fn() -> tuple[dict, list]:
+    """``make_cascade_fn`` at 240³: ``RECIPE`` on both pairs and
+    ``RECIPE_UNET`` on the deformable pair, each equal to
+    ``register_cascade`` to the bit, with the quality gates; its launches
+    (replays included) go through K1's affine and flow forms. Returns the
+    launches, and each run's inputs and wall times for :func:`phase_busy`."""
+    moving, target = make_pair(device=DEV)
+    fmov, ftgt, theta_true, flow_true = make_flow_truth_pair(device=DEV)
+
+    def rigid_gate(res):
+        pct = rmse_reduction_pct(res.warped, moving, target)
+        print(f"[cascade-fn] rigid pair: rmse_reduction_pct {pct}", flush=True)
+        if pct < GATES["rmse_reduction_pct"]:
+            raise AssertionError(f"make_cascade_fn rigid gate failed: {pct}")
+
+    def deformable_gate(res):
+        q = dict(zip(("flow_truth_rmse_reduction_pct", "flow_field_err_vox",
+                      "flow_field_err_observable_vox"),
+                     flow_truth_metrics(res, fmov, ftgt, theta_true, flow_true)))
+        print(f"[cascade-fn] deformable pair: {json.dumps(q)}", flush=True)
+        if (q["flow_truth_rmse_reduction_pct"] < GATES["flow_truth_rmse_reduction_pct"]
+                or q["flow_field_err_observable_vox"]
+                > GATES["flow_field_err_observable_vox"]):
+            raise AssertionError(f"make_cascade_fn deformable gates failed: {q}")
+
+    def unet_gate(res):
+        q = dict(zip(UNET_GATES, flow_truth_metrics(res, fmov, ftgt, theta_true, flow_true)))
+        print(f"[cascade-fn] U-Net: {json.dumps(q)}", flush=True)
+        if (q["unet_flow_truth_rmse_reduction_pct"]
+                < UNET_GATES["unet_flow_truth_rmse_reduction_pct"]
+                or any(q[k] > UNET_GATES[k] for k in ("unet_flow_field_err_vox",
+                                                      "unet_flow_field_err_observable_vox"))):
+            raise AssertionError(f"make_cascade_fn U-Net gates failed: {q}")
+
+    total: dict = {}
+    runs = []
+    for label, recipe, (m, t), gates, need in (
+            ("rigid pair", RECIPE, (moving, target), rigid_gate, ()),
+            ("deformable pair", RECIPE, (fmov, ftgt), deformable_gate, ()),
+            ("U-Net", RECIPE_UNET, (fmov, ftgt), unet_gate,
+             ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"))):
+        launches, run = _cascade_fn_pair(label, recipe, m, t, gates)
+        _need(launches, ("sweep_fwd", "sweep_bwd", *K1_MODES, *need),
+              f"make_cascade_fn ({label})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        runs.append(run)
+    return total, runs
+
+
+def phase_busy(runs: list) -> None:
+    """The device's busy share of ``register_cascade`` and of the factory's
+    ``fn`` (graphs already captured) on ``[cascade-fn]``'s runs: one
+    profiled cascade each, its device intervals' union over the unprofiled
+    wall time (``profile_cascade.busy_profile``). Last, since a profiler
+    session slows every later launch."""
+    for label, recipe, m, t, wall_ref, wall_fn in runs:
+        out = {}
+        for name, run, wall in (
+                ("register_cascade", functools.partial(register_cascade, **recipe), wall_ref),
+                ("fn", make_cascade_fn(**recipe), wall_fn)):
+            p = busy_profile(m, t, [wall], run)
+            out[name] = {k: p.get(k) for k in ("busy_share_est", "busy_share_profiled",
+                                                "busy_union_s", "profiled_wall_s")}
+        print(f"[busy] {label}: {json.dumps(out)}", flush=True)
+
+
+ADAM_STEPS = 100
+
+
+def phase_adam() -> None:
+    """The engines' tensor-op Adam against ``torch.optim.Adam``'s default
+    form on the card (foreach), 100 steps of the same gradients on a field
+    of the fine flow level's size (3 x 240³): m and v to the bit, the
+    parameters within 4 ulps of lr a step (the last op differs, PERF.md)."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    p0 = torch.randn((1, 3) + (SIZE,) * 3, generator=gen, device=DEV)
+    ref = p0.clone().requires_grad_(True)
+    opt_ref = torch.optim.Adam([ref], lr=RECIPE["flow_lr"])
+    ours = p0.clone()
+    opt = make_optimizer("adam", ours, RECIPE["flow_lr"], ADAM_STEPS)
+    on = torch.ones((), dtype=torch.bool, device=DEV)
+    for _ in range(ADAM_STEPS):
+        g = torch.randn(p0.shape, generator=gen, device=DEV)
+        ref.grad = g.clone()
+        opt_ref.step()
+        opt.step(g, on)
+    st = opt_ref.state[ref]
+    diff = (ours - ref.detach()).abs()
+    moments = (bool(torch.equal(opt.state["m"], st["exp_avg"]))
+               and bool(torch.equal(opt.state["v"], st["exp_avg_sq"])))
+    err, bound = float(diff.max()), ADAM_STEPS * RECIPE["flow_lr"] * 2.0**-21
+    print(f"[adam] {ADAM_STEPS} steps at lr {RECIPE['flow_lr']} on 3 x {SIZE}^3: m and v "
+          f"equal torch.optim.Adam (foreach) to the bit: {moments}; parameters: "
+          f"{int((diff > 0).sum())} of {diff.numel()} differ, max |d| {err:.3e} "
+          f"(bound {bound:.3e}), equal to the bit: {err == 0.0}", flush=True)
+    if not moments or not err <= bound:
+        raise AssertionError("the engines' Adam strays from torch.optim.Adam on the card")
+
+
 def _level_ms_per_step(moving, target, steps: int = 20) -> list:
     """ms per U-Net optimizer step at each flow level of RECIPE_UNET on the
     240³ pair (halved to 120³, then 60³ and 120³), fresh net with a zero
@@ -1048,7 +1208,8 @@ def phase_unet() -> dict:
     floor = dict(zip(names, flow_truth_metrics(floor_res, fmov, ftgt, theta_true, flow_true)))
     ms = _level_ms_per_step(fmov, ftgt)
     print(f"[unet] flow ms/step at 60³, 120³: {ms[0]:.2f}, {ms[1]:.2f}", flush=True)
-    print(f"[unet] quality: {json.dumps(quality)}", flush=True)
+    print(f"[unet] quality: {json.dumps(quality)}; rmse reduction with "
+          f"torch.optim.Adam's foreach form {UNET_FOREACH_PCT} %", flush=True)
     print(f"[unet] the JAX package on the TPU: {json.dumps(UNET_TPU)}; gates "
           f"{json.dumps(UNET_GATES)}", flush=True)
     print(f"[unet] matrix stages alone (no flow): {json.dumps(floor)}", flush=True)
@@ -1712,8 +1873,11 @@ def main() -> None:
     reg_launches, reg_err = phase_register()
     paths.append(reg_launches)
     errs["warp_flow"] = max(errs["warp_flow"], reg_err)
-    paths += [phase_unet(), phase_register_unet(), phase_register_default(),
-              phase_engines_default(), probe_launches]
+    fn_launches, fn_runs = phase_cascade_fn()
+    paths += [phase_unet(), fn_launches]
+    phase_adam()
+    paths += [phase_register_unet(), phase_register_default(), phase_engines_default(),
+              probe_launches]
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     # before the profiler first runs (after that each launch costs the host more)
     phase_launch_path(probe_inputs)
@@ -1795,6 +1959,7 @@ def main() -> None:
          **({k: k2_times[name][k] for k in K2_EXTRAS} if name in k2_times else {})}
         for name in REPLACES
     ]
+    phase_busy(fn_runs)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

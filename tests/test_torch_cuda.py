@@ -1257,3 +1257,129 @@ def test_torch_cuda_nmi_loss_repeats_to_the_bit(dev):
         out.append((loss.detach(), p.grad))
     assert ks.launches == 4  # two marginals a call
     assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+# ------------------------------------------- step graphs and make_cascade_fn
+
+
+def _bits_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.contiguous().view(torch.int32),
+                                b.contiguous().view(torch.int32)))
+    return a == b
+
+
+@pytest.mark.parametrize("model", ["field", "unet"])
+def test_torch_cuda_cascade_fn_equals_register_cascade(dev, model):
+    """The factory captures each engine level's step once and replays it;
+    its results equal ``register_cascade``'s to the bit, on the first call
+    (capture) and on a second call with new inputs of the same shapes
+    (copy in, replay only)."""
+    from torchregister_tpu_torch.engines.cascade import make_cascade_fn, register_cascade
+    from torchregister_tpu_torch.synthetic import RECIPE, RECIPE_UNET, make_flow_truth_pair
+
+    base = RECIPE if model == "field" else RECIPE_UNET
+    recipe = {**base, "rigid_epochs": 60, "affine_epochs": 30, "flow_epochs": 40,
+              "levels": 2, "matrix_levels": 2, "flow_levels": 2,
+              **({"flow_smooth": (0.5, 0.25)} if model == "field" else {})}
+    fn = make_cascade_fn(**recipe)
+    for seed in (0, 1):
+        mov, tgt = make_flow_truth_pair((32, 32, 32), seed=seed, device=dev)[:2]
+        want = register_cascade(mov, tgt, **recipe)
+        got = fn(mov, tgt)
+        for name in want._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None and b is None) or _bits_equal(a, b), (seed, name)
+    counts = fn.graphs.counts()
+    assert set(counts) == {"rigid/level0", "rigid/level1", "affine/level0",
+                           "affine/level1", "flow/level0", "flow/level1"}
+    assert all(c == 1 and r > 0 for c, r in counts.values()), counts
+
+
+def _graphed_flow_grad(dev, steps):
+    """A step graph of one separable flow warp and its gradient to the
+    field, whose K1 backward launches from autograd's thread."""
+    from torchregister_tpu_torch.engines import graph
+    from torchregister_tpu_torch.ops.separable import warp_flow_separable
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    src0 = torch.rand((1, 1, 12, 13, 14), generator=gen, device=dev)
+    flow0 = 2 * torch.rand((1, 3, 12, 13, 14), generator=gen, device=dev) - 1
+    graphs = graph.StepGraphs()
+    with graph.graphed(graphs), graph.level("warp"):
+        sess = graph.session()
+        src, flow = sess.static("src", src0), sess.static("flow", flow0)
+        flow.requires_grad_(True)
+        out = sess.static("grad", torch.zeros_like(flow0))
+
+        def step():
+            (g,) = torch.autograd.grad(warp_flow_separable(src, flow, 3).square().sum(), flow)
+            with torch.no_grad():
+                out.add_(g)
+
+        sess.run(step, steps)
+    return graphs.level("warp"), src, flow, out, step
+
+
+def _eager_flow_grad(src, flow):
+    from torchregister_tpu_torch.ops.separable import warp_flow_separable
+
+    f = flow.detach().clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(warp_flow_separable(src, f, 3).square().sum(), f)
+    return g
+
+
+def test_torch_cuda_graph_backward_on_the_capture_stream(dev):
+    """K1's backward, launched from autograd's thread, lands in the graph:
+    replays after new values are copied into the captured source follow
+    them, equal to the eager gradient to the bit."""
+    level, src, flow, out, step = _graphed_flow_grad(dev, 1)
+    assert level.captures == 1
+    torch.testing.assert_close(out, _eager_flow_grad(src, flow), rtol=0, atol=0)
+    with torch.no_grad():
+        src.copy_(src.flip(2))
+        out.zero_()
+    level.run(step, 1)
+    assert level.captures == 1 and level.replays == 2
+    torch.testing.assert_close(out, _eager_flow_grad(src, flow), rtol=0, atol=0)
+
+
+def test_torch_cuda_launch_counts_count_replays(dev):
+    """The capture counts nothing; each replay adds one step's launches (3
+    flow-form forward and 3 backward passes); the warm-up steps ran and
+    count."""
+    from torchregister_tpu_torch.engines import graph
+
+    k1.reset_counts()
+    level, _, _, _, step = _graphed_flow_grad(dev, 5)
+    assert level.launches[("torchregister_tpu_torch.ops.cuda.sweep", "fwd_modes", "flow")] == 3
+    assert k1.fwd_modes["flow"] == k1.bwd_modes["flow"] == 3 * (graph.WARMUP + 5)
+    level.run(step, 4)
+    assert k1.fwd_modes["flow"] == k1.bwd_modes["flow"] == 3 * (graph.WARMUP + 9)
+    assert k1.fwd_modes["dense"] == k1.bwd_modes["dense"] == 0
+
+
+def test_torch_cuda_adam_near_torch_optim_foreach(dev):
+    """The tensor-op Adam against ``torch.optim.Adam``'s default form on the
+    card (foreach) over 100 steps of the same gradients: m and v to the bit,
+    the parameters within 4 ulps of lr a step (the last op: foreach fuses
+    ``p + s * (m / d)``, the port computes ``p + (s * m) / d``)."""
+    from torchregister_tpu_torch.engines.common import make_optimizer
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p0 = torch.randn((1, 3, 20, 21, 22), generator=gen, device=dev)
+    ref = p0.clone().requires_grad_(True)
+    opt_ref = torch.optim.Adam([ref], lr=0.3)
+    ours = p0.clone()
+    opt = make_optimizer("adam", ours, 0.3, 100)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    for _ in range(100):
+        g = torch.randn(p0.shape, generator=gen, device=dev)
+        ref.grad = g.clone()
+        opt_ref.step()
+        opt.step(g, on)
+    st = opt_ref.state[ref]
+    assert torch.equal(opt.state["m"], st["exp_avg"])
+    assert torch.equal(opt.state["v"], st["exp_avg_sq"])
+    assert float((ours - ref.detach()).abs().max()) <= 100 * 0.3 * 2.0**-21

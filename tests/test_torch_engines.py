@@ -82,13 +82,13 @@ def test_torch_optimize_scan_matches_jax(stop_rel):
 
 
 def test_torch_make_optimizer():
-    p = [torch.zeros(2, requires_grad=True)]
-    assert isinstance(tc.make_optimizer("SGD", p, 0.1), torch.optim.SGD)
-    assert isinstance(tc.make_optimizer("adam", p, 0.1), torch.optim.Adam)
+    p = torch.zeros(2, requires_grad=True)
+    assert isinstance(tc.make_optimizer("SGD", p, 0.1, 10), tc.SGD)
+    assert isinstance(tc.make_optimizer("adam", p, 0.1, 10), tc.Adam)
     with pytest.raises(NotImplementedError, match="item 14"):
-        tc.make_optimizer("lm", p, 0.1)
+        tc.make_optimizer("lm", p, 0.1, 10)
     with pytest.raises(ValueError):
-        tc.make_optimizer("rmsprop", p, 0.1)
+        tc.make_optimizer("rmsprop", p, 0.1, 10)
 
 
 # ------------------------------------------------------------ windows

@@ -9,11 +9,13 @@ imports no JAX. The public surface, for what is ported:
     warping.optim(moving, target, lr=1e-5, max_epochs=500)
     warped = warping(moving)
     field = tr.norm(abs(warping.theta))
+    fn = tr.CascadeConfig().jitted()  # the cascade, its steps as CUDA graphs
+    result = fn(moving, target)
 """
 from .api import Register, norm
 from .config import AffineConfig, CascadeConfig, FlowConfig, RigidConfig
 from .engines.affine import affine_register
-from .engines.cascade import CascadeResult, register_cascade
+from .engines.cascade import CascadeResult, make_cascade_fn, register_cascade
 from .engines.common import RegistrationResult
 from .engines.flow import FlowResult, flow_register
 from .engines.rigid import rigid_register
@@ -37,6 +39,7 @@ __all__ = [
     "affine_register",
     "flow_register",
     "register_cascade",
+    "make_cascade_fn",
     "CascadeResult",
     "RegistrationResult",
     "FlowResult",

@@ -161,3 +161,10 @@ class CascadeConfig:
         from .engines.cascade import register_cascade
 
         return register_cascade(moving, target, **{**_kwargs(self), **overrides})
+
+    def jitted(self, **overrides):
+        """The cascade factory's ``fn`` for this config (see
+        :func:`engines.cascade.make_cascade_fn`); the JAX package's name."""
+        from .engines.cascade import make_cascade_fn
+
+        return make_cascade_fn(**{**_kwargs(self), **overrides})

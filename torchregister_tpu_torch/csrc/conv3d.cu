@@ -151,9 +151,21 @@ __device__ __forceinline__ uint32_t widened(__nv_bfloat16 v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// The dynamic shared memory of kernel K (its bytes are fixed for each
+// instantiation), allowed once a device, so that a launch inside a CUDA graph
+// capture makes no other CUDA call than the launch itself.
+template <auto K>
+int allow_smem(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && ready[dev]) return 0;
+  err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) ready[dev] = true;
+  return 0;
 }
 
 // ---- conv3x3x3 --------------------------------------------------------------
@@ -366,7 +378,7 @@ int conv_launch(const void* x, const void* w, void* out, int N, int Ci, int Co, 
       (long long)H * W > 2147483647LL)
     return (int)cudaErrorInvalidConfiguration;
   const int bytes = kStages * L::kStage * 4;
-  const int rc = allow_smem(conv_kernel<T, NT>, bytes);
+  const int rc = allow_smem<conv_kernel<T, NT>>(bytes);
   if (rc != 0) return rc;
   dim3 grid(tiles_x * tiles_y, Zo, (unsigned)gz);
   conv_kernel<T, NT><<<grid, kThreads, bytes, stream>>>(
@@ -586,7 +598,7 @@ int wgrad_launch(const void* x, const void* g, void* ws, void* dw, int N, int Ci
   const int ci_chunks = (Ci + kCiC - 1) / kCiC, co_chunks = (Co + 8 * NT - 1) / (8 * NT);
   if (ci_chunks > 65535 || co_chunks > 65535) return (int)cudaErrorInvalidConfiguration;
   const int bytes = wgrad_smem_words<NT>() * 4;
-  int rc = allow_smem(wgrad_kernel<T, NT>, bytes);
+  int rc = allow_smem<wgrad_kernel<T, NT>>(bytes);
   if (rc != 0) return rc;
   wgrad_kernel<T, NT><<<dim3(splits, ci_chunks, co_chunks), kThreads, bytes, stream>>>(
       (const T*)x, (const T*)g, (float*)ws, N, Ci, Co, Z, H, W, splits);

@@ -12,6 +12,7 @@ from ..ops.edge import edge_filter
 from ..ops.resample import warp_affine
 from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import identity_theta
+from . import graph
 from .common import (
     RegistrationResult,
     check_sweep_windows,
@@ -56,15 +57,19 @@ def affine_register(
     else:
         params0 = init_theta.to(torch.float32).reshape(-1)
     separable = method == "separable"
+    # the init theta is read on the host only to size windows not given
     windows = resolve_sweep_windows(
-        params0.detach().cpu().double().numpy().reshape(ndim, ndim + 1), spatial,
+        None if max_shift is not None
+        else params0.detach().cpu().double().numpy().reshape(ndim, ndim + 1), spatial,
         max_shift) if separable else None
+    sess = graph.session()
+    moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
 
     def loss_fn(params):
         theta = params.reshape(1, ndim, ndim + 1)
-        warped = (_warp_affine_separable(theta, moving, max_shift=windows) if separable
-                  else warp_affine(theta, moving))
-        return loss(target, warped)
+        warped = (_warp_affine_separable(theta, moving_s, max_shift=windows) if separable
+                  else warp_affine(theta, moving_s))
+        return loss(target_s, warped)
 
     final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
         loss_fn, params0, optimizer, lr, epochs, stop_rel, patience,

@@ -14,12 +14,18 @@ warm-start one network). A final flow warp gives the registered image. With
 ``final_warp='exact'`` the full-resolution matrix warp and the final flow
 warp run on kernel K2 (``ops/blocked.py``) with ``grid_sample`` semantics.
 
-Torch runs eagerly, so ``make_cascade_fn`` has no counterpart. The LM matrix
-optimizer is not ported yet and raises ``NotImplementedError`` naming the
-ROADMAP item.
+:func:`make_cascade_fn` is the JAX package's single-program cascade: the same
+program, with each engine level's step captured once as a CUDA graph and
+replayed (``engines/graph.py``), equal to :func:`register_cascade` to the
+bit. Each stage and level runs inside a :func:`utils.profiling.trace` span
+(``rigid/level0``, ``flow/level2``, ...), which also names its step graph.
+``make_cascade_batch_fn`` (cohorts, ROADMAP queue 1 item 12) and the LM
+matrix optimizer (item 14) are not ported yet; the latter raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import NamedTuple, Optional, Sequence
@@ -31,8 +37,10 @@ from ..ops.resize import downsample_avg
 from ..ops.separable import _warp_affine_separable, warp_flow_separable
 from ..ops.transforms import compose_theta, identity_theta
 from ..models.attention_unet import max_depth_for
+from ..utils.profiling import trace
 from ..utils.pyramid import (build_pyramid, compose_flows, compose_flows_separable,
                              upsample_flow)
+from . import graph
 from .affine import affine_register
 from .common import check_sweep_windows
 from .flow import flow_register
@@ -58,6 +66,13 @@ def _level_warp(theta, moving_level, exact: bool = False):
     S = max(moving_level.shape[2:])
     with torch.no_grad():
         return _warp_affine_separable(theta, moving_level, max_shift=max(8, S // 3))
+
+
+@contextlib.contextmanager
+def _level(name: str):
+    """A stage's level: a trace span, and the name of its step graph."""
+    with trace(name), graph.level(name):
+        yield
 
 
 def _not_ported(option: str, item: str):
@@ -184,18 +199,20 @@ def register_cascade(
         budgets = level_budgets(rigid_epochs, m_levels)
         losses, steps["rigid"] = [], []
         for i, (mov_l, tgt_l) in enumerate(zip(mov_pyr[:m_levels], tgt_pyr[:m_levels])):
-            base = _level_warp(theta, mov_l) if i else mov_l
-            init_params = None
-            if i == 0 and moment_init:
-                init_params = (pa_rigid_params(base, tgt_l) if moment_init == "pa"
-                               else com_rigid_params(base, tgt_l))
-            _, res = rigid_register(
-                base, tgt_l, lr=rigid_lr, epochs=budgets[i], criterions=list(criterions),
-                weights=weights, grad_edges=False, optimizer=m_opt, init="identity",
-                init_params=init_params, stop_rel=matrix_stop_rel,
-                patience=matrix_patience, max_shift=level_shift(i, mov_l),
-                check_window=False,  # one end-of-run check below
-            )
+            with _level(f"rigid/level{i}"):
+                base = _level_warp(theta, mov_l) if i else mov_l
+                init_params = None
+                if i == 0 and moment_init:
+                    init_params = (pa_rigid_params(base, tgt_l) if moment_init == "pa"
+                                   else com_rigid_params(base, tgt_l))
+                _, res = rigid_register(
+                    base, tgt_l, lr=rigid_lr, epochs=budgets[i],
+                    criterions=list(criterions), weights=weights, grad_edges=False,
+                    optimizer=m_opt, init="identity", init_params=init_params,
+                    stop_rel=matrix_stop_rel, patience=matrix_patience,
+                    max_shift=level_shift(i, mov_l),
+                    check_window=False,  # one end-of-run check below
+                )
             theta = compose_theta(theta, res.best_theta)
             losses.append(res.losses)
             steps["rigid"].append(res.steps)
@@ -205,21 +222,23 @@ def register_cascade(
         budgets = level_budgets(affine_epochs, m_levels)
         losses, steps["affine"] = [], []
         for i, (mov_l, tgt_l) in enumerate(zip(mov_pyr[:m_levels], tgt_pyr[:m_levels])):
-            base = _level_warp(theta, mov_l)
-            _, res = affine_register(
-                base, tgt_l, lr=affine_lr, epochs=budgets[i], criterions=list(criterions),
-                weights=weights, grad_edges=False, optimizer=m_opt,
-                stop_rel=matrix_stop_rel, patience=matrix_patience,
-                max_shift=level_shift(i if "rigid" not in stages else levels, mov_l),
-                check_window=False,
-            )
+            with _level(f"affine/level{i}"):
+                base = _level_warp(theta, mov_l)
+                _, res = affine_register(
+                    base, tgt_l, lr=affine_lr, epochs=budgets[i],
+                    criterions=list(criterions), weights=weights, grad_edges=False,
+                    optimizer=m_opt, stop_rel=matrix_stop_rel, patience=matrix_patience,
+                    max_shift=level_shift(i if "rigid" not in stages else levels, mov_l),
+                    check_window=False,
+                )
             theta = compose_theta(theta, res.best_theta)
             losses.append(res.losses)
             steps["affine"].append(res.steps)
         affine_losses = torch.cat(losses)
 
     # one full-resolution resample through the composed matrix transform
-    warped = _level_warp(theta, moving, exact)
+    with trace("matrix/warp"):
+        warped = _level_warp(theta, moving, exact)
 
     flow = None
     scale = 1
@@ -283,16 +302,17 @@ def register_cascade(
                     with torch.no_grad():
                         base_in = warp_flow_separable(f_in, total_flow, max_disp=rebase_win)
                     params, level_disp = None, flow_residual_disp
-            _, fres = flow_register(
-                base_in, f_tgt, lr=flow_lr, max_epochs=eps,
-                criterions=list(flow_criterions), weights=weights, n=n,
-                depth=flow_depth, generator=torch.Generator().manual_seed(seed),
-                optimizer=optimizer, dtype=flow_dtype, init_params=params,
-                remat=flow_remat, max_disp=level_disp, use_attention=flow_attention,
-                use_norm=flow_norm, flow_model=flow_model, smooth=smooths[li],
-                stop_rel=flow_stop_rel, patience=flow_patience, zero_head=compose,
-                check_disp=False,  # one end-of-run check below
-            )
+            with _level(f"flow/level{li}"):
+                _, fres = flow_register(
+                    base_in, f_tgt, lr=flow_lr, max_epochs=eps,
+                    criterions=list(flow_criterions), weights=weights, n=n,
+                    depth=flow_depth, generator=torch.Generator().manual_seed(seed),
+                    optimizer=optimizer, dtype=flow_dtype, init_params=params,
+                    remat=flow_remat, max_disp=level_disp, use_attention=flow_attention,
+                    use_norm=flow_norm, flow_model=flow_model, smooth=smooths[li],
+                    stop_rel=flow_stop_rel, patience=flow_patience, zero_head=compose,
+                    check_disp=False,  # one end-of-run check below
+                )
             params = fres.params
             if compose:
                 # applying total_flow then fres.flow == applying the composite
@@ -322,11 +342,12 @@ def register_cascade(
                            + flow_residual_disp * (2 ** (flow_levels - 1) - 1)) * scale
         else:
             final_bound = flow_max_disp * scale
-        if exact:
-            warped = warp_flow_fast(warped, flow)
-        else:
-            with torch.no_grad():
-                warped = warp_flow_separable(warped, flow, max_disp=final_bound)
+        with trace("flow/warp"):
+            if exact:
+                warped = warp_flow_fast(warped, flow)
+            else:
+                with torch.no_grad():
+                    warped = warp_flow_separable(warped, flow, max_disp=final_bound)
 
     if not exact:  # an exact warp has no window to outgrow
         # end-of-run window checks (one host read of theta and of max |flow|)
@@ -346,3 +367,63 @@ def register_cascade(
     return CascadeResult(warped=warped, theta=theta, flow=flow,
                          rigid_losses=rigid_losses, affine_losses=affine_losses,
                          flow_losses=flow_losses, steps=steps)
+
+
+def _check_capturable(config: dict) -> None:
+    """Raise for a criterion whose step reads the host: the NMI term picks
+    its KDE branch on the host each step (``losses/nmi.py``'s
+    ``_binned_ok``), which a CUDA graph cannot capture."""
+    from ..losses import resolve_criteria
+    from ..losses.nmi import nmi, nmi_loss
+
+    for key in ("criterions", "flow_criterions"):
+        spec = config.get(key, ("mse", "ncc") if key == "criterions" else None)
+        if spec is None and key == "flow_criterions":
+            continue
+        crits, _ = resolve_criteria(spec, config.get("weights"))
+        if any(c in (nmi, nmi_loss) or getattr(c, "func", None) in (nmi, nmi_loss)
+               for c in crits):
+            raise ValueError(
+                f"make_cascade_fn: {key} includes 'nmi', whose step reads the host to "
+                "pick its KDE branch (losses/nmi.py), so a CUDA graph cannot capture it; "
+                "run register_cascade, or leave NMI out (ROADMAP queue 1 item 16 moves "
+                "the choice to the device)")
+
+
+class CascadeFn:
+    """``fn(moving, target) -> CascadeResult``: :func:`register_cascade` with
+    one config. On a CUDA device each engine level's step is captured once
+    as a CUDA graph (``graphs``, one memory pool) and replayed; a later call
+    with the same shapes copies its inputs into the captured buffers. On
+    the CPU it runs the same loops without graphs."""
+
+    def __init__(self, config: dict):
+        self.config = dict(config)
+        self.graphs = graph.StepGraphs()
+
+    def __call__(self, moving: torch.Tensor, target: torch.Tensor) -> CascadeResult:
+        if not moving.is_cuda:
+            return register_cascade(moving, target, **self.config)
+        with graph.graphed(self.graphs):
+            return register_cascade(moving, target, **self.config)
+
+
+_CASCADE_CACHE: dict = {}
+
+
+def make_cascade_fn(**config) -> CascadeFn:
+    """The cascade as one reusable program (counterpart of the JAX
+    package's jitted ``make_cascade_fn``): ``fn(moving, target) ->
+    CascadeResult``, cached on ``config`` (the keyword arguments of
+    :func:`register_cascade`; all hashable, tuples for lists), so the same
+    config returns the same ``fn``. Its results equal
+    :func:`register_cascade`'s to the bit. A criterion whose step reads the
+    host (``'nmi'``, and the default stack ``criterions=None``) raises
+    ``ValueError``; a failed capture raises too, with no fallback."""
+    key = tuple(sorted(config.items()))
+    fn = _CASCADE_CACHE.get(key)
+    if fn is None:
+        _check_capturable(config)
+        fn = CascadeFn(config)
+        _CASCADE_CACHE[key] = fn
+    return fn

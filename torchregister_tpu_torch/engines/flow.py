@@ -12,13 +12,22 @@
 The loop stops when the recorded loss is ``<= stop_crit``, after
 ``max_epochs``, or (with ``stop_rel``) after ``patience`` steps in which the
 step's loss did not improve on the reference loss by ``stop_rel`` — the
-step's loss, not the best loss as in the matrix engines. ``method='separable'``
-warps by sweeps inside ``max_disp``; any other ``method`` warps with the exact
-``ops/resample.warp_flow``, in the loop and for the returned image, as in the
-JAX package. The returned flow is the post-update model's (or field's).
+step's loss, not the best loss as in the matrix engines. Its state lives on
+the device as in ``engines/common.optimize_scan``: the host reads the stop
+state where the plateau stop could first fire and, for ``stop_crit``, after
+steps 1, 2, 4, ... (at most ``common.READ_EVERY`` apart), so the masked
+steps after a ``stop_crit`` stop are fewer than the steps run. The U-Net's
+weights are one flat f32 tensor (each weight a view of it at an aligned
+offset: each ``nn.Parameter``'s storage is that view), so the optimizer runs
+on one tensor in either mode.
+``method='separable'`` warps by sweeps inside ``max_disp``; any other
+``method`` warps with the exact ``ops/resample.warp_flow``, in the loop and
+for the returned image, as in the JAX package. The returned flow is the
+post-update model's (or field's).
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Any, NamedTuple
 
@@ -31,7 +40,10 @@ from ..models.attention_unet import AttentionUNet, max_depth_for
 from ..ops.edge import edge_filter
 from ..ops.resample import warp_flow
 from ..ops.separable import warp_flow_separable
-from .common import make_optimizer
+from . import common, graph
+from .common import _next_read, make_optimizer, read_stop
+
+_ALIGN = 128  # floats: each U-Net weight's offset in the flat tensor (512 bytes)
 
 
 class FlowResult(NamedTuple):
@@ -78,6 +90,47 @@ def _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params, zero
             model.out_kernel.zero_()
             model.out_bias.zero_()
     return model
+
+
+def _layout(model) -> list:
+    """``(name, shape, offset)`` of each of ``model``'s weights in one flat
+    tensor, each offset a multiple of ``_ALIGN``; the flat size last."""
+    out, off = [], 0
+    for name, p in model.named_parameters():
+        out.append((name, tuple(p.shape), off))
+        off += -(-p.numel() // _ALIGN) * _ALIGN
+    return out + [off]
+
+
+def _flatten(model, layout) -> torch.Tensor:
+    *weights, size = layout
+    flat = torch.zeros(size, dtype=torch.float32, device=next(model.parameters()).device)
+    for (_, shape, off), p in zip(weights, model.parameters()):
+        flat[off:off + p.numel()] = p.detach().reshape(-1)
+    return flat
+
+
+def _bind(model, flat, layout) -> None:
+    """Point each of ``model``'s weights at its view of ``flat``: the
+    optimizer's in-place updates of ``flat`` are the weights' updates."""
+    for (_, shape, off), p in zip(layout[:-1], model.parameters()):
+        p.data = flat.detach().narrow(0, off, math.prod(shape)).view(shape)
+
+
+def _flat_grad(grads, layout) -> torch.Tensor:
+    """The weights' gradients in ``flat``'s layout (zeros between them)."""
+    *weights, size = layout
+    parts, end = [], 0
+    zeros = grads[0].new_zeros(_ALIGN)
+    for g, (_, shape, off) in zip(grads, weights):
+        if off > end:
+            parts.append(zeros[:off - end])
+        n = math.prod(shape)
+        parts.append(zeros.new_zeros(n) if g is None else g.reshape(-1))
+        end = off + n
+    if size > end:
+        parts.append(zeros[:size - end])
+    return torch.cat(parts)
 
 
 def flow_register(
@@ -145,10 +198,13 @@ def flow_register(
             return warp_flow_separable(src, flow, max_disp=max_disp)
         return warp_flow(src, flow)
 
-    if flow_model == "unet":
+    sess = graph.session()
+    unet = flow_model == "unet"
+    if unet:
         model = _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params,
                       zero_head, generator)
-        trainable = list(model.parameters())
+        layout = _layout(model)
+        param0 = _flatten(model, layout)
         mov_s, tgt_s = moving, target  # the model's own dtype reduces compute
 
         def predict(x):
@@ -166,47 +222,80 @@ def flow_register(
         if init_params is None:
             init_params = torch.zeros((moving.shape[0], ndim) + tuple(moving.shape[2:]),
                                       dtype=torch.float32, device=moving.device)
-        field = init_params.detach().to(torch.float32).clone().requires_grad_(True)
-        trainable = [field]
+        param0 = init_params.detach().to(torch.float32).clone()
 
-        def predict(x):
-            return field
+    mov_s, tgt_s = sess.static("moving", mov_s), sess.static("target", tgt_s)
+    param = sess.static("params", param0)
+    if unet:
+        _bind(model, param, layout)
+        net_params = list(model.parameters())
+    else:
+        param.requires_grad_(True)
+    opt = make_optimizer(optimizer, param, lr, max_epochs)
+    opt.state = sess.statics(opt.state, "opt.")
+    device = moving.device
+    factor = None if stop_rel is None else float(np.float32(1.0 - stop_rel))
+    st = sess.statics({
+        "ref": torch.full((), float("inf"), dtype=torch.float32, device=device),
+        "last": torch.full((), float("inf"), dtype=torch.float32, device=device),
+        "since": torch.zeros((), dtype=torch.int64, device=device),
+        "i": torch.zeros((), dtype=torch.int64, device=device),
+        "stopped": torch.full((), max_epochs <= 0, dtype=torch.bool, device=device),
+        # [max_epochs]: the masked steps' records
+        "losses": torch.full((max_epochs + 1,), float("nan"), dtype=torch.float32,
+                             device=device)})
 
-    opt = make_optimizer(optimizer, trainable, lr)
-    losses = np.full((max_epochs,), np.nan, np.float32)
-    last = ref = np.float32(np.inf)
-    factor = None if stop_rel is None else np.float32(1.0 - stop_rel)
-    since = 0
-    i = 0
-    while i < max_epochs and last > stop_crit and (factor is None or since < patience):
-        opt.zero_grad(set_to_none=True)
-        flow = predict(mov_s)
+    def step():
+        flow, wrt = (predict(mov_s), net_params) if unet else (param, [param])
         sim = loss(tgt_s, warp(mov_s, flow))
         total = sim + smooth * _diffusion_energy(flow) if smooth > 0.0 else sim
-        total.backward()
-        loss_val = np.float32(total.item())
-        opt.step()
-        losses[i] = loss_val
-        if factor is not None:
-            if loss_val < ref * factor:
-                ref, since = loss_val, 0
-            else:
-                since += 1
-        last = loss_val
-        i += 1
+        grads = torch.autograd.grad(total, wrt, allow_unused=unet)
+        grad = _flat_grad(grads, layout) if unet else grads[0]
+        with torch.no_grad():
+            active = ~st["stopped"]
+            val = total.detach().to(torch.float32)
+            st["losses"].index_copy_(0, torch.where(active, st["i"], max_epochs).view(1),
+                                     val.view(1))
+            opt.step(grad, active)
+            halt = st["i"].add_(active.long()) >= max_epochs
+            if factor is not None:
+                improved = val < st["ref"] * factor
+                st["ref"].copy_(torch.where(active & improved, val, st["ref"]))
+                st["since"].copy_(torch.where(active, torch.where(improved, 0, st["since"] + 1),
+                                              st["since"]))
+                halt |= st["since"] >= patience
+            st["last"].copy_(torch.where(active, val, st["last"]))
+            st["stopped"].logical_or_(halt | ~(st["last"] > stop_crit))
+
+    def report(i):
+        print(f"[flow_register] epoch {i}/{max_epochs} loss={st['last'].item():.6g}",
+              flush=True)
+
+    i = since = 0
+    stopped, converged = max_epochs <= 0, False
+    while not stopped:
+        # stop_crit can fire at any step: reads at steps 1, 2, 4, ... (at most
+        # READ_EVERY apart) keep the masked steps after it fewer than those run
+        nxt = _next_read(i, since, max_epochs, None if factor is None else patience,
+                         min(common.READ_EVERY, max(1, i)), progress_every)
+        sess.run(step, nxt - i)
+        i, since, stopped, converged = read_stop(
+            "flow_register", st["i"], st["since"], st["stopped"], st["last"] <= stop_crit)
         if progress_every and (i % progress_every == 0 or i == max_epochs):
-            print(f"[flow_register] epoch {i}/{max_epochs} loss={last:.6g}", flush=True)
+            report(i)
     if progress_every and i < max_epochs:
         if i % progress_every:
-            print(f"[flow_register] epoch {i}/{max_epochs} loss={last:.6g}", flush=True)
-        cause = (f"loss <= {stop_crit:g}" if last <= stop_crit
+            report(i)
+        cause = (f"loss <= {stop_crit:g}" if converged
                  else f"plateau (stop_rel={stop_rel}, patience={patience})")
         print(f"[flow_register] stopped at epoch {i} ({cause})", flush=True)
     with torch.no_grad():
-        flow = predict(moving).detach()
+        if unet:
+            flow = predict(moving).detach()
+            params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        else:
+            flow = params = param.detach().clone()
         warped = warp(moving, flow)  # method-consistent final warp
-    params = ({k: v.detach().clone() for k, v in model.state_dict().items()}
-              if flow_model == "unet" else flow)
     maxd = torch.max(torch.abs(flow))
     if check_disp and method == "separable":
         maxd_host = float(maxd)
@@ -219,5 +308,5 @@ def flow_register(
                 stacklevel=2,
             )
     return warped, FlowResult(
-        flow=flow, losses=torch.from_numpy(losses).to(moving.device), steps=i,
-        converged=bool(last <= stop_crit), params=params, max_disp=maxd)
+        flow=flow, losses=st["losses"][:max_epochs].clone(), steps=i,
+        converged=bool(converged), params=params, max_disp=maxd)

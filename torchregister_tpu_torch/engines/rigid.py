@@ -16,6 +16,7 @@ from ..ops.edge import edge_filter
 from ..ops.resample import warp_affine
 from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import rigid_theta, rigid_theta_np
+from . import graph
 from .common import (
     RegistrationResult,
     check_sweep_windows,
@@ -71,14 +72,18 @@ def rigid_register(
     if init_params is None:
         init_params = init_rigid_params(ndim, generator, init, moving.device)
     separable = method == "separable"
-    windows = (resolve_sweep_windows(rigid_theta_np(init_params), spatial, max_shift)
+    # the init theta is read on the host only to size windows not given
+    windows = (resolve_sweep_windows(None if max_shift is not None
+                                     else rigid_theta_np(init_params), spatial, max_shift)
                if separable else None)
+    sess = graph.session()
+    moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
 
     def loss_fn(params):
         theta = rigid_theta(params)[None]
-        warped = (_warp_affine_separable(theta, moving, max_shift=windows) if separable
-                  else warp_affine(theta, moving))
-        return loss(target, warped)
+        warped = (_warp_affine_separable(theta, moving_s, max_shift=windows) if separable
+                  else warp_affine(theta, moving_s))
+        return loss(target_s, warped)
 
     final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
         loss_fn, init_params, optimizer, lr, epochs, stop_rel, patience,

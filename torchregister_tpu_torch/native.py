@@ -5,7 +5,9 @@ Every library (the CUDA kernels under ``csrc/``, the shared volume I/O runtime
 ``csrc/volio.cpp`` at the repository root) is compiled into ``_build/`` under
 a name keyed by the source's hash, so an edited source never loads a stale
 library, and is then loaded with ``ctypes`` through a plain C interface.
-Every kernel wrapper launches through :meth:`Library.launch`.
+Every kernel wrapper launches through :meth:`Library.launch`, and each
+kernel module registers its launch counters (:func:`count_launches`), so that
+the replays of a captured CUDA graph (``engines/graph.py``) add to them.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 from typing import Sequence
@@ -131,3 +134,41 @@ def check_operands(what: str, *operands) -> None:
     for t, _ in operands:
         if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{what} needs its tensors on one CUDA device")
+
+
+# module name -> the names of its launch counters: module-level ints, or
+# dicts of ints (a count by kernel or form)
+COUNTERS: dict = {}
+
+
+def count_launches(module: str, *names: str) -> None:
+    """Register ``module``'s launch counters by name (called once, at the
+    module's import)."""
+    COUNTERS[module] = names
+
+
+def launch_counts() -> dict:
+    """Every registered counter: ``{(module, name, key): n}``, ``key`` None
+    for an int counter."""
+    out = {}
+    for module, names in COUNTERS.items():
+        mod = sys.modules[module]
+        for name in names:
+            value = getattr(mod, name)
+            if isinstance(value, dict):
+                out.update({(module, name, key): n for key, n in value.items()})
+            else:
+                out[(module, name, None)] = value
+    return out
+
+
+def add_launch_counts(counts: dict, times: int) -> None:
+    """Add ``times`` x each of ``counts`` (as :func:`launch_counts` gives
+    them) to the registered counters: a graph's launches times its replays,
+    or -1 times the launches its capture counted but never ran."""
+    for (module, name, key), n in counts.items():
+        mod = sys.modules[module]
+        if key is None:
+            setattr(mod, name, getattr(mod, name) + n * times)
+        else:
+            getattr(mod, name)[key] += n * times

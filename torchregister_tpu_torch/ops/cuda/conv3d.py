@@ -38,6 +38,7 @@ SOURCE = native.PKG / "csrc" / "conv3d.cu"
 fwd_launches = 0
 dgrad_launches = 0
 wgrad_launches = 0
+native.count_launches(__name__, "fwd_launches", "dgrad_launches", "wgrad_launches")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the weight gradient's blocks: two on each of the H100's 132 SMs

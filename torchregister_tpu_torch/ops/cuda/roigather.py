@@ -33,6 +33,7 @@ BW = 16  # y extent (the b of column ab)
 CW = 16  # x extent (the output row c)
 
 launches = 0
+native.count_launches(__name__, "launches")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = native.Library(SOURCE, "roigather", {"roigather": (_I, [_P, _P, _P] + [_I] * 4 + [_P])})

@@ -33,6 +33,7 @@ WARPS, STEPS = 8, 64  # a block's warps; a warp's steps of 32 samples
 CHUNK = WARPS * STEPS * 32  # samples a block of the kernel's first stage (kChunk)
 
 launches = 0
+native.count_launches(__name__, "launches")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = native.Library(SOURCE, "splat", {

@@ -23,7 +23,8 @@ versions.
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches, and
 ``fwd_modes`` / ``bwd_modes`` split them by the form of ``q``, so a run can
-show that its path went through the kernels and which form ran;
+show that its path went through the kernels and which form ran (a CUDA
+graph's replays add the launches it captured, ``engines/graph.py``);
 :func:`reset_counts` zeroes them.
 """
 from __future__ import annotations
@@ -42,6 +43,7 @@ fwd_launches = 0
 bwd_launches = 0
 fwd_modes = {"dense": 0, "affine": 0, "flow": 0}
 bwd_modes = {"dense": 0, "affine": 0, "flow": 0}
+native.count_launches(__name__, "fwd_launches", "bwd_launches", "fwd_modes", "bwd_modes")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DENSE, _AFFINE, _FLOW = 0, 1, 2

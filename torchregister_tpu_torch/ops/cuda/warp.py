@@ -41,6 +41,7 @@ FAR = 2.0**13  # a staged box lies within +-FAR
 affine_launches = 0
 flow_launches = 0
 tiles_launched = 0
+native.count_launches(__name__, "affine_launches", "flow_launches", "tiles_launched")
 _staged: dict = {}  # device index -> int32 [1], the kernel's count of staged blocks
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

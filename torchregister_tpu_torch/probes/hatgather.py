@@ -52,6 +52,7 @@ P3_ATOL = 1e-4
 F32, I32 = torch.float32, torch.int32
 
 launches = dict.fromkeys(KERNELS, 0)
+native.count_launches(__name__, "launches")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # each entry: the inputs', the scratch's (slab_sum) and the output's

@@ -47,6 +47,7 @@ THETA = (0.12, -0.08, 0.1, 0.15, -0.1, 0.08)
 FETCH_ATOL = 5e-4
 
 launches = 0
+native.count_launches(__name__, "launches")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = native.Library(SOURCE, "roi_fetch", {"roi_fetch": (_I, [_P] * 4 + [_I] * 4 + [_P])})

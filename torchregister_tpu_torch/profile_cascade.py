@@ -1,16 +1,19 @@
 """Where the time of the recipe cascade goes on a CUDA device.
 
-    python -m torchregister_tpu_torch.profile_cascade [--unet]
+    python -m torchregister_tpu_torch.profile_cascade [--unet] [--fn]
 
 For the 240³ rigid pair and deformable-truth pair of :mod:`.synthetic` under
 ``RECIPE`` (with ``--unet``: the deformable pair alone under ``RECIPE_UNET``,
-the U-Net flow stage), after one warm-up cascade each:
+the U-Net flow stage), through ``register_cascade`` (with ``--fn``: through
+``make_cascade_fn``'s ``fn``, each engine level's step replayed from a CUDA
+graph), after one warm-up cascade each (which captures the graphs):
 
 1. ``wall``: the wall time of ``RUNS`` cascades, no profiler, no extra syncs;
 2. ``stages``: one cascade with each of its stage functions wrapped in a
    device sync on both sides (time and executed steps per stage and level);
-3. ``profile``: one cascade under ``torch.profiler``. ``device_s`` sums the
-   durations of every device event (kernels, copies, fills); ``busy_union_s``
+3. ``profile``: one cascade under ``torch.profiler`` (the card's activity
+   alone). ``device_s`` sums the durations of every device event (kernels,
+   copies, fills; ``top_device_ms`` by kernel); ``busy_union_s``
    is the union of their intervals. Two busy shares are printed:
    ``busy_share_profiled`` = ``busy_union_s`` / wall time of the profiled run
    (the profiler slows the host, so this is a lower bound), and
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import statistics
 import time
@@ -93,27 +97,34 @@ def _map_bf16(theta, flow, spatial):
     return torch.einsum("ij,j...->i...", rnd(M), rnd(y)) + t.reshape((d,) + (1,) * d)
 
 
-def _profile(moving, target, wall_s: list, recipe: dict) -> dict:
+def busy_profile(moving, target, wall_s: list, run) -> dict:
+    """One ``run(moving, target)`` under ``torch.profiler`` recording the
+    card's activity alone (the host's ops, ~10^4 a U-Net step, would cost
+    minutes to parse): its device events, their union and the busy shares
+    (step 3 above)."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        _, ms = _sync_ms(cascade.register_cascade, moving, target, **recipe)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, ms = _sync_ms(run, moving, target)
+    # device work only: a trace span (the cascade's rigid/level0, ...) may
+    # show as a device-side range over the kernels it encloses
+    events = prof.events()
+    spans = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in spans]
     if not dev:
         return {"device_s": "not measured", "profiled_wall_s": ms / 1e3}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    union, cur_lo, cur_hi = 0.0, *spans[0]
-    for lo, hi in spans[1:]:
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    union, cur_lo, cur_hi = 0.0, *intervals[0]
+    for lo, hi in intervals[1:]:
         if lo > cur_hi:
             union += cur_hi - cur_lo
             cur_lo, cur_hi = lo, hi
         else:
             cur_hi = max(cur_hi, hi)
     union = (union + cur_hi - cur_lo) / 1e6  # us -> s
-    top = sorted(prof.key_averages(), key=lambda a: a.self_device_time_total,
-                 reverse=True)[:16]
+    top = sorted((a for a in prof.key_averages() if a.key not in spans),
+                 key=lambda a: a.self_device_time_total, reverse=True)[:16]
     return {
         "profiled_wall_s": ms / 1e3,
         "device_events": len(dev),
@@ -130,26 +141,29 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--unet", action="store_true",
                     help="the U-Net recipe on the deformable pair")
+    ap.add_argument("--fn", action="store_true",
+                    help="through make_cascade_fn (each level's step a CUDA graph)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cascade needs a CUDA device")
     recipe = synthetic.RECIPE_UNET if args.unet else synthetic.RECIPE
+    run = (cascade.make_cascade_fn(**recipe) if args.fn
+           else functools.partial(cascade.register_cascade, **recipe))
     fmov, ftgt, theta_true, flow_true = synthetic.make_flow_truth_pair(device="cuda")
     pairs = [("deformable", (fmov, ftgt))]
     if not args.unet:
         pairs.insert(0, ("rigid", synthetic.make_pair(device="cuda")))
     for pair, (mov, tgt) in pairs:
-        cascade.register_cascade(mov, tgt, **recipe)  # warm-up
-        wall_s = [_sync_ms(cascade.register_cascade, mov, tgt, **recipe)[1] / 1e3
-                  for _ in range(RUNS)]
-        print(json.dumps({"pair": pair, "wall_s": wall_s,
+        run(mov, tgt)  # warm-up
+        wall_s = [_sync_ms(run, mov, tgt)[1] / 1e3 for _ in range(RUNS)]
+        print(json.dumps({"pair": pair, "fn": args.fn, "wall_s": wall_s,
                           "median_wall_s": statistics.median(wall_s)}), flush=True)
         records: list = []
         with _timed_stages(records):
-            res, ms = _sync_ms(cascade.register_cascade, mov, tgt, **recipe)
+            res, ms = _sync_ms(run, mov, tgt)
         print(json.dumps({"pair": pair, "stages_total_ms": ms, "steps": res.steps,
                           "stages": records}), flush=True)
-        print(json.dumps({"pair": pair, "profile": _profile(mov, tgt, wall_s, recipe)}),
+        print(json.dumps({"pair": pair, "profile": busy_profile(mov, tgt, wall_s, run)}),
               flush=True)
         if pair == "deformable":
             f32 = synthetic.flow_truth_metrics(res, fmov, ftgt, theta_true, flow_true)
