@@ -16,13 +16,17 @@ from the checkout, holds each against its plain PyTorch version on the card
 the bit; K1 in
 its dense form and in the affine and flow forms the engines launch, which
 compute each pass's coordinates in the kernel and must equal the dense
-launch on the same coordinates to the bit), drives
+launch on the same coordinates to the bit, and the affine form with a table
+per pair, each pair equal to a single-table launch to the bit), drives
 the port's paths with quality gates (the recipe cascade on the 240³ pairs;
 the CLI's register/apply round trip on NIfTI files; ``Register`` rigid, then
 flow; the U-Net parity cascade on the 240³ deformable pair, which must repeat
 to the bit; ``make_cascade_fn`` on the recipe's two pairs and the U-Net
 control, each engine level's step captured once as a CUDA graph and
-replayed, equal to ``register_cascade`` to the bit (``[cascade-fn]``); the
+replayed, equal to ``register_cascade`` to the bit (``[cascade-fn]``); a
+cohort (``[cohort]``): ``make_cascade_batch_fn`` on 8 240³ pairs, each against
+its own ``make_cascade_fn`` run, and ``register_cohort`` rigid on the cohort
+driver's 8 pairs; the
 engines' tensor-op Adam against ``torch.optim.Adam`` on the card
 (``[adam]``), and last, after every timing, the busy share of both
 (``[busy]``); ``Register`` in U-Net mode at the reference width; ``Register``
@@ -74,7 +78,8 @@ from torchregister_tpu_torch import warp_cases as wc
 from torchregister_tpu_torch.__main__ import main as cli
 from torchregister_tpu_torch.engines.affine import affine_register
 from torchregister_tpu_torch.engines import common as engine_common
-from torchregister_tpu_torch.engines.cascade import make_cascade_fn, register_cascade
+from torchregister_tpu_torch.engines.cascade import (make_cascade_batch_fn, make_cascade_fn,
+                                                     register_cascade)
 from torchregister_tpu_torch.engines.common import make_optimizer
 from torchregister_tpu_torch.engines.flow import flow_register
 from torchregister_tpu_torch.engines.rigid import rigid_register
@@ -90,7 +95,10 @@ from torchregister_tpu_torch.ops.cuda import warp as k2
 from torchregister_tpu_torch.ops.edge import edge_filter, edge_magnitude
 from torchregister_tpu_torch.ops.grid import affine_grid
 from torchregister_tpu_torch.ops.resize import downsample_avg, nearest_resize
+from torchregister_tpu_torch.ops.separable import affine_to_index_map, factor_passes
 from torchregister_tpu_torch.ops.transforms import rigid_theta
+from torchregister_tpu_torch.cohort_driver import cohort as driver_cohort
+from torchregister_tpu_torch.parallel import register_cohort
 from torchregister_tpu_torch.probes import checked_index
 from torchregister_tpu_torch.probes import hatgather as hg
 from torchregister_tpu_torch.probes import roi_stages as rs
@@ -130,6 +138,10 @@ REPLACES = {
     "slice_transpose": "benchmarks/probe_hatgather.py:270",
     "roi_fetch": "benchmarks/probe_roi_stages.py:69",
     "splat": "torchregister_tpu/losses/nmi.py:129",
+    # K1's affine form with a table per pair: the same Pallas kernel under the
+    # JAX cohort's vmap
+    "sweep_fwd_pairs": "torchregister_tpu/ops/pallas/sweep.py:38",
+    "sweep_bwd_pairs": "torchregister_tpu/ops/pallas/sweep.py:134",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
@@ -141,6 +153,8 @@ NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST),
                   "Pallas kernel: the binned NMI's splat, summed in a fixed order"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
+           "sweep_fwd_pairs": "torchregister_tpu_torch/csrc/sweep.cu",
+           "sweep_bwd_pairs": "torchregister_tpu_torch/csrc/sweep.cu",
            "warp_affine": "torchregister_tpu_torch/csrc/warp.cu",
            "warp_flow": "torchregister_tpu_torch/csrc/warp.cu",
            "conv3d_fwd": "torchregister_tpu_torch/csrc/conv3d.cu",
@@ -405,6 +419,69 @@ def _check_path_modes(S, K, dtype, axis) -> tuple[float, float, float]:
             max(_max_err(a, b) for a, b in bwd_pairs), row_rel)
 
 
+# K1's affine form with a table per pair, as a cohort launches it: the 8
+# pairs of [cohort] at 240³, a window of 8
+PAIRS_N, PAIRS_S, PAIRS_K = 8, 240, 8
+
+
+def _pair_case(dtype, seed):
+    """Images and cotangents ``[8, 1, 240, 240, 240]`` and one table per
+    pair ``[8, 3, 4]``: the separable passes of 8 rigid transforms drawn
+    from ``seed``."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (PAIRS_N, 1) + (PAIRS_S,) * 3
+    src = torch.rand(shape, generator=gen, device=DEV).to(dtype)
+    g = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    params = 0.1 * (2.0 * torch.rand((PAIRS_N, 6), generator=gen, device=DEV) - 1.0)
+    passes = factor_passes(*affine_to_index_map(rigid_theta(params), (PAIRS_S,) * 3))
+    table = torch.stack([torch.cat([c, o[:, None]], dim=1) for _, (c, o) in passes], dim=1)
+    return src, g, table.contiguous(), [a for a, _ in passes]
+
+
+def _check_pair_tables(dtype) -> tuple[float, float, float]:
+    """K1's affine form with a table per pair (one launch a pass for the 8
+    pairs): each pair's output, dsrc and row gradient equal, to the bit, a
+    single-table launch on that pair alone; the batched launch against the
+    plain version with a row per pair (output and dsrc at ``TOL`` relative
+    to the largest reference value, row gradients at 1e-5 of their largest
+    entry: another order of the sums). Returns the largest absolute
+    deviations from the plain version, forward and backward, and the row
+    gradients' relative one."""
+    src, g, table, axes = _pair_case(dtype, 9100 + (dtype == torch.bfloat16))
+    K = PAIRS_K
+    fwd = bwd = row_rel = 0.0
+    bits = True
+    rel = []
+    for p, axis in enumerate(axes):
+        out = k1.affine_fwd(src, table, p, axis, K)
+        dsrc, drow = k1.affine_bwd(g, src, table, p, axis, K)
+        for n in range(PAIRS_N):
+            one = table[n].contiguous()
+            s_n, g_n = src[n:n + 1], g[n:n + 1]
+            ref_s, ref_row = k1.affine_bwd(g_n, s_n, one, p, axis, K)
+            bits &= (torch.equal(out[n:n + 1], k1.affine_fwd(s_n, one, p, axis, K))
+                     and torch.equal(dsrc[n:n + 1], ref_s) and torch.equal(drow[n], ref_row))
+        s = src.clone().requires_grad_(True)
+        row = table[:, p].clone().requires_grad_(True)
+        plain = k1.sweep_affine_plain(s, row[:, :3], row[:, 3], axis, K)
+        pl_s, pl_row = torch.autograd.grad(plain, (s, row), g)
+        rel += [_rel_err(out, plain), _rel_err(dsrc, pl_s)]
+        row_rel = max(row_rel, _rel_err(drow, pl_row))
+        fwd, bwd = max(fwd, _max_err(out, plain)), max(bwd, _max_err(dsrc, pl_s))
+        del s, row, plain, pl_s, pl_row
+    label = f"{PAIRS_N} pairs {PAIRS_S}³ K={K} {str(dtype).replace('torch.', '')}"
+    print(f"[kernel] table per pair, {label}: each pair equal to a single-table launch "
+          f"(out, dsrc, row gradient) {bits}; rel out/dsrc {max(rel[0::2]):.3e}/"
+          f"{max(rel[1::2]):.3e} (tol {TOL[dtype]:g}); row gradients {row_rel:.3e} "
+          "(tol 1e-5)", flush=True)
+    if not bits:
+        raise AssertionError(f"K1's table per pair differs from single-table launches: {label}")
+    if not (max(rel) < TOL[dtype] and row_rel < 1e-5):
+        raise AssertionError(f"K1's table per pair disagrees with the plain version: {label}: "
+                             f"{rel}, {row_rel:.3e}")
+    return fwd, bwd, row_rel
+
+
 def phase_kernels() -> dict:
     """K1 against its plain version on the card; returns the largest
     absolute deviations seen, forward and backward, f32 and bf16 alike."""
@@ -435,7 +512,13 @@ def phase_kernels() -> dict:
         for axis in range(3):
             f, b, r = _check_path_modes(S, K, dtype, axis)
             fwd_err, bwd_err, row_err = max(fwd_err, f), max(bwd_err, b), max(row_err, r)
-    return {"sweep_fwd": fwd_err, "sweep_bwd": bwd_err, "sweep_row_grad_rel": row_err}
+    # the affine form with a table per pair (a cohort's warps)
+    pairs = [_check_pair_tables(dtype) for dtype in (torch.float32, torch.bfloat16)]
+    torch.cuda.empty_cache()
+    return {"sweep_fwd": fwd_err, "sweep_bwd": bwd_err, "sweep_row_grad_rel": row_err,
+            "sweep_fwd_pairs": max(f for f, _, _ in pairs),
+            "sweep_bwd_pairs": max(b for _, b, _ in pairs),
+            "sweep_pairs_row_grad_rel": max(r for _, _, r in pairs)}
 
 
 def _same_bits(out, ref) -> bool:
@@ -1105,6 +1188,216 @@ def phase_cascade_fn() -> tuple[dict, list]:
             total[k] = total.get(k, 0) + v
         runs.append(run)
     return total, runs
+
+
+# [cohort]: make_pair seeds 0-3 and make_flow_truth_pair seeds 1-4 at 240³
+# through make_cascade_batch_fn(**RECIPE); each pair against its own
+# make_cascade_fn run within these limits
+COHORT_PAIR_SEEDS, COHORT_TRUTH_SEEDS = (0, 1, 2, 3), (1, 2, 3, 4)
+COHORT_STEPS_TOL, COHORT_QUALITY_TOL = 2, 0.1
+# register_cohort rigid on the cohort driver's 8 perturbed 240³ pairs, with a plateau
+# stop so that the pairs stop at different steps
+COHORT_RIGID = dict(mode="rigid", lr=5e-3, epochs=300, criterions=["mse"], optimizer="adam",
+                    init="identity", stop_rel=1e-3, patience=20)
+
+
+def _cohort_inputs() -> list:
+    """``(kind, seed, moving, target, truth)`` of [cohort]'s 8 pairs, made
+    on 8 threads (each pair's blobs are numpy work)."""
+    def pair(seed):
+        return ("rigid", seed, *make_pair(seed=seed, device=DEV), None)
+
+    def truth(seed):
+        m, t, theta, flow = make_flow_truth_pair(seed=seed, device=DEV)
+        return ("deformable", seed, m, t, (theta, flow))
+
+    with ThreadPoolExecutor(8) as ex:
+        jobs = ([ex.submit(pair, s) for s in COHORT_PAIR_SEEDS]
+                + [ex.submit(truth, s) for s in COHORT_TRUTH_SEEDS])
+        return [j.result() for j in jobs]
+
+
+def _pair_quality(kind, res, m, t, truth) -> dict:
+    if kind == "rigid":
+        return {"rmse_reduction_pct": rmse_reduction_pct(res.warped, m, t)}
+    return dict(zip(("flow_truth_rmse_reduction_pct", "flow_field_err_vox",
+                     "flow_field_err_observable_vox"), flow_truth_metrics(res, m, t, *truth)))
+
+
+def phase_cohort() -> dict:
+    """``make_cascade_batch_fn(**RECIPE)`` on 8 pairs at 240³: one capturing
+    call, then one timed replaying call (equal to it to the bit). Each pair
+    against its own ``make_cascade_fn(**RECIPE)`` run (steps per stage and
+    level within 2, quality fields within 0.1); the seed-0 rigid and seed-1
+    deformable pairs also meet the absolute gates. Then ``register_cohort``
+    rigid on the cohort driver's 8 perturbed pairs: its check, and each
+    pair's steps those of its ``rigid_register`` run."""
+    t0 = time.perf_counter()
+    inputs = _cohort_inputs()
+    movings = torch.cat([m for _, _, m, _, _ in inputs])
+    targets = torch.cat([t for _, _, _, t, _ in inputs])
+    torch.cuda.synchronize()
+    print(f"[cohort] 8 pairs made in {time.perf_counter() - t0:.1f} s", flush=True)
+    B = movings.shape[0]
+    fn = make_cascade_batch_fn(**RECIPE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = fn(movings, targets)  # captures every level's batched step
+    torch.cuda.synchronize()
+    wall_capture = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    before = fn.graphs.counts()
+    _reset_counts()
+    engine_common.reset_counts()
+    t0 = time.perf_counter()
+    res = fn(movings, targets)  # copies its inputs in and replays
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, reads = _counts(), dict(engine_common.host_reads)
+    graphs = fn.graphs.counts()
+    replays = {lvl: c[1] - before.get(lvl, [0, 0])[1] for lvl, c in graphs.items()}
+    steps_run = sum(s for stage in res.steps.values() for pair in stage for s in pair)
+    masked = sum(r for r in replays.values()) * B - steps_run
+    repeat = all(_same_bits(getattr(res, n), getattr(first, n))
+                 for n in ("warped", "theta", "flow", "rigid_losses", "affine_losses",
+                           "flow_losses")) and res.steps == first.steps
+    _on_cuda(res)
+    single = make_cascade_fn(**RECIPE)
+    single(*inputs[0][2:4])  # warm-up: its graphs captured
+    walls, rows, bits, bad = [], [], [], []
+    for b, (kind, seed, m, t, truth) in enumerate(inputs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = single(m, t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mine = res._replace(warped=res.warped[b], theta=res.theta[b], flow=res.flow[b],
+                            steps={k: v[b] for k, v in res.steps.items()})
+        if not (tuple(mine.warped.shape) == tuple(m.shape)
+                and bool(torch.isfinite(mine.warped).all())
+                and bool(torch.isfinite(mine.flow).all())):
+            raise AssertionError(f"[cohort] pair {b} is not a finite volume of its shape")
+        q, q_ref = _pair_quality(kind, mine, m, t, truth), _pair_quality(kind, ref, m, t, truth)
+        dsteps = max(abs(a - c) for k in ref.steps for a, c in zip(mine.steps[k], ref.steps[k]))
+        dq = max(abs(q[k] - q_ref[k]) for k in q)
+        bits.append(all(_same_bits(getattr(mine, n), getattr(ref, n))
+                        for n in ("warped", "theta", "flow")) and mine.steps == ref.steps)
+        rows.append({"pair": f"{kind} seed {seed}", "steps": mine.steps,
+                     "single_steps": ref.steps, "quality": q, "single_quality": q_ref})
+        if dsteps > COHORT_STEPS_TOL or dq > COHORT_QUALITY_TOL:
+            bad.append((b, dsteps, dq))
+        if seed == (0 if kind == "rigid" else 1):
+            gate = (q["rmse_reduction_pct"] >= GATES["rmse_reduction_pct"] if kind == "rigid"
+                    else q["flow_truth_rmse_reduction_pct"]
+                    >= GATES["flow_truth_rmse_reduction_pct"]
+                    and q["flow_field_err_observable_vox"]
+                    <= GATES["flow_field_err_observable_vox"])
+            if not gate:
+                raise AssertionError(f"[cohort] {kind} seed {seed} gate failed: {q}")
+    for row in rows:
+        print(f"[cohort] {json.dumps(row)}", flush=True)
+    single_mean = sum(walls) / len(walls)
+    print(f"[cohort] make_cascade_batch_fn(**RECIPE), {B} pairs at {SIZE}³: wall of the "
+          f"capturing call {wall_capture:.3f} s, of the replaying call {wall:.3f} s = "
+          f"{wall / B:.4f} s a pair, against make_cascade_fn's mean {single_mean:.4f} s a "
+          f"pair alone ({json.dumps([round(w, 4) for w in walls])}); {len(graphs)} step "
+          f"graphs, replays of the replaying call {json.dumps(replays)}; pair-steps run "
+          f"{steps_run}, masked {masked}; host reads {json.dumps(reads)}; peak memory of the "
+          f"capturing call {peak:.3f} GiB; replay equal to the capturing call to the bit "
+          f"{repeat}; pairs equal to their single runs to the bit {sum(bits)} of {B}; "
+          f"launches of the replaying call {json.dumps(launches)}", flush=True)
+    if bad:
+        raise AssertionError(f"[cohort] pairs off their single runs (pair, steps, quality): "
+                             f"{bad}")
+    if not repeat:
+        raise AssertionError("[cohort] the replaying call differs from the capturing call")
+    if any(c != 1 or r <= 0 for c, r in graphs.values()):
+        raise AssertionError(f"[cohort] a level's step was not captured once: {graphs}")
+    _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_fwd_pairs", "sweep_bwd_pairs",
+                     "sweep_fwd_flow", "sweep_bwd_flow"), "make_cascade_batch_fn")
+    del first, res, movings, targets, inputs
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items()}, phase_cohort_rigid()
+
+
+def phase_cohort_rigid() -> dict:
+    """``register_cohort`` rigid on the cohort driver's 8 perturbed pairs at
+    240³ (``COHORT_RIGID``): max |theta - true| < 0.05, a lower RMSE after
+    the exact re-warp, and each pair's steps and best theta those of its own
+    ``rigid_register`` run."""
+    movings, targets, trues = driver_cohort(8, (SIZE,) * 3, device=DEV)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = register_cohort(movings, targets, **COHORT_RIGID)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    err = float(torch.max(torch.abs(res.best_theta[:, 0] - trues)))
+    warped = blocked.warp_affine_fast(res.best_theta[:, 0], movings)
+    rmse0 = float(torch.sqrt(torch.mean((movings - targets) ** 2)))
+    rmse1 = float(torch.sqrt(torch.mean((warped - targets) ** 2)))
+    kw = {k: v for k, v in COHORT_RIGID.items() if k != "mode"}
+    solo_steps, same, t0 = [], 0, time.perf_counter()
+    for b in range(movings.shape[0]):
+        _, solo = rigid_register(movings[b:b + 1], targets[b:b + 1], grad_edges=False, **kw)
+        solo_steps.append(solo.steps)
+        same += _same_bits(res.best_theta[b], solo.best_theta)
+    torch.cuda.synchronize()
+    wall_solo = time.perf_counter() - t0
+    print(f"[cohort] register_cohort rigid, 8 pairs at {SIZE}³: steps {res.steps}, alone "
+          f"{solo_steps}; best thetas equal to the bit {same} of 8; max |theta - true| = "
+          f"{err:.5f}; RMSE {rmse0:.5f} -> {rmse1:.5f}; wall {wall:.3f} s, the 8 single runs "
+          f"{wall_solo:.3f} s; K1 launches {json.dumps({k: v for k, v in launches.items() if k.startswith('sweep') and v})}",
+          flush=True)
+    if res.steps != solo_steps or not (err < 0.05 and rmse1 < rmse0):
+        raise AssertionError(f"[cohort] register_cohort rigid failed: steps {res.steps} vs "
+                             f"{solo_steps}, err {err}, RMSE {rmse0} -> {rmse1}")
+    _need(launches, ("sweep_fwd_pairs", "sweep_bwd_pairs"), "register_cohort")
+    return launches
+
+
+def phase_pair_times() -> dict:
+    """K1's affine form with a table per pair (8 pairs at 240³, K = 8, f32):
+    one batched launch against the 8 single-table launches it replaces, in
+    turns, and against the plain version (a row per pair; its backward to
+    the image and the rows), with the bounds: each image, cotangent and
+    output read or written once, ~6 operations per output forward and ~10
+    per voxel backward (as ``profile_sweep``'s rows)."""
+    src, g, table, axes = _pair_case(torch.float32, 9200)
+    K, N = PAIRS_K, PAIRS_N
+    singles = [(src[n:n + 1], g[n:n + 1], table[n].contiguous()) for n in range(N)]
+    dtable = torch.empty_like(table)
+    work = k1._affine_work(src, axes, [K] * 3, N)
+    one_dtable = torch.empty_like(singles[0][2])
+    one_work = k1._affine_work(singles[0][0], axes, [K] * 3)
+    out: dict = {"fwd": [], "bwd": []}
+    for p, axis in enumerate(axes):
+        fwd = ps.in_turns({
+            "ms": lambda: k1._fwd_affine(src, table, p, axis, K),
+            "singles_ms": lambda: [k1._fwd_affine(s, t, p, axis, K) for s, _, t in singles]})
+        bwd = ps.in_turns({
+            "ms": lambda: k1._bwd_affine(g, src, table, p, axis, K, True, dtable, work),
+            "singles_ms": lambda: [k1._bwd_affine(gg, s, t, p, axis, K, True, one_dtable,
+                                                  one_work) for s, gg, t in singles]})
+        row = table[:, p].clone().requires_grad_(True)
+        s = src.clone().requires_grad_(True)
+        fwd["plain_ms"] = ps.time_ms(
+            lambda: k1.sweep_affine_plain(src, table[:, p, :3], table[:, p, 3], axis, K),
+            iters=3, warmup=1)
+        bwd["plain_ms"] = ps.time_ms(lambda: torch.autograd.grad(
+            k1.sweep_affine_plain(s, row[:, :3], row[:, 3], axis, K), (s, row), g), iters=3,
+            warmup=1)
+        out["fwd"].append(fwd)
+        out["bwd"].append(bwd)
+    vox = float(N) * PAIRS_S**3
+    rows = {}
+    for kind, nbytes, ops in (("fwd", 2 * 4 * vox, 6 * vox), ("bwd", 3 * 4 * vox, 10 * vox)):
+        mean = {k: sum(r[k] for r in out[kind]) / 3 for k in out[kind][0]}
+        rows[f"sweep_{kind}_pairs"] = {**mean, **_bound(nbytes, ops)}
+    print(f"[times] table per pair, {N} pairs {PAIRS_S}³ K={K} f32, mean of the 3 passes: "
+          f"{json.dumps(rows)}", flush=True)
+    return rows
 
 
 def phase_busy(runs: list) -> None:
@@ -1874,7 +2167,7 @@ def main() -> None:
     paths.append(reg_launches)
     errs["warp_flow"] = max(errs["warp_flow"], reg_err)
     fn_launches, fn_runs = phase_cascade_fn()
-    paths += [phase_unet(), fn_launches]
+    paths += [phase_unet(), fn_launches, *phase_cohort()]
     phase_adam()
     paths += [phase_register_unet(), phase_register_default(), phase_engines_default(),
               probe_launches]
@@ -1887,6 +2180,7 @@ def main() -> None:
     k2b_row = phase_k2b_times()
     probe_rows = phase_probe_times(probe_inputs)
     splat_rows = phase_splat_times(splat_inputs)
+    pair_rows = phase_pair_times()
     library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
     # per-launch times at the fine flow level's shape (240³, K=8, f32): its
     # flow form, with the dense launch and every form's row beside it
@@ -1901,7 +2195,9 @@ def main() -> None:
              "conv3d_wgrad": {"ms": k3_row["dw_ms"], "plain_ms": k3_row["wgrad_plain_ms"]},
              "roigather": k2b_row,
              **{name: probe_rows[name] for name in (*hg.KERNELS, "roi_fetch")},
-             "splat": splat_rows["make_pair"]}
+             "splat": splat_rows["make_pair"],
+             **{name: {k: pair_rows[name][k] for k in ("ms", "plain_ms")}
+                for name in pair_rows}}
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (pw_bound)
@@ -1914,12 +2210,15 @@ def main() -> None:
               "roigather": {k: k2b_row[k] for k in ("bound_ms", "bound_by")},
               **{name: {k: probe_rows[name][k] for k in ("bound_ms", "bound_by")}
                  for name in (*hg.KERNELS, "roi_fetch")},
-              "splat": {k: splat_rows["make_pair"][k] for k in ("bound_ms", "bound_by")}}
+              "splat": {k: splat_rows["make_pair"][k] for k in ("bound_ms", "bound_by")},
+              **{name: {k: pair_rows[name][k] for k in ("bound_ms", "bound_by")}
+                 for name in pair_rows}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
                    conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
                    roigather=k2b_row["library_ms"],
                    **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")},
-                   splat=splat_rows["make_pair"]["library_ms"])
+                   splat=splat_rows["make_pair"]["library_ms"], sweep_fwd_pairs=None,
+                   sweep_bwd_pairs=None)
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -1939,6 +2238,10 @@ def main() -> None:
                          "image at 240^3 (resized to 200^3); library: one scatter_add of both "
                          "terms; constant_image: one bin takes every sample"}
     timed_at["sweep_bwd"] = timed_at["sweep_fwd"]
+    timed_at["sweep_fwd_pairs"] = timed_at["sweep_bwd_pairs"] = (
+        "one launch for 8 pairs, 240^3 K=8 f32, a table per pair, mean of the 3 passes; "
+        "singles_ms: the 8 single-table launches it replaces; plain: the plain version with "
+        "a row per pair (backward: to the image and the rows)")
     timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1949,7 +2252,10 @@ def main() -> None:
          **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
          **({"note": NOTES[name]} if name in NOTES else {}),
          **(_sweep_extras(name, flow_row, modes, errs["sweep_row_grad_rel"])
-            if name.startswith("sweep") else {}),
+            if name in ("sweep_fwd", "sweep_bwd") else {}),
+         **({"singles_ms": pair_rows[name]["singles_ms"]} if name in pair_rows else {}),
+         **({"row_grad_max_rel_err": errs["sweep_pairs_row_grad_rel"]}
+            if name == "sweep_bwd_pairs" else {}),
          **(_copy_extras(name, probe_rows) if name in COPIES else {}),
          **({k: probe_rows[name].get(k) for k in SUM_EXTRAS}
             if name in ("slab_sum", "roi_fetch") else {}),

@@ -1,8 +1,10 @@
 """K1, K2, K3, K2b, the probe kernels and the slices on the GPU: the kernels
 against their plain versions, the port's cascades (field and U-Net flow) and
 criteria on the card against the same calls on the CPU, ``Register``'s
-default device, the U-Net cascade's repeat to the bit, both probe modules'
-``main``, the one launch path (a launch under a side stream, a tensor on
+default device, the U-Net cascade's repeat to the bit, cohorts (each pair
+of ``make_cascade_batch_fn`` and ``register_cohort`` equal to its single run
+to the bit, K1's table per pair against single-table launches), both probe
+modules' ``main``, the one launch path (a launch under a side stream, a tensor on
 another device than the current one), and the fixed-order kernels: the
 two-stage sums (P3, the ROI fetch) and the NMI splat, each equal to its
 order in torch ops to the bit.
@@ -243,6 +245,74 @@ def test_torch_cuda_sweep_modes_2d_and_full_windows(dev, dtype):
             drow = k1.affine_bwd(g, src, table, p, axis, K)[1]
             torch.testing.assert_close(drow, ref_row, rtol=0,
                                        atol=1e-5 * float(ref_row.abs().max()))
+
+
+def _pair_tables(dev, N, spatial, seed):
+    """One table [d, d+1] per item: the affine passes of N different rigid
+    transforms, ``[N, d, d+1]``."""
+    from torchregister_tpu_torch.ops.separable import affine_to_index_map, factor_passes
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    gen = torch.Generator().manual_seed(seed)
+    d = len(spatial)
+    params = 0.3 * (2.0 * torch.rand((N, 6 if d == 3 else 3), generator=gen) - 1.0)
+    theta = rigid_theta(params.to(dev))
+    passes = factor_passes(*affine_to_index_map(theta, spatial))
+    table = torch.stack([torch.cat([c, o[:, None]], dim=1) for _, (c, o) in passes], dim=1)
+    return table.contiguous(), [a for a, _ in passes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,C,spatial", [(3, 1, (17, 19, 23)), (2, 2, (5, 7, 9)),
+                                         (4, 1, (31, 26)), (5, 1, (9, 10, 40))])
+def test_torch_cuda_sweep_affine_table_per_item_equals_single_launches(dev, dtype, N, C,
+                                                                        spatial):
+    """K1's affine form with a table per item: each item's output, dsrc and
+    row gradient equal, to the bit, a launch with its table alone on that
+    item alone (rows that span two items in the forward's tiles at 5 x 7 x
+    9)."""
+    K = 6
+    gen = torch.Generator(device=dev).manual_seed(N * 10 + C)
+    src = torch.randn((N, C) + spatial, generator=gen, device=dev).to(dtype)
+    g = torch.randn(src.shape, generator=gen, device=dev).to(dtype)
+    table, axes = _pair_tables(dev, N, spatial, N + C)
+    for p, axis in enumerate(axes):
+        out = k1.affine_fwd(src, table, p, axis, K)
+        dsrc, drow = k1.affine_bwd(g, src, table, p, axis, K)
+        assert drow.shape == (N, len(spatial) + 1)
+        for n in range(N):
+            one = table[n].contiguous()
+            assert torch.equal(out[n:n + 1], k1.affine_fwd(src[n:n + 1], one, p, axis, K))
+            ref_s, ref_row = k1.affine_bwd(g[n:n + 1], src[n:n + 1], one, p, axis, K)
+            assert torch.equal(dsrc[n:n + 1], ref_s)
+            assert torch.equal(drow[n], ref_row)
+
+
+def test_torch_cuda_separable_warp_table_per_item(dev):
+    """The whole warp over a table per item (``_SeparableAffine``, d
+    launches each way): each item's output, dsrc and table gradient equal
+    those of its own warp to the bit, and the plain per-item passes on the
+    CPU within 1e-5."""
+    N, spatial, K = 3, (20, 18, 22), 8
+    gen = torch.Generator(device=dev).manual_seed(5)
+    src = torch.randn((N, 1) + spatial, generator=gen, device=dev)
+    g = torch.randn(src.shape, generator=gen, device=dev)
+    table, axes = _pair_tables(dev, N, spatial, 7)
+    windows = (K,) * len(axes)
+
+    def run(s, t, gs):
+        s, t = s.clone().requires_grad_(True), t.clone().requires_grad_(True)
+        out = k1._SeparableAffine.apply(s, t, tuple(axes), windows)
+        return (out, *torch.autograd.grad(out, (s, t), gs))
+
+    out, dsrc, dtable = run(src, table, g)
+    for n in range(N):
+        ref = run(src[n:n + 1], table[n].contiguous(), g[n:n + 1])
+        assert torch.equal(out[n:n + 1], ref[0]) and torch.equal(dsrc[n:n + 1], ref[1])
+        assert torch.equal(dtable[n], ref[2])
+    passes = [(a, (table[:, p, :3].cpu(), table[:, p, 3].cpu())) for p, a in enumerate(axes)]
+    plain = k1.sweep_affine_passes(src.cpu(), passes, windows)
+    torch.testing.assert_close(out.cpu(), plain, rtol=0, atol=1e-5)
 
 
 def test_torch_cuda_sweep_modes_repeat_to_the_bit(dev):
@@ -1295,6 +1365,83 @@ def test_torch_cuda_cascade_fn_equals_register_cascade(dev, model):
     assert set(counts) == {"rigid/level0", "rigid/level1", "affine/level0",
                            "affine/level1", "flow/level0", "flow/level1"}
     assert all(c == 1 and r > 0 for c, r in counts.values()), counts
+
+
+def test_torch_cuda_cascade_batch_fn_pairs_equal_their_single_runs(dev):
+    """``make_cascade_batch_fn`` on the card: one graph a level for the
+    batch, the pairs' launches of K1 with a table per pair, and each pair
+    equal to ``make_cascade_fn`` on it alone to the bit (steps, theta, flow,
+    image, losses), on the capturing call and on a replaying one."""
+    from torchregister_tpu_torch.engines.cascade import make_cascade_batch_fn, make_cascade_fn
+    from torchregister_tpu_torch.synthetic import RECIPE, make_flow_truth_pair, make_pair
+
+    recipe = {**RECIPE, "rigid_epochs": 60, "affine_epochs": 30, "flow_epochs": 40,
+              "levels": 2, "matrix_levels": 2, "flow_levels": 2, "flow_smooth": (0.5, 0.25)}
+    pairs = [make_pair((32, 32, 32), seed=0, device=dev),
+             make_flow_truth_pair((32, 32, 32), seed=1, device=dev)[:2],
+             make_pair((32, 32, 32), seed=2, device=dev)]
+    movings, targets = torch.cat([m for m, _ in pairs]), torch.cat([t for _, t in pairs])
+    fn, single = make_cascade_batch_fn(**recipe), make_cascade_fn(**recipe)
+    k1.reset_counts()
+    for call in range(2):
+        res = fn(movings, targets)
+        for b, (m, t) in enumerate(pairs):
+            want = single(m, t)
+            assert {k: v[b] for k, v in res.steps.items()} == want.steps, (call, b)
+            for name in ("warped", "theta", "flow", "rigid_losses", "affine_losses",
+                         "flow_losses"):
+                assert _bits_equal(getattr(res, name)[b], getattr(want, name)), (call, b, name)
+    assert k1.fwd_modes["pairs"] > 0 and k1.bwd_modes["pairs"] > 0
+    assert k1.fwd_modes["dense"] == k1.bwd_modes["dense"] == 0
+    assert all(c == 1 and r > 0 for c, r in fn.graphs.counts().values())
+
+
+def test_torch_cuda_register_cohort_equals_single_runs(dev):
+    """``register_cohort`` rigid and field-mode flow on the card: each pair's
+    steps, thetas and field equal its single-pair engine's to the bit, the
+    pairs stopping at different steps."""
+    from torchregister_tpu_torch.cohort_driver import cohort
+    from torchregister_tpu_torch.engines.flow import flow_register
+    from torchregister_tpu_torch.engines.rigid import rigid_register
+    from torchregister_tpu_torch.parallel import register_cohort
+
+    movings, targets, _ = cohort(4, (28, 28, 28), device=dev)
+    kw = dict(lr=5e-3, epochs=150, criterions=["mse", "ncc"], optimizer="adam",
+              init="identity", stop_rel=1e-3, patience=10)
+    res = register_cohort(movings, targets, mode="rigid", **kw)
+    assert len(set(res.steps)) > 1, res.steps
+    for b in range(4):
+        _, solo = rigid_register(movings[b:b + 1], targets[b:b + 1], grad_edges=False, **kw)
+        assert solo.steps == res.steps[b] and _bits_equal(res.best_theta[b], solo.best_theta)
+    fkw = dict(lr=0.3, criterions=["mse"], optimizer="adam", flow_model="field", smooth=0.5,
+               stop_rel=1e-3, patience=5, max_disp=4)
+    fres = register_cohort(movings, targets, mode="flow", epochs=60, **fkw)
+    for b in range(4):
+        _, solo = flow_register(movings[b:b + 1], targets[b:b + 1], max_epochs=60, **fkw)
+        assert solo.steps == fres.steps[b] and _bits_equal(fres.flow[b], solo.flow)
+
+
+def test_torch_cuda_register_cohort_arrays_and_default_criteria(dev):
+    """Numpy inputs go to the card (``register_cohort`` takes no device, as
+    JAX's runs on its accelerator), equal to the same pairs given as CUDA
+    tensors; the default criteria (MSE + NCC + NMI, each pair's NMI on its
+    own range and density path) leave each pair equal to its single-pair
+    run to the bit."""
+    from torchregister_tpu_torch.cohort_driver import cohort
+    from torchregister_tpu_torch.engines.rigid import rigid_register
+    from torchregister_tpu_torch.parallel import register_cohort
+
+    movings, targets, _ = cohort(2, (28, 28, 28), device=dev)
+    kw = dict(mode="rigid", lr=1e-4, epochs=6, optimizer="sgd", init="identity")
+    res = register_cohort(movings.cpu().numpy(), targets.cpu().numpy(), **kw)
+    assert res.best_theta.device.type == "cuda"
+    want = register_cohort(movings, targets, **kw)
+    assert res.steps == want.steps and _bits_equal(res.best_theta, want.best_theta)
+    for b in range(2):
+        _, solo = rigid_register(movings[b:b + 1], targets[b:b + 1], grad_edges=False,
+                                 **{k: v for k, v in kw.items() if k != "mode"})
+        assert solo.steps == res.steps[b] and _bits_equal(res.best_theta[b], solo.best_theta)
+        assert _bits_equal(res.losses[b], solo.losses)
 
 
 def _graphed_flow_grad(dev, steps):

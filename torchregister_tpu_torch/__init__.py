@@ -15,7 +15,8 @@ imports no JAX. The public surface, for what is ported:
 from .api import Register, norm
 from .config import AffineConfig, CascadeConfig, FlowConfig, RigidConfig
 from .engines.affine import affine_register
-from .engines.cascade import CascadeResult, make_cascade_fn, register_cascade
+from .engines.cascade import (CascadeResult, make_cascade_batch_fn, make_cascade_fn,
+                              register_cascade)
 from .engines.common import RegistrationResult
 from .engines.flow import FlowResult, flow_register
 from .engines.rigid import rigid_register
@@ -24,6 +25,7 @@ from .ops.blocked import warp_affine_fast, warp_flow_fast
 from .ops.edge import edge_filter
 from .ops.resample import grid_sample, warp_affine, warp_flow
 from .ops.transforms import compose_theta, identity_theta, rigid_theta
+from .parallel import register_cohort
 from .utils.io import load_transform, save_transform
 
 __version__ = "0.1.0"
@@ -40,6 +42,8 @@ __all__ = [
     "flow_register",
     "register_cascade",
     "make_cascade_fn",
+    "make_cascade_batch_fn",
+    "register_cohort",
     "CascadeResult",
     "RegistrationResult",
     "FlowResult",

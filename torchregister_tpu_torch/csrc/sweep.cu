@@ -15,7 +15,9 @@
 //           the yardstick of the other two);
 //   affine  q = ((t + c0*z) + c1*y) + c2*x (2-D: (t + c0*y) + c1*x), from one
 //           row (coef[d], offset) of a float32 device table: one pass of a
-//           separable affine warp, no dense grid and no host read;
+//           separable affine warp, no dense grid and no host read. The
+//           table is one for the whole tensor, or one per batch item (a
+//           cohort of pairs: row p of table n, at a batch stride);
 //   flow    q = u_a(o) + o_a, u_a channel a of a float32 [N, d, *S] field,
 //           read by its strides and broadcast over src's channels.
 // The affine and flow coordinates are evaluated with __fmul_rn/__fadd_rn in
@@ -63,7 +65,10 @@
 // fixed tree, into a workspace of per-block partials; the last block to
 // finish (an integer counter tells it) sums them in a fixed order: the
 // gradient of the pass's table row (coef[d], offset). No float atomics
-// anywhere.
+// anywhere. With a table per batch item the grid's y index is the item:
+// its blocks tile its rows as a launch on that item alone would, and it
+// has its own counter and range of partials, so each item's row gradient
+// (and its dsrc and output) is that launch's to the bit.
 //
 // Images are f32 or bf16 (the matrix stages sweep bf16 images); coordinates,
 // weights and all sums are f32 and an image output is rounded once.
@@ -175,30 +180,37 @@ struct DenseQ {
   const float* q;
   static constexpr bool kRowGrad = false;
   struct Col {};
-  __device__ void load() {}
+  __device__ void load(int) {}
   __device__ float at(long long e, int, int, int) const { return q[e]; }
   __device__ Col col(int, int) const { return {}; }
   __device__ float at(const Col&, long long e, int) const { return q[e]; }
   __device__ long long dq_index(const Col&, long long e) const { return e; }
 };
 
+// kPer: one table per batch item, `rn` floats apart. The forward finds an
+// element's item from its row (a tile may span two items); the backward's
+// blocks each lie in one item and load its row once.
+template <bool kPer>
 struct AffineQ {
-  const float* row;  // coef[d], offset
+  const float* row;  // coef[d], offset (of batch item 0)
   int d;
   Img im;
+  long long rn;      // the table's batch stride (0: one table)
   float t, c0, c1, c2;
   static constexpr bool kRowGrad = true;  // the backward reduces dq to the row
   struct Col {
     float pz, py, px;  // the products of the voxel's coordinates (the swept one unused)
     float z, y, x;     // the coordinates
   };
-  __device__ void load() {
+  __device__ __forceinline__ void read(const float* r, float& a0, float& a1, float& a2,
+                                       float& tt) const {
     if (d == 3) {
-      c0 = row[0]; c1 = row[1]; c2 = row[2]; t = row[3];
+      a0 = r[0]; a1 = r[1]; a2 = r[2]; tt = r[3];
     } else {  // 2-D: z is 0 and has no term
-      c0 = 0.0f; c1 = row[0]; c2 = row[1]; t = row[2];
+      a0 = 0.0f; a1 = r[0]; a2 = r[1]; tt = r[2];
     }
   }
+  __device__ void load(int n) { read(row + n * rn, c0, c1, c2, t); }
   // the voxel (z, y, x) of position p of row (o, i)
   __device__ __forceinline__ void voxel(int o, int p, int i, int& z, int& y, int& x) const {
     if (im.axis == 0) {
@@ -211,8 +223,8 @@ struct AffineQ {
     }
   }
   // q from the three rounded products, summed in the plain grid's order
-  __device__ __forceinline__ float sum(float pz, float py, float px) const {
-    float q = t;
+  __device__ __forceinline__ float sum(float tt, float pz, float py, float px) const {
+    float q = tt;
     if (d == 3) q = __fadd_rn(q, pz);
     q = __fadd_rn(q, py);
     return __fadd_rn(q, px);
@@ -220,7 +232,12 @@ struct AffineQ {
   __device__ float at(long long, int o, int p, int i) const {
     int z, y, x;
     voxel(o, p, i, z, y, x);
-    return sum(__fmul_rn(c0, (float)z), __fmul_rn(c1, (float)y), __fmul_rn(c2, (float)x));
+    if constexpr (kPer) {
+      float a0, a1, a2, tt;
+      read(row + (long long)im.by_c.div(im.by_ob.div(o)) * rn, a0, a1, a2, tt);
+      return sum(tt, __fmul_rn(a0, (float)z), __fmul_rn(a1, (float)y), __fmul_rn(a2, (float)x));
+    }
+    return sum(t, __fmul_rn(c0, (float)z), __fmul_rn(c1, (float)y), __fmul_rn(c2, (float)x));
   }
   __device__ Col col(int o, int i) const {
     int z, y, x;
@@ -231,7 +248,7 @@ struct AffineQ {
   __device__ float at(const Col& c, long long, int p) const {
     const int a = im.axis;
     const float m = __fmul_rn(a == 0 ? c0 : (a == 1 ? c1 : c2), (float)p);
-    return sum(a == 0 ? m : c.pz, a == 1 ? m : c.py, a == 2 ? m : c.px);
+    return sum(t, a == 0 ? m : c.pz, a == 1 ? m : c.py, a == 2 ? m : c.px);
   }
 };
 
@@ -249,7 +266,7 @@ struct FlowQ {
     long long u_off;   // u's index of an element: u_off + e
     long long dq_off;  // du's index of an element: dq_off + e
   };
-  __device__ void load() {}
+  __device__ void load(int) {}
   __device__ float at(long long e, int o, int p, int) const {
     if constexpr (kOne) return __fadd_rn(u[e], (float)p);
     const int b = im.by_ob.div(o);
@@ -296,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
 sweep_fwd_kernel(const T* __restrict__ src, Q qf, T* __restrict__ out,
                  float* __restrict__ diff, Rows r) {
   Q qm = qf;
-  qm.load();
+  qm.load(0);
   const bool lanes_p = r.inner == 1;
   const long long n_lanes = lanes_p ? r.L : r.inner;
   const long long n_rows = lanes_p ? r.outer : r.L;
@@ -362,6 +379,8 @@ __device__ __forceinline__ float4 warp_sum(float4 v) {
 
 // The staged backward's tile: kCols columns (TI inner x TO outer, TI a
 // power of 2) by a chunk of L positions, staged with the window around it.
+// `outer` and `blocks` count one batch item's rows and blocks when the
+// grid's y index is the item (the affine form's table per item), else all.
 struct Tile {
   long long outer, inner;
   int X, K;
@@ -417,7 +436,8 @@ template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads)
 sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
                  T* __restrict__ dsrc, float* __restrict__ dq, float4* __restrict__ partials,
-                 unsigned* __restrict__ done, float* __restrict__ drow, Tile tl) {
+                 unsigned* __restrict__ done, float* __restrict__ drow, long long drn,
+                 Tile tl) {
   extern __shared__ int smem[];
   const int n_stage = tl.TO * tl.LhM * tl.TI;        // each array [TO][LhM][TI]
   int* code = smem;
@@ -427,10 +447,11 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
   // per column: does its floor index x + k never decrease along x?
   __shared__ int s_mono[kCols];
   Q qm = qf;
-  qm.load();
+  qm.load(blockIdx.y);
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x % tl.n_chunks;
   const long long tile = blockIdx.x / tl.n_chunks;
+  const long long ob = (long long)blockIdx.y * tl.outer;  // the item's first row
   const long long o0 = (tile / tl.n_inner_tiles) * tl.TO;
   const long long i0 = (tile % tl.n_inner_tiles) * tl.TI;
   const int X = tl.X, K = tl.K, TI = tl.TI;
@@ -456,8 +477,8 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
   for (int to = to0; to < tl.TO; to += to_step) {
     const long long o = o0 + to;
     if (o >= tl.outer || i >= tl.inner) continue;
-    const typename Q::Col c = qm.col((int)o, (int)i);
-    const long long base = o * X * tl.inner + i;
+    const typename Q::Col c = qm.col((int)(ob + o), (int)i);
+    const long long base = (ob + o) * X * tl.inner + i;
     const int sb = ti + TI * tl.LhM * to;
     for (int p = p0; p < Lh; p += p_step) {
       const int x = s0 + p;
@@ -492,8 +513,8 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
   for (int to = to0; to < tl.TO; to += to_step) {
     const long long o = o0 + to;
     if (o >= tl.outer || i >= tl.inner) continue;
-    const typename Q::Col c = qm.col((int)o, (int)i);
-    const long long base = o * X * tl.inner + i;
+    const typename Q::Col c = qm.col((int)(ob + o), (int)i);
+    const long long base = (ob + o) * X * tl.inner + i;
     const int sb = ti + TI * tl.LhM * to;
     for (int jj = p0; jj < tl.L; jj += p_step) {
       const int j = j0 + jj;
@@ -561,7 +582,7 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
     for (int to = to0; to < tl.TO; to += to_step) {
       const long long o = o0 + to;
       if (o >= tl.outer || i >= tl.inner || s_mono[ti + TI * to]) continue;
-      const long long base = o * X * tl.inner + i;
+      const long long base = (ob + o) * X * tl.inner + i;
       const float* acc = s_src + ti + TI * tl.LhM * to;
       for (int jj = p0; jj < tl.L && j0 + jj < X; jj += p_step)
         store_f(dsrc, base + (long long)(j0 + jj) * tl.inner, acc[TI * jj]);
@@ -569,6 +590,10 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
   }
   if constexpr (Q::kRowGrad) {
     if (!partials) return;
+    // the item's counter, partials and row gradient
+    partials += (long long)blockIdx.y * gridDim.x;
+    done += blockIdx.y;
+    drow += blockIdx.y * drn;
     // the block's share of the row gradient in a fixed tree: within each
     // warp by shuffles, then the warps' sums in order
     __shared__ float4 red[kThreads / 32];
@@ -624,11 +649,26 @@ int fwd_dtype(int dtype, const void* src, Q q, void* out, void* diff, const Rows
   return (int)cudaErrorInvalidValue;
 }
 
+// The rows of one of `items` batch items (each its own grid row), false
+// when they do not split evenly or the grid is too large.
+bool item_tile(const Rows& r, long long items, Tile& tl) {
+  if (items < 1 || items > 65535 || r.outer % items) return false;
+  const Rows ri{r.outer / items, r.inner, r.L, r.K};
+  return rows_ok(ri) && make_tile(ri, tl);
+}
+
+// Floats of the workspace: the items' counters (four to 16 bytes), then 4
+// partial sums a block.
+long long work_floats(const Tile& tl, long long items) {
+  return 4 * (items * tl.blocks + (items + 3) / 4);
+}
+
 template <typename T, typename Q>
 int launch_bwd(const void* g, const void* src, Q q, void* dsrc, void* dq, void* work,
-               void* drow, const Rows& r, cudaStream_t stream) {
+               void* drow, long long drn, long long items, const Rows& r,
+               cudaStream_t stream) {
   Tile tl;
-  if (!rows_ok(r) || !make_tile(r, tl)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(r) || !item_tile(r, items, tl)) return (int)cudaErrorInvalidValue;
   const int smem = (int)tile_bytes(tl.TO, tl.TI, tl.LhM);
   static bool opted = false;  // one attribute per instantiation
   if (!opted) {
@@ -638,20 +678,22 @@ int launch_bwd(const void* g, const void* src, Q q, void* dsrc, void* dq, void* 
     if (rc != cudaSuccess) return (int)rc;
     opted = true;
   }
-  // the affine form's workspace: a counter of finished blocks (16 bytes),
-  // 0 on entry and left 0 (atomicInc wraps), then one partial sum a block
+  // the affine form's workspace: a counter of finished blocks an item, 0 on
+  // entry and left 0 (atomicInc wraps), then one partial sum a block
   unsigned* done = drow ? (unsigned*)work : nullptr;
-  float4* partials = drow ? (float4*)work + 1 : nullptr;
-  sweep_bwd_kernel<T, Q><<<(unsigned)tl.blocks, kThreads, smem, stream>>>(
-      (const T*)g, (const T*)src, q, (T*)dsrc, (float*)dq, partials, done, (float*)drow, tl);
+  float4* partials = drow ? (float4*)work + (items + 3) / 4 : nullptr;
+  sweep_bwd_kernel<T, Q><<<dim3((unsigned)tl.blocks, (unsigned)items), kThreads, smem, stream>>>(
+      (const T*)g, (const T*)src, q, (T*)dsrc, (float*)dq, partials, done, (float*)drow, drn,
+      tl);
   return (int)cudaGetLastError();
 }
 
 template <typename Q>
 int bwd_dtype(int dtype, const void* g, const void* src, Q q, void* dsrc, void* dq, void* work,
-              void* drow, const Rows& r, cudaStream_t s) {
-  if (dtype == 0) return launch_bwd<float>(g, src, q, dsrc, dq, work, drow, r, s);
-  if (dtype == 1) return launch_bwd<__nv_bfloat16>(g, src, q, dsrc, dq, work, drow, r, s);
+              void* drow, long long drn, long long items, const Rows& r, cudaStream_t s) {
+  if (dtype == 0) return launch_bwd<float>(g, src, q, dsrc, dq, work, drow, drn, items, r, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(g, src, q, dsrc, dq, work, drow, drn, items, r, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -662,6 +704,12 @@ bool img_ok(int Z, int Y, int X, int axis, int C) {
 
 // the rows hold one image (N = C = 1)
 bool one_image(const Rows& r, const Img& im) { return r.outer * r.L * r.inner == im.vol; }
+
+// batch items N of rows holding images [N, C, *S]: 0 when they do not
+long long items_of(const Rows& r, const Img& im) {
+  const long long per = im.vol * im.C, all = r.outer * r.L * r.inner;
+  return all % per ? 0 : all / per;
+}
 
 }  // namespace
 
@@ -675,7 +723,9 @@ bool one_image(const Rows& r, const Img& im) { return r.outer * r.L * r.inner ==
 // is a table row (coef[d], offset). mode 2 (flow): `qp` is channel a of the
 // field at batch item 0, `un` the field's batch stride. The affine and flow
 // forms also take the image [N, C, Z, Y, X] (2-D: Z = 1) and its swept
-// `axis` (0: z, 1: y, 2: x) to find each element's voxel.
+// `axis` (0: z, 1: y, 2: x) to find each element's voxel. In the affine form
+// `un` is the table's batch stride: 0 for one table [d, d+1], else that of
+// a table [N, d, d+1] whose row p of item 0 `qp` points at.
 extern "C" int sweep_fwd(int mode, const void* src, const void* qp, void* out, void* diff,
                          long long outer, int L, long long inner, int K, int dtype, int d,
                          int Z, int Y, int X, int axis, int C, long long un, void* stream) {
@@ -686,7 +736,10 @@ extern "C" int sweep_fwd(int mode, const void* src, const void* qp, void* out, v
   const Img im = make_img(Z, Y, X, axis, C);
   if (mode == 1) {
     if (d != 2 && d != 3) return (int)cudaErrorInvalidValue;
-    return fwd_dtype(dtype, src, AffineQ{(const float*)qp, d, im}, out, diff, r, s);
+    if (un == 0)
+      return fwd_dtype(dtype, src, AffineQ<false>{(const float*)qp, d, im, 0}, out, diff, r, s);
+    if (items_of(r, im) < 1) return (int)cudaErrorInvalidValue;
+    return fwd_dtype(dtype, src, AffineQ<true>{(const float*)qp, d, im, un}, out, diff, r, s);
   }
   if (mode == 2) {
     if (one_image(r, im))
@@ -696,18 +749,21 @@ extern "C" int sweep_fwd(int mode, const void* src, const void* qp, void* out, v
   return (int)cudaErrorInvalidValue;
 }
 
-// Floats of the affine backward's workspace (a counter, then 4 partial
-// sums a block), 0 when no tile fits. The counter must be 0 before the
-// first launch; each launch leaves it 0.
-extern "C" long long sweep_bwd_work(long long outer, int L, long long inner, int K) {
+// Floats of the affine backward's workspace for `items` tables (1: one
+// table; else one per batch item): a counter an item, then 4 partial sums a
+// block; 0 when no tile fits. The counters must be 0 before the first
+// launch; each launch leaves them 0.
+extern "C" long long sweep_bwd_work(long long outer, int L, long long inner, int K,
+                                    long long items) {
   const Rows r{outer, inner, L, K};
   Tile tl;
-  return rows_ok(r) && make_tile(r, tl) ? 4 * (tl.blocks + 1) : 0;
+  return rows_ok(r) && item_tile(r, items, tl) ? work_floats(tl, items) : 0;
 }
 
 // The backward. dense (mode 0): dq of q's shape. affine (mode 1): the
-// gradient of the pass's table row into `drow` (d + 1 floats), through
-// `work` (sweep_bwd_work floats, its first word 0). flow (mode 2): du to batch n, channel c,
+// gradient of the pass's table row into `drow` (d + 1 floats; with a table
+// per batch item, each item's `un` apart), through `work` (sweep_bwd_work
+// floats for as many items, its counters 0). flow (mode 2): du to batch n, channel c,
 // voxel s at n*dqn + c*dqc + s (dqc = 0 writes one channel of a field
 // gradient: C must then be 1).
 extern "C" int sweep_bwd(int mode, const void* g, const void* src, const void* qp,
@@ -718,21 +774,23 @@ extern "C" int sweep_bwd(int mode, const void* g, const void* src, const void* q
   cudaStream_t s = (cudaStream_t)stream;
   const Rows r{outer, inner, L, K};
   if (mode == 0)
-    return bwd_dtype(dtype, g, src, DenseQ{(const float*)qp}, dsrc, dq, nullptr, nullptr, r,
-                     s);
+    return bwd_dtype(dtype, g, src, DenseQ{(const float*)qp}, dsrc, dq, nullptr, nullptr, 0, 1,
+                     r, s);
   if (!img_ok(Z, Y, X, axis, C)) return (int)cudaErrorInvalidValue;
   const Img im = make_img(Z, Y, X, axis, C);
   if (mode == 1) {
     if (d != 2 && d != 3) return (int)cudaErrorInvalidValue;
-    return bwd_dtype(dtype, g, src, AffineQ{(const float*)qp, d, im}, dsrc, nullptr, work,
-                     drow, r, s);
+    const long long items = un ? items_of(r, im) : 1;
+    if (items < 1) return (int)cudaErrorInvalidValue;
+    return bwd_dtype(dtype, g, src, AffineQ<false>{(const float*)qp, d, im, un}, dsrc, nullptr,
+                     work, drow, un, items, r, s);
   }
   if (mode == 2) {
     if (one_image(r, im))
       return bwd_dtype(dtype, g, src, FlowQ<true>{(const float*)qp, un, im, dqn, dqc}, dsrc, dq,
-                       nullptr, nullptr, r, s);
+                       nullptr, nullptr, 0, 1, r, s);
     return bwd_dtype(dtype, g, src, FlowQ<false>{(const float*)qp, un, im, dqn, dqc}, dsrc, dq,
-                     nullptr, nullptr, r, s);
+                     nullptr, nullptr, 0, 1, r, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,19 +6,11 @@ from __future__ import annotations
 
 import torch
 
-from ..losses import resolve_criteria, weighted_loss
-from ..ops.blocked import warp_affine_fast
+from ..losses import resolve_criteria
 from ..ops.edge import edge_filter
-from ..ops.resample import warp_affine
-from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import identity_theta
-from . import graph
-from .common import (
-    RegistrationResult,
-    check_sweep_windows,
-    optimize_scan,
-    resolve_sweep_windows,
-)
+from .common import (RegistrationResult, finish_matrix, first_pair, fit_matrix,
+                     resolve_sweep_windows)
 
 
 def affine_register(
@@ -43,13 +35,13 @@ def affine_register(
     matrix; returns ``(warped_best, result)``. ``init_theta`` (``[1, d,
     d+1]`` or flat) warm-starts, identity by default. ``method`` and
     ``progress_every`` as in :func:`rigid_register`; ``per`` is accepted and
-    unused, as there."""
+    unused, as there. The loop is ``engines/common.fit_matrix`` on one
+    pair."""
     del per
     if grad_edges:
         moving = edge_filter(moving)
         target = edge_filter(target)
     criteria, w = resolve_criteria(criterions, weights)
-    loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
     spatial = tuple(moving.shape[2:])
     if init_theta is None:
@@ -62,29 +54,15 @@ def affine_register(
         None if max_shift is not None
         else params0.detach().cpu().double().numpy().reshape(ndim, ndim + 1), spatial,
         max_shift) if separable else None
-    sess = graph.session()
-    moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
+    result = first_pair(fit_matrix(moving, target, params0[None], affine_theta, criteria, w,
+                                   optimizer, lr, epochs, windows, separable, stop_rel,
+                                   patience, progress_every, "affine_register"))
+    return finish_matrix(result, moving, spatial, windows, separable, check_window,
+                         "affine_register")
 
-    def loss_fn(params):
-        theta = params.reshape(1, ndim, ndim + 1)
-        warped = (_warp_affine_separable(theta, moving_s, max_shift=windows) if separable
-                  else warp_affine(theta, moving_s))
-        return loss(target_s, warped)
 
-    final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
-        loss_fn, params0, optimizer, lr, epochs, stop_rel, patience,
-        progress_every, "affine_register")
-    result = RegistrationResult(
-        final_theta=final_params.reshape(1, ndim, ndim + 1),
-        best_theta=best_params.reshape(1, ndim, ndim + 1),
-        final_params=final_params, best_params=best_params, losses=losses,
-        best_loss=best_loss, param_history=hist, steps=steps,
-    )
-    if not separable:
-        return warp_affine_fast(result.best_theta, moving), result
-    with torch.no_grad():
-        warped_best = _warp_affine_separable(result.best_theta, moving,
-                                             max_shift=windows)
-    if check_window:
-        check_sweep_windows(result.best_theta, spatial, windows, "affine_register")
-    return warped_best, result
+def affine_theta(params: torch.Tensor) -> torch.Tensor:
+    """The affine engine's parameters ``[..., d*(d+1)]`` as thetas ``[...,
+    d, d+1]``."""
+    d = 3 if params.shape[-1] == 12 else 2
+    return params.reshape(params.shape[:-1] + (d, d + 1))

@@ -19,9 +19,17 @@ program, with each engine level's step captured once as a CUDA graph and
 replayed (``engines/graph.py``), equal to :func:`register_cascade` to the
 bit. Each stage and level runs inside a :func:`utils.profiling.trace` span
 (``rigid/level0``, ``flow/level2``, ...), which also names its step graph.
-``make_cascade_batch_fn`` (cohorts, ROADMAP queue 1 item 12) and the LM
-matrix optimizer (item 14) are not ported yet; the latter raises
-``NotImplementedError`` naming the ROADMAP item.
+
+:func:`make_cascade_batch_fn` is the cascade over a batch of pairs (JAX's
+``vmap`` of it): :func:`cascade_pairs` runs every level's engine loop on
+the batch (``engines/common.fit_matrix``, ``flow.flow_pairs``: each pair's
+loss, stop and trajectory its own), warps each pair by its own theta and
+flow, and checks the windows with one host read naming the pairs.
+:func:`register_cascade` is the same code on one pair. The JAX batch
+sizes no window from a concrete theta (under ``vmap`` every theta is
+traced); neither does this one: every window is static. The LM matrix
+optimizer (item 14) is not ported yet and raises ``NotImplementedError``
+naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,19 +40,20 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..losses import pair_slices, resolve_criteria
 from ..ops.blocked import warp_affine_fast, warp_flow_fast
 from ..ops.resize import downsample_avg
 from ..ops.separable import _warp_affine_separable, warp_flow_separable
-from ..ops.transforms import compose_theta, identity_theta
+from ..ops.transforms import compose_theta, identity_theta, rigid_theta
 from ..models.attention_unet import max_depth_for
 from ..utils.profiling import trace
 from ..utils.pyramid import (build_pyramid, compose_flows, compose_flows_separable,
                              upsample_flow)
 from . import graph
-from .affine import affine_register
-from .common import check_sweep_windows
-from .flow import flow_register
-from .rigid import rigid_register
+from .affine import affine_theta
+from .common import check_sweep_windows, defaults_of, fit_matrix
+from .flow import flow_pairs, flows_over
+from .rigid import init_rigid_params
 
 
 class CascadeResult(NamedTuple):
@@ -137,9 +146,46 @@ def register_cascade(
     with the upsampled total field, and composes ``total <- residual ∘
     total``.
     """
+    res = _cascade(pairs=1, **locals())
+    return res._replace(
+        **{k: None if v is None else v[0] for k, v in (
+            ("rigid_losses", res.rigid_losses), ("affine_losses", res.affine_losses),
+            ("flow_losses", res.flow_losses))},
+        steps={k: [level[0] for level in v] for k, v in res.steps.items()})
+
+
+def cascade_pairs(moving: torch.Tensor, target: torch.Tensor, **options) -> CascadeResult:
+    """:func:`register_cascade` (its options and defaults) over the B
+    independent pairs of ``[B, 1, *S]`` (:func:`make_cascade_batch_fn`),
+    each registered on its own: every field gains a leading pair axis
+    (``theta [B, 1, d, d+1]``, ``warped [B, 1, 1, *S]``, ``flow [B, 1, d,
+    *S]``, losses ``[B, epochs]``), and ``steps[stage][b]`` holds pair b's
+    steps per level."""
+    res = _cascade(pairs=moving.shape[0], moving=moving, target=target,
+                   **{**defaults_of(register_cascade), **options})
+    return res._replace(
+        warped=res.warped[:, None], theta=res.theta[:, None],
+        flow=None if res.flow is None else res.flow[:, None],
+        steps={k: [list(s) for s in zip(*v)] for k, v in res.steps.items()})
+
+
+def _cascade(pairs, moving, target, stages, levels, rigid_epochs, rigid_lr, affine_epochs,
+             affine_lr, flow_epochs, flow_lr, criterions, weights, optimizer, n, flow_depth,
+             seed, residual_shift, final_warp, flow_max_size, flow_dtype, level_decay,
+             flow_remat, flow_max_disp, matrix_dtype, flow_attention, flow_norm,
+             matrix_stop_rel, matrix_patience, matrix_levels, matrix_optimizer, moment_init,
+             flow_model, flow_smooth, flow_stop_rel, flow_patience, flow_compose, flow_levels,
+             flow_criterions, flow_rebase, flow_residual_disp) -> CascadeResult:
+    """The cascade over ``pairs`` pairs, each a slice of ``moving``'s
+    leading axis (one pair: the whole of it): thetas ``[pairs, d, d+1]``,
+    the losses ``[pairs, epochs]``, ``steps[stage][level]`` one a pair."""
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be 'unet' or 'field' (got {flow_model!r})")
     unet = flow_model == "unet"
+    if pairs > 1 and unet and "flow" in stages:
+        raise NotImplementedError(
+            "a batched cascade with flow_model='unet' is not ported yet: each pair needs "
+            "its own weights, so kernel K3 a weight set per pair (ROADMAP queue 1 item 17)")
     if final_warp not in ("separable", "exact"):
         raise ValueError(f"final_warp must be 'separable' or 'exact' (got {final_warp!r})")
     exact = final_warp == "exact"
@@ -169,7 +215,7 @@ def register_cascade(
         mov_pyr = [m.to(mdt) for m in mov_pyr]
         tgt_pyr = [t.to(mdt) for t in tgt_pyr]
 
-    theta = identity_theta(ndim, device=moving.device)[None]
+    theta = identity_theta(ndim, device=moving.device)[None].repeat(pairs, 1, 1)
     rigid_losses = affine_losses = flow_losses = None
     steps: dict = {}
     m_levels = levels if matrix_levels is None else min(matrix_levels, levels)
@@ -201,22 +247,20 @@ def register_cascade(
         for i, (mov_l, tgt_l) in enumerate(zip(mov_pyr[:m_levels], tgt_pyr[:m_levels])):
             with _level(f"rigid/level{i}"):
                 base = _level_warp(theta, mov_l) if i else mov_l
-                init_params = None
                 if i == 0 and moment_init:
-                    init_params = (pa_rigid_params(base, tgt_l) if moment_init == "pa"
-                                   else com_rigid_params(base, tgt_l))
-                _, res = rigid_register(
-                    base, tgt_l, lr=rigid_lr, epochs=budgets[i],
-                    criterions=list(criterions), weights=weights, grad_edges=False,
-                    optimizer=m_opt, init="identity", init_params=init_params,
-                    stop_rel=matrix_stop_rel, patience=matrix_patience,
-                    max_shift=level_shift(i, mov_l),
-                    check_window=False,  # one end-of-run check below
-                )
-            theta = compose_theta(theta, res.best_theta)
+                    moments = pa_rigid_params if moment_init == "pa" else com_rigid_params
+                    params0 = torch.stack([moments(m, t) for m, t in zip(
+                        pair_slices(base, pairs), pair_slices(tgt_l, pairs))])
+                else:
+                    params0 = init_rigid_params(ndim, init="identity", device=base.device,
+                                                pairs=pairs)
+                res = _matrix_level(base, tgt_l, params0, rigid_theta, criterions, weights,
+                                    m_opt, rigid_lr, budgets[i], level_shift(i, mov_l),
+                                    matrix_stop_rel, matrix_patience, "rigid_register")
+            theta = _compose(theta, res.best_theta[:, 0])
             losses.append(res.losses)
             steps["rigid"].append(res.steps)
-        rigid_losses = torch.cat(losses)
+        rigid_losses = torch.cat(losses, dim=-1)
 
     if "affine" in stages:
         budgets = level_budgets(affine_epochs, m_levels)
@@ -224,17 +268,15 @@ def register_cascade(
         for i, (mov_l, tgt_l) in enumerate(zip(mov_pyr[:m_levels], tgt_pyr[:m_levels])):
             with _level(f"affine/level{i}"):
                 base = _level_warp(theta, mov_l)
-                _, res = affine_register(
-                    base, tgt_l, lr=affine_lr, epochs=budgets[i],
-                    criterions=list(criterions), weights=weights, grad_edges=False,
-                    optimizer=m_opt, stop_rel=matrix_stop_rel, patience=matrix_patience,
-                    max_shift=level_shift(i if "rigid" not in stages else levels, mov_l),
-                    check_window=False,
-                )
-            theta = compose_theta(theta, res.best_theta)
+                shift = level_shift(i if "rigid" not in stages else levels, mov_l)
+                identity = identity_theta(ndim, device=base.device).reshape(1, -1)
+                res = _matrix_level(base, tgt_l, identity.repeat(pairs, 1), affine_theta,
+                                    criterions, weights, m_opt, affine_lr, budgets[i], shift,
+                                    matrix_stop_rel, matrix_patience, "affine_register")
+            theta = _compose(theta, res.best_theta[:, 0])
             losses.append(res.losses)
             steps["affine"].append(res.steps)
-        affine_losses = torch.cat(losses)
+        affine_losses = torch.cat(losses, dim=-1)
 
     # one full-resolution resample through the composed matrix transform
     with trace("matrix/warp"):
@@ -303,8 +345,8 @@ def register_cascade(
                         base_in = warp_flow_separable(f_in, total_flow, max_disp=rebase_win)
                     params, level_disp = None, flow_residual_disp
             with _level(f"flow/level{li}"):
-                _, fres = flow_register(
-                    base_in, f_tgt, lr=flow_lr, max_epochs=eps,
+                _, fres = flow_pairs(
+                    base_in, f_tgt, pairs, lr=flow_lr, max_epochs=eps,
                     criterions=list(flow_criterions), weights=weights, n=n,
                     depth=flow_depth, generator=torch.Generator().manual_seed(seed),
                     optimizer=optimizer, dtype=flow_dtype, init_params=params,
@@ -328,7 +370,7 @@ def register_cascade(
             losses.append(fres.losses)
             steps["flow"].append(fres.steps)
         flow = total_flow if total_flow is not None else fres.flow
-        flow_losses = torch.cat(losses)
+        flow_losses = torch.cat(losses, dim=-1)
         if scale > 1:
             flow = upsample_flow(flow, warped.shape[2:])
         if compose:
@@ -354,22 +396,38 @@ def register_cascade(
         check_sweep_windows(theta, moving.shape[2:], max(8, max(moving.shape[2:]) // 3),
                             "register_cascade (composed theta)")
         if flow is not None:
-            maxd = float(torch.max(torch.abs(flow)))
-            if maxd > final_bound:
+            maxd = torch.stack([torch.max(torch.abs(f)) for f in pair_slices(flow, pairs)])
+            what = flows_over(maxd, final_bound)
+            if what:
                 warnings.warn(
-                    f"register_cascade: recovered flow reaches {maxd:.1f} voxels but "
-                    f"the final sweep window is {final_bound}; displacements beyond it "
-                    "contribute zero. Raise flow_max_disp or use final_warp='exact'.",
+                    f"register_cascade: {what} but the final sweep window is {final_bound}; "
+                    "displacements beyond it contribute zero. Raise flow_max_disp or use "
+                    "final_warp='exact'.",
                     RuntimeWarning,
-                    stacklevel=2,
+                    stacklevel=3,
                 )
-
-    return CascadeResult(warped=warped, theta=theta, flow=flow,
-                         rigid_losses=rigid_losses, affine_losses=affine_losses,
-                         flow_losses=flow_losses, steps=steps)
+    return CascadeResult(warped=warped, theta=theta, flow=flow, rigid_losses=rigid_losses,
+                         affine_losses=affine_losses, flow_losses=flow_losses, steps=steps)
 
 
-def _check_capturable(config: dict) -> None:
+def _matrix_level(base, target, params0, theta_of, criterions, weights, optimizer, lr,
+                  epochs, shift, stop_rel, patience, label):
+    """A matrix level: the engine's loop (``fit_matrix``) on the pairs of
+    ``params0 [B, n]``, each on its own, at the level's window; thetas
+    ``[B, 1, d, d+1]``."""
+    criteria, w = resolve_criteria(list(criterions), weights)
+    return fit_matrix(base, target, params0, theta_of, criteria, w, optimizer, lr, epochs,
+                      shift, True, stop_rel, patience, None, label)
+
+
+def _compose(theta: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    """``theta ∘ residual``, one pair at a time (each pair's product the
+    single-pair one)."""
+    return torch.cat([compose_theta(a[None], b[None])
+                      for a, b in zip(torch.unbind(theta), torch.unbind(residual))])
+
+
+def _check_capturable(config: dict, name: str = "make_cascade_fn") -> None:
     """Raise for a criterion whose step reads the host: the NMI term picks
     its KDE branch on the host each step (``losses/nmi.py``'s
     ``_binned_ok``), which a CUDA graph cannot capture."""
@@ -384,7 +442,7 @@ def _check_capturable(config: dict) -> None:
         if any(c in (nmi, nmi_loss) or getattr(c, "func", None) in (nmi, nmi_loss)
                for c in crits):
             raise ValueError(
-                f"make_cascade_fn: {key} includes 'nmi', whose step reads the host to "
+                f"{name}: {key} includes 'nmi', whose step reads the host to "
                 "pick its KDE branch (losses/nmi.py), so a CUDA graph cannot capture it; "
                 "run register_cascade, or leave NMI out (ROADMAP queue 1 item 16 moves "
                 "the choice to the device)")
@@ -392,23 +450,27 @@ def _check_capturable(config: dict) -> None:
 
 class CascadeFn:
     """``fn(moving, target) -> CascadeResult``: :func:`register_cascade` with
-    one config. On a CUDA device each engine level's step is captured once
-    as a CUDA graph (``graphs``, one memory pool) and replayed; a later call
-    with the same shapes copies its inputs into the captured buffers. On
-    the CPU it runs the same loops without graphs."""
+    one config (``pairs``: :func:`cascade_pairs`, over a batch of pairs). On a CUDA device each
+    engine level's step is captured once as a CUDA graph (``graphs``, one
+    memory pool) and replayed; a later call with the same shapes copies its
+    inputs into the captured buffers. On the CPU it runs the same loops
+    without graphs."""
 
-    def __init__(self, config: dict):
+    def __init__(self, config: dict, pairs: bool = False):
         self.config = dict(config)
+        self.pairs = pairs
         self.graphs = graph.StepGraphs()
 
     def __call__(self, moving: torch.Tensor, target: torch.Tensor) -> CascadeResult:
+        run = cascade_pairs if self.pairs else register_cascade
         if not moving.is_cuda:
-            return register_cascade(moving, target, **self.config)
+            return run(moving, target, **self.config)
         with graph.graphed(self.graphs):
-            return register_cascade(moving, target, **self.config)
+            return run(moving, target, **self.config)
 
 
 _CASCADE_CACHE: dict = {}
+_BATCH_CACHE: dict = {}
 
 
 def make_cascade_fn(**config) -> CascadeFn:
@@ -426,4 +488,29 @@ def make_cascade_fn(**config) -> CascadeFn:
         _check_capturable(config)
         fn = CascadeFn(config)
         _CASCADE_CACHE[key] = fn
+    return fn
+
+
+def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config) -> CascadeFn:
+    """The cascade over a batch of independent pairs (counterpart of the JAX
+    package's ``make_cascade_batch_fn``, its ``vmap``):
+    ``fn(movings [B, 1, *S], targets [B, 1, *S]) -> CascadeResult`` with a
+    leading pair axis on every field (:func:`cascade_pairs`).
+    Each pair stops at its own step; each pair's result is the one
+    ``make_cascade_fn(**config)`` gives it alone, to the bit. On the card
+    each engine level's batched step is captured once as a CUDA graph and
+    replayed, as :func:`make_cascade_fn` does; a failed capture raises. Cached on ``config``. NMI criteria raise
+    ``ValueError`` as there; ``mesh`` and ``spatial_axis`` raise
+    ``ValueError`` (the port runs a batch on one GPU)."""
+    if mesh is not None or spatial_axis is not None:
+        raise ValueError(
+            "make_cascade_batch_fn: mesh and spatial_axis are not supported by the "
+            "PyTorch port, which runs a batch of pairs on one GPU (the JAX package's "
+            "parallel/mesh.py has no counterpart)")
+    key = tuple(sorted(config.items()))
+    fn = _BATCH_CACHE.get(key)
+    if fn is None:
+        _check_capturable(config, "make_cascade_batch_fn")
+        fn = CascadeFn(config, pairs=True)
+        _BATCH_CACHE[key] = fn
     return fn

@@ -12,12 +12,22 @@ the results equal those of a loop that reads after every step. Each step
 runs through ``engines/graph.session()``: as it comes, or replayed from a
 CUDA graph inside ``make_cascade_fn``'s calls.
 
+The loop runs B independent pairs at once (``pairs``): the parameters
+carry a leading pair axis, every piece of the stop state is one per pair,
+and each pair's steps after its own stop are masked, as JAX's ``vmap`` of
+a ``while_loop`` masks them. So each pair stops at its own step and follows
+its own trajectory, and the loop ends when every pair has stopped. A
+single-pair engine runs it with one pair (``pairs=1``) and takes the pair
+axis off the result; a cohort (``parallel/cohort.py``,
+``make_cascade_batch_fn``) runs it on its B pairs.
+
 ``host_reads`` counts the loops' reads of their stop state by engine label
 (progress lines read more); :func:`reset_counts` zeroes it.
 """
 from __future__ import annotations
 
 import functools
+import inspect
 import warnings
 from typing import Any, Callable, NamedTuple
 
@@ -52,16 +62,32 @@ class RegistrationResult(NamedTuple):
     steps: Any = None
 
 
+@functools.lru_cache(maxsize=None)
+def defaults_of(fn) -> dict:
+    """The defaults of ``fn``'s keyword parameters (to call an engine's core
+    with the options of its public signature)."""
+    return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+
+
+def pair_mask(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A mask with one entry a pair (``[B]``, or 0-dim for one pair) shaped
+    to broadcast over ``t``, whose leading axis holds the B pairs (or one
+    pair whole)."""
+    return mask.reshape((-1,) + (1,) * (t.ndim - 1))
+
+
 class SGD:
     """Plain SGD on one f32 tensor, ``torch.optim.SGD``'s update ``p +=
-    -lr * g``; a step whose ``active`` is False leaves ``p`` as it was."""
+    -lr * g``; a step whose ``active`` is False leaves ``p`` as it was
+    (``active [B]``: each pair of ``p`` its own)."""
 
     def __init__(self, param: torch.Tensor, lr: float, steps: int):
         self.param, self.lr = param, lr
         self.state: dict = {}
 
     def step(self, grad: torch.Tensor, active: torch.Tensor) -> None:
-        self.param.add_(torch.where(active, grad, 0.0), alpha=-self.lr)
+        self.param.add_(torch.where(pair_mask(active, grad), grad, 0.0), alpha=-self.lr)
 
 
 @functools.lru_cache(maxsize=64)
@@ -83,10 +109,13 @@ class Adam:
     """Adam on one f32 tensor with ``torch.optim.Adam``'s arithmetic, op for
     op (optax's defaults: betas (0.9, 0.999), eps 1e-8). Its state is
     tensors on the parameter's device: ``m``, ``v``, the step count ``t``
-    and the tables of :func:`_adam_tables`, read at ``t``, so a step makes
-    no host read and a CUDA graph can capture it. A step whose ``active`` is
-    False takes row 0 of the tables and a zero gradient: ``m`` and ``v`` and
-    ``p`` keep their values and ``t`` its count.
+    (one a pair) and the tables of :func:`_adam_tables`, read at ``t``, so a
+    step makes no host read and a CUDA graph can capture it. ``param``
+    holds ``pairs`` pairs along its leading axis (one pair: the whole
+    tensor), and ``active`` has one entry a pair: each pair reads its own
+    rows of the tables, indexed on the device. An inactive pair takes row 0
+    of the tables and a zero gradient: its ``p``, ``m`` and ``v`` keep their
+    values and ``t`` its count.
 
     On the CPU the update equals ``torch.optim.Adam(foreach=False)`` to the
     bit. ``torch.optim``'s default on the card (foreach) computes the last
@@ -96,35 +125,40 @@ class Adam:
     """
 
     def __init__(self, param: torch.Tensor, lr: float, steps: int,
-                 betas: tuple = (0.9, 0.999), eps: float = 1e-8):
+                 betas: tuple = (0.9, 0.999), eps: float = 1e-8, pairs: int = 1):
         self.param, self.eps, self.b2c = param, eps, 1 - betas[1]
         table, keep = _adam_tables(float(lr), int(steps), tuple(betas), param.device)
         self.state = {"m": torch.zeros_like(param), "v": torch.zeros_like(param),
-                      "t": torch.zeros((), dtype=torch.int64, device=param.device),
+                      "t": torch.zeros((pairs,), dtype=torch.int64, device=param.device),
                       "table": table, "keep": keep}
 
     def step(self, grad: torch.Tensor, active: torch.Tensor) -> None:
         s = self.state
-        a = active.long()
+        a = active.long().reshape(-1)
         s["t"].add_(a)
-        row = s["table"].index_select(0, (s["t"] * a).view(1))
-        keep = s["keep"].index_select(0, a.view(1))
-        g = torch.where(active, grad, 0.0)
-        s["m"].lerp_(g, keep[:, 0])
-        s["v"].mul_(keep[:, 1]).addcmul_(g, g, value=self.b2c)
-        denom = (s["v"].sqrt() / row[:, 1]).add_(self.eps)
-        self.param.addcdiv_(s["m"] * row[:, 0], denom)
+        row = s["table"].index_select(0, s["t"] * a)  # [B, 2]
+        keep = s["keep"].index_select(0, a)
+
+        def col(t, k):  # a pair's column broadcast over its params
+            return pair_mask(t[:, k], grad)
+
+        g = torch.where(pair_mask(active, grad), grad, 0.0)
+        s["m"].lerp_(g, col(keep, 0))
+        s["v"].mul_(col(keep, 1)).addcmul_(g, g, value=self.b2c)
+        denom = (s["v"].sqrt() / col(row, 1)).add_(self.eps)
+        self.param.addcdiv_(s["m"] * col(row, 0), denom)
 
 
-def make_optimizer(name: str, param: torch.Tensor, lr: float, steps: int):
+def make_optimizer(name: str, param: torch.Tensor, lr: float, steps: int, pairs: int = 1):
     """'sgd' or 'adam' over the f32 tensor ``param`` for up to ``steps``
     steps (optax defaults: plain SGD, Adam with betas (0.9, 0.999) and eps
-    1e-8)."""
+    1e-8); ``param`` holds ``pairs`` pairs' parameters along its leading
+    axis, each stepped on its own."""
     name = name.lower()
     if name == "sgd":
         return SGD(param, lr, steps)
     if name == "adam":
-        return Adam(param, lr, steps)
+        return Adam(param, lr, steps, pairs=pairs)
     if name == "lm":
         raise NotImplementedError(
             "optimizer 'lm' is not ported yet: ROADMAP queue 1 item 14 "
@@ -150,7 +184,8 @@ def _next_read(i: int, since: int, epochs: int, patience: int | None,
 
 
 def read_stop(label: str, *values: torch.Tensor) -> list:
-    """One host read of the loop's 0-dim stop state (ints and bools)."""
+    """One host read of the loop's stop state (ints and bools, one a
+    pair)."""
     host_reads[label] = host_reads.get(label, 0) + 1
     return torch.stack([v.long() for v in values]).tolist()
 
@@ -178,39 +213,52 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
     ``stop_rel`` the loop reads the host once, at the end; with it, at the
     steps where the plateau stop could first fire (:func:`_next_read`).
 
-    ``progress_every=N`` prints the epoch, the best loss and the current
-    parameters every N steps and where the plateau stop fires (the JAX
-    package's ``run_with_progress`` lines).
+    ``params0 [n]`` is one pair's: ``loss_fn`` maps ``[n]`` to a scalar.
+    ``params0 [B, n]`` runs B pairs: ``loss_fn`` maps ``[B, n]`` to each
+    pair's loss ``[B]``, every result gains the pair axis (``steps`` a list
+    of B ints), and each pair stops on its own; the host reads where any
+    running pair's stop could first fire. ``progress_every=N`` (one pair
+    only) prints the epoch, the best loss and the current parameters every N
+    steps and where the plateau stop fires (the JAX package's
+    ``run_with_progress`` lines).
     """
+    if params0.ndim == 1:  # one pair: the pair axis on, and off the results
+        out = optimize_scan(lambda p: torch.reshape(loss_fn(p[0]), (1,)), params0[None],
+                            optimizer, lr, epochs, stop_rel, patience, progress_every, label)
+        return tuple(x[0] for x in out)
     sess = graph.session()
     device = params0.device
     factor = None if stop_rel is None else float(np.float32(1.0 - stop_rel))
     p0 = params0.detach().to(torch.float32).clone()
+    B, n = p0.shape
+    if progress_every and B > 1:
+        raise ValueError("progress_every prints one pair's progress")
     params = sess.static("params", p0.clone()).requires_grad_(True)
-    opt = make_optimizer(optimizer, params, lr, epochs)
+    opt = make_optimizer(optimizer, params, lr, epochs, B)
     opt.state = sess.statics(opt.state, "opt.")
     f32 = dict(dtype=torch.float32, device=device)
     st = sess.statics({
-        "best_loss": torch.full((), float("inf"), **f32), "best_params": p0,
-        "ref": torch.full((), float("inf"), **f32),
-        "since": torch.zeros((), dtype=torch.int64, device=device),
-        "i": torch.zeros((), dtype=torch.int64, device=device),
-        "stopped": torch.full((), epochs <= 0, dtype=torch.bool, device=device),
-        "losses": torch.full((epochs + 1,), float("nan"), **f32),  # [epochs]: masked steps'
-        "hist": torch.full((epochs + 1, p0.numel()), float("nan"), **f32)})
+        "best_loss": torch.full((B,), float("inf"), **f32), "best_params": p0,
+        "ref": torch.full((B,), float("inf"), **f32),
+        "since": torch.zeros((B,), dtype=torch.int64, device=device),
+        "i": torch.zeros((B,), dtype=torch.int64, device=device),
+        "stopped": torch.full((B,), epochs <= 0, dtype=torch.bool, device=device),
+        # [:, epochs]: masked steps'
+        "losses": torch.full((B, epochs + 1), float("nan"), **f32),
+        "hist": torch.full((B, epochs + 1, n), float("nan"), **f32)})
 
     def step():
         loss = loss_fn(params)
-        (grad,) = torch.autograd.grad(loss, params)
+        (grad,) = torch.autograd.grad(loss.sum(), params)
         with torch.no_grad():
             active = ~st["stopped"]
             val = loss.detach().to(torch.float32)
             better = active & (val < st["best_loss"])
-            st["best_params"].copy_(torch.where(better, params, st["best_params"]))
+            st["best_params"].copy_(torch.where(better[:, None], params, st["best_params"]))
             st["best_loss"].copy_(torch.where(better, val, st["best_loss"]))
-            at = torch.where(active, st["i"], epochs).view(1)
-            st["losses"].index_copy_(0, at, val.view(1))
-            st["hist"].index_copy_(0, at, params.detach().view(1, -1))
+            at = torch.where(active, st["i"], epochs)
+            st["losses"].scatter_(1, at[:, None], val[:, None])
+            st["hist"].scatter_(1, at[:, None, None].expand(-1, 1, n), params.detach()[:, None])
             opt.step(grad, active)
             halt = st["i"].add_(active.long()) >= epochs
             if factor is not None:
@@ -221,19 +269,103 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
                 halt |= (st["since"] >= patience) & (st["best_loss"] > st["ref"] * factor)
             st["stopped"].logical_or_(halt)
 
-    i = since = 0
-    stopped = epochs <= 0
-    while not stopped:
-        nxt = _next_read(i, since, epochs, None if factor is None else patience,
-                         None if factor is None else READ_EVERY, progress_every)
-        sess.run(step, nxt - i)
-        i, since, stopped = read_stop(label, st["i"], st["since"], st["stopped"])
-        if progress_every and (i % progress_every == 0 or i == epochs or stopped):
+    def report(i, stopped, _):
+        if i % progress_every == 0 or i == epochs or stopped:
             _print_progress(label, i, epochs, st["best_loss"], params)
-        if progress_every and stopped and i < epochs:
+        if stopped and i < epochs:
             print(f"[{label}] plateau early-stop at epoch {i}", flush=True)
+
+    steps, _ = run_pairs(sess, step, st, epochs, None if factor is None else patience,
+                         None if factor is None else READ_EVERY, label,
+                         progress_every=progress_every, report=report)
     return (params.detach().clone(), st["best_params"].clone(), st["best_loss"].clone(),
-            st["losses"][:epochs].clone(), st["hist"][:epochs].clone(), i)
+            st["losses"][:, :epochs].clone(), st["hist"][:, :epochs].clone(), steps)
+
+
+def run_pairs(sess, step, st: dict, epochs: int, patience: int | None, every, label: str,
+              extra=None, progress_every: int | None = None, report=None):
+    """The engines' loop: run ``step`` until every pair has stopped, reading
+    ``st``'s ``i``, ``since`` and ``stopped`` (one a pair, and the tensors
+    that ``extra()`` gives after them) where the first running pair's stop
+    could fire (:func:`_next_read`; ``every`` may be a function of the steps
+    run), and at each multiple of ``progress_every``. After each read
+    ``report(steps, all_stopped, extra_values)`` (for one pair) prints.
+    Returns each pair's steps and the list of ``extra``'s values."""
+    B = st["i"].shape[0]
+    ran = 0
+    i, since = [0] * B, [0] * B
+    stopped = [epochs <= 0] * B
+    rest: list = [[0] * B for _ in extra()] if extra else []
+    while not all(stopped):
+        # the running pairs have taken every step run; the one nearest its
+        # plateau stop sets the next read
+        near = max(s for s, done in zip(since, stopped) if not done)
+        nxt = _next_read(ran, near, epochs, patience,
+                         every(ran) if callable(every) else every, progress_every)
+        sess.run(step, nxt - ran)
+        ran = nxt
+        i, since, stopped, *rest = read_stop(label, st["i"], st["since"], st["stopped"],
+                                             *(extra() if extra else ()))
+        stopped = [bool(x) for x in stopped]
+        if progress_every:
+            report(max(i), all(stopped), [r[0] for r in rest])
+    return i, rest
+
+
+def first_pair(result: RegistrationResult) -> RegistrationResult:
+    """A one-pair result with its pair axis taken off."""
+    return RegistrationResult(*(x[0] for x in result))
+
+
+def fit_matrix(moving: torch.Tensor, target: torch.Tensor, params0: torch.Tensor,
+               theta_of: Callable, criteria, weights, optimizer: str, lr: float,
+               epochs: int, windows, separable: bool, stop_rel: float | None,
+               patience: int, progress_every: int | None, label: str) -> RegistrationResult:
+    """The loop of a matrix engine on prepared images, over the B pairs of
+    ``params0 [B, n]``: ``theta_of`` maps the parameters ``[B, n]`` to
+    thetas ``[B, d, d+1]``, each step warps each pair's slice of ``moving``
+    by its own theta (the separable sweep within ``windows``, or the exact
+    resampler) and scores it against its slice of ``target``, each pair's
+    loss and stop its own. One pair's slice is the whole of ``moving``
+    (``[N, C, *S]``, one theta for its N items); B > 1 pairs take one item
+    each (``[B, 1, *S]``). Thetas ``[B, 1, d, d+1]``."""
+    from ..losses import pair_loss
+    from ..ops.resample import warp_affine
+    from ..ops.separable import _warp_affine_separable
+
+    loss = pair_loss(criteria, weights, params0.shape[0])
+    sess = graph.session()
+    moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
+
+    def loss_fn(params):
+        theta = theta_of(params)
+        warped = (_warp_affine_separable(theta, moving_s, max_shift=windows) if separable
+                  else warp_affine(theta, moving_s))
+        return loss(target_s, warped)
+
+    final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
+        loss_fn, params0, optimizer, lr, epochs, stop_rel, patience, progress_every, label)
+    return RegistrationResult(
+        final_theta=theta_of(final_params)[:, None], best_theta=theta_of(best_params)[:, None],
+        final_params=final_params, best_params=best_params, losses=losses,
+        best_loss=best_loss, param_history=hist, steps=steps)
+
+
+def finish_matrix(result: RegistrationResult, moving: torch.Tensor, spatial, windows,
+                  separable: bool, check_window: bool, label: str):
+    """``(warped_best, result)`` of a single-pair matrix engine: ``moving``
+    warped by the best theta (K2 under the exact method), and the window
+    check of the separable one."""
+    from ..ops.blocked import warp_affine_fast
+    from ..ops.separable import _warp_affine_separable
+
+    if not separable:
+        return warp_affine_fast(result.best_theta, moving), result
+    with torch.no_grad():
+        warped_best = _warp_affine_separable(result.best_theta, moving, max_shift=windows)
+    if check_window:
+        check_sweep_windows(result.best_theta, spatial, windows, label)
+    return warped_best, result
 
 
 def windows_from_required(req, spatial) -> tuple[int, ...] | None:
@@ -254,30 +386,61 @@ def windows_from_required(req, spatial) -> tuple[int, ...] | None:
 
 def resolve_sweep_windows(init_theta_np, spatial, max_shift):
     """Static sweep windows for a separable engine: an explicit ``max_shift``
-    wins, otherwise the default windows bumped to cover the init theta."""
+    wins, otherwise the default windows bumped to cover the init theta (a
+    list of thetas: the worst case over them, a cohort's windows, as the
+    JAX package's ``parallel/cohort._cohort_windows``)."""
     if max_shift is not None:
         return max_shift if isinstance(max_shift, int) else tuple(max_shift)
     from ..ops.separable import required_windows
 
+    if isinstance(init_theta_np, list):
+        reqs = [required_windows(t, spatial) for t in init_theta_np]
+        return windows_from_required(tuple(map(max, zip(*reqs))), spatial)
     return windows_from_required(required_windows(init_theta_np, spatial), spatial)
 
 
-def check_sweep_windows(theta, spatial, used, label: str) -> None:
-    """Warn when a recovered theta needs larger sweep windows than the ones
-    it was optimized with (its support was partially zeroed)."""
-    from ..ops.separable import required_windows
-
+def _windows_used(spatial, used) -> list:
     axes = list(range(len(spatial)))[::-1]
     if used is None:
-        used = [max(8, -(-spatial[a] // 4)) for a in axes]
-    elif isinstance(used, int):
-        used = [used] * len(spatial)
-    req = required_windows(theta, spatial)
-    if any(r > u for r, u in zip(req, used)):
-        warnings.warn(
-            f"{label}: recovered transform needs sweep windows {req} but the "
-            f"engine used {list(used)}; displacements beyond the window "
-            "contribute zero. Pass a larger max_shift.",
-            RuntimeWarning,
-            stacklevel=3,
-        )
+        return [max(8, -(-spatial[a] // 4)) for a in axes]
+    if isinstance(used, int):
+        return [used] * len(spatial)
+    return list(used)
+
+
+def check_sweep_windows_batch(thetas, spatial, used, label: str) -> None:
+    """Warn when recovered thetas need larger sweep windows than the ones
+    they were optimized with (their support was partially zeroed): one host
+    read of every pair's theta (``[B, 1, d, d+1]``, ``[B, d, d+1]``, or one
+    pair's ``[1, d, d+1]``) and one warning naming each pair that outgrew
+    the windows."""
+    from ..ops.separable import required_windows
+
+    used = _windows_used(spatial, used)
+    d = len(spatial)
+    if isinstance(thetas, torch.Tensor):
+        thetas = thetas.detach().cpu().double().numpy()
+    thetas_np = np.asarray(thetas, np.float64).reshape(-1, d, d + 1)
+    bad = []
+    for b in range(thetas_np.shape[0]):
+        req = required_windows(thetas_np[b], spatial)
+        if any(r > u for r, u in zip(req, used)):
+            bad.append((b, req))
+    if not bad:
+        return
+    if len(thetas_np) == 1:
+        what = f"recovered transform needs sweep windows {bad[0][1]} but the engine used {used}"
+    else:
+        shown = ", ".join(f"#{b} needs {list(r)}" for b, r in bad[:5])
+        more = f" (+{len(bad) - 5} more)" if len(bad) > 5 else ""
+        what = (f"{len(bad)} of {len(thetas_np)} recovered transforms outgrew the sweep "
+                f"windows {used}: {shown}{more}")
+    warnings.warn(
+        f"{label}: {what}; displacements beyond the window contribute zero. Pass a larger "
+        "max_shift or method='exact'.",
+        RuntimeWarning,
+        stacklevel=3,
+    )
+
+
+check_sweep_windows = check_sweep_windows_batch

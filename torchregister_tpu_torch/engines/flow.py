@@ -24,6 +24,12 @@ on one tensor in either mode.
 ``method`` warps with the exact ``ops/resample.warp_flow``, in the loop and
 for the returned image, as in the JAX package. The returned flow is the
 post-update model's (or field's).
+
+:func:`flow_pairs` (field mode) registers the B independent pairs of ``[B,
+1, *S]`` in one loop, a cohort: the field ``[B, d, *S]``, each pair's loss,
+diffusion energy, ``stop_crit`` test, plateau and ``max_disp`` its own, so
+each pair stops at the step it would stop at alone (``engines/common``).
+:func:`flow_register` is the same loop on one pair.
 """
 from __future__ import annotations
 
@@ -35,13 +41,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..losses import resolve_criteria, weighted_loss
+from ..losses import pair_loss, pair_slices, resolve_criteria
 from ..models.attention_unet import AttentionUNet, max_depth_for
 from ..ops.edge import edge_filter
 from ..ops.resample import warp_flow
 from ..ops.separable import warp_flow_separable
 from . import common, graph
-from .common import _next_read, make_optimizer, read_stop
+from .common import make_optimizer, run_pairs
 
 _ALIGN = 128  # floats: each U-Net weight's offset in the flat tensor (512 bytes)
 
@@ -55,13 +61,14 @@ class FlowResult(NamedTuple):
     max_disp: torch.Tensor | None = None  # max |flow| (scalar)
 
 
-def _diffusion_energy(flow: torch.Tensor) -> torch.Tensor:
-    """Sum over axes of the mean squared forward difference of ``flow``."""
+def _diffusion_energy(flow: torch.Tensor, pairs: int = 1) -> torch.Tensor:
+    """Sum over axes of the mean squared forward difference of each pair's
+    slice of ``flow``: ``[pairs]``."""
     f = flow.to(torch.float32)
     total = 0.0
     for a in range(2, flow.ndim):
         d = torch.diff(f, dim=a)
-        total = total + torch.mean(d * d)
+        total = total + torch.stack([torch.mean(x) for x in pair_slices(d * d, pairs)])
     return total
 
 
@@ -183,13 +190,45 @@ def flow_register(
     masks (``ops/edge.py``). ``progress_every=N`` prints the loss every N
     steps and the cause of an early stop.
     """
+    warped, res = _flow(pairs=1, **locals())
+    return warped, res._replace(losses=res.losses[0], steps=res.steps[0],
+                                converged=res.converged[0], max_disp=res.max_disp[0])
+
+
+def flow_pairs(moving: torch.Tensor, target: torch.Tensor, pairs: int | None = None,
+               **options) -> tuple[torch.Tensor, FlowResult]:
+    """:func:`flow_register` (its options and defaults) over the B
+    independent pairs of ``[B, 1, *S]``, each registered on its own in one
+    loop (field mode; ``init_params [B, d, *S]``): the field ``[B, d, *S]``,
+    ``losses`` ``[B, max_epochs]``, ``steps`` and ``converged`` lists,
+    ``max_disp`` ``[B]``, a warning that names the pairs. A U-Net with more
+    than one pair raises ``NotImplementedError``. ``pairs=1`` registers the
+    whole batch as one pair (:func:`flow_register`, the pair axis kept)."""
+    return _flow(pairs=moving.shape[0] if pairs is None else pairs, moving=moving,
+                 target=target, **{**common.defaults_of(flow_register), **options})
+
+
+def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions, weights,
+          grad_edges, optimizer, depth, generator, method, max_disp, dtype, init_params,
+          remat, check_disp, use_attention, use_norm, flow_model, smooth, stop_rel,
+          patience, zero_head, progress_every) -> tuple[torch.Tensor, FlowResult]:
+    """The flow engine's loop over ``pairs`` pairs, each a slice of
+    ``moving``'s leading axis (one pair: the whole of it); the records, the
+    steps and ``max_disp`` with a leading pair axis."""
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
+    if pairs > 1 and flow_model == "unet":
+        raise NotImplementedError(
+            "a cohort of U-Net flows is not ported yet: each pair needs its own weights, "
+            "so kernel K3 a weight set per pair (ROADMAP queue 1 item 17); use "
+            "flow_model='field'")
+    if progress_every and pairs > 1:
+        raise ValueError("progress_every prints one pair's progress")
     if grad_edges:
         moving = edge_filter(moving)
         target = edge_filter(target)
     criteria, w = resolve_criteria(criterions, weights)
-    loss = weighted_loss(criteria, w)
+    loss = pair_loss(criteria, w, pairs)
     ndim = moving.ndim - 2
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
@@ -216,7 +255,7 @@ def flow_register(
                 "SGD at unet-scale learning rates barely moves a direct field. Use "
                 "optimizer='adam' with lr~0.3, or raise lr substantially.",
                 RuntimeWarning,
-                stacklevel=2,
+                stacklevel=3,
             )
         mov_s, tgt_s = moving.to(dt), target.to(dt)
         if init_params is None:
@@ -231,31 +270,31 @@ def flow_register(
         net_params = list(model.parameters())
     else:
         param.requires_grad_(True)
-    opt = make_optimizer(optimizer, param, lr, max_epochs)
+    opt = make_optimizer(optimizer, param, lr, max_epochs, pairs)
     opt.state = sess.statics(opt.state, "opt.")
     device = moving.device
     factor = None if stop_rel is None else float(np.float32(1.0 - stop_rel))
     st = sess.statics({
-        "ref": torch.full((), float("inf"), dtype=torch.float32, device=device),
-        "last": torch.full((), float("inf"), dtype=torch.float32, device=device),
-        "since": torch.zeros((), dtype=torch.int64, device=device),
-        "i": torch.zeros((), dtype=torch.int64, device=device),
-        "stopped": torch.full((), max_epochs <= 0, dtype=torch.bool, device=device),
-        # [max_epochs]: the masked steps' records
-        "losses": torch.full((max_epochs + 1,), float("nan"), dtype=torch.float32,
+        "ref": torch.full((pairs,), float("inf"), dtype=torch.float32, device=device),
+        "last": torch.full((pairs,), float("inf"), dtype=torch.float32, device=device),
+        "since": torch.zeros((pairs,), dtype=torch.int64, device=device),
+        "i": torch.zeros((pairs,), dtype=torch.int64, device=device),
+        "stopped": torch.full((pairs,), max_epochs <= 0, dtype=torch.bool, device=device),
+        # [:, max_epochs]: the masked steps' records
+        "losses": torch.full((pairs, max_epochs + 1), float("nan"), dtype=torch.float32,
                              device=device)})
 
     def step():
         flow, wrt = (predict(mov_s), net_params) if unet else (param, [param])
         sim = loss(tgt_s, warp(mov_s, flow))
-        total = sim + smooth * _diffusion_energy(flow) if smooth > 0.0 else sim
-        grads = torch.autograd.grad(total, wrt, allow_unused=unet)
+        total = sim + smooth * _diffusion_energy(flow, pairs) if smooth > 0.0 else sim
+        grads = torch.autograd.grad(total.sum(), wrt, allow_unused=unet)
         grad = _flat_grad(grads, layout) if unet else grads[0]
         with torch.no_grad():
             active = ~st["stopped"]
             val = total.detach().to(torch.float32)
-            st["losses"].index_copy_(0, torch.where(active, st["i"], max_epochs).view(1),
-                                     val.view(1))
+            at = torch.where(active, st["i"], max_epochs)
+            st["losses"].scatter_(1, at[:, None], val[:, None])
             opt.step(grad, active)
             halt = st["i"].add_(active.long()) >= max_epochs
             if factor is not None:
@@ -267,28 +306,26 @@ def flow_register(
             st["last"].copy_(torch.where(active, val, st["last"]))
             st["stopped"].logical_or_(halt | ~(st["last"] > stop_crit))
 
-    def report(i):
+    def line(i):
         print(f"[flow_register] epoch {i}/{max_epochs} loss={st['last'].item():.6g}",
               flush=True)
 
-    i = since = 0
-    stopped, converged = max_epochs <= 0, False
-    while not stopped:
-        # stop_crit can fire at any step: reads at steps 1, 2, 4, ... (at most
-        # READ_EVERY apart) keep the masked steps after it fewer than those run
-        nxt = _next_read(i, since, max_epochs, None if factor is None else patience,
-                         min(common.READ_EVERY, max(1, i)), progress_every)
-        sess.run(step, nxt - i)
-        i, since, stopped, converged = read_stop(
-            "flow_register", st["i"], st["since"], st["stopped"], st["last"] <= stop_crit)
-        if progress_every and (i % progress_every == 0 or i == max_epochs):
-            report(i)
-    if progress_every and i < max_epochs:
-        if i % progress_every:
-            report(i)
-        cause = (f"loss <= {stop_crit:g}" if converged
-                 else f"plateau (stop_rel={stop_rel}, patience={patience})")
-        print(f"[flow_register] stopped at epoch {i} ({cause})", flush=True)
+    def report(i, stopped, extra):
+        if i % progress_every == 0 or i == max_epochs:
+            line(i)
+        if stopped and i < max_epochs:
+            if i % progress_every:
+                line(i)
+            cause = (f"loss <= {stop_crit:g}" if extra[0]
+                     else f"plateau (stop_rel={stop_rel}, patience={patience})")
+            print(f"[flow_register] stopped at epoch {i} ({cause})", flush=True)
+
+    # stop_crit can fire at any step: reads at steps 1, 2, 4, ... (at most
+    # READ_EVERY apart) keep the masked steps after it fewer than those run
+    steps, (converged,) = run_pairs(
+        sess, step, st, max_epochs, None if factor is None else patience,
+        lambda ran: min(common.READ_EVERY, max(1, ran)), "flow_register",
+        lambda: (st["last"] <= stop_crit,), progress_every, report)
     with torch.no_grad():
         if unet:
             flow = predict(moving).detach()
@@ -296,17 +333,30 @@ def flow_register(
         else:
             flow = params = param.detach().clone()
         warped = warp(moving, flow)  # method-consistent final warp
-    maxd = torch.max(torch.abs(flow))
+    maxd = torch.stack([torch.max(torch.abs(f)) for f in pair_slices(flow, pairs)])
     if check_disp and method == "separable":
-        maxd_host = float(maxd)
-        if maxd_host > max_disp:
+        what = flows_over(maxd, max_disp)  # one host read
+        if what:
             warnings.warn(
-                f"flow_register: recovered flow reaches {maxd_host:.1f} voxels but "
-                f"the separable sweep window is max_disp={max_disp}; displacements "
-                "beyond it contribute zero. Raise max_disp.",
+                f"flow_register: {what} but the separable sweep window is "
+                f"max_disp={max_disp}; displacements beyond it contribute zero. Raise "
+                "max_disp.",
                 RuntimeWarning,
-                stacklevel=2,
+                stacklevel=3,
             )
     return warped, FlowResult(
-        flow=flow, losses=st["losses"][:max_epochs].clone(), steps=i,
-        converged=bool(converged), params=params, max_disp=maxd)
+        flow=flow, losses=st["losses"][:, :max_epochs].clone(), steps=steps,
+        converged=[bool(c) for c in converged], params=params, max_disp=maxd)
+
+
+def flows_over(maxd: torch.Tensor, bound: float) -> str | None:
+    """What outgrew ``bound`` of each pair's max |flow| ``maxd [B]`` (one
+    host read), or None."""
+    vals = maxd.tolist()
+    over = [(b, m) for b, m in enumerate(vals) if m > bound]
+    if not over:
+        return None
+    if len(vals) == 1:
+        return f"recovered flow reaches {over[0][1]:.1f} voxels"
+    return (f"{len(over)} of {len(vals)} recovered flows reach "
+            + ", ".join(f"#{b}: {m:.1f}" for b, m in over[:5]) + " voxels")

@@ -10,28 +10,23 @@ from __future__ import annotations
 
 import torch
 
-from ..losses import resolve_criteria, weighted_loss
-from ..ops.blocked import warp_affine_fast
+from ..losses import resolve_criteria
 from ..ops.edge import edge_filter
-from ..ops.resample import warp_affine
-from ..ops.separable import _warp_affine_separable
 from ..ops.transforms import rigid_theta, rigid_theta_np
-from . import graph
-from .common import (
-    RegistrationResult,
-    check_sweep_windows,
-    optimize_scan,
-    resolve_sweep_windows,
-)
+from .common import (RegistrationResult, finish_matrix, first_pair, fit_matrix,
+                     resolve_sweep_windows)
 
 
 def init_rigid_params(ndim: int, generator: torch.Generator | None = None,
-                      init: str = "random", device=None) -> torch.Tensor:
-    """Zero params (``'identity'``) or ``torch.rand`` draws (``'random'``)."""
+                      init: str = "random", device=None,
+                      pairs: int | None = None) -> torch.Tensor:
+    """Zero params (``'identity'``) or ``torch.rand`` draws (``'random'``);
+    ``[pairs, n]`` for a cohort."""
     n = 6 if ndim == 3 else 3
+    shape = (n,) if pairs is None else (pairs, n)
     if init == "identity":
-        return torch.zeros((n,), dtype=torch.float32, device=device)
-    return torch.rand((n,), generator=generator, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
 
 
 def rigid_register(
@@ -60,13 +55,14 @@ def rigid_register(
     ``method='exact'`` the loop warps with ``ops/resample.warp_affine`` and
     ``warped_best`` comes from K2 (``warp_affine_fast``).
     ``progress_every=N`` prints progress every N steps. ``per`` is accepted
-    for the reference's signature and unused, as in the JAX package."""
+    for the reference's signature and unused, as in the JAX package. The
+    loop is ``engines/common.fit_matrix`` on one pair, which a cohort runs
+    on B pairs."""
     del per
     if grad_edges:
         moving = edge_filter(moving)
         target = edge_filter(target)
     criteria, w = resolve_criteria(criterions, weights)
-    loss = weighted_loss(criteria, w)
     ndim = moving.ndim - 2
     spatial = tuple(moving.shape[2:])
     if init_params is None:
@@ -76,29 +72,8 @@ def rigid_register(
     windows = (resolve_sweep_windows(None if max_shift is not None
                                      else rigid_theta_np(init_params), spatial, max_shift)
                if separable else None)
-    sess = graph.session()
-    moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
-
-    def loss_fn(params):
-        theta = rigid_theta(params)[None]
-        warped = (_warp_affine_separable(theta, moving_s, max_shift=windows) if separable
-                  else warp_affine(theta, moving_s))
-        return loss(target_s, warped)
-
-    final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
-        loss_fn, init_params, optimizer, lr, epochs, stop_rel, patience,
-        progress_every, "rigid_register")
-    result = RegistrationResult(
-        final_theta=rigid_theta(final_params)[None],
-        best_theta=rigid_theta(best_params)[None],
-        final_params=final_params, best_params=best_params, losses=losses,
-        best_loss=best_loss, param_history=hist, steps=steps,
-    )
-    if not separable:
-        return warp_affine_fast(result.best_theta, moving), result
-    with torch.no_grad():
-        warped_best = _warp_affine_separable(result.best_theta, moving,
-                                             max_shift=windows)
-    if check_window:
-        check_sweep_windows(result.best_theta, spatial, windows, "rigid_register")
-    return warped_best, result
+    result = first_pair(fit_matrix(moving, target, init_params[None], rigid_theta, criteria, w,
+                                   optimizer, lr, epochs, windows, separable, stop_rel,
+                                   patience, progress_every, "rigid_register"))
+    return finish_matrix(result, moving, spatial, windows, separable, check_window,
+                         "rigid_register")

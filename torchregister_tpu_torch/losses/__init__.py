@@ -5,6 +5,11 @@ Criteria are called as ``criterion(target, warped)``. ``None`` stands for the
 reference's default stack, MSE + NCC(100) + NMI(1000) with weights
 ``[0.33, 0.33, 0.33]``; a user's criterion list is used as given (the
 reference discards it, warpings.py:36-40).
+
+:func:`pair_loss` is the weighted sum over a batch of independent pairs
+(the engines' loops, a cohort): ``[B]``, each criterion called on each
+pair's own slice, so each pair's value and gradient are those of its own
+call.
 """
 from __future__ import annotations
 
@@ -64,6 +69,29 @@ def weighted_loss(criteria: Sequence[Criterion], weights: Sequence[float]) -> Cr
     return loss
 
 
+def pair_slices(x: torch.Tensor, pairs: int) -> tuple:
+    """The ``pairs`` equal slices of ``x``'s leading axis, one a pair (one
+    pair: ``x`` whole)."""
+    return torch.chunk(x, pairs)
+
+
+def per_pair(criterion: Criterion, pairs: int) -> Callable:
+    """``criterion`` over ``pairs`` pairs: ``(y, yp) -> [pairs]``, the
+    criterion called on each pair's slice."""
+
+    def each(y, yp):
+        return torch.stack([torch.reshape(criterion(a, b), ())
+                            for a, b in zip(pair_slices(y, pairs), pair_slices(yp, pairs))])
+
+    return each
+
+
+def pair_loss(criteria: Sequence[Criterion], weights: Sequence[float], pairs: int) -> Callable:
+    """:func:`weighted_loss` of each of ``pairs`` pairs: ``(y, yp) ->
+    [pairs]``."""
+    return weighted_loss([per_pair(c, pairs) for c in criteria], weights)
+
+
 def resolve_criteria(criterion, weight):
     """Normalize the public (criterion, weight) pair; ``None`` means the
     reference default stack."""
@@ -83,6 +111,7 @@ def resolve_criteria(criterion, weight):
     return crits, w
 
 
-__all__ = ["get_criterion", "default_criteria", "weighted_loss", "resolve_criteria",
+__all__ = ["get_criterion", "default_criteria", "weighted_loss", "pair_loss", "per_pair",
+           "resolve_criteria",
            "mse", "ssd", "ncc", "lncc", "nmi", "nmi_loss", "get_pdf", "kde_pdf",
            "DEFAULT_WEIGHTS"]

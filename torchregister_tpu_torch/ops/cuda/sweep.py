@@ -8,9 +8,11 @@ and the coordinates. The kernels take ``q`` in one of three forms:
 
 - dense: a ``q`` tensor (:func:`sweep`, :func:`sweep_fwd`, :func:`sweep_bwd`);
 - affine: one pass of a separable affine warp, ``q = coef . o + offset``
-  from one row of a ``[d, d+1]`` table (:func:`sweep_affine_passes`, a whole
-  warp in one autograd Function; the gradient of each row is reduced in the
-  kernel);
+  from one row of a ``[d, d+1]`` table, or of a table ``[N, d, d+1]`` with
+  one per batch item (a cohort's pairs) (:func:`sweep_affine_passes`, a
+  whole warp in one autograd Function; the gradient of each row is reduced
+  in the kernel, each item's on its own, equal to the bit to a launch on
+  that item alone);
 - flow: one pass of a dense-flow warp, ``q = o_a + flow_a(o)``
   (:func:`sweep_flow_passes`; the field's gradient is written channel by
   channel into one buffer).
@@ -22,7 +24,8 @@ first use) or raises. There is no fallback from the kernels to the plain
 versions.
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches, and
-``fwd_modes`` / ``bwd_modes`` split them by the form of ``q``, so a run can
+``fwd_modes`` / ``bwd_modes`` split them by the form of ``q`` (``pairs``: the
+affine form with a table per item), so a run can
 show that its path went through the kernels and which form ran (a CUDA
 graph's replays add the launches it captured, ``engines/graph.py``);
 :func:`reset_counts` zeroes them.
@@ -41,8 +44,8 @@ SOURCE = native.PKG / "csrc" / "sweep.cu"
 
 fwd_launches = 0
 bwd_launches = 0
-fwd_modes = {"dense": 0, "affine": 0, "flow": 0}
-bwd_modes = {"dense": 0, "affine": 0, "flow": 0}
+fwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0}
+bwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0}
 native.count_launches(__name__, "fwd_launches", "bwd_launches", "fwd_modes", "bwd_modes")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,7 +56,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = native.Library(SOURCE, "sweep", {
     "sweep_fwd": (_I, [_I, _P, _P, _P, _P, _L, _I, _L] + [_I] * 8 + [_L, _P]),
     "sweep_bwd": (_I, [_I] + [_P] * 7 + [_L, _I, _L] + [_I] * 8 + [_L, _L, _L, _P]),
-    "sweep_bwd_work": (_L, [_L, _I, _L, _I]),
+    "sweep_bwd_work": (_L, [_L, _I, _L, _I, _L]),
 })
 
 
@@ -138,9 +141,9 @@ def _validate_table(src: torch.Tensor, table: torch.Tensor, axes, windows) -> No
     d = src.ndim - 2
     if table.dtype != torch.float32:
         raise TypeError(f"K1 takes a float32 table, got {table.dtype}")
-    if tuple(table.shape) != (d, d + 1):
-        raise ValueError(f"K1 needs a table [{d}, {d + 1}] for a {d}-D image, got "
-                         f"{tuple(table.shape)}")
+    if tuple(table.shape) not in ((d, d + 1), (src.shape[0], d, d + 1)):
+        raise ValueError(f"K1 needs a table [{d}, {d + 1}] or [{src.shape[0]}, {d}, {d + 1}] "
+                         f"for a {d}-D image of {src.shape[0]}, got {tuple(table.shape)}")
     if len(axes) != d or len(windows) != d or any(a not in range(d) for a in axes) or any(
             K < 0 for K in windows):
         raise ValueError(f"K1 needs an axis in range({d}) and a window >= 0 for each of "
@@ -169,8 +172,15 @@ def _check_index(name: str, i: int, n: int) -> None:
 
 
 def _row(t: torch.Tensor, p: int) -> int:
-    """Address of ``t[p]`` (a float32 tensor), without a view."""
-    return t.data_ptr() + 4 * p * t.stride(0)
+    """Address of ``t[..., p, :]`` of item 0 (a float32 table), without a
+    view."""
+    return t.data_ptr() + 4 * p * t.stride(-2)
+
+
+def _items(table: torch.Tensor) -> tuple:
+    """``(stride, items)`` of a table: ``(0, 1)`` for one table ``[d, d+1]``,
+    the batch stride and count of a table per item ``[N, d, d+1]``."""
+    return (table.stride(0), table.shape[0]) if table.ndim == 3 else (0, 1)
 
 
 def _channel(t: torch.Tensor, a: int) -> int:
@@ -205,41 +215,46 @@ def _fwd_affine(src, table, p, axis, K):
     out = torch.empty_like(src)
     outer, L, inner, Z, Y, X, vaxis = _image(src.shape, axis)
     LIB.launch("sweep_fwd", src, _AFFINE, src.data_ptr(), _row(table, p), out.data_ptr(), None,
-               outer, L, inner, K, _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, 1, 0)
-    _count(True, "affine")
+               outer, L, inner, K, _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis,
+               src.shape[1], _items(table)[0])
+    _count(True, "pairs" if table.ndim == 3 else "affine")
     return out
 
 
 @functools.lru_cache(maxsize=64)
-def _work_floats(rows, K) -> int:
-    n = LIB.fns()["sweep_bwd_work"](*rows, K)
+def _work_floats(rows, K, items) -> int:
+    n = LIB.fns()["sweep_bwd_work"](*rows, K, items)
     if n <= 0:
-        raise ValueError(f"K1 has no backward tile for rows {rows} and window {K}")
+        raise ValueError(f"K1 has no backward tile for rows {rows}, window {K} and {items} "
+                         "tables")
     return n
 
 
-def _affine_work(src, axes, windows):
+def _affine_work(src, axes, windows, items: int = 1):
     """The affine backward's workspace for passes of ``src`` along ``axes``
-    with ``windows`` (one for every pass of a warp: the largest), zeroed:
-    its first word counts finished blocks, and each launch leaves it 0."""
-    n = max(_work_floats(_rows(src.shape, 2 + a), K) for a, K in zip(axes, windows))
+    with ``windows`` (one for every pass of a warp: the largest) and
+    ``items`` tables (one per batch item, or 1), zeroed: its first words
+    count each item's finished blocks, and each launch leaves them 0."""
+    n = max(_work_floats(_rows(src.shape, 2 + a), K, items) for a, K in zip(axes, windows))
     return torch.zeros(n, dtype=torch.float32, device=src.device)
 
 
 def _bwd_affine(g, src, table, p, axis, K, need_src, dtable, work=None):
     """dsrc (or None) of one affine pass; the gradient of the pass's table
-    row goes into ``dtable[p]`` when ``dtable`` is given (through ``work``,
-    made here when not given)."""
+    row goes into ``dtable[..., p, :]`` (``dtable`` contiguous like
+    ``table``) when ``dtable`` is given (through ``work``, made here when
+    not given)."""
     dsrc = torch.empty_like(src) if need_src else None
+    stride, items = _items(table)
     if dtable is not None and work is None:
-        work = _affine_work(src, (axis,), (K,))
+        work = _affine_work(src, (axis,), (K,), items)
     outer, L, inner, Z, Y, X, vaxis = _image(src.shape, axis)
     LIB.launch("sweep_bwd", src, _AFFINE, g.data_ptr(), src.data_ptr(), _row(table, p),
                None if dsrc is None else dsrc.data_ptr(), None,
                None if work is None else work.data_ptr(),
                None if dtable is None else _row(dtable, p), outer, L, inner, K,
-               _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, 1, 0, 0, 0)
-    _count(False, "affine")
+               _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, src.shape[1], stride, 0, 0)
+    _count(False, "pairs" if table.ndim == 3 else "affine")
     return dsrc
 
 
@@ -303,24 +318,26 @@ def sweep_bwd(g: torch.Tensor, src: torch.Tensor, q: torch.Tensor, dim: int, K: 
 def affine_fwd(src: torch.Tensor, table: torch.Tensor, p: int, axis: int,
                K: int) -> torch.Tensor:
     """One affine pass: ``src [N, C, *S]`` swept along spatial ``axis`` at
-    ``q = table[p, :d] . o + table[p, d]``."""
-    _check_index("the row", p, table.shape[0])
-    _validate_table(src, table, [axis] * table.shape[0], [K] * table.shape[0])
+    ``q = table[p, :d] . o + table[p, d]``, or, with a table per item
+    ``[N, d, d+1]``, item n at ``table[n, p]``."""
+    _check_index("the row", p, table.shape[-2])
+    _validate_table(src, table, [axis] * table.shape[-2], [K] * table.shape[-2])
     return _fwd_affine(src, table, p, axis, int(K))
 
 
 def affine_bwd(g: torch.Tensor, src: torch.Tensor, table: torch.Tensor, p: int, axis: int,
                K: int, need_src: bool = True, need_table: bool = True):
     """The backward of :func:`affine_fwd`: ``(dsrc, drow)``, ``drow`` the
-    gradient of ``table[p]``; either may be skipped (None)."""
-    _check_index("the row", p, table.shape[0])
-    _validate_table(src, table, [axis] * table.shape[0], [K] * table.shape[0])
+    gradient of ``table[..., p, :]`` (``[N, d+1]`` for a table per item);
+    either may be skipped (None)."""
+    _check_index("the row", p, table.shape[-2])
+    _validate_table(src, table, [axis] * table.shape[-2], [K] * table.shape[-2])
     if g.shape != src.shape or g.dtype != src.dtype:
         raise ValueError("K1 backward needs a g shaped and typed as src")
     _check_on(src, g=g)
     dtable = torch.empty_like(table) if need_table else None
     dsrc = _bwd_affine(g, src, table, p, axis, int(K), need_src, dtable)
-    return dsrc, None if dtable is None else dtable[p]
+    return dsrc, None if dtable is None else dtable[..., p, :]
 
 
 def flow_fwd(src: torch.Tensor, flow: torch.Tensor, axis: int, K: int) -> torch.Tensor:
@@ -379,7 +396,8 @@ class _Sweep(torch.autograd.Function):
 class _SeparableAffine(torch.autograd.Function):
     """A whole separable affine warp: one affine launch per pass forward and
     one per pass backward, in reverse; ``table`` [d, d+1] holds each pass's
-    (coef, offset) and gets its gradient from the kernels."""
+    (coef, offset), or ``[N, d, d+1]`` each batch item's, and gets its
+    gradient from the kernels."""
 
     @staticmethod
     def forward(ctx, src, table, axes, windows):
@@ -396,7 +414,8 @@ class _SeparableAffine(torch.autograd.Function):
         table, *ins = ctx.saved_tensors
         need_src, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         dtable = torch.empty_like(table) if need_table else None
-        work = _affine_work(ins[0], ctx.axes, ctx.windows) if need_table else None
+        work = (_affine_work(ins[0], ctx.axes, ctx.windows, _items(table)[1]) if need_table
+                else None)
         g = g.to(ins[0].dtype).contiguous()
         for p in reversed(range(len(ins))):
             want_src = p > 0 or need_src
@@ -468,8 +487,18 @@ def sweep_plain(src: torch.Tensor, q: torch.Tensor, dim: int, K: int,
 
 
 def _axis_coord_grid(coef: torch.Tensor, offset, spatial) -> torch.Tensor:
-    """``q[o] = coef . o + offset`` over the full grid, shape ``[1, 1, *S]``."""
+    """``q[o] = coef . o + offset`` over the full grid, shape ``[1, 1, *S]``;
+    with one row per pair (``coef [B, d]``, ``offset [B]``) ``[B, 1, *S]``,
+    each pair's grid computed by the same ops as its own."""
     d = len(spatial)
+    if coef.ndim == 2:
+        lead = (coef.shape[0],) + (1,) * d
+        q = torch.reshape(offset, lead)
+        for b in range(d):
+            iota = torch.arange(spatial[b], dtype=torch.float32, device=coef.device)
+            q = q + coef[:, b].reshape(lead) * iota.view(
+                tuple(spatial[b] if i == b else 1 for i in range(d)))
+        return q[:, None]
     q = offset
     for b in range(d):
         iota = torch.arange(spatial[b], dtype=torch.float32, device=coef.device)
@@ -480,7 +509,9 @@ def _axis_coord_grid(coef: torch.Tensor, offset, spatial) -> torch.Tensor:
 def sweep_affine_plain(src: torch.Tensor, coef: torch.Tensor, offset, axis: int,
                        K: int) -> torch.Tensor:
     """Plain version of one affine pass: the dense grid of
-    ``q = coef . o + offset``, then :func:`sweep_plain` along ``axis``."""
+    ``q = coef . o + offset``, then :func:`sweep_plain` along ``axis``.
+    ``coef [B, d]`` and ``offset [B]`` give each item of ``src [B, C, *S]``
+    its own pass (the plain form of a table per item)."""
     q = _axis_coord_grid(coef, offset, tuple(src.shape[2:]))
     return sweep_plain(src, q, axis + 2, int(K))[0]
 
@@ -517,9 +548,16 @@ def sweep(src: torch.Tensor, q: torch.Tensor, dim: int, K: int) -> torch.Tensor:
 def sweep_affine_passes(src: torch.Tensor, passes, windows: Sequence[int]) -> torch.Tensor:
     """A separable affine warp of ``src [N, C, *S]``: each pass
     ``(axis, (coef, offset))`` of ``passes`` (as ``factor_passes`` gives
-    them) sweeps ``axis`` at ``q = coef . o + offset`` within its window."""
+    them) sweeps ``axis`` at ``q = coef . o + offset`` within its window.
+    Passes of ``coef [N, d]`` and ``offset [N]`` warp each item by its own
+    transform: on the card one launch a pass over a table ``[N, d, d+1]``."""
     windows = tuple(int(K) for K in windows)
     if src.is_cuda:
+        if passes[0][1][0].ndim == 2:
+            table = torch.stack([torch.cat([coef.to(torch.float32),
+                                            offset.to(torch.float32)[:, None]], dim=1)
+                                 for _, (coef, offset) in passes], dim=1)
+            return _SeparableAffine.apply(src, table, tuple(a for a, _ in passes), windows)
         table = torch.stack([torch.cat([coef.to(torch.float32),
                                         torch.reshape(offset, (1,)).to(torch.float32)])
                              for _, (coef, offset) in passes])

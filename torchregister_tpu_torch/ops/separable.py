@@ -46,15 +46,19 @@ def _scales(spatial: tuple, align_corners: bool, device: torch.device):
 def affine_to_index_map(theta: torch.Tensor, spatial: Sequence[int],
                         align_corners: bool = False):
     """Normalized theta ``[d, d+1]`` -> index map ``s = M @ o + t`` (array
-    axis order, z first)."""
+    axis order, z first); thetas ``[B, d, d+1]`` give ``M [B, d, d]`` and
+    ``t [B, d]``."""
     d = len(spatial)
     # theta rows/cols are ordered (x, y, z); array axes are (z, y, x)
-    A = torch.flip(theta[..., :d], dims=(0, 1))
-    b = torch.flip(theta[..., d], dims=(0,))
+    A = torch.flip(theta[..., :d], dims=(-2, -1))
+    b = torch.flip(theta[..., d], dims=(-1,))
     scale_out, off_out, scale_in, off_in = _scales(tuple(spatial), bool(align_corners),
                                                    theta.device)
     M = A * scale_in[:, None] * scale_out[None, :]
-    t = scale_in * (A @ off_out + b) + off_in
+    # a batch's products one pair at a time, each the single-pair product
+    Ao = (A @ off_out if A.ndim == 2
+          else torch.stack([a @ off_out for a in torch.unbind(A)]))
+    t = scale_in * (Ao + b) + off_in
     return M, t
 
 
@@ -71,27 +75,32 @@ def _safe_div_den(den: torch.Tensor) -> torch.Tensor:
 
 def factor_passes(M: torch.Tensor, t: torch.Tensor):
     """Factor ``s = M o + t`` into per-axis passes, x-pass first: a list of
-    ``(axis, (coef [d], offset))``."""
-    d = M.shape[0]
+    ``(axis, (coef [d], offset))``; a batch ``M [B, d, d]``, ``t [B, d]``
+    gives ``coef [B, d]`` and ``offset [B]``."""
+    d = M.shape[-1]
+
+    def m(r, c):
+        return M[..., r, c]
+
     if d == 2:
-        g = (M[0], t[0])
-        e0 = M[1, 0] / _safe_div_den(M[0, 0])
-        e1 = M[1, 1] - e0 * M[0, 1]
-        et = t[1] - e0 * t[0]
-        return [(1, (torch.stack([e0, e1]), et)), (0, g)]
+        g = (M[..., 0, :], t[..., 0])
+        e0 = m(1, 0) / _safe_div_den(m(0, 0))
+        e1 = m(1, 1) - e0 * m(0, 1)
+        et = t[..., 1] - e0 * t[..., 0]
+        return [(1, (torch.stack([e0, e1], dim=-1), et)), (0, g)]
     if d == 3:
-        g = (M[0], t[0])
-        f0 = M[1, 0] / _safe_div_den(M[0, 0])
-        f1 = M[1, 1] - f0 * M[0, 1]
-        f2 = M[1, 2] - f0 * M[0, 2]
-        ft = t[1] - f0 * t[0]
-        f = (torch.stack([f0, f1, f2]), ft)
-        det = _safe_div_den(M[0, 0] * M[1, 1] - M[0, 1] * M[1, 0])
-        e0 = (M[2, 0] * M[1, 1] - M[2, 1] * M[1, 0]) / det
-        e1 = (M[2, 1] * M[0, 0] - M[2, 0] * M[0, 1]) / det
-        e2 = M[2, 2] - e0 * M[0, 2] - e1 * M[1, 2]
-        et = t[2] - e0 * t[0] - e1 * t[1]
-        return [(2, (torch.stack([e0, e1, e2]), et)), (1, f), (0, g)]
+        g = (M[..., 0, :], t[..., 0])
+        f0 = m(1, 0) / _safe_div_den(m(0, 0))
+        f1 = m(1, 1) - f0 * m(0, 1)
+        f2 = m(1, 2) - f0 * m(0, 2)
+        ft = t[..., 1] - f0 * t[..., 0]
+        f = (torch.stack([f0, f1, f2], dim=-1), ft)
+        det = _safe_div_den(m(0, 0) * m(1, 1) - m(0, 1) * m(1, 0))
+        e0 = (m(2, 0) * m(1, 1) - m(2, 1) * m(1, 0)) / det
+        e1 = (m(2, 1) * m(0, 0) - m(2, 0) * m(0, 1)) / det
+        e2 = m(2, 2) - e0 * m(0, 2) - e1 * m(1, 2)
+        et = t[..., 2] - e0 * t[..., 0] - e1 * t[..., 1]
+        return [(2, (torch.stack([e0, e1, e2], dim=-1), et)), (1, f), (0, g)]
     raise ValueError(f"only 2D/3D supported, got d={d}")
 
 
@@ -112,7 +121,10 @@ def _index_map_np(theta: np.ndarray, spatial, align_corners: bool):
         scale_in = sizes / 2.0
         off_in = sizes / 2.0 - 0.5
     M = A * scale_in[:, None] * scale_out[None, :]
-    t = scale_in * (A @ off_out + b) + off_in
+    # a batch's products one pair at a time, each the single-pair product
+    Ao = (A @ off_out if A.ndim == 2
+          else torch.stack([a @ off_out for a in torch.unbind(A)]))
+    t = scale_in * (Ao + b) + off_in
     return M, t
 
 
@@ -204,13 +216,17 @@ def _warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
                            max_shift: int | Sequence[int] | None = None
                            ) -> torch.Tensor:
     """Separable affine warp without the conditioning check (the engines'
-    thetas stay near identity)."""
+    thetas stay near identity). One theta warps every item of ``moving``;
+    thetas ``[N, d, d+1]`` warp each of its N items by its own (on the card
+    one launch a pass over a table per item)."""
     theta = as_matrix(theta)
-    if theta.shape[0] != 1:
-        raise ValueError("separable path expects a single transform")
+    if theta.shape[0] not in (1, moving.shape[0]):
+        raise ValueError(f"separable path takes one theta or one per item, got "
+                         f"{theta.shape[0]} for {moving.shape[0]} items")
     spatial = tuple(moving.shape[2:])
     d = len(spatial)
-    M, t = affine_to_index_map(theta[0].to(torch.float32), spatial, align_corners)
+    theta = theta[0] if theta.shape[0] == 1 else theta
+    M, t = affine_to_index_map(theta.to(torch.float32), spatial, align_corners)
     passes = factor_passes(M, t)
     if max_shift is None:
         shifts = [max(8, -(-spatial[axis] // 4)) for axis, _ in passes]

@@ -20,27 +20,33 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def rigid_theta_3d(params: torch.Tensor, max_translate: float = 0.25) -> torch.Tensor:
-    """6 raw rigid params -> ``[3, 4]`` affine matrix."""
-    psi, th, phi = params[0], params[1], params[2]
+    """6 raw rigid params -> ``[3, 4]`` affine matrix (``[..., 6]`` ->
+    ``[..., 3, 4]``)."""
+    psi, th, phi = params[..., 0], params[..., 1], params[..., 2]
     sp, cp = torch.sin(psi), torch.cos(psi)
     st, ct = torch.sin(th), torch.cos(th)
     sf, cf = torch.sin(phi), torch.cos(phi)
-    t = max_translate * torch.tanh(params[3:6])
-    row0 = torch.stack([cp * ct, sf * sp * ct - cf * st, cf * sp * ct + sf * st, t[0]])
-    row1 = torch.stack([cp * st, sf * sp * st + cf * ct, cf * sp * st - sf * ct, t[1]])
-    row2 = torch.stack([-sp, sf * cp, cf * cp, t[2]])
-    return torch.stack([row0, row1, row2])
+    t = max_translate * torch.tanh(params[..., 3:6])
+    row0 = torch.stack([cp * ct, sf * sp * ct - cf * st, cf * sp * ct + sf * st, t[..., 0]],
+                       dim=-1)
+    row1 = torch.stack([cp * st, sf * sp * st + cf * ct, cf * sp * st - sf * ct, t[..., 1]],
+                       dim=-1)
+    row2 = torch.stack([-sp, sf * cp, cf * cp, t[..., 2]], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
 
 
 def rigid_theta_2d(params: torch.Tensor) -> torch.Tensor:
-    """3 raw rigid params ``[theta, t0, t1]`` -> ``[2, 3]`` affine matrix."""
-    th = params[0]
+    """3 raw rigid params ``[theta, t0, t1]`` -> ``[2, 3]`` affine matrix
+    (``[..., 3]`` -> ``[..., 2, 3]``)."""
+    th = params[..., 0]
     s, c = torch.sin(th), torch.cos(th)
-    return torch.stack([torch.stack([c, -s, params[1]]), torch.stack([s, c, params[2]])])
+    return torch.stack([torch.stack([c, -s, params[..., 1]], dim=-1),
+                        torch.stack([s, c, params[..., 2]], dim=-1)], dim=-2)
 
 
 def rigid_theta(params: torch.Tensor, max_translate: float = 0.25) -> torch.Tensor:
-    """Dispatch on parameter count: 6 -> 3D ``[3,4]``, 3 -> 2D ``[2,3]``."""
+    """Dispatch on parameter count: 6 -> 3D ``[3,4]``, 3 -> 2D ``[2,3]``
+    (leading axes of ``params`` kept)."""
     if params.shape[-1] == 6:
         return rigid_theta_3d(params, max_translate)
     if params.shape[-1] == 3:
