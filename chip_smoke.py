@@ -33,7 +33,14 @@ engines' tensor-op Adam against ``torch.optim.Adam`` on the card
 with the reference's default criteria and its exact warp on the compact
 route, twice, which must repeat to the bit, and the binned NMI twice; the
 matrix engines with their own defaults, edge filter and default
-criteria; the two probe scripts' entry points; every engine path must launch
+criteria; the two probe scripts' entry points; the LM matrix optimizer
+(``[lm]``): K1's second order ``sweep_bwd2`` and the NMI splat's signed
+mode against their plain versions (per pair to the bit against
+single-table launches, repeating), the LM recipe through
+``make_cascade_fn`` on both 240³ pairs equal to ``register_cascade`` to the
+bit within the gates, beside the Adam recipe's walls and ms a step,
+``Register`` rigid LM with the default criteria twice, equal to the bit,
+and an LM cohort against single runs; every engine path must launch
 K1's affine or flow form and never its dense form), and times each kernel
 against its plain version and the one PyTorch call that computes the same
 function, where there is one (K1: each form against the dense launch, and
@@ -77,6 +84,7 @@ from torchregister_tpu_torch import profile_sweep as ps
 from torchregister_tpu_torch import warp_cases as wc
 from torchregister_tpu_torch.__main__ import main as cli
 from torchregister_tpu_torch.engines.affine import affine_register
+from torchregister_tpu_torch.engines import cascade as cascade_mod
 from torchregister_tpu_torch.engines import common as engine_common
 from torchregister_tpu_torch.engines.cascade import (make_cascade_batch_fn, make_cascade_fn,
                                                      register_cascade)
@@ -142,6 +150,11 @@ REPLACES = {
     # JAX cohort's vmap
     "sweep_fwd_pairs": "torchregister_tpu/ops/pallas/sweep.py:38",
     "sweep_bwd_pairs": "torchregister_tpu/ops/pallas/sweep.py:134",
+    # K1's second order (the LM engines' Hessian): JAX differentiates its
+    # in-loop XLA sweep twice by autodiff (ops/separable.py:304-311)
+    "sweep_bwd2": "torchregister_tpu/ops/pallas/sweep.py:134",
+    # the transpose of the splat's backward (the binned NMI's Hessian)
+    "splat_signed": "torchregister_tpu/losses/nmi.py:129",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
@@ -150,7 +163,12 @@ ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
 NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST), "
                          "not a Pallas kernel",
          "splat": "replaces the one-hot products of _binned_histogram, XLA code, not a "
-                  "Pallas kernel: the binned NMI's splat, summed in a fixed order"}
+                  "Pallas kernel: the binned NMI's splat, summed in a fixed order",
+         "sweep_bwd2": "K1's second order for LM's Hessian: JAX takes it by autodiff of "
+                       "its in-loop XLA sweep (ops/separable.py:304-311)",
+         "splat_signed": "the splat's signed mode, the transpose of its backward: JAX "
+                         "differentiates its one-hot products' custom VJP in reverse mode "
+                         "only (its LM cannot, a custom_vjp has no forward mode)"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_fwd_pairs": "torchregister_tpu_torch/csrc/sweep.cu",
@@ -163,7 +181,9 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "roigather": "torchregister_tpu_torch/csrc/roigather.cu",
            **{name: "torchregister_tpu_torch/csrc/hatgather.cu" for name in hg.KERNELS},
            "roi_fetch": "torchregister_tpu_torch/csrc/roi_fetch.cu",
-           "splat": "torchregister_tpu_torch/csrc/splat.cu"}
+           "splat": "torchregister_tpu_torch/csrc/splat.cu",
+           "sweep_bwd2": "torchregister_tpu_torch/csrc/sweep.cu",
+           "splat_signed": "torchregister_tpu_torch/csrc/splat.cu"}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
 # three TF32 products (3xTF32), so their f32 rate is a third of TF32's
@@ -995,11 +1015,13 @@ def _counts() -> dict:
     return {"sweep_fwd": k1.fwd_launches, "sweep_bwd": k1.bwd_launches,
             **{f"sweep_fwd_{m}": n for m, n in k1.fwd_modes.items()},
             **{f"sweep_bwd_{m}": n for m, n in k1.bwd_modes.items()},
+            "sweep_bwd2": k1.bwd2_launches,
+            **{f"sweep_bwd2_{m}": n for m, n in k1.bwd2_modes.items()},
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
             "conv3d_wgrad": k3.wgrad_launches,
             "roigather": k2b.launches, **hg.launches, "roi_fetch": rs.launches,
-            "splat": ks.launches}
+            "splat": ks.launches, "splat_signed": ks.signed_launches}
 
 
 def _reset_counts() -> None:
@@ -1719,6 +1741,325 @@ def _check_edges(img) -> None:
                              f"magnitudes, {flips} mask voxels")
 
 
+# [lm]: the LM matrix optimizer (engines/second_order.py). The recipe with
+# benchmarks/tune_lm.py's "lm 24/16 pat3" matrix stages and the recipe's
+# moment init, held to GATES as the JAX package's LM was on the TPU
+LM_RECIPE = {**RECIPE, "matrix_optimizer": "lm", "rigid_epochs": 24, "affine_epochs": 16,
+             "matrix_patience": 3, "matrix_stop_rel": 1e-3}
+# K1's second order at the LM paths' shapes: (edge, window, dtype); the
+# recipe's matrix levels (60³ and 120³, bf16, windows 11 and 6), 240³ at the
+# fine level's window, and Register's 240³ at its window S/4
+LM_BWD2 = ((60, 11, torch.bfloat16), (120, 6, torch.float32), (120, 6, torch.bfloat16),
+           (240, 8, torch.float32), (240, 8, torch.bfloat16), (240, 60, torch.float32))
+# Register rigid with LM and the default criteria (MSE + NCC + NMI) at 240³,
+# from the identity at the coarse window S/4: LM iterations (no plateau stop,
+# as Register runs the engines)
+LM_REGISTER_STEPS = 12
+# register_cohort rigid with LM on the cohort driver's 8 perturbed 240³ pairs
+LM_COHORT = dict(mode="rigid", epochs=30, criterions=["mse"], optimizer="lm", init="identity",
+                 stop_rel=1e-3, patience=3)
+
+
+def _bwd2_case(S, K, dtype, pairs, seed):
+    """Inputs of K1's second order on ``pairs`` images of S³ (``pairs`` 0:
+    one image, one table): image, g and ubar in ``dtype``, the separable
+    passes of rigid transforms drawn from ``seed`` (a table, or one a pair),
+    rbar f32 shaped like the table."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    n = max(pairs, 1)
+    shape = (n, 1) + (S,) * 3
+    src, g, ubar = (torch.randn(shape, generator=gen, device=DEV).to(dtype) for _ in range(3))
+    params = 0.1 * (2.0 * torch.rand((n, 6), generator=gen, device=DEV) - 1.0)
+    theta = rigid_theta(params)
+    passes = factor_passes(*affine_to_index_map(theta if pairs else theta[0], (S,) * 3))
+    table, axes = k1.pass_table(passes)
+    rbar = torch.randn(table.shape, generator=gen, device=DEV)
+    return src, g, ubar, table.contiguous(), rbar, axes
+
+
+def _check_bwd2(S, K, dtype) -> float:
+    """``sweep_bwd2`` on one S³ image along each pass: two launches equal to
+    the bit, gbar and sbar against ``sweep_bwd2_plain`` at ``TOL`` of the
+    largest reference value, the row's gradient at 1e-4 of its largest entry
+    (sums in other orders); with a table per pair (8 pairs), each pair equal
+    to a single-table launch to the bit. Returns the largest absolute
+    deviation from the plain version."""
+    src, g, ubar, table, rbar, axes = _bwd2_case(S, K, dtype, 0, 9300 + S + K)
+    err, rel, row_rel, repeat = 0.0, [], 0.0, True
+    for p, axis in enumerate(axes):
+        runs = [k1.affine_bwd2(g, src, table, p, axis, K, ubar, rbar[p]) for _ in range(2)]
+        repeat &= all(torch.equal(a, b) for a, b in zip(*runs))
+        gbar, sbar, drow = runs[0]
+        ref = k1.sweep_bwd2_plain(g, src, ubar, rbar[p], table[p, :3], table[p, 3], axis, K)
+        rel += [_rel_err(gbar, ref[0]), _rel_err(sbar, ref[1])]
+        row_rel = max(row_rel, _rel_err(drow, ref[2]))
+        err = max(err, _max_err(gbar, ref[0]), _max_err(sbar, ref[1]))
+        del runs, gbar, sbar, ref
+    bits = True
+    if S >= 120:  # the 8 pairs of [cohort] at the path's larger levels
+        src, g, ubar, table, rbar, axes = _bwd2_case(S, K, dtype, 8, 9400 + S + K)
+        for p, axis in enumerate(axes):
+            gbar, sbar, drow = k1.affine_bwd2(g, src, table, p, axis, K, ubar, rbar[:, p])
+            for n in range(8):
+                one = k1.affine_bwd2(g[n:n + 1], src[n:n + 1], table[n].contiguous(), p, axis,
+                                     K, ubar[n:n + 1], rbar[n, p])
+                bits &= (torch.equal(one[0], gbar[n:n + 1]) and torch.equal(one[1], sbar[n:n + 1])
+                         and torch.equal(one[2], drow[n]))
+        del src, g, ubar, gbar, sbar
+    label = f"{S}³ K={K} {str(dtype).replace('torch.', '')}"
+    print(f"[lm] sweep_bwd2 {label}: two launches equal {repeat}; rel gbar/sbar "
+          f"{max(rel[0::2]):.3e}/{max(rel[1::2]):.3e} (tol {TOL[dtype]:g}); row gradients "
+          f"{row_rel:.3e} (tol 1e-4); 8 pairs each equal to a single-table launch "
+          f"{bits if S >= 120 else 'not run'}", flush=True)
+    if not (repeat and bits):
+        raise AssertionError(f"sweep_bwd2 does not repeat or differs per pair: {label}")
+    if not (max(rel) < TOL[dtype] and row_rel < 1e-4):
+        raise AssertionError(f"sweep_bwd2 disagrees with its plain version: {label}: {rel}, "
+                             f"{row_rel:.3e}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def _check_splat_signed(inputs: dict) -> float:
+    """The splat's signed mode on the default NMI's samples (``w = f -
+    0.5``): two launches equal, equal to its torch order to the bit, and
+    within each bin's 2 n u of its mass of the plain version; returns the
+    largest absolute deviation from the plain version."""
+    worst = 0.0
+    for case, (idx, f) in inputs.items():
+        w = f - 0.5
+        out, again = ks.splat_launch(idx, w, signed=True), ks.splat_launch(idx, w, signed=True)
+        ref = ks.splat_plain(idx, w, signed=True)
+        same = torch.equal(out, ks.splat_ordered(idx, w, signed=True))
+        i, w64 = idx.long(), w.double()
+        zero = torch.zeros(out.shape, dtype=torch.float64, device=DEV)
+        one = torch.ones_like(w64)
+        n = zero.scatter_add(1, i, one).scatter_add(1, i + 1, one)
+        mass = zero.scatter_add(1, i, w64.abs()).scatter_add(1, i + 1, w64.abs())
+        d = (out.double() - ref.double()).abs()
+        err = float(d.max())
+        print(f"[lm] signed splat {case}: two launches equal {torch.equal(out, again)}; equal "
+              f"to its torch order {same}; against the plain version max|d| {err:.3e}",
+              flush=True)
+        if not (torch.equal(out, again) and same):
+            raise AssertionError(f"the signed splat does not repeat its order on {case}")
+        if not bool((d <= 2.0 * n * 2.0**-24 * mass).all()):
+            raise AssertionError(f"the signed splat disagrees with its plain version on {case}")
+        worst = max(worst, err)
+    return worst
+
+
+def _matrix_levels(run, m, t) -> list:
+    """One synchronised cascade ``run(m, t)``: ``[label, edge, ms, steps]``
+    of each matrix level (``cascade._matrix_level`` timed between device
+    syncs; inside a factory's call its graph replays)."""
+    rows = []
+    orig = cascade_mod._matrix_level
+
+    def timed(base, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(base, *args)
+        torch.cuda.synchronize()
+        rows.append([args[-1].split("_")[0], base.shape[-1],
+                     round(1e3 * (time.perf_counter() - t0), 3), res.steps[0]])
+        return res
+
+    cascade_mod._matrix_level = timed
+    try:
+        run(m, t)
+    finally:
+        cascade_mod._matrix_level = orig
+    return rows
+
+
+def _wall(run, m, t) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(m, t)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_lm_cascade() -> tuple[dict, dict]:
+    """``make_cascade_fn(**LM_RECIPE)`` on both 240³ pairs: each call (the
+    capturing one and a replaying one) equal to ``register_cascade`` of the
+    same config to the bit, within ``GATES``; LM iterations and ms a step of
+    each matrix level, and the walls of ``fn`` beside the Adam recipe's
+    ``fn`` (``[cascade-fn]``'s, captured already) in this run. Returns the
+    replaying calls' launches and the rows."""
+    pairs = {"rigid pair": make_pair(device=DEV), "deformable pair": make_flow_truth_pair(device=DEV)}
+    lm_fn, adam_fn = make_cascade_fn(**LM_RECIPE), make_cascade_fn(**RECIPE)
+    total, rows = {}, {}
+    for label, (m, t, *truth) in pairs.items():
+        ref = register_cascade(m, t, **LM_RECIPE)
+        wall_ref = _wall(functools.partial(register_cascade, **LM_RECIPE), m, t)
+        torch.cuda.reset_peak_memory_stats()
+        first = lm_fn(m, t)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _reset_counts()
+        res = lm_fn(m, t)
+        torch.cuda.synchronize()
+        launches = _counts()
+        same = all(_same_bits(getattr(r, k), getattr(ref, k)) if isinstance(getattr(ref, k),
+                                                                            torch.Tensor)
+                   else getattr(r, k) == getattr(ref, k)
+                   for r in (first, res) for k in ref._fields)
+        walls = {"lm_fn": [_wall(lm_fn, m, t) for _ in range(2)],
+                 "adam_fn": [_wall(adam_fn, m, t) for _ in range(2)],
+                 "lm_register_cascade": wall_ref}
+        levels = {"lm": _matrix_levels(lm_fn, m, t), "adam": _matrix_levels(adam_fn, m, t)}
+        for rs_ in levels.values():
+            for r in rs_:
+                r.append(round(r[2] / max(r[3], 1), 3))  # ms a step
+        q = (_pair_quality("rigid", res, m, t, None) if not truth
+             else _pair_quality("deformable", res, m, t, truth))
+        rows[label] = {"steps": res.steps, "walls_s": walls, "levels": levels,
+                       "peak_gib_capture": round(peak, 3), "quality": q}
+        print(f"[lm] {label}: LM iterations {res.steps}; equal to register_cascade to the bit "
+              f"(capture and replay): {same}; graphs {json.dumps(lm_fn.graphs.counts())}; "
+              f"{json.dumps(rows[label])} (levels: [stage, edge, ms, steps, ms a step]); "
+              f"launches {json.dumps(launches)}", flush=True)
+        if not same:
+            raise AssertionError(f"make_cascade_fn with LM differs from register_cascade: {label}")
+        _on_cuda(res)
+        _finite(res, tuple(m.shape))
+        failed = [k for k, v in q.items() if k in GATES and (
+            v > GATES[k] if k == "flow_field_err_observable_vox" else v < GATES[k])]
+        if failed:
+            raise AssertionError(f"[lm] {label} gates failed: {q}")
+        _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_bwd2", *K1_MODES), f"LM ({label})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total, rows
+
+
+def phase_register_lm() -> dict:
+    """``Register(mode='rigid', optimizer='lm')`` with the default criteria
+    (MSE + NCC + NMI) at 240³ on make_pair, from the identity, twice: equal
+    to the bit (steps, parameters, losses, output), within the rigid gate;
+    the peak memory of a run (the Hessian's retained graph)."""
+    moving, target = make_pair((SIZE,) * 3, device=DEV)
+    runs = []
+    calls = dict(branch_calls)
+    for _ in range(2):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg = Register(mode="rigid", device=DEV, optimizer="lm", init="identity",
+                       max_shift=SIZE // 4)
+        reg.optim(moving, target, max_epochs=LM_REGISTER_STEPS)
+        out = reg(moving)
+        torch.cuda.synchronize()
+        runs.append((reg, out, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated() / 2**30, _counts()))
+    (a, out_a, wall, peak, launches), (b, out_b, wall_b, _, _) = runs
+    same = (int(a.result.steps) == int(b.result.steps) and _same_bits(out_a, out_b)
+            and all(_same_bits(getattr(a.result, k), getattr(b.result, k))
+                    for k in ("losses", "best_params", "final_params", "param_history")))
+    pct = rmse_reduction_pct(out_a, moving, target)
+    branches = {k: branch_calls[k] - calls[k] for k in branch_calls}
+    losses = a.result.losses[:int(a.result.steps)].cpu().numpy()
+    print(f"[lm] Register rigid, LM, default criteria, {SIZE}³: {int(a.result.steps)} "
+          f"iterations, {wall:.3f} / {wall_b:.3f} s, {1e3 * wall / int(a.result.steps):.1f} ms "
+          f"an iteration; RMSE reduction {pct:.3f} %; losses {losses[0]:.6g} -> "
+          f"{float(a.result.best_loss):.6g}; NMI branches {json.dumps(branches)}; peak memory "
+          f"{peak:.3f} GiB; two runs equal to the bit: {same}; launches {json.dumps(launches)}",
+          flush=True)
+    if not same:
+        raise AssertionError("Register with LM and the default criteria does not repeat")
+    if pct < GATES["rmse_reduction_pct"]:
+        raise AssertionError(f"Register LM rigid RMSE gate failed: {pct:.3f} %")
+    _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_bwd2", "splat")
+          + (("splat_signed",) if branches["binned"] else ()), "Register LM")
+    return launches
+
+
+def phase_cohort_lm() -> dict:
+    """``register_cohort`` rigid with LM on the cohort driver's 8 perturbed
+    240³ pairs (``LM_COHORT``): each pair's steps, losses and best theta
+    those of its own ``rigid_register`` run to the bit, max |theta - true| <
+    0.05, a lower RMSE after the exact re-warp."""
+    movings, targets, trues = driver_cohort(8, (SIZE,) * 3, device=DEV)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = register_cohort(movings, targets, **LM_COHORT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    kw = {k: v for k, v in LM_COHORT.items() if k != "mode"}
+    same, solo_steps = 0, []
+    t0 = time.perf_counter()
+    for n in range(movings.shape[0]):
+        _, solo = rigid_register(movings[n:n + 1], targets[n:n + 1], grad_edges=False, **kw)
+        solo_steps.append(solo.steps)
+        same += all(_same_bits(getattr(solo, k), getattr(res, k)[n])
+                    for k in ("best_theta", "losses", "best_params"))
+    torch.cuda.synchronize()
+    wall_solo = time.perf_counter() - t0
+    err = float(torch.max(torch.abs(res.best_theta[:, 0] - trues)))
+    warped = blocked.warp_affine_fast(res.best_theta[:, 0], movings)
+    rmse0 = float(torch.sqrt(torch.mean((movings - targets) ** 2)))
+    rmse1 = float(torch.sqrt(torch.mean((warped - targets) ** 2)))
+    print(f"[lm] register_cohort rigid LM, 8 pairs at {SIZE}³: iterations {res.steps}, alone "
+          f"{solo_steps}; pairs equal to their single runs to the bit {same} of 8; max |theta - "
+          f"true| {err:.5f}; RMSE {rmse0:.5f} -> {rmse1:.5f}; wall {wall:.3f} s, the 8 single "
+          f"runs {wall_solo:.3f} s", flush=True)
+    if res.steps != solo_steps or same != len(solo_steps) or not (err < 0.05 and rmse1 < rmse0):
+        raise AssertionError("[lm] register_cohort with LM failed its checks")
+    _need(launches, ("sweep_fwd_pairs", "sweep_bwd_pairs", "sweep_bwd2_pairs"),
+          "register_cohort LM")
+    return launches
+
+
+def phase_lm(splat_inputs: dict) -> tuple[dict, list, dict]:
+    """[lm]: K1's second order and the splat's signed mode against their
+    plain versions, then the LM paths: the recipe through the factory, then
+    ``Register`` and a cohort. Returns the kernels' deviations, each path's
+    launches and the cascade rows."""
+    errs = {"sweep_bwd2": max(_check_bwd2(S, K, dtype) for S, K, dtype in LM_BWD2),
+            "splat_signed": _check_splat_signed(splat_inputs)}
+    launches, rows = phase_lm_cascade()
+    return errs, [launches, phase_register_lm(), phase_cohort_lm()], rows
+
+
+def phase_lm_times(splat_inputs: dict) -> dict:
+    """``sweep_bwd2`` at 240³ K=8 f32 (a table, mean of the 3 passes) and
+    the signed splat on the default NMI's make_pair samples: one launch
+    against one pass of the plain version, CUDA events. Bounds: sweep_bwd2
+    reads g, ubar and src and writes gbar and sbar (5 volumes; ~20
+    operations a voxel); the signed splat as the splat. The signed splat's
+    library call: one ``scatter_add`` of both terms."""
+    S, K = 240, 8
+    src, g, ubar, table, rbar, axes = _bwd2_case(S, K, torch.float32, 0, 9500)
+    dtable = torch.empty_like(table)
+    work = k1._affine_work(src, axes, [K] * 3)
+    ms, plain = [], []
+    for p, axis in enumerate(axes):
+        ms.append(_time_ms(lambda: k1._bwd2_affine(g, src, table, p, axis, K, ubar, rbar, True,
+                                                   True, dtable, work)))
+        plain.append(_time_ms(lambda: k1.sweep_bwd2_plain(g, src, ubar, rbar[p], table[p, :3],
+                                                          table[p, 3], axis, K), iters=3))
+    vox = float(S) ** 3
+    rows = {"sweep_bwd2": {"ms": sum(ms) / 3, "plain_ms": sum(plain) / 3, "per_pass_ms": ms,
+                           **_bound(5 * 4 * vox, 20 * vox)}}
+    idx, f = splat_inputs["make_pair"]
+    w = f - 0.5
+    i = idx.long()
+    both = (torch.zeros((f.shape[0], ks.BINS), device=DEV), torch.cat([i, i + 1], 1),
+            torch.cat([-w, w], 1))
+    rows["splat_signed"] = {
+        "ms": _time_ms(lambda: ks.splat_launch(idx, w, signed=True)),
+        "plain_ms": _time_ms(lambda: ks.splat_plain(idx, w, signed=True), iters=3),
+        "library_ms": _time_ms(lambda: torch.scatter_add(both[0], 1, both[1], both[2]), iters=3),
+        **_bound(4.0 * (2 * f.numel() + f.shape[0] * ks.BINS), 2.0 * f.numel())}
+    print(f"[times] lm {json.dumps(rows)}", flush=True)
+    return rows
+
+
 def _time_ms(fn, iters=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -2171,6 +2512,9 @@ def main() -> None:
     phase_adam()
     paths += [phase_register_unet(), phase_register_default(), phase_engines_default(),
               probe_launches]
+    lm_errs, lm_paths, _ = phase_lm(splat_inputs)
+    errs.update(lm_errs)
+    paths += lm_paths
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     # before the profiler first runs (after that each launch costs the host more)
     phase_launch_path(probe_inputs)
@@ -2181,6 +2525,7 @@ def main() -> None:
     probe_rows = phase_probe_times(probe_inputs)
     splat_rows = phase_splat_times(splat_inputs)
     pair_rows = phase_pair_times()
+    lm_rows = phase_lm_times(splat_inputs)
     library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
     # per-launch times at the fine flow level's shape (240³, K=8, f32): its
     # flow form, with the dense launch and every form's row beside it
@@ -2197,7 +2542,8 @@ def main() -> None:
              **{name: probe_rows[name] for name in (*hg.KERNELS, "roi_fetch")},
              "splat": splat_rows["make_pair"],
              **{name: {k: pair_rows[name][k] for k in ("ms", "plain_ms")}
-                for name in pair_rows}}
+                for name in pair_rows},
+             **{name: {k: lm_rows[name][k] for k in ("ms", "plain_ms")} for name in lm_rows}}
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (pw_bound)
@@ -2212,13 +2558,16 @@ def main() -> None:
                  for name in (*hg.KERNELS, "roi_fetch")},
               "splat": {k: splat_rows["make_pair"][k] for k in ("bound_ms", "bound_by")},
               **{name: {k: pair_rows[name][k] for k in ("bound_ms", "bound_by")}
-                 for name in pair_rows}}
+                 for name in pair_rows},
+              **{name: {k: lm_rows[name][k] for k in ("bound_ms", "bound_by")}
+                 for name in lm_rows}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
                    conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
                    roigather=k2b_row["library_ms"],
                    **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")},
                    splat=splat_rows["make_pair"]["library_ms"], sweep_fwd_pairs=None,
-                   sweep_bwd_pairs=None)
+                   sweep_bwd_pairs=None, sweep_bwd2=None,
+                   splat_signed=lm_rows["splat_signed"]["library_ms"])
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -2243,6 +2592,12 @@ def main() -> None:
         "singles_ms: the 8 single-table launches it replaces; plain: the plain version with "
         "a row per pair (backward: to the image and the rows)")
     timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
+    timed_at["sweep_bwd2"] = ("one launch, 240^3 K=8 f32, one table, mean of the 3 passes "
+                              "(per_pass_ms); plain: sweep_bwd2_plain; library: none, no "
+                              "PyTorch call computes K1's second order")
+    timed_at["splat_signed"] = ("one launch, the default NMI's 8 x 1M samples of make_pair's "
+                                "moving image at 240^3, weights f - 0.5; library: one "
+                                "scatter_add of both terms")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": total[name],
@@ -2262,6 +2617,7 @@ def main() -> None:
          **({k: probe_rows[name].get(k) for k in P1_EXTRAS}
             if name == "block_permute_add" else {}),
          **(_splat_extras(splat_rows) if name == "splat" else {}),
+         **({"per_pass_ms": lm_rows[name]["per_pass_ms"]} if name == "sweep_bwd2" else {}),
          **({k: k2_times[name][k] for k in K2_EXTRAS} if name in k2_times else {})}
         for name in REPLACES
     ]

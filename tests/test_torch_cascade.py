@@ -8,7 +8,9 @@ gradient: where the field has almost no gradient (flat background) the
 So thetas are held to 1e-2, executed steps per stage to 2, the rigid gate to
 0.5 points, the deformable gate to 0.5 points and the map errors to
 0.05 voxel (measured here: 2.7e-3, 0, 0.12, 0.001 and 0.005). The U-Net
-options run under SGD on a 2D pair (their test says why).
+options run under SGD on a 2D pair (their test says why), the LM matrix
+optimizer on the same 2D pair (JAX's 3-D LM engines take minutes to compile
+on a CPU).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -77,20 +79,36 @@ UNET_CASES = {"flow_model": (32, 2, 12), "flow_depth": (96, 1, 12),
     pytest.param(dict(matrix_optimizer="lm"), "item 14", id="option4-item 10"),
 ])
 def test_torch_cascade_unported_options_raise(option, item, monkeypatch):
-    """The options of ROADMAP queue 1 items 11 and 14. The LM matrix
-    optimizer (item 14) still raises. The U-Net options (item 11) run,
-    each held against the JAX package's cascade on a 2D pair, U-Net flow
-    stage only, SGD at lr 0.01, every fresh network starting from JAX's
+    """The options of ROADMAP queue 1 items 11 and 14, each held against the
+    JAX package's cascade on a 2D pair. The U-Net options (item 11): U-Net
+    flow stage only, SGD at lr 0.01, every fresh network starting from JAX's
     initial weights for the seed: the executed steps, every loss within the
     engines' tolerance (rtol 1e-3, atol 3e-4: NCC's alpha turns the
     frameworks' f32 rounding into ~1e-4) and the flow within 1e-2 of its
-    largest value."""
-    if item == "item 14":
-        vol = torch.zeros((1, 1, 16, 16, 16))
-        with pytest.raises(NotImplementedError, match=item):
-            register_cascade(vol, vol, **dict(reduced_recipe(), **option))
-        return
+    largest value. The LM matrix optimizer (item 14): the matrix stages of
+    the reduced recipe (f32) with ``benchmarks/tune_lm.py``'s LM settings:
+    the steps of each stage and level equal; each level starts from the
+    identity, where every coordinate is an integer, a kink of linear
+    interpolation at which the packages take different one-sided
+    derivatives, so the trajectories differ by up to ~0.3 % before they
+    meet: losses within 1e-2, the composed theta within 2e-3 (measured
+    3.2e-3 relative and 6.3e-4)."""
     from torchregister_tpu.engines.cascade import register_cascade as j_cascade
+
+    if item == "item 14":
+        mov, tgt = _pair_2d(48)
+        recipe = {**reduced_recipe(matrix_dtype="float32", rigid_epochs=24, affine_epochs=16,
+                                   matrix_patience=3, matrix_stop_rel=1e-3),
+                  "stages": ("rigid", "affine"), **option}
+        jres = j_cascade(jnp.asarray(mov), jnp.asarray(tgt), **recipe)
+        tres = register_cascade(torch.from_numpy(mov), torch.from_numpy(tgt), **recipe)
+        for k in ("rigid", "affine"):
+            jl, tl = np.asarray(getattr(jres, f"{k}_losses")), getattr(tres, f"{k}_losses").numpy()
+            np.testing.assert_array_equal(np.isnan(tl), np.isnan(jl))  # steps of each level
+            np.testing.assert_allclose(tl, jl, rtol=1e-2)
+        assert sum(tres.steps["rigid"]) < recipe["rigid_epochs"]  # LM's plateau stop
+        np.testing.assert_allclose(tres.theta.numpy(), np.asarray(jres.theta), atol=2e-3)
+        return
 
     carry_jax_unet_init(monkeypatch)
     S, levels, epochs = UNET_CASES[next(iter(option))]

@@ -6,7 +6,9 @@ results must equal ``register_cascade``'s to the bit. Against the JAX
 package's single-program cascade (``tests/test_cascade_pyramid.py``'s
 config on the same numpy pair) theta is held to the tolerance of
 ``tests/test_torch_cascade.py``, 1e-2, and the executed steps per stage to
-2: both run Adam, whose rounding differs between the frameworks.
+2: both run Adam, whose rounding differs between the frameworks. The LM
+matrix optimizer runs through every cascade entry point (``CascadeConfig``,
+the factories), each equal to ``register_cascade`` to the bit.
 """
 import dataclasses
 
@@ -102,3 +104,34 @@ def test_torch_cascade_fn_refuses_nmi(spec):
     with pytest.raises(ValueError, match=r"includes 'nmi'.*item 16"):
         make_cascade_fn(**{**CFG, **spec})
     assert not cascade._CASCADE_CACHE
+
+
+def test_torch_lm_cascade_entry_points_agree():
+    """``matrix_optimizer='lm'`` through ``CascadeConfig.run``/``.jitted``
+    and ``make_cascade_fn`` equals ``register_cascade`` to the bit (on the
+    CPU the factory runs the same loops without graphs), and
+    ``make_cascade_batch_fn`` gives each of 2 pairs its single run to the
+    bit; the LM stop ends each matrix level early."""
+    from torchregister_tpu_torch.config import CascadeConfig
+    from torchregister_tpu_torch.engines.cascade import make_cascade_batch_fn
+
+    recipe = dict(stages=("rigid", "affine"), levels=2, rigid_epochs=16, affine_epochs=10,
+                  criterions=("mse", "ncc"), matrix_optimizer="lm", matrix_patience=3,
+                  matrix_stop_rel=1e-3, residual_shift=4)
+    movs = [torch.from_numpy(_blob((32, 32), 30 + b)) for b in range(2)]
+    tgts = [torch.roll(m, (1, -1), dims=(-2, -1)) for m in movs]
+    want = register_cascade(movs[0], tgts[0], **recipe)
+    cfg = CascadeConfig(**recipe)
+    for got in (cfg.run(movs[0], tgts[0]), cfg.jitted()(movs[0], tgts[0]),
+                make_cascade_fn(**recipe)(movs[0], tgts[0])):
+        assert got.steps == want.steps
+        for name in ("warped", "theta", "rigid_losses", "affine_losses"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(), getattr(want, name).numpy())
+    assert sum(want.steps["rigid"]) < recipe["rigid_epochs"]
+    batch = make_cascade_batch_fn(**recipe)(torch.cat(movs), torch.cat(tgts))
+    for b in range(2):
+        one = register_cascade(movs[b], tgts[b], **recipe)
+        assert {k: v[b] for k, v in batch.steps.items()} == one.steps
+        for name in ("warped", "theta", "rigid_losses", "affine_losses"):
+            np.testing.assert_array_equal(getattr(batch, name)[b].numpy(),
+                                          getattr(one, name).numpy())

@@ -7,7 +7,11 @@ to the bit, K1's table per pair against single-table launches), both probe
 modules' ``main``, the one launch path (a launch under a side stream, a tensor on
 another device than the current one), and the fixed-order kernels: the
 two-stage sums (P3, the ROI fetch) and the NMI splat, each equal to its
-order in torch ops to the bit.
+order in torch ops to the bit; the LM engines' second order: K1's
+``sweep_bwd2`` and the splat's signed mode against their plain versions,
+a Hessian through the kernels against the CPU's, the kernel Functions that
+are differentiable once raising on a second derivative, and LM's cascade
+factory and cohort against single runs to the bit.
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -1530,3 +1534,231 @@ def test_torch_cuda_adam_near_torch_optim_foreach(dev):
     assert torch.equal(opt.state["m"], st["exp_avg"])
     assert torch.equal(opt.state["v"], st["exp_avg_sq"])
     assert float((ours - ref.detach()).abs().max()) <= 100 * 0.3 * 2.0**-21
+
+
+# ------------------------------------------------- second order (the LM engines)
+
+
+def _bwd2_case(dev, shape, axis, per_item, dtype, seed, flip=False):
+    """One affine pass's inputs and the cotangents of its backward: a table
+    ``[d, d+1]`` (or one a pair) near a shift along ``axis`` (``flip``: a
+    reflection, whose floor index decreases along the axis), g and ubar in
+    the image dtype, rbar f32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = len(shape) - 2
+    lead = (shape[0],) if per_item else ()
+    coef = torch.zeros(lead + (d,), device=dev)
+    coef[..., axis] = -1.0 if flip else 1.0
+    coef = coef + 0.15 * (torch.rand(lead + (d,), generator=gen, device=dev) - 0.5)
+    offset = 3.0 * (torch.rand(lead, generator=gen, device=dev) - 0.5) + (
+        shape[2 + axis] - 1.0 if flip else 0.3)
+    table = torch.zeros(lead + (d, d + 1), device=dev)
+    table[..., 0, :d], table[..., 0, d] = coef, offset
+    src, g, ubar = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    rbar = torch.randn(lead + (d + 1,), generator=gen, device=dev)
+    return src, table, coef, offset, g, ubar, rbar
+
+
+BWD2_CASES = [((1, 1, 40, 37, 45), 0, 8), ((1, 1, 40, 37, 45), 1, 8), ((1, 1, 40, 37, 45), 2, 8),
+              ((2, 3, 20, 18, 70), 2, 30), ((1, 1, 50, 61), 0, 5), ((1, 2, 50, 61), 1, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,axis,K", BWD2_CASES)
+@pytest.mark.parametrize("flip", [False, True], ids=["fold-free", "folded"])
+def test_torch_cuda_sweep_bwd2_matches_plain(dev, shape, axis, K, dtype, flip):
+    """K1's second order (``sweep_bwd2``) against ``sweep_bwd2_plain``:
+    gbar, sbar (f32: 1e-5 of the largest entry; bf16: 2^-7, an image output
+    rounded once) and the row's gradient (1e-4: sums over the image in
+    other orders); two launches equal to the bit; fold-free and folded
+    coordinates (sbar's two gathers), a window past the chunk (whole
+    rows)."""
+    src, table, coef, offset, g, ubar, rbar = _bwd2_case(dev, shape, axis, False, dtype, K)
+    runs = [k1.affine_bwd2(g, src, table, 0, axis, K, ubar, rbar) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    gbar, sbar, drow = runs[0]
+    ref = k1.sweep_bwd2_plain(g, src, ubar, rbar, coef, offset, axis, K)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    for got, want in ((gbar, ref[0]), (sbar, ref[1])):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * float(want.float().abs().max()))
+    torch.testing.assert_close(drow, ref[2], rtol=0, atol=1e-4 * float(ref[2].abs().max()))
+    # no ubar (pass 0's cotangent when the image needs no gradient)
+    gbar0, _, drow0 = k1.affine_bwd2(g, src, table, 0, axis, K, None, rbar, need_src=False)
+    ref0 = k1.sweep_bwd2_plain(g, src, None, rbar, coef, offset, axis, K)
+    torch.testing.assert_close(gbar0.float(), ref0[0].float(), rtol=0,
+                               atol=tol * float(ref0[0].float().abs().max()))
+    assert not bool(drow0.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,axis,K", [((4, 1, 24, 26, 30), 1, 8), ((3, 1, 40, 44), 0, 6),
+                                          ((8, 1, 60, 60, 60), 2, 15)])
+def test_torch_cuda_sweep_bwd2_table_per_pair(dev, shape, axis, K, dtype):
+    """A table per pair: each pair's gbar, sbar and row gradient equal a
+    single-table launch on that pair alone, to the bit."""
+    src, table, _, _, g, ubar, rbar = _bwd2_case(dev, shape, axis, True, dtype, 3)
+    gbar, sbar, drow = k1.affine_bwd2(g, src, table, 0, axis, K, ubar, rbar)
+    for b in range(shape[0]):
+        one = k1.affine_bwd2(g[b:b + 1], src[b:b + 1], table[b], 0, axis, K, ubar[b:b + 1],
+                             rbar[b])
+        assert torch.equal(one[0], gbar[b:b + 1]) and torch.equal(one[1], sbar[b:b + 1])
+        assert torch.equal(one[2], drow[b])
+
+
+@pytest.mark.parametrize("kind", ["make_pair", "constant"])
+def test_torch_cuda_splat_signed_matches_its_order_and_plain(dev, kind):
+    """The splat's signed mode (the transpose of its backward) equals its
+    order in torch ops to the bit, repeats, and lies within rounding of the
+    plain version (``scatter_add`` of -w and w); a second derivative of the
+    binned NMI launches it."""
+    from torchregister_tpu_torch.ops.cuda import splat as ks
+
+    idx, f = _splat_inputs(dev, kind)
+    w = f - 0.5
+    out, again = ks.splat_launch(idx, w, signed=True), ks.splat_launch(idx, w, signed=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, ks.splat_ordered(idx, w, signed=True))
+    ref = ks.splat_plain(idx, w, signed=True)
+    i = idx.long()
+    n = torch.zeros_like(out).scatter_add(1, i, torch.ones_like(w)).scatter_add(
+        1, i + 1, torch.ones_like(w))
+    mass = torch.zeros_like(out).scatter_add(1, i, w.abs()).scatter_add(1, i + 1, w.abs())
+    assert bool(((out - ref).abs() <= 2.0 * n * 2.0**-24 * mass * 1.001).all())
+    # through autograd: the gather's transpose
+    g = torch.randn(out.shape, device=dev, requires_grad=True)
+    ks.reset_counts()
+    fr = f.clone().requires_grad_(True)
+    (gf,) = torch.autograd.grad((ks.splat(idx, fr) * g).sum(), fr, create_graph=True)
+    (gg,) = torch.autograd.grad((gf * w).sum(), g)
+    assert ks.signed_launches == 1 and torch.equal(gg, out)
+
+
+def _rigid_loss(dev, criteria, dtype, size=32):
+    from torchregister_tpu_torch.losses import pair_loss, resolve_criteria
+    from torchregister_tpu_torch.ops.separable import _warp_affine_separable
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+    from torchregister_tpu_torch.synthetic import make_pair
+
+    mov, tgt = make_pair((size,) * 3, device=dev)
+    loss = pair_loss(*resolve_criteria(criteria, None), 1)
+    p0 = torch.tensor([[0.03, -0.02, 0.04, 0.05, -0.03, 0.02]], device=dev)
+
+    def fn(p, device):
+        m, t = mov.to(device).to(dtype), tgt.to(device).to(dtype)
+        return loss(t, _warp_affine_separable(rigid_theta(p), m, max_shift=8, twice=True))
+
+    return fn, p0
+
+
+@pytest.mark.parametrize("criteria,dtype", [(["mse", "ncc"], torch.float32),
+                                            (["mse", "ncc"], torch.bfloat16),
+                                            (None, torch.float32)],
+                         ids=["mse-ncc", "mse-ncc-bf16", "default"])
+def test_torch_cuda_val_grad_hess_through_the_kernels(dev, criteria, dtype):
+    """The LM Hessian through K1's kernels (``_AffinePass``, ``sweep_bwd2``)
+    and, with the default criteria, the NMI splat's signed mode, against
+    the same on the CPU through the plain versions: a Hessian that missed a
+    kernel's second order would differ by its whole warp terms, not by
+    rounding (gradient and Hessian within 1e-3 of their largest entry: the
+    criteria's sums in other orders; bf16 images 3e-2). Twice, equal to the
+    bit."""
+    from torchregister_tpu_torch.engines.second_order import val_grad_hess
+    from torchregister_tpu_torch.ops.cuda import splat as ks
+
+    fn, p0 = _rigid_loss(dev, criteria, dtype)
+    k1.reset_counts()
+    ks.reset_counts()
+    runs = [val_grad_hess(lambda p: fn(p, dev), p0.clone().requires_grad_(True))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert k1.bwd2_launches == 2 * 6 * 3 and k1.fwd_modes["dense"] == 0
+    if criteria is None:
+        assert ks.signed_launches > 0
+    cpu = val_grad_hess(lambda p: fn(p, "cpu"), p0.cpu().clone().requires_grad_(True))
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for got, want in zip(runs[0][1:], cpu[1:]):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=tol * float(want.abs().max()))
+
+
+def test_torch_cuda_second_derivative_through_once_differentiable_raises(dev):
+    """The kernel Functions that are differentiable once raise on a second
+    derivative instead of returning zeros: K1's dense form, its whole-warp
+    Functions (affine, flow) and K3."""
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+    from torchregister_tpu_torch.ops.separable import _warp_affine_separable
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src = torch.rand((1, 1, 12, 13, 14), generator=gen, device=dev)
+    q = torch.rand(src.shape, generator=gen, device=dev) * 10
+    flow = torch.rand((1, 3, 12, 13, 14), generator=gen, device=dev)
+    p = torch.tensor([0.02, 0.01, -0.03, 0.1, 0.0, 0.05], device=dev)
+    cases = {
+        "dense": (q, lambda q: k1.sweep(src, q, 4, 3)),
+        "affine": (p, lambda p: _warp_affine_separable(rigid_theta(p), src, max_shift=4)),
+        "flow": (flow, lambda u: k1.sweep_flow_passes(src, u, 3)),
+        "conv3d": (src, lambda x: k3.conv3x3x3(x, torch.ones((3, 3, 3, 1, 2), device=dev))),
+    }
+    for name, (x, fn) in cases.items():
+        x = x.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(x).square().sum(), x, create_graph=True)
+        with pytest.raises(RuntimeError, match="is differentiable once"):
+            torch.autograd.grad(g.sum(), x)
+
+
+def test_torch_cuda_nearest_resize_double_backward_repeats_to_the_bit(dev):
+    """The NMI term's nearest resize (torch ops in its backward) taken twice
+    by autograd on the card: the same bits on every run."""
+    from torchregister_tpu_torch.ops.resize import nearest_resize
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((1, 1, 30, 31, 29), generator=gen, device=dev)
+    w = torch.randn((1, 1, 20, 20, 20), generator=gen, device=dev)
+    v = torch.randn(x.shape, generator=gen, device=dev)
+    out = []
+    for _ in range(3):
+        xs = x.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((nearest_resize(xs, (20, 20, 20)) ** 2 * w).sum(), xs,
+                                   create_graph=True)
+        out.append(torch.autograd.grad((g * v).sum(), xs)[0])
+    assert all(torch.equal(o, out[0]) for o in out[1:])
+
+
+def test_torch_cuda_lm_cascade_fn_and_cohort_equal_single_runs(dev):
+    """LM on the card: ``make_cascade_fn(matrix_optimizer='lm')`` captures
+    each matrix level's LM step (gradient, Hessian passes, Cholesky, trial)
+    once and equals ``register_cascade`` to the bit; ``register_cohort``
+    with LM gives each pair its single run to the bit; the LM engines
+    launch K1's second order."""
+    from torchregister_tpu_torch.engines.cascade import make_cascade_fn, register_cascade
+    from torchregister_tpu_torch.engines.rigid import rigid_register
+    from torchregister_tpu_torch.parallel.cohort import register_cohort
+    from torchregister_tpu_torch.synthetic import RECIPE, make_pair
+
+    recipe = {**RECIPE, "stages": ("rigid", "affine"), "levels": 2, "matrix_levels": 2,
+              "matrix_optimizer": "lm", "rigid_epochs": 24, "affine_epochs": 16,
+              "matrix_patience": 3, "matrix_stop_rel": 1e-3}
+    mov, tgt = make_pair((40, 40, 40), device=dev)
+    fn = make_cascade_fn(**recipe)
+    k1.reset_counts()
+    for _ in range(2):
+        want, got = register_cascade(mov, tgt, **recipe), fn(mov, tgt)
+        for name in want._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None and b is None) or _bits_equal(a, b), name
+    assert k1.bwd2_launches > 0 and k1.fwd_modes["dense"] == 0
+    assert all(c == 1 and r > 0 for c, r in fn.graphs.counts().values())
+    movs = torch.cat([make_pair((32,) * 3, seed=s, device=dev)[0] for s in range(3)])
+    tgts = torch.cat([make_pair((32,) * 3, seed=s, device=dev)[1] for s in range(3)])
+    kw = dict(epochs=20, criterions=["mse", "ncc"], optimizer="lm", stop_rel=1e-3, patience=3,
+              max_shift=8)
+    res = register_cohort(movs, tgts, mode="rigid", **kw)
+    for b in range(3):
+        _, one = rigid_register(movs[b:b + 1], tgts[b:b + 1], grad_edges=False,
+                                init="identity", **kw)
+        assert one.steps == res.steps[b]
+        for name in ("losses", "best_params", "param_history", "best_loss"):
+            assert _bits_equal(getattr(one, name), getattr(res, name)[b]), (b, name)

@@ -82,13 +82,23 @@ def test_torch_optimize_scan_matches_jax(stop_rel):
 
 
 def test_torch_make_optimizer():
+    """'lm' gives the LM step (its damping one a pair, from 1); the flow
+    engine takes no 'lm' and raises ``ValueError`` as JAX's does."""
     p = torch.zeros(2, requires_grad=True)
     assert isinstance(tc.make_optimizer("SGD", p, 0.1, 10), tc.SGD)
     assert isinstance(tc.make_optimizer("adam", p, 0.1, 10), tc.Adam)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tc.make_optimizer("lm", p, 0.1, 10)
+    lm = tc.make_optimizer("lm", p[None], 0.1, 10, pairs=1)
+    assert isinstance(lm, tc.LM) and torch.equal(lm.state["lam"], torch.ones(1))
     with pytest.raises(ValueError):
         tc.make_optimizer("rmsprop", p, 0.1, 10)
+    with pytest.raises(ValueError, match="unknown optimizer 'lm'"):
+        tc.make_optimizer("lm", p, 0.1, 10, second_order=False)
+    vol = np.zeros((1, 1, 8, 8), np.float32)
+    kw = dict(optimizer="lm", max_epochs=1, criterions=["mse"], flow_model="field")
+    with pytest.raises(ValueError, match="unknown optimizer 'lm'"):
+        t_flow(_t(vol), _t(vol), **kw)
+    with pytest.raises(ValueError, match="unknown optimizer 'lm'"):
+        j_flow(jnp.asarray(vol), jnp.asarray(vol), **kw)
 
 
 # ------------------------------------------------------------ windows

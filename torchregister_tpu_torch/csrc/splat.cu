@@ -7,7 +7,14 @@
 //   H[n, idx[n, l]]     += 1 - f[n, l]
 //   H[n, idx[n, l] + 1] += f[n, l]
 //
-// with idx in [0, kBins - 2]. A scatter with float atomics adds each bin's
+// with idx in [0, kBins - 2]. The signed mode writes the transpose of the
+// splat's backward (dL/df = dL/dH[idx + 1] - dL/dH[idx]), the second
+// derivative of the binned NMI:
+//
+//   H[n, idx[n, l]]     -= f[n, l]
+//   H[n, idx[n, l] + 1] += f[n, l]
+//
+// in the same order. A scatter with float atomics adds each bin's
 // terms in the order the warps happen to reach it, so two runs differ in the
 // last bits and an optimizer fed by the loss drifts apart. Here every bin's
 // terms are added in an order fixed by the samples' positions alone, so a run
@@ -44,7 +51,7 @@ static_assert(kSteps % kBatch == 0, "a warp's steps come in whole batches");
 
 __global__ void __launch_bounds__(kThreads)
 splat_partial_kernel(const int* __restrict__ idx, const float* __restrict__ f,
-                     float* __restrict__ part, long long L, int nblk) {
+                     float* __restrict__ part, long long L, int nblk, bool neg) {
   __shared__ float hist[kWarps][kBins];
   __shared__ float weight[kWarps][32];
   const int b = blockIdx.x, n = blockIdx.y;
@@ -69,7 +76,7 @@ splat_partial_kernel(const int* __restrict__ idx, const float* __restrict__ f,
 #pragma unroll
       for (int term = 0; term < 2; ++term) {
         const int bt = bin[k] < 0 ? -1 : bin[k] + term;
-        w[lane] = term ? fs[k] : 1.0f - fs[k];
+        w[lane] = term ? fs[k] : (neg ? -fs[k] : 1.0f - fs[k]);
         __syncwarp();
         const unsigned group = __match_any_sync(0xffffffffu, bt);
         if (bt >= 0 && lane == __ffs(group) - 1) {
@@ -104,18 +111,20 @@ splat_sum_kernel(const float* __restrict__ part, float* __restrict__ H, int nblk
 
 // Plain C interface (loaded with ctypes). idx contiguous [N, L] int32 with
 // every value in [0, 1022], f contiguous [N, L] f32, part [N, nblk, 1024] f32
-// scratch with nblk = ceil(L / 16384), H [N, 1024] f32. Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue, launching
-// nothing, for an nblk that does not fit L or a grid past the card's limits).
+// scratch with nblk = ceil(L / 16384), H [N, 1024] f32; sign 1: the signed
+// mode (-f into idx, f into idx + 1). Returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue, launching nothing, for an nblk that does
+// not fit L, a sign other than 0 or 1, or a grid past the card's limits).
 extern "C" int splat(const void* idx, const void* f, void* part, void* H, int N, long long L,
-                     int nblk, void* stream) {
+                     int nblk, int sign, void* stream) {
   if (N <= 0) return 0;
-  if (L < 0 || nblk != (L + kChunk - 1) / kChunk || N > 65535)
+  if (L < 0 || nblk != (L + kChunk - 1) / kChunk || N > 65535 || (sign != 0 && sign != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (nblk > 0)
     splat_partial_kernel<<<dim3(nblk, N), kThreads, 0, s>>>((const int*)idx, (const float*)f,
-                                                            (float*)part, L, nblk);
+                                                            (float*)part, L, nblk,
+                                                            sign == 1);
   splat_sum_kernel<<<dim3(kBins / kThreads, N), kThreads, 0, s>>>((const float*)part,
                                                                   (float*)H, nblk);
   return (int)cudaGetLastError();

@@ -70,6 +70,23 @@
 // has its own counter and range of partials, so each item's row gradient
 // (and its dsrc and output) is that launch's to the bit.
 //
+// Second order, affine mode (sweep_bwd2: the LM engines' Hessian). The
+// backward of one pass maps (g, s, row) to ds = A(q)^T g and the row gradient
+// dr = sum_e g_e (D(q)s)_e [n_e, 1], where D(q)s = s[floor + 1] - s[floor]
+// over the taps that count is constant in q between taps. Given cotangents
+// ubar (of ds) and rbar (of dr), with v_e = rbar . [n_e, 1]:
+//
+//   gbar = A(q) ubar + v * D(q)s
+//   sbar = D(q)^T (v * g)
+//   the row's gradient  sum_e g_e (D(q) ubar)_e [n_e, 1]
+//
+// The same staged tile as the backward, staging ubar in place of g and
+// v * g beside s: gbar is a forward-like blend of each position's taps, sbar
+// the adjoint gather (weights -1 and +1) in the same fixed ascending order,
+// and the row's gradient the backward's reduction with ubar in place of s,
+// through the same partials and counters, so each item's results equal a
+// single-table launch's to the bit and a run repeats to the bit.
+//
 // Images are f32 or bf16 (the matrix stages sweep bf16 images); coordinates,
 // weights and all sums are f32 and an image output is rounded once.
 
@@ -377,6 +394,49 @@ __device__ __forceinline__ float4 warp_sum(float4 v) {
   return v;
 }
 
+// The affine form's row gradient, from each thread's sums (of d*z, d*y, d*x,
+// d): the block's share in a fixed tree, within each warp by shuffles, then
+// the warps' sums in order, into the item's partials (the grid's y index is
+// the item); the last block to finish (the item's counter tells it) adds
+// every block's partial in a fixed order, whichever block is last (each
+// thread a strided share, then a tree), and writes the row (coef[d], offset).
+__device__ __forceinline__ void reduce_row(float4 sums, float4* partials, unsigned* done,
+                                           float* drow, long long drn, int d) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  partials += (long long)blockIdx.y * gridDim.x;
+  done += blockIdx.y;
+  drow += blockIdx.y * drn;
+  __shared__ float4 red[kThreads / 32];
+  __shared__ bool last;
+  sums = warp_sum(sums);
+  if (lane == 0) red[w] = sums;
+  __syncthreads();
+  if (tid == 0) {
+    float4 a = red[0];
+    for (int k = 1; k < kThreads / 32; ++k) a = add4(a, red[k]);
+    partials[blockIdx.x] = a;
+    __threadfence();  // the partial is visible before the count says so
+    last = atomicInc(done, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (unsigned b = tid; b < gridDim.x; b += kThreads) acc = add4(acc, partials[b]);
+  acc = warp_sum(acc);
+  __syncthreads();
+  if (lane == 0) red[w] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    float4 r = red[0];
+    for (int k = 1; k < kThreads / 32; ++k) r = add4(r, red[k]);
+    // row layout (coef[d], offset); 2-D has no z coefficient
+    const float all[4] = {r.x, r.y, r.z, r.w};
+    const int first = d == 3 ? 0 : 1;
+    for (int k = first; k < 4; ++k) drow[k - first] = all[k];
+  }
+}
+
 // The staged backward's tile: kCols columns (TI inner x TO outer, TI a
 // power of 2) by a chunk of L positions, staged with the window around it.
 // `outer` and `blocks` count one batch item's rows and blocks when the
@@ -589,45 +649,161 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
     }
   }
   if constexpr (Q::kRowGrad) {
-    if (!partials) return;
-    // the item's counter, partials and row gradient
-    partials += (long long)blockIdx.y * gridDim.x;
-    done += blockIdx.y;
-    drow += blockIdx.y * drn;
-    // the block's share of the row gradient in a fixed tree: within each
-    // warp by shuffles, then the warps' sums in order
-    __shared__ float4 red[kThreads / 32];
-    __shared__ bool last;
-    sums = warp_sum(sums);
-    if (lane == 0) red[w] = sums;
-    __syncthreads();
-    if (tid == 0) {
-      float4 a = red[0];
-      for (int k = 1; k < kThreads / 32; ++k) a = add4(a, red[k]);
-      partials[blockIdx.x] = a;
-      __threadfence();  // the partial is visible before the count says so
-      last = atomicInc(done, gridDim.x - 1) == gridDim.x - 1;
-    }
-    __syncthreads();
-    if (!last) return;
-    // the last block: every block's partial in a fixed order, whichever
-    // block is last (each thread a strided share, then a tree)
-    __threadfence();
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (unsigned b = tid; b < gridDim.x; b += kThreads) acc = add4(acc, partials[b]);
-    acc = warp_sum(acc);
-    __syncthreads();
-    if (lane == 0) red[w] = acc;
-    __syncthreads();
-    if (tid == 0) {
-      float4 r = red[0];
-      for (int k = 1; k < kThreads / 32; ++k) r = add4(r, red[k]);
-      // row layout (coef[d], offset); 2-D has no z coefficient
-      const float all[4] = {r.x, r.y, r.z, r.w};
-      const int first = qm.d == 3 ? 0 : 1;
-      for (int k = first; k < 4; ++k) drow[k - first] = all[k];
+    if (partials) reduce_row(sums, partials, done, drow, drn, qm.d);
+  }
+}
+
+// sweep_bwd2 (the note at the top): the staged tile of the backward, with
+// ubar staged in place of g and v * g beside src. `rf` gives v_e = rbar .
+// [n_e, 1] the way `qf` gives q. Null ubar reads as zeros; null gbar, sbar
+// or partials skip that output.
+template <typename T, bool kPer>
+__global__ void __launch_bounds__(kThreads)
+sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
+                  const T* __restrict__ ubar, AffineQ<kPer> qf, AffineQ<kPer> rf,
+                  T* __restrict__ gbar, T* __restrict__ sbar, float4* __restrict__ partials,
+                  unsigned* __restrict__ done, float* __restrict__ drow, long long drn,
+                  Tile tl) {
+  extern __shared__ int smem[];
+  const int n_stage = tl.TO * tl.LhM * tl.TI;        // each array [TO][LhM][TI]
+  int* code = smem;
+  float* s_src = (float*)(code + n_stage);
+  float* s_u = s_src + n_stage;
+  float* s_vg = s_u + n_stage;
+  __shared__ int s_mono[kCols];
+  AffineQ<kPer> qm = qf, rm = rf;
+  qm.load(blockIdx.y);
+  rm.load(blockIdx.y);
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x % tl.n_chunks;
+  const long long tile = blockIdx.x / tl.n_chunks;
+  const long long ob = (long long)blockIdx.y * tl.outer;  // the item's first row
+  const long long o0 = (tile / tl.n_inner_tiles) * tl.TO;
+  const long long i0 = (tile % tl.n_inner_tiles) * tl.TI;
+  const int X = tl.X, K = tl.K, TI = tl.TI;
+  const int j0 = chunk * tl.L;
+  const int s0 = max(0, j0 - K - 1);
+  const int s1 = min(X, j0 + tl.L + K + 1);
+  const int Lh = s1 - s0;
+  const int lane = tid & 31, w = tid >> 5;
+  const int ti = lane & (TI - 1), pl = lane >> tl.ti_shift;
+  const int P = kLanes >> tl.ti_shift;
+  const int wpc = tl.TO >= 8 ? 1 : 8 / tl.TO;
+  const int to0 = w / wpc, to_step = 8 / wpc;
+  const int p0 = pl + P * (w % wpc), p_step = P * wpc;
+  const long long i = i0 + ti;
+  if (tid < kCols) s_mono[tid] = 1;
+
+  // 1. each staged position's taps, src, ubar and v * g
+  for (int to = to0; to < tl.TO; to += to_step) {
+    const long long o = o0 + to;
+    if (o >= tl.outer || i >= tl.inner) continue;
+    const typename AffineQ<kPer>::Col c = qm.col((int)(ob + o), (int)i);
+    const typename AffineQ<kPer>::Col rc = rm.col((int)(ob + o), (int)i);
+    const long long base = (ob + o) * X * tl.inner + i;
+    const int sb = ti + TI * tl.LhM * to;
+    for (int p = p0; p < Lh; p += p_step) {
+      const int x = s0 + p;
+      const long long idx = base + (long long)x * tl.inner;
+      const int e = sb + TI * p;
+      code[e] = tap_code(taps_of(qm.at(c, idx, x), x, X, K), x, K);
+      s_src[e] = load_f(src, idx);
+      s_u[e] = ubar ? load_f(ubar, idx) : 0.0f;
+      s_vg[e] = sbar ? __fmul_rn(rm.at(rc, idx, x), load_f(g, idx)) : 0.0f;
     }
   }
+  __syncthreads();
+  // 2. per column: does its floor index never decrease along x?
+  if (sbar) {
+    for (int to = to0; to < tl.TO; to += to_step) {
+      const int sb = ti + TI * tl.LhM * to;
+      bool mono = true;
+      for (int p = p0; p + 1 < Lh; p += p_step)
+        mono &= (code[sb + TI * p] >> 2) <= (code[sb + TI * (p + 1)] >> 2) + 1;
+      if (!mono) atomicAnd(&s_mono[ti + TI * to], 0);
+    }
+    __syncthreads();
+  }
+  // 3. each position of the chunk: gbar and its share of the row gradient
+  //    from its taps; on a column without folds, sbar by gathering the x
+  //    that hit it
+  float4 sums = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int to = to0; to < tl.TO; to += to_step) {
+    const long long o = o0 + to;
+    if (o >= tl.outer || i >= tl.inner) continue;
+    const typename AffineQ<kPer>::Col c = qm.col((int)(ob + o), (int)i);
+    const typename AffineQ<kPer>::Col rc = rm.col((int)(ob + o), (int)i);
+    const long long base = (ob + o) * X * tl.inner + i;
+    const int sb = ti + TI * tl.LhM * to;
+    for (int jj = p0; jj < tl.L; jj += p_step) {
+      const int j = j0 + jj;
+      if (j >= X) break;
+      const long long idx = base + (long long)j * tl.inner;
+      if (gbar || partials) {
+        const Taps t = taps_of(qm.at(c, idx, j), j, X, K);
+        const int f = sb + TI * (t.xf - s0);
+        const float uf = t.mf ? s_u[f] : 0.0f, uc = t.mc ? s_u[f + TI] : 0.0f;
+        if (partials) {
+          const float d = __fmul_rn(load_f(g, idx), __fsub_rn(uc, uf));
+          const int a = qm.im.axis;
+          sums.x = __fadd_rn(sums.x, __fmul_rn(d, a == 0 ? (float)j : c.z));
+          sums.y = __fadd_rn(sums.y, __fmul_rn(d, a == 1 ? (float)j : c.y));
+          sums.z = __fadd_rn(sums.z, __fmul_rn(d, a == 2 ? (float)j : c.x));
+          sums.w = __fadd_rn(sums.w, d);
+        }
+        if (gbar) {
+          const float sf = t.mf ? s_src[f] : 0.0f, sc = t.mc ? s_src[f + TI] : 0.0f;
+          store_f(gbar, idx, __fadd_rn(blend(t, uf, uc),
+                                       __fmul_rn(rm.at(rc, idx, j), __fsub_rn(sc, sf))));
+        }
+      }
+      if (!sbar || !s_mono[ti + TI * to]) continue;
+      float acc = 0.0f;
+      const int xlo = max(s0, j - K - 1), xhi = min(s1 - 1, j + K);
+      auto floor_at = [&](int x) { return x + (code[sb + TI * (x - s0)] >> 2) - K - 2; };
+      int x = min(max(2 * j - floor_at(j) - 1, xlo), xhi);
+      while (x > xlo && floor_at(x - 1) >= j - 1) --x;
+      while (x <= xhi && floor_at(x) < j - 1) ++x;
+      for (; x <= xhi; ++x) {
+        const int s = sb + TI * (x - s0);
+        const int cd = code[s];
+        const int f = x + (cd >> 2) - K - 2;
+        if (f > j) break;
+        if ((cd & 2) && f == j) acc = __fsub_rn(acc, s_vg[s]);
+        else if ((cd & 1) && f + 1 == j) acc = __fadd_rn(acc, s_vg[s]);
+      }
+      store_f(sbar, idx, acc);
+    }
+  }
+  // 4. sbar of the columns with folds: one thread a column, ascending x, in
+  //    the column's ubar stage, which phase 3 has read
+  if (sbar) {
+    __syncthreads();
+    if (tid < tl.TO * TI && !s_mono[tid] && o0 + (tid >> tl.ti_shift) < tl.outer &&
+        i0 + (tid & (TI - 1)) < tl.inner) {
+      const int sb = (tid & (TI - 1)) + TI * tl.LhM * (tid >> tl.ti_shift);
+      float* acc = s_u + sb;  // acc[TI * (j - j0)]
+      for (int jj = 0; jj < tl.L; ++jj) acc[TI * jj] = 0.0f;
+      for (int x = s0; x < s1; ++x) {
+        const int s = sb + TI * (x - s0);
+        const int cd = code[s];
+        const int f = x + (cd >> 2) - K - 2 - j0;
+        if ((cd & 2) && f >= 0 && f < tl.L) acc[TI * f] = __fsub_rn(acc[TI * f], s_vg[s]);
+        if ((cd & 1) && f + 1 >= 0 && f + 1 < tl.L)
+          acc[TI * (f + 1)] = __fadd_rn(acc[TI * (f + 1)], s_vg[s]);
+      }
+    }
+    __syncthreads();
+    for (int to = to0; to < tl.TO; to += to_step) {
+      const long long o = o0 + to;
+      if (o >= tl.outer || i >= tl.inner || s_mono[ti + TI * to]) continue;
+      const long long base = (ob + o) * X * tl.inner + i;
+      const float* acc = s_u + ti + TI * tl.LhM * to;
+      for (int jj = p0; jj < tl.L && j0 + jj < X; jj += p_step)
+        store_f(sbar, base + (long long)(j0 + jj) * tl.inner, acc[TI * jj]);
+    }
+  }
+  if (partials) reduce_row(sums, partials, done, drow, drn, qm.d);
 }
 
 // ---------------------------------------------------------------- launch
@@ -694,6 +870,42 @@ int bwd_dtype(int dtype, const void* g, const void* src, Q q, void* dsrc, void* 
   if (dtype == 0) return launch_bwd<float>(g, src, q, dsrc, dq, work, drow, drn, items, r, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(g, src, q, dsrc, dq, work, drow, drn, items, r, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool kPer>
+int launch_bwd2(const void* g, const void* src, const void* ubar, const AffineQ<kPer>& q,
+                const AffineQ<kPer>& rq, void* gbar, void* sbar, void* work, void* drow,
+                long long items, const Rows& r, cudaStream_t stream) {
+  Tile tl;
+  if (!rows_ok(r) || !item_tile(r, items, tl)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)tile_bytes(tl.TO, tl.TI, tl.LhM);
+  static bool opted = false;  // one attribute per instantiation
+  if (!opted) {
+    cudaError_t rc = cudaFuncSetAttribute(sweep_bwd2_kernel<T, kPer>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          kStageBudget);
+    if (rc != cudaSuccess) return (int)rc;
+    opted = true;
+  }
+  unsigned* done = drow ? (unsigned*)work : nullptr;
+  float4* partials = drow ? (float4*)work + (items + 3) / 4 : nullptr;
+  sweep_bwd2_kernel<T, kPer><<<dim3((unsigned)tl.blocks, (unsigned)items), kThreads, smem,
+                               stream>>>(
+      (const T*)g, (const T*)src, (const T*)ubar, q, rq, (T*)gbar, (T*)sbar, partials, done,
+      (float*)drow, q.rn, tl);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPer>
+int bwd2_dtype(int dtype, const void* g, const void* src, const void* ubar,
+               const AffineQ<kPer>& q, const AffineQ<kPer>& rq, void* gbar, void* sbar,
+               void* work, void* drow, long long items, const Rows& r, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_bwd2<float, kPer>(g, src, ubar, q, rq, gbar, sbar, work, drow, items, r, s);
+  if (dtype == 1)
+    return launch_bwd2<__nv_bfloat16, kPer>(g, src, ubar, q, rq, gbar, sbar, work, drow, items,
+                                            r, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -793,4 +1005,30 @@ extern "C" int sweep_bwd(int mode, const void* g, const void* src, const void* q
                      nullptr, nullptr, 0, 1, r, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The affine form's second order (the note at the top): given the backward's
+// inputs g, src and the pass's table row `qp` (as sweep_bwd takes them) and
+// the cotangents `ubar` (of dsrc, src's shape and dtype; null: zeros) and
+// `rbar` (of the row gradient, a row laid out as the table's, its items `un`
+// apart), writes gbar (g's shape and dtype), sbar (src's) and the row's
+// gradient `drow` (as sweep_bwd writes it, through `work`: sweep_bwd_work
+// floats, its counters 0, left 0). Null gbar, sbar or drow skip that output.
+extern "C" int sweep_bwd2(const void* g, const void* src, const void* qp, const void* ubar,
+                          const void* rbar, void* gbar, void* sbar, void* work, void* drow,
+                          long long outer, int L, long long inner, int K, int dtype, int d,
+                          int Z, int Y, int X, int axis, int C, long long un, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Rows r{outer, inner, L, K};
+  if (!img_ok(Z, Y, X, axis, C) || (d != 2 && d != 3)) return (int)cudaErrorInvalidValue;
+  const Img im = make_img(Z, Y, X, axis, C);
+  const long long items = un ? items_of(r, im) : 1;
+  if (items < 1) return (int)cudaErrorInvalidValue;
+  if (un == 0)
+    return bwd2_dtype<false>(dtype, g, src, ubar, AffineQ<false>{(const float*)qp, d, im, 0},
+                             AffineQ<false>{(const float*)rbar, d, im, 0}, gbar, sbar, work,
+                             drow, items, r, s);
+  return bwd2_dtype<true>(dtype, g, src, ubar, AffineQ<true>{(const float*)qp, d, im, un},
+                          AffineQ<true>{(const float*)rbar, d, im, un}, gbar, sbar, work, drow,
+                          items, r, s);
 }

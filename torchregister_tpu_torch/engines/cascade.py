@@ -27,9 +27,12 @@ loss, stop and trajectory its own), warps each pair by its own theta and
 flow, and checks the windows with one host read naming the pairs.
 :func:`register_cascade` is the same code on one pair. The JAX batch
 sizes no window from a concrete theta (under ``vmap`` every theta is
-traced); neither does this one: every window is static. The LM matrix
-optimizer (item 14) is not ported yet and raises ``NotImplementedError``
-naming the ROADMAP item.
+traced); neither does this one: every window is static.
+
+``matrix_optimizer='lm'`` runs the matrix stages with Levenberg-Marquardt
+(``engines/second_order.py``): a level's step is one LM iteration (its
+loss, gradient, n Hessian passes, Cholesky and trial), which the factories
+capture and replay as they do Adam's step.
 """
 from __future__ import annotations
 
@@ -82,11 +85,6 @@ def _level(name: str):
     """A stage's level: a trace span, and the name of its step graph."""
     with trace(name), graph.level(name):
         yield
-
-
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(f"register_cascade({option}) is not ported yet: "
-                              f"ROADMAP queue 1 item {item}")
 
 
 def register_cascade(
@@ -193,8 +191,6 @@ def _cascade(pairs, moving, target, stages, levels, rigid_epochs, rigid_lr, affi
         raise ValueError(f"moment_init must be False, True, 'com', or 'pa' "
                          f"(got {moment_init!r})")
     m_opt = optimizer if matrix_optimizer is None else matrix_optimizer
-    if m_opt == "lm":
-        _not_ported("matrix_optimizer='lm'", "14 (engines/second_order.py)")
     if matrix_levels is not None and matrix_levels < 1:
         raise ValueError(f"matrix_levels must be >= 1 (got {matrix_levels})")
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import graph
+from .second_order import LM, lm_improved, val_grad_hess
 
 # most steps between two reads of the stop state of a loop that has a stop
 # to watch: a stop that needs no plateau (flow's stop_crit) is seen within
@@ -149,21 +150,24 @@ class Adam:
         self.param.addcdiv_(s["m"] * col(row, 0), denom)
 
 
-def make_optimizer(name: str, param: torch.Tensor, lr: float, steps: int, pairs: int = 1):
+def make_optimizer(name: str, param: torch.Tensor, lr: float, steps: int, pairs: int = 1,
+                   second_order: bool = True, lam0: float = 1.0):
     """'sgd' or 'adam' over the f32 tensor ``param`` for up to ``steps``
     steps (optax defaults: plain SGD, Adam with betas (0.9, 0.999) and eps
-    1e-8); ``param`` holds ``pairs`` pairs' parameters along its leading
-    axis, each stepped on its own."""
+    1e-8), or 'lm', Levenberg-Marquardt (``engines/second_order.LM``, damping
+    from ``lam0``; ``lr`` unused); ``param`` holds ``pairs`` pairs'
+    parameters along its leading axis, each stepped on its own. With
+    ``second_order=False`` (the flow engine) 'lm' raises ``ValueError``, as
+    the JAX package's ``make_optimizer`` does."""
     name = name.lower()
     if name == "sgd":
         return SGD(param, lr, steps)
     if name == "adam":
         return Adam(param, lr, steps, pairs=pairs)
-    if name == "lm":
-        raise NotImplementedError(
-            "optimizer 'lm' is not ported yet: ROADMAP queue 1 item 14 "
-            "(engines/second_order.py)")
-    raise ValueError(f"unknown optimizer {name!r} (use 'sgd' or 'adam')")
+    if name == "lm" and second_order:
+        return LM(param, pairs, lam0)
+    raise ValueError(f"unknown optimizer {name!r} (use 'sgd' or 'adam'"
+                     f"{', or lm for the rigid and affine engines' if second_order else ''})")
 
 
 def _next_read(i: int, since: int, epochs: int, patience: int | None,
@@ -200,7 +204,8 @@ def _print_progress(label: str, i: int, epochs: int, best_loss, params) -> None:
 def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
                   params0: torch.Tensor, optimizer: str, lr: float, epochs: int,
                   stop_rel: float | None = None, patience: int = 25,
-                  progress_every: int | None = None, label: str = "optimize_scan"):
+                  progress_every: int | None = None, label: str = "optimize_scan",
+                  lam0: float = 1.0):
     """Run up to ``epochs`` optimizer steps of ``loss_fn`` on one flat
     parameter tensor.
 
@@ -213,6 +218,14 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
     ``stop_rel`` the loop reads the host once, at the end; with it, at the
     steps where the plateau stop could first fire (:func:`_next_read`).
 
+    ``optimizer='lm'`` runs Levenberg-Marquardt (``engines/second_order``,
+    damping from ``lam0``; ``lr`` unused): a step is one LM iteration, the
+    pre-step loss and parameters are recorded, an accepted trial that beats
+    the best loss is the best, and the plateau test is LM's
+    (``second_order.lm_improved``: an absolute floor of 1e-8 beside
+    ``stop_rel``; the loop stops after ``patience`` iterations without an
+    improvement), as the JAX package's ``make_chunked_lm``.
+
     ``params0 [n]`` is one pair's: ``loss_fn`` maps ``[n]`` to a scalar.
     ``params0 [B, n]`` runs B pairs: ``loss_fn`` maps ``[B, n]`` to each
     pair's loss ``[B]``, every result gains the pair axis (``steps`` a list
@@ -224,7 +237,8 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
     """
     if params0.ndim == 1:  # one pair: the pair axis on, and off the results
         out = optimize_scan(lambda p: torch.reshape(loss_fn(p[0]), (1,)), params0[None],
-                            optimizer, lr, epochs, stop_rel, patience, progress_every, label)
+                            optimizer, lr, epochs, stop_rel, patience, progress_every, label,
+                            lam0)
         return tuple(x[0] for x in out)
     sess = graph.session()
     device = params0.device
@@ -234,8 +248,9 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
     if progress_every and B > 1:
         raise ValueError("progress_every prints one pair's progress")
     params = sess.static("params", p0.clone()).requires_grad_(True)
-    opt = make_optimizer(optimizer, params, lr, epochs, B)
+    opt = make_optimizer(optimizer, params, lr, epochs, B, lam0=lam0)
     opt.state = sess.statics(opt.state, "opt.")
+    lm = isinstance(opt, LM)
     f32 = dict(dtype=torch.float32, device=device)
     st = sess.statics({
         "best_loss": torch.full((B,), float("inf"), **f32), "best_params": p0,
@@ -248,25 +263,38 @@ def optimize_scan(loss_fn: Callable[[torch.Tensor], torch.Tensor],
         "hist": torch.full((B, epochs + 1, n), float("nan"), **f32)})
 
     def step():
-        loss = loss_fn(params)
-        (grad,) = torch.autograd.grad(loss.sum(), params)
+        if lm:
+            val, grad, hess = val_grad_hess(loss_fn, params)
+        else:
+            loss = loss_fn(params)
+            (grad,) = torch.autograd.grad(loss.sum(), params)
+            val = loss.detach()
         with torch.no_grad():
             active = ~st["stopped"]
-            val = loss.detach().to(torch.float32)
+            val = val.to(torch.float32)
             better = active & (val < st["best_loss"])
             st["best_params"].copy_(torch.where(better[:, None], params, st["best_params"]))
             st["best_loss"].copy_(torch.where(better, val, st["best_loss"]))
             at = torch.where(active, st["i"], epochs)
             st["losses"].scatter_(1, at[:, None], val[:, None])
             st["hist"].scatter_(1, at[:, None, None].expand(-1, 1, n), params.detach()[:, None])
-            opt.step(grad, active)
+            if lm:
+                trial, val_new, accept = opt.step(loss_fn, val, grad, hess, active)
+                better = accept & (val_new < st["best_loss"])
+                st["best_params"].copy_(torch.where(better[:, None], trial,
+                                                    st["best_params"]))
+                st["best_loss"].copy_(torch.where(better, val_new, st["best_loss"]))
+            else:
+                opt.step(grad, active)
             halt = st["i"].add_(active.long()) >= epochs
             if factor is not None:
-                improved = st["best_loss"] < st["ref"] * factor
+                improved = (lm_improved(st["best_loss"], st["ref"], stop_rel) if lm
+                            else st["best_loss"] < st["ref"] * factor)
                 st["ref"].copy_(torch.where(active & improved, st["best_loss"], st["ref"]))
                 st["since"].copy_(torch.where(active, torch.where(improved, 0, st["since"] + 1),
                                               st["since"]))
-                halt |= (st["since"] >= patience) & (st["best_loss"] > st["ref"] * factor)
+                plateau = st["since"] >= patience
+                halt |= plateau if lm else plateau & (st["best_loss"] > st["ref"] * factor)
             st["stopped"].logical_or_(halt)
 
     def report(i, stopped, _):
@@ -336,11 +364,13 @@ def fit_matrix(moving: torch.Tensor, target: torch.Tensor, params0: torch.Tensor
     loss = pair_loss(criteria, weights, params0.shape[0])
     sess = graph.session()
     moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
+    # LM's Hessian differentiates the warp twice: K1's chain of passes
+    twice = optimizer.lower() == "lm"
 
     def loss_fn(params):
         theta = theta_of(params)
-        warped = (_warp_affine_separable(theta, moving_s, max_shift=windows) if separable
-                  else warp_affine(theta, moving_s))
+        warped = (_warp_affine_separable(theta, moving_s, max_shift=windows, twice=twice)
+                  if separable else warp_affine(theta, moving_s))
         return loss(target_s, warped)
 
     final_params, best_params, best_loss, losses, hist, steps = optimize_scan(

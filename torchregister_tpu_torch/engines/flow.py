@@ -270,7 +270,7 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
         net_params = list(model.parameters())
     else:
         param.requires_grad_(True)
-    opt = make_optimizer(optimizer, param, lr, max_epochs, pairs)
+    opt = make_optimizer(optimizer, param, lr, max_epochs, pairs, second_order=False)
     opt.state = sess.statics(opt.state, "opt.")
     device = moving.device
     factor = None if stop_rel is None else float(np.float32(1.0 - stop_rel))

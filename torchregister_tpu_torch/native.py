@@ -12,6 +12,7 @@ the replays of a captured CUDA graph (``engines/graph.py``) add to them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -172,3 +173,47 @@ def add_launch_counts(counts: dict, times: int) -> None:
             setattr(mod, name, getattr(mod, name) + n * times)
         else:
             getattr(mod, name)[key] += n * times
+
+
+class _Once(torch.autograd.Function):
+    """Its input's values; its backward raises."""
+
+    @staticmethod
+    def forward(ctx, x, name, *links):
+        ctx.name = name
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(f"{ctx.name} is differentiable once: a second derivative through "
+                           "its kernels is not implemented")
+
+
+def differentiable_once(backward):
+    """Mark a kernel Function's ``backward`` as differentiable once: under
+    ``create_graph`` each gradient it returns passes through a node whose
+    backward raises, linked to every cotangent and saved tensor that
+    requires grad, so a second derivative through the kernels raises rather
+    than miss their terms. (``torch.autograd.function.once_differentiable``
+    links its error node to nothing, so ``torch.autograd.grad`` prunes it
+    whenever another path reaches the inputs: a Hessian through it comes out
+    without the kernel's terms, silently.) Without ``create_graph`` it costs
+    nothing."""
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        with torch.no_grad():
+            out = backward(ctx, *grads)
+        if not torch.is_grad_enabled():
+            return out
+        links = [t for t in (*grads, *ctx.saved_tensors)
+                 if isinstance(t, torch.Tensor) and t.requires_grad]
+        if not links:
+            return out
+        name = backward.__qualname__.rsplit(".", 1)[0]
+        one = not isinstance(out, tuple)
+        outs = tuple(_Once.apply(o, name, *links) if isinstance(o, torch.Tensor) else o
+                     for o in ((out,) if one else out))
+        return outs[0] if one else outs
+
+    return wrapper

@@ -189,6 +189,7 @@ def _wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 class _Conv3x3x3(torch.autograd.Function):
+    """Differentiable once: a second derivative through it raises."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -196,6 +197,7 @@ class _Conv3x3x3(torch.autograd.Function):
         return _conv(x, w, 0)
 
     @staticmethod
+    @native.differentiable_once
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx = dw = None

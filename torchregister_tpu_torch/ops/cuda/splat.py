@@ -14,10 +14,15 @@ positions (``csrc/splat.cu``), so a run repeats to the bit.
 (``scatter_add`` a block of samples), a CUDA tensor the kernel through
 :class:`_Splat`, whose backward is the gather ``dL/df = g[idx + 1] -
 g[idx]`` (:func:`splat_grad`, what autograd computes through the plain
-version); any other device raises.
-``launches`` counts kernel launches; :func:`reset_counts` zeroes it.
-:func:`splat_ordered` is the kernel's order of additions in torch ops, for
-tests of the order on any device.
+version) as the Function :class:`_SplatGrad`, whose own backward (the LM
+engines' Hessian) is the kernel's signed mode, ``H[idx] -= w``, ``H[idx +
+1] += w``: the transpose of the gather, in the kernel's fixed order (a
+``scatter_add`` on the card, autograd's transpose of ``gather``, adds with
+atomics); any other device raises.
+``launches`` and ``signed_launches`` count the kernel's launches in each
+mode; :func:`reset_counts` zeroes them. :func:`splat_ordered` is the
+kernel's order of additions in torch ops, for tests of the order on any
+device.
 """
 from __future__ import annotations
 
@@ -33,16 +38,18 @@ WARPS, STEPS = 8, 64  # a block's warps; a warp's steps of 32 samples
 CHUNK = WARPS * STEPS * 32  # samples a block of the kernel's first stage (kChunk)
 
 launches = 0
-native.count_launches(__name__, "launches")
+signed_launches = 0
+native.count_launches(__name__, "launches", "signed_launches")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = native.Library(SOURCE, "splat", {
-    "splat": (_I, [_P, _P, _P, _P, _I, ctypes.c_longlong, _I, _P])})
+    "splat": (_I, [_P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P])})
 
 
 def reset_counts() -> None:
-    global launches
+    global launches, signed_launches
     launches = 0
+    signed_launches = 0
 
 
 def _check(idx: torch.Tensor, f: torch.Tensor) -> None:
@@ -51,11 +58,12 @@ def _check(idx: torch.Tensor, f: torch.Tensor) -> None:
                          f"{tuple(idx.shape)} and {tuple(f.shape)}")
 
 
-def splat_launch(idx: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+def splat_launch(idx: torch.Tensor, f: torch.Tensor, signed: bool = False) -> torch.Tensor:
     """Launch the kernel on contiguous CUDA ``idx`` (int32, every value in
     ``[0, BINS - 2]``) and ``f`` (f32), one device; the block partials'
-    scratch is allocated here."""
-    global launches
+    scratch is allocated here. ``signed``: the signed mode (``-f`` into
+    ``idx``, ``f`` into ``idx + 1``)."""
+    global launches, signed_launches
     _check(idx, f)
     native.check_operands("splat", (f, torch.float32), (idx, torch.int32))
     N, L = f.shape
@@ -63,25 +71,29 @@ def splat_launch(idx: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     part = f.new_empty((N, nblk, BINS))
     H = f.new_empty((N, BINS))
     LIB.launch("splat", f, idx.data_ptr(), f.data_ptr(), part.data_ptr(), H.data_ptr(), N, L,
-               nblk)
-    launches += 1
+               nblk, int(signed))
+    if signed:
+        signed_launches += 1
+    else:
+        launches += 1
     return H
 
 
-def splat_plain(idx: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+def splat_plain(idx: torch.Tensor, f: torch.Tensor, signed: bool = False) -> torch.Tensor:
     """Plain PyTorch version: two ``scatter_add``, each block of ``CHUNK``
     samples into its own histogram (on the CPU a serial f32 sum a block; on
     the card atomics in no fixed order), then the blocks' histograms added:
     one serial sum over a row of a million samples drifts from the exact
     sum much further than the kernel's blocks do, far enough to move the
     default NMI term by more than its card-against-CPU tolerance (PERF.md).
-    A row of at most ``CHUNK`` samples is one block."""
+    A row of at most ``CHUNK`` samples is one block. ``signed``: ``-f``
+    into ``idx`` in place of ``1 - f``."""
     _check(idx, f)
     N, L = f.shape
     nblk = max(1, -(-L // CHUNK))
     k = idx.long() + BINS * (torch.arange(L, device=f.device) // CHUNK)
     out = torch.zeros((N, nblk * BINS), dtype=torch.float32, device=f.device)
-    out = out.scatter_add(1, k, 1.0 - f).scatter_add(1, k + 1, f)
+    out = out.scatter_add(1, k, -f if signed else 1.0 - f).scatter_add(1, k + 1, f)
     return out.view(N, nblk, BINS).sum(dim=1)
 
 
@@ -93,15 +105,15 @@ def splat_grad(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.gather(1, idx + 1) - g.gather(1, idx)
 
 
-def splat_ordered(idx: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+def splat_ordered(idx: torch.Tensor, f: torch.Tensor, signed: bool = False) -> torch.Tensor:
     """The kernel's sums in torch ops, each add an f32 add of the kernel's,
     in its order: samples cut into blocks of ``CHUNK`` and warps of ``STEPS``
     steps of 32; each warp's histogram gets, step by step, the ``1 - f``
-    terms and then the ``f`` terms in ascending lane order; a block's
-    partial adds its warps' histograms in warp order, the result the row's
-    partials in block order. Past the row's end the weights are 0 (the
-    kernel skips those lanes; adding +0.0 to a sum of non-negative terms
-    changes no bit)."""
+    terms (signed: ``-f``) and then the ``f`` terms in ascending lane order;
+    a block's partial adds its warps' histograms in warp order, the result
+    the row's partials in block order. Past the row's end the weights are 0
+    (the kernel skips those lanes; adding +0.0 changes no sum that starts
+    at +0.0, which no sum of f32 terms turns into -0.0)."""
     _check(idx, f)
     N, L = f.shape
     nblk = -(-L // CHUNK)
@@ -109,7 +121,8 @@ def splat_ordered(idx: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     bins = torch.nn.functional.pad(idx.long(), (0, pad)).reshape(N * nblk * WARPS, STEPS, 32)
     w = torch.nn.functional.pad(f.to(torch.float32), (0, pad))
     w = w.reshape(N * nblk * WARPS, STEPS, 32)
-    one = torch.nn.functional.pad(1.0 - f.to(torch.float32), (0, pad))
+    one = torch.nn.functional.pad(-f.to(torch.float32) if signed else 1.0 - f.to(torch.float32),
+                                  (0, pad))
     one = one.reshape(N * nblk * WARPS, STEPS, 32)
     hist = torch.zeros((N * nblk * WARPS, BINS), dtype=torch.float32, device=f.device)
     rows = torch.arange(hist.shape[0], device=f.device)
@@ -129,7 +142,8 @@ def splat_ordered(idx: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 
 class _Splat(torch.autograd.Function):
-    """The kernel forward, :func:`splat_grad` backward (to ``f`` only)."""
+    """The kernel forward, :func:`splat_grad` backward (to ``f`` only), as
+    :class:`_SplatGrad`, so differentiable twice."""
 
     @staticmethod
     def forward(ctx, idx, f):
@@ -139,7 +153,23 @@ class _Splat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return None, splat_grad(g, idx)
+        return None, _SplatGrad.apply(g, idx)
+
+
+class _SplatGrad(torch.autograd.Function):
+    """:func:`splat_grad`, whose backward is the signed splat of the
+    cotangent (the kernel's signed mode)."""
+
+    @staticmethod
+    def forward(ctx, g, idx):
+        ctx.save_for_backward(idx)
+        return splat_grad(g, idx)
+
+    @staticmethod
+    @native.differentiable_once
+    def backward(ctx, w):
+        (idx,) = ctx.saved_tensors
+        return splat_launch(idx, w.to(torch.float32).contiguous(), signed=True), None
 
 
 def splat(idx: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

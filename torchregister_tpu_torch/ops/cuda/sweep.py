@@ -23,11 +23,20 @@ a CUDA tensor launches the kernels (built from the package's own source at
 first use) or raises. There is no fallback from the kernels to the plain
 versions.
 
-``fwd_launches`` and ``bwd_launches`` count kernel launches, and
-``fwd_modes`` / ``bwd_modes`` split them by the form of ``q`` (``pairs``: the
-affine form with a table per item), so a run can
-show that its path went through the kernels and which form ran (a CUDA
-graph's replays add the launches it captured, ``engines/graph.py``);
+The affine form is also differentiable twice (:func:`sweep_affine_passes`
+with ``twice=True``, the LM engines' Hessian): each pass is a Function
+(:class:`_AffinePass`) whose backward is itself a Function
+(:class:`_AffinePassBwd`) whose backward launches the second-order kernel
+``sweep_bwd2`` (:func:`affine_bwd2`; plain version :func:`sweep_bwd2_plain`),
+so autograd carries the second order across the passes and their
+intermediates. Every other Function here is differentiable once: a second
+derivative through it raises.
+
+``fwd_launches``, ``bwd_launches`` and ``bwd2_launches`` count kernel
+launches, and ``fwd_modes`` / ``bwd_modes`` / ``bwd2_modes`` split them by
+the form of ``q`` (``pairs``: the affine form with a table per item), so a
+run can show that its path went through the kernels and which form ran (a
+CUDA graph's replays add the launches it captured, ``engines/graph.py``);
 :func:`reset_counts` zeroes them.
 """
 from __future__ import annotations
@@ -44,9 +53,12 @@ SOURCE = native.PKG / "csrc" / "sweep.cu"
 
 fwd_launches = 0
 bwd_launches = 0
+bwd2_launches = 0
 fwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0}
 bwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0}
-native.count_launches(__name__, "fwd_launches", "bwd_launches", "fwd_modes", "bwd_modes")
+bwd2_modes = {"affine": 0, "pairs": 0}
+native.count_launches(__name__, "fwd_launches", "bwd_launches", "bwd2_launches", "fwd_modes",
+                      "bwd_modes", "bwd2_modes")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DENSE, _AFFINE, _FLOW = 0, 1, 2
@@ -57,14 +69,16 @@ LIB = native.Library(SOURCE, "sweep", {
     "sweep_fwd": (_I, [_I, _P, _P, _P, _P, _L, _I, _L] + [_I] * 8 + [_L, _P]),
     "sweep_bwd": (_I, [_I] + [_P] * 7 + [_L, _I, _L] + [_I] * 8 + [_L, _L, _L, _P]),
     "sweep_bwd_work": (_L, [_L, _I, _L, _I, _L]),
+    "sweep_bwd2": (_I, [_P] * 9 + [_L, _I, _L] + [_I] * 8 + [_L, _P]),
 })
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches
+    global fwd_launches, bwd_launches, bwd2_launches
     fwd_launches = 0
     bwd_launches = 0
-    for modes in (fwd_modes, bwd_modes):
+    bwd2_launches = 0
+    for modes in (fwd_modes, bwd_modes, bwd2_modes):
         for mode in modes:
             modes[mode] = 0
 
@@ -258,6 +272,33 @@ def _bwd_affine(g, src, table, p, axis, K, need_src, dtable, work=None):
     return dsrc
 
 
+def _bwd2_affine(g, src, table, p, axis, K, ubar, rbar, need_g, need_src, dtable,
+                 work=None):
+    """``(gbar, sbar)`` (either None when not needed) of one affine pass's
+    backward, given the cotangents ``ubar`` of its dsrc (None: zeros) and
+    ``rbar`` of its table gradient (shaped and laid out as ``table``; row
+    ``p`` is read); the gradient of the pass's table row goes into
+    ``dtable[..., p, :]`` when ``dtable`` is given (through ``work``, made
+    here when not given)."""
+    global bwd2_launches
+    gbar = torch.empty_like(g) if need_g else None
+    sbar = torch.empty_like(src) if need_src else None
+    stride, items = _items(table)
+    if dtable is not None and work is None:
+        work = _affine_work(src, (axis,), (K,), items)
+    outer, L, inner, Z, Y, X, vaxis = _image(src.shape, axis)
+    LIB.launch("sweep_bwd2", src, g.data_ptr(), src.data_ptr(), _row(table, p),
+               None if ubar is None else ubar.data_ptr(), _row(rbar, p),
+               None if gbar is None else gbar.data_ptr(),
+               None if sbar is None else sbar.data_ptr(),
+               None if work is None else work.data_ptr(),
+               None if dtable is None else _row(dtable, p), outer, L, inner, K,
+               _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, src.shape[1], stride)
+    bwd2_launches += 1
+    bwd2_modes["pairs" if table.ndim == 3 else "affine"] += 1
+    return gbar, sbar
+
+
 def _fwd_flow(src, flow, axis, K):
     out = torch.empty_like(src)
     outer, L, inner, Z, Y, X, vaxis = _image(src.shape, axis)
@@ -340,6 +381,34 @@ def affine_bwd(g: torch.Tensor, src: torch.Tensor, table: torch.Tensor, p: int, 
     return dsrc, None if dtable is None else dtable[..., p, :]
 
 
+def affine_bwd2(g: torch.Tensor, src: torch.Tensor, table: torch.Tensor, p: int, axis: int,
+                K: int, ubar: torch.Tensor | None, rbar: torch.Tensor, need_g: bool = True,
+                need_src: bool = True, need_table: bool = True):
+    """The second order of :func:`affine_fwd` (``sweep_bwd2``): given the
+    backward's inputs ``g``, ``src`` and the table, the cotangent ``ubar`` of
+    its dsrc (None: zeros) and ``rbar`` of its row gradient (``[d+1]``, or
+    ``[N, d+1]`` for a table per item), returns ``(gbar, sbar, drow)``:
+    ``A(q) ubar + v D(q)src``, ``D(q)^T (v g)`` and the row's gradient
+    ``sum_e g_e (D(q) ubar)_e [n_e, 1]``, with ``v = rbar . [n, 1]``; each
+    may be skipped (None)."""
+    _check_index("the row", p, table.shape[-2])
+    _validate_table(src, table, [axis] * table.shape[-2], [K] * table.shape[-2])
+    for name, t in (("g", g), ("ubar", ubar)):
+        if t is not None and (t.shape != src.shape or t.dtype != src.dtype):
+            raise ValueError(f"K1's second order needs {name} shaped and typed as src")
+    if rbar.dtype != torch.float32 or rbar.shape != table[..., p, :].shape:
+        raise ValueError(f"K1's second order needs a float32 rbar of shape "
+                         f"{tuple(table[..., p, :].shape)}, got {rbar.dtype} "
+                         f"{tuple(rbar.shape)}")
+    _check_on(src, g=g, rbar=rbar.contiguous(), **({} if ubar is None else {"ubar": ubar}))
+    rtable = torch.zeros_like(table)
+    rtable[..., p, :] = rbar
+    dtable = torch.zeros_like(table) if need_table else None
+    gbar, sbar = _bwd2_affine(g, src, table, p, axis, int(K), ubar, rtable, need_g, need_src,
+                              dtable)
+    return gbar, sbar, None if dtable is None else dtable[..., p, :]
+
+
 def flow_fwd(src: torch.Tensor, flow: torch.Tensor, axis: int, K: int) -> torch.Tensor:
     """One flow pass: ``src [N, C, *S]`` swept along spatial ``axis`` at
     ``q = o_axis + flow[:, axis]`` (``flow [N, d, *S]`` f32)."""
@@ -381,6 +450,7 @@ class _Sweep(torch.autograd.Function):
         return out
 
     @staticmethod
+    @native.differentiable_once
     def backward(ctx, g):
         src_b, q_b = ctx.saved_tensors
         need_src, need_q = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
@@ -397,7 +467,8 @@ class _SeparableAffine(torch.autograd.Function):
     """A whole separable affine warp: one affine launch per pass forward and
     one per pass backward, in reverse; ``table`` [d, d+1] holds each pass's
     (coef, offset), or ``[N, d, d+1]`` each batch item's, and gets its
-    gradient from the kernels."""
+    gradient from the kernels. Differentiable once (the chain of
+    :class:`_AffinePass` is differentiable twice)."""
 
     @staticmethod
     def forward(ctx, src, table, axes, windows):
@@ -410,6 +481,7 @@ class _SeparableAffine(torch.autograd.Function):
         return outs[-1]
 
     @staticmethod
+    @native.differentiable_once
     def backward(ctx, g):
         table, *ins = ctx.saved_tensors
         need_src, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
@@ -443,6 +515,7 @@ class _SeparableFlow(torch.autograd.Function):
         return outs[-1]
 
     @staticmethod
+    @native.differentiable_once
     def backward(ctx, g):
         flow, *ins = ctx.saved_tensors
         need_src, need_flow = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
@@ -457,6 +530,55 @@ class _SeparableFlow(torch.autograd.Function):
         return g if need_src else None, dflow, None
 
 
+class _AffinePass(torch.autograd.Function):
+    """One pass of a separable affine warp (row ``p`` of ``table``),
+    differentiable twice: its backward is :class:`_AffinePassBwd`."""
+
+    @staticmethod
+    def forward(ctx, src, table, p, axis, K):
+        ctx.save_for_backward(src, table)
+        ctx.p, ctx.axis, ctx.K = p, axis, K
+        return _fwd_affine(src, table, p, axis, K)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, table = ctx.saved_tensors
+        need_src, need_table = ctx.needs_input_grad[:2]
+        dsrc, dtable = _AffinePassBwd.apply(g, src, table, ctx.p, ctx.axis, ctx.K, need_src,
+                                            need_table)
+        return dsrc, dtable, None, None, None
+
+
+class _AffinePassBwd(torch.autograd.Function):
+    """The backward of one affine pass, ``(g, src, table) -> (dsrc,
+    dtable)`` (``dtable`` zero but for row ``p``; either None when not
+    needed); its backward launches ``sweep_bwd2``."""
+
+    @staticmethod
+    def forward(ctx, g, src, table, p, axis, K, need_src, need_table):
+        g = g.to(src.dtype).contiguous()
+        dtable = torch.zeros_like(table) if need_table else None
+        dsrc = _bwd_affine(g, src, table, p, axis, K, need_src, dtable)
+        ctx.save_for_backward(g, src, table)
+        ctx.p, ctx.axis, ctx.K = p, axis, K
+        ctx.set_materialize_grads(False)
+        return dsrc, dtable
+
+    @staticmethod
+    @native.differentiable_once
+    def backward(ctx, ubar, dtable_bar):
+        g, src, table = ctx.saved_tensors
+        need_g, need_src, need_table = ctx.needs_input_grad[:3]
+        if ubar is not None:
+            ubar = ubar.to(src.dtype).contiguous()
+        rbar = (torch.zeros_like(table) if dtable_bar is None
+                else dtable_bar.to(torch.float32).contiguous())
+        dtable = torch.zeros_like(table) if need_table else None
+        gbar, sbar = _bwd2_affine(g, src, table, ctx.p, ctx.axis, ctx.K, ubar, rbar, need_g,
+                                  need_src, dtable)
+        return gbar, sbar, dtable, None, None, None, None, None
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -466,24 +588,42 @@ def sweep_plain(src: torch.Tensor, q: torch.Tensor, dim: int, K: int,
     the two taps gathered from a zero-padded f32 source. Returns
     ``(out, diff)`` like :func:`sweep_fwd`."""
     shape = torch.broadcast_shapes(src.shape, q.shape)
-    X = shape[dim]
-    q = q.to(torch.float32).expand(shape)
+    fr, mf, mc, fi, ci = _plain_taps(q.to(torch.float32).expand(shape), dim, K)
+    vf, vc = _plain_gather(src.to(torch.float32).expand(shape), dim, mf, mc, fi, ci)
+    out = torch.where(mf, vf * (1.0 - fr), 0.0) + torch.where(mc, vc * fr, 0.0)
+    return out.to(src.dtype), (vc - vf) if with_diff else None
+
+
+def _plain_taps(q: torch.Tensor, dim: int, K: int):
+    """``(fr, mf, mc, fi, ci)`` of coordinates ``q`` along ``dim``: the
+    weight, the masks of the floor and ceil taps, and their indices into the
+    source padded with one zero at each end along ``dim`` (source index + 1;
+    0 and X + 1 are the pads). A NaN coordinate counts no tap (the kernels'
+    and the JAX sweep's zero), its indices those of 0."""
+    X = q.shape[dim]
     q0 = torch.floor(q)
-    fr = q - q0
-    view = [1] * len(shape)
+    view = [1] * q.ndim
     view[dim] = X
     k = q0 - torch.arange(X, dtype=torch.float32, device=q.device).view(view)
     mf = (k >= -K) & (k <= K + 1)
     mc = (k >= -K - 1) & (k <= K)
-    pad = [0, 0] * (len(shape) - 1 - dim) + [1, 1]
-    padded = torch.nn.functional.pad(src.to(torch.float32).expand(shape), pad)
-    # padded index = source index + 1; 0 and X+1 are the zero pads
-    fi = torch.clamp(q0 + 1.0, 0.0, X + 1.0).long()
-    ci = torch.clamp(q0 + 2.0, 0.0, X + 1.0).long()
+    q0i = torch.nan_to_num(q0, nan=0.0)
+    fi = torch.clamp(q0i + 1.0, 0.0, X + 1.0).long()
+    ci = torch.clamp(q0i + 2.0, 0.0, X + 1.0).long()
+    return q - q0, mf, mc, fi, ci
+
+
+def _plain_pad(dim: int, ndim: int) -> list:
+    return [0, 0] * (ndim - 1 - dim) + [1, 1]
+
+
+def _plain_gather(src, dim, mf, mc, fi, ci):
+    """The floor and ceil taps of ``src`` (f32), zero where they do not
+    count."""
+    padded = torch.nn.functional.pad(src.to(torch.float32), _plain_pad(dim, src.ndim))
     vf = torch.where(mf, torch.gather(padded, dim, fi), 0.0)
     vc = torch.where(mc, torch.gather(padded, dim, ci), 0.0)
-    out = torch.where(mf, vf * (1.0 - fr), 0.0) + torch.where(mc, vc * fr, 0.0)
-    return out.to(src.dtype), (vc - vf) if with_diff else None
+    return vf, vc
 
 
 def _axis_coord_grid(coef: torch.Tensor, offset, spatial) -> torch.Tensor:
@@ -516,6 +656,44 @@ def sweep_affine_plain(src: torch.Tensor, coef: torch.Tensor, offset, axis: int,
     return sweep_plain(src, q, axis + 2, int(K))[0]
 
 
+def sweep_bwd2_plain(g: torch.Tensor, src: torch.Tensor, ubar: torch.Tensor | None,
+                     rbar: torch.Tensor, coef: torch.Tensor, offset, axis: int, K: int):
+    """Plain version of :func:`affine_bwd2`, its three formulas in torch
+    ops: for one affine pass at ``q = coef . o + offset`` (``coef [d]``, or
+    ``[B, d]`` with ``offset [B]`` for a row per item) and the cotangents
+    ``ubar`` (of dsrc; None: zeros) and ``rbar`` (of the row gradient,
+    ``(coef, offset)`` layout), with ``v = rbar . [o, 1]`` and ``D(q)x =
+    x[ceil] - x[floor]`` over the taps that count, returns ``(gbar, sbar,
+    drow)``: ``A(q) ubar + v D(q)src`` (``g``'s dtype), ``D(q)^T (v g)``
+    (``src``'s) and ``sum_e g_e (D(q) ubar)_e [o_e, 1]`` (f32, ``rbar``'s
+    shape)."""
+    spatial = tuple(src.shape[2:])
+    dim = axis + 2
+    q = _axis_coord_grid(coef.to(torch.float32), offset, spatial).expand(src.shape)
+    v = _axis_coord_grid(rbar[..., :-1], rbar[..., -1], spatial).expand(src.shape)
+    fr, mf, mc, fi, ci = _plain_taps(q, dim, int(K))
+    sf, sc = _plain_gather(src, dim, mf, mc, fi, ci)
+    uf, uc = (_plain_gather(ubar, dim, mf, mc, fi, ci) if ubar is not None
+              else (torch.zeros_like(sf), torch.zeros_like(sf)))
+    gf = g.to(torch.float32)
+    gbar = (torch.where(mf, uf * (1.0 - fr), 0.0) + torch.where(mc, uc * fr, 0.0)
+            + v * (sc - sf))
+    # D^T: +v g into each ceil tap that counts, -v g into each floor tap
+    w = v * gf
+    padded = torch.zeros(torch.nn.functional.pad(sf, _plain_pad(dim, sf.ndim)).shape,
+                         dtype=torch.float32, device=src.device)
+    padded = padded.scatter_add(dim, ci, torch.where(mc, w, 0.0))
+    padded = padded.scatter_add(dim, fi, torch.where(mf, -w, 0.0))
+    sbar = padded.narrow(dim, 1, src.shape[dim])
+    d = gf * (uc - uf)
+    coords = [torch.arange(n, dtype=torch.float32, device=src.device).view(
+        tuple(n if i == a else 1 for i in range(len(spatial)))) for a, n in enumerate(spatial)]
+    terms = [d * c for c in coords] + [d]
+    per_item = coef.ndim == 2
+    drow = torch.stack([t.flatten(1).sum(1) if per_item else t.sum() for t in terms], dim=-1)
+    return gbar.to(g.dtype), sbar.to(src.dtype), drow
+
+
 def sweep_flow_plain(src: torch.Tensor, flow: torch.Tensor, axis: int,
                      K: int) -> torch.Tensor:
     """Plain version of one flow pass: ``q = flow[:, axis] + o_axis``, then
@@ -545,29 +723,53 @@ def sweep(src: torch.Tensor, q: torch.Tensor, dim: int, K: int) -> torch.Tensor:
     raise _no_path(src)
 
 
-def sweep_affine_passes(src: torch.Tensor, passes, windows: Sequence[int]) -> torch.Tensor:
+def sweep_affine_passes(src: torch.Tensor, passes, windows: Sequence[int],
+                        twice: bool = False) -> torch.Tensor:
     """A separable affine warp of ``src [N, C, *S]``: each pass
     ``(axis, (coef, offset))`` of ``passes`` (as ``factor_passes`` gives
     them) sweeps ``axis`` at ``q = coef . o + offset`` within its window.
     Passes of ``coef [N, d]`` and ``offset [N]`` warp each item by its own
-    transform: on the card one launch a pass over a table ``[N, d, d+1]``."""
+    transform: on the card one launch a pass over a table ``[N, d, d+1]``.
+    ``twice=True`` makes the warp differentiable twice on the card (a chain
+    of :class:`_AffinePass`, the same launches forward and backward, and
+    ``sweep_bwd2`` in a second derivative); the plain passes are anyway."""
     windows = tuple(int(K) for K in windows)
     if src.is_cuda:
-        if passes[0][1][0].ndim == 2:
-            table = torch.stack([torch.cat([coef.to(torch.float32),
-                                            offset.to(torch.float32)[:, None]], dim=1)
-                                 for _, (coef, offset) in passes], dim=1)
-            return _SeparableAffine.apply(src, table, tuple(a for a, _ in passes), windows)
-        table = torch.stack([torch.cat([coef.to(torch.float32),
-                                        torch.reshape(offset, (1,)).to(torch.float32)])
-                             for _, (coef, offset) in passes])
-        return _SeparableAffine.apply(src, table, tuple(a for a, _ in passes), windows)
+        table, axes = pass_table(passes)
+        if not twice:
+            return _SeparableAffine.apply(src, table, axes, windows)
+        return affine_chain(src, table, axes, windows)
     if src.device.type == "cpu":
         out = src
         for (axis, (coef, offset)), K in zip(passes, windows):
             out = sweep_affine_plain(out, coef, offset, axis, K)
         return out
     raise _no_path(src)
+
+
+def pass_table(passes) -> tuple:
+    """``(table, axes)`` of a separable affine warp's passes: the f32 table
+    ``[d, d+1]`` of each pass's ``(coef, offset)`` row (``[N, d, d+1]`` for
+    passes of ``coef [N, d]``) and each pass's axis."""
+    if passes[0][1][0].ndim == 2:
+        table = torch.stack([torch.cat([coef.to(torch.float32),
+                                        offset.to(torch.float32)[:, None]], dim=1)
+                             for _, (coef, offset) in passes], dim=1)
+    else:
+        table = torch.stack([torch.cat([coef.to(torch.float32),
+                                        torch.reshape(offset, (1,)).to(torch.float32)])
+                             for _, (coef, offset) in passes])
+    return table, tuple(a for a, _ in passes)
+
+
+def affine_chain(src: torch.Tensor, table: torch.Tensor, axes, windows) -> torch.Tensor:
+    """The warp of ``table``'s passes as a chain of :class:`_AffinePass`,
+    differentiable twice through the kernels."""
+    _validate_table(src, table, axes, windows)
+    out = src
+    for p, (axis, K) in enumerate(zip(axes, windows)):
+        out = _AffinePass.apply(out, table, p, axis, K)
+    return out
 
 
 def sweep_flow_passes(src: torch.Tensor, flow: torch.Tensor, K: int) -> torch.Tensor:

@@ -213,12 +213,13 @@ def sweep_resample_axis(src: torch.Tensor, q: torch.Tensor, axis: int,
 
 def _warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
                            align_corners: bool = False,
-                           max_shift: int | Sequence[int] | None = None
-                           ) -> torch.Tensor:
+                           max_shift: int | Sequence[int] | None = None,
+                           twice: bool = False) -> torch.Tensor:
     """Separable affine warp without the conditioning check (the engines'
     thetas stay near identity). One theta warps every item of ``moving``;
     thetas ``[N, d, d+1]`` warp each of its N items by its own (on the card
-    one launch a pass over a table per item)."""
+    one launch a pass over a table per item). ``twice=True``: differentiable
+    twice on the card too (the LM engines' Hessian)."""
     theta = as_matrix(theta)
     if theta.shape[0] not in (1, moving.shape[0]):
         raise ValueError(f"separable path takes one theta or one per item, got "
@@ -234,7 +235,7 @@ def _warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
         shifts = [max_shift] * d
     else:
         shifts = list(max_shift)
-    return sweep_affine_passes(moving, passes, shifts)
+    return sweep_affine_passes(moving, passes, shifts, twice)
 
 
 def warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
