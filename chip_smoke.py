@@ -10,8 +10,10 @@ K2b (the compact ROI gather of the exact warp's compact-block route,
 ``csrc/roigather.cu``), the benchmark probes' kernels (``csrc/
 hatgather.cu``: P1-P5 of ``benchmarks/probe_hatgather.py``, P3 in two
 stages; ``csrc/roi_fetch.cu``: the fetch of ``benchmarks/probe_roi_stages.py``,
-in two stages) and the binned NMI's fixed-order splat (``csrc/splat.cu``)
-from the checkout, holds each against its plain PyTorch version on the card
+in two stages), the binned NMI's fixed-order splat (``csrc/splat.cu``)
+and the exact NMI's KDE (``csrc/kde.cu``: ``kde_sum`` and ``kde_dot``,
+which skip themselves on the binned branch's device flag) from the
+checkout, holds each against its plain PyTorch version on the card
 (the two-stage sums and the splat also against their order in torch ops, to
 the bit; K1 in
 its dense form and in the affine and flow forms the engines launch, which
@@ -40,7 +42,16 @@ single-table launches, repeating), the LM recipe through
 ``make_cascade_fn`` on both 240³ pairs equal to ``register_cascade`` to the
 bit within the gates, beside the Adam recipe's walls and ms a step,
 ``Register`` rigid LM with the default criteria twice, equal to the bit,
-and an LM cohort against single runs; every engine path must launch
+and an LM cohort against single runs; the default criteria (MSE + NCC +
+NMI, NMI's branch chosen on the device) through the factories:
+``[kde]`` (the exact KDE's kernels at the default NMI's shapes against
+their plain version and an f64 evaluation), ``[cascade-fn-default]`` and
+``[cascade-fn-exact]`` (``make_cascade_fn(**RECIPE, criterions=None)`` on
+both 240³ pairs, and on the rigid pair times 1000, where every NMI call
+takes the exact branch, three calls each equal to ``register_cascade`` to
+the bit), ``[cascade-batch-default]`` (a batch taking both branches, each
+pair equal to its single run) and LM with the default criteria through
+the factory; every engine path must launch
 K1's affine or flow form and never its dense form), and times each kernel
 against its plain version and the one PyTorch call that computes the same
 function, where there is one (K1: each form against the dense launch, and
@@ -63,7 +74,8 @@ least time the card could take for the same work (``bound_ms``: the bytes
 the function must move over 3.35 TB/s, or its f32 operations over 67
 TFLOP/s, whichever is larger; for K3's three kernels, which run f32 on the
 tensor cores as three TF32 products, the operations over 495/3 TFLOP/s, with
-the f32 FMA bound beside it as ``fma_bound_ms``).
+the f32 FMA bound beside it as ``fma_bound_ms``; for the exact KDE's two, the
+larger also of their exponentials over the SFU's rate, each part beside it).
 """
 from __future__ import annotations
 
@@ -75,6 +87,8 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import importlib
 
 import numpy as np
 import torch
@@ -91,11 +105,13 @@ from torchregister_tpu_torch.engines.cascade import (make_cascade_batch_fn, make
 from torchregister_tpu_torch.engines.common import make_optimizer
 from torchregister_tpu_torch.engines.flow import flow_register
 from torchregister_tpu_torch.engines.rigid import rigid_register
-from torchregister_tpu_torch.losses.nmi import _splat_weights, branch_calls, nmi_loss
+from torchregister_tpu_torch.losses.nmi import (_sample_points, _splat_weights, branch_calls,
+                                                 nmi_loss)
 from torchregister_tpu_torch.models.attention_unet import conv3x3x3_shapes
 from torchregister_tpu_torch.profile_cascade import busy_profile
 from torchregister_tpu_torch.ops import blocked
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
+from torchregister_tpu_torch.ops.cuda import kde as kk
 from torchregister_tpu_torch.ops.cuda import roigather as k2b
 from torchregister_tpu_torch.ops.cuda import splat as ks
 from torchregister_tpu_torch.ops.cuda import sweep as k1
@@ -119,6 +135,9 @@ from torchregister_tpu_torch.synthetic import (
     rmse_reduction_pct,
 )
 from torchregister_tpu_torch.utils import volio
+
+# the module (the package's ``losses`` exports a function named ``nmi``)
+nmi_mod = importlib.import_module("torchregister_tpu_torch.losses.nmi")
 
 # the plain versions compared with K3 run in cuDNN: full f32, no TF32
 torch.backends.cudnn.allow_tf32 = False
@@ -155,6 +174,9 @@ REPLACES = {
     "sweep_bwd2": "torchregister_tpu/ops/pallas/sweep.py:134",
     # the transpose of the splat's backward (the binned NMI's Hessian)
     "splat_signed": "torchregister_tpu/losses/nmi.py:129",
+    # the exact KDE: the forward sum and the reductions of its derivatives
+    "kde_sum": "torchregister_tpu/losses/nmi.py:39",
+    "kde_dot": "torchregister_tpu/losses/nmi.py:49",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
@@ -168,7 +190,13 @@ NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST),
                        "its in-loop XLA sweep (ops/separable.py:304-311)",
          "splat_signed": "the splat's signed mode, the transpose of its backward: JAX "
                          "differentiates its one-hot products' custom VJP in reverse mode "
-                         "only (its LM cannot, a custom_vjp has no forward mode)"}
+                         "only (its LM cannot, a custom_vjp has no forward mode)",
+         "kde_sum": "replaces _kde_accumulate/kde_pdf's lax.scan, XLA code, not a Pallas "
+                    "kernel: the exact KDE's sum over samples (forward; with w = ubar and "
+                    "phi' the second order's gbar), skipping itself on the binned flag",
+         "kde_dot": "replaces the autodiff backward of kde_pdf's lax.scan, XLA code: the "
+                    "exact KDE's sum over points (ds with phi'; the second order's sbar with "
+                    "phi''), skipping itself on the binned flag"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_fwd_pairs": "torchregister_tpu_torch/csrc/sweep.cu",
@@ -183,7 +211,9 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "roi_fetch": "torchregister_tpu_torch/csrc/roi_fetch.cu",
            "splat": "torchregister_tpu_torch/csrc/splat.cu",
            "sweep_bwd2": "torchregister_tpu_torch/csrc/sweep.cu",
-           "splat_signed": "torchregister_tpu_torch/csrc/splat.cu"}
+           "splat_signed": "torchregister_tpu_torch/csrc/splat.cu",
+           "kde_sum": "torchregister_tpu_torch/csrc/kde.cu",
+           "kde_dot": "torchregister_tpu_torch/csrc/kde.cu"}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
 # three TF32 products (3xTF32), so their f32 rate is a third of TF32's
@@ -250,12 +280,12 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel's nvcc run at once, then load them."""
     t0 = time.perf_counter()
-    mods = (k1, k2, k3, k2b, hg, rs, ks)
+    mods = (k1, k2, k3, k2b, hg, rs, ks, kk)
     with ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m.LIB.build(), mods))
     for m in mods:
         m.LIB.fns()
-    print(f"[build] K1, K2, K3, K2b, the probes and the NMI splat built in "
+    print(f"[build] K1, K2, K3, K2b, the probes, the NMI splat and the exact KDE built in "
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(lib.name for lib in libs)}", flush=True)
 
@@ -1021,11 +1051,12 @@ def _counts() -> dict:
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
             "conv3d_wgrad": k3.wgrad_launches,
             "roigather": k2b.launches, **hg.launches, "roi_fetch": rs.launches,
-            "splat": ks.launches, "splat_signed": ks.signed_launches}
+            "splat": ks.launches, "splat_signed": ks.signed_launches,
+            "kde_sum": kk.sum_launches, "kde_dot": kk.dot_launches}
 
 
 def _reset_counts() -> None:
-    for m in (k1, k2, k3, k2b, hg, rs, ks):
+    for m in (k1, k2, k3, k2b, hg, rs, ks, kk):
         m.reset_counts()
 
 
@@ -1426,8 +1457,9 @@ def phase_busy(runs: list) -> None:
     """The device's busy share of ``register_cascade`` and of the factory's
     ``fn`` (graphs already captured) on ``[cascade-fn]``'s runs: one
     profiled cascade each, its device intervals' union over the unprofiled
-    wall time (``profile_cascade.busy_profile``). Last, since a profiler
-    session slows every later launch."""
+    wall time (``profile_cascade.busy_profile``), and ``fn``'s kernels that
+    take the most device time. Last, since a profiler session slows every
+    later launch."""
     for label, recipe, m, t, wall_ref, wall_fn in runs:
         out = {}
         for name, run, wall in (
@@ -1436,6 +1468,7 @@ def phase_busy(runs: list) -> None:
             p = busy_profile(m, t, [wall], run)
             out[name] = {k: p.get(k) for k in ("busy_share_est", "busy_share_profiled",
                                                 "busy_union_s", "profiled_wall_s")}
+        out["fn"]["top_device_ms"] = p.get("top_device_ms", [])[:10]
         print(f"[busy] {label}: {json.dumps(out)}", flush=True)
 
 
@@ -1602,7 +1635,7 @@ def phase_register_default() -> dict:
         Register(**kw).optim(moving, target, **dict(REGISTER_RIGID, max_epochs=3))  # warm-up
         torch.cuda.synchronize()
         _reset_counts()
-        branch_calls.update(binned=0, exact=0)
+        branch_calls.reset()
         for _ in range(REGISTER_DEFAULT_RUNS):
             t0 = time.perf_counter()
             reg = Register(**kw).optim(moving, target, **REGISTER_RIGID)
@@ -1656,7 +1689,7 @@ def _check_nmi(y, yp) -> None:
     bw = NMI_CHECK["bandwidth"]
     out = []
     for d in (DEV, DEV, "cpu"):
-        branch_calls.update(binned=0, exact=0)
+        branch_calls.reset()
         p = (yp * yp).to(d).requires_grad_(True)
         loss = nmi_loss(y.to(d), p, bandwidth=bw)
         loss.backward()
@@ -2058,6 +2091,424 @@ def phase_lm_times(splat_inputs: dict) -> dict:
         **_bound(4.0 * (2 * f.numel() + f.shape[0] * ks.BINS), 2.0 * f.numel())}
     print(f"[times] lm {json.dumps(rows)}", flush=True)
     return rows
+
+
+# ------------------------------------------------ the exact KDE and NMI's device branch
+
+# [kde]: the exact KDE's kernels at the default NMI's shapes (each 240³ image
+# resized to 200³ and cut into 8 patches of 100³: rows of 1 M samples for a
+# marginal and of 2 M for the pooled joint, 256 points, bandwidth 3.0) on
+# make_pair's pair times 1000, a CT-like range on which the default NMI takes
+# the exact branch (it does past a joint range of 767.25)
+KDE_SCALE = 1000.0
+KDE_BW = 3.0
+KDE_BINS = 256
+# each kernel output within this share of its plain version's largest entry
+# (both f32: other orders of the sums, and a true division by h against
+# PyTorch's multiply by the reciprocal), and within twice the plain
+# version's own error against its f64 evaluation
+KDE_TOL = 1e-5
+KDE_ERR_RATIO = 2.0
+# a launch on the binned flag: at most twice the time its zeros take to
+# write at the memory rate, plus this (µs of device time)
+KDE_SKIP_US = 5.0
+# the exponentials' unit (SFU): 16 a clock on each of the 132 SMs at the
+# 1.98 GHz boost clock (NVIDIA's Hopper tuning guide and data sheet)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# f32 operations a term: kde_sum's phi is a difference, a division, two
+# products, an exponential, a product and the sum's add (7); kde_dot's phi'
+# and its weight g add a product each (9)
+KDE_OPS = {"sum": 7, "dot": 9}
+
+
+def _kde_inputs() -> dict:
+    """``{L: (s, xis, g, ubar)}``: the rows the default NMI's KDE sums at
+    240³ on the scaled pair (a marginal's, the joint's), their 256 points
+    (``nmi``'s), a cotangent ``g [8, 256]`` and a second-order cotangent
+    ``ubar [8, L]`` from a seed."""
+    moving, target = make_pair((SIZE,) * 3, device=DEV)
+    s1, s2 = (nearest_resize(img * KDE_SCALE, (200,) * 3).reshape(8, -1)
+              for img in (moving, target))
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    out = {}
+    for s in (s1, torch.cat((s1, s2), 1)):
+        out[s.shape[1]] = (s, _sample_points(s, KDE_BINS),
+                           torch.randn((8, KDE_BINS), generator=gen, device=DEV),
+                           torch.randn(s.shape, generator=gen, device=DEV))
+    return out
+
+
+def _kde_calls(s, xis, g, ubar, flag) -> dict:
+    """``{output: (kernel, plain, f64 plain)}``: the forward sum, the
+    backward ``ds``, and the second order's ``gbar`` and ``sbar``, as
+    ``ops/cuda/kde``'s Functions compute them from the kernels."""
+    h = KDE_BW
+    d = (s.double(), xis.double(), g.double(), ubar.double())
+    return {
+        "forward": (lambda: kk.kde_sum_launch(s, xis, h, flag),
+                    lambda: kk.kde_sum_plain(s, xis, h),
+                    lambda: kk.kde_sum_plain(d[0], d[1], h)),
+        "ds": (lambda: kk.kde_dot_launch(g, s, xis, h, flag, 1) / h,
+               lambda: kk.kde_dot_plain(g, s, xis, h, 1) / h,
+               lambda: kk.kde_dot_plain(d[2], d[0], d[1], h, 1) / h),
+        "gbar": (lambda: kk.kde_sum_launch(s, xis, h, flag, w=ubar, deriv=1) / h,
+                 lambda: kk.kde_sum_plain(s, xis, h, w=ubar, deriv=1) / h,
+                 lambda: kk.kde_sum_plain(d[0], d[1], h, w=d[3], deriv=1) / h),
+        "sbar": (lambda: ubar * kk.kde_dot_launch(g, s, xis, h, flag, 2) / (h * h),
+                 lambda: ubar * kk.kde_dot_plain(g, s, xis, h, 2) / (h * h),
+                 lambda: d[3] * kk.kde_dot_plain(d[2], d[0], d[1], h, 2) / (h * h)),
+    }
+
+
+KDE_KERNEL = {"forward": "kde_sum", "ds": "kde_dot", "gbar": "kde_sum", "sbar": "kde_dot"}
+
+
+def phase_kde(inputs: dict) -> dict:
+    """[kde]: each output of the exact KDE's kernels (``csrc/kde.cu``) at
+    the default NMI's shapes against its plain version (within ``KDE_TOL``
+    of its largest entry), both against the plain version evaluated in f64
+    on the card (the kernel's largest error at most ``KDE_ERR_RATIO`` times
+    the plain f32 version's), two launches equal to the bit, and on the
+    binned flag zeros. Returns each kernel's largest deviation from its
+    plain version."""
+    errs = {"kde_sum": 0.0, "kde_dot": 0.0}
+    with torch.no_grad():
+        for L, (s, xis, g, ubar) in inputs.items():
+            exact = torch.zeros((1,), dtype=torch.int32, device=DEV)
+            for name, (kernel, plain, f64) in _kde_calls(s, xis, g, ubar, exact).items():
+                out, again, ref, ref64 = kernel(), kernel(), plain(), f64()
+                err_k = float((out.double() - ref64).abs().max())
+                err_p = float((ref.double() - ref64).abs().max())
+                dev = _max_err(out, ref)
+                scale = float(ref.abs().max())
+                repeat = torch.equal(out, again)
+                print(f"[kde] {name} [8, {L}] x {KDE_BINS}: two launches equal {repeat}; "
+                      f"against the plain version max|d| {dev:.3e} ({dev / scale:.3e} of its "
+                      f"largest entry {scale:.4e}, tol {KDE_TOL:g}); against f64: kernel "
+                      f"{err_k:.3e}, plain f32 {err_p:.3e} (ratio {err_k / err_p:.3f}, tol "
+                      f"{KDE_ERR_RATIO:g})", flush=True)
+                if not repeat or dev > KDE_TOL * scale or err_k > KDE_ERR_RATIO * err_p:
+                    raise AssertionError(f"[kde] {name} at L={L} fails its checks")
+                errs[KDE_KERNEL[name]] = max(errs[KDE_KERNEL[name]], dev)
+            binned = torch.ones((1,), dtype=torch.int32, device=DEV)
+            for name, (kernel, _, _) in _kde_calls(s, xis, g, ubar, binned).items():
+                if bool(kernel().any()):
+                    raise AssertionError(f"[kde] {name} on the binned flag is not zero")
+            print(f"[kde] [8, {L}]: every output zero on the binned flag", flush=True)
+    return errs
+
+
+def _kde_bound(kind: str, N: int, L: int, P: int) -> dict:
+    """A kernel's least time: its bytes (the rows, the points, ``kde_dot``'s
+    cotangent and output, each once) over the memory rate, its f32
+    operations over 67 TFLOP/s and its N L P exponentials over the SFU's
+    rate, whichever is largest."""
+    terms = float(N) * L * P
+    rows = {"sum": 1, "dot": 2}[kind]  # [N, L] tensors: s; s and the output
+    nbytes = 4.0 * (rows * N * L + P + N * P)
+    t = {"bytes": nbytes / HBM_BYTES_PER_S, "fp32": KDE_OPS[kind] * terms / F32_FLOP_PER_S,
+         "sfu": terms / SFU_EXP_PER_S}
+    top = max(t, key=t.get)
+    return {"bound_ms": 1e3 * t[top], "bound_by": "bytes" if top == "bytes" else "operations",
+            "fp32_bound_ms": 1e3 * t["fp32"], "sfu_bound_ms": 1e3 * t["sfu"],
+            "bytes_bound_ms": 1e3 * t["bytes"]}
+
+
+def _nmi_loss_host_branch(y, yp, bandwidth=KDE_BW, bins=KDE_BINS, patch=100, alpha=1000.0):
+    """The default ``nmi_loss`` as the port computed it before its branch
+    moved to the device: the branch read on the host (one sync a call) and
+    only that branch's densities, the exact ones by the plain torch KDE
+    (``kde_sum_plain``)."""
+    def rows(x):
+        x = nearest_resize(x, (2 * patch,) * 3)
+        return x.reshape(8 * x.shape[0] * x.shape[1], -1).to(torch.float32)
+
+    s1, s2 = rows(y), rows(yp)
+    sj = torch.cat((s1, s2), 1)
+    xis = [_sample_points(s, bins) for s in (s1, s2, sj)]
+    x0, xe = xis[2][0], xis[2][-1]
+    L = s1.shape[1]
+    if bool(nmi_mod._binned_ok(bandwidth, xe, x0)):
+        H1, H2 = (nmi_mod._binned_histogram(s, x0, xe) for s in (s1, s2))
+        hists = [nmi_mod._density_from_hist(H, x0, xe, x, bandwidth, n)
+                 for H, x, n in ((H1, xis[0], L), (H2, xis[1], L), (H1 + H2, xis[2], 2 * L))]
+    else:
+        hists = [kk.kde_sum_plain(s, x, bandwidth) / (bandwidth * s.shape[1])
+                 for s, x in zip((s1, s2, sj), xis)]
+    e1, e2, ej = (-torch.sum(p * -torch.log2(p + nmi_mod.EPSILON), dim=1)
+                  for p in (h / torch.sum(h, dim=1, keepdim=True) for h in hists))
+    mi = e1 + e2 - ej
+    return torch.mean(torch.abs(2.0 * mi / (e1 + e2) - 1.0)) * alpha
+
+
+def _nmi_step(loss_fn, y, yp, reps=3) -> dict:
+    """One value and gradient of ``loss_fn(y, yp)``: wall ms (synchronised,
+    after a warm-up), the device ms of the exact KDE's kernels in it
+    (``torch.profiler``), the value and the gradient."""
+    def step():
+        p = yp.clone().requires_grad_(True)
+        loss = loss_fn(y, p)
+        loss.backward()
+        return loss.detach(), p.grad
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        loss, grad = step()
+    torch.cuda.synchronize()
+    return {"ms": 1e3 * (time.perf_counter() - t0) / reps,
+            "kde_device_ms": ps.device_ms(step, iters=reps, name="kde_"),
+            "value": float(loss), "grad": grad}
+
+
+def phase_kde_times(inputs: dict) -> dict:
+    """``kde_sum`` (phi) and ``kde_dot`` (phi') on the joint's rows
+    (``[8, 2 M]`` x 256): one launch by CUDA events and its device time
+    (``torch.profiler``), one pass of its plain version, a launch on the
+    binned flag (device time, against its zeros' write), with the bounds;
+    no PyTorch call sums Gaussians of pairwise differences (``library_ms``
+    None). Then the default ``nmi_loss`` at 240³ with its gradient on each
+    branch (make_pair's pair, and times 1000), this path against the host
+    branch's (:func:`_nmi_loss_host_branch`): wall time, and the exact KDE's
+    device time in it."""
+    s, xis, g, _ = inputs[max(inputs)]
+    N, L = s.shape
+    h = KDE_BW
+    exact = torch.zeros((1,), dtype=torch.int32, device=DEV)
+    binned = torch.ones_like(exact)
+    rows = {}
+    with torch.no_grad():
+        for name, kind, launch, plain in (
+                ("kde_sum", "sum", lambda f: kk.kde_sum_launch(s, xis, h, f),
+                 lambda: kk.kde_sum_plain(s, xis, h)),
+                ("kde_dot", "dot", lambda f: kk.kde_dot_launch(g, s, xis, h, f, 1),
+                 lambda: kk.kde_dot_plain(g, s, xis, h, 1))):
+            row = {"ms": _time_ms(lambda: launch(exact), iters=5, warmup=1),
+                   "plain_ms": _time_ms(plain, iters=1, warmup=1), "library_ms": None,
+                   "device_ms": ps.device_ms(lambda: launch(exact), iters=3, name="kde_"),
+                   "binned_device_ms": ps.device_ms(lambda: launch(binned), name="kde_"),
+                   **_kde_bound(kind, N, L, KDE_BINS)}
+            zeros_ms = 1e3 * 4.0 * (N * (L if kind == "dot" else KDE_BINS)) / HBM_BYTES_PER_S
+            row["binned_gate_ms"] = 2 * zeros_ms + KDE_SKIP_US / 1e3
+            if row["device_ms"] is not None:
+                row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+            rows[name] = row
+            print(f"[times] {name} [{N}, {L}] x {KDE_BINS}: {json.dumps(row)}", flush=True)
+            if row["binned_device_ms"] is not None and (
+                    row["binned_device_ms"] > row["binned_gate_ms"]):
+                raise AssertionError(f"[kde] {name} on the binned flag took "
+                                     f"{row['binned_device_ms']} ms")
+    moving, target = make_pair((SIZE,) * 3, device=DEV)
+    for scale, branch in ((1.0, "binned"), (KDE_SCALE, "exact")):
+        y, yp = target * scale, moving * scale
+        branch_calls.reset()
+        mine = _nmi_step(nmi_loss, y, yp)
+        took = dict(branch_calls)
+        host = _nmi_step(_nmi_loss_host_branch, y, yp, reps=2)
+        value, value_host = mine["value"], host["value"]
+        grad, grad_host = mine.pop("grad"), host.pop("grad")
+        same = value == value_host and torch.equal(grad, grad_host)
+        gerr = _max_err(grad, grad_host) / float(grad_host.abs().max())
+        rows[f"nmi_{branch}"] = {**mine, **{f"host_branch_{k}": v for k, v in host.items()
+                                            if k != "kde_device_ms"},
+                                 "equal_to_the_bit": same, "grad_rel_err": gerr,
+                                 "branches": took}
+        print(f"[times] nmi_loss default at {SIZE}³ x {scale:g} ({branch} branch), value and "
+              f"gradient: {json.dumps(rows[f'nmi_{branch}'])}", flush=True)
+        if took[branch] == 0 or took["binned" if branch == "exact" else "exact"]:
+            raise AssertionError(f"nmi_loss took another branch than {branch}: {took}")
+        if branch == "binned" and not same:
+            raise AssertionError("the binned nmi_loss differs from the host branch's path")
+        if not (math.isfinite(value) and abs(value - value_host) <= 1e-3 * abs(value_host)
+                and gerr < 1e-3):
+            raise AssertionError(f"the exact nmi_loss disagrees with the host branch's path: "
+                                 f"{rows[f'nmi_{branch}']}")
+    return rows
+
+
+def _timed_ref(m, t, recipe):
+    """``register_cascade(m, t, **recipe)`` and its synchronised wall."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = register_cascade(m, t, **recipe)
+    torch.cuda.synchronize()
+    return ref, time.perf_counter() - t0
+
+
+def _check_default_fn(label, fn, ref, m, t, calls=3) -> dict:
+    """``calls`` calls of ``fn`` (the first captures every level, the rest
+    replay) each equal to ``ref`` to the bit; the wall of each call, the
+    launches of the last, each level's [captures, replays], and the matrix
+    levels' ms a step of one more call (``_matrix_levels``)."""
+    walls, same = [], []
+    for _ in range(calls):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(m, t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        same.append(all(_same_bits(getattr(res, k), getattr(ref, k))
+                        if isinstance(getattr(ref, k), torch.Tensor)
+                        else getattr(res, k) == getattr(ref, k) for k in ref._fields))
+    launches = _counts()
+    levels = _matrix_levels(fn, m, t)
+    for r in levels:
+        r.append(round(r[2] / max(r[3], 1), 3))  # ms a step
+    graphs = fn.graphs.counts()
+    if not all(same):
+        raise AssertionError(f"{label}: make_cascade_fn differs from register_cascade: {same}")
+    if any(c != 1 or r <= 0 for c, r in graphs.values()):
+        raise AssertionError(f"{label}: a level's step was not captured once and replayed: "
+                             f"{graphs}")
+    _on_cuda(res)
+    _finite(res, tuple(m.shape))
+    return {"res": res, "walls_s": walls, "launches": launches, "levels": levels,
+            "graphs": graphs}
+
+
+DEFAULT_RECIPE = {**RECIPE, "criterions": None}
+
+
+def phase_cascade_fn_default() -> tuple[dict, list]:
+    """[cascade-fn-default]: ``make_cascade_fn(**RECIPE, criterions=None)``
+    (MSE + NCC + NMI, NMI on the binned branch) on both 240³ pairs, three
+    calls each, each equal to ``register_cascade`` of the same config to
+    the bit; the rigid gate; the deformable pair's quality printed (the
+    recipe's flow gates were set for MSE + NCC); walls after warm-up beside
+    ``register_cascade``'s; ms a step of the matrix levels through the
+    graphs. Returns the launches and the rigid pair's run for
+    :func:`phase_busy`."""
+    fn = make_cascade_fn(**DEFAULT_RECIPE)
+    pairs = {"rigid pair": make_pair(device=DEV), "deformable pair": make_flow_truth_pair(device=DEV)}
+    total, runs = {}, []
+    register_cascade(*pairs["rigid pair"], **DEFAULT_RECIPE)  # the run's first NMI: warm-up
+    for label, (m, t, *truth) in pairs.items():
+        branch_calls.reset()
+        ref, wall_ref = _timed_ref(m, t, DEFAULT_RECIPE)
+        got = _check_default_fn(f"[cascade-fn-default] {label}", fn, ref, m, t)
+        q = (_pair_quality("rigid", got["res"], m, t, None) if not truth
+             else _pair_quality("deformable", got["res"], m, t, truth))
+        row = {"steps": ref.steps, "register_cascade_s": wall_ref, "fn_s": got["walls_s"],
+               "levels": got["levels"], "quality": q, "nmi_branches": dict(branch_calls)}
+        print(f"[cascade-fn-default] {label}: graphs {json.dumps(got['graphs'])}; three calls "
+              f"equal to register_cascade to the bit: True; {json.dumps(row)} (levels: "
+              f"[stage, edge, ms, steps, ms a step]); launches of the last call "
+              f"{json.dumps(got['launches'])}", flush=True)
+        if not truth and q["rmse_reduction_pct"] < GATES["rmse_reduction_pct"]:
+            raise AssertionError(f"[cascade-fn-default] rigid gate failed: {q}")
+        _need(got["launches"], ("sweep_fwd", "sweep_bwd", *K1_MODES, "splat", "kde_sum",
+                                "kde_dot"), f"make_cascade_fn default criteria ({label})")
+        for k, v in got["launches"].items():
+            total[k] = total.get(k, 0) + v
+        if not truth:
+            runs.append((f"{label}, default criteria", DEFAULT_RECIPE, m, t, wall_ref,
+                         got["walls_s"][-1]))
+    return total, runs
+
+
+def phase_cascade_fn_exact() -> dict:
+    """[cascade-fn-exact]: the same factory on make_pair's pair times 1000
+    (a CT-like range: every NMI call on the exact branch, through the KDE
+    kernels): three calls equal to ``register_cascade`` to the bit, the
+    device branch counter showing exact calls only, finite losses."""
+    fn = make_cascade_fn(**DEFAULT_RECIPE)
+    m, t = (x * KDE_SCALE for x in make_pair(device=DEV))
+    branch_calls.reset()
+    ref, wall_ref = _timed_ref(m, t, DEFAULT_RECIPE)  # the kernels warmed up by [kde]
+    got = _check_default_fn("[cascade-fn-exact]", fn, ref, m, t)
+    branches = dict(branch_calls)
+    res = got["res"]
+    finite = all(bool(torch.isfinite(x[~torch.isnan(x)]).all())
+                 for x in (res.rigid_losses, res.affine_losses, res.flow_losses))
+    row = {"steps": ref.steps, "register_cascade_s": wall_ref, "fn_s": got["walls_s"],
+           "levels": got["levels"], "nmi_branches": branches, "losses_finite": finite,
+           "quality": _pair_quality("rigid", res, m, t, None)}
+    print(f"[cascade-fn-exact] rigid pair x {KDE_SCALE:g}: graphs {json.dumps(got['graphs'])}; "
+          f"three calls equal to register_cascade to the bit: True; {json.dumps(row)}; "
+          f"launches of the last call {json.dumps(got['launches'])}", flush=True)
+    if branches["binned"] or not branches["exact"]:
+        raise AssertionError(f"[cascade-fn-exact] NMI took the binned branch: {branches}")
+    if not finite:
+        raise AssertionError("[cascade-fn-exact] a loss is not finite")
+    _need(got["launches"], ("sweep_fwd", "sweep_bwd", *K1_MODES, "kde_sum", "kde_dot"),
+          "make_cascade_fn on the exact branch")
+    return got["launches"]
+
+
+def phase_cascade_batch_default() -> dict:
+    """[cascade-batch-default]: ``make_cascade_batch_fn(**RECIPE,
+    criterions=None)`` on [cohort]'s 8 pairs and make_pair's pair times 1000
+    (so that one batch takes both branches), one call; each pair equal to
+    its single ``make_cascade_fn`` run to the bit (steps, theta, flow,
+    image, losses)."""
+    inputs = _cohort_inputs()
+    scaled = make_pair(device=DEV)
+    movings = torch.cat([m for _, _, m, _, _ in inputs] + [scaled[0] * KDE_SCALE])
+    targets = torch.cat([t for _, _, _, t, _ in inputs] + [scaled[1] * KDE_SCALE])
+    del inputs, scaled
+    B = movings.shape[0]
+    fn, single = make_cascade_batch_fn(**DEFAULT_RECIPE), make_cascade_fn(**DEFAULT_RECIPE)
+    _reset_counts()
+    branch_calls.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(movings, targets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, branches = _counts(), dict(branch_calls)
+    bits, walls = [], []
+    for b in range(B):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = single(movings[b:b + 1], targets[b:b + 1])
+        torch.cuda.synchronize()
+        walls.append(round(time.perf_counter() - t0, 4))
+        bits.append({k: v[b] for k, v in res.steps.items()} == ref.steps and all(
+            _same_bits(getattr(res, n)[b], getattr(ref, n))
+            for n in ("warped", "theta", "flow", "rigid_losses", "affine_losses",
+                      "flow_losses")))
+    print(f"[cascade-batch-default] make_cascade_batch_fn(**RECIPE, criterions=None), {B} pairs "
+          f"at {SIZE}³ (the last scaled by {KDE_SCALE:g}, on the exact branch): wall {wall:.3f} "
+          f"s, the single runs {json.dumps(walls)} s; steps {json.dumps(res.steps)}; NMI "
+          f"branches {json.dumps(branches)}; pairs equal to their single runs to the bit "
+          f"{sum(bits)} of {B}; graphs {json.dumps(fn.graphs.counts())}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if not all(bits):
+        raise AssertionError(f"[cascade-batch-default] pairs differ from their single runs: "
+                             f"{[b for b, ok in enumerate(bits) if not ok]}")
+    if not (branches["binned"] and branches["exact"]):
+        raise AssertionError(f"[cascade-batch-default] one batch did not take both branches: "
+                             f"{branches}")
+    _need(launches, ("sweep_fwd_pairs", "sweep_bwd_pairs", "splat", "kde_sum", "kde_dot"),
+          "make_cascade_batch_fn default criteria")
+    del res, movings, targets
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_default() -> dict:
+    """[lm] with the default criteria: ``make_cascade_fn(**LM_RECIPE,
+    criterions=None)`` on make_pair's pair, equal to ``register_cascade`` to
+    the bit (LM's Hessian through the splat's signed mode; the exact KDE's
+    kernels skip themselves on the binned path), within the rigid gate."""
+    recipe = {**LM_RECIPE, "criterions": None}
+    m, t = make_pair(device=DEV)
+    ref = register_cascade(m, t, **recipe)
+    got = _check_default_fn("[lm] default criteria", make_cascade_fn(**recipe), ref, m, t,
+                            calls=2)
+    q = _pair_quality("rigid", got["res"], m, t, None)
+    print(f"[lm] make_cascade_fn(**LM_RECIPE, criterions=None), rigid pair: LM iterations "
+          f"{ref.steps}; equal to register_cascade to the bit: True; graphs "
+          f"{json.dumps(got['graphs'])}; walls {json.dumps(got['walls_s'])} s; levels "
+          f"{json.dumps(got['levels'])}; {json.dumps(q)}; launches {json.dumps(got['launches'])}",
+          flush=True)
+    if q["rmse_reduction_pct"] < GATES["rmse_reduction_pct"]:
+        raise AssertionError(f"[lm] default criteria rigid gate failed: {q}")
+    _need(got["launches"], ("sweep_bwd2", "splat", "splat_signed", "kde_sum", "kde_dot"),
+          "LM with the default criteria")
+    return got["launches"]
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
@@ -2491,6 +2942,11 @@ def _copy_extras(name: str, probe_rows: dict) -> dict:
             "device_bound_size": {k: probe_rows[f"{name}_big"][k] for k in keys}}
 
 
+KDE_NAMES = ("kde_sum", "kde_dot")
+KDE_EXTRAS = ("device_ms", "binned_device_ms", "device_bound_share", "fp32_bound_ms",
+              "sfu_bound_ms", "bytes_bound_ms")
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2501,6 +2957,8 @@ def main() -> None:
     probe_inputs, splat_inputs = _probe_inputs(), _splat_inputs()
     probe_errs, probe_launches = phase_probes(probe_inputs, splat_inputs)
     errs.update(probe_errs)
+    kde_inputs = _kde_inputs()
+    errs.update(phase_kde(kde_inputs))
     launches = phase_main_path()
     with tempfile.TemporaryDirectory() as tmp:
         paths = [launches, phase_cli(tmp)]
@@ -2509,12 +2967,14 @@ def main() -> None:
     errs["warp_flow"] = max(errs["warp_flow"], reg_err)
     fn_launches, fn_runs = phase_cascade_fn()
     paths += [phase_unet(), fn_launches, *phase_cohort()]
+    default_launches, default_runs = phase_cascade_fn_default()
+    paths += [default_launches, phase_cascade_fn_exact(), phase_cascade_batch_default()]
     phase_adam()
     paths += [phase_register_unet(), phase_register_default(), phase_engines_default(),
               probe_launches]
     lm_errs, lm_paths, _ = phase_lm(splat_inputs)
     errs.update(lm_errs)
-    paths += lm_paths
+    paths += [*lm_paths, phase_lm_default()]
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     # before the profiler first runs (after that each launch costs the host more)
     phase_launch_path(probe_inputs)
@@ -2526,6 +2986,7 @@ def main() -> None:
     splat_rows = phase_splat_times(splat_inputs)
     pair_rows = phase_pair_times()
     lm_rows = phase_lm_times(splat_inputs)
+    kde_rows = phase_kde_times(kde_inputs)
     library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
     # per-launch times at the fine flow level's shape (240³, K=8, f32): its
     # flow form, with the dense launch and every form's row beside it
@@ -2543,7 +3004,8 @@ def main() -> None:
              "splat": splat_rows["make_pair"],
              **{name: {k: pair_rows[name][k] for k in ("ms", "plain_ms")}
                 for name in pair_rows},
-             **{name: {k: lm_rows[name][k] for k in ("ms", "plain_ms")} for name in lm_rows}}
+             **{name: {k: lm_rows[name][k] for k in ("ms", "plain_ms")} for name in lm_rows},
+             **{name: {k: kde_rows[name][k] for k in ("ms", "plain_ms")} for name in KDE_NAMES}}
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (pw_bound)
@@ -2560,14 +3022,17 @@ def main() -> None:
               **{name: {k: pair_rows[name][k] for k in ("bound_ms", "bound_by")}
                  for name in pair_rows},
               **{name: {k: lm_rows[name][k] for k in ("bound_ms", "bound_by")}
-                 for name in lm_rows}}
+                 for name in lm_rows},
+              **{name: {k: kde_rows[name][k] for k in ("bound_ms", "bound_by")}
+                 for name in KDE_NAMES}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
                    conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
                    roigather=k2b_row["library_ms"],
                    **{name: probe_rows[name]["library_ms"] for name in (*hg.KERNELS, "roi_fetch")},
                    splat=splat_rows["make_pair"]["library_ms"], sweep_fwd_pairs=None,
                    sweep_bwd_pairs=None, sweep_bwd2=None,
-                   splat_signed=lm_rows["splat_signed"]["library_ms"])
+                   splat_signed=lm_rows["splat_signed"]["library_ms"], kde_sum=None,
+                   kde_dot=None)
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -2595,6 +3060,10 @@ def main() -> None:
     timed_at["sweep_bwd2"] = ("one launch, 240^3 K=8 f32, one table, mean of the 3 passes "
                               "(per_pass_ms); plain: sweep_bwd2_plain; library: none, no "
                               "PyTorch call computes K1's second order")
+    for name in KDE_NAMES:
+        timed_at[name] = (f"one launch on the default NMI's joint rows at {SIZE}^3 x "
+                          f"{KDE_SCALE:g} ([8, 2M] x 256, bandwidth 3); library: none, no "
+                          "PyTorch call sums Gaussians of pairwise differences")
     timed_at["splat_signed"] = ("one launch, the default NMI's 8 x 1M samples of make_pair's "
                                 "moving image at 240^3, weights f - 0.5; library: one "
                                 "scatter_add of both terms")
@@ -2618,10 +3087,11 @@ def main() -> None:
             if name == "block_permute_add" else {}),
          **(_splat_extras(splat_rows) if name == "splat" else {}),
          **({"per_pass_ms": lm_rows[name]["per_pass_ms"]} if name == "sweep_bwd2" else {}),
-         **({k: k2_times[name][k] for k in K2_EXTRAS} if name in k2_times else {})}
+         **({k: k2_times[name][k] for k in K2_EXTRAS} if name in k2_times else {}),
+         **({k: kde_rows[name].get(k) for k in KDE_EXTRAS} if name in KDE_NAMES else {})}
         for name in REPLACES
     ]
-    phase_busy(fn_runs)
+    phase_busy(fn_runs + default_runs)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,8 @@ factory each pair takes the same steps at every level and its theta, flow and
 image equal it to the bit: each criterion runs on each pair's own slice
 (``losses.per_pair``).
 """
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -125,20 +127,39 @@ def test_torch_cascade_batch_recipe_pairs_stop_on_their_own():
         assert torch.equal(got[0].nan_to_num(-1.0), want.nan_to_num(-1.0)), name
 
 
-def test_torch_cascade_batch_fn_is_cached_and_refuses_nmi_and_unet():
+def test_torch_cascade_batch_fn_is_cached_and_refuses_unet():
     fn = make_cascade_batch_fn(**CFG)
     assert make_cascade_batch_fn(**dict(reversed(list(CFG.items())))) is fn
     assert fn is not make_cascade_fn(**CFG)
     assert tr.make_cascade_batch_fn is make_cascade_batch_fn
     cascade._BATCH_CACHE.clear()
-    with pytest.raises(ValueError, match=r"make_cascade_batch_fn: criterions includes 'nmi'"):
-        make_cascade_batch_fn(**{**CFG, "criterions": ("mse", "nmi")})
-    assert not cascade._BATCH_CACHE
     with pytest.raises(ValueError, match="mesh and spatial_axis"):
         make_cascade_batch_fn(mesh=object(), **CFG)
+    assert not cascade._BATCH_CACHE
     movings = torch.from_numpy(_blobs(2, (16, 16)))
     with pytest.raises(NotImplementedError, match="item 17"):
         make_cascade_batch_fn(**{**FLOW_CFG, "flow_model": "unet"})(movings, movings)
+
+
+def test_torch_cascade_batch_nmi_pairs_take_their_own_branch():
+    """NMI in a batch: each pair's call picks its own density path on the
+    device. The second pair, scaled by 1000 (a CT-like range), takes the
+    exact KDE at the default bandwidth, the first the binned one; each pair
+    equals its single ``make_cascade_fn`` run to the bit."""
+    nmi_mod = importlib.import_module("torchregister_tpu_torch.losses.nmi")
+    cfg = {**CFG, "criterions": ("mse", tr.get_criterion("nmi", patch_size=8))}
+    movings = _blobs(2, (16, 16), seed=9)
+    targets = np.roll(movings, (1, -1), axis=(-2, -1))
+    movings[1] *= 1000.0
+    targets[1] *= 1000.0
+    movings, targets = torch.from_numpy(movings), torch.from_numpy(targets)
+    before = dict(nmi_mod.branch_calls)
+    res = make_cascade_batch_fn(**cfg)(movings, targets)
+    took = {k: nmi_mod.branch_calls[k] - before[k] for k in before}
+    # each step calls NMI on every pair (a stopped pair's steps are masked)
+    steps = sum(max(sum(p) for p in v) for v in res.steps.values())
+    assert took == {"binned": steps, "exact": steps}, (took, res.steps)
+    _each_pair_equals_its_own(res, movings, targets, cfg)
 
 
 def test_torch_cascade_batch_warns_naming_the_pairs():

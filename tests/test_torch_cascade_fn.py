@@ -6,7 +6,9 @@ results must equal ``register_cascade``'s to the bit. Against the JAX
 package's single-program cascade (``tests/test_cascade_pyramid.py``'s
 config on the same numpy pair) theta is held to the tolerance of
 ``tests/test_torch_cascade.py``, 1e-2, and the executed steps per stage to
-2: both run Adam, whose rounding differs between the frameworks. The LM
+2: both run Adam, whose rounding differs between the frameworks; the
+default criteria (NMI included, its branch picked on the device) against
+the JAX factory given the same stack, steps per stage and level. The LM
 matrix optimizer runs through every cascade entry point (``CascadeConfig``,
 the factories), each equal to ``register_cascade`` to the bit.
 """
@@ -26,6 +28,10 @@ from torchregister_tpu_torch.engines.cascade import make_cascade_fn, register_ca
 # tests/test_cascade_pyramid.py's single-program case
 CFG = dict(stages=("rigid", "affine"), levels=2, rigid_epochs=30, rigid_lr=3e-3,
            affine_epochs=20, affine_lr=1e-3, criterions=("mse",), optimizer="adam")
+# CFG's matrix budgets per level (the cascade's geometric split of 30 and 20)
+BUDGETS = {"rigid": (20, 10), "affine": (13, 7)}
+# NMI at a patch of 8 (the default, 100, resizes every input to 200^d)
+NMI8 = tr.get_criterion("nmi", patch_size=8)
 # the recipe reduced as in tests/_torch_cascade_case.py, at 16³
 RECIPE = {**synthetic.RECIPE, "rigid_epochs": 60, "affine_epochs": 30, "flow_epochs": 60,
           "levels": 2, "matrix_levels": 2, "flow_levels": 2, "flow_smooth": (0.5, 0.25)}
@@ -94,16 +100,57 @@ def test_torch_cascade_config_jitted_is_the_factory():
     assert fn.config["rigid_epochs"] == 30
 
 
-@pytest.mark.parametrize("spec", [dict(criterions=("mse", "nmi")), dict(criterions=None),
+@pytest.mark.parametrize("spec", [dict(criterions=("mse", NMI8)), dict(criterions=None),
                                   dict(flow_criterions=("NMI",))],
                          ids=["criterions", "default_stack", "flow_criterions"])
-def test_torch_cascade_fn_refuses_nmi(spec):
-    """NMI picks its KDE branch on the host each step: the factory names it
-    and the ROADMAP item instead of running the step ungraphed."""
-    cascade._CASCADE_CACHE.clear()
-    with pytest.raises(ValueError, match=r"includes 'nmi'.*item 16"):
-        make_cascade_fn(**{**CFG, **spec})
-    assert not cascade._CASCADE_CACHE
+def test_torch_cascade_fn_takes_nmi(spec):
+    """NMI picks its KDE branch on the device, so the factory takes every
+    NMI criterion, the default stack included, and equals
+    ``register_cascade`` to the bit (the default stack at shorter budgets:
+    its NMI resizes each input to 200²)."""
+    cfg = {**CFG, **spec}
+    if spec.get("criterions", ()) is None:
+        cfg.update(rigid_epochs=8, affine_epochs=6)
+    m, t = (torch.from_numpy(_blob((32, 32), s)) for s in (3, 4))
+    got = make_cascade_fn(**cfg)(m, t)
+    assert make_cascade_fn(**cfg) is cascade._CASCADE_CACHE[tuple(sorted(cfg.items()))]
+    want = register_cascade(m, t, **cfg)
+    assert got.steps == want.steps
+    for name in ("warped", "theta", "rigid_losses", "affine_losses"):
+        assert _same(getattr(got, name), getattr(want, name)), name
+
+
+def _level_steps(losses, budgets):
+    """Executed steps per level of a stage's NaN-padded losses."""
+    losses = np.asarray(losses)
+    bounds = np.cumsum((0,) + budgets)
+    return [int(np.sum(~np.isnan(losses[a:b]))) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def test_torch_cascade_fn_default_stack_matches_jax_factory():
+    """The default stack through the factory, against the JAX package's
+    jitted factory given the same stack as a list (its cascade takes no
+    ``None``): MSE + NCC(100) + NMI(1000) at weights 0.33, with a plateau
+    stop, on a shifted copy. Steps per stage and level within 2, theta
+    within 1e-2 (the tolerances of the factory parity test above)."""
+    cfg = {**CFG, "rigid_lr": 1e-2, "affine_lr": 3e-3, "matrix_stop_rel": 1e-3,
+           "matrix_patience": 3}
+    m = _blob((32, 32), 3)
+    t = np.roll(m, (2, -1), axis=(-2, -1))
+    jres = j_make_cascade_fn(**{**cfg, "criterions": ("mse", "ncc", "nmi"),
+                                "weights": (0.33,) * 3})(jnp.asarray(m), jnp.asarray(t))
+    tres = make_cascade_fn(**{**cfg, "criterions": None})(torch.from_numpy(m),
+                                                          torch.from_numpy(t))
+    np.testing.assert_allclose(tres.theta.numpy(), np.asarray(jres.theta), atol=1e-2)
+    for stage, budgets in BUDGETS.items():
+        losses = getattr(jres, f"{stage}_losses")
+        assert losses.shape == (sum(budgets),)
+        j_steps = _level_steps(losses, budgets)
+        assert _level_steps(getattr(tres, f"{stage}_losses").numpy(), budgets) == (
+            tres.steps[stage])
+        assert all(abs(a - b) <= 2 for a, b in zip(tres.steps[stage], j_steps)), (
+            stage, tres.steps, j_steps)
+    assert sum(tres.steps["rigid"]) < sum(BUDGETS["rigid"])  # the stop ended a level
 
 
 def test_torch_lm_cascade_entry_points_agree():

@@ -1762,3 +1762,118 @@ def test_torch_cuda_lm_cascade_fn_and_cohort_equal_single_runs(dev):
         assert one.steps == res.steps[b]
         for name in ("losses", "best_params", "param_history", "best_loss"):
             assert _bits_equal(getattr(one, name), getattr(res, name)[b]), (b, name)
+
+
+# ------------------------------------------------ the exact KDE (csrc/kde.cu)
+
+
+def _kde_case(dev, N, L, P, scale, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.rand((N, L), generator=gen, device=dev) * scale
+    hi, lo = s.max(), s.min()
+    xis = torch.linspace(0.0, 1.0, P, device=dev) * (lo - hi) + hi
+    g = torch.randn((N, P), generator=gen, device=dev)
+    w = torch.randn((N, L), generator=gen, device=dev)
+    return s, xis, g, w
+
+
+# (N, L, P): rows of several of kde_sum's 4096-sample blocks and a ragged
+# tail; P past a block's 256 threads; one short row; rows longer than
+# kde_dot's 1024 blocks of 256 samples, the second row's zeros not 16-byte
+# aligned
+KDE_CASES = [(3, 10000, 64), (2, 300, 300), (1, 5, 7), (2, 300001, 16)]
+
+
+@pytest.mark.parametrize("binned", [0, 1], ids=["exact", "binned"])
+@pytest.mark.parametrize("N,L,P", KDE_CASES)
+def test_torch_cuda_kde_kernels_match_plain(dev, N, L, P, binned):
+    """Each mode of ``kde_sum`` (phi; w and phi') and ``kde_dot`` (phi',
+    phi'') against its plain version within 1e-5 of the largest entry
+    (other orders of the f32 sums; the kernels' are compensated), two
+    launches equal to the bit; on the binned flag, zeros."""
+    from torchregister_tpu_torch.ops.cuda import kde
+
+    s, xis, g, w = _kde_case(dev, N, L, P, 40.0, N * L + P)
+    h = 3.0
+    flag = torch.full((1,), binned, dtype=torch.int32, device=dev)
+    cases = {
+        "sum phi": (lambda: kde.kde_sum_launch(s, xis, h, flag),
+                    lambda: kde.kde_sum_plain(s, xis, h)),
+        "sum w phi'": (lambda: kde.kde_sum_launch(s, xis, h, flag, w=w, deriv=1),
+                       lambda: kde.kde_sum_plain(s, xis, h, w=w, deriv=1)),
+        "dot phi'": (lambda: kde.kde_dot_launch(g, s, xis, h, flag, deriv=1),
+                     lambda: kde.kde_dot_plain(g, s, xis, h, deriv=1)),
+        "dot phi''": (lambda: kde.kde_dot_launch(g, s, xis, h, flag, deriv=2),
+                      lambda: kde.kde_dot_plain(g, s, xis, h, deriv=2)),
+    }
+    for name, (launch, plain) in cases.items():
+        out, again = launch(), launch()
+        assert torch.equal(out, again), name
+        if binned:
+            assert not out.any(), name
+            continue
+        ref = plain()
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()),
+                                   msg=name)
+
+
+def test_torch_cuda_kde_double_backward_matches_autograd_plain(dev):
+    """The exact KDE through its Functions on the card (``kde_acc``): the
+    gradient and a Hessian-vector product of a nonlinear read-out against
+    autograd over the plain version on the card, within 1e-4 of their
+    largest entry (the second order's sums in other orders); zeros on the
+    binned flag; a third derivative raises."""
+    from torchregister_tpu_torch.ops.cuda import kde
+
+    s0, xis, w1, _ = _kde_case(dev, 2, 9000, 48, 30.0, 5)
+    v = torch.randn(s0.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    h = 2.0
+    out = {}
+    for name, binned in (("kernel", 0), ("kernel", 1), ("plain", 0)):
+        flag = torch.full((1,), binned, dtype=torch.int32, device=dev)
+        a = s0.clone().requires_grad_(True)
+        acc = (kde.kde_acc(a, xis, h, flag) if name == "kernel"
+               else kde.kde_sum_plain(a, xis, h))
+        f = torch.sum(w1 * acc + acc * acc / 100.0)
+        (g1,) = torch.autograd.grad(f, a, create_graph=True)
+        (hv,) = torch.autograd.grad(torch.sum(g1 * v), a, create_graph=True)
+        out[name, binned] = (a, g1, hv)
+    for got, want in zip(out["kernel", 0][1:], out["plain", 0][1:]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    a, g1, hv = out["kernel", 1]
+    assert not g1.any() and not hv.any()
+    with pytest.raises(RuntimeError, match="is differentiable once"):
+        torch.autograd.grad(out["kernel", 0][2].sum(), out["kernel", 0][0])
+
+
+def test_torch_cuda_cascade_fn_default_criteria_equals_register_cascade(dev):
+    """``make_cascade_fn(criterions=None)`` (MSE + NCC + NMI, NMI's branch
+    picked on the device) at 32³ captures every level and equals
+    ``register_cascade`` to the bit, on a unit-range pair (the binned path)
+    and on the same pair times 1000 (every NMI call on the exact path,
+    through the KDE kernels)."""
+    import importlib
+
+    from torchregister_tpu_torch.engines.cascade import make_cascade_fn, register_cascade
+    from torchregister_tpu_torch.ops.cuda import kde
+    from torchregister_tpu_torch.synthetic import RECIPE, make_pair
+
+    nmi_mod = importlib.import_module("torchregister_tpu_torch.losses.nmi")
+    recipe = {**RECIPE, "criterions": None, "rigid_epochs": 30, "affine_epochs": 16,
+              "flow_epochs": 12, "levels": 2, "matrix_levels": 2, "flow_levels": 2,
+              "flow_smooth": (0.5, 0.25)}
+    fn = make_cascade_fn(**recipe)
+    mov, tgt = make_pair((32, 32, 32), device=dev)
+    for scale, branch in ((1.0, "binned"), (1000.0, "exact")):
+        m, t = mov * scale, tgt * scale
+        want = register_cascade(m, t, **recipe)
+        nmi_mod.branch_calls.reset()
+        kde.reset_counts()
+        got = fn(m, t)
+        for name in want._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None and b is None) or _bits_equal(a, b), (branch, name)
+        calls = dict(nmi_mod.branch_calls)
+        assert calls[branch] > 0 and sum(calls.values()) == calls[branch], (branch, calls)
+        assert (kde.sum_launches > 0) and (kde.dot_launches > 0)
+    assert all(c == 1 and r > 0 for c, r in fn.graphs.counts().values()), fn.graphs.counts()

@@ -11,6 +11,7 @@ import torch
 
 from torchregister_tpu_torch import native
 from torchregister_tpu_torch.ops.cuda import conv3d as k3
+from torchregister_tpu_torch.ops.cuda import kde
 from torchregister_tpu_torch.ops.cuda import roigather as k2b
 from torchregister_tpu_torch.ops.cuda import splat as ksplat
 from torchregister_tpu_torch.ops.cuda import sweep as k1
@@ -19,7 +20,7 @@ from torchregister_tpu_torch.probes import hatgather as hg
 from torchregister_tpu_torch.probes import roi_stages as rs
 
 MODULES = {"sweep": k1, "warp": k2, "conv3d": k3, "roigather": k2b, "hatgather": hg,
-           "roi_fetch": rs, "splat": ksplat}
+           "roi_fetch": rs, "splat": ksplat, "kde": kde}
 
 
 def _c_params(source: str, name: str) -> list:
@@ -32,7 +33,8 @@ def _c_params(source: str, name: str) -> list:
 def _ctype(c_type: str):
     if "*" in c_type:
         return ctypes.c_void_p
-    return {"int": ctypes.c_int, "long long": ctypes.c_longlong}[c_type.replace("const ", "")]
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}[c_type.replace("const ", "")]
 
 
 @pytest.mark.parametrize("module", sorted(MODULES))

@@ -133,3 +133,85 @@ def test_torch_kde_pdf_and_sample_points():
     for n in (2, 64, 256, 1024):
         np.testing.assert_array_equal(tn._unit_linspace(n, "cpu").numpy(),
                                       np.asarray(jnp.linspace(0.0, 1.0, n, dtype=jnp.float32)))
+
+
+def test_torch_clip_splits_a_tie_gradient_like_jax():
+    """``_clip`` (its bounds filled on the input's device, no host copy)
+    against ``jnp.clip``: values and gradients, half the gradient at each
+    bound where the input equals it."""
+    x = np.array([-1.0, 0.0, 0.5, 3.0, 4.0], np.float32)
+    jv, jg = jax.value_and_grad(lambda a: jnp.sum(jnp.clip(a, 0.0, 3.0) * jnp.arange(1.0, 6.0)))(
+        jnp.asarray(x))
+    t = torch.from_numpy(x).requires_grad_(True)
+    tv = torch.sum(tn._clip(t, 0.0, 3.0) * torch.arange(1.0, 6.0))
+    tv.backward()
+    assert float(tv.detach()) == float(jv)
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(jg))
+    assert t.grad[1] == 1.0 and t.grad[3] == 2.0  # halves of 2 and 4
+
+
+# the range past which the binned test fails, (G - 1) bandwidth / 4, for each bandwidth
+FLIP = {3.0: 767.25, 0.1: 25.575}
+
+
+@pytest.mark.parametrize("side", [-2, -1, 0, 1, 2])
+@pytest.mark.parametrize("bw", sorted(FLIP))
+def test_torch_binned_ok_flips_where_jax_does(bw, side):
+    """``_binned_ok`` is JAX's f32 predicate ``bandwidth >= 4 |range| /
+    (G - 1)`` as a device tensor: equal to it a few ulps either side of the
+    range where it flips (``nmi``'s form, ``get_pdf``'s operand order too)."""
+    hi = np.float32(FLIP[bw])
+    for _ in range(abs(side)):
+        hi = np.nextafter(hi, np.float32(np.inf if side > 0 else -np.inf), dtype=np.float32)
+    lo = np.float32(0.0)
+    want = bool(float(bw) >= 4.0 * (jnp.abs(jnp.float32(lo) - jnp.float32(hi)) / 1023))
+    got = tn._binned_ok(bw, torch.tensor(hi), torch.tensor(lo))
+    assert got.dtype == torch.bool and got.shape == ()
+    assert bool(got) == want
+    assert bool(tn._binned_ok(bw, torch.tensor(lo), torch.tensor(hi))) == want
+
+
+def test_torch_binned_ok_threshold_has_both_sides():
+    """The cases above straddle the flip: some take the binned path, some not."""
+    took = {bool(tn._binned_ok(bw, torch.tensor(np.float32(0.0)), torch.tensor(np.float32(r))))
+            for bw, flip in FLIP.items() for r in (flip * 0.999, flip * 1.001)}
+    assert took == {True, False}
+
+
+def test_torch_nmi_device_counter_counts_one_branch_a_call():
+    """``branch_calls`` adds each call's flag on the device: one count a
+    call, on the branch it took; ``reset`` zeroes it."""
+    y, yp = pair((2, 1, 8, 8), seed=7)
+    counter = tn.branch_calls
+    before = dict(counter)
+    tn.nmi(torch.from_numpy(y), torch.from_numpy(yp), bins=16, bandwidth=0.05)
+    tn.nmi(torch.from_numpy(y), torch.from_numpy(yp), bins=16, bandwidth=0.05)
+    tn.nmi(torch.from_numpy(y * 1000), torch.from_numpy(yp * 1000), bins=16, bandwidth=0.05)
+    assert {k: counter[k] - before[k] for k in before} == {"binned": 2, "exact": 1}
+    assert set(counter) == {"binned", "exact"} and len(counter) == 2
+    counter.reset()
+    assert dict(counter) == {"binned": 0, "exact": 0}
+
+
+def test_torch_kde_second_order_matches_jax_hessian():
+    """The plain exact KDE (the CPU path), twice differentiated by autograd
+    through its checkpointed chunks and remainder, against ``jax.hessian``
+    of the JAX package's ``kde_pdf`` under a nonlinear read-out (so both
+    second-order terms count)."""
+    rng = np.random.default_rng(8)
+    s = rng.random((2, 12)).astype(np.float32)
+    xis = np.linspace(1.0, 0.0, 16).astype(np.float32)
+    w = rng.normal(size=(2, 16)).astype(np.float32)
+
+    def jf(a):
+        p = jn.kde_pdf(a, jnp.asarray(xis), 0.2, chunk=8)
+        return jnp.sum(w * p + p * p)
+
+    jh = np.asarray(jax.hessian(jf)(jnp.asarray(s)))
+
+    def tf(a):
+        p = tn.kde_pdf(a, torch.from_numpy(xis), 0.2, chunk=8)
+        return torch.sum(torch.from_numpy(w) * p + p * p)
+
+    th = torch.autograd.functional.hessian(tf, torch.from_numpy(s)).numpy()
+    close_grad(th, jh, 1e-5)

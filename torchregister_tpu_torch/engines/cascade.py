@@ -130,7 +130,11 @@ def register_cascade(
     flow_residual_disp: int = 4,
 ) -> CascadeResult:
     """Coarse-to-fine rigid→affine→flow registration of one pair
-    ``[1, 1, *S]``; options as in the JAX package.
+    ``[1, 1, *S]``; options as in the JAX package. ``criterions=None`` (and
+    ``flow_criterions=None`` after it) is the reference's default stack, MSE
+    + NCC(100) + NMI(1000) at weights 0.33, as in ``Register`` (the JAX
+    package's cascade takes only a list, ``('mse', 'ncc', 'nmi')`` with those
+    weights being the same stack).
 
     ``flow_model='unet'`` runs the U-Net flow stage: ``n`` divides its
     widths, ``flow_depth`` (default: ``max_depth_for`` the coarsest flow
@@ -343,7 +347,7 @@ def _cascade(pairs, moving, target, stages, levels, rigid_epochs, rigid_lr, affi
             with _level(f"flow/level{li}"):
                 _, fres = flow_pairs(
                     base_in, f_tgt, pairs, lr=flow_lr, max_epochs=eps,
-                    criterions=list(flow_criterions), weights=weights, n=n,
+                    criterions=flow_criterions, weights=weights, n=n,
                     depth=flow_depth, generator=torch.Generator().manual_seed(seed),
                     optimizer=optimizer, dtype=flow_dtype, init_params=params,
                     remat=flow_remat, max_disp=level_disp, use_attention=flow_attention,
@@ -411,7 +415,7 @@ def _matrix_level(base, target, params0, theta_of, criterions, weights, optimize
     """A matrix level: the engine's loop (``fit_matrix``) on the pairs of
     ``params0 [B, n]``, each on its own, at the level's window; thetas
     ``[B, 1, d, d+1]``."""
-    criteria, w = resolve_criteria(list(criterions), weights)
+    criteria, w = resolve_criteria(criterions, weights)
     return fit_matrix(base, target, params0, theta_of, criteria, w, optimizer, lr, epochs,
                       shift, True, stop_rel, patience, None, label)
 
@@ -421,27 +425,6 @@ def _compose(theta: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     single-pair one)."""
     return torch.cat([compose_theta(a[None], b[None])
                       for a, b in zip(torch.unbind(theta), torch.unbind(residual))])
-
-
-def _check_capturable(config: dict, name: str = "make_cascade_fn") -> None:
-    """Raise for a criterion whose step reads the host: the NMI term picks
-    its KDE branch on the host each step (``losses/nmi.py``'s
-    ``_binned_ok``), which a CUDA graph cannot capture."""
-    from ..losses import resolve_criteria
-    from ..losses.nmi import nmi, nmi_loss
-
-    for key in ("criterions", "flow_criterions"):
-        spec = config.get(key, ("mse", "ncc") if key == "criterions" else None)
-        if spec is None and key == "flow_criterions":
-            continue
-        crits, _ = resolve_criteria(spec, config.get("weights"))
-        if any(c in (nmi, nmi_loss) or getattr(c, "func", None) in (nmi, nmi_loss)
-               for c in crits):
-            raise ValueError(
-                f"{name}: {key} includes 'nmi', whose step reads the host to "
-                "pick its KDE branch (losses/nmi.py), so a CUDA graph cannot capture it; "
-                "run register_cascade, or leave NMI out (ROADMAP queue 1 item 16 moves "
-                "the choice to the device)")
 
 
 class CascadeFn:
@@ -475,13 +458,13 @@ def make_cascade_fn(**config) -> CascadeFn:
     CascadeResult``, cached on ``config`` (the keyword arguments of
     :func:`register_cascade`; all hashable, tuples for lists), so the same
     config returns the same ``fn``. Its results equal
-    :func:`register_cascade`'s to the bit. A criterion whose step reads the
-    host (``'nmi'``, and the default stack ``criterions=None``) raises
-    ``ValueError``; a failed capture raises too, with no fallback."""
+    :func:`register_cascade`'s to the bit. Every criterion captures, the
+    default stack ``criterions=None`` (MSE + NCC + NMI) included: NMI picks
+    its density path on the device (``losses/nmi.py``), so each replay takes
+    the branch of its own data. A failed capture raises, with no fallback."""
     key = tuple(sorted(config.items()))
     fn = _CASCADE_CACHE.get(key)
     if fn is None:
-        _check_capturable(config)
         fn = CascadeFn(config)
         _CASCADE_CACHE[key] = fn
     return fn
@@ -495,9 +478,11 @@ def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config) -> CascadeFn:
     Each pair stops at its own step; each pair's result is the one
     ``make_cascade_fn(**config)`` gives it alone, to the bit. On the card
     each engine level's batched step is captured once as a CUDA graph and
-    replayed, as :func:`make_cascade_fn` does; a failed capture raises. Cached on ``config``. NMI criteria raise
-    ``ValueError`` as there; ``mesh`` and ``spatial_axis`` raise
-    ``ValueError`` (the port runs a batch on one GPU)."""
+    replayed, as :func:`make_cascade_fn` does, NMI included (each pair's NMI
+    call takes its own branch on the device, as JAX's ``vmap`` of the
+    ``lax.cond`` keeps each pair's); a failed capture raises. Cached on
+    ``config``. ``mesh`` and ``spatial_axis`` raise ``ValueError`` (the port
+    runs a batch on one GPU)."""
     if mesh is not None or spatial_axis is not None:
         raise ValueError(
             "make_cascade_batch_fn: mesh and spatial_axis are not supported by the "
@@ -506,7 +491,6 @@ def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config) -> CascadeFn:
     key = tuple(sorted(config.items()))
     fn = _BATCH_CACHE.get(key)
     if fn is None:
-        _check_capturable(config, "make_cascade_batch_fn")
         fn = CascadeFn(config, pairs=True)
         _BATCH_CACHE[key] = fn
     return fn

@@ -16,7 +16,8 @@ Reference semantics, kept because they define the loss values:
   octants); loss ``mean(|NMI - 1|) * alpha``.
 
 Two density paths, as in the JAX package: the exact per-voxel KDE
-(:func:`kde_pdf`, chunked, each chunk recomputed in the backward) and the
+(:func:`kde_pdf`: on the card the kernels of ``ops/cuda/kde``, on the CPU
+their plain version, chunked, each chunk recomputed in the backward) and the
 binned KDE (:func:`kde_pdf_binned`), a linear splat onto 1024 fine bins and
 one small kernel contraction. The JAX package writes the splat as two-level
 one-hot MXU products with a split-bf16 custom VJP, because a scatter
@@ -27,29 +28,69 @@ with float atomics in no fixed order), and on the CPU ``scatter_add`` a
 block of samples.
 Its backward, a gather of the cotangent at each voxel's bins, is the JAX
 VJP's f32 product. The auto dispatch (``bandwidth >= 4 * fine bin``)
-depends on the data: JAX takes it with a ``lax.cond`` on the device, here it
-is read on the host, one device sync per call (:func:`_binned_ok`), and
-counted in ``branch_calls``.
+depends on the data, and is made on the device for every call, as JAX's
+``lax.cond`` makes it: :func:`_binned_ok` gives the predicate as a device
+tensor, both densities are computed, and ``torch.where`` keeps the taken
+branch's before any normalisation. The exact kernels read the flag and, on
+the binned path, write zeros and return, so a step makes no host read and a
+CUDA graph captures it whatever the branch; a replay does only the taken
+branch's KDE work (the binned splat runs on both paths). Each call adds its
+branch to the device counter ``branch_calls``.
 
 Sums run in f32 whatever the input dtype (a bf16 KDE reduction loses the
 density entirely).
 """
 from __future__ import annotations
 
-import math
+from collections.abc import Mapping
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from ..ops.cuda import kde
 from ..ops.cuda.splat import BINS, splat
 from ..ops.resize import nearest_resize
 
 EPSILON = 1e-10
-_INV_2PI = 1.0 / (2.0 * math.pi)
+_INV_2PI = kde._INV_2PI
 _FINE_BINS = BINS  # binned-KDE splat grid, the splat kernel's
-# nmi() calls by the density path its host-read branch took
-branch_calls = {"binned": 0, "exact": 0}
+_BRANCHES = ("binned", "exact")
+
+
+class BranchCalls(Mapping):
+    """:func:`nmi`'s calls by the density path each took: ``{"binned": n,
+    "exact": n}``, kept as an int64 counter on each device that each call
+    adds its flag to (no host read in a step). Reading a count syncs with
+    the device. A CUDA graph's replays add to it, a masked step after an
+    engine's stop and a capture's warm-up steps included."""
+
+    def __init__(self):
+        self._counts: dict = {}
+
+    def add(self, binned: torch.Tensor) -> None:
+        c = self._counts.get(binned.device)
+        if c is None:
+            c = self._counts[binned.device] = torch.zeros(2, dtype=torch.int64,
+                                                          device=binned.device)
+        b = binned.to(torch.int64)
+        c.add_(torch.stack((b, 1 - b)))
+
+    def reset(self) -> None:
+        for c in self._counts.values():
+            c.zero_()
+
+    def __getitem__(self, key: str) -> int:
+        i = _BRANCHES.index(key)
+        return sum(int(c[i]) for c in self._counts.values())
+
+    def __iter__(self):
+        return iter(_BRANCHES)
+
+    def __len__(self) -> int:
+        return len(_BRANCHES)
+
+
+branch_calls = BranchCalls()
 
 
 def _unit_linspace(n: int, device) -> torch.Tensor:
@@ -59,7 +100,7 @@ def _unit_linspace(n: int, device) -> torch.Tensor:
     if n == 1:
         return torch.zeros((1,), dtype=torch.float32, device=device)
     out = torch.arange(n, dtype=torch.float32, device=device) * float(np.float32(1.0 / (n - 1)))
-    out[-1] = 1.0
+    out[-1].fill_(1.0)  # a fill on the device (an indexed assignment copies from the host)
     return out
 
 
@@ -74,37 +115,18 @@ def _sample_points(s: torch.Tensor, steps: int) -> torch.Tensor:
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: a maximum then a minimum, whose gradient at a tie is
     split in half like JAX's (``torch.clamp`` passes all of it)."""
-    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo_t), hi_t)
-
-
-def _kde_accumulate(signals: torch.Tensor, xis: torch.Tensor, h: float) -> torch.Tensor:
-    """Sum over the voxel axis of ``K((signals - xi)/h)``: ``[N, L]``,
-    ``[steps]`` -> ``[N, steps]``."""
-    u = (signals[:, :, None] - xis[None, None, :]) / h
-    return torch.sum(_INV_2PI * torch.exp(-0.5 * u * u), dim=1)
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 def kde_pdf(signals: torch.Tensor, xis: torch.Tensor, bandwidth: float,
-            chunk: int = 8192) -> torch.Tensor:
+            chunk: int = kde.PLAIN_CHUNK, binned: torch.Tensor | None = None) -> torch.Tensor:
     """Exact KDE density of each row of ``signals [N, L]`` at ``xis
-    [steps]`` -> ``[N, steps]``, in voxel chunks accumulated in order; each
-    chunk's ``[N, chunk, steps]`` kernel tensor is recomputed in the backward
-    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``)."""
-    n, L = signals.shape
+    [steps]`` -> ``[N, steps]`` (``ops/cuda/kde.kde_acc``: on the card the
+    kernels, on the CPU the plain version in voxel chunks of ``chunk``
+    accumulated in order, each recomputed in the backward); zeros when the
+    device flag ``binned`` is set."""
     h = float(bandwidth)
-    if L <= chunk:
-        acc = _kde_accumulate(signals, xis, h)
-    else:
-        main = (L // chunk) * chunk
-        acc = torch.zeros((n, xis.shape[0]), dtype=signals.dtype, device=signals.device)
-        for start in range(0, main, chunk):
-            acc = acc + checkpoint(_kde_accumulate, signals[:, start:start + chunk], xis, h,
-                                   use_reentrant=False)
-        if main < L:
-            acc = acc + _kde_accumulate(signals[:, main:], xis, h)
-    return acc / (h * L)
+    return kde.kde_acc(signals, xis, h, binned, chunk) / (h * signals.shape[1])
 
 
 def _splat_weights(signals: torch.Tensor, x0: torch.Tensor,
@@ -150,12 +172,12 @@ def kde_pdf_binned(signals: torch.Tensor, xis: torch.Tensor, bandwidth: float) -
     return _density_from_hist(H, x0, xe, xis, h, signals.shape[1])
 
 
-def _binned_ok(bandwidth: float, x0: torch.Tensor, xe: torch.Tensor) -> bool:
+def _binned_ok(bandwidth: float, x0: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
     """JAX's ``lax.cond`` predicate ``bandwidth >= 4 * |xe - x0| / (G-1)``,
-    evaluated in f32 on the device and read on the host (one sync)."""
+    evaluated in f32 on the device: a 0-dim bool tensor, never read on the
+    host here."""
     fine = torch.abs(xe - x0) / (_FINE_BINS - 1)
-    bw = torch.tensor(float(bandwidth), dtype=torch.float32, device=fine.device)
-    return bool(bw >= 4.0 * fine)
+    return fine.new_full((), float(bandwidth)) >= 4.0 * fine
 
 
 def get_pdf(data: torch.Tensor, steps: int = 256, bandwidth: float = 2.0,
@@ -163,7 +185,8 @@ def get_pdf(data: torch.Tensor, steps: int = 256, bandwidth: float = 2.0,
     """Reference ``get_pdf``: flatten ``[N, ...] -> [N, L]`` (f32), sample
     points over the global range, descending. ``method='auto'`` takes the
     binned KDE when the bandwidth resolves the fine grid, the exact one
-    otherwise; ``'exact'`` and ``'binned'`` force a path."""
+    otherwise, chosen on the device as in :func:`nmi`; ``'exact'`` and
+    ``'binned'`` force a path."""
     if method not in ("auto", "exact", "binned"):
         raise ValueError(f"get_pdf method must be 'auto', 'exact', or 'binned' "
                          f"(got {method!r})")
@@ -171,9 +194,13 @@ def get_pdf(data: torch.Tensor, steps: int = 256, bandwidth: float = 2.0,
     hi = torch.max(signals).detach()
     lo = torch.min(signals).detach()
     xis = _unit_linspace(steps, signals.device) * (lo - hi) + hi
-    if method == "binned" or (method == "auto" and _binned_ok(bandwidth, lo, hi)):
+    if method == "exact":
+        return kde_pdf(signals, xis, bandwidth)
+    if method == "binned":
         return kde_pdf_binned(signals, xis, bandwidth)
-    return kde_pdf(signals, xis, bandwidth)
+    binned = _binned_ok(bandwidth, lo, hi)
+    return torch.where(binned, kde_pdf_binned(signals, xis, bandwidth),
+                       kde_pdf(signals, xis, bandwidth, binned=binned))
 
 
 def nmi(img1: torch.Tensor, img2: torch.Tensor, bins: int = 256,
@@ -183,25 +210,29 @@ def nmi(img1: torch.Tensor, img2: torch.Tensor, bins: int = 256,
     The densities come from the binned path when the bandwidth resolves the
     fine grid of the *joint* range: both marginals are splatted once on that
     shared grid, and the pooled joint's histogram is their sum. Otherwise
-    the exact KDE of each marginal and of the concatenation."""
+    the exact KDE of each marginal and of the concatenation. Both are
+    computed (the exact kernels write zeros on the binned path) and the
+    device predicate selects one with ``torch.where`` before the
+    normalisation, so the other's zeros reach no division and its backward
+    gets exact zeros."""
     s1 = img1.reshape(img1.shape[0], -1).to(torch.float32)
     s2 = img2.reshape(img2.shape[0], -1).to(torch.float32)
     sj = torch.cat((s1, s2), dim=1)
     xis1, xis2, xisj = (_sample_points(s, bins) for s in (s1, s2, sj))
     binned = _binned_ok(bandwidth, xisj[-1], xisj[0])
-    branch_calls["binned" if binned else "exact"] += 1
-    if binned:
-        x0, xe = xisj[0], xisj[-1]  # the joint range spans both marginals
-        H1 = _binned_histogram(s1, x0, xe)
-        H2 = _binned_histogram(s2, x0, xe)
-        L = s1.shape[1]
-        hist1 = _density_from_hist(H1, x0, xe, xis1, bandwidth, L)
-        hist2 = _density_from_hist(H2, x0, xe, xis2, bandwidth, L)
-        hist_joint = _density_from_hist(H1 + H2, x0, xe, xisj, bandwidth, 2 * L)
-    else:
-        hist1 = kde_pdf(s1, xis1, bandwidth)
-        hist2 = kde_pdf(s2, xis2, bandwidth)
-        hist_joint = kde_pdf(sj, xisj, bandwidth)
+    branch_calls.add(binned)
+    x0, xe = xisj[0], xisj[-1]  # the joint range spans both marginals
+    H1 = _binned_histogram(s1, x0, xe)
+    H2 = _binned_histogram(s2, x0, xe)
+    L = s1.shape[1]
+    hists_binned = (_density_from_hist(H1, x0, xe, xis1, bandwidth, L),
+                    _density_from_hist(H2, x0, xe, xis2, bandwidth, L),
+                    _density_from_hist(H1 + H2, x0, xe, xisj, bandwidth, 2 * L))
+    flag = binned.to(torch.int32)
+    hists_exact = (kde_pdf(s, x, bandwidth, binned=flag)
+                   for s, x in ((s1, xis1), (s2, xis2), (sj, xisj)))
+    hist1, hist2, hist_joint = (torch.where(binned, b, e)
+                                for b, e in zip(hists_binned, hists_exact))
 
     p1 = hist1 / torch.sum(hist1, dim=1, keepdim=True)
     p2 = hist2 / torch.sum(hist2, dim=1, keepdim=True)
@@ -232,7 +263,8 @@ def nmi_loss_checked(y: torch.Tensor, yp: torch.Tensor, **kw) -> torch.Tensor:
     """:func:`nmi_loss` with the finiteness checks of the JAX package's
     checkified variant: raises ``FloatingPointError`` naming the failing
     stage instead of handing NaN to an optimizer. ``Register(debug=True)``
-    runs it once before the loop."""
+    runs it once before the loop. It reads the host, so it never runs inside
+    a captured step."""
     if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(yp).all())):
         raise FloatingPointError("non-finite input to NMI")
     loss = nmi_loss(y, yp, **kw)
