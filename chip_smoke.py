@@ -44,8 +44,9 @@ bit within the gates, beside the Adam recipe's walls and ms a step,
 ``Register`` rigid LM with the default criteria twice, equal to the bit,
 and an LM cohort against single runs; the default criteria (MSE + NCC +
 NMI, NMI's branch chosen on the device) through the factories:
-``[kde]`` (the exact KDE's kernels at the default NMI's shapes against
-their plain version and an f64 evaluation), ``[cascade-fn-default]`` and
+``[kde]`` (the exact KDE's kernels at the default NMI's shapes, on a
+CT-like range and on one just past the exact branch's flip, against their
+plain version and an f64 evaluation), ``[cascade-fn-default]`` and
 ``[cascade-fn-exact]`` (``make_cascade_fn(**RECIPE, criterions=None)`` on
 both 240³ pairs, and on the rigid pair times 1000, where every NMI call
 takes the exact branch, three calls each equal to ``register_cascade`` to
@@ -75,7 +76,9 @@ the function must move over 3.35 TB/s, or its f32 operations over 67
 TFLOP/s, whichever is larger; for K3's three kernels, which run f32 on the
 tensor cores as three TF32 products, the operations over 495/3 TFLOP/s, with
 the f32 FMA bound beside it as ``fma_bound_ms``; for the exact KDE's two, the
-larger also of their exponentials over the SFU's rate, each part beside it).
+larger also of their exponentials over the SFU's rate, each part beside it,
+counting only the terms within the kernels' cut, ``kde_terms_needed``, with
+the bound over every term beside it as ``dense_bound_ms``).
 """
 from __future__ import annotations
 
@@ -94,6 +97,7 @@ import numpy as np
 import torch
 
 from torchregister_tpu_torch import Register
+from torchregister_tpu_torch import profile_kde as pk
 from torchregister_tpu_torch import profile_sweep as ps
 from torchregister_tpu_torch import warp_cases as wc
 from torchregister_tpu_torch.__main__ import main as cli
@@ -2099,10 +2103,13 @@ def phase_lm_times(splat_inputs: dict) -> dict:
 # resized to 200³ and cut into 8 patches of 100³: rows of 1 M samples for a
 # marginal and of 2 M for the pooled joint, 256 points, bandwidth 3.0) on
 # make_pair's pair times 1000, a CT-like range on which the default NMI takes
-# the exact branch (it does past a joint range of 767.25)
+# the exact branch (it does past a joint range of 767.25), and times 360, a
+# joint range just past that flip, where the exact branch's points lie
+# closest (the most terms within the kernels' cut)
 KDE_SCALE = 1000.0
-KDE_BW = 3.0
-KDE_BINS = 256
+KDE_FLIP = 360.0
+KDE_BW = pk.BANDWIDTH
+KDE_BINS = pk.BINS
 # each kernel output within this share of its plain version's largest entry
 # (both f32: other orders of the sums, and a true division by h against
 # PyTorch's multiply by the reciprocal), and within twice the plain
@@ -2112,29 +2119,29 @@ KDE_ERR_RATIO = 2.0
 # a launch on the binned flag: at most twice the time its zeros take to
 # write at the memory rate, plus this (µs of device time)
 KDE_SKIP_US = 5.0
-# the exponentials' unit (SFU): 16 a clock on each of the 132 SMs at the
-# 1.98 GHz boost clock (NVIDIA's Hopper tuning guide and data sheet)
-SFU_EXP_PER_S = 16 * 132 * 1.98e9
-# f32 operations a term: kde_sum's phi is a difference, a division, two
-# products, an exponential, a product and the sum's add (7); kde_dot's phi'
-# and its weight g add a product each (9)
-KDE_OPS = {"sum": 7, "dot": 9}
 
 
 def _kde_inputs() -> dict:
-    """``{L: (s, xis, g, ubar)}``: the rows the default NMI's KDE sums at
-    240³ on the scaled pair (a marginal's, the joint's), their 256 points
-    (``nmi``'s), a cotangent ``g [8, 256]`` and a second-order cotangent
-    ``ubar [8, L]`` from a seed."""
-    moving, target = make_pair((SIZE,) * 3, device=DEV)
-    s1, s2 = (nearest_resize(img * KDE_SCALE, (200,) * 3).reshape(8, -1)
-              for img in (moving, target))
+    """``{(scale, L): (s, xis, g, ubar)}``: the rows the default NMI's KDE
+    sums at 240³ on the pair times each of ``KDE_SCALE`` and ``KDE_FLIP`` (a
+    marginal's, the joint's), their 256 points (``nmi``'s), a cotangent
+    ``g [8, 256]`` and a second-order cotangent ``ubar [8, L]`` from a seed.
+    Raises unless the default NMI takes the exact branch on both (its
+    predicate on the joint's points, evaluated on the card)."""
     gen = torch.Generator(device=DEV).manual_seed(15)
     out = {}
-    for s in (s1, torch.cat((s1, s2), 1)):
-        out[s.shape[1]] = (s, _sample_points(s, KDE_BINS),
-                           torch.randn((8, KDE_BINS), generator=gen, device=DEV),
-                           torch.randn(s.shape, generator=gen, device=DEV))
+    for scale in (KDE_SCALE, KDE_FLIP):
+        rows = pk.kde_rows(scale, DEV)
+        for s in rows.values():
+            out[scale, s.shape[1]] = (s, _sample_points(s, KDE_BINS),
+                                      torch.randn((8, KDE_BINS), generator=gen, device=DEV),
+                                      torch.randn(s.shape, generator=gen, device=DEV))
+        xj = out[scale, rows["joint"].shape[1]][1]
+        binned = bool(nmi_mod._binned_ok(KDE_BW, xj[-1], xj[0]))
+        print(f"[kde] make_pair x {scale:g}: joint range {float(xj[0] - xj[-1]):.3f}, the "
+              f"default NMI's branch on the card: {'binned' if binned else 'exact'}", flush=True)
+        if binned:
+            raise AssertionError(f"[kde] the rows x {scale:g} are not on the exact branch")
     return out
 
 
@@ -2173,45 +2180,29 @@ def phase_kde(inputs: dict) -> dict:
     plain version."""
     errs = {"kde_sum": 0.0, "kde_dot": 0.0}
     with torch.no_grad():
-        for L, (s, xis, g, ubar) in inputs.items():
+        for (scale, L), (s, xis, g, ubar) in inputs.items():
             exact = torch.zeros((1,), dtype=torch.int32, device=DEV)
             for name, (kernel, plain, f64) in _kde_calls(s, xis, g, ubar, exact).items():
                 out, again, ref, ref64 = kernel(), kernel(), plain(), f64()
                 err_k = float((out.double() - ref64).abs().max())
                 err_p = float((ref.double() - ref64).abs().max())
                 dev = _max_err(out, ref)
-                scale = float(ref.abs().max())
+                top = float(ref.abs().max())
                 repeat = torch.equal(out, again)
-                print(f"[kde] {name} [8, {L}] x {KDE_BINS}: two launches equal {repeat}; "
-                      f"against the plain version max|d| {dev:.3e} ({dev / scale:.3e} of its "
-                      f"largest entry {scale:.4e}, tol {KDE_TOL:g}); against f64: kernel "
+                print(f"[kde] {name} x {scale:g} [8, {L}] x {KDE_BINS}: two launches equal "
+                      f"{repeat}; against the plain version max|d| {dev:.3e} ({dev / top:.3e} "
+                      f"of its largest entry {top:.4e}, tol {KDE_TOL:g}); against f64: kernel "
                       f"{err_k:.3e}, plain f32 {err_p:.3e} (ratio {err_k / err_p:.3f}, tol "
                       f"{KDE_ERR_RATIO:g})", flush=True)
-                if not repeat or dev > KDE_TOL * scale or err_k > KDE_ERR_RATIO * err_p:
-                    raise AssertionError(f"[kde] {name} at L={L} fails its checks")
+                if not repeat or dev > KDE_TOL * top or err_k > KDE_ERR_RATIO * err_p:
+                    raise AssertionError(f"[kde] {name} x {scale:g} at L={L} fails its checks")
                 errs[KDE_KERNEL[name]] = max(errs[KDE_KERNEL[name]], dev)
             binned = torch.ones((1,), dtype=torch.int32, device=DEV)
             for name, (kernel, _, _) in _kde_calls(s, xis, g, ubar, binned).items():
                 if bool(kernel().any()):
                     raise AssertionError(f"[kde] {name} on the binned flag is not zero")
-            print(f"[kde] [8, {L}]: every output zero on the binned flag", flush=True)
+            print(f"[kde] x {scale:g} [8, {L}]: every output zero on the binned flag", flush=True)
     return errs
-
-
-def _kde_bound(kind: str, N: int, L: int, P: int) -> dict:
-    """A kernel's least time: its bytes (the rows, the points, ``kde_dot``'s
-    cotangent and output, each once) over the memory rate, its f32
-    operations over 67 TFLOP/s and its N L P exponentials over the SFU's
-    rate, whichever is largest."""
-    terms = float(N) * L * P
-    rows = {"sum": 1, "dot": 2}[kind]  # [N, L] tensors: s; s and the output
-    nbytes = 4.0 * (rows * N * L + P + N * P)
-    t = {"bytes": nbytes / HBM_BYTES_PER_S, "fp32": KDE_OPS[kind] * terms / F32_FLOP_PER_S,
-         "sfu": terms / SFU_EXP_PER_S}
-    top = max(t, key=t.get)
-    return {"bound_ms": 1e3 * t[top], "bound_by": "bytes" if top == "bytes" else "operations",
-            "fp32_bound_ms": 1e3 * t["fp32"], "sfu_bound_ms": 1e3 * t["sfu"],
-            "bytes_bound_ms": 1e3 * t["bytes"]}
 
 
 def _nmi_loss_host_branch(y, yp, bandwidth=KDE_BW, bins=KDE_BINS, patch=100, alpha=1000.0):
@@ -2264,41 +2255,52 @@ def _nmi_step(loss_fn, y, yp, reps=3) -> dict:
 
 def phase_kde_times(inputs: dict) -> dict:
     """``kde_sum`` (phi) and ``kde_dot`` (phi') on the joint's rows
-    (``[8, 2 M]`` x 256): one launch by CUDA events and its device time
+    (``[8, 2 M]`` x 256) times ``KDE_SCALE`` and, under ``flip``, times
+    ``KDE_FLIP``: one launch by CUDA events and its device time
     (``torch.profiler``), one pass of its plain version, a launch on the
-    binned flag (device time, against its zeros' write), with the bounds;
-    no PyTorch call sums Gaussians of pairwise differences (``library_ms``
-    None). Then the default ``nmi_loss`` at 240³ with its gradient on each
-    branch (make_pair's pair, and times 1000), this path against the host
-    branch's (:func:`_nmi_loss_host_branch`): wall time, and the exact KDE's
-    device time in it."""
-    s, xis, g, _ = inputs[max(inputs)]
-    N, L = s.shape
+    binned flag (device time, against its zeros' write), with the bounds
+    recounted on these rows (``profile_kde.kde_bound``: the terms within the
+    cut, beside the dense count); a device time under its bound raises (the
+    count would be wrong); no PyTorch call sums Gaussians of pairwise
+    differences (``library_ms`` None). Then the default ``nmi_loss`` at 240³
+    with its gradient on each branch (make_pair's pair, and times 1000), this
+    path against the host branch's (:func:`_nmi_loss_host_branch`): wall
+    time, and the exact KDE's device time in it."""
     h = KDE_BW
     exact = torch.zeros((1,), dtype=torch.int32, device=DEV)
     binned = torch.ones_like(exact)
     rows = {}
     with torch.no_grad():
-        for name, kind, launch, plain in (
-                ("kde_sum", "sum", lambda f: kk.kde_sum_launch(s, xis, h, f),
-                 lambda: kk.kde_sum_plain(s, xis, h)),
-                ("kde_dot", "dot", lambda f: kk.kde_dot_launch(g, s, xis, h, f, 1),
-                 lambda: kk.kde_dot_plain(g, s, xis, h, 1))):
-            row = {"ms": _time_ms(lambda: launch(exact), iters=5, warmup=1),
-                   "plain_ms": _time_ms(plain, iters=1, warmup=1), "library_ms": None,
-                   "device_ms": ps.device_ms(lambda: launch(exact), iters=3, name="kde_"),
-                   "binned_device_ms": ps.device_ms(lambda: launch(binned), name="kde_"),
-                   **_kde_bound(kind, N, L, KDE_BINS)}
-            zeros_ms = 1e3 * 4.0 * (N * (L if kind == "dot" else KDE_BINS)) / HBM_BYTES_PER_S
-            row["binned_gate_ms"] = 2 * zeros_ms + KDE_SKIP_US / 1e3
-            if row["device_ms"] is not None:
-                row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
-            rows[name] = row
-            print(f"[times] {name} [{N}, {L}] x {KDE_BINS}: {json.dumps(row)}", flush=True)
-            if row["binned_device_ms"] is not None and (
-                    row["binned_device_ms"] > row["binned_gate_ms"]):
-                raise AssertionError(f"[kde] {name} on the binned flag took "
-                                     f"{row['binned_device_ms']} ms")
+        for scale in (KDE_SCALE, KDE_FLIP):
+            s, xis, g, _ = inputs[scale, max(L for sc, L in inputs if sc == scale)]
+            N, L = s.shape
+            for name, kind, launch, plain in (
+                    ("kde_sum", "sum", lambda f: kk.kde_sum_launch(s, xis, h, f),
+                     lambda: kk.kde_sum_plain(s, xis, h)),
+                    ("kde_dot", "dot", lambda f: kk.kde_dot_launch(g, s, xis, h, f, 1),
+                     lambda: kk.kde_dot_plain(g, s, xis, h, 1))):
+                row = {"ms": _time_ms(lambda: launch(exact), iters=5, warmup=1),
+                       "plain_ms": _time_ms(plain, iters=1, warmup=1), "library_ms": None,
+                       "device_ms": ps.device_ms(lambda: launch(exact), iters=3, name="kde_"),
+                       "binned_device_ms": ps.device_ms(lambda: launch(binned), name="kde_"),
+                       **pk.kde_bound(kind, s, xis, h)}
+                zeros_ms = 1e3 * 4.0 * (N * (L if kind == "dot" else KDE_BINS)) / HBM_BYTES_PER_S
+                row["binned_gate_ms"] = 2 * zeros_ms + KDE_SKIP_US / 1e3
+                if row["device_ms"] is not None:
+                    row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+                print(f"[times] {name} x {scale:g} [{N}, {L}] x {KDE_BINS}: {json.dumps(row)}",
+                      flush=True)
+                if scale == KDE_SCALE:
+                    rows[name] = row
+                else:
+                    rows[name]["flip"] = row
+                if row["binned_device_ms"] is not None and (
+                        row["binned_device_ms"] > row["binned_gate_ms"]):
+                    raise AssertionError(f"[kde] {name} on the binned flag took "
+                                         f"{row['binned_device_ms']} ms")
+                if row["device_ms"] is not None and row["device_ms"] < row["bound_ms"]:
+                    raise AssertionError(f"[kde] {name} x {scale:g} ran under its bound: "
+                                         f"{row['device_ms']} < {row['bound_ms']} ms")
     moving, target = make_pair((SIZE,) * 3, device=DEV)
     for scale, branch in ((1.0, "binned"), (KDE_SCALE, "exact")):
         y, yp = target * scale, moving * scale
@@ -2944,7 +2946,8 @@ def _copy_extras(name: str, probe_rows: dict) -> dict:
 
 KDE_NAMES = ("kde_sum", "kde_dot")
 KDE_EXTRAS = ("device_ms", "binned_device_ms", "device_bound_share", "fp32_bound_ms",
-              "sfu_bound_ms", "bytes_bound_ms")
+              "sfu_bound_ms", "bytes_bound_ms", "dense_bound_ms", "terms_needed", "terms_dense",
+              "flip")
 
 
 def main() -> None:
@@ -3062,8 +3065,11 @@ def main() -> None:
                               "PyTorch call computes K1's second order")
     for name in KDE_NAMES:
         timed_at[name] = (f"one launch on the default NMI's joint rows at {SIZE}^3 x "
-                          f"{KDE_SCALE:g} ([8, 2M] x 256, bandwidth 3); library: none, no "
-                          "PyTorch call sums Gaussians of pairwise differences")
+                          f"{KDE_SCALE:g} ([8, 2M] x 256, bandwidth 3); flip: the same at x "
+                          f"{KDE_FLIP:g}, a joint range just past the exact branch's 767.25; "
+                          "bound: the terms within the kernels' cut (|u| <= 14), "
+                          "dense_bound_ms over every term; library: none, no PyTorch call "
+                          "sums Gaussians of pairwise differences")
     timed_at["splat_signed"] = ("one launch, the default NMI's 8 x 1M samples of make_pair's "
                                 "moving image at 240^3, weights f - 0.5; library: one "
                                 "scatter_add of both terms")

@@ -1767,33 +1767,62 @@ def test_torch_cuda_lm_cascade_fn_and_cohort_equal_single_runs(dev):
 # ------------------------------------------------ the exact KDE (csrc/kde.cu)
 
 
-def _kde_case(dev, N, L, P, scale, seed):
+def _kde_case(dev, N, L, P, scale, seed, points="descending"):
+    """Rows ``s [N, L]`` uniform on ``[0, scale)``, ``P`` points over their
+    range (``descending`` as ``losses/nmi``'s, ``ascending``, or
+    ``shuffled``: not monotone), cotangents ``g [N, P]`` and weights ``w``;
+    ``constant``: every sample (so every point) one value; ``nonfinite``:
+    one NaN and one inf sample in the first row, the points over the finite
+    samples' range."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     s = torch.rand((N, L), generator=gen, device=dev) * scale
+    if points == "constant":
+        s = torch.full_like(s, 1234.5)
     hi, lo = s.max(), s.min()
     xis = torch.linspace(0.0, 1.0, P, device=dev) * (lo - hi) + hi
+    if points == "ascending":
+        xis = xis.flip(0).contiguous()
+    elif points == "shuffled":
+        xis = xis[torch.randperm(P, generator=gen, device=dev)].contiguous()
+    elif points == "nonfinite":
+        s[0, L // 7] = float("nan")
+        s[0, L // 2] = float("inf")
     g = torch.randn((N, P), generator=gen, device=dev)
     w = torch.randn((N, L), generator=gen, device=dev)
     return s, xis, g, w
 
 
-# (N, L, P): rows of several of kde_sum's 4096-sample blocks and a ragged
-# tail; P past a block's 256 threads; one short row; rows longer than
-# kde_dot's 1024 blocks of 256 samples, the second row's zeros not 16-byte
-# aligned
-KDE_CASES = [(3, 10000, 64), (2, 300, 300), (1, 5, 7), (2, 300001, 16)]
+# (N, L, P, scale, points) at bandwidth 3, whose cut is 42: rows of several
+# of kde_sum's 4096-sample blocks and a ragged tail; P past a block's 256
+# threads; one short row; rows longer than kde_dot's 1024 blocks of 256
+# samples, the second row's zeros not 16-byte aligned (scale 40: no term
+# past the cut). Scale 4000: the kernels drop terms, on a ragged row past
+# one 4096-sample block; ascending and shuffled (not monotone) points; a
+# constant row; a row with a NaN and an inf sample.
+KDE_CASES = [(3, 10000, 64, 40.0, "descending"), (2, 300, 300, 40.0, "descending"),
+             (1, 5, 7, 40.0, "descending"), (2, 300001, 16, 40.0, "descending"),
+             (2, 4096 + 1234, 256, 4000.0, "descending"), (2, 10000, 256, 4000.0, "ascending"),
+             (2, 10000, 300, 4000.0, "shuffled"), (2, 5000, 64, 4000.0, "constant"),
+             (2, 9000, 256, 4000.0, "nonfinite")]
+
+
+def _same_nonfinite(out, ref):
+    return torch.equal(out.isnan(), ref.isnan()) and torch.equal(out.isinf(), ref.isinf())
 
 
 @pytest.mark.parametrize("binned", [0, 1], ids=["exact", "binned"])
-@pytest.mark.parametrize("N,L,P", KDE_CASES)
-def test_torch_cuda_kde_kernels_match_plain(dev, N, L, P, binned):
+@pytest.mark.parametrize("N,L,P,scale,points", KDE_CASES,
+                         ids=[f"{n}-{l}-{p}-{s:g}-{k}" for n, l, p, s, k in KDE_CASES])
+def test_torch_cuda_kde_kernels_match_plain(dev, N, L, P, scale, points, binned):
     """Each mode of ``kde_sum`` (phi; w and phi') and ``kde_dot`` (phi',
     phi'') against its plain version within 1e-5 of the largest entry
-    (other orders of the f32 sums; the kernels' are compensated), two
-    launches equal to the bit; on the binned flag, zeros."""
+    (other orders of the f32 sums; the kernels' are compensated, and drop
+    only terms below f32's smallest normal), NaN and inf where the plain
+    version has them, two launches equal to the bit; on the binned flag,
+    zeros."""
     from torchregister_tpu_torch.ops.cuda import kde
 
-    s, xis, g, w = _kde_case(dev, N, L, P, 40.0, N * L + P)
+    s, xis, g, w = _kde_case(dev, N, L, P, scale, N * L + P, points)
     h = 3.0
     flag = torch.full((1,), binned, dtype=torch.int32, device=dev)
     cases = {
@@ -1808,13 +1837,18 @@ def test_torch_cuda_kde_kernels_match_plain(dev, N, L, P, binned):
     }
     for name, (launch, plain) in cases.items():
         out, again = launch(), launch()
-        assert torch.equal(out, again), name
+        assert torch.equal(out.nan_to_num(), again.nan_to_num()), name
+        assert _same_nonfinite(out, again), name
         if binned:
             assert not out.any(), name
             continue
         ref = plain()
-        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()),
-                                   msg=name)
+        assert _same_nonfinite(out, ref), name
+        finite = torch.isfinite(ref)
+        if points == "nonfinite":
+            assert not finite.all(), name
+        torch.testing.assert_close(out[finite], ref[finite], rtol=0,
+                                   atol=1e-5 * float(ref[finite].abs().max()), msg=name)
 
 
 def test_torch_cuda_kde_double_backward_matches_autograd_plain(dev):

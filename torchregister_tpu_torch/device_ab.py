@@ -40,9 +40,9 @@ def build_all(stem: str, builds: dict) -> dict:
         return dict(zip(builds, pool.map(lambda n: build(stem, n, *builds[n]), builds)))
 
 
-def resources(report: str, kernels) -> dict:
+def resources(report: str, kernels, suffix: str = "_kernel") -> dict:
     """``{kernel: "N registers, S bytes spill"}`` for the entries of ptxas's
-    report whose names hold ``<k>_kernel`` for a ``k`` of ``kernels``,
+    report whose names hold ``<k><suffix>`` for a ``k`` of ``kernels``,
     demangled where ``c++filt`` is found."""
     got, entry, spill = {}, None, None
     for line in report.splitlines():
@@ -54,7 +54,7 @@ def resources(report: str, kernels) -> dict:
         if m and entry:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry and any(k + "_kernel" in entry for k in kernels):
+        if m and entry and any(k + suffix in entry for k in kernels):
             got[entry] = f"{m.group(1)} registers, {spill} bytes spill"
     if shutil.which("c++filt") and got:
         names = subprocess.run(["c++filt"], input="\n".join(got), capture_output=True,

@@ -12,6 +12,19 @@ For rows ``s [N, L]``, points ``xi [P]`` and bandwidth ``h``, with ``u =
 - ``kde_dot``: ``out[n, l] = sum_k g[n, k] psi(u)``, ``psi`` in ``{phi',
   phi''}``.
 
+Each kernel computes only the terms whose value f32 can hold: a term with
+``|s - xi| > CUT h`` (``CUT`` = 14, in ``u``) is below f32's smallest normal
+for each of ``phi``, ``phi'`` and ``phi''``, and is not computed; a term
+whose difference is NaN or infinite always is. ``kde_dot`` finds each
+sample's window of points by binary search where the points are monotone
+(``losses/nmi``'s are non-increasing) and takes every point where they are
+not; ``kde_sum`` drops each (group of 8 points, tile of 512 samples) pair
+whose ranges lie past the cut and, for the rest, lists the tile's samples
+within the cut of the group's range. The sums stay in a fixed order, so two
+launches agree to the bit and a row's result does not depend on the other
+rows. :func:`kde_terms_needed` counts the pairs within the cut, the work
+whose exponentials bound the kernels' time.
+
 Both take a one-element int32 flag on the device, the NMI call's branch:
 non-zero means the call is on the binned path, and the kernels write zeros
 and return (``losses/nmi.nmi`` computes both densities and selects one on
@@ -45,6 +58,7 @@ from ... import native
 SOURCE = native.PKG / "csrc" / "kde.cu"
 CHUNK = 4096  # samples a block of kde_sum's first stage (kChunk)
 PLAIN_CHUNK = 8192  # samples a chunk of the plain version (the JAX package's kde_pdf)
+CUT = 14.0  # |u| past which the kernels drop a term (kCut): |psi| < FLT_MIN there
 _INV_2PI = 1.0 / (2.0 * math.pi)
 
 sum_launches = 0
@@ -115,6 +129,31 @@ def kde_dot_launch(g: torch.Tensor, s: torch.Tensor, xis: torch.Tensor, h: float
 
 
 # ------------------------------------------------------------ plain versions
+
+
+def kde_terms_needed(s: torch.Tensor, xis: torch.Tensor, h: float) -> int:
+    """The pairs (sample, point) of ``s [N, L]`` and ``xis [P]`` whose term
+    the kernels must compute: ``|s - xi| <= CUT h`` in f64, and every pair
+    with a sample or a point that is not finite (all ``N L P`` pairs for a
+    bandwidth that is not positive and finite). Counted by sorting the
+    points and searching each sample's ``[s - CUT h, s + CUT h]``: ``O(N L
+    log P)``, no ``[N, L, P]`` tensor."""
+    h = float(h)
+    n_pairs = s.numel() * xis.numel()
+    if not (0.0 < h < math.inf):
+        return n_pairs
+    x = xis.detach().reshape(-1).double()
+    xf = torch.sort(x[torch.isfinite(x)]).values
+    v = s.detach().reshape(-1).double()
+    finite = torch.isfinite(v)
+    sf = v[finite]
+    r = CUT * h
+    near = (torch.searchsorted(xf, sf + r, right=True)
+            - torch.searchsorted(xf, sf - r, right=False))
+    n_s = int(finite.sum())
+    return (int(near.sum()) + (v.numel() - n_s) * xis.numel()
+            + n_s * (xis.numel() - xf.numel()))
+
 
 
 def _terms(s: torch.Tensor, xis: torch.Tensor, h: float, deriv: int) -> torch.Tensor:

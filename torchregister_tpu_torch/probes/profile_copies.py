@@ -125,7 +125,8 @@ def main(argv=None) -> dict:
     entries = {k: hg.LIB.entries[k] for k in KERNELS}
     fns = {name: ab.bind(lib, entries) for name, (lib, _) in done.items()}
     order, calls, outs = list(builds), {}, []
-    for case, (kernel, args) in cases(dev).items():
+    inputs = cases(dev)  # alive until the timing: the calls hold its addresses
+    for case, (kernel, args) in inputs.items():
         plain = (hg.slab_gather_plain if kernel == "slab_gather"
                  else hg.slice_transpose_plain)(*args)
         for name in order:

@@ -156,7 +156,8 @@ def main(argv=None) -> dict:
     fns = {name: ab.bind(lib, entries(counted[name])) for name, (lib, _) in done.items()}
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     order, calls, outs, shares, bounds = list(builds), {}, [], {}, {}
-    for case, (mode, src, aux) in cases(dev).items():
+    inputs = cases(dev)  # alive until the timing: the calls hold its addresses
+    for case, (mode, src, aux) in inputs.items():
         bounds[case] = bound_ms(mode, src)
         plain = k2.warp_plain(src, **{"mt" if mode == "affine" else "flow": aux})
         boxes = k2.tile_boxes(src.shape, **{"mt" if mode == "affine" else "flow": aux})
