@@ -55,7 +55,8 @@ pair equal to its single run) and LM with the default criteria through
 the factory; every engine path must launch
 K1's affine or flow form and never its dense form), and times each kernel
 against its plain version and the one PyTorch call that computes the same
-function, where there is one (K1: each form against the dense launch, and
+function, where there is one (``sweep_bwd2`` at every shape the LM paths
+launch it, with its device time; K1: each form against the dense launch, and
 whole 3-pass warps against the per-pass composition the port ran before,
 ``profile_sweep``; the redesigned probe copies also at a device-bound size,
 with their device times), and the host time of each part of a launch (the
@@ -98,6 +99,7 @@ import torch
 
 from torchregister_tpu_torch import Register
 from torchregister_tpu_torch import profile_kde as pk
+from torchregister_tpu_torch import profile_splat_bwd2 as psb
 from torchregister_tpu_torch import profile_sweep as ps
 from torchregister_tpu_torch import warp_cases as wc
 from torchregister_tpu_torch.__main__ import main as cli
@@ -109,8 +111,7 @@ from torchregister_tpu_torch.engines.cascade import (make_cascade_batch_fn, make
 from torchregister_tpu_torch.engines.common import make_optimizer
 from torchregister_tpu_torch.engines.flow import flow_register
 from torchregister_tpu_torch.engines.rigid import rigid_register
-from torchregister_tpu_torch.losses.nmi import (_sample_points, _splat_weights, branch_calls,
-                                                 nmi_loss)
+from torchregister_tpu_torch.losses.nmi import _sample_points, branch_calls, nmi_loss
 from torchregister_tpu_torch.models.attention_unet import conv3x3x3_shapes
 from torchregister_tpu_torch.profile_cascade import busy_profile
 from torchregister_tpu_torch.ops import blocked
@@ -937,16 +938,11 @@ def phase_probes(inputs: dict, splat_inputs: dict) -> tuple[dict, dict]:
 
 def _splat_inputs() -> dict:
     """``{case: (idx, f)}``, the splat's inputs as the default NMI term makes
-    them at 240³ (each image resized to 200³, 8 patches of 100³: 8 rows of
-    1 M samples, not a whole number of the kernel's blocks) on the joint
-    range of make_pair's pair: its moving image, and a constant image at a
-    fractional bin (every sample in one bin, the kernel's worst case)."""
-    moving, target = make_pair((SIZE,) * 3, device=DEV)
-    lo = torch.minimum(moving.min(), target.min())
-    hi = torch.maximum(moving.max(), target.max())
-    return {case: _splat_weights(nearest_resize(img, (200,) * 3).reshape(8, -1), hi, lo)
-            for case, img in (("make_pair", moving),
-                              ("constant", torch.full_like(moving, 0.37)))}
+    them at 240³ on the joint range of make_pair's pair: its moving image,
+    and a constant image at a fractional bin (every sample in one bin), each
+    resized to 200³, 8 patches of 100³: 8 rows of 1 M samples, not a whole
+    number of the kernel's blocks (``profile_splat_bwd2.splat_inputs``)."""
+    return psb.splat_inputs(DEV)
 
 
 def _check_splat(inputs: dict) -> float:
@@ -1781,13 +1777,9 @@ def _check_edges(img) -> None:
 # [lm]: the LM matrix optimizer (engines/second_order.py). The recipe with
 # benchmarks/tune_lm.py's "lm 24/16 pat3" matrix stages and the recipe's
 # moment init, held to GATES as the JAX package's LM was on the TPU
-LM_RECIPE = {**RECIPE, "matrix_optimizer": "lm", "rigid_epochs": 24, "affine_epochs": 16,
-             "matrix_patience": 3, "matrix_stop_rel": 1e-3}
-# K1's second order at the LM paths' shapes: (edge, window, dtype); the
-# recipe's matrix levels (60³ and 120³, bf16, windows 11 and 6), 240³ at the
-# fine level's window, and Register's 240³ at its window S/4
-LM_BWD2 = ((60, 11, torch.bfloat16), (120, 6, torch.float32), (120, 6, torch.bfloat16),
-           (240, 8, torch.float32), (240, 8, torch.bfloat16), (240, 60, torch.float32))
+LM_RECIPE = psb.LM_RECIPE
+# K1's second order at the LM paths' shapes: (edge, window, dtype)
+LM_BWD2 = psb.LM_BWD2
 # Register rigid with LM and the default criteria (MSE + NCC + NMI) at 240³,
 # from the identity at the coarse window S/4: LM iterations (no plateau stop,
 # as Register runs the engines)
@@ -1798,20 +1790,9 @@ LM_COHORT = dict(mode="rigid", epochs=30, criterions=["mse"], optimizer="lm", in
 
 
 def _bwd2_case(S, K, dtype, pairs, seed):
-    """Inputs of K1's second order on ``pairs`` images of S³ (``pairs`` 0:
-    one image, one table): image, g and ubar in ``dtype``, the separable
-    passes of rigid transforms drawn from ``seed`` (a table, or one a pair),
-    rbar f32 shaped like the table."""
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    n = max(pairs, 1)
-    shape = (n, 1) + (S,) * 3
-    src, g, ubar = (torch.randn(shape, generator=gen, device=DEV).to(dtype) for _ in range(3))
-    params = 0.1 * (2.0 * torch.rand((n, 6), generator=gen, device=DEV) - 1.0)
-    theta = rigid_theta(params)
-    passes = factor_passes(*affine_to_index_map(theta if pairs else theta[0], (S,) * 3))
-    table, axes = k1.pass_table(passes)
-    rbar = torch.randn(table.shape, generator=gen, device=DEV)
-    return src, g, ubar, table.contiguous(), rbar, axes
+    """Inputs of K1's second order on ``pairs`` images of S³ on the card
+    (``profile_splat_bwd2.bwd2_case``)."""
+    return psb.bwd2_case(S, K, dtype, pairs, seed, device=DEV)
 
 
 def _check_bwd2(S, K, dtype) -> float:
@@ -2064,35 +2045,50 @@ def phase_lm(splat_inputs: dict) -> tuple[dict, list, dict]:
 
 
 def phase_lm_times(splat_inputs: dict) -> dict:
-    """``sweep_bwd2`` at 240³ K=8 f32 (a table, mean of the 3 passes) and
-    the signed splat on the default NMI's make_pair samples: one launch
-    against one pass of the plain version, CUDA events. Bounds: sweep_bwd2
-    reads g, ubar and src and writes gbar and sbar (5 volumes; ~20
-    operations a voxel); the signed splat as the splat. The signed splat's
-    library call: one ``scatter_add`` of both terms."""
-    S, K = 240, 8
-    src, g, ubar, table, rbar, axes = _bwd2_case(S, K, torch.float32, 0, 9500)
-    dtable = torch.empty_like(table)
-    work = k1._affine_work(src, axes, [K] * 3)
-    ms, plain = [], []
-    for p, axis in enumerate(axes):
-        ms.append(_time_ms(lambda: k1._bwd2_affine(g, src, table, p, axis, K, ubar, rbar, True,
-                                                   True, dtable, work)))
-        plain.append(_time_ms(lambda: k1.sweep_bwd2_plain(g, src, ubar, rbar[p], table[p, :3],
-                                                          table[p, 3], axis, K), iters=3))
-    vox = float(S) ** 3
-    rows = {"sweep_bwd2": {"ms": sum(ms) / 3, "plain_ms": sum(plain) / 3, "per_pass_ms": ms,
-                           **_bound(5 * 4 * vox, 20 * vox)}}
+    """``sweep_bwd2`` at each shape the LM paths launch it (``LM_BWD2``, a
+    table, mean of the 3 passes) and the signed splat on the default NMI's
+    make_pair samples: one launch against one pass of the plain version
+    (CUDA events), then the kernel's device time (``torch.profiler``).
+    Bounds: sweep_bwd2 reads g, ubar and src and writes gbar and sbar (5
+    volumes at the shape's dtype; ~20 operations a voxel); the signed splat
+    as the splat. The signed splat's library call: one ``scatter_add`` of
+    both terms. The kernels line takes sweep_bwd2's row at 240³ K=8 f32,
+    each shape's row beside it under ``shapes``."""
+    shapes = {}
+    for S, K, dtype in LM_BWD2:
+        src, g, ubar, table, rbar, axes = _bwd2_case(S, K, dtype, 0, 9500 + S + K)
+        dtable = torch.empty_like(table)
+        work = k1._affine_work(src, axes, [K] * 3)
+        calls = [functools.partial(k1._bwd2_affine, g, src, table, p, axis, K, ubar, rbar, True,
+                                   True, dtable, work) for p, axis in enumerate(axes)]
+        ms = [_time_ms(call) for call in calls]
+        plain = [_time_ms(functools.partial(k1.sweep_bwd2_plain, g, src, ubar, rbar[p],
+                                            table[p, :3], table[p, 3], axis, K), iters=3)
+                 for p, axis in enumerate(axes)]
+        dev = ps.device_ms(lambda: [call() for call in calls], name="sweep_bwd2")
+        row = {"ms": sum(ms) / 3, "plain_ms": sum(plain) / 3, "per_pass_ms": ms,
+               "device_ms": None if dev is None else dev / 3, **psb.bwd2_bound(S, dtype)}
+        if row["device_ms"]:
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+        shapes[psb.label(S, K, dtype)] = row
+        print(f"[times] lm sweep_bwd2 {psb.label(S, K, dtype)}: {json.dumps(row)}", flush=True)
+        del src, g, ubar, calls, work
+        torch.cuda.empty_cache()
+    rows = {"sweep_bwd2": {**shapes[psb.label(240, 8, torch.float32)], "shapes": shapes}}
     idx, f = splat_inputs["make_pair"]
     w = f - 0.5
     i = idx.long()
     both = (torch.zeros((f.shape[0], ks.BINS), device=DEV), torch.cat([i, i + 1], 1),
             torch.cat([-w, w], 1))
-    rows["splat_signed"] = {
+    signed = {
         "ms": _time_ms(lambda: ks.splat_launch(idx, w, signed=True)),
         "plain_ms": _time_ms(lambda: ks.splat_plain(idx, w, signed=True), iters=3),
         "library_ms": _time_ms(lambda: torch.scatter_add(both[0], 1, both[1], both[2]), iters=3),
+        "device_ms": ps.device_ms(lambda: ks.splat_launch(idx, w, signed=True), name="splat_"),
         **_bound(4.0 * (2 * f.numel() + f.shape[0] * ks.BINS), 2.0 * f.numel())}
+    if signed["device_ms"]:
+        signed["device_bound_share"] = signed["bound_ms"] / signed["device_ms"]
+    rows["splat_signed"] = signed
     print(f"[times] lm {json.dumps(rows)}", flush=True)
     return rows
 
@@ -3061,8 +3057,10 @@ def main() -> None:
         "a row per pair (backward: to the image and the rows)")
     timed_at["conv3d_dgrad"] = timed_at["conv3d_fwd"]
     timed_at["sweep_bwd2"] = ("one launch, 240^3 K=8 f32, one table, mean of the 3 passes "
-                              "(per_pass_ms); plain: sweep_bwd2_plain; library: none, no "
-                              "PyTorch call computes K1's second order")
+                              "(per_pass_ms); shapes: the same at each shape the LM paths "
+                              "launch it, with device_ms from torch.profiler; plain: "
+                              "sweep_bwd2_plain; library: none, no PyTorch call computes "
+                              "K1's second order")
     for name in KDE_NAMES:
         timed_at[name] = (f"one launch on the default NMI's joint rows at {SIZE}^3 x "
                           f"{KDE_SCALE:g} ([8, 2M] x 256, bandwidth 3); flip: the same at x "
@@ -3092,7 +3090,10 @@ def main() -> None:
          **({k: probe_rows[name].get(k) for k in P1_EXTRAS}
             if name == "block_permute_add" else {}),
          **(_splat_extras(splat_rows) if name == "splat" else {}),
-         **({"per_pass_ms": lm_rows[name]["per_pass_ms"]} if name == "sweep_bwd2" else {}),
+         **({k: lm_rows[name][k] for k in ("per_pass_ms", "device_ms", "shapes")}
+            if name == "sweep_bwd2" else {}),
+         **({k: lm_rows[name].get(k) for k in ("device_ms", "device_bound_share")}
+            if name == "splat_signed" else {}),
          **({k: k2_times[name][k] for k in K2_EXTRAS} if name in k2_times else {}),
          **({k: kde_rows[name].get(k) for k in KDE_EXTRAS} if name in KDE_NAMES else {})}
         for name in REPLACES

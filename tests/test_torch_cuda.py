@@ -1635,6 +1635,89 @@ def test_torch_cuda_splat_signed_matches_its_order_and_plain(dev, kind):
     assert ks.signed_launches == 1 and torch.equal(gg, out)
 
 
+@pytest.mark.parametrize("kind", ["ragged", "constant", "signed"])
+def test_torch_cuda_splat_ragged_rows_match_their_order(dev, kind):
+    """The splat kernel equals ``splat_ordered`` to the bit on rows whose
+    length is not a whole number of blocks, warps, batches or int4 vectors
+    (odd: rows after the first start off a 16-byte boundary, the kernel's
+    scalar loads), on a constant row (one bin) and in the signed mode."""
+    from torchregister_tpu_torch.ops.cuda import splat as ks
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    N, L = 3, 3 * ks.CHUNK + 5 * 2048 + 37 * 4 + 3
+    x = torch.linspace(0.0, 1.0, L, device=dev).repeat(N, 1)
+    s = (x + 0.05 * torch.rand((N, L), generator=gen, device=dev)).clamp(0.0, 1.0)
+    if kind == "constant":
+        s = torch.full((N, L), 0.6180339, device=dev)
+    p = s * (ks.BINS - 1)
+    i0 = torch.floor(p).clamp(0, ks.BINS - 2)
+    idx, f = i0.to(torch.int32).contiguous(), (p - i0).contiguous()
+    signed = kind == "signed"
+    w = f - 0.5 if signed else f
+    out, again = ks.splat_launch(idx, w, signed=signed), ks.splat_launch(idx, w, signed=signed)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, ks.splat_ordered(idx, w, signed=signed))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,axis,K", [((2, 1, 12, 10, 300), 2, 8),
+                                          ((2, 1, 300, 9, 14), 0, 5),
+                                          ((2, 1, 240, 24, 20), 0, 60),
+                                          ((2, 1, 60, 60, 60), 1, 11)])
+def test_torch_cuda_sweep_bwd2_tile_edges(dev, shape, axis, K, dtype):
+    """``sweep_bwd2``'s tiles at their edges: rows of 300 (two chunks of
+    256 with the window between them, the last one short), a window of 60
+    over rows of 240 (wider than a chunk of 64 was), and 60³ with K = 11 (a
+    tile cut to fewer columns to fill the card): gbar and sbar against
+    ``sweep_bwd2_plain`` (f32 1e-5, bf16 2^-7 of the largest entry), the row
+    gradients at 1e-4, two launches equal, and with a table per pair each
+    pair equal to its single-table launch to the bit."""
+    src, table, coef, offset, g, ubar, rbar = _bwd2_case(dev, shape, axis, True, dtype, K)
+    runs = [k1.affine_bwd2(g, src, table, 0, axis, K, ubar, rbar) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    gbar, sbar, drow = runs[0]
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    for b in range(shape[0]):
+        one = k1.affine_bwd2(g[b:b + 1], src[b:b + 1], table[b], 0, axis, K, ubar[b:b + 1],
+                             rbar[b])
+        assert torch.equal(one[0], gbar[b:b + 1]) and torch.equal(one[1], sbar[b:b + 1])
+        assert torch.equal(one[2], drow[b])
+        ref = k1.sweep_bwd2_plain(g[b:b + 1], src[b:b + 1], ubar[b:b + 1], rbar[b], coef[b],
+                                  offset[b], axis, K)
+        for got, want in ((one[0], ref[0]), (one[1], ref[1])):
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=tol * float(want.float().abs().max()))
+        torch.testing.assert_close(one[2], ref[2], rtol=0,
+                                   atol=1e-4 * float(ref[2].abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scale", [0.3, 2.7, 0.0])
+@pytest.mark.parametrize("shape,axis,K", [((1, 1, 9, 10, 70), 2, 12), ((1, 1, 40, 6, 5), 0, 9),
+                                          ((1, 1, 5, 300, 4), 1, 20)])
+def test_torch_cuda_sweep_bwd2_zooms(dev, shape, axis, K, dtype, scale):
+    """``sweep_bwd2`` where the swept axis's coefficient is far from 1 (a
+    zoom out, a zoom in, a constant coordinate): several x, or none, hit a
+    position, so sbar's walk and its window of four candidates meet their
+    edge cases; gbar and sbar against ``sweep_bwd2_plain`` (f32 1e-5, bf16
+    2^-7 of the largest entry), the row gradient at 1e-4."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    table = torch.zeros((3, 4), device=dev)
+    table[0, axis] = scale
+    if scale:
+        table[0, :3] += 0.1 * (torch.rand(3, generator=gen, device=dev) - 0.5)
+    table[0, 3] = 3.3
+    src, g, ubar = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    rbar = torch.randn(4, generator=gen, device=dev)
+    got = k1.affine_bwd2(g, src, table, 0, axis, K, ubar, rbar)
+    ref = k1.sweep_bwd2_plain(g, src, ubar, rbar, table[0, :3], table[0, 3], axis, K)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * float(b.float().abs().max()))
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-4 * float(ref[2].abs().max()))
+
+
 def _rigid_loss(dev, criteria, dtype, size=32):
     from torchregister_tpu_torch.losses import pair_loss, resolve_criteria
     from torchregister_tpu_torch.ops.separable import _warp_affine_separable

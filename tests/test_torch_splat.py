@@ -129,3 +129,101 @@ def test_torch_splat_dispatch_and_checks():
         ks.splat_launch(idx.long(), f)
     with pytest.raises(ValueError, match="CUDA"):
         ks.splat_launch(idx, f)
+
+
+def _dyadic_row(case, rng):
+    """``(idx, f)`` of one row of ``3 * 2048 + 77`` samples (a ragged block
+    and warp) whose weights are multiples of 2^-10, so that every bin's sum is
+    exact in any order: ``sorted``, bins that never decrease along the row
+    (every step already sorted); ``one_bin``, every sample in bin 300;
+    ``reversed``, each step's bins falling in lane order (the kernel's full
+    sort)."""
+    L = 3 * 2048 + 77
+    f = torch.from_numpy(rng.integers(0, 1024, L).astype(np.float32) / 1024.0)
+    if case == "sorted":
+        idx = np.sort(rng.integers(0, ks.BINS - 1, L))
+    elif case == "one_bin":
+        idx = np.full(L, 300)
+    else:  # each step of 32 lanes holds 32 - lane (plus the step's own offset)
+        pos = np.arange(L)
+        idx = 40 + (pos // 32) % 100 + (31 - pos % 32) * 7
+    return torch.from_numpy(idx.astype(np.int32))[None], f[None]
+
+
+@pytest.mark.parametrize("case", ["sorted", "one_bin", "reversed", "signed"])
+def test_torch_splat_ordered_exact_on_dyadic_weights(case):
+    """With weights that are multiples of 2^-10 and small counts every order
+    of additions is exact, so the kernel's order (sorted runs, the scan's
+    tree) equals the plain version to the bit: on steps already sorted, on
+    one bin, on steps in reverse lane order, and in the signed mode."""
+    rng = np.random.default_rng(17)
+    idx, f = _dyadic_row("reversed" if case == "signed" else case, rng)
+    signed = case == "signed"
+    got = ks.splat_ordered(idx, f, signed=signed)
+    assert torch.equal(got, ks.splat_plain(idx, f, signed=signed))
+    if case == "one_bin":
+        assert float(got[0, 300] + got[0, 301]) == f.shape[1]
+
+
+def _tree(x, a, t):
+    """The scan's sum at sorted lane ``t`` of a run starting at lane ``a``,
+    written as its tree: after the round of distance d a lane holds its own
+    value plus, where lane - d is still in the run, that lane's."""
+    def val(lane, level):
+        if level == 0:
+            return x[lane]
+        d = 1 << (level - 1)
+        if lane - d >= a:
+            return np.float32(val(lane - d, level - 1) + val(lane, level - 1))
+        return val(lane, level - 1)
+    return val(t, 5)
+
+
+def _direct_warp(steps_bin, steps_w0, steps_w1):
+    """One warp's histogram, then the block's and the row's sums, written
+    per step and bin without a sort or a scan: a bin's lanes in ascending
+    lane order take the sorted lanes after every lane of a smaller bin, and
+    its sum is :func:`_tree` over them; each bin's ``w0`` sum goes into the
+    bin, then each bin's ``w1`` sum into the next."""
+    h = np.zeros(ks.BINS, np.float32)
+    for bins, w0, w1 in zip(steps_bin, steps_w0, steps_w1):
+        s0, s1 = {}, {}
+        for b in sorted(set(bins.tolist())):
+            lanes = [lane for lane in range(32) if bins[lane] == b]
+            a = int((bins < b).sum())
+            x0 = {a + k: np.float32(w0[lane]) for k, lane in enumerate(lanes)}
+            x1 = {a + k: np.float32(w1[lane]) for k, lane in enumerate(lanes)}
+            t = a + len(lanes) - 1
+            s0[b], s1[b] = _tree(x0, a, t), _tree(x1, a, t)
+        for b, v in s0.items():
+            h[b] = np.float32(h[b] + v)
+        for b, v in s1.items():
+            h[b + 1] = np.float32(h[b + 1] + v)
+    part = np.float32(0.0) + h  # warp 0; the block's other warps hold zeros
+    for _ in range(ks.WARPS - 1):
+        part = part + np.float32(0.0)
+    return np.float32(0.0) + part
+
+
+def test_torch_splat_run_sums_match_a_direct_tree():
+    """The kernel's order of one warp (``splat_ordered`` on a row of 2048
+    samples: one warp of one block) against :func:`_direct_warp` on
+    hand-made 32-lane steps with weights of full precision, to the bit:
+    one bin, a few bins scattered over the lanes, reverse lane order, two
+    alternating bins, a step already sorted, distinct bins, runs at both
+    ends."""
+    rng = np.random.default_rng(23)
+    lane = np.arange(32)
+    made = [np.full(32, 5), rng.integers(10, 14, 32), 900 - 3 * lane, 20 + (lane % 2),
+            np.sort(rng.integers(0, 60, 32)), 100 + lane, np.where(lane < 3, 7, 600)]
+    steps = [made[s % len(made)] + (s // len(made)) for s in range(ks.STEPS)]
+    bins = np.stack(steps).astype(np.int64)
+    w1 = rng.random((ks.STEPS, 32), dtype=np.float32)
+    w0 = np.float32(1.0) - w1
+    # a warp's steps are its 32 consecutive samples at a time
+    idx, f = bins.reshape(-1).astype(np.int32), w1.reshape(-1)
+    got = ks.splat_ordered(torch.from_numpy(idx)[None], torch.from_numpy(f)[None])
+    want = _direct_warp(bins, w0, w1)
+    assert np.array_equal(got[0].numpy(), want)
+    assert not np.array_equal(got[0].numpy(), ks.splat_plain(
+        torch.from_numpy(idx)[None], torch.from_numpy(f)[None])[0].numpy())

@@ -80,12 +80,20 @@
 //   sbar = D(q)^T (v * g)
 //   the row's gradient  sum_e g_e (D(q) ubar)_e [n_e, 1]
 //
-// The same staged tile as the backward, staging ubar in place of g and
-// v * g beside s: gbar is a forward-like blend of each position's taps, sbar
-// the adjoint gather (weights -1 and +1) in the same fixed ascending order,
-// and the row's gradient the backward's reduction with ubar in place of s,
-// through the same partials and counters, so each item's results equal a
-// single-table launch's to the bit and a run repeats to the bit.
+// It reads g, src and ubar and writes gbar and sbar: five volumes, each
+// moved once. Its tile stages src, ubar and g in the image dtype and each
+// position's tap code (16 bits) with the window around a chunk of up to 256
+// positions; rows up to 256 (every shape the LM paths run) are staged whole,
+// with no halo. gbar is a forward-like blend of each position's taps, sbar
+// the adjoint gather (weights -v g and +v g, v g formed from the staged g) in
+// the same fixed ascending order, and the row's gradient the backward's
+// reduction with ubar in place of s, through the same partials and counters.
+// A tile is TC columns, fewer where a launch would have too few tiles to
+// fill the card (the matrix levels' 60^3 and 120^3); a few persistent
+// blocks an SM loop over an item's tiles with two stage buffers. Each item's
+// results equal a single-table launch's to the bit and a run repeats to the
+// bit: gbar and sbar add their terms in an order fixed by the positions
+// alone, the row's gradient in one fixed by the card and the item's shape.
 //
 // Images are f32 or bf16 (the matrix stages sweep bf16 images); coordinates,
 // weights and all sums are f32 and an image output is rounded once.
@@ -106,6 +114,8 @@ constexpr int kCols = 32;                    // backward: columns of a tile
 constexpr int kChunk = 64;                   // backward: positions of a chunk
 
 __device__ __forceinline__ float load_f(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
 }
@@ -653,155 +663,313 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
   }
 }
 
-// sweep_bwd2 (the note at the top): the staged tile of the backward, with
-// ubar staged in place of g and v * g beside src. `rf` gives v_e = rbar .
-// [n_e, 1] the way `qf` gives q. Null ubar reads as zeros; null gbar, sbar
-// or partials skip that output.
+// sweep_bwd2 (the note at the top) on a tile of its own: TC = TO x TI
+// columns (TI a power of 2 along inner, TO <= 8 along outer) by a chunk of up
+// to kChunk2 positions, a whole row up to kChunk2 or where the window is
+// wider than the chunk, staged with the window around it. Each thread owns
+// one column of a tile and every 256 / TC-th position of it, for staging and
+// for compute alike. A launch has a few blocks an SM, each looping over the
+// item's tiles t, t + G, ... (G the blocks of an item) with two stage
+// buffers: right after a barrier each thread stages its share of the next
+// tile into the buffer the last tile left and then computes this tile from
+// the other, so one warp's loads are in flight while the block's other warps
+// and the SM's other blocks compute. Measured on the H100 (PERF.md): holding
+// the next tile in registers across the compute spilled and was slower, and
+// cp.async (f32 only: it has no 2-byte copy for bf16) was no faster; TMA
+// boxes need 16-byte strides, which rows of 60 bf16 voxels do not have.
+struct Tile2 {
+  long long outer, inner;
+  int X, K;
+  int TI, ti_shift, TO;
+  int L, LhM;             // chunk length; staged positions per column (at most)
+  int n_chunks;
+  int ns;                 // a buffer's staged elements (TC * LhM), padded
+  long long buf_bytes;    // bytes of a buffer
+  int nbuf;               // stage buffers: 2, or 1 where two do not fit
+  int n_inner_tiles, tiles;  // tiles of one item
+};
+
+constexpr int kChunk2 = 256;  // positions of a chunk
+// positions of each input a thread loads at once (a tile of up to
+// 256 * kAhead positions; the rest of a longer one loads one at a time)
+constexpr int kAhead = 8;
+// blocks an SM the compiler fits the registers to (80 a thread; with 2 it
+// ran slower, with 4 it spilled: PERF.md)
+constexpr int kBwd2MinBlocks = 3;
+constexpr int kFill = 264;    // tiles a launch should have at least: 2 on each of 132 SMs
+constexpr int kTcMin = 8;     // fewest columns a tile is cut to, to reach kFill
+
+// a buffer: src, ubar and g in the image dtype and a 16-bit tap code
+// (tap_code) a staged position
+long long bwd2_buf_bytes(long long ns, int elem) { return (ns * (3LL * elem + 2) + 15) / 16 * 16; }
+
+// false when no tile fits the budget or the tap code does not fit 16 bits
+bool make_tile2(const Rows& r, int elem, Tile2& tl) {
+  const int X = r.L, K = r.K;
+  if (4LL * (2LL * K + 4) + 3 > 32767) return false;
+  tl.outer = r.outer; tl.inner = r.inner; tl.X = X; tl.K = K;
+  tl.L = X < kChunk2 ? X : kChunk2;
+  if (2LL * K + 2 > tl.L) tl.L = X;  // the window would stage the halo twice: whole rows
+  const long long span = (long long)tl.L + 2LL * K + 2;
+  tl.LhM = (int)(span < X ? span : X);
+  tl.n_chunks = (X + tl.L - 1) / tl.L;
+  int ti_max = 1;
+  while (ti_max * 2 <= kCols && ti_max * 2 <= r.inner) ti_max *= 2;
+  long long tiles = 0;
+  auto set = [&](int TC) {
+    tl.TI = TC < ti_max ? TC : ti_max;
+    tl.TO = TC / tl.TI;
+    tl.ns = (int)(((long long)TC * tl.LhM + 7) / 8 * 8);
+    tl.buf_bytes = bwd2_buf_bytes(tl.ns, elem);
+    const long long n_inner = (r.inner + tl.TI - 1) / tl.TI;
+    tiles = ((r.outer + tl.TO - 1) / tl.TO) * n_inner * tl.n_chunks;
+    tl.n_inner_tiles = (int)(n_inner < INT_MAX ? n_inner : INT_MAX);
+    tl.tiles = (int)(tiles < INT_MAX ? tiles : INT_MAX);
+  };
+  // the most columns (at most 8 along outer: a thread owns one column) whose
+  // two buffers fit and that one round of loads ahead covers, then fewer
+  // while the launch has too few tiles to fill the card
+  int TC = kCols < 8 * ti_max ? kCols : 8 * ti_max;
+  set(TC);
+  while (TC > 1 && ((long long)TC * tl.LhM > (long long)kAhead * kThreads ||
+                    2 * tl.buf_bytes > kStageBudget))
+    set(TC /= 2);
+  while (TC > kTcMin && tiles < kFill) set(TC /= 2);
+  tl.nbuf = 2 * tl.buf_bytes <= kStageBudget ? 2 : 1;
+  if (tl.nbuf * tl.buf_bytes > kStageBudget) return false;
+  tl.ti_shift = 0;
+  while ((1 << tl.ti_shift) < tl.TI) ++tl.ti_shift;
+  return tiles < INT_MAX;
+}
+
+// a tile's place: its first column (o0, i0), its chunk from j0, the staged
+// positions [s0, s1)
+struct TileAt {
+  long long o0, i0;
+  int j0, s0, s1;
+};
+
+__device__ __forceinline__ TileAt tile_at(const Tile2& tl, int t) {
+  TileAt a;  // 32-bit divisions: a 64-bit one costs some hundred instructions
+  const unsigned ct = (unsigned)t / (unsigned)tl.n_chunks;
+  const unsigned oi = ct / (unsigned)tl.n_inner_tiles;
+  a.j0 = (int)((unsigned)t - ct * tl.n_chunks) * tl.L;
+  a.o0 = (long long)oi * tl.TO;
+  a.i0 = (long long)(ct - oi * tl.n_inner_tiles) * tl.TI;
+  a.s0 = max(0, a.j0 - tl.K - 1);
+  a.s1 = min(tl.X, a.j0 + tl.L + tl.K + 1);
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.0f);
+}
+
+// a thread's positions of a tile (p0 + r * p_step), all loads issued
+// before the first store
+template <typename T>
+struct Ahead {
+  T s[kAhead], u[kAhead], g[kAhead];
+};
+
+// q (or v) along one row of an affine pass: q(p) = ((P + c p) + R1) + R2,
+// the terms before the swept axis's product folded into P and only those
+// after it (nr of them) left: AffineQ::at's sums in its order, with no
+// select a position
+struct Line {
+  float P, c, R1, R2;
+  int nr;
+};
+
+template <bool kPer>
+__device__ __forceinline__ Line line_of(const AffineQ<kPer>& q,
+                                        const typename AffineQ<kPer>::Col& c) {
+  const int a = q.im.axis;
+  float P = q.t;
+  if (q.d == 3 && a > 0) P = __fadd_rn(P, c.pz);
+  if (a > 1) P = __fadd_rn(P, c.py);
+  return Line{P, a == 0 ? q.c0 : (a == 1 ? q.c1 : q.c2), a == 0 ? c.py : c.px, c.px, 2 - a};
+}
+
+__device__ __forceinline__ float line_at(const Line& l, int p) {
+  float q = __fadd_rn(l.P, __fmul_rn(l.c, (float)p));
+  if (l.nr > 0) q = __fadd_rn(q, l.R1);
+  if (l.nr > 1) q = __fadd_rn(q, l.R2);
+  return q;
+}
+
+// sweep_bwd2 (the note at the top). gbar, the row's gradient and sbar of
+// each position of a tile come from the staged tile alone: g is read from
+// memory once, each tap code is computed once. A buffer holds src, ubar and
+// g as the image dtype and a 16-bit tap code (tap_code) a staged position,
+// each [TO][LhM][TI]. Null ubar reads as zeros; null gbar, sbar or partials
+// skip that output.
 template <typename T, bool kPer>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwd2MinBlocks)
 sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
                   const T* __restrict__ ubar, AffineQ<kPer> qf, AffineQ<kPer> rf,
                   T* __restrict__ gbar, T* __restrict__ sbar, float4* __restrict__ partials,
                   unsigned* __restrict__ done, float* __restrict__ drow, long long drn,
-                  Tile tl) {
-  extern __shared__ int smem[];
-  const int n_stage = tl.TO * tl.LhM * tl.TI;        // each array [TO][LhM][TI]
-  int* code = smem;
-  float* s_src = (float*)(code + n_stage);
-  float* s_u = s_src + n_stage;
-  float* s_vg = s_u + n_stage;
-  __shared__ int s_mono[kCols];
+                  Tile2 tl) {
+  extern __shared__ __align__(16) unsigned char smem2[];
   AffineQ<kPer> qm = qf, rm = rf;
   qm.load(blockIdx.y);
   rm.load(blockIdx.y);
   const int tid = threadIdx.x;
-  const int chunk = blockIdx.x % tl.n_chunks;
-  const long long tile = blockIdx.x / tl.n_chunks;
   const long long ob = (long long)blockIdx.y * tl.outer;  // the item's first row
-  const long long o0 = (tile / tl.n_inner_tiles) * tl.TO;
-  const long long i0 = (tile % tl.n_inner_tiles) * tl.TI;
-  const int X = tl.X, K = tl.K, TI = tl.TI;
-  const int j0 = chunk * tl.L;
-  const int s0 = max(0, j0 - K - 1);
-  const int s1 = min(X, j0 + tl.L + K + 1);
-  const int Lh = s1 - s0;
+  const long long inner = tl.inner;
+  const int X = tl.X, K = tl.K, TI = tl.TI, axis = qm.im.axis, ns = tl.ns;
+  // q = ((t + c0 z) + c1 y) + c2 x is rounded monotonically in each product,
+  // so with the swept axis's coefficient >= 0 (or NaN: q is NaN and every
+  // code alike) each column's floor index never decreases along the row:
+  // sbar walks to the run of x that reach j; else it scans the window
+  const bool walk = !((axis == 0 ? qm.c0 : (axis == 1 ? qm.c1 : qm.c2)) < 0.0f);
+  // this thread's column (to, ti) of every tile and its positions p0 + k * p_step
   const int lane = tid & 31, w = tid >> 5;
-  const int ti = lane & (TI - 1), pl = lane >> tl.ti_shift;
-  const int P = kLanes >> tl.ti_shift;
-  const int wpc = tl.TO >= 8 ? 1 : 8 / tl.TO;
-  const int to0 = w / wpc, to_step = 8 / wpc;
-  const int p0 = pl + P * (w % wpc), p_step = P * wpc;
-  const long long i = i0 + ti;
-  if (tid < kCols) s_mono[tid] = 1;
-
-  // 1. each staged position's taps, src, ubar and v * g
-  for (int to = to0; to < tl.TO; to += to_step) {
-    const long long o = o0 + to;
-    if (o >= tl.outer || i >= tl.inner) continue;
-    const typename AffineQ<kPer>::Col c = qm.col((int)(ob + o), (int)i);
-    const typename AffineQ<kPer>::Col rc = rm.col((int)(ob + o), (int)i);
-    const long long base = (ob + o) * X * tl.inner + i;
-    const int sb = ti + TI * tl.LhM * to;
-    for (int p = p0; p < Lh; p += p_step) {
-      const int x = s0 + p;
-      const long long idx = base + (long long)x * tl.inner;
-      const int e = sb + TI * p;
-      code[e] = tap_code(taps_of(qm.at(c, idx, x), x, X, K), x, K);
-      s_src[e] = load_f(src, idx);
-      s_u[e] = ubar ? load_f(ubar, idx) : 0.0f;
-      s_vg[e] = sbar ? __fmul_rn(rm.at(rc, idx, x), load_f(g, idx)) : 0.0f;
+  const int ti = lane & (TI - 1);
+  const int wpc = 8 / tl.TO;  // warps a column
+  const int to = w / wpc;
+  const int p0 = (lane >> tl.ti_shift) + (kLanes >> tl.ti_shift) * (w % wpc);
+  const int p_step = kThreads / (tl.TO * TI);
+  auto fetch = [&](const TileAt& a, Ahead<T>& ah) {
+    const long long o = a.o0 + to, i = a.i0 + ti;
+    const bool live = o < tl.outer && i < inner;
+    const long long base = ((ob + o) * X + a.s0) * inner + i;
+    const int Lh = a.s1 - a.s0;
+#pragma unroll
+    for (int r = 0; r < kAhead; ++r) {
+      const int p = p0 + r * p_step;
+      const bool in = live && p < Lh;
+      const long long idx = base + (long long)p * inner;
+      ah.s[r] = in ? src[idx] : zero_of<T>();
+      ah.u[r] = in && ubar ? ubar[idx] : zero_of<T>();
+      ah.g[r] = in ? g[idx] : zero_of<T>();
     }
-  }
-  __syncthreads();
-  // 2. per column: does its floor index never decrease along x?
-  if (sbar) {
-    for (int to = to0; to < tl.TO; to += to_step) {
-      const int sb = ti + TI * tl.LhM * to;
-      bool mono = true;
-      for (int p = p0; p + 1 < Lh; p += p_step)
-        mono &= (code[sb + TI * p] >> 2) <= (code[sb + TI * (p + 1)] >> 2) + 1;
-      if (!mono) atomicAnd(&s_mono[ti + TI * to], 0);
+  };
+  // the thread's positions of tile a and their tap codes into the buffer at b
+  auto commit = [&](const TileAt& a, const Ahead<T>& ah, unsigned char* b) {
+    const long long o = a.o0 + to, i = a.i0 + ti;
+    if (o >= tl.outer || i >= inner) return;
+    T* bs = reinterpret_cast<T*>(b);
+    short* code = reinterpret_cast<short*>(bs + 3 * ns);
+    const Line l = line_of(qm, qm.col((int)(ob + o), (int)i));
+    const long long base = ((ob + o) * X + a.s0) * inner + i;
+    const int Lh = a.s1 - a.s0, sb = ti + TI * tl.LhM * to;
+    auto put = [&](int p, T sv, T uv, T gv) {
+      const int x = a.s0 + p, e = sb + TI * p;
+      code[e] = (short)tap_code(taps_of(line_at(l, x), x, X, K), x, K);
+      bs[e] = sv;
+      bs[ns + e] = uv;
+      bs[2 * ns + e] = gv;
+    };
+#pragma unroll
+    for (int r = 0; r < kAhead; ++r)
+      if (p0 + r * p_step < Lh) put(p0 + r * p_step, ah.s[r], ah.u[r], ah.g[r]);
+    for (int p = p0 + kAhead * p_step; p < Lh; p += p_step) {  // past the round ahead
+      const long long idx = base + (long long)p * inner;
+      put(p, src[idx], ubar ? ubar[idx] : zero_of<T>(), g[idx]);
     }
-    __syncthreads();
-  }
-  // 3. each position of the chunk: gbar and its share of the row gradient
-  //    from its taps; on a column without folds, sbar by gathering the x
-  //    that hit it
-  float4 sums = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int to = to0; to < tl.TO; to += to_step) {
-    const long long o = o0 + to;
-    if (o >= tl.outer || i >= tl.inner) continue;
+  };
+  float4 sums = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // of d*z, d*y, d*x, d
+  // the positions of the thread's column of a tile: gbar and its share of
+  // the row's gradient from its taps, then sbar by gathering the x that hit
+  // each, in ascending x
+  auto compute = [&](const TileAt& a, const unsigned char* b) {
+    const long long o = a.o0 + to, i = a.i0 + ti;
+    if (o >= tl.outer || i >= inner) return;
+    const T* bs = reinterpret_cast<const T*>(b);
+    const T* bu = bs + ns;
+    const T* bg = bs + 2 * ns;
+    const short* code = reinterpret_cast<const short*>(bs + 3 * ns);
     const typename AffineQ<kPer>::Col c = qm.col((int)(ob + o), (int)i);
-    const typename AffineQ<kPer>::Col rc = rm.col((int)(ob + o), (int)i);
-    const long long base = (ob + o) * X * tl.inner + i;
-    const int sb = ti + TI * tl.LhM * to;
-    for (int jj = p0; jj < tl.L; jj += p_step) {
-      const int j = j0 + jj;
-      if (j >= X) break;
-      const long long idx = base + (long long)j * tl.inner;
-      if (gbar || partials) {
-        const Taps t = taps_of(qm.at(c, idx, j), j, X, K);
-        const int f = sb + TI * (t.xf - s0);
-        const float uf = t.mf ? s_u[f] : 0.0f, uc = t.mc ? s_u[f + TI] : 0.0f;
+    const Line lq = line_of(qm, c), lv = line_of(rm, rm.col((int)(ob + o), (int)i));
+    const int sb = ti + TI * (tl.LhM * to - a.s0);  // staged element of x: sb + TI * x
+    auto floor_at = [&](int x) { return x + (code[sb + TI * x] >> 2) - K - 2; };
+    const long long idx0 = ((ob + o) * X + a.j0 + p0) * inner + i;
+    const long long step = (long long)p_step * inner;
+    const int jend = min(a.j0 + tl.L, X);
+    // gbar and the row's gradient: no loop-carried branch, so positions overlap
+    if (gbar || partials) {
+      long long idx = idx0;
+#pragma unroll 2
+      for (int j = a.j0 + p0; j < jend; j += p_step, idx += step) {
+        const int s = sb + TI * j;
+        const int cd = code[s];
+        const int f = sb + TI * (j + (cd >> 2) - K - 2);
+        const float uf = (cd & 2) ? to_f(bu[f]) : 0.0f;
+        const float uc = (cd & 1) ? to_f(bu[f + TI]) : 0.0f;
         if (partials) {
-          const float d = __fmul_rn(load_f(g, idx), __fsub_rn(uc, uf));
-          const int a = qm.im.axis;
-          sums.x = __fadd_rn(sums.x, __fmul_rn(d, a == 0 ? (float)j : c.z));
-          sums.y = __fadd_rn(sums.y, __fmul_rn(d, a == 1 ? (float)j : c.y));
-          sums.z = __fadd_rn(sums.z, __fmul_rn(d, a == 2 ? (float)j : c.x));
+          const float d = __fmul_rn(to_f(bg[s]), __fsub_rn(uc, uf));
+          sums.x = __fadd_rn(sums.x, __fmul_rn(d, axis == 0 ? (float)j : c.z));
+          sums.y = __fadd_rn(sums.y, __fmul_rn(d, axis == 1 ? (float)j : c.y));
+          sums.z = __fadd_rn(sums.z, __fmul_rn(d, axis == 2 ? (float)j : c.x));
           sums.w = __fadd_rn(sums.w, d);
         }
         if (gbar) {
-          const float sf = t.mf ? s_src[f] : 0.0f, sc = t.mc ? s_src[f + TI] : 0.0f;
-          store_f(gbar, idx, __fadd_rn(blend(t, uf, uc),
-                                       __fmul_rn(rm.at(rc, idx, j), __fsub_rn(sc, sf))));
+          const float q = line_at(lq, j);
+          const float fr = q - floorf(q);  // taps_of's weight
+          const float sf = (cd & 2) ? to_f(bs[f]) : 0.0f;
+          const float sc = (cd & 1) ? to_f(bs[f + TI]) : 0.0f;
+          const float bl = __fadd_rn((cd & 2) ? w_floor(uf, fr) : 0.0f,
+                                     (cd & 1) ? w_ceil(uc, fr) : 0.0f);
+          store_f(gbar, idx, __fadd_rn(bl, __fmul_rn(line_at(lv, j), __fsub_rn(sc, sf))));
         }
       }
-      if (!sbar || !s_mono[ti + TI * to]) continue;
+    }
+    if (!sbar) return;
+    // sbar: the x that hit j, in ascending x
+    long long idx = idx0;
+    for (int j = a.j0 + p0; j < jend; j += p_step, idx += step) {
       float acc = 0.0f;
-      const int xlo = max(s0, j - K - 1), xhi = min(s1 - 1, j + K);
-      auto floor_at = [&](int x) { return x + (code[sb + TI * (x - s0)] >> 2) - K - 2; };
-      int x = min(max(2 * j - floor_at(j) - 1, xlo), xhi);
-      while (x > xlo && floor_at(x - 1) >= j - 1) --x;
-      while (x <= xhi && floor_at(x) < j - 1) ++x;
+      const int xlo = max(a.s0, j - K - 1), xhi = min(a.s1 - 1, j + K);
+      int x = xlo;
+      if (walk) {  // from a first guess (j minus the k at j) to the run's start
+        x = min(max(2 * j - floor_at(j) - 1, xlo), xhi);
+        while (x > xlo && floor_at(x - 1) >= j - 1) --x;
+        while (x <= xhi && floor_at(x) < j - 1) ++x;
+      }
       for (; x <= xhi; ++x) {
-        const int s = sb + TI * (x - s0);
-        const int cd = code[s];
+        const int sx = sb + TI * x;
+        const int cd = code[sx];
         const int f = x + (cd >> 2) - K - 2;
-        if (f > j) break;
-        if ((cd & 2) && f == j) acc = __fsub_rn(acc, s_vg[s]);
-        else if ((cd & 1) && f + 1 == j) acc = __fadd_rn(acc, s_vg[s]);
+        if (walk && f > j) break;
+        if ((cd & 2) && f == j)
+          acc = __fsub_rn(acc, __fmul_rn(line_at(lv, x), to_f(bg[sx])));
+        else if ((cd & 1) && f + 1 == j)
+          acc = __fadd_rn(acc, __fmul_rn(line_at(lv, x), to_f(bg[sx])));
       }
       store_f(sbar, idx, acc);
     }
-  }
-  // 4. sbar of the columns with folds: one thread a column, ascending x, in
-  //    the column's ubar stage, which phase 3 has read
-  if (sbar) {
-    __syncthreads();
-    if (tid < tl.TO * TI && !s_mono[tid] && o0 + (tid >> tl.ti_shift) < tl.outer &&
-        i0 + (tid & (TI - 1)) < tl.inner) {
-      const int sb = (tid & (TI - 1)) + TI * tl.LhM * (tid >> tl.ti_shift);
-      float* acc = s_u + sb;  // acc[TI * (j - j0)]
-      for (int jj = 0; jj < tl.L; ++jj) acc[TI * jj] = 0.0f;
-      for (int x = s0; x < s1; ++x) {
-        const int s = sb + TI * (x - s0);
-        const int cd = code[s];
-        const int f = x + (cd >> 2) - K - 2 - j0;
-        if ((cd & 2) && f >= 0 && f < tl.L) acc[TI * f] = __fsub_rn(acc[TI * f], s_vg[s]);
-        if ((cd & 1) && f + 1 >= 0 && f + 1 < tl.L)
-          acc[TI * (f + 1)] = __fadd_rn(acc[TI * (f + 1)], s_vg[s]);
-      }
+  };
+  // each tile is staged into the buffer the last tile's compute has left,
+  // right after the barrier: one warp's loads are in flight while the
+  // others stage and compute
+  auto stage = [&](const TileAt& a, unsigned char* b) {
+    Ahead<T> ah;
+    fetch(a, ah);
+    commit(a, ah, b);
+  };
+  long long t = blockIdx.x;
+  const long long G = gridDim.x;
+  TileAt a = tile_at(tl, (int)t);
+  stage(a, smem2);
+  for (bool first = true; t < tl.tiles; t += G) {
+    __syncthreads();  // this tile is staged; the other buffer's last reader is done
+    const bool more = t + G < tl.tiles;
+    const TileAt an = more ? tile_at(tl, (int)(t + G)) : a;
+    if (more && tl.nbuf == 2) stage(an, first ? smem2 + tl.buf_bytes : smem2);
+    compute(a, first ? smem2 : smem2 + tl.buf_bytes);
+    if (more && tl.nbuf == 1) {
+      __syncthreads();
+      stage(an, smem2);
     }
-    __syncthreads();
-    for (int to = to0; to < tl.TO; to += to_step) {
-      const long long o = o0 + to;
-      if (o >= tl.outer || i >= tl.inner || s_mono[ti + TI * to]) continue;
-      const long long base = (ob + o) * X * tl.inner + i;
-      const float* acc = s_u + ti + TI * tl.LhM * to;
-      for (int jj = p0; jj < tl.L && j0 + jj < X; jj += p_step)
-        store_f(sbar, base + (long long)(j0 + jj) * tl.inner, acc[TI * jj]);
-    }
+    if (tl.nbuf == 2) first = !first;
+    a = an;
   }
   if (partials) reduce_row(sums, partials, done, drow, drn, qm.d);
 }
@@ -873,13 +1041,21 @@ int bwd_dtype(int dtype, const void* g, const void* src, Q q, void* dsrc, void* 
   return (int)cudaErrorInvalidValue;
 }
 
+// sweep_bwd2's tile for the rows of one of `items` batch items, false as
+// item_tile's
+bool item_tile2(const Rows& r, long long items, int elem, Tile2& tl) {
+  if (items < 1 || items > 65535 || r.outer % items) return false;
+  const Rows ri{r.outer / items, r.inner, r.L, r.K};
+  return rows_ok(ri) && make_tile2(ri, elem, tl);
+}
+
 template <typename T, bool kPer>
 int launch_bwd2(const void* g, const void* src, const void* ubar, const AffineQ<kPer>& q,
                 const AffineQ<kPer>& rq, void* gbar, void* sbar, void* work, void* drow,
                 long long items, const Rows& r, cudaStream_t stream) {
-  Tile tl;
-  if (!rows_ok(r) || !item_tile(r, items, tl)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)tile_bytes(tl.TO, tl.TI, tl.LhM);
+  Tile2 tl;
+  if (!rows_ok(r) || !item_tile2(r, items, sizeof(T), tl)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)(tl.nbuf * tl.buf_bytes);
   static bool opted = false;  // one attribute per instantiation
   if (!opted) {
     cudaError_t rc = cudaFuncSetAttribute(sweep_bwd2_kernel<T, kPer>,
@@ -888,10 +1064,28 @@ int launch_bwd2(const void* g, const void* src, const void* ubar, const AffineQ<
     if (rc != cudaSuccess) return (int)rc;
     opted = true;
   }
+  // the blocks an item: as many as the card holds at once, at most its tiles
+  // (a function of the card and the item's shape alone, so a pair's sums are
+  // those of a launch on it alone)
+  static int seen_dev = -1, seen_smem = -1, resident = 0;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev != seen_dev || smem != seen_smem) {
+    int sms = 0, per_sm = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_bwd2_kernel<T, kPer>,
+                                                         kThreads, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    resident = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+    seen_dev = dev;
+    seen_smem = smem;
+  }
+  const long long G = tl.tiles < resident ? tl.tiles : resident;
   unsigned* done = drow ? (unsigned*)work : nullptr;
   float4* partials = drow ? (float4*)work + (items + 3) / 4 : nullptr;
-  sweep_bwd2_kernel<T, kPer><<<dim3((unsigned)tl.blocks, (unsigned)items), kThreads, smem,
-                               stream>>>(
+  sweep_bwd2_kernel<T, kPer><<<dim3((unsigned)G, (unsigned)items), kThreads, smem, stream>>>(
       (const T*)g, (const T*)src, (const T*)ubar, q, rq, (T*)gbar, (T*)sbar, partials, done,
       (float*)drow, q.rn, tl);
   return (int)cudaGetLastError();
@@ -962,14 +1156,23 @@ extern "C" int sweep_fwd(int mode, const void* src, const void* qp, void* out, v
 }
 
 // Floats of the affine backward's workspace for `items` tables (1: one
-// table; else one per batch item): a counter an item, then 4 partial sums a
-// block; 0 when no tile fits. The counters must be 0 before the first
+// table; else one per batch item), for sweep_bwd and sweep_bwd2 alike: a
+// counter an item, then 4 partial sums a block; 0 when no tile fits. The counters must be 0 before the first
 // launch; each launch leaves them 0.
 extern "C" long long sweep_bwd_work(long long outer, int L, long long inner, int K,
                                     long long items) {
   const Rows r{outer, inner, L, K};
   Tile tl;
-  return rows_ok(r) && item_tile(r, items, tl) ? work_floats(tl, items) : 0;
+  if (!rows_ok(r) || !item_tile(r, items, tl)) return 0;
+  long long n = work_floats(tl, items);
+  for (int elem : {2, 4}) {  // sweep_bwd2's partials (one a block, at most one a tile)
+    Tile2 t2;
+    if (item_tile2(r, items, elem, t2)) {
+      const long long n2 = 4 * (items * t2.tiles + (items + 3) / 4);
+      n = n2 > n ? n2 : n;
+    }
+  }
+  return n;
 }
 
 // The backward. dense (mode 0): dq of q's shape. affine (mode 1): the

@@ -34,7 +34,7 @@ from ... import native
 
 SOURCE = native.PKG / "csrc" / "splat.cu"
 BINS = 1024  # the binned NMI's fine grid
-WARPS, STEPS = 8, 64  # a block's warps; a warp's steps of 32 samples
+WARPS, STEPS = 8, 64  # a block's warps; a warp's steps of 32 consecutive samples
 CHUNK = WARPS * STEPS * 32  # samples a block of the kernel's first stage (kChunk)
 
 launches = 0
@@ -105,33 +105,63 @@ def splat_grad(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.gather(1, idx + 1) - g.gather(1, idx)
 
 
+def run_sums(bins: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor) -> tuple:
+    """The kernel's sums of each step ``[..., 32]`` (bins, both weights, by
+    lane) in torch ops: the lanes sorted by ``bin * 32 + lane``, then the
+    segmented inclusive scan at distances 1, 2, 4, 8, 16 (a lane adds what
+    lies ``d`` lanes below it while that lane is in its run). Returns the
+    sorted bins, both weights' scans and the mask of each run's last lane."""
+    lane = torch.arange(32, device=bins.device)
+    key, order = (bins * 32 + lane).sort(dim=-1)  # unique keys: a fixed permutation
+    bins = torch.div(key, 32, rounding_mode="floor")
+    w0, w1 = w0.gather(-1, order), w1.gather(-1, order)
+    head = torch.ones_like(bins, dtype=torch.bool)
+    head[..., 1:] = bins[..., 1:] != bins[..., :-1]
+    start = torch.where(head, lane, 0).cummax(dim=-1).values
+    for d in (1, 2, 4, 8, 16):
+        take = lane - d >= start
+        a0 = torch.nn.functional.pad(w0[..., :-d], (d, 0))
+        a1 = torch.nn.functional.pad(w1[..., :-d], (d, 0))
+        w0, w1 = torch.where(take, a0 + w0, w0), torch.where(take, a1 + w1, w1)
+    last = torch.ones_like(head)
+    last[..., :-1] = head[..., 1:]
+    return bins, w0, w1, last
+
+
 def splat_ordered(idx: torch.Tensor, f: torch.Tensor, signed: bool = False) -> torch.Tensor:
     """The kernel's sums in torch ops, each add an f32 add of the kernel's,
-    in its order: samples cut into blocks of ``CHUNK`` and warps of ``STEPS``
-    steps of 32; each warp's histogram gets, step by step, the ``1 - f``
-    terms (signed: ``-f``) and then the ``f`` terms in ascending lane order;
-    a block's partial adds its warps' histograms in warp order, the result
-    the row's partials in block order. Past the row's end the weights are 0
-    (the kernel skips those lanes; adding +0.0 changes no sum that starts
-    at +0.0, which no sum of f32 terms turns into -0.0)."""
+    in its order: samples cut into blocks of ``CHUNK``, warps and steps of
+    32 consecutive samples; each step's runs of equal bins summed by
+    :func:`run_sums`, then, step by step, each run's ``1 - f`` sum (signed:
+    ``-f``) added to its bin of the warp's histogram and after that each
+    run's ``f`` sum to the next bin; a
+    block's partial adds its warps' histograms in warp order, the result the
+    row's partials in block order. Past the row's end the lanes hold the bin
+    ``BINS``, which sorts last, runs alone and is never added (the kernel's
+    ``kNone``)."""
     _check(idx, f)
     N, L = f.shape
     nblk = -(-L // CHUNK)
     pad = nblk * CHUNK - L
-    bins = torch.nn.functional.pad(idx.long(), (0, pad)).reshape(N * nblk * WARPS, STEPS, 32)
-    w = torch.nn.functional.pad(f.to(torch.float32), (0, pad))
-    w = w.reshape(N * nblk * WARPS, STEPS, 32)
-    one = torch.nn.functional.pad(-f.to(torch.float32) if signed else 1.0 - f.to(torch.float32),
-                                  (0, pad))
-    one = one.reshape(N * nblk * WARPS, STEPS, 32)
-    hist = torch.zeros((N * nblk * WARPS, BINS), dtype=torch.float32, device=f.device)
-    rows = torch.arange(hist.shape[0], device=f.device)
+    rows = N * nblk * WARPS
+    f32 = f.to(torch.float32)
+    # a warp's steps: 32 consecutive samples each
+    bins = torch.nn.functional.pad(idx.long(), (0, pad), value=BINS).reshape(rows, STEPS, 32)
+    w0 = torch.nn.functional.pad(-f32 if signed else 1.0 - f32, (0, pad)).reshape(rows, STEPS, 32)
+    w1 = torch.nn.functional.pad(f32, (0, pad)).reshape(rows, STEPS, 32)
+    bins, w0, w1, last = run_sums(bins, w0, w1)
+    live = last & (bins < BINS)
+    # a lane that adds nothing writes the spare columns BINS and BINS + 1
+    first = torch.where(live, bins, BINS)
+    second = torch.where(live, bins + 1, BINS + 1)
+    hist = torch.zeros((rows, BINS + 2), dtype=torch.float32, device=f.device)
+    r = torch.arange(rows, device=f.device)[:, None]
     for s in range(STEPS):
-        for term, wt in ((0, one), (1, w)):
-            for lane in range(32):
-                b = bins[:, s, lane] + term
-                hist[rows, b] = hist[rows, b] + wt[:, s, lane]
-    hist = hist.reshape(N, nblk, WARPS, BINS)
+        b = first[:, s]
+        hist[r, b] = hist[r, b] + w0[:, s]
+        b = second[:, s]
+        hist[r, b] = hist[r, b] + w1[:, s]
+    hist = hist[:, :BINS].reshape(N, nblk, WARPS, BINS)
     part = torch.zeros((N, nblk, BINS), dtype=torch.float32, device=f.device)
     for v in range(WARPS):
         part = part + hist[:, :, v]
