@@ -5,7 +5,8 @@ sweep.cu``), K2 (the exact trilinear warp, ``csrc/warp.cu``: affine output
 tiles that stage their source box in shared memory, and the direct route of
 the flow mode, 2-D images and boxes that do not fit), K3 (the 3x3x3
 convolution of the U-Net and the Sobel edge filter, forward and input
-gradient, and its weight gradient, ``csrc/conv3d.cu``),
+gradient, and its weight gradient, ``csrc/conv3d.cu``; each also with a
+weight set per pair, each pair equal to a single-pair launch to the bit),
 K2b (the compact ROI gather of the exact warp's compact-block route,
 ``csrc/roigather.cu``), the benchmark probes' kernels (``csrc/
 hatgather.cu``: P1-P5 of ``benchmarks/probe_hatgather.py``, P3 in two
@@ -28,7 +29,10 @@ control, each engine level's step captured once as a CUDA graph and
 replayed, equal to ``register_cascade`` to the bit (``[cascade-fn]``); a
 cohort (``[cohort]``): ``make_cascade_batch_fn`` on 8 240³ pairs, each against
 its own ``make_cascade_fn`` run, and ``register_cohort`` rigid on the cohort
-driver's 8 pairs; the
+driver's 8 pairs; the U-Net cohort (``[cohort-unet]``):
+``make_cascade_batch_fn(**RECIPE_UNET)`` on 4 240³ pairs, each pair its own
+U-Net through K3 with a weight set per pair, each against its own
+``make_cascade_fn`` run, the deformable pair of ``[unet]`` at its gates; the
 engines' tensor-op Adam against ``torch.optim.Adam`` on the card
 (``[adam]``), and last, after every timing, the busy share of both
 (``[busy]``); ``Register`` in U-Net mode at the reference width; ``Register``
@@ -182,9 +186,16 @@ REPLACES = {
     # the exact KDE: the forward sum and the reductions of its derivatives
     "kde_sum": "torchregister_tpu/losses/nmi.py:39",
     "kde_dot": "torchregister_tpu/losses/nmi.py:49",
+    # K3 with a weight set per pair: the same Pallas kernel (and the XLA
+    # weight gradient) under the JAX U-Net cohort's vmap over stacked weights
+    "conv3d_fwd_pairs": "torchregister_tpu/ops/pallas/conv3d.py:174",
+    "conv3d_dgrad_pairs": "torchregister_tpu/ops/pallas/conv3d.py:174",
+    "conv3d_wgrad_pairs": "torchregister_tpu/ops/pallas/conv3d.py:301",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
+                 "conv3d_fwd_pairs": "torchregister_tpu/ops/pallas/conv3d.py:203",
+                 "conv3d_dgrad_pairs": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "slab_gather": "benchmarks/probe_hatgather.py:222"}
 # K3's weight gradient replaces XLA code, not a Pallas kernel
 NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST), "
@@ -201,7 +212,10 @@ NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST),
                     "phi' the second order's gbar), skipping itself on the binned flag",
          "kde_dot": "replaces the autodiff backward of kde_pdf's lax.scan, XLA code: the "
                     "exact KDE's sum over points (ds with phi'; the second order's sbar with "
-                    "phi''), skipping itself on the binned flag"}
+                    "phi''), skipping itself on the binned flag",
+         "conv3d_wgrad_pairs": "K3's weight gradient with a weight set per pair: "
+                               "_wgrad_xla (XLA code) under the JAX cohort's vmap; each "
+                               "pair's dw its own, each equal to a single-pair launch"}
 SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_fwd_pairs": "torchregister_tpu_torch/csrc/sweep.cu",
@@ -218,7 +232,9 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd2": "torchregister_tpu_torch/csrc/sweep.cu",
            "splat_signed": "torchregister_tpu_torch/csrc/splat.cu",
            "kde_sum": "torchregister_tpu_torch/csrc/kde.cu",
-           "kde_dot": "torchregister_tpu_torch/csrc/kde.cu"}
+           "kde_dot": "torchregister_tpu_torch/csrc/kde.cu",
+           **{f"conv3d_{k}_pairs": "torchregister_tpu_torch/csrc/conv3d.cu"
+              for k in ("fwd", "dgrad", "wgrad")}}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
 # three TF32 products (3xTF32), so their f32 rate is a third of TF32's
@@ -583,6 +599,13 @@ def _same_bits(out, ref) -> bool:
         torch.equal(out.view(torch.int32)[~nan], ref.view(torch.int32)[~nan]))
 
 
+def _equal_bits(a, b) -> bool:
+    """The same dtype, shape and bits (f32 or bf16)."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and bool(torch.equal(a.view(as_int), b.view(as_int))))
+
+
 def _check_k2(label, src, route, mt=None, flow=None) -> float:
     """One launch against ``warp_plain`` on the same tensors, equal to the bit
     (both run the same f32 operations in the same order), and the kernel's
@@ -771,12 +794,70 @@ def _check_k3(ci, co, edge, slab, dtype) -> tuple[float, float, float]:
 
 def phase_k3() -> dict:
     """K3's three kernels against their plain versions at every convolution
-    of both U-Net paths, f32 and bf16, and at the edge filter's, f32."""
+    of both U-Net paths, f32 and bf16, and at the edge filter's, f32; then
+    with a weight set per pair at the U-Net cohort's 120³ level."""
     cases = [(c, dtype) for c in K3_CASES for dtype in (torch.float32, torch.bfloat16)]
     errs = [0.0, 0.0, 0.0]
     for case, dtype in cases + [(K3_EDGE_CASE, torch.float32)]:
         errs = [max(a, b) for a, b in zip(errs, _check_k3(*case, dtype))]
-    return dict(zip(("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"), errs))
+    pair_errs = [0.0, 0.0, 0.0]
+    for ci, co, edge in K3_PAIR_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            got = _check_k3_pairs(COHORT_UNET_B, ci, co, edge, dtype)
+            pair_errs = [max(a, b) for a, b in zip(pair_errs, got)]
+    names = ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad")
+    return {**dict(zip(names, errs)), **{f"{n}_pairs": e for n, e in zip(names, pair_errs)}}
+
+
+# the U-Net cohort's 120³ level (RECIPE_UNET: n=8, depth 2): its first
+# layer, the widest at 118³, the bottleneck's 16 -> 32 and a decoder's 32 -> 16
+K3_PAIR_CASES = [c for c in conv3x3x3_shapes(120, 8, 2)
+                 if c in ((1, 8, 120), (8, 8, 118), (16, 32, 27), (32, 16, 54))]
+
+
+def _k3_pair_case(B, ci, co, edge, dtype, seed):
+    """``B`` pairs' input, weight sets, cotangent and dgrad weights."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((B, ci) + (edge,) * 3, generator=gen, device=DEV).to(dtype)
+    w = (torch.randn((B, 3, 3, 3, ci, co), generator=gen, device=DEV)
+         / math.sqrt(27 * ci)).to(dtype)
+    g = torch.randn((B, co) + (edge - 2,) * 3, generator=gen, device=DEV).to(dtype)
+    return x, w, g, w.flip((1, 2, 3)).transpose(4, 5).contiguous()
+
+
+def _check_k3_pairs(B, ci, co, edge, dtype) -> tuple[float, float, float]:
+    """K3 with a weight set per pair (``B`` pairs at ``ci -> co`` on an
+    ``edge`` cube): one launch each of the forward, the input gradient and
+    the weight gradient. Each pair must equal a launch on that pair alone to
+    the bit, the launches must repeat to the bit, and each is held against
+    its plain version (a call a pair) at ``_check_k3``'s tolerances. Returns
+    the largest absolute deviations: forward, dx, dw."""
+    x, w, g, w_t = _k3_pair_case(B, ci, co, edge, dtype, 7 * B + 100 * ci + co + edge)
+    launches = {"fwd": lambda: k3.conv_launch(x, w),
+                "dgrad": lambda: k3.conv_launch(g, w_t, pad=2),
+                "wgrad": lambda: k3.wgrad_launch(x, g, per_pair=True)}
+    got = {name: fn() for name, fn in launches.items()}
+    singles = {"fwd": lambda b: k3.conv_launch(x[b:b + 1], w[b]),
+               "dgrad": lambda b: k3.conv_launch(g[b:b + 1], w_t[b], pad=2),
+               "wgrad": lambda b: k3.wgrad_launch(x[b:b + 1], g[b:b + 1])[None]}
+    off = [name for name in launches
+           if not all(_equal_bits(got[name][b:b + 1], singles[name](b)) for b in range(B))]
+    unequal = [name for name, fn in launches.items() if not _equal_bits(fn(), got[name])]
+    ref = {"fwd": k3.conv3x3x3_plain(x, w), "dgrad": k3.conv3x3x3_plain(g, w_t, pad=2),
+           "wgrad": k3.wgrad_plain(x, g, per_pair=True)}
+    torch.cuda.synchronize()
+    rel = {name: _rel_err(got[name], ref[name]) for name in launches}
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    label = f"{B} pairs {ci}->{co} edge {edge} {str(dtype).replace('torch.', '')}"
+    print(f"[k3] a weight set per pair, {label}: rel {json.dumps(rel)} (tol {tol:g}, dw "
+          f"1e-05); each pair equal to its single launch to the bit: {not off}; launches "
+          f"repeat to the bit: {not unequal}", flush=True)
+    if not (rel["fwd"] < tol and rel["dgrad"] < tol and rel["wgrad"] < 1e-5):
+        raise AssertionError(f"K3 per pair {label} disagrees with the plain version: {rel}")
+    if off or unequal:
+        raise AssertionError(f"K3 per pair {label}: {off} off their single launches, "
+                             f"{unequal} differ between two launches")
+    return tuple(_max_err(got[name], ref[name]) for name in launches)
 
 
 def _pair_theta() -> torch.Tensor:
@@ -1049,7 +1130,9 @@ def _counts() -> dict:
             **{f"sweep_bwd2_{m}": n for m, n in k1.bwd2_modes.items()},
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
-            "conv3d_wgrad": k3.wgrad_launches,
+            "conv3d_wgrad": k3.wgrad_launches, "conv3d_fwd_pairs": k3.fwd_pairs_launches,
+            "conv3d_dgrad_pairs": k3.dgrad_pairs_launches,
+            "conv3d_wgrad_pairs": k3.wgrad_pairs_launches,
             "roigather": k2b.launches, **hg.launches, "roi_fetch": rs.launches,
             "splat": ks.launches, "splat_signed": ks.signed_launches,
             "kde_sum": kk.sum_launches, "kde_dot": kk.dot_launches}
@@ -1254,9 +1337,10 @@ COHORT_RIGID = dict(mode="rigid", lr=5e-3, epochs=300, criterions=["mse"], optim
                     init="identity", stop_rel=1e-3, patience=20)
 
 
-def _cohort_inputs() -> list:
-    """``(kind, seed, moving, target, truth)`` of [cohort]'s 8 pairs, made
-    on 8 threads (each pair's blobs are numpy work)."""
+def _cohort_inputs(pair_seeds=COHORT_PAIR_SEEDS, truth_seeds=COHORT_TRUTH_SEEDS) -> list:
+    """``(kind, seed, moving, target, truth)`` of a cohort's pairs (make_pair
+    seeds, then make_flow_truth_pair seeds, at 240³), made on 8 threads
+    (each pair's blobs are numpy work)."""
     def pair(seed):
         return ("rigid", seed, *make_pair(seed=seed, device=DEV), None)
 
@@ -1265,8 +1349,8 @@ def _cohort_inputs() -> list:
         return ("deformable", seed, m, t, (theta, flow))
 
     with ThreadPoolExecutor(8) as ex:
-        jobs = ([ex.submit(pair, s) for s in COHORT_PAIR_SEEDS]
-                + [ex.submit(truth, s) for s in COHORT_TRUTH_SEEDS])
+        jobs = ([ex.submit(pair, s) for s in pair_seeds]
+                + [ex.submit(truth, s) for s in truth_seeds])
         return [j.result() for j in jobs]
 
 
@@ -1277,23 +1361,22 @@ def _pair_quality(kind, res, m, t, truth) -> dict:
                      "flow_field_err_observable_vox"), flow_truth_metrics(res, m, t, *truth)))
 
 
-def phase_cohort() -> dict:
-    """``make_cascade_batch_fn(**RECIPE)`` on 8 pairs at 240³: one capturing
-    call, then one timed replaying call (equal to it to the bit). Each pair
-    against its own ``make_cascade_fn(**RECIPE)`` run (steps per stage and
-    level within 2, quality fields within 0.1); the seed-0 rigid and seed-1
-    deformable pairs also meet the absolute gates. Then ``register_cohort``
-    rigid on the cohort driver's 8 perturbed pairs: its check, and each
-    pair's steps those of its ``rigid_register`` run."""
-    t0 = time.perf_counter()
-    inputs = _cohort_inputs()
+def _batch_against_singles(tag: str, recipe_name: str, recipe: dict, inputs: list,
+                           gate) -> dict:
+    """``make_cascade_batch_fn(**recipe)`` on ``inputs``' pairs: one
+    capturing call, then one timed replaying call (equal to it to the bit).
+    Each pair against its own ``make_cascade_fn(**recipe)`` run (steps per
+    stage and level within ``COHORT_STEPS_TOL``, quality fields within
+    ``COHORT_QUALITY_TOL``); ``gate(kind, seed, quality)`` names a failed
+    absolute gate, or None. Prints a line a pair and the batch's walls,
+    masked pair-steps, peak memory and launches; returns the replaying
+    call's launches."""
     movings = torch.cat([m for _, _, m, _, _ in inputs])
     targets = torch.cat([t for _, _, _, t, _ in inputs])
-    torch.cuda.synchronize()
-    print(f"[cohort] 8 pairs made in {time.perf_counter() - t0:.1f} s", flush=True)
     B = movings.shape[0]
-    fn = make_cascade_batch_fn(**RECIPE)
+    fn = make_cascade_batch_fn(**recipe)
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # earlier phases' graphs and caches
     t0 = time.perf_counter()
     first = fn(movings, targets)  # captures every level's batched step
     torch.cuda.synchronize()
@@ -1315,7 +1398,7 @@ def phase_cohort() -> dict:
                  for n in ("warped", "theta", "flow", "rigid_losses", "affine_losses",
                            "flow_losses")) and res.steps == first.steps
     _on_cuda(res)
-    single = make_cascade_fn(**RECIPE)
+    single = make_cascade_fn(**recipe)
     single(*inputs[0][2:4])  # warm-up: its graphs captured
     walls, rows, bits, bad = [], [], [], []
     for b, (kind, seed, m, t, truth) in enumerate(inputs):
@@ -1329,48 +1412,111 @@ def phase_cohort() -> dict:
         if not (tuple(mine.warped.shape) == tuple(m.shape)
                 and bool(torch.isfinite(mine.warped).all())
                 and bool(torch.isfinite(mine.flow).all())):
-            raise AssertionError(f"[cohort] pair {b} is not a finite volume of its shape")
+            raise AssertionError(f"[{tag}] pair {b} is not a finite volume of its shape")
         q, q_ref = _pair_quality(kind, mine, m, t, truth), _pair_quality(kind, ref, m, t, truth)
         dsteps = max(abs(a - c) for k in ref.steps for a, c in zip(mine.steps[k], ref.steps[k]))
         dq = max(abs(q[k] - q_ref[k]) for k in q)
         bits.append(all(_same_bits(getattr(mine, n), getattr(ref, n))
                         for n in ("warped", "theta", "flow")) and mine.steps == ref.steps)
         rows.append({"pair": f"{kind} seed {seed}", "steps": mine.steps,
-                     "single_steps": ref.steps, "quality": q, "single_quality": q_ref})
+                     "single_steps": ref.steps, "quality": q, "single_quality": q_ref,
+                     "equal_to_the_bit": bits[-1]})
         if dsteps > COHORT_STEPS_TOL or dq > COHORT_QUALITY_TOL:
             bad.append((b, dsteps, dq))
-        if seed == (0 if kind == "rigid" else 1):
-            gate = (q["rmse_reduction_pct"] >= GATES["rmse_reduction_pct"] if kind == "rigid"
-                    else q["flow_truth_rmse_reduction_pct"]
-                    >= GATES["flow_truth_rmse_reduction_pct"]
-                    and q["flow_field_err_observable_vox"]
-                    <= GATES["flow_field_err_observable_vox"])
-            if not gate:
-                raise AssertionError(f"[cohort] {kind} seed {seed} gate failed: {q}")
+        failed = gate(kind, seed, q)
+        if failed:
+            raise AssertionError(f"[{tag}] {kind} seed {seed} gate failed: {failed}: {q}")
     for row in rows:
-        print(f"[cohort] {json.dumps(row)}", flush=True)
+        print(f"[{tag}] {json.dumps(row)}", flush=True)
     single_mean = sum(walls) / len(walls)
-    print(f"[cohort] make_cascade_batch_fn(**RECIPE), {B} pairs at {SIZE}³: wall of the "
-          f"capturing call {wall_capture:.3f} s, of the replaying call {wall:.3f} s = "
+    print(f"[{tag}] make_cascade_batch_fn(**{recipe_name}), {B} pairs at {SIZE}³: wall of "
+          f"the capturing call {wall_capture:.3f} s, of the replaying call {wall:.3f} s = "
           f"{wall / B:.4f} s a pair, against make_cascade_fn's mean {single_mean:.4f} s a "
           f"pair alone ({json.dumps([round(w, 4) for w in walls])}); {len(graphs)} step "
           f"graphs, replays of the replaying call {json.dumps(replays)}; pair-steps run "
-          f"{steps_run}, masked {masked}; host reads {json.dumps(reads)}; peak memory of the "
-          f"capturing call {peak:.3f} GiB; replay equal to the capturing call to the bit "
-          f"{repeat}; pairs equal to their single runs to the bit {sum(bits)} of {B}; "
-          f"launches of the replaying call {json.dumps(launches)}", flush=True)
+          f"{steps_run}, masked {masked} ({100.0 * masked / max(1, masked + steps_run):.1f} "
+          f"%); host reads {json.dumps(reads)}; peak memory of the capturing call "
+          f"{peak:.3f} GiB ({held:.3f} GiB held before it); replay equal to the capturing call to the bit {repeat}; pairs "
+          f"equal to their single runs to the bit {sum(bits)} of {B}; launches of the "
+          f"replaying call {json.dumps(launches)}", flush=True)
     if bad:
-        raise AssertionError(f"[cohort] pairs off their single runs (pair, steps, quality): "
+        raise AssertionError(f"[{tag}] pairs off their single runs (pair, steps, quality): "
                              f"{bad}")
     if not repeat:
-        raise AssertionError("[cohort] the replaying call differs from the capturing call")
+        raise AssertionError(f"[{tag}] the replaying call differs from the capturing call")
     if any(c != 1 or r <= 0 for c, r in graphs.values()):
-        raise AssertionError(f"[cohort] a level's step was not captured once: {graphs}")
+        raise AssertionError(f"[{tag}] a level's step was not captured once: {graphs}")
+    del first, res, movings, targets
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _cohort_gate(kind, seed, q):
+    """The seed-0 rigid and seed-1 deformable pairs meet the field recipe's
+    absolute gates."""
+    if seed != (0 if kind == "rigid" else 1):
+        return None
+    if kind == "rigid":
+        ok = q["rmse_reduction_pct"] >= GATES["rmse_reduction_pct"]
+    else:
+        ok = (q["flow_truth_rmse_reduction_pct"] >= GATES["flow_truth_rmse_reduction_pct"]
+              and q["flow_field_err_observable_vox"] <= GATES["flow_field_err_observable_vox"])
+    return None if ok else "GATES"
+
+
+def phase_cohort() -> dict:
+    """``make_cascade_batch_fn(**RECIPE)`` on 8 pairs at 240³ against their
+    single runs (``_batch_against_singles``); the seed-0 rigid and seed-1
+    deformable pairs also meet the absolute gates. Then ``register_cohort``
+    rigid on the cohort driver's 8 perturbed pairs: its check, and each
+    pair's steps those of its ``rigid_register`` run."""
+    t0 = time.perf_counter()
+    inputs = _cohort_inputs()
+    torch.cuda.synchronize()
+    print(f"[cohort] 8 pairs made in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = _batch_against_singles("cohort", "RECIPE", RECIPE, inputs, _cohort_gate)
     _need(launches, ("sweep_fwd", "sweep_bwd", "sweep_fwd_pairs", "sweep_bwd_pairs",
                      "sweep_fwd_flow", "sweep_bwd_flow"), "make_cascade_batch_fn")
-    del first, res, movings, targets, inputs
-    torch.cuda.empty_cache()
-    return {k: v for k, v in launches.items()}, phase_cohort_rigid()
+    del inputs
+    return launches, phase_cohort_rigid()
+
+
+# [cohort-unet]: make_pair seeds 0-1 and make_flow_truth_pair seeds 1-2 at
+# 240³ through make_cascade_batch_fn(**RECIPE_UNET), each pair its own U-Net
+# (K3 with a weight set per pair), against its own make_cascade_fn run
+# within [cohort]'s limits; the seed-1 deformable pair ([unet]'s) meets
+# [unet]'s gates
+COHORT_UNET_PAIR_SEEDS, COHORT_UNET_TRUTH_SEEDS = (0, 1), (1, 2)
+COHORT_UNET_B = len(COHORT_UNET_PAIR_SEEDS) + len(COHORT_UNET_TRUTH_SEEDS)
+
+
+def _unet_gate(kind, seed, q):
+    if kind != "deformable" or seed != 1:
+        return None
+    ok = (q["flow_truth_rmse_reduction_pct"] >= UNET_GATES["unet_flow_truth_rmse_reduction_pct"]
+          and q["flow_field_err_vox"] <= UNET_GATES["unet_flow_field_err_vox"]
+          and q["flow_field_err_observable_vox"]
+          <= UNET_GATES["unet_flow_field_err_observable_vox"])
+    return None if ok else "UNET_GATES"
+
+
+def phase_cohort_unet() -> dict:
+    """The U-Net cohort: ``make_cascade_batch_fn(**RECIPE_UNET)`` on 4 pairs
+    at 240³ (the U-Net at full width, its 120³ flow level at ``flow_max_size``
+    160), each pair training its own net from the recipe's seed, against its
+    single runs (``_batch_against_singles``); it must launch K3 with a weight
+    set per pair (forward, input gradient, weight gradient)."""
+    t0 = time.perf_counter()
+    inputs = _cohort_inputs(COHORT_UNET_PAIR_SEEDS, COHORT_UNET_TRUTH_SEEDS)
+    torch.cuda.synchronize()
+    print(f"[cohort-unet] {len(inputs)} pairs made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = _batch_against_singles("cohort-unet", "RECIPE_UNET", RECIPE_UNET, inputs,
+                                      _unet_gate)
+    _need(launches, ("sweep_fwd_pairs", "sweep_bwd_pairs", "sweep_fwd_flow", "sweep_bwd_flow",
+                     "conv3d_fwd_pairs", "conv3d_dgrad_pairs", "conv3d_wgrad_pairs"),
+          "make_cascade_batch_fn(**RECIPE_UNET)")
+    return launches
 
 
 def phase_cohort_rigid() -> dict:
@@ -1454,17 +1600,19 @@ def phase_pair_times() -> dict:
 
 
 def phase_busy(runs: list) -> None:
-    """The device's busy share of ``register_cascade`` and of the factory's
-    ``fn`` (graphs already captured) on ``[cascade-fn]``'s runs: one
-    profiled cascade each, its device intervals' union over the unprofiled
-    wall time (``profile_cascade.busy_profile``), and ``fn``'s kernels that
-    take the most device time. Last, since a profiler session slows every
-    later launch."""
-    for label, recipe, m, t, wall_ref, wall_fn in runs:
+    """The device's busy share of the factory's ``fn`` (graphs already
+    captured) on ``[cascade-fn]``'s runs, and of ``register_cascade`` on the
+    first: one profiled cascade each, its device intervals' union over the
+    unprofiled wall time (``profile_cascade.busy_profile``), and ``fn``'s
+    kernels that take the most device time. Last, since a profiler session
+    slows every later launch. (The eager ``register_cascade`` is host-bound,
+    12-24 % busy on every run profiled before; profiling and parsing it on
+    every run took more time than the U-Net cohort adds.)"""
+    for i, (label, recipe, m, t, wall_ref, wall_fn) in enumerate(runs):
         out = {}
-        for name, run, wall in (
-                ("register_cascade", functools.partial(register_cascade, **recipe), wall_ref),
-                ("fn", make_cascade_fn(**recipe), wall_fn)):
+        eager = [("register_cascade", functools.partial(register_cascade, **recipe),
+                  wall_ref)] if i == 0 else []
+        for name, run, wall in (*eager, ("fn", make_cascade_fn(**recipe), wall_fn)):
             p = busy_profile(m, t, [wall], run)
             out[name] = {k: p.get(k) for k in ("busy_share_est", "busy_share_profiled",
                                                 "busy_union_s", "profiled_wall_s")}
@@ -2631,15 +2779,57 @@ def phase_k3_times() -> dict:
     return rows
 
 
-def _k3_bound(ci: int, co: int, edge: int) -> dict:
+def phase_k3_pair_times() -> dict:
+    """K3 with a weight set per pair at the U-Net cohort's 120³ level
+    (``COHORT_UNET_B`` pairs, 8->8 on 118³ and 32->16 on 54³, f32): each of
+    the three per-pair launches against the B single launches it replaces,
+    in turns, against its plain version (a call a pair) and against one
+    grouped cuDNN call (TF32 off: ``F.conv3d``, ``conv3d_input`` and
+    ``conv3d_weight`` with ``groups=B`` on the pairs folded into the
+    channels), CUDA events, with B times a single launch's bounds."""
+    B, rows = COHORT_UNET_B, {}
+    for ci, co, edge in ((8, 8, 118), (32, 16, 54)):
+        x, w, g, w_t = _k3_pair_case(B, ci, co, edge, torch.float32, ci + co + edge)
+        xg, gg = x.reshape((1, B * ci) + x.shape[2:]), g.reshape((1, B * co) + g.shape[2:])
+        wg = w.permute(0, 5, 4, 1, 2, 3).reshape((B * co, ci, 3, 3, 3)).contiguous()
+        xs = [x[b:b + 1] for b in range(B)]
+        gs = [g[b:b + 1] for b in range(B)]
+        row = {}
+        with torch.no_grad():
+            for kind, mine, one, plain, lib in (
+                    ("fwd", lambda: k3.conv_launch(x, w),
+                     lambda: [k3.conv_launch(xs[b], w[b]) for b in range(B)],
+                     lambda: k3.conv3x3x3_plain(x, w),
+                     lambda: torch.nn.functional.conv3d(xg, wg, groups=B)),
+                    ("dgrad", lambda: k3.conv_launch(g, w_t, pad=2),
+                     lambda: [k3.conv_launch(gs[b], w_t[b], pad=2) for b in range(B)],
+                     lambda: k3.conv3x3x3_plain(g, w_t, pad=2),
+                     lambda: torch.nn.grad.conv3d_input(xg.shape, wg, gg, groups=B)),
+                    ("wgrad", lambda: k3.wgrad_launch(x, g, per_pair=True),
+                     lambda: [k3.wgrad_launch(xs[b], gs[b]) for b in range(B)],
+                     lambda: k3.wgrad_plain(x, g, per_pair=True),
+                     lambda: torch.nn.grad.conv3d_weight(xg, wg.shape, gg, groups=B))):
+                t = ps.in_turns({"ms": mine, "singles_ms": one})
+                row[f"conv3d_{kind}_pairs"] = {
+                    **t, "plain_ms": _time_ms(plain, iters=3, warmup=1),
+                    "library_ms": _time_ms(lib, iters=5, warmup=2),
+                    **_k3_bound(ci, co, edge, B)}
+        rows[f"{B}x {ci}->{co} edge {edge}"] = row
+        print(f"[times] K3 a weight set per pair, {B} pairs {ci}->{co} edge {edge} f32: "
+              f"{json.dumps(row)}", flush=True)
+    return rows
+
+
+def _k3_bound(ci: int, co: int, edge: int, pairs: int = 1) -> dict:
     """The bound of each of K3's three kernels at ``ci -> co`` on an ``edge``
     cube: each moves one input of ``ci`` channels, one of ``co`` channels
     (edge - 2) and the weights once, and does the forward's 2 * 27 * ci * co
     operations a valid output voxel (dgrad's taps past the cotangent are
     zero and not counted), f32 on the tensor cores at the 3xTF32 rate; the
-    same over the f32 FMA peak as ``fma_bound_ms``."""
-    nbytes = 4.0 * (ci * edge**3 + co * (edge - 2)**3 + 27 * ci * co)
-    flops = 2.0 * 27 * ci * co * (edge - 2)**3
+    same over the f32 FMA peak as ``fma_bound_ms``; ``pairs`` times that
+    with a weight set per pair."""
+    nbytes = 4.0 * pairs * (ci * edge**3 + co * (edge - 2)**3 + 27 * ci * co)
+    flops = 2.0 * pairs * 27 * ci * co * (edge - 2)**3
     return {**_bound(nbytes, flops, F32_3XTF32_FLOP_PER_S),
             "fma_bound_ms": _bound(nbytes, flops)["bound_ms"]}
 
@@ -2946,6 +3136,14 @@ KDE_EXTRAS = ("device_ms", "binned_device_ms", "device_bound_share", "fp32_bound
               "flip")
 
 
+def _mark(label: str) -> None:
+    """The seconds since the script started, after ``label``'s phases."""
+    print(f"[elapsed] {label}: {time.perf_counter() - T_START:.1f} s", flush=True)
+
+
+T_START = time.perf_counter()
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2958,6 +3156,7 @@ def main() -> None:
     errs.update(probe_errs)
     kde_inputs = _kde_inputs()
     errs.update(phase_kde(kde_inputs))
+    _mark("build and kernel checks")
     launches = phase_main_path()
     with tempfile.TemporaryDirectory() as tmp:
         paths = [launches, phase_cli(tmp)]
@@ -2965,7 +3164,13 @@ def main() -> None:
     paths.append(reg_launches)
     errs["warp_flow"] = max(errs["warp_flow"], reg_err)
     fn_launches, fn_runs = phase_cascade_fn()
-    paths += [phase_unet(), fn_launches, *phase_cohort()]
+    _mark("main, cli, register, cascade-fn")
+    paths += [phase_unet(), fn_launches]
+    _mark("unet")
+    paths += [*phase_cohort()]
+    _mark("cohort")
+    paths.append(phase_cohort_unet())
+    _mark("cohort-unet")
     default_launches, default_runs = phase_cascade_fn_default()
     paths += [default_launches, phase_cascade_fn_exact(), phase_cascade_batch_default()]
     phase_adam()
@@ -2974,18 +3179,21 @@ def main() -> None:
     lm_errs, lm_paths, _ = phase_lm(splat_inputs)
     errs.update(lm_errs)
     paths += [*lm_paths, phase_lm_default()]
+    _mark("the other paths")
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     # before the profiler first runs (after that each launch costs the host more)
     phase_launch_path(probe_inputs)
     mode_rows = phase_mode_times()
     k2_times = phase_k2_times()
     k3_row = phase_k3_times()["8->8 edge 118"]
+    k3_pair_row = phase_k3_pair_times()[f"{COHORT_UNET_B}x 8->8 edge 118"]
     k2b_row = phase_k2b_times()
     probe_rows = phase_probe_times(probe_inputs)
     splat_rows = phase_splat_times(splat_inputs)
     pair_rows = phase_pair_times()
     lm_rows = phase_lm_times(splat_inputs)
     kde_rows = phase_kde_times(kde_inputs)
+    _mark("times")
     library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
     # per-launch times at the fine flow level's shape (240³, K=8, f32): its
     # flow form, with the dense launch and every form's row beside it
@@ -3004,7 +3212,8 @@ def main() -> None:
              **{name: {k: pair_rows[name][k] for k in ("ms", "plain_ms")}
                 for name in pair_rows},
              **{name: {k: lm_rows[name][k] for k in ("ms", "plain_ms")} for name in lm_rows},
-             **{name: {k: kde_rows[name][k] for k in ("ms", "plain_ms")} for name in KDE_NAMES}}
+             **{name: {k: kde_rows[name][k] for k in ("ms", "plain_ms")} for name in KDE_NAMES},
+             **{name: {k: r[k] for k in ("ms", "plain_ms")} for name, r in k3_pair_row.items()}}
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (pw_bound)
@@ -3023,7 +3232,9 @@ def main() -> None:
               **{name: {k: lm_rows[name][k] for k in ("bound_ms", "bound_by")}
                  for name in lm_rows},
               **{name: {k: kde_rows[name][k] for k in ("bound_ms", "bound_by")}
-                 for name in KDE_NAMES}}
+                 for name in KDE_NAMES},
+              **{name: {k: r[k] for k in ("bound_ms", "bound_by", "fma_bound_ms")}
+                 for name, r in k3_pair_row.items()}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
                    conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
                    roigather=k2b_row["library_ms"],
@@ -3031,7 +3242,8 @@ def main() -> None:
                    splat=splat_rows["make_pair"]["library_ms"], sweep_fwd_pairs=None,
                    sweep_bwd_pairs=None, sweep_bwd2=None,
                    splat_signed=lm_rows["splat_signed"]["library_ms"], kde_sum=None,
-                   kde_dot=None)
+                   kde_dot=None,
+                   **{name: r["library_ms"] for name, r in k3_pair_row.items()})
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -3068,6 +3280,11 @@ def main() -> None:
                           "bound: the terms within the kernels' cut (|u| <= 14), "
                           "dense_bound_ms over every term; library: none, no PyTorch call "
                           "sums Gaussians of pairwise differences")
+    for name in k3_pair_row:
+        timed_at[name] = (f"one launch for {COHORT_UNET_B} pairs, 8->8 at 118^3 f32, a "
+                          "weight set per pair; singles_ms: the single-pair launches it "
+                          "replaces; plain: a plain call a pair; library: one grouped cuDNN "
+                          "call (groups = pairs), TF32 off")
     timed_at["splat_signed"] = ("one launch, the default NMI's 8 x 1M samples of make_pair's "
                                 "moving image at 240^3, weights f - 0.5; library: one "
                                 "scatter_add of both terms")
@@ -3082,6 +3299,7 @@ def main() -> None:
          **(_sweep_extras(name, flow_row, modes, errs["sweep_row_grad_rel"])
             if name in ("sweep_fwd", "sweep_bwd") else {}),
          **({"singles_ms": pair_rows[name]["singles_ms"]} if name in pair_rows else {}),
+         **({"singles_ms": k3_pair_row[name]["singles_ms"]} if name in k3_pair_row else {}),
          **({"row_grad_max_rel_err": errs["sweep_pairs_row_grad_rel"]}
             if name == "sweep_bwd_pairs" else {}),
          **(_copy_extras(name, probe_rows) if name in COPIES else {}),
@@ -3099,6 +3317,7 @@ def main() -> None:
         for name in REPLACES
     ]
     phase_busy(fn_runs + default_runs)
+    _mark("busy")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

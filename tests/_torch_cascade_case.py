@@ -1,8 +1,8 @@
 """Shared case for the whole-slice parity tests (``test_torch_cascade*.py``):
 ``bench.RECIPE`` reduced in epochs and levels, run on the same 24³ pairs by
 the JAX package's ``register_cascade`` and by the port's; and
-:func:`carry_jax_unet_init`, which starts the port's U-Nets from the JAX
-package's initial weights."""
+:func:`carry_jax_unet_init`, which starts the port's U-Nets (single, or one
+weight set a pair) from the JAX package's initial weights."""
 import functools
 
 import numpy as np
@@ -71,7 +71,10 @@ def assert_close(out, theta_atol, steps_tol, rmse_tol, truth_rmse_tol, vox_tol):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_unet_init(ndim, in_c, n, depth, use_attention, use_norm, seed):
+def _jax_unet_init(ndim, in_c, n, depth, use_attention, use_norm, seed, pairs=None):
+    """flax's init of the JAX U-Net from ``key(seed)``; with ``pairs`` the
+    JAX cohort's stacked init, ``vmap(init)`` over ``split(key(seed),
+    pairs)``."""
     import jax
 
     from torchregister_tpu.models.attention_unet import AttentionUNet as JUNet
@@ -81,21 +84,35 @@ def _jax_unet_init(ndim, in_c, n, depth, use_attention, use_norm, seed):
     net = JUNet(ndim=ndim, in_c=in_c, n=n, depth=depth, use_attention=use_attention,
                 use_norm=use_norm)
     x = jnp.zeros((1, in_c) + (edge,) * ndim, jnp.float32)
-    return jax.tree.map(np.asarray, jax.jit(net.init)(jax.random.key(seed), x)["params"])
+    if pairs is None:
+        return jax.tree.map(np.asarray, jax.jit(net.init)(jax.random.key(seed), x)["params"])
+    init = jax.jit(jax.vmap(lambda k: net.init(k, x)["params"]))
+    return jax.tree.map(np.asarray, init(jax.random.split(jax.random.key(seed), pairs)))
 
 
 def carry_jax_unet_init(monkeypatch):
     """Make every fresh port U-Net start from the JAX package's initial
     weights for the same seed: ``AttentionUNet.reset_parameters`` loads
     ``flax init(jax.random.key(seed))`` (the key the JAX engines use; the
-    values depend on the architecture, not on the input's size)."""
+    values depend on the architecture, not on the input's size). A pair-mode
+    net given one generator a pair (the batched cascade: JAX's ``vmap`` of
+    it gives every pair the config's key) loads that init for each pair;
+    given one generator (the cohort) it loads the JAX cohort's ``vmap(init)``
+    over ``split(key(seed), B)``."""
+    import jax
+
     from torchregister_tpu_torch import convert
     from torchregister_tpu_torch.models.attention_unet import AttentionUNet
 
     def reset(self, generator=None):
-        seed = 0 if generator is None else generator.initial_seed()
-        params = _jax_unet_init(self.ndim, self.in_c, float(self.n), self.depth,
-                                self.use_attention, self.use_norm, seed)
-        self.load_state_dict(convert.unet_params(params))
+        args = (self.ndim, self.in_c, float(self.n), self.depth, self.use_attention,
+                self.use_norm)
+        if isinstance(generator, (list, tuple)):
+            trees = [_jax_unet_init(*args, g.initial_seed()) for g in generator]
+            params = jax.tree.map(lambda *leaves: np.stack(leaves), *trees)
+        else:
+            seed = 0 if generator is None else generator.initial_seed()
+            params = _jax_unet_init(*args, seed, self.pairs)
+        self.load_state_dict(convert.unet_params(params, model=self))
 
     monkeypatch.setattr(AttentionUNet, "reset_parameters", reset)

@@ -136,9 +136,15 @@ def test_torch_cascade_batch_fn_is_cached_and_refuses_unet():
     with pytest.raises(ValueError, match="mesh and spatial_axis"):
         make_cascade_batch_fn(mesh=object(), **CFG)
     assert not cascade._BATCH_CACHE
-    movings = torch.from_numpy(_blobs(2, (16, 16)))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_cascade_batch_fn(**{**FLOW_CFG, "flow_model": "unet"})(movings, movings)
+    # a U-Net batch, which the port refused before it had K3 with a weight
+    # set per pair, runs: each pair equal to its single factory run (its
+    # parity with the JAX package's: tests/test_torch_cascade_batch_unet.py)
+    movings = torch.from_numpy(_blobs(2, (32, 32)))
+    targets = torch.from_numpy(_blobs(2, (32, 32), seed=1))
+    unet = {**FLOW_CFG, "flow_model": "unet"}
+    res = make_cascade_batch_fn(**unet)(movings, targets)
+    assert res.flow.shape == (2, 1, 2, 32, 32)
+    _each_pair_equals_its_own(res, movings, targets, unet)
 
 
 def test_torch_cascade_batch_nmi_pairs_take_their_own_branch():

@@ -310,12 +310,25 @@ def test_torch_cohort_validation():
 
 
 def test_torch_cohort_refuses_a_mesh_and_a_unet_batch():
+    """A mesh raises. A U-Net cohort, which the port refused before it had
+    K3 with a weight set per pair, runs: each pair trains its own net, drawn
+    pair after pair from ``seed``, and equals ``flow_register`` on that pair
+    alone with the same draws to the bit (its parity with the JAX package's
+    cohort: ``tests/test_torch_cohort_unet_jax.py``)."""
     movings = torch.from_numpy(_blobs(2, (16, 16)))
+    targets = torch.from_numpy(_blobs(2, (16, 16), seed=1))
     with pytest.raises(ValueError, match="mesh is not supported"):
         register_cohort(movings, movings, mode="rigid", mesh=object(), epochs=1)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        register_cohort(movings, movings, mode="flow", flow_model="unet", epochs=1,
-                        criterions=["mse"], n=32, depth=1)
+    res = register_cohort(movings, targets, mode="flow", flow_model="unet", epochs=2,
+                          criterions=["mse"], n=32, depth=1, seed=3)
+    assert res.flow.shape == (2, 1, 2, 16, 16) and res.steps == [2, 2]
+    assert all(v.shape[0] == 2 for v in res.params.values())
+    gen = torch.Generator().manual_seed(3)
+    for b in range(2):
+        _, solo = flow_register(movings[b:b + 1], targets[b:b + 1], lr=1e-5, max_epochs=2,
+                                criterions=["mse"], n=32, depth=1, generator=gen)
+        torch.testing.assert_close(res.flow[b], solo.flow, **SELF_TOL)
+        _same_losses(res.losses[b].numpy(), solo.losses.numpy())
     with pytest.raises(ValueError, match="mesh and spatial_axis"):
         tr.make_cascade_batch_fn(spatial_axis=0, stages=("rigid",))
     assert tr.register_cohort is register_cohort

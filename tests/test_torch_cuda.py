@@ -11,7 +11,9 @@ order in torch ops to the bit; the LM engines' second order: K1's
 ``sweep_bwd2`` and the splat's signed mode against their plain versions,
 a Hessian through the kernels against the CPU's, the kernel Functions that
 are differentiable once raising on a second derivative, and LM's cascade
-factory and cohort against single runs to the bit.
+factory and cohort against single runs to the bit; K3 with a weight set per
+pair (each pair against a single-pair launch to the bit) and the U-Net
+cohort against single runs.
 
 Marked ``cuda``; each test skips without a CUDA device. The machine with the
 card has no JAX, so run this file without the JAX test harness:
@@ -767,6 +769,92 @@ def test_torch_cuda_conv3d_wgrad_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="same CUDA device"):
         k3.wgrad_launch(x, g.cpu())
     assert k3.wgrad_launches == 0
+
+
+# (pairs, Ci, Co, edge, z): the U-Net cohort's first layer, a 120³-level
+# layer, the bottleneck's widest and a decoder's, ragged tiles
+K3_PAIRS = [(3, 1, 8, 30, 9), (2, 8, 8, 40, 12), (4, 16, 32, 20, 20), (2, 32, 16, 26, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,ci,co,edge,z", K3_PAIRS,
+                         ids=[f"{b}x{ci}-{co}-e{e}" for b, ci, co, e, _ in K3_PAIRS])
+def test_torch_cuda_conv3d_weight_set_per_pair(dev, B, ci, co, edge, z, dtype):
+    """K3 with a weight set per pair, one launch each of the forward, the
+    input gradient and the weight gradient: each pair equal to a launch on
+    that pair alone to the bit, and against the plain versions (a call a
+    pair) at the single launches' tolerances; counted as one launch each
+    and as a per-pair launch."""
+    torch.backends.cudnn.allow_tf32 = False
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+
+    gen = torch.Generator(device=dev).manual_seed(B * 100 + ci + co)
+    x = torch.randn((B, ci, z, edge, edge), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((B, 3, 3, 3, ci, co), generator=gen, device=dev)
+         / (27 * ci) ** 0.5).to(dtype)
+    g = torch.randn((B, co, z - 2, edge - 2, edge - 2), generator=gen, device=dev).to(dtype)
+    w_t = w.flip((1, 2, 3)).transpose(4, 5)
+    k3.reset_counts()
+    out, dx, dw = k3.conv_launch(x, w), k3.conv_launch(g, w_t, pad=2), k3.wgrad_launch(
+        x, g, per_pair=True)
+    assert (k3.fwd_launches, k3.dgrad_launches, k3.wgrad_launches) == (1, 1, 1)
+    assert (k3.fwd_pairs_launches, k3.dgrad_pairs_launches, k3.wgrad_pairs_launches) == (
+        1, 1, 1)
+    assert dw.shape == w.shape and dw.dtype == torch.float32
+    for b in range(B):
+        one = slice(b, b + 1)
+        assert torch.equal(out[one], k3.conv_launch(x[one], w[b]))
+        assert torch.equal(dx[one], k3.conv_launch(g[one], w_t[b], pad=2))
+        assert torch.equal(dw[b], k3.wgrad_launch(x[one], g[one]))
+    rel = 1e-5 if dtype == torch.float32 else 2.0**-7
+    _close(out, k3.conv3x3x3_plain(x, w), rel)
+    _close(dx, k3.conv3x3x3_plain(g, w_t, pad=2), rel)
+    _close(dw, k3.wgrad_plain(x, g, per_pair=True), 1e-5)
+    # the autograd Function takes the per-pair weights through the same launches
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    fx, fw = torch.autograd.grad(k3.conv3x3x3(xs, ws), (xs, ws), g)
+    assert torch.equal(fx, dx) and torch.equal(fw, dw.to(dtype))
+
+
+def test_torch_cuda_unet_cohort_pairs_against_single_runs(dev):
+    """The U-Net cohort on the card at 32³ (RECIPE_UNET reduced, flow stage
+    at two levels): ``make_cascade_batch_fn`` on 2 pairs launches K3 with a
+    weight set per pair and each pair stays within 2 steps a level and 0.5
+    points of its own ``make_cascade_fn`` run; ``register_cohort`` U-Net
+    mode each pair's flow and losses equal to ``flow_register`` on that pair
+    with the same draws to the bit."""
+    from torchregister_tpu_torch.engines.cascade import make_cascade_batch_fn, make_cascade_fn
+    from torchregister_tpu_torch.engines.flow import flow_register
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+    from torchregister_tpu_torch.parallel import register_cohort
+    from torchregister_tpu_torch.synthetic import (RECIPE_UNET, flow_truth_metrics,
+                                                   make_flow_truth_pair)
+
+    recipe = {**RECIPE_UNET, "stages": ("flow",), "flow_epochs": 40, "flow_lr": 0.01}
+    cases = [make_flow_truth_pair((32, 32, 32), seed=s, max_disp=3.0, rigid=(0.0,) * 6,
+                                  device=dev) for s in (1, 2)]
+    movings, targets = torch.cat([c[0] for c in cases]), torch.cat([c[1] for c in cases])
+    k3.reset_counts()
+    res = make_cascade_batch_fn(**recipe)(movings, targets)
+    assert k3.fwd_pairs_launches > 0 and k3.dgrad_pairs_launches > 0
+    assert k3.wgrad_pairs_launches > 0
+    single = make_cascade_fn(**recipe)
+    for b, case in enumerate(cases):
+        want = single(case[0], case[1])
+        for a, c in zip(res.steps["flow"][b], want.steps["flow"]):
+            assert abs(a - c) <= 2, (b, res.steps, want.steps)
+        mine = res._replace(warped=res.warped[b], flow=res.flow[b], theta=res.theta[b])
+        q, q_ref = flow_truth_metrics(mine, *case), flow_truth_metrics(want, *case)
+        assert abs(q[0] - q_ref[0]) <= 0.5, (b, q, q_ref)
+    kw = dict(lr=1e-3, criterions=["mse"], n=32, depth=1, optimizer="sgd")
+    cres = register_cohort(movings, targets, mode="flow", epochs=5, flow_model="unet",
+                           smooth=0.0, seed=4, **kw)
+    gen = torch.Generator().manual_seed(4)
+    for b in range(2):
+        _, solo = flow_register(movings[b:b + 1], targets[b:b + 1], max_epochs=5,
+                                generator=gen, **kw)
+        assert torch.equal(cres.flow[b], solo.flow) and torch.equal(cres.losses[b],
+                                                                    solo.losses)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 40, 37, 45), (2, 3, 12, 20, 17), (2, 1, 30, 41)])

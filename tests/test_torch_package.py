@@ -42,8 +42,25 @@ def test_torch_port_imports_without_jax():
 def test_torch_port_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|torchregister_tpu)\b",
                      re.M)
-    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                 ROOT / "examples" / "readme_driver_torch.py"]:
         assert not pat.search(path.read_text()), path
+
+
+def test_torch_readme_driver_imports_no_jax():
+    """The port's README driver, imported in a fresh interpreter, loads
+    neither JAX nor the JAX package."""
+    code = (
+        "import runpy, sys\n"
+        "runpy.run_path('examples/readme_driver_torch.py', run_name='not_main')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'torchregister_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'torchregister_tpu_torch' in sys.modules\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_torch_kernel_source_ships_with_the_package():

@@ -18,7 +18,8 @@ flow_model='unet'``) draw from a ``torch.Generator`` seeded by ``seed`` (so
 not the JAX package's numbers). ``criterion=None`` is the reference stack,
 MSE + NCC(100) + NMI(1000). ``debug=True`` checks the NMI criterion on the
 inputs before the loop, prints progress every tenth of the epochs and
-reports after it.
+reports after it, with a plot of the loss curve where matplotlib is
+installed.
 """
 from __future__ import annotations
 
@@ -182,7 +183,8 @@ class Register:
 
     def _report(self):
         """Debug report: first/last/best loss, 11 marks of the loss and
-        parameter trajectory, and whether a flow converged."""
+        parameter trajectory, whether a flow converged, and the loss curve
+        (``plt.show()``) where matplotlib is installed."""
         raw = np.asarray(self.losses.detach().cpu())
         steps = getattr(self.result, "steps", None)
         raw = raw[:int(steps) if steps is not None else raw.size]
@@ -210,3 +212,13 @@ class Register:
                 print(f"  flow converged at epoch {steps} (loss <= stop_crit)")
             else:
                 print(f"  flow did not converge within {steps} epochs")
+        try:  # the optional loss-curve plot of the reference's debug flag
+            from matplotlib import pyplot as plt
+        except ImportError:
+            return
+        plt.plot(losses, label="Error")
+        plt.title("Optimization Criterion")
+        plt.xlabel("Epoch")
+        plt.ylabel("Error")
+        plt.legend()
+        plt.show()

@@ -6,7 +6,8 @@ affine params ``[d(d+1)]``, theta ``[1, d, d+1]``, field ``[1, d, *S]``), so
 conversion is shape and dtype checking plus ``torch.from_numpy``. The U-Net's
 flax parameter tree maps onto ``models/attention_unet.AttentionUNet``'s state,
 key ``a/b/c`` to ``a.b.c``, arrays unchanged (:func:`unet_params`,
-:func:`unet_tree`).
+:func:`unet_tree`); the JAX cohort's stacked tree (``jax.vmap(model.init)``,
+every leaf ``[B, ...]``) maps onto a pair-mode net's state.
 """
 from __future__ import annotations
 
@@ -68,17 +69,20 @@ def unet_params(tree, model: AttentionUNet | None = None, device="cpu") -> dict:
     f32 on ``device``. Without ``model`` the architecture is read off the
     tree (``ndim`` from the flow head, ``depth`` from the encoders, ``in_c``
     and the width divisor ``n = 64 / base width`` from ``enc1``, attention
-    from the ``skip`` gates). Every key and shape is checked against that
-    model's state; a mismatch raises ``ValueError``."""
+    from the ``skip`` gates, and a stacked cohort tree from the flow head's
+    leading pair axis: ``out_kernel [B, C, d]``). Every key and shape is
+    checked against that model's state (a pair-mode model's: ``[B, ...]``);
+    a mismatch raises ``ValueError``."""
     flat = _flatten(tree)
     if model is None:
         try:
-            base = np.shape(flat["enc1.Conv_0.kernel"])
+            base, head = np.shape(flat["enc1.Conv_0.kernel"]), np.shape(flat["out_kernel"])
             model = AttentionUNet(
-                ndim=np.shape(flat["out_kernel"])[1], in_c=base[-2], n=64 / base[-1],
+                ndim=head[-1], in_c=base[-2], n=64 / base[-1],
                 depth=sum(1 for k in flat if k.startswith("enc") and k.endswith(
                     ".Conv_0.kernel")),
-                use_attention=any(k.startswith("skip") for k in flat))
+                use_attention=any(k.startswith("skip") for k in flat),
+                pairs=head[0] if len(head) == 3 else None)
         except (KeyError, IndexError) as e:
             raise ValueError(f"unet_params: not a U-Net parameter tree ({e})") from None
     expect = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -92,7 +96,9 @@ def unet_params(tree, model: AttentionUNet | None = None, device="cpu") -> dict:
 
 def unet_tree(state: dict) -> dict:
     """The reverse of :func:`unet_params`: a U-Net state (``FlowResult.params``)
-    as the JAX package's nested parameter tree of f32 numpy arrays."""
+    as the JAX package's nested parameter tree of f32 numpy arrays; a
+    cohort's stacked state (every tensor ``[B, ...]``) gives the stacked
+    tree of ``jax.vmap(model.init)``."""
     tree: dict = {}
     for key, v in state.items():
         *path, leaf = key.split(".")

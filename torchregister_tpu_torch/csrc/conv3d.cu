@@ -68,6 +68,14 @@
 // second pass sums the partials in ascending block order. No float atomics
 // anywhere: two launches on the same inputs give the same bits.
 //
+// A weight set per item (the U-Net cohort: each pair trains its own net,
+// JAX's vmap of the Pallas kernel over a batched weight operand). conv3x3x3
+// takes w [N, 27, Ci, Co] and a block of item n reads set n; the weight
+// gradient's grid.x holds N x splits blocks, each pair's split as for that
+// pair alone, and writes dw [N, 27, Ci, Co], each pair's splits summed in
+// ascending order. So each item's output, input gradient and dw equal a
+// launch on that item alone to the bit.
+//
 // Global offsets are 64-bit.
 
 #include <cuda_bf16.h>
@@ -193,7 +201,8 @@ struct ConvTile {
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM<NT>)
 conv_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int Ci,
-            int Co, int Zi, int Hi, int Wi, int pad, int tiles_x, int co_chunks) {
+            int Co, int Zi, int Hi, int Wi, int pad, int tiles_x, int co_chunks,
+            long long w_stride) {
   using L = ConvTile<NT>;
   constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int P = kBF16 ? 1 : 2;
@@ -213,6 +222,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ ou
 
   const long long plane = (long long)Hi * Wi;
   const T* xn = x + (long long)n * Ci * Zi * plane;
+  const T* wn = w + n * w_stride;  // item n's weights (one set for all: stride 0)
   const int J = 3 * Ci;  // the folded contraction j = 3 * ci + dz
   const int nchunks = (J + kWords * kFold - 1) / (kWords * kFold);
 
@@ -232,7 +242,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ ou
   };
   auto weight_of = [&](int j, int tap, int co) -> const T* {
     const int ci = j / 3, dz = j - 3 * ci;
-    return (j < J && co < Co) ? w + ((long long)(dz * 9 + tap) * Ci + ci) * Co + co : nullptr;
+    return (j < J && co < Co) ? wn + ((long long)(dz * 9 + tap) * Ci + ci) * Co + co : nullptr;
   };
 
   auto stage = [&](int c, int buf) {
@@ -368,7 +378,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ ou
 
 template <typename T, int NT>
 int conv_launch(const void* x, const void* w, void* out, int N, int Ci, int Co, int Z, int H,
-                int W, int pad, cudaStream_t stream) {
+                int W, int pad, long long w_stride, cudaStream_t stream) {
   using L = ConvTile<NT>;
   const int Zo = Z - 2 + 2 * pad, Ho = H - 2 + 2 * pad, Wo = W - 2 + 2 * pad;
   const int tiles_x = (Wo + L::kTX - 1) / L::kTX, tiles_y = (Ho + L::kTY - 1) / L::kTY;
@@ -382,18 +392,18 @@ int conv_launch(const void* x, const void* w, void* out, int N, int Ci, int Co, 
   if (rc != 0) return rc;
   dim3 grid(tiles_x * tiles_y, Zo, (unsigned)gz);
   conv_kernel<T, NT><<<grid, kThreads, bytes, stream>>>(
-      (const T*)x, (const T*)w, (T*)out, Ci, Co, Z, H, W, pad, tiles_x, co_chunks);
+      (const T*)x, (const T*)w, (T*)out, Ci, Co, Z, H, W, pad, tiles_x, co_chunks, w_stride);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int conv_dispatch(const void* x, const void* w, void* out, int N, int Ci, int Co, int Z, int H,
-                  int W, int pad, cudaStream_t s) {
+                  int W, int pad, long long ws, cudaStream_t s) {
   switch (Co <= 8 ? 1 : Co <= 16 ? 2 : Co <= 24 ? 3 : 4) {
-    case 1: return conv_launch<T, 1>(x, w, out, N, Ci, Co, Z, H, W, pad, s);
-    case 2: return conv_launch<T, 2>(x, w, out, N, Ci, Co, Z, H, W, pad, s);
-    case 3: return conv_launch<T, 3>(x, w, out, N, Ci, Co, Z, H, W, pad, s);
-    default: return conv_launch<T, 4>(x, w, out, N, Ci, Co, Z, H, W, pad, s);
+    case 1: return conv_launch<T, 1>(x, w, out, N, Ci, Co, Z, H, W, pad, ws, s);
+    case 2: return conv_launch<T, 2>(x, w, out, N, Ci, Co, Z, H, W, pad, ws, s);
+    case 3: return conv_launch<T, 3>(x, w, out, N, Ci, Co, Z, H, W, pad, ws, s);
+    default: return conv_launch<T, 4>(x, w, out, N, Ci, Co, Z, H, W, pad, ws, s);
   }
 }
 
@@ -424,7 +434,9 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ gr, float* __restric
   const int Zo = Z - 2, Ho = H - 2, Wo = W - 2;
   const int tiles_x = (Wo + kGX - 1) / kGX, tiles_y = (Ho + kGY - 1) / kGY;
   const long long units = (long long)N * tiles_y * tiles_x * Zo;  // z fastest
-  const int s = blockIdx.x;
+  // a weight set per pair: grid.x holds pairs x splits and each pair's
+  // blocks see its N = 1 items alone (one shared set: pair 0 only)
+  const int pair = blockIdx.x / splits, s = blockIdx.x - pair * splits;
   const long long u0 = units * s / splits, u1 = units * (s + 1) / splits;
   const int ci0 = blockIdx.y * kCiC, cic = min(kCiC, Ci - ci0);
   const int co0 = blockIdx.z * 8 * NT;
@@ -433,6 +445,9 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ gr, float* __restric
   const int rows = 27 * cic;  // M: row m is tap m / cic, channel m % cic
 
   const long long vol = (long long)Z * H * W, ovol = (long long)Zo * Ho * Wo;
+  x += (long long)pair * N * Ci * vol;
+  gr += (long long)pair * N * Co * ovol;
+  ws += (long long)pair * splits * 27 * Ci * Co;
 
   // this warp's M tiles (warp, warp + 8): each lane's rows g and g + 8 in them
   // as a halo offset without the plane and the plane's dz
@@ -582,42 +597,46 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ gr, float* __restric
       }
 }
 
-// dw[e] = sum over s of ws[s][e], in ascending s
+// dw[p][e] = sum over s of ws[p][s][e], in ascending s (p < pairs)
 __global__ void wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ dw,
-                                 int splits, long long E) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= E) return;
+                                 int splits, long long E, int pairs) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= pairs * E) return;
+  const long long p = i / E, e = i - p * E;
+  const float* wp = ws + p * splits * E;
   float acc = 0.0f;
-  for (int s = 0; s < splits; ++s) acc += ws[s * E + e];
-  dw[e] = acc;
+  for (int s = 0; s < splits; ++s) acc += wp[s * E + e];
+  dw[i] = acc;
 }
 
+// pairs > 1: N items a pair, each pair's dw its own
 template <typename T, int NT>
 int wgrad_launch(const void* x, const void* g, void* ws, void* dw, int N, int Ci, int Co,
-                 int Z, int H, int W, int splits, cudaStream_t stream) {
+                 int Z, int H, int W, int splits, int pairs, cudaStream_t stream) {
   const int ci_chunks = (Ci + kCiC - 1) / kCiC, co_chunks = (Co + 8 * NT - 1) / (8 * NT);
-  if (ci_chunks > 65535 || co_chunks > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (ci_chunks > 65535 || co_chunks > 65535 || (long long)pairs * splits > 2147483647LL)
+    return (int)cudaErrorInvalidConfiguration;
   const int bytes = wgrad_smem_words<NT>() * 4;
   int rc = allow_smem<wgrad_kernel<T, NT>>(bytes);
   if (rc != 0) return rc;
-  wgrad_kernel<T, NT><<<dim3(splits, ci_chunks, co_chunks), kThreads, bytes, stream>>>(
+  wgrad_kernel<T, NT><<<dim3(pairs * splits, ci_chunks, co_chunks), kThreads, bytes, stream>>>(
       (const T*)x, (const T*)g, (float*)ws, N, Ci, Co, Z, H, W, splits);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const long long E = 27LL * Ci * Co;
-  wgrad_sum_kernel<<<(unsigned)((E + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      (const float*)ws, (float*)dw, splits, E);
+  wgrad_sum_kernel<<<(unsigned)((pairs * E + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      (const float*)ws, (float*)dw, splits, E, pairs);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int wgrad_dispatch(const void* x, const void* g, void* ws, void* dw, int N, int Ci, int Co,
-                   int Z, int H, int W, int splits, cudaStream_t s) {
+                   int Z, int H, int W, int splits, int pairs, cudaStream_t s) {
   switch (Co <= 8 ? 1 : Co <= 16 ? 2 : Co <= 24 ? 3 : 4) {
-    case 1: return wgrad_launch<T, 1>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, s);
-    case 2: return wgrad_launch<T, 2>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, s);
-    case 3: return wgrad_launch<T, 3>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, s);
-    default: return wgrad_launch<T, 4>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, s);
+    case 1: return wgrad_launch<T, 1>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, pairs, s);
+    case 2: return wgrad_launch<T, 2>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, pairs, s);
+    case 3: return wgrad_launch<T, 3>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, pairs, s);
+    default: return wgrad_launch<T, 4>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, pairs, s);
   }
 }
 
@@ -627,30 +646,40 @@ int wgrad_dispatch(const void* x, const void* g, void* ws, void* dw, int N, int 
 // f32, 1 bf16. Each returns cudaGetLastError() after its launches, or an
 // error code for a shape the grid cannot hold.
 //
-// x [N, Ci, Z, H, W] and w [27, Ci, Co] of dtype; out [N, Co, Z-2+2*pad,
-// H-2+2*pad, W-2+2*pad] of dtype; pad 0 or 2.
+// x [N, Ci, Z, H, W] and w [27, Ci, Co] (per_pair 0) or [N, 27, Ci, Co]
+// (per_pair 1: item n convolved with its own set) of dtype; out [N, Co,
+// Z-2+2*pad, H-2+2*pad, W-2+2*pad] of dtype; pad 0 or 2.
 extern "C" int conv3x3x3(const void* x, const void* w, void* out, int N, int Ci, int Co,
-                         int Z, int H, int W, int pad, int dtype, void* stream) {
+                         int Z, int H, int W, int pad, int per_pair, int dtype, void* stream) {
   const int least = pad == 0 ? 3 : 1;
   if (N <= 0 || Ci <= 0 || Co <= 0 || (pad != 0 && pad != 2) || Z < least || H < least ||
-      W < least)
+      W < least || (per_pair != 0 && per_pair != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return conv_dispatch<float>(x, w, out, N, Ci, Co, Z, H, W, pad, s);
-  if (dtype == 1) return conv_dispatch<__nv_bfloat16>(x, w, out, N, Ci, Co, Z, H, W, pad, s);
+  const long long ws = per_pair ? 27LL * Ci * Co : 0;
+  if (dtype == 0) return conv_dispatch<float>(x, w, out, N, Ci, Co, Z, H, W, pad, ws, s);
+  if (dtype == 1)
+    return conv_dispatch<__nv_bfloat16>(x, w, out, N, Ci, Co, Z, H, W, pad, ws, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// x [N, Ci, Z, H, W] and g [N, Co, Z-2, H-2, W-2] of dtype; ws f32 [splits,
-// 27, Ci, Co] (scratch, no initial value needed); dw f32 [27, Ci, Co].
+// x [N, Ci, Z, H, W] and g [N, Co, Z-2, H-2, W-2] of dtype. per_pair 0: ws
+// f32 [splits, 27, Ci, Co] (scratch, no initial value needed), dw f32 [27,
+// Ci, Co] summed over the N items; per_pair 1: ws [N, splits, 27, Ci, Co]
+// and dw [N, 27, Ci, Co], item n's own, each equal to a launch on item n
+// alone with the same splits.
 extern "C" int conv3x3x3_wgrad(const void* x, const void* g, void* ws, void* dw, int N,
-                               int Ci, int Co, int Z, int H, int W, int splits, int dtype,
-                               void* stream) {
-  if (N <= 0 || Ci <= 0 || Co <= 0 || Z < 3 || H < 3 || W < 3 || splits <= 0)
+                               int Ci, int Co, int Z, int H, int W, int splits, int per_pair,
+                               int dtype, void* stream) {
+  if (N <= 0 || Ci <= 0 || Co <= 0 || Z < 3 || H < 3 || W < 3 || splits <= 0 ||
+      (per_pair != 0 && per_pair != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return wgrad_dispatch<float>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, s);
+  const int items = per_pair ? 1 : N, pairs = per_pair ? N : 1;
+  if (dtype == 0)
+    return wgrad_dispatch<float>(x, g, ws, dw, items, Ci, Co, Z, H, W, splits, pairs, s);
   if (dtype == 1)
-    return wgrad_dispatch<__nv_bfloat16>(x, g, ws, dw, N, Ci, Co, Z, H, W, splits, s);
+    return wgrad_dispatch<__nv_bfloat16>(x, g, ws, dw, items, Ci, Co, Z, H, W, splits, pairs,
+                                         s);
   return (int)cudaErrorInvalidValue;
 }

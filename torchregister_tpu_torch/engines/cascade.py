@@ -140,7 +140,8 @@ def register_cascade(
     widths, ``flow_depth`` (default: ``max_depth_for`` the coarsest flow
     level, one depth for all levels) sets its depth, ``flow_remat``,
     ``flow_attention`` and ``flow_norm`` pass to ``flow_register``, and every
-    level's fresh weights come from ``torch.Generator().manual_seed(seed)``.
+    level's fresh weights come from ``torch.Generator().manual_seed(seed)``
+    (over a batch, every pair's: each pair trains its own net from them).
     ``flow_smooth=None`` resolves to 0.5 in field mode and 0.0 in U-Net mode.
 
     ``flow_rebase=True`` (field mode) optimizes each finer flow level as a zero-init
@@ -184,10 +185,6 @@ def _cascade(pairs, moving, target, stages, levels, rigid_epochs, rigid_lr, affi
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be 'unet' or 'field' (got {flow_model!r})")
     unet = flow_model == "unet"
-    if pairs > 1 and unet and "flow" in stages:
-        raise NotImplementedError(
-            "a batched cascade with flow_model='unet' is not ported yet: each pair needs "
-            "its own weights, so kernel K3 a weight set per pair (ROADMAP queue 1 item 17)")
     if final_warp not in ("separable", "exact"):
         raise ValueError(f"final_warp must be 'separable' or 'exact' (got {final_warp!r})")
     exact = final_warp == "exact"
@@ -344,11 +341,14 @@ def _cascade(pairs, moving, target, stages, levels, rigid_epochs, rigid_lr, affi
                     with torch.no_grad():
                         base_in = warp_flow_separable(f_in, total_flow, max_disp=rebase_win)
                     params, level_disp = None, flow_residual_disp
+            # every pair's fresh net from the config's seed, as JAX's vmap of
+            # the cascade gives each pair the same key
+            gens = [torch.Generator().manual_seed(seed) for _ in range(pairs)]
             with _level(f"flow/level{li}"):
                 _, fres = flow_pairs(
                     base_in, f_tgt, pairs, lr=flow_lr, max_epochs=eps,
                     criterions=flow_criterions, weights=weights, n=n,
-                    depth=flow_depth, generator=torch.Generator().manual_seed(seed),
+                    depth=flow_depth, generator=gens[0] if pairs == 1 else gens,
                     optimizer=optimizer, dtype=flow_dtype, init_params=params,
                     remat=flow_remat, max_disp=level_disp, use_attention=flow_attention,
                     use_norm=flow_norm, flow_model=flow_model, smooth=smooths[li],

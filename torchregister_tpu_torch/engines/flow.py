@@ -25,11 +25,13 @@ on one tensor in either mode.
 for the returned image, as in the JAX package. The returned flow is the
 post-update model's (or field's).
 
-:func:`flow_pairs` (field mode) registers the B independent pairs of ``[B,
-1, *S]`` in one loop, a cohort: the field ``[B, d, *S]``, each pair's loss,
-diffusion energy, ``stop_crit`` test, plateau and ``max_disp`` its own, so
-each pair stops at the step it would stop at alone (``engines/common``).
-:func:`flow_register` is the same loop on one pair.
+:func:`flow_pairs` registers the B independent pairs of ``[B, 1, *S]`` in
+one loop, a cohort: the field ``[B, d, *S]`` (field mode) or B U-Nets, one
+weight set a pair (U-Net mode: the model's pair mode, its 3D convolutions
+one K3 launch for all pairs; the flat weights ``[B, size]``, one row a
+pair), each pair's loss, diffusion energy, ``stop_crit`` test, plateau and
+``max_disp`` its own, so each pair stops at the step it would stop at alone
+(``engines/common``). :func:`flow_register` is the same loop on one pair.
 """
 from __future__ import annotations
 
@@ -73,10 +75,12 @@ def _diffusion_energy(flow: torch.Tensor, pairs: int = 1) -> torch.Tensor:
 
 
 def _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params, zero_head,
-          generator) -> AttentionUNet:
-    """The U-Net for ``moving``: ``init_params`` loaded, or fresh flax-style
-    weights from ``generator`` (seed 0 without one), the flow head zeroed
-    under ``zero_head``."""
+          generator, pairs=None) -> AttentionUNet:
+    """The U-Net for ``moving`` (``pairs`` weight sets in pair mode):
+    ``init_params`` loaded, or fresh flax-style weights from ``generator``
+    (seed 0 without one; in pair mode drawn pair after pair, or one
+    generator a pair from a sequence), the flow head zeroed under
+    ``zero_head``."""
     spatial = tuple(moving.shape[2:])
     if depth is None:
         depth = max_depth_for(spatial)
@@ -84,7 +88,7 @@ def _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params, zero
             raise ValueError(f"volume {spatial} too small for the U-Net")
     model = AttentionUNet(ndim=len(spatial), in_c=in_c, n=n, depth=depth,
                           use_attention=use_attention, use_norm=use_norm,
-                          dtype=dt).to(moving.device)
+                          dtype=dt, pairs=pairs).to(moving.device)
     if init_params is not None:
         model.load_state_dict(init_params)
         return model
@@ -99,45 +103,57 @@ def _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params, zero
     return model
 
 
+def _lead(model) -> tuple:
+    """The pair axis of ``model``'s weights: ``(B,)`` in pair mode, else
+    ``()``."""
+    return () if model.pairs is None else (model.pairs,)
+
+
 def _layout(model) -> list:
-    """``(name, shape, offset)`` of each of ``model``'s weights in one flat
-    tensor, each offset a multiple of ``_ALIGN``; the flat size last."""
-    out, off = [], 0
+    """``(name, shape, offset)`` of each of ``model``'s weights (one pair's
+    shape in pair mode) in one flat tensor (one row a pair), each offset a
+    multiple of ``_ALIGN``; the flat size (of a row) last."""
+    out, off, lead = [], 0, len(_lead(model))
     for name, p in model.named_parameters():
-        out.append((name, tuple(p.shape), off))
-        off += -(-p.numel() // _ALIGN) * _ALIGN
+        shape = tuple(p.shape[lead:])
+        out.append((name, shape, off))
+        off += -(-math.prod(shape) // _ALIGN) * _ALIGN
     return out + [off]
 
 
 def _flatten(model, layout) -> torch.Tensor:
     *weights, size = layout
-    flat = torch.zeros(size, dtype=torch.float32, device=next(model.parameters()).device)
+    lead = _lead(model)
+    flat = torch.zeros(lead + (size,), dtype=torch.float32,
+                       device=next(model.parameters()).device)
     for (_, shape, off), p in zip(weights, model.parameters()):
-        flat[off:off + p.numel()] = p.detach().reshape(-1)
+        flat[..., off:off + math.prod(shape)] = p.detach().reshape(lead + (-1,))
     return flat
 
 
 def _bind(model, flat, layout) -> None:
     """Point each of ``model``'s weights at its view of ``flat``: the
     optimizer's in-place updates of ``flat`` are the weights' updates."""
+    lead = _lead(model)
     for (_, shape, off), p in zip(layout[:-1], model.parameters()):
-        p.data = flat.detach().narrow(0, off, math.prod(shape)).view(shape)
+        p.data = flat.detach().narrow(-1, off, math.prod(shape)).view(lead + shape)
 
 
-def _flat_grad(grads, layout) -> torch.Tensor:
-    """The weights' gradients in ``flat``'s layout (zeros between them)."""
+def _flat_grad(grads, layout, lead: tuple = ()) -> torch.Tensor:
+    """The weights' gradients in ``flat``'s layout (zeros between them; an
+    unused weight's zeros keep the pair axis ``lead``)."""
     *weights, size = layout
     parts, end = [], 0
-    zeros = grads[0].new_zeros(_ALIGN)
+    zeros = grads[0].new_zeros(lead + (_ALIGN,))
     for g, (_, shape, off) in zip(grads, weights):
         if off > end:
-            parts.append(zeros[:off - end])
+            parts.append(zeros[..., :off - end])
         n = math.prod(shape)
-        parts.append(zeros.new_zeros(n) if g is None else g.reshape(-1))
+        parts.append(zeros.new_zeros(lead + (n,)) if g is None else g.reshape(lead + (-1,)))
         end = off + n
     if size > end:
-        parts.append(zeros[:size - end])
-    return torch.cat(parts)
+        parts.append(zeros[..., :size - end])
+    return torch.cat(parts, dim=-1)
 
 
 def flow_register(
@@ -177,8 +193,8 @@ def flow_register(
     compute dtype (its parameters and the flow head stay f32), ``remat``
     recomputes the forward in the backward (``torch.utils.checkpoint``), and
     ``init_params`` (a ``FlowResult.params`` state dict) warm-starts the
-    weights; otherwise they are drawn from ``generator``. ``zero_head``
-    zeroes the fresh flow head.
+    weights; otherwise they are drawn from ``generator`` (a CPU
+    ``torch.Generator``). ``zero_head`` zeroes the fresh flow head.
 
     Field mode: ``dtype`` sets the image side of each step (sweeps and loss
     inputs); the field, the optimizer state and the returned final warp stay
@@ -199,11 +215,15 @@ def flow_pairs(moving: torch.Tensor, target: torch.Tensor, pairs: int | None = N
                **options) -> tuple[torch.Tensor, FlowResult]:
     """:func:`flow_register` (its options and defaults) over the B
     independent pairs of ``[B, 1, *S]``, each registered on its own in one
-    loop (field mode; ``init_params [B, d, *S]``): the field ``[B, d, *S]``,
-    ``losses`` ``[B, max_epochs]``, ``steps`` and ``converged`` lists,
-    ``max_disp`` ``[B]``, a warning that names the pairs. A U-Net with more
-    than one pair raises ``NotImplementedError``. ``pairs=1`` registers the
-    whole batch as one pair (:func:`flow_register`, the pair axis kept)."""
+    loop: the flow ``[B, d, *S]``, ``losses`` ``[B, max_epochs]``, ``steps``
+    and ``converged`` lists, ``max_disp`` ``[B]``, a warning that names the
+    pairs. Field mode: ``init_params [B, d, *S]``, ``params`` the field. U-Net
+    mode: one net a pair, ``init_params`` and ``params`` a state dict whose
+    tensors carry a leading pair axis (the JAX cohort's stacked ``params``);
+    fresh weights are drawn from ``generator`` one pair after another, pair 0
+    first (a sequence of B generators gives each pair its own). ``pairs=1``
+    registers the whole batch as one pair (:func:`flow_register`, the pair
+    axis kept)."""
     return _flow(pairs=moving.shape[0] if pairs is None else pairs, moving=moving,
                  target=target, **{**common.defaults_of(flow_register), **options})
 
@@ -217,11 +237,6 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
     steps and ``max_disp`` with a leading pair axis."""
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
-    if pairs > 1 and flow_model == "unet":
-        raise NotImplementedError(
-            "a cohort of U-Net flows is not ported yet: each pair needs its own weights, "
-            "so kernel K3 a weight set per pair (ROADMAP queue 1 item 17); use "
-            "flow_model='field'")
     if progress_every and pairs > 1:
         raise ValueError("progress_every prints one pair's progress")
     if grad_edges:
@@ -241,7 +256,7 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
     unet = flow_model == "unet"
     if unet:
         model = _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params,
-                      zero_head, generator)
+                      zero_head, generator, pairs if pairs > 1 else None)
         layout = _layout(model)
         param0 = _flatten(model, layout)
         mov_s, tgt_s = moving, target  # the model's own dtype reduces compute
@@ -289,7 +304,7 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
         sim = loss(tgt_s, warp(mov_s, flow))
         total = sim + smooth * _diffusion_energy(flow, pairs) if smooth > 0.0 else sim
         grads = torch.autograd.grad(total.sum(), wrt, allow_unused=unet)
-        grad = _flat_grad(grads, layout) if unet else grads[0]
+        grad = _flat_grad(grads, layout, _lead(model)) if unet else grads[0]
         with torch.no_grad():
             active = ~st["stopped"]
             val = total.detach().to(torch.float32)

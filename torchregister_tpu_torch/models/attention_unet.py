@@ -25,6 +25,19 @@ from :meth:`AttentionUNet.reset_parameters` with a ``torch.Generator``: flax's
 ``lecun_normal`` (a normal truncated at ±2σ, σ = sqrt(1/fan_in)/0.87962566)
 and zero biases, drawn on the CPU so a seed gives the same weights on any
 device (not the JAX package's numbers).
+
+Pair mode (``pairs=B``, the U-Net cohort: the JAX package's ``vmap`` of
+``model.apply`` over stacked parameters): every weight carries a leading
+pair axis and item b of ``x [B, in_c, *S]`` runs through weight set b. The
+3D 3x3x3 convolutions take the sets in one launch of K3 (a weight set per
+item). Every op that reduces within an item, forward or backward (the
+instance norms, the bias adds, whose gradient sums over the volume, the
+attention gates, the other convolutions, the transposed convolutions, the
+flow head) runs one torch call a pair on that pair's slice, so each pair
+sums in a single net's order and equals it to the bit on the card as on
+the CPU (torch's CUDA reductions pick their thread layout from the number
+of outputs); the elementwise ops, pooling, padding and concatenation run on
+the batch. ``pairs=None`` (the default) is the single net, no pair axis.
 """
 from __future__ import annotations
 
@@ -73,20 +86,37 @@ def _bcast(b: torch.Tensor, ndim: int) -> torch.Tensor:
     return b.reshape((1, -1) + (1,) * ndim)
 
 
-def _param(*shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=torch.float32))
+def _param(pairs: int | None, *shape: int) -> nn.Parameter:
+    lead = () if pairs is None else (pairs,)
+    return nn.Parameter(torch.zeros(lead + shape, dtype=torch.float32))
+
+
+def _per_pair(pairs: int | None, fn, x: torch.Tensor, *ws: torch.Tensor):
+    """``fn(x, *ws)``; in pair mode ``fn`` on each item of ``x`` with its own
+    slice of each of ``ws`` (leading pair axis), the items' results (a
+    tensor or a tuple of them) concatenated. A reduction over an item (a
+    norm's moments, a bias's gradient) then has a single net's shape, so
+    each pair sums in a single net's order on the card too."""
+    if pairs is None:
+        return fn(x, *ws)
+    outs = [fn(x[b:b + 1], *(w[b] for w in ws)) for b in range(x.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
 
 
 class TapConv(nn.Module):
     """Valid k^d convolution with bias (flax ``nn.Conv`` layout). A 3D 3x3x3
-    convolution runs K3 (``conv3x3x3``); any other is ``F.conv{d}d``."""
+    convolution runs K3 (``conv3x3x3``; in pair mode one launch, a weight
+    set per item); any other is ``F.conv{d}d``."""
 
     def __init__(self, cin: int, features: int, ndim: int, ksize: int = 3,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 pairs: int | None = None):
         super().__init__()
-        self.ndim, self.ksize, self.dtype = ndim, ksize, dtype
-        self.kernel = _param(*((ksize,) * ndim + (cin, features)))
-        self.bias = _param(features) if use_bias else None
+        self.ndim, self.ksize, self.dtype, self.pairs = ndim, ksize, dtype, pairs
+        self.kernel = _param(pairs, *((ksize,) * ndim + (cin, features)))
+        self.bias = _param(pairs, features) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -96,9 +126,10 @@ class TapConv(nn.Module):
         else:
             conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[self.ndim]
             perm = (self.ndim + 1, self.ndim) + tuple(range(self.ndim))
-            out = conv(x, kernel.permute(perm))
+            out = _per_pair(self.pairs, lambda xb, kb: conv(xb, kb.permute(perm)), x, kernel)
         if self.bias is not None:
-            out = out + _bcast(self.bias.to(self.dtype), self.ndim)
+            out = _per_pair(self.pairs, lambda o, b: o + _bcast(b, self.ndim), out,
+                            self.bias.to(self.dtype))
         return out
 
 
@@ -107,35 +138,38 @@ class TapConvTranspose2x(nn.Module):
     ``nn.ConvTranspose`` layout ``[*k, Ci, Co]``)."""
 
     def __init__(self, cin: int, features: int, ndim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pairs: int | None = None):
         super().__init__()
-        self.ndim, self.dtype = ndim, dtype
-        self.kernel = _param(*((2,) * ndim + (cin, features)))
-        self.bias = _param(features)
+        self.ndim, self.dtype, self.pairs = ndim, dtype, pairs
+        self.kernel = _param(pairs, *((2,) * ndim + (cin, features)))
+        self.bias = _param(pairs, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv_t = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
                   3: F.conv_transpose3d}[self.ndim]
         perm = (self.ndim, self.ndim + 1) + tuple(range(self.ndim))
-        y = conv_t(x.to(self.dtype), self.kernel.to(self.dtype).permute(perm), stride=2)
-        return y + _bcast(self.bias.to(self.dtype), self.ndim)
+
+        def one(xb, kb, bb):
+            return conv_t(xb, kb.permute(perm), stride=2) + _bcast(bb, self.ndim)
+        return _per_pair(self.pairs, one, x.to(self.dtype), self.kernel.to(self.dtype),
+                         self.bias.to(self.dtype))
 
 
 class DoubleConv(nn.Module):
     """(Conv k3 valid -> ReLU -> InstanceNorm) x2 (utils.py:414-415)."""
 
     def __init__(self, cin: int, features: int, ndim: int, use_norm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pairs: int | None = None):
         super().__init__()
-        self.use_norm = use_norm
-        self.Conv_0 = TapConv(cin, features, ndim, dtype=dtype)
-        self.Conv_1 = TapConv(features, features, ndim, dtype=dtype)
+        self.use_norm, self.pairs = use_norm, pairs
+        self.Conv_0 = TapConv(cin, features, ndim, dtype=dtype, pairs=pairs)
+        self.Conv_1 = TapConv(features, features, ndim, dtype=dtype, pairs=pairs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv in (self.Conv_0, self.Conv_1):
             x = F.relu(conv(x))
             if self.use_norm:
-                x = instance_norm(x)
+                x = _per_pair(self.pairs, instance_norm, x)
         return x
 
 
@@ -143,14 +177,14 @@ class UpBlock(nn.Module):
     """ConvTranspose(k2, s2) -> ReLU -> InstanceNorm (utils.py:441)."""
 
     def __init__(self, cin: int, features: int, ndim: int, use_norm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pairs: int | None = None):
         super().__init__()
-        self.use_norm = use_norm
-        self.TapConvTranspose2x_0 = TapConvTranspose2x(cin, features, ndim, dtype)
+        self.use_norm, self.pairs = use_norm, pairs
+        self.TapConvTranspose2x_0 = TapConvTranspose2x(cin, features, ndim, dtype, pairs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.TapConvTranspose2x_0(x))
-        return instance_norm(x) if self.use_norm else x
+        return _per_pair(self.pairs, instance_norm, x) if self.use_norm else x
 
 
 class AttentionGate(nn.Module):
@@ -161,29 +195,36 @@ class AttentionGate(nn.Module):
     map ``w [N, *S]``."""
 
     def __init__(self, cx: int, cg: int, inter: int, ndim: int, stride: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pairs: int | None = None):
         super().__init__()
-        self.ndim, self.stride, self.dtype = ndim, stride, dtype
-        self.input_kernel = _param(cx, inter)
-        self.gate_kernel = _param(cg, inter)
-        self.gate_bias = _param(inter)
-        self.psi_kernel = _param(inter, 1)
-        self.psi_bias = _param(1)
+        self.ndim, self.stride, self.dtype, self.pairs = ndim, stride, dtype, pairs
+        self.input_kernel = _param(pairs, cx, inter)
+        self.gate_kernel = _param(pairs, cg, inter)
+        self.gate_bias = _param(pairs, inter)
+        self.psi_kernel = _param(pairs, inter, 1)
+        self.psi_bias = _param(pairs, 1)
 
     def forward(self, x: torch.Tensor, g: torch.Tensor):
+        ws = tuple(w.to(self.dtype) for w in (self.input_kernel, self.gate_kernel,
+                                               self.gate_bias, self.psi_kernel, self.psi_bias))
+        if self.pairs is None:
+            return self._gate(x, g, *ws)
+        # the gate signal g is one item a pair, as x is
+        return _per_pair(self.pairs, lambda xb, gb, *wb: self._gate(xb, gb[None], *wb), x, g,
+                         *ws)
+
+    def _gate(self, x, g, input_kernel, gate_kernel, gate_bias, psi_kernel, psi_bias):
         dt, nd = self.dtype, self.ndim
         sub = (slice(None), slice(None)) + (slice(None, None, self.stride),) * nd
-        a = _contract_1x1(x[sub].to(dt), self.input_kernel.to(dt))
-        b = _contract_1x1(g.to(dt), self.gate_kernel.to(dt)) + _bcast(
-            self.gate_bias.to(dt), nd)
+        a = _contract_1x1(x[sub].to(dt), input_kernel)
+        b = _contract_1x1(g.to(dt), gate_kernel) + _bcast(gate_bias, nd)
         # the reference compares only the last spatial dim (utils.py:395-399)
         # and pads the smaller tensor to the other's whole shape
         if a.shape[-1] < b.shape[-1]:
             a = pad_spatial(a, b.shape[2:], first_axis=2)
         elif a.shape[-1] > b.shape[-1]:
             b = pad_spatial(b, a.shape[2:], first_axis=2)
-        w = torch.sigmoid(_contract_1x1(F.relu(a + b), self.psi_kernel.to(dt))[:, 0]
-                          + self.psi_bias.to(dt)[0])
+        w = torch.sigmoid(_contract_1x1(F.relu(a + b), psi_kernel)[:, 0] + psi_bias[0])
         for axis, s_out in enumerate(x.shape[2:]):
             w = axis_nearest_resize(w, 1 + axis, s_out)
         return instance_norm(x * w[:, None]), w
@@ -238,14 +279,17 @@ class AttentionUNet(nn.Module):
 
     def __init__(self, ndim: int, in_c: int = 1, n: float = 1, depth: int = 4,
                  use_attention: bool = True, use_norm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pairs: int | None = None):
         super().__init__()
         if depth < 1:
             raise ValueError(f"AttentionUNet needs depth >= 1 (got {depth})")
+        if pairs is not None and pairs < 1:
+            raise ValueError(f"AttentionUNet needs pairs >= 1 or None (got {pairs})")
         self.ndim, self.in_c, self.n, self.depth = ndim, in_c, n, depth
         self.use_attention, self.use_norm, self.dtype = use_attention, use_norm, dtype
+        self.pairs = pairs
         chans = level_channels(depth, n)
-        args = dict(ndim=ndim, use_norm=use_norm, dtype=dtype)
+        args = dict(ndim=ndim, use_norm=use_norm, dtype=dtype, pairs=pairs)
         for i in range(depth):
             self.add_module(f"enc{i + 1}",
                             DoubleConv(in_c if i == 0 else chans[i - 1], chans[i], **args))
@@ -254,18 +298,34 @@ class AttentionUNet(nn.Module):
         for j in range(depth - 1, -1, -1):
             if use_attention:
                 self.add_module(f"skip{j + 1}", AttentionGate(chans[j], chans[j], chans[j],
-                                                             ndim, dtype=dtype))
+                                                             ndim, dtype=dtype, pairs=pairs))
             self.add_module(f"dec{j + 1}", DoubleConv(2 * chans[j], chans[j], **args))
             if j > 0:
                 self.add_module(f"up{depth - j}", UpBlock(chans[j], chans[j - 1], **args))
-        self.out_kernel = _param(chans[0], ndim)
-        self.out_bias = _param(ndim)
+        self.out_kernel = _param(pairs, chans[0], ndim)
+        self.out_bias = _param(pairs, ndim)
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+    def reset_parameters(self, generator=None) -> None:
         """flax ``lecun_normal`` kernels (fan_in = all but the output axis)
-        and zero biases, drawn on the CPU from ``generator``."""
+        and zero biases, drawn on the CPU from ``generator``. In pair mode
+        the sets are drawn one pair after another, pair 0 first, each as a
+        single net draws its weights; ``generator`` may also be a sequence of
+        one generator a pair."""
+        if self.pairs is None:
+            self._draw(lambda p: p, generator)
+            return
+        gens = (list(generator) if isinstance(generator, (list, tuple))
+                else [generator] * self.pairs)
+        if len(gens) != self.pairs:
+            raise ValueError(f"reset_parameters: {len(gens)} generators for {self.pairs} "
+                             "pairs")
+        for b, gen in enumerate(gens):
+            self._draw(lambda p: p[b], gen)
+
+    def _draw(self, part, generator) -> None:
         for name, p in self.named_parameters():
+            p = part(p)
             if name.split(".")[-1].endswith("bias"):
                 p.zero_()
                 continue
@@ -277,7 +337,10 @@ class AttentionUNet(nn.Module):
     def forward(self, x: torch.Tensor, out_att: bool = False):
         """``out_att=True`` also returns the decoder gates' weight maps,
         coarsest first (the reference's unused ``out_att`` flag,
-        utils.py:522)."""
+        utils.py:522). In pair mode ``x`` holds one item a pair."""
+        if self.pairs is not None and x.shape[0] != self.pairs:
+            raise ValueError(f"a U-Net of {self.pairs} weight sets runs {self.pairs} items, "
+                             f"got {x.shape[0]}")
         in_spatial = x.shape[2:]
         y = x.to(self.dtype)
         skips, atts = [], []
@@ -298,6 +361,6 @@ class AttentionUNet(nn.Module):
                 y = getattr(self, f"up{self.depth - j}")(y)
         y = pad_spatial(y, in_spatial, first_axis=2)
         # the flow head in f32: sub-voxel displacements
-        flow = _contract_1x1(y.to(torch.float32), self.out_kernel) + _bcast(
-            self.out_bias, self.ndim)
+        flow = _per_pair(self.pairs, lambda yb, k, b: _contract_1x1(yb, k) + _bcast(
+            b, self.ndim), y.to(torch.float32), self.out_kernel, self.out_bias)
         return (flow, tuple(atts)) if out_att else flow

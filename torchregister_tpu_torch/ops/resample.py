@@ -3,7 +3,7 @@
 Counterpart of ``torchregister_tpu/ops/resample.py`` (plain XLA there, not a
 Pallas kernel): differentiable plain PyTorch on ``F.grid_sample``, with the
 same values as the JAX package's ``multilinear_sample`` (out-of-range corners
-contribute 0). It serves the engines' in-loop ``method='exact'``, the
+contribute 0), which :func:`multilinear_sample` is here too. It serves the engines' in-loop ``method='exact'``, the
 synthetic pair generators and the degenerate-theta path of
 ``warp_affine_separable``. The forward-only exact warps of the user surface
 run on kernel K2 (``ops/blocked.py``).
@@ -34,13 +34,19 @@ def warp_affine(theta: torch.Tensor, moving: torch.Tensor,
     return grid_sample(moving, grid, align_corners)
 
 
+def multilinear_sample(src: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Multilinear sample of ``src [N, C, *S]`` at the index coordinates
+    ``coords [N, *Sout, d]`` (outermost axis first), zeros padding: ``[N, C,
+    *Sout]`` (counterpart of ``torchregister_tpu/ops/resample.py:
+    multilinear_sample``)."""
+    sizes = torch.tensor(list(src.shape[2:]), dtype=torch.float32, device=coords.device)
+    norm = (2.0 * coords.to(torch.float32) + 1.0) / sizes - 1.0
+    return grid_sample(src, torch.flip(norm, dims=(-1,)), align_corners=False)  # x first
+
+
 def warp_flow(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Sample ``src`` at ``identity + flow`` (``flow [N, d, *S]`` in voxels,
     channel ``i`` along spatial dim ``i``), zeros padding."""
-    spatial = src.shape[2:]
-    d = len(spatial)
-    coords = identity_index_grid(spatial, device=flow.device)[None] + flow.to(torch.float32)
-    sizes = torch.tensor(list(spatial), dtype=torch.float32, device=flow.device)
-    norm = (2.0 * coords + 1.0) / sizes.view((1, d) + (1,) * d) - 1.0
-    grid = torch.flip(torch.movedim(norm, 1, -1), dims=(-1,))  # x first
-    return grid_sample(src, grid, align_corners=False)
+    coords = identity_index_grid(src.shape[2:], device=flow.device)[None] + flow.to(
+        torch.float32)
+    return multilinear_sample(src, torch.movedim(coords, 1, -1))

@@ -73,14 +73,17 @@ def register_cohort(
     defaults to ``'field'``, and ``optimizer`` / ``lr`` / ``smooth`` left
     as ``None`` resolve to ``adam`` / ``0.3`` / ``0.5`` for field-mode flow
     and to ``sgd`` / ``1e-5`` / ``0.0`` for every other mode. ``seed`` (an
-    int or a ``torch.Generator``) draws ``init='random'`` rigid params.
+    int or a ``torch.Generator``) draws ``init='random'`` rigid params, and
+    with ``flow_model='unet'`` each pair's initial U-Net weights, one pair
+    after another, pair 0 first (a CPU generator; the counterpart of JAX's
+    ``split(key, B)``): each pair trains its own net, and ``params`` is one
+    state dict whose tensors carry a leading pair axis.
 
     Inputs that are not tensors (numpy arrays, as the JAX package takes)
     go to the card, and raise without one, as ``Register(device=None)``
     does; tensors stay on their device (a CPU tensor runs on the CPU).
     ``grad_edges`` filters each pair on its own. ``mesh`` raises
-    ``ValueError`` (one GPU); ``flow_model='unet'`` with more than one pair
-    raises ``NotImplementedError`` (ROADMAP queue 1 item 17)."""
+    ``ValueError`` (one GPU)."""
     if mesh is not None:
         raise ValueError(
             "register_cohort: mesh is not supported by the PyTorch port, which runs a "
@@ -143,14 +146,18 @@ def register_cohort(
             check_sweep_windows_batch(out.best_theta, spatial, windows,
                                       f"register_cohort ({mode})")
         return out
+    generator = (seed if isinstance(seed, torch.Generator)
+                 else torch.Generator().manual_seed(int(seed)))
     _, res = flow_pairs(
         movings, targets, lr=float(lr), max_epochs=int(epochs), stop_crit=float(stop_crit),
         n=float(n), criterions=criterions, weights=weights, grad_edges=grad_edges,
-        optimizer=optimizer, depth=depth, method=method, max_disp=int(max_disp), dtype=dtype,
-        check_disp=check_window, flow_model=str(flow_model), smooth=float(smooth),
-        stop_rel=srel, patience=int(patience))
+        optimizer=optimizer, depth=depth, generator=generator, method=method,
+        max_disp=int(max_disp), dtype=dtype, check_disp=check_window,
+        flow_model=str(flow_model), smooth=float(smooth), stop_rel=srel,
+        patience=int(patience))
     if flow_model == "field":
         flow = res.flow[:, None]
         return FlowResult(flow=flow, losses=res.losses, steps=res.steps,
                           converged=res.converged, params=flow, max_disp=res.max_disp)
-    return res._replace(flow=res.flow[:, None])
+    params = res.params if B > 1 else {k: v[None] for k, v in res.params.items()}
+    return res._replace(flow=res.flow[:, None], params=params)
