@@ -33,6 +33,13 @@ driver's 8 pairs; the U-Net cohort (``[cohort-unet]``):
 ``make_cascade_batch_fn(**RECIPE_UNET)`` on 4 240³ pairs, each pair its own
 U-Net through K3 with a weight set per pair, each against its own
 ``make_cascade_fn`` run, the deformable pair of ``[unet]`` at its gates; the
+meshes (``[mesh]``): the data axis, ``make_cascade_batch_fn(mesh=...)`` on a
+mesh that names the card twice, on 4 of ``[cohort]``'s pairs and 2 of
+``[cohort-unet]``'s, each pair equal to its unsharded batched run to the bit,
+and, last but ``[busy]``, the space axis, K1's slab mode at 240³ on 4
+z-slabs (the warp and dsrc equal to the unsharded launches' to the bit, each
+slab launch against its plain version) and ``rigid_register`` on slabs
+against its unsharded run, with the halo bytes and ms a step; the
 engines' tensor-op Adam against ``torch.optim.Adam`` on the card
 (``[adam]``), and last, after every timing, the busy share of both
 (``[busy]``); ``Register`` in U-Net mode at the reference width; ``Register``
@@ -88,6 +95,7 @@ the bound over every term beside it as ``dense_bound_ms``).
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
@@ -131,7 +139,8 @@ from torchregister_tpu_torch.ops.resize import downsample_avg, nearest_resize
 from torchregister_tpu_torch.ops.separable import affine_to_index_map, factor_passes
 from torchregister_tpu_torch.ops.transforms import rigid_theta
 from torchregister_tpu_torch.cohort_driver import cohort as driver_cohort
-from torchregister_tpu_torch.parallel import register_cohort
+from torchregister_tpu_torch.parallel import halo, make_mesh, register_cohort
+from torchregister_tpu_torch.parallel import mesh as pmesh
 from torchregister_tpu_torch.probes import checked_index
 from torchregister_tpu_torch.probes import hatgather as hg
 from torchregister_tpu_torch.probes import roi_stages as rs
@@ -191,6 +200,10 @@ REPLACES = {
     "conv3d_fwd_pairs": "torchregister_tpu/ops/pallas/conv3d.py:174",
     "conv3d_dgrad_pairs": "torchregister_tpu/ops/pallas/conv3d.py:174",
     "conv3d_wgrad_pairs": "torchregister_tpu/ops/pallas/conv3d.py:301",
+    # K1's slab mode: the same Pallas kernel on the slabs of a volume that
+    # GSPMD splits over the JAX mesh's space axis, with halos
+    "sweep_fwd_slab": "torchregister_tpu/ops/pallas/sweep.py:38",
+    "sweep_bwd_slab": "torchregister_tpu/ops/pallas/sweep.py:134",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
@@ -234,7 +247,9 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "kde_sum": "torchregister_tpu_torch/csrc/kde.cu",
            "kde_dot": "torchregister_tpu_torch/csrc/kde.cu",
            **{f"conv3d_{k}_pairs": "torchregister_tpu_torch/csrc/conv3d.cu"
-              for k in ("fwd", "dgrad", "wgrad")}}
+              for k in ("fwd", "dgrad", "wgrad")},
+           "sweep_fwd_slab": "torchregister_tpu_torch/csrc/sweep.cu",
+           "sweep_bwd_slab": "torchregister_tpu_torch/csrc/sweep.cu"}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
 # three TF32 products (3xTF32), so their f32 rate is a third of TF32's
@@ -1361,6 +1376,22 @@ def _pair_quality(kind, res, m, t, truth) -> dict:
                      "flow_field_err_observable_vox"), flow_truth_metrics(res, m, t, *truth)))
 
 
+# the [cohort] and [cohort-unet] pairs that [mesh] runs again over a data mesh,
+# each against the batched run kept here
+MESH_PAIRS = {"cohort": (0, 1, 4, 5), "cohort-unet": (0, 2)}
+MESH_REFS: dict = {}
+
+
+def _keep(res, idx) -> object:
+    """The pairs ``idx`` of a batched cascade's result."""
+    sel = torch.tensor(idx, device=res.warped.device)
+    return res._replace(**{n: None if getattr(res, n) is None
+                           else getattr(res, n).index_select(0, sel).clone()
+                           for n in ("warped", "theta", "flow", "rigid_losses",
+                                     "affine_losses", "flow_losses")},
+                        steps={k: [v[i] for i in idx] for k, v in res.steps.items()})
+
+
 def _batch_against_singles(tag: str, recipe_name: str, recipe: dict, inputs: list,
                            gate) -> dict:
     """``make_cascade_batch_fn(**recipe)`` on ``inputs``' pairs: one
@@ -1446,6 +1477,8 @@ def _batch_against_singles(tag: str, recipe_name: str, recipe: dict, inputs: lis
         raise AssertionError(f"[{tag}] the replaying call differs from the capturing call")
     if any(c != 1 or r <= 0 for c, r in graphs.values()):
         raise AssertionError(f"[{tag}] a level's step was not captured once: {graphs}")
+    idx = MESH_PAIRS[tag]
+    MESH_REFS[tag] = (movings[list(idx)].clone(), targets[list(idx)].clone(), _keep(res, idx))
     del first, res, movings, targets
     torch.cuda.empty_cache()
     return launches
@@ -1554,6 +1587,252 @@ def phase_cohort_rigid() -> dict:
                              f"{solo_steps}, err {err}, RMSE {rmse0} -> {rmse1}")
     _need(launches, ("sweep_fwd_pairs", "sweep_bwd_pairs"), "register_cohort")
     return launches
+
+
+# [mesh]: the data axis on a mesh that names the card twice (the pairs of
+# MESH_PAIRS, each against its batched run above), and the space axis: K1's
+# slab mode at 240³ on MESH_SLABS z-slabs (the engines' default window, 60),
+# and rigid_register on slabs against its unsharded run
+MESH_SLABS = 4
+MESH_K = max(8, SIZE // 4)
+MESH_RIGID = dict(lr=3e-3, epochs=40, criterions=["mse", "ncc"], optimizer="adam",
+                  init="identity", grad_edges=True)
+MESH_THETA_TOL = 1e-4  # theta, relative to its largest entry, sharded against unsharded
+
+
+def _mesh_data(tag: str, recipe_name: str, recipe: dict) -> dict:
+    """``make_cascade_batch_fn(mesh=make_mesh(devices=[card] * 2))`` on the
+    pairs kept from ``[tag]``: every field of every pair equal to the
+    unsharded batched run's to the bit; returns its launches."""
+    movings, targets, ref = MESH_REFS.pop(tag)
+    mesh = make_mesh(devices=[DEV] * 2)
+    fn = make_cascade_batch_fn(mesh=mesh, **recipe)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(movings, targets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    bits = {n: _same_bits(getattr(res, n), getattr(ref, n))
+            for n in ("warped", "theta", "flow", "rigid_losses", "affine_losses", "flow_losses")
+            if getattr(ref, n) is not None}
+    graphs = {str(d): g.counts() for d, g in fn.graphs.items()}
+    B = movings.shape[0]
+    print(f"[mesh] data axis: make_cascade_batch_fn(mesh=make_mesh(devices=[card] * 2), "
+          f"**{recipe_name}) on {B} of [{tag}]'s {SIZE}³ pairs, {B // 2} a shard, "
+          f"{len(mesh.distinct_devices)} distinct device(s): wall {wall:.3f} s; step graphs "
+          f"(captures, replays) {json.dumps(graphs)}; equal to the unsharded batched run's "
+          f"pairs to the bit {json.dumps(bits)}, steps {res.steps == ref.steps}", flush=True)
+    if not all(bits.values()) or res.steps != ref.steps:
+        raise AssertionError(f"[mesh] {tag}: a sharded pair differs from its unsharded run: "
+                             f"{bits}")
+    # the sharded factory's graphs and pool go: later phases need the memory
+    for key in [k for k in cascade_mod._BATCH_CACHE if k and k[-1][0] == "mesh"]:
+        del cascade_mod._BATCH_CACHE[key]
+    del fn, res, movings, targets, ref
+    gc.collect()  # a factory's step graphs and their owner refer to each other
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _slab_case():
+    """make_pair's moving image at 240³, the table of make_pair's rigid
+    transform, its passes' axes, its slabs and their geometry, and a seeded
+    cotangent with its slabs."""
+    moving = make_pair((SIZE,) * 3, seed=0, device=DEV)[0]
+    table, axes = k1.pass_table(factor_passes(*affine_to_index_map(_pair_theta()[0],
+                                                                  (SIZE,) * 3)))
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    g = torch.randn(moving.shape, generator=gen, device=DEV)
+    m = SIZE // MESH_SLABS
+    sh = pmesh.volume_sharding(make_mesh((MESH_SLABS,), ("space",),
+                                         devices=[DEV] * MESH_SLABS))
+    geos = tuple(k1.SlabGeo(0, k * m, SIZE) for k in range(MESH_SLABS))
+    return moving, g, table.contiguous(), axes, sh, geos
+
+
+def _slab_buffers(slabs, axis):
+    h = k1.slab_halo(MESH_K)
+    return halo.fetch(slabs, 2, h, h) if axis == 0 else slabs
+
+
+def _mesh_space_warp() -> dict:
+    """K1's slab mode at 240³ on 4 z-slabs: the whole warp (a halo before the
+    z pass; the upstream gradient's halo in its backward) against the
+    unsharded launches, output and dsrc to the bit, the table's gradient
+    within 1e-5 of its largest entry; then each slab launch of each pass,
+    forward and backward, against its plain version (f32, 1e-5 of the
+    largest entry)."""
+    moving, g, table, axes, sh, geos = _slab_case()
+    windows = (MESH_K,) * 3
+
+    def run(slabs):
+        slabs = [x.clone().requires_grad_(True) for x in slabs]
+        t = table.clone().requires_grad_(True)
+        if len(slabs) == 1:
+            outs, gs = [k1._SeparableAffine.apply(slabs[0], t, axes, windows)], [g]
+        else:
+            outs = list(k1._SlabAffine.apply(t, axes, windows, geos, *slabs))
+            gs = list(torch.split(g, SIZE // MESH_SLABS, dim=2))
+        grads = torch.autograd.grad(outs, [*slabs, t], gs)
+        return torch.cat(outs, 2), torch.cat(grads[:-1], 2), grads[-1]
+
+    ref = run([moving])
+    got = run(pmesh.shard(moving, sh).shards)
+    out_eq, dsrc_eq = _same_bits(got[0], ref[0]), _same_bits(got[1], ref[1])
+    row_rel = float((got[2] - ref[2]).abs().max() / ref[2].abs().max())
+    slabs, gslabs = pmesh.shard(moving, sh).shards, pmesh.shard(g, sh).shards
+    fwd_err = bwd_err = drow_rel = 0.0  # of the largest entry
+    fwd_abs = bwd_abs = 0.0
+    for p, axis in enumerate(axes):
+        bufs, gbufs = _slab_buffers(slabs, axis), _slab_buffers(gslabs, axis)
+        for k, geo in enumerate(geos):
+            shape = slabs[k].shape
+            out = k1.affine_slab_fwd(bufs[k], table, p, axis, MESH_K, geo, shape)
+            plain = k1.sweep_affine_slab_plain(bufs[k], table[p, :3], table[p, 3], axis, MESH_K,
+                                               geo, shape)
+            fwd_abs = max(fwd_abs, _max_err(out, plain))
+            fwd_err = max(fwd_err, _max_err(out, plain) / float(plain.abs().max()))
+            dsrc, drow = k1.affine_slab_bwd(gbufs[k], bufs[k], table, p, axis, MESH_K, geo, shape)
+            dtable = torch.zeros_like(table)
+            pdsrc = k1._slab_bwd_plain(gbufs[k], bufs[k], table, p, axis, MESH_K, geo, shape,
+                                       True, dtable)
+            bwd_abs = max(bwd_abs, _max_err(dsrc, pdsrc))
+            bwd_err = max(bwd_err, _max_err(dsrc, pdsrc) / float(pdsrc.abs().max()))
+            drow_rel = max(drow_rel, float((drow - dtable[p]).abs().max()
+                                           / dtable[p].abs().max()))
+    print(f"[mesh] space axis: K1's slab mode, make_pair's moving image at {SIZE}³ on "
+          f"{MESH_SLABS} z-slabs of {SIZE // MESH_SLABS} rows, K={MESH_K} (a halo of "
+          f"{k1.slab_halo(MESH_K)} rows a side), make_pair's rigid transform: warp equal to the "
+          f"unsharded launches' to the bit {out_eq}, dsrc {dsrc_eq}, the table's gradient "
+          f"within {row_rel:.3g} of its largest entry; each slab launch against its plain "
+          f"version: forward {fwd_abs:.3g}, dsrc {bwd_abs:.3g} ({fwd_err:.3g} and {bwd_err:.3g} "
+          f"of the largest entry), row gradient {drow_rel:.3g} (relative)", flush=True)
+    if not (out_eq and dsrc_eq) or row_rel > 1e-5 or max(fwd_err, bwd_err) > 1e-5:
+        raise AssertionError("[mesh] K1's slab mode disagrees")
+    del ref, got
+    torch.cuda.empty_cache()
+    return {"sweep_fwd_slab": fwd_abs, "sweep_bwd_slab": bwd_abs,
+            "sweep_slab_row_grad_rel": max(row_rel, drow_rel)}
+
+
+def _mesh_space_rigid(smi: str) -> dict:
+    """``rigid_register`` (MSE + NCC, ``grad_edges=True``, Adam, 40 steps)
+    on make_pair's 240³ pair split into 4 z-slabs against its unsharded run:
+    the same steps, ``theta`` within ``MESH_THETA_TOL`` of its largest entry;
+    the halo bytes a step, and the wall of each run over its steps. Returns
+    the sharded run's launches."""
+    moving, target = make_pair((SIZE,) * 3, seed=0, device=DEV)
+    sh = _slab_case()[4]
+    runs = {"unsharded": (moving, target),
+            f"{MESH_SLABS} slabs": (pmesh.shard(moving, sh), pmesh.shard(target, sh))}
+    out, launches = {}, {}
+    for label, (m, t) in runs.items():
+        rigid_register(m, t, **{**MESH_RIGID, "epochs": 2})  # warm-up
+        _reset_counts()
+        halo.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, res = rigid_register(m, t, **MESH_RIGID)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        out[label] = (res, wall, halo.copied_bytes)
+    (ref, wall0, _), (res, wall1, counted) = out.values()
+    rel = float((res.best_theta - ref.best_theta).abs().max() / ref.best_theta.abs().max())
+    step = halo.bytes_of((1, 1, SIZE // MESH_SLABS, SIZE, SIZE), 2, MESH_SLABS,
+                         k1.slab_halo(MESH_K), k1.slab_halo(MESH_K), 4)
+    row = {"steps": res.steps, "unsharded_steps": ref.steps, "theta_max_rel_err": rel,
+           "halo_bytes_per_step": 2 * step, "halo_bytes_counted": counted,
+           "ms_per_step": 1e3 * wall1 / res.steps, "unsharded_ms_per_step": 1e3 * wall0 / ref.steps,
+           "device": smi}
+    print(f"[mesh] space axis: rigid_register(**{json.dumps(MESH_RIGID)}) on make_pair's "
+          f"{SIZE}³ pair on {MESH_SLABS} z-slabs: {json.dumps(row)}; K1 launches of the "
+          f"sharded run {json.dumps({k: v for k, v in launches.items() if k.startswith('sweep') and v})}",
+          flush=True)
+    if res.steps != ref.steps or rel > MESH_THETA_TOL:
+        raise AssertionError(f"[mesh] rigid_register on slabs is off its unsharded run: {row}")
+    _need(launches, ("sweep_fwd_slab", "sweep_bwd_slab", "conv3d_fwd"), "rigid_register on slabs")
+    return launches
+
+
+def phase_mesh() -> list:
+    """The ``data`` axis: ``[cohort]``'s and ``[cohort-unet]``'s kept pairs
+    over a mesh that names the card twice; returns the paths' launches.
+    The ``space`` axis runs last but ``[busy]`` (``phase_mesh_space``)."""
+    return [_mesh_data("cohort", "RECIPE", RECIPE),
+            _mesh_data("cohort-unet", "RECIPE_UNET", RECIPE_UNET)]
+
+
+def phase_mesh_space(smi: str) -> tuple[dict, dict, dict]:
+    """The ``space`` axis: K1's slab mode timed (``phase_slab_times``) and
+    held against the unsharded launches and its plain version, then
+    ``rigid_register`` on slabs. Last but ``[busy]``: with the slab work
+    earlier, later phases' profiled device times came back empty on the
+    H100. Returns the slab rows, the deviations and the engine run's
+    launches."""
+    rows = phase_slab_times()
+    errs = _mesh_space_warp()
+    return rows, errs, _mesh_space_rigid(smi)
+
+
+def phase_slab_times() -> dict:
+    """K1's slab mode at 240³ on 4 z-slabs, K = 60, f32: the 4 slab
+    launches of a pass against the unsharded launch of that pass, in turns,
+    and against the plain version on the slabs, mean of the 3 passes; the
+    bound counts each slab's buffer (its halo included) read once and its
+    outputs written once, ~6 operations an output forward and ~10 backward;
+    the halo fetch of the z pass beside it."""
+    moving, g, table, axes, sh, geos = _slab_case()
+    slabs, gslabs = pmesh.shard(moving, sh).shards, pmesh.shard(g, sh).shards
+    shape = slabs[0].shape
+    dtables = [torch.zeros_like(table) for _ in geos]
+    works = [k1._slab_work(shape, axes, (MESH_K,) * 3, geo, 1, moving.device) for geo in geos]
+    dtable = torch.zeros_like(table)
+    work = k1._affine_work(moving, axes, [MESH_K] * 3)
+    out: dict = {"fwd": [], "bwd": []}
+    nbytes: dict = {"fwd": 0.0, "bwd": 0.0}
+    for p, axis in enumerate(axes):
+        bufs, gbufs = _slab_buffers(slabs, axis), _slab_buffers(gslabs, axis)
+        calls = {"fwd": {"ms": lambda: [k1._fwd_slab(b, table, p, axis, MESH_K, geo, shape)
+                                        for b, geo in zip(bufs, geos)],
+                         "unsharded_ms": lambda: k1._fwd_affine(moving, table, p, axis, MESH_K)},
+                 "bwd": {"ms": lambda: [k1._bwd_slab(gb, b, table, p, axis, MESH_K, geo, shape,
+                                                     True, dt, w)
+                                        for gb, b, geo, dt, w in zip(gbufs, bufs, geos, dtables,
+                                                                     works)],
+                         "unsharded_ms": lambda: k1._bwd_affine(g, moving, table, p, axis,
+                                                                MESH_K, True, dtable, work)}}
+        fwd, bwd = ps.in_turns(calls["fwd"]), ps.in_turns(calls["bwd"])
+        for row, kind in ((fwd, "fwd"), (bwd, "bwd")):  # K1's kernels' device time alone
+            row["device_ms"] = ps.device_ms(calls[kind]["ms"])
+            row["unsharded_device_ms"] = ps.device_ms(calls[kind]["unsharded_ms"])
+        fwd["plain_ms"] = ps.time_ms(lambda: [k1.sweep_affine_slab_plain(
+            b, table[p, :3], table[p, 3], axis, MESH_K, geo, shape)
+            for b, geo in zip(bufs, geos)], iters=3, warmup=1)
+        bwd["plain_ms"] = ps.time_ms(lambda: [k1._slab_bwd_plain(
+            gb, b, table, p, axis, MESH_K, geo, shape, True, torch.zeros_like(table))
+            for gb, b, geo in zip(gbufs, bufs, geos)], iters=3, warmup=1)
+        if axis == 0:
+            fwd["halo_ms"] = ps.time_ms(lambda: _slab_buffers(slabs, 0))
+        out["fwd"].append(fwd)
+        out["bwd"].append(bwd)
+        src_bytes = sum(4.0 * b.numel() for b in bufs)
+        nbytes["fwd"] += (src_bytes + 4.0 * moving.numel()) / 3
+        nbytes["bwd"] += (2 * src_bytes + 4.0 * moving.numel()) / 3
+    vox = float(moving.numel())
+    rows = {}
+    for kind, ops in (("fwd", 6 * vox), ("bwd", 10 * vox)):
+        mean = {k: None if any(r[k] is None for r in out[kind])
+                else sum(r[k] for r in out[kind]) / 3 for k in out[kind][0] if k != "halo_ms"}
+        rows[f"sweep_{kind}_slab"] = {**mean, **_bound(nbytes[kind], ops),
+                                      "unsharded_bound_ms": _bound(
+                                          (2 if kind == "fwd" else 3) * 4.0 * vox, ops)["bound_ms"]}
+    rows["sweep_fwd_slab"]["halo_ms"] = out["fwd"][[a for a in axes].index(0)]["halo_ms"]
+    print(f"[times] slab mode, {SIZE}³ on {MESH_SLABS} z-slabs K={MESH_K} f32, the {MESH_SLABS} "
+          f"slab launches of a pass, mean of the 3 passes: {json.dumps(rows)}", flush=True)
+    return rows
 
 
 def phase_pair_times() -> dict:
@@ -3171,6 +3450,8 @@ def main() -> None:
     _mark("cohort")
     paths.append(phase_cohort_unet())
     _mark("cohort-unet")
+    paths += phase_mesh()
+    _mark("mesh")
     default_launches, default_runs = phase_cascade_fn_default()
     paths += [default_launches, phase_cascade_fn_exact(), phase_cascade_batch_default()]
     phase_adam()
@@ -3180,7 +3461,11 @@ def main() -> None:
     errs.update(lm_errs)
     paths += [*lm_paths, phase_lm_default()]
     _mark("the other paths")
-    total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
+    # the batched factories' graphs and pools go before the timings (the
+    # single factories stay: [busy] replays them)
+    cascade_mod._BATCH_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     # before the profiler first runs (after that each launch costs the host more)
     phase_launch_path(probe_inputs)
     mode_rows = phase_mode_times()
@@ -3194,6 +3479,11 @@ def main() -> None:
     lm_rows = phase_lm_times(splat_inputs)
     kde_rows = phase_kde_times(kde_inputs)
     _mark("times")
+    slab_rows, slab_errs, slab_launches = phase_mesh_space(smi)
+    errs.update(slab_errs)
+    paths.append(slab_launches)
+    _mark("mesh space axis")
+    total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
     # per-launch times at the fine flow level's shape (240³, K=8, f32): its
     # flow form, with the dense launch and every form's row beside it
@@ -3213,7 +3503,8 @@ def main() -> None:
                 for name in pair_rows},
              **{name: {k: lm_rows[name][k] for k in ("ms", "plain_ms")} for name in lm_rows},
              **{name: {k: kde_rows[name][k] for k in ("ms", "plain_ms")} for name in KDE_NAMES},
-             **{name: {k: r[k] for k in ("ms", "plain_ms")} for name, r in k3_pair_row.items()}}
+             **{name: {k: r[k] for k in ("ms", "plain_ms")} for name, r in k3_pair_row.items()},
+             **{name: {k: r[k] for k in ("ms", "plain_ms")} for name, r in slab_rows.items()}}
     # bytes: each input read once, each output written once; operations:
     # ~6 per output of a sweep (two taps and their weights), ~10 per voxel
     # of its adjoint, ~60 per voxel of a trilinear warp (pw_bound)
@@ -3234,7 +3525,9 @@ def main() -> None:
               **{name: {k: kde_rows[name][k] for k in ("bound_ms", "bound_by")}
                  for name in KDE_NAMES},
               **{name: {k: r[k] for k in ("bound_ms", "bound_by", "fma_bound_ms")}
-                 for name, r in k3_pair_row.items()}}
+                 for name, r in k3_pair_row.items()},
+              **{name: {k: r[k] for k in ("bound_ms", "bound_by")}
+                 for name, r in slab_rows.items()}}
     library.update(sweep_fwd=None, sweep_bwd=None, conv3d_fwd=k3_row["plain_fwd_ms"],
                    conv3d_dgrad=k3_row["plain_dgrad_ms"], conv3d_wgrad=k3_row["plain_dw_ms"],
                    roigather=k2b_row["library_ms"],
@@ -3243,7 +3536,8 @@ def main() -> None:
                    sweep_bwd_pairs=None, sweep_bwd2=None,
                    splat_signed=lm_rows["splat_signed"]["library_ms"], kde_sum=None,
                    kde_dot=None,
-                   **{name: r["library_ms"] for name, r in k3_pair_row.items()})
+                   **{name: r["library_ms"] for name, r in k3_pair_row.items()},
+                   sweep_fwd_slab=None, sweep_bwd_slab=None)
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -3285,6 +3579,14 @@ def main() -> None:
                           "weight set per pair; singles_ms: the single-pair launches it "
                           "replaces; plain: a plain call a pair; library: one grouped cuDNN "
                           "call (groups = pairs), TF32 off")
+    timed_at["sweep_fwd_slab"] = timed_at["sweep_bwd_slab"] = (
+        f"the {MESH_SLABS} slab launches of a pass, make_pair's moving image at {SIZE}^3 on "
+        f"{MESH_SLABS} z-slabs, K={MESH_K} f32, make_pair's rigid transform, mean of the 3 "
+        "passes (the z pass reads each slab's buffer with a halo of K+1 rows a side); "
+        "unsharded_ms: the one unsharded affine launch of the pass; plain: the plain slab "
+        "pass on each slab (backward: dsrc from the halo and the row); bound: each slab's "
+        "buffer, halo included, read once; library: none, no PyTorch call resamples at "
+        "coordinates of this form")
     timed_at["splat_signed"] = ("one launch, the default NMI's 8 x 1M samples of make_pair's "
                                 "moving image at 240^3, weights f - 0.5; library: one "
                                 "scatter_add of both terms")
@@ -3302,6 +3604,12 @@ def main() -> None:
          **({"singles_ms": k3_pair_row[name]["singles_ms"]} if name in k3_pair_row else {}),
          **({"row_grad_max_rel_err": errs["sweep_pairs_row_grad_rel"]}
             if name == "sweep_bwd_pairs" else {}),
+         **({k: slab_rows[name][k] for k in slab_rows[name]
+             if k in ("unsharded_ms", "unsharded_bound_ms", "halo_ms", "device_ms",
+                     "unsharded_device_ms")}
+            if name in slab_rows else {}),
+         **({"row_grad_max_rel_err": errs["sweep_slab_row_grad_rel"]}
+            if name == "sweep_bwd_slab" else {}),
          **(_copy_extras(name, probe_rows) if name in COPIES else {}),
          **({k: probe_rows[name].get(k) for k in SUM_EXTRAS}
             if name in ("slab_sum", "roi_fetch") else {}),

@@ -133,9 +133,21 @@ def test_torch_cascade_batch_fn_is_cached_and_refuses_unet():
     assert fn is not make_cascade_fn(**CFG)
     assert tr.make_cascade_batch_fn is make_cascade_batch_fn
     cascade._BATCH_CACHE.clear()
-    with pytest.raises(ValueError, match="mesh and spatial_axis"):
-        make_cascade_batch_fn(mesh=object(), **CFG)
+    with pytest.raises(ValueError, match="spatial_axis"):
+        make_cascade_batch_fn(spatial_axis=0, **CFG)
     assert not cascade._BATCH_CACHE
+    # a mesh, which the port refused before it had parallel/mesh.py, splits
+    # the batch over its data axis: each pair equal to the unsharded call's
+    mesh = tr.make_mesh(devices=["cpu"] * 2)
+    sharded = make_cascade_batch_fn(mesh=mesh, **CFG)
+    assert sharded is make_cascade_batch_fn(mesh=mesh, **CFG) and sharded is not fn
+    movings = torch.from_numpy(_blobs(2, (16, 16), seed=5))
+    targets = torch.from_numpy(_blobs(2, (16, 16), seed=6))
+    got, want = sharded(movings, targets), make_cascade_batch_fn(**CFG)(movings, targets)
+    assert got.steps == want.steps
+    for name in ("warped", "theta", "rigid_losses", "affine_losses"):
+        assert torch.equal(getattr(got, name).nan_to_num(-1.0),
+                           getattr(want, name).nan_to_num(-1.0)), name
     # a U-Net batch, which the port refused before it had K3 with a weight
     # set per pair, runs: each pair equal to its single factory run (its
     # parity with the JAX package's: tests/test_torch_cascade_batch_unet.py)

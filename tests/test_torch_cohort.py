@@ -310,15 +310,21 @@ def test_torch_cohort_validation():
 
 
 def test_torch_cohort_refuses_a_mesh_and_a_unet_batch():
-    """A mesh raises. A U-Net cohort, which the port refused before it had
-    K3 with a weight set per pair, runs: each pair trains its own net, drawn
-    pair after pair from ``seed``, and equals ``flow_register`` on that pair
-    alone with the same draws to the bit (its parity with the JAX package's
-    cohort: ``tests/test_torch_cohort_unet_jax.py``)."""
+    """A mesh, which the port refused before it had ``parallel/mesh.py``,
+    splits the cohort over its data axis: each pair equal to the unsharded
+    call's to the bit (``tests/test_torch_mesh.py`` has the rest). A U-Net
+    cohort, which the port refused before it had K3 with a weight set per
+    pair, runs: each pair trains its own net, drawn pair after pair from
+    ``seed``, and equals ``flow_register`` on that pair alone with the same
+    draws to the bit (its parity with the JAX package's cohort:
+    ``tests/test_torch_cohort_unet_jax.py``)."""
     movings = torch.from_numpy(_blobs(2, (16, 16)))
     targets = torch.from_numpy(_blobs(2, (16, 16), seed=1))
-    with pytest.raises(ValueError, match="mesh is not supported"):
-        register_cohort(movings, movings, mode="rigid", mesh=object(), epochs=1)
+    kw = dict(mode="rigid", epochs=3, criterions=["mse"], lr=1e-3, optimizer="adam")
+    got = register_cohort(movings, targets, mesh=tr.make_mesh(devices=["cpu"] * 2), **kw)
+    want = register_cohort(movings, targets, **kw)
+    assert got.steps == want.steps
+    assert torch.equal(got.best_theta, want.best_theta) and torch.equal(got.losses, want.losses)
     res = register_cohort(movings, targets, mode="flow", flow_model="unet", epochs=2,
                           criterions=["mse"], n=32, depth=1, seed=3)
     assert res.flow.shape == (2, 1, 2, 16, 16) and res.steps == [2, 2]
@@ -329,7 +335,7 @@ def test_torch_cohort_refuses_a_mesh_and_a_unet_batch():
                                 criterions=["mse"], n=32, depth=1, generator=gen)
         torch.testing.assert_close(res.flow[b], solo.flow, **SELF_TOL)
         _same_losses(res.losses[b].numpy(), solo.losses.numpy())
-    with pytest.raises(ValueError, match="mesh and spatial_axis"):
+    with pytest.raises(ValueError, match="spatial_axis"):
         tr.make_cascade_batch_fn(spatial_axis=0, stages=("rigid",))
     assert tr.register_cohort is register_cohort
 

@@ -2082,3 +2082,107 @@ def test_torch_cuda_cascade_fn_default_criteria_equals_register_cascade(dev):
         assert calls[branch] > 0 and sum(calls.values()) == calls[branch], (branch, calls)
         assert (kde.sum_launches > 0) and (kde.dot_launches > 0)
     assert all(c == 1 and r > 0 for c, r in fn.graphs.counts().values()), fn.graphs.counts()
+
+
+def _slab_case(dev, N, S, n, dtype, seed):
+    """A volume ``[N, 1, S, S, S]`` split into ``n`` z-slabs over a mesh that
+    names the card ``n`` times, one rigid transform a item (one table for
+    N = 1)."""
+    from torchregister_tpu_torch.parallel import mesh as M
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randn((N, 1, S, S, S), generator=gen, device=dev).to(dtype)
+    g = torch.randn(src.shape, generator=gen, device=dev).to(dtype)
+    table, axes = _pair_tables(dev, N, (S, S, S), seed)
+    if N == 1:
+        table = table[0].contiguous()
+    mesh = M.make_mesh((n,), ("space",), devices=[dev] * n)
+    return src, g, table, tuple(axes), M.volume_sharding(mesh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,S,n,K", [(1, 240, 4, 60), (1, 32, 8, 8), (2, 40, 4, 6)],
+                         ids=["240^3-4-slabs", "32^3-8-slabs", "pairs-40^3-4-slabs"])
+def test_torch_cuda_sweep_slabs_match_unsharded_and_plain(dev, dtype, N, S, n, K):
+    """K1's slab mode: the warp of a volume split into z-slabs (the halo
+    before the z pass, the upstream gradient's halo in its backward) equals
+    the unsharded launch's to the bit, output and dsrc, with one table or a
+    table per item; the table's gradient, summed over the slabs, within
+    1e-5 of the largest entry; each slab launch against its plain version
+    (f32 1e-5, bf16 2^-7 of the largest entry)."""
+    from torchregister_tpu_torch.parallel import halo
+    from torchregister_tpu_torch.parallel import mesh as M
+
+    src, g, table, axes, sh = _slab_case(dev, N, S, n, dtype, 11 + S + N)
+    windows = (K,) * 3
+
+    def run(s_list, t):
+        s_list = [s.clone().requires_grad_(True) for s in s_list]
+        t = t.clone().requires_grad_(True)
+        if len(s_list) == 1:
+            out = [k1._SeparableAffine.apply(s_list[0], t, axes, windows)]
+        else:
+            geos = tuple(k1.SlabGeo(0, k * (S // n), S) for k in range(n))
+            out = list(k1._SlabAffine.apply(t, axes, windows, geos, *s_list))
+        gs = list(torch.split(g, S // n, dim=2)) if len(s_list) > 1 else [g]
+        grads = torch.autograd.grad(out, [*s_list, t], gs)
+        return torch.cat(out, 2), torch.cat(grads[:-1], 2), grads[-1]
+
+    ref = run([src], table)
+    k1.reset_counts()
+    got = run(M.shard(src, sh).shards, table)
+    assert k1.fwd_modes["slab"] == 3 * n and k1.bwd_modes["slab"] == 3 * n
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[2], ref[2], rtol=0,
+                               atol=1e-5 * float(ref[2].abs().max()))
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    slabs, m = M.shard(src, sh).shards, S // n
+    for p, axis in enumerate(axes):
+        h = k1.slab_halo(K)
+        bufs = halo.fetch(slabs, 2, h, h) if axis == 0 else slabs
+        for k in (0, n - 1):
+            geo = k1.SlabGeo(0, k * m, S)
+            out = k1.affine_slab_fwd(bufs[k], table, p, axis, K, geo, slabs[k].shape)
+            row = table[..., p, :]
+            plain = k1.sweep_affine_slab_plain(bufs[k].float(), row[..., :3], row[..., 3], axis,
+                                               K, geo, slabs[k].shape)
+            scale = max(1.0, float(plain.abs().max()))
+            torch.testing.assert_close(out.float(), plain, rtol=0, atol=tol * scale)
+
+
+def test_torch_cuda_data_mesh_pairs_equal_unsharded(dev):
+    """The ``data`` axis on the card, a mesh that names it twice:
+    ``make_cascade_batch_fn(mesh=)`` (one set of step graphs for the device,
+    the second shard replaying the first's) and ``register_cohort(mesh=)``
+    rigid and U-Net flow: each pair equal to the unsharded call's to the
+    bit."""
+    from torchregister_tpu_torch.engines.cascade import make_cascade_batch_fn
+    from torchregister_tpu_torch.cohort_driver import cohort
+    from torchregister_tpu_torch.parallel import make_mesh, register_cohort
+    from torchregister_tpu_torch.synthetic import RECIPE, make_flow_truth_pair, make_pair
+
+    mesh = make_mesh(devices=[dev] * 2)
+    recipe = {**RECIPE, "rigid_epochs": 60, "affine_epochs": 30, "flow_epochs": 40,
+              "levels": 2, "matrix_levels": 2, "flow_levels": 2, "flow_smooth": (0.5, 0.25)}
+    pairs = [make_pair((32, 32, 32), seed=0, device=dev),
+             make_flow_truth_pair((32, 32, 32), seed=1, device=dev)[:2]]
+    movings, targets = torch.cat([m for m, _ in pairs]), torch.cat([t for _, t in pairs])
+    want = make_cascade_batch_fn(**recipe)(movings, targets)
+    fn = make_cascade_batch_fn(mesh=mesh, **recipe)
+    got = fn(movings, targets)
+    assert got.steps == want.steps
+    for name in ("warped", "theta", "flow", "rigid_losses", "affine_losses", "flow_losses"):
+        assert _bits_equal(getattr(got, name), getattr(want, name)), name
+    (graphs,) = fn.graphs.values()
+    assert all(c == 1 and r > 0 for c, r in graphs.counts().values())
+    movings, targets, _ = cohort(4, (28, 28, 28), device=dev)
+    kw = dict(mode="rigid", lr=5e-3, epochs=80, criterions=["mse", "ncc"], optimizer="adam",
+              init="random", stop_rel=1e-3, patience=10)
+    a, b = register_cohort(movings, targets, **kw), register_cohort(movings, targets,
+                                                                     mesh=mesh, **kw)
+    assert a.steps == b.steps and _bits_equal(a.best_theta, b.best_theta)
+    ukw = dict(mode="flow", flow_model="unet", epochs=3, criterions=["mse"], n=16, depth=1,
+               seed=3)
+    a, b = register_cohort(movings, targets, **ukw), register_cohort(movings, targets,
+                                                                      mesh=mesh, **ukw)
+    assert a.steps == b.steps and _bits_equal(a.flow, b.flow)

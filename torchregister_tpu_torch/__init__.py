@@ -25,7 +25,7 @@ from .ops.blocked import warp_affine_fast, warp_flow_fast
 from .ops.edge import edge_filter
 from .ops.resample import grid_sample, warp_affine, warp_flow
 from .ops.transforms import compose_theta, identity_theta, rigid_theta
-from .parallel import register_cohort
+from .parallel import batch_sharding, make_mesh, register_cohort, volume_sharding
 from .utils.io import load_transform, save_transform
 
 __version__ = "0.1.0"
@@ -44,6 +44,9 @@ __all__ = [
     "make_cascade_fn",
     "make_cascade_batch_fn",
     "register_cohort",
+    "make_mesh",
+    "batch_sharding",
+    "volume_sharding",
     "CascadeResult",
     "RegistrationResult",
     "FlowResult",

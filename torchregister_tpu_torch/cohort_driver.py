@@ -1,7 +1,7 @@
 """Cohort-scale registration driver (counterpart of
 ``examples/cohort_driver.py``): a synthetic cohort of pairs, each a blob
 anatomy and a known rigid perturbation of it, registered as one batched loop
-on one GPU by ``parallel/cohort.register_cohort``, then re-warped exactly
+by ``parallel/cohort.register_cohort``, then re-warped exactly
 (kernel K2) and checked: max |theta - true| < 0.05 and a lower RMSE, as the
 JAX driver checks.
 
@@ -9,8 +9,10 @@ JAX driver checks.
     python -m torchregister_tpu_torch.cohort_driver --batch 8 --size 240 --ndim 3
     python -m torchregister_tpu_torch.cohort_driver --device cpu   # plain versions
 
-The JAX driver shards the cohort over a device mesh; the port runs it on one
-card, with no mesh.
+As the JAX driver, it splits the cohort over a ``data`` mesh of every CUDA
+device when there is more than one (``parallel/mesh.make_mesh``; the batch
+must then be a multiple of the device count), and runs it with no mesh on
+one card or on the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from .ops.blocked import warp_affine_fast
 from .ops.resample import warp_affine
 from .ops.transforms import rigid_theta
-from .parallel import register_cohort
+from .parallel import make_mesh, register_cohort
 
 
 def cohort(batch: int, shape, seed: int = 0, device="cpu"):
@@ -64,12 +66,20 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("cohort_driver: no CUDA device (pass --device cpu for the CPU)")
 
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    mesh = make_mesh((n_dev,), ("data",)) if n_dev > 1 else None
+    if mesh is not None and args.batch % n_dev:
+        raise SystemExit(f"--batch {args.batch} is not divisible by the {n_dev}-device data "
+                         f"mesh: the batch axis shards over all devices (pick a multiple of "
+                         f"{n_dev})")
     movings, targets, trues = cohort(args.batch, (args.size,) * args.ndim, device=device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"cohort of {args.batch} pairs at {args.size}^{args.ndim} on {where}")
+    print(f"cohort of {args.batch} pairs at {args.size}^{args.ndim} on {where} over "
+          f"{n_dev} device(s)")
     t0 = time.perf_counter()
-    res = register_cohort(movings, targets, mode=args.mode, lr=5e-3, epochs=args.epochs,
-                          criterions=["mse"], optimizer="adam", init="identity")
+    res = register_cohort(movings, targets, mode=args.mode, mesh=mesh, lr=5e-3,
+                          epochs=args.epochs, criterions=["mse"], optimizer="adam",
+                          init="identity")
     thetas = res.best_theta[:, 0]  # [B, d, d+1]
     err = float(torch.max(torch.abs(thetas - trues)))
     print(f"registered in {time.perf_counter() - t0:.2f}s; steps {res.steps}; "

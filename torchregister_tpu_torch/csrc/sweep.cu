@@ -182,6 +182,16 @@ struct Rows {
   int L, K;
 };
 
+// A slab's pass (the slab mode): the output holds rows [p0, p0 + L) of a
+// volume of Xg rows along the swept axis, the source a buffer of its global
+// rows [b0, b0 + Lb) (the slab and its halo, parallel/halo.py). Positions,
+// coordinates and the taps' zero test are global, so each output is the
+// unsharded launch's to the bit. Outside the slab mode p0 = b0 = 0 and
+// Lb = Xg = L.
+struct Slab {
+  int p0, b0, Lb, Xg;
+};
+
 // An image [N, C, Z, Y, X] (2-D: Z = 1) swept along `axis` (0: z, 1: y,
 // 2: x): what the affine and flow forms need to find an element's voxel.
 struct Img {
@@ -191,6 +201,7 @@ struct Img {
   FastDiv by_x, by_y, by_z;
   FastDiv by_ob;      // rows of `outer` per image
   FastDiv by_c;
+  int oz = 0, oy = 0, ox = 0;  // a slab's origin in the volume (AffineQ<kPer, true>)
 };
 
 Img make_img(int Z, int Y, int X, int axis, int C) {
@@ -216,8 +227,10 @@ struct DenseQ {
 
 // kPer: one table per batch item, `rn` floats apart. The forward finds an
 // element's item from its row (a tile may span two items); the backward's
-// blocks each lie in one item and load its row once.
-template <bool kPer>
+// blocks each lie in one item and load its row once. kOrg (the slab mode):
+// the voxel's coordinates across the swept axis are offset by the slab's
+// origin in the volume (im.oz, im.oy, im.ox).
+template <bool kPer, bool kOrg = false>
 struct AffineQ {
   const float* row;  // coef[d], offset (of batch item 0)
   int d;
@@ -238,7 +251,8 @@ struct AffineQ {
     }
   }
   __device__ void load(int n) { read(row + n * rn, c0, c1, c2, t); }
-  // the voxel (z, y, x) of position p of row (o, i)
+  // the voxel (z, y, x) of position p of row (o, i); p is global along the
+  // swept axis, the other two are offset by a slab's origin
   __device__ __forceinline__ void voxel(int o, int p, int i, int& z, int& y, int& x) const {
     if (im.axis == 0) {
       z = p; y = im.by_x.div(i); x = i - y * im.X;
@@ -247,6 +261,11 @@ struct AffineQ {
     } else {
       const int oz = im.by_y.div(o);
       y = o - oz * im.Y; z = oz - im.by_z.div(oz) * im.Z; x = p;
+    }
+    if constexpr (kOrg) {
+      if (im.axis != 0) z += im.oz;
+      if (im.axis != 1) y += im.oy;
+      if (im.axis != 2) x += im.ox;
     }
   }
   // q from the three rounded products, summed in the plain grid's order
@@ -335,12 +354,14 @@ bool rows_ok(const Rows& r) {
 
 // --------------------------------------------------------------- forward
 
-template <typename T, typename Q>
+template <typename T, typename Q, bool kSlab>
 __global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
 sweep_fwd_kernel(const T* __restrict__ src, Q qf, T* __restrict__ out,
-                 float* __restrict__ diff, Rows r) {
+                 float* __restrict__ diff, Rows r, Slab sl) {
   Q qm = qf;
   qm.load(0);
+  // the slab mode's geometry (constants outside it)
+  const int p0 = kSlab ? sl.p0 : 0, b0 = kSlab ? sl.b0 : 0, Xg = kSlab ? sl.Xg : r.L;
   const bool lanes_p = r.inner == 1;
   const long long n_lanes = lanes_p ? r.L : r.inner;
   const long long n_rows = lanes_p ? r.outer : r.L;
@@ -366,14 +387,18 @@ sweep_fwd_kernel(const T* __restrict__ src, Q qf, T* __restrict__ out,
         p[k] = lanes_p ? (int)lane : (int)rc;
         const int i = lanes_p ? 0 : (int)lane;
         e[k] = ((long long)o[k] * r.L + p[k]) * r.inner + i;
-        qv[k] = qm.at(e[k], o[k], p[k], i);
+        qv[k] = qm.at(e[k], o[k], p[k] + p0, i);
       }
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) t[k] = taps_of(qv[k], p[k], r.L, r.K);
+      for (int k = 0; k < kRows; ++k) t[k] = taps_of(qv[k], p[k] + p0, Xg, r.K);
       float vf[kRows], vc[kRows];
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
-        const long long row = e[k] - (long long)p[k] * r.inner;
+        // the source row's element at global position 0 (a slab's buffer
+        // holds its rows from b0)
+        const long long row =
+            kSlab ? ((long long)o[k] * sl.Lb - b0) * r.inner + (lanes_p ? 0 : lane)
+                  : e[k] - (long long)p[k] * r.inner;
         vf[k] = live[k] && t[k].mf ? load_f(src, row + t[k].xf * r.inner) : 0.0f;
         vc[k] = live[k] && t[k].mc ? load_f(src, row + (t[k].xf + 1) * r.inner) : 0.0f;
       }
@@ -453,7 +478,8 @@ __device__ __forceinline__ void reduce_row(float4 sums, float4* partials, unsign
 // grid's y index is the item (the affine form's table per item), else all.
 struct Tile {
   long long outer, inner;
-  int X, K;
+  int X, K;               // X: the volume's extent along the axis (the taps' zero test)
+  int Lo;                 // output positions a row (X but in the slab mode)
   int TI, ti_shift, TO;
   int L, LhM;             // chunk length; staged positions per column (at most)
   int n_chunks;
@@ -469,17 +495,18 @@ long long tile_bytes(int TO, int TI, int LhM) {
   return (long long)TO * TI * LhM * kStageBytes;
 }
 
-// false when no tile fits the budget
-bool make_tile(const Rows& r, Tile& tl) {
-  const int X = r.L, K = r.K;
-  tl.outer = r.outer; tl.inner = r.inner; tl.X = X; tl.K = K;
+// false when no tile fits the budget. The rows hold r.L outputs of a volume
+// of X along the axis (X = r.L but in the slab mode).
+bool make_tile(const Rows& r, int X, Tile& tl) {
+  const int Lo = r.L, K = r.K;
+  tl.outer = r.outer; tl.inner = r.inner; tl.X = X; tl.K = K; tl.Lo = Lo;
   int TI = 1;
   while (TI * 2 <= kCols && TI * 2 <= r.inner) TI *= 2;
   int TO = kCols / TI;
-  tl.L = X < kChunk ? X : kChunk;
+  tl.L = Lo < kChunk ? Lo : kChunk;
   // a window wider than the chunk would stage its halo more than twice:
   // stage whole rows, with no halo at all
-  if (2LL * K + 2 > tl.L) tl.L = X;
+  if (2LL * K + 2 > tl.L) tl.L = Lo;
   const long long span = (long long)tl.L + 2LL * K + 2;
   tl.LhM = (int)(span < X ? span : X);
   while (tile_bytes(TO, TI, tl.LhM) > kStageBudget && TO > 1) TO /= 2;
@@ -488,7 +515,7 @@ bool make_tile(const Rows& r, Tile& tl) {
   tl.TI = TI; tl.TO = TO;
   tl.ti_shift = 0;
   while ((1 << tl.ti_shift) < TI) ++tl.ti_shift;
-  tl.n_chunks = (X + tl.L - 1) / tl.L;
+  tl.n_chunks = (Lo + tl.L - 1) / tl.L;
   tl.n_inner_tiles = (r.inner + TI - 1) / TI;
   tl.blocks = ((r.outer + TO - 1) / TO) * tl.n_inner_tiles * tl.n_chunks;
   return tl.blocks <= 0x7fffffffLL;
@@ -502,12 +529,12 @@ __device__ __forceinline__ int tap_code(const Taps& t, int x, int K) {
   return (((int)k + K + 2) << 2) | ((int)t.mf << 1) | (int)t.mc;
 }
 
-template <typename T, typename Q>
+template <typename T, typename Q, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
 sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
                  T* __restrict__ dsrc, float* __restrict__ dq, float4* __restrict__ partials,
                  unsigned* __restrict__ done, float* __restrict__ drow, long long drn,
-                 Tile tl) {
+                 Tile tl, Slab sl) {
   extern __shared__ int smem[];
   const int n_stage = tl.TO * tl.LhM * tl.TI;        // each array [TO][LhM][TI]
   int* code = smem;
@@ -525,11 +552,17 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
   const long long o0 = (tile / tl.n_inner_tiles) * tl.TO;
   const long long i0 = (tile % tl.n_inner_tiles) * tl.TI;
   const int X = tl.X, K = tl.K, TI = tl.TI;
-  const int j0 = chunk * tl.L;
+  // positions are global: the slab mode's outputs are [P0, P0 + Lo), its g
+  // and src buffers of Lb rows from B0 (a halo of K + 1 rows a side)
+  const int P0 = kSlab ? sl.p0 : 0, B0 = kSlab ? sl.b0 : 0;
+  const long long Lb = kSlab ? sl.Lb : X, Lo = kSlab ? tl.Lo : X;
+  const int j0 = P0 + chunk * tl.L;
+  // the chunk's end: the row's (X) outside the slab mode
+  const int jend = kSlab ? min(j0 + tl.L, P0 + (int)Lo) : X;
   // staged positions: the chunk and the window around it (its outputs'
   // taps reach K + 1 past it, the sources it gathers K + 1 before it)
   const int s0 = max(0, j0 - K - 1);
-  const int s1 = min(X, j0 + tl.L + K + 1);
+  const int s1 = min(X, (kSlab ? jend : j0 + tl.L) + K + 1);
   const int Lh = s1 - s0;
   // each lane keeps one column (one row (o, i) of the view) for a run of
   // positions: a warp takes 32 / TI positions of TI columns a step
@@ -548,7 +581,7 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
     const long long o = o0 + to;
     if (o >= tl.outer || i >= tl.inner) continue;
     const typename Q::Col c = qm.col((int)(ob + o), (int)i);
-    const long long base = (ob + o) * X * tl.inner + i;
+    const long long base = ((ob + o) * Lb - B0) * tl.inner + i;
     const int sb = ti + TI * tl.LhM * to;
     for (int p = p0; p < Lh; p += p_step) {
       const int x = s0 + p;
@@ -584,11 +617,12 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
     const long long o = o0 + to;
     if (o >= tl.outer || i >= tl.inner) continue;
     const typename Q::Col c = qm.col((int)(ob + o), (int)i);
-    const long long base = (ob + o) * X * tl.inner + i;
+    // the output's element at global position 0 (dq and dsrc have Lo rows)
+    const long long base = ((ob + o) * Lo - P0) * tl.inner + i;
     const int sb = ti + TI * tl.LhM * to;
     for (int jj = p0; jj < tl.L; jj += p_step) {
       const int j = j0 + jj;
-      if (j >= X) break;
+      if (j >= jend) break;
       const long long idx = base + (long long)j * tl.inner;
       if (dq || Q::kRowGrad) {
         const int s = sb + TI * (j - s0);
@@ -652,9 +686,9 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
     for (int to = to0; to < tl.TO; to += to_step) {
       const long long o = o0 + to;
       if (o >= tl.outer || i >= tl.inner || s_mono[ti + TI * to]) continue;
-      const long long base = (ob + o) * X * tl.inner + i;
+      const long long base = ((ob + o) * Lo - P0) * tl.inner + i;
       const float* acc = s_src + ti + TI * tl.LhM * to;
-      for (int jj = p0; jj < tl.L && j0 + jj < X; jj += p_step)
+      for (int jj = p0; jj < tl.L && j0 + jj < jend; jj += p_step)
         store_f(dsrc, base + (long long)(j0 + jj) * tl.inner, acc[TI * jj]);
     }
   }
@@ -976,29 +1010,30 @@ sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
 
 // ---------------------------------------------------------------- launch
 
-template <typename T, typename Q>
-int launch_fwd(const void* src, Q q, void* out, void* diff, const Rows& r,
+template <typename T, typename Q, bool kSlab>
+int launch_fwd(const void* src, Q q, void* out, void* diff, const Rows& r, const Slab& sl,
                cudaStream_t stream) {
   if (!rows_ok(r)) return (int)cudaErrorInvalidValue;
-  sweep_fwd_kernel<T, Q><<<tile_grid(r), kThreads, 0, stream>>>(
-      (const T*)src, q, (T*)out, (float*)diff, r);
+  sweep_fwd_kernel<T, Q, kSlab><<<tile_grid(r), kThreads, 0, stream>>>(
+      (const T*)src, q, (T*)out, (float*)diff, r, sl);
   return (int)cudaGetLastError();
 }
 
-template <typename Q>
+template <bool kSlab = false, typename Q>
 int fwd_dtype(int dtype, const void* src, Q q, void* out, void* diff, const Rows& r,
-              cudaStream_t s) {
-  if (dtype == 0) return launch_fwd<float>(src, q, out, diff, r, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(src, q, out, diff, r, s);
+              cudaStream_t s, const Slab& sl = Slab{}) {
+  if (dtype == 0) return launch_fwd<float, Q, kSlab>(src, q, out, diff, r, sl, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16, Q, kSlab>(src, q, out, diff, r, sl, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The rows of one of `items` batch items (each its own grid row), false
-// when they do not split evenly or the grid is too large.
-bool item_tile(const Rows& r, long long items, Tile& tl) {
+// when they do not split evenly or the grid is too large; X the volume's
+// extent along the axis (r.L but in the slab mode).
+bool item_tile(const Rows& r, long long items, int X, Tile& tl) {
   if (items < 1 || items > 65535 || r.outer % items) return false;
   const Rows ri{r.outer / items, r.inner, r.L, r.K};
-  return rows_ok(ri) && make_tile(ri, tl);
+  return rows_ok(ri) && make_tile(ri, X, tl);
 }
 
 // Floats of the workspace: the items' counters (four to 16 bytes), then 4
@@ -1007,16 +1042,17 @@ long long work_floats(const Tile& tl, long long items) {
   return 4 * (items * tl.blocks + (items + 3) / 4);
 }
 
-template <typename T, typename Q>
+template <typename T, typename Q, bool kSlab>
 int launch_bwd(const void* g, const void* src, Q q, void* dsrc, void* dq, void* work,
-               void* drow, long long drn, long long items, const Rows& r,
+               void* drow, long long drn, long long items, const Rows& r, const Slab& sl,
                cudaStream_t stream) {
   Tile tl;
-  if (!rows_ok(r) || !item_tile(r, items, tl)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(r) || !item_tile(r, items, kSlab ? sl.Xg : r.L, tl))
+    return (int)cudaErrorInvalidValue;
   const int smem = (int)tile_bytes(tl.TO, tl.TI, tl.LhM);
   static bool opted = false;  // one attribute per instantiation
   if (!opted) {
-    cudaError_t rc = cudaFuncSetAttribute(sweep_bwd_kernel<T, Q>,
+    cudaError_t rc = cudaFuncSetAttribute(sweep_bwd_kernel<T, Q, kSlab>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           kStageBudget);
     if (rc != cudaSuccess) return (int)rc;
@@ -1026,18 +1062,22 @@ int launch_bwd(const void* g, const void* src, Q q, void* dsrc, void* dq, void* 
   // entry and left 0 (atomicInc wraps), then one partial sum a block
   unsigned* done = drow ? (unsigned*)work : nullptr;
   float4* partials = drow ? (float4*)work + (items + 3) / 4 : nullptr;
-  sweep_bwd_kernel<T, Q><<<dim3((unsigned)tl.blocks, (unsigned)items), kThreads, smem, stream>>>(
-      (const T*)g, (const T*)src, q, (T*)dsrc, (float*)dq, partials, done, (float*)drow, drn,
-      tl);
+  sweep_bwd_kernel<T, Q, kSlab>
+      <<<dim3((unsigned)tl.blocks, (unsigned)items), kThreads, smem, stream>>>(
+          (const T*)g, (const T*)src, q, (T*)dsrc, (float*)dq, partials, done, (float*)drow,
+          drn, tl, sl);
   return (int)cudaGetLastError();
 }
 
-template <typename Q>
+template <bool kSlab = false, typename Q>
 int bwd_dtype(int dtype, const void* g, const void* src, Q q, void* dsrc, void* dq, void* work,
-              void* drow, long long drn, long long items, const Rows& r, cudaStream_t s) {
-  if (dtype == 0) return launch_bwd<float>(g, src, q, dsrc, dq, work, drow, drn, items, r, s);
+              void* drow, long long drn, long long items, const Rows& r, cudaStream_t s,
+              const Slab& sl = Slab{}) {
+  if (dtype == 0)
+    return launch_bwd<float, Q, kSlab>(g, src, q, dsrc, dq, work, drow, drn, items, r, sl, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(g, src, q, dsrc, dq, work, drow, drn, items, r, s);
+    return launch_bwd<__nv_bfloat16, Q, kSlab>(g, src, q, dsrc, dq, work, drow, drn, items, r,
+                                               sl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1163,7 +1203,7 @@ extern "C" long long sweep_bwd_work(long long outer, int L, long long inner, int
                                     long long items) {
   const Rows r{outer, inner, L, K};
   Tile tl;
-  if (!rows_ok(r) || !item_tile(r, items, tl)) return 0;
+  if (!rows_ok(r) || !item_tile(r, items, r.L, tl)) return 0;
   long long n = work_floats(tl, items);
   for (int elem : {2, 4}) {  // sweep_bwd2's partials (one a block, at most one a tile)
     Tile2 t2;
@@ -1234,4 +1274,72 @@ extern "C" int sweep_bwd2(const void* g, const void* src, const void* qp, const 
   return bwd2_dtype<true>(dtype, g, src, ubar, AffineQ<true>{(const float*)qp, d, im, un},
                           AffineQ<true>{(const float*)rbar, d, im, un}, gbar, sbar, work, drow,
                           items, r, s);
+}
+
+// The slab mode of the affine form (a volume split into slabs along one
+// axis, ops/cuda/sweep.py's slab passes). The output is rows [outer, L,
+// inner] of a slab image [N, C, Z, Y, X] (the slab's own extents) whose
+// origin in the volume is (oz, oy, ox) along the axes the pass does not
+// sweep; along the swept axis it holds the volume's rows [p0, p0 + L) of Xg,
+// and the source (in the backward, g and src) is a buffer of the volume's
+// rows [b0, b0 + Lb). A pass across the split axis takes p0 = b0 = 0 and
+// Lb = Xg = L with the slab's origin; the pass along it a buffer with a
+// halo: b0 <= max(0, p0 - K - 1) and b0 + Lb >= min(Xg, p0 + L + K + 1)
+// (rows past the volume are never read). Every position and coordinate is
+// the volume's, so each output and dsrc entry is the unsharded launch's to
+// the bit, and the row gradients of the slabs sum to its row gradient. The
+// arguments are otherwise sweep_fwd's and sweep_bwd's in the affine form;
+// the backward's workspace takes sweep_slab_bwd_work floats.
+static bool slab_ok(int L, int K, int oz, int oy, int ox, int p0, int b0, int Lb, int Xg) {
+  const long long lo = p0 - (long long)K - 1 > 0 ? p0 - (long long)K - 1 : 0;
+  const long long hi = (long long)p0 + L + K + 1 < Xg ? (long long)p0 + L + K + 1 : Xg;
+  return oz >= 0 && oy >= 0 && ox >= 0 && p0 >= 0 && Lb > 0 && (long long)p0 + L <= Xg &&
+         b0 <= lo && (long long)b0 + Lb >= hi;
+}
+
+extern "C" int sweep_slab_fwd(const void* src, const void* qp, void* out, long long outer,
+                              int L, long long inner, int K, int dtype, int d, int Z, int Y,
+                              int X, int axis, int C, long long un, int oz, int oy, int ox,
+                              int p0, int b0, int Lb, int Xg, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Rows r{outer, inner, L, K};
+  if (!img_ok(Z, Y, X, axis, C) || (d != 2 && d != 3) ||
+      !slab_ok(L, K, oz, oy, ox, p0, b0, Lb, Xg))
+    return (int)cudaErrorInvalidValue;
+  Img im = make_img(Z, Y, X, axis, C);
+  im.oz = oz; im.oy = oy; im.ox = ox;
+  const Slab sl{p0, b0, Lb, Xg};
+  if (un == 0)
+    return fwd_dtype<true>(dtype, src, AffineQ<false, true>{(const float*)qp, d, im, 0}, out,
+                           nullptr, r, s, sl);
+  if (items_of(r, im) < 1) return (int)cudaErrorInvalidValue;
+  return fwd_dtype<true>(dtype, src, AffineQ<true, true>{(const float*)qp, d, im, un}, out,
+                         nullptr, r, s, sl);
+}
+
+extern "C" long long sweep_slab_bwd_work(long long outer, int L, long long inner, int K,
+                                         long long items, int Xg) {
+  const Rows r{outer, inner, L, K};
+  Tile tl;
+  if (!rows_ok(r) || L > Xg || !item_tile(r, items, Xg, tl)) return 0;
+  return work_floats(tl, items);
+}
+
+extern "C" int sweep_slab_bwd(const void* g, const void* src, const void* qp, void* dsrc,
+                              void* work, void* drow, long long outer, int L, long long inner,
+                              int K, int dtype, int d, int Z, int Y, int X, int axis, int C,
+                              long long un, int oz, int oy, int ox, int p0, int b0, int Lb,
+                              int Xg, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Rows r{outer, inner, L, K};
+  if (!img_ok(Z, Y, X, axis, C) || (d != 2 && d != 3) ||
+      !slab_ok(L, K, oz, oy, ox, p0, b0, Lb, Xg))
+    return (int)cudaErrorInvalidValue;
+  Img im = make_img(Z, Y, X, axis, C);
+  im.oz = oz; im.oy = oy; im.ox = ox;
+  const Slab sl{p0, b0, Lb, Xg};
+  const long long items = un ? items_of(r, im) : 1;
+  if (items < 1) return (int)cudaErrorInvalidValue;
+  return bwd_dtype<true>(dtype, g, src, AffineQ<false, true>{(const float*)qp, d, im, un},
+                         dsrc, nullptr, work, drow, un, items, r, s, sl);
 }

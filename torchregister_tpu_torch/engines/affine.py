@@ -36,7 +36,7 @@ def affine_register(
     d+1]`` or flat) warm-starts, identity by default. ``method`` and
     ``progress_every`` as in :func:`rigid_register`; ``per`` is accepted and
     unused, as there. The loop is ``engines/common.fit_matrix`` on one
-    pair."""
+    pair; space-sharded volumes as in :func:`rigid_register`."""
     del per
     if grad_edges:
         moving = edge_filter(moving)

@@ -470,7 +470,47 @@ def make_cascade_fn(**config) -> CascadeFn:
     return fn
 
 
-def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config) -> CascadeFn:
+class ShardedCascadeFn:
+    """:func:`make_cascade_batch_fn` over a mesh's ``data`` axis:
+    ``fn(movings [B, 1, *S], targets [B, 1, *S]) -> CascadeResult``, the
+    batch split into the axis's shards (``parallel/data.py``; an uneven
+    split raises ``ValueError``), each shard registered by a
+    :class:`CascadeFn` on its device and the results joined in pair order
+    on the mesh's first device. Each distinct device has one ``CascadeFn``
+    (its graphs and their memory pool, ``graphs[device]``): its shards run
+    one after another in one host thread, the first capturing each level's
+    step and the rest replaying it; distinct devices run in threads of their
+    own, capturing with ``capture_error_mode='thread_local'``. Each pair
+    equals its unsharded run to the bit."""
+
+    def __init__(self, config: dict, mesh):
+        from ..parallel.data import shard_devices
+
+        self.config, self.mesh = dict(config), mesh
+        self.devices = shard_devices(mesh)
+        self.fns = {d: CascadeFn(config, pairs=True) for d in dict.fromkeys(self.devices)}
+
+    @property
+    def graphs(self) -> dict:
+        """Each distinct device's step graphs."""
+        return {d: fn.graphs for d, fn in self.fns.items()}
+
+    def __call__(self, movings: torch.Tensor, target: torch.Tensor) -> CascadeResult:
+        from ..parallel.data import Shards, concat, run_shards
+
+        shards = Shards.of(self.mesh, movings.shape[0])
+        concurrent = len(self.fns) > 1
+
+        def job(k):
+            lo, hi = shards.pairs[k][0], shards.pairs[k][-1] + 1
+            dev = shards.devices[k]
+            with graph.concurrent() if concurrent else contextlib.nullcontext():
+                return self.fns[dev](movings[lo:hi].to(dev), target[lo:hi].to(dev))
+
+        return concat(run_shards(shards.devices, job), self.mesh.device_list[0])
+
+
+def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config):
     """The cascade over a batch of independent pairs (counterpart of the JAX
     package's ``make_cascade_batch_fn``, its ``vmap``):
     ``fn(movings [B, 1, *S], targets [B, 1, *S]) -> CascadeResult`` with a
@@ -481,16 +521,21 @@ def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config) -> CascadeFn:
     replayed, as :func:`make_cascade_fn` does, NMI included (each pair's NMI
     call takes its own branch on the device, as JAX's ``vmap`` of the
     ``lax.cond`` keeps each pair's); a failed capture raises. Cached on
-    ``config``. ``mesh`` and ``spatial_axis`` raise ``ValueError`` (the port
-    runs a batch on one GPU)."""
-    if mesh is not None or spatial_axis is not None:
+    ``config`` (and the mesh). ``mesh`` splits the batch over its ``data``
+    axis (:class:`ShardedCascadeFn`), each pair still equal to its unsharded
+    run to the bit. ``spatial_axis`` (the ``data x space`` layout) raises
+    ``ValueError``: it comes with the space-sharded flow engine's slice."""
+    if spatial_axis is not None:
         raise ValueError(
-            "make_cascade_batch_fn: mesh and spatial_axis are not supported by the "
-            "PyTorch port, which runs a batch of pairs on one GPU (the JAX package's "
-            "parallel/mesh.py has no counterpart)")
+            "make_cascade_batch_fn: spatial_axis (a data x space mesh) is not ported yet: "
+            "ROADMAP queue 1 item 19, after the space-sharded flow engine's slice (item 18). "
+            "The data axis runs: pass mesh= alone")
     key = tuple(sorted(config.items()))
+    if mesh is not None:
+        key += (("mesh", mesh.axis_names, mesh.devices.shape,
+                 tuple(str(d) for d in mesh.device_list)),)
     fn = _BATCH_CACHE.get(key)
     if fn is None:
-        fn = CascadeFn(config, pairs=True)
+        fn = CascadeFn(config, pairs=True) if mesh is None else ShardedCascadeFn(config, mesh)
         _BATCH_CACHE[key] = fn
     return fn

@@ -26,6 +26,7 @@ axis off the result; a cohort (``parallel/cohort.py``,
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import warnings
@@ -356,14 +357,34 @@ def fit_matrix(moving: torch.Tensor, target: torch.Tensor, params0: torch.Tensor
     resampler) and scores it against its slice of ``target``, each pair's
     loss and stop its own. One pair's slice is the whole of ``moving``
     (``[N, C, *S]``, one theta for its N items); B > 1 pairs take one item
-    each (``[B, 1, *S]``). Thetas ``[B, 1, d, d+1]``."""
-    from ..losses import pair_loss
+    each (``[B, 1, *S]``). Thetas ``[B, 1, d, d+1]``.
+
+    ``moving`` and ``target`` may be one pair split into slabs over a mesh
+    (``parallel/mesh.py``'s ``Sharded``, the ``space`` axis): the warp runs
+    K1's slab mode, the criteria add each slab's partial sums in ascending
+    slab order, and the parameters and the optimizer's state stay on the
+    mesh's first device. Such a loop runs eagerly (one CUDA graph cannot
+    span devices)."""
+    from ..losses import pair_loss, weighted_loss
     from ..ops.resample import warp_affine
     from ..ops.separable import _warp_affine_separable
+    from ..parallel.mesh import Sharded
 
-    loss = pair_loss(criteria, weights, params0.shape[0])
-    sess = graph.session()
-    moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
+    sharded = isinstance(moving, Sharded)
+    if sharded:
+        if params0.shape[0] != 1 or not separable:
+            raise ValueError("a space-sharded volume registers one pair with "
+                             "method='separable'")
+        whole = weighted_loss(criteria, weights)
+
+        def loss(y, yp):
+            return torch.reshape(whole(y, yp), (1,))
+
+        moving_s, target_s = moving, target
+    else:
+        loss = pair_loss(criteria, weights, params0.shape[0])
+        sess = graph.session()
+        moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
     # LM's Hessian differentiates the warp twice: K1's chain of passes
     twice = optimizer.lower() == "lm"
 
@@ -373,8 +394,9 @@ def fit_matrix(moving: torch.Tensor, target: torch.Tensor, params0: torch.Tensor
                   if separable else warp_affine(theta, moving_s))
         return loss(target_s, warped)
 
-    final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
-        loss_fn, params0, optimizer, lr, epochs, stop_rel, patience, progress_every, label)
+    with graph.eager() if sharded else contextlib.nullcontext():
+        final_params, best_params, best_loss, losses, hist, steps = optimize_scan(
+            loss_fn, params0, optimizer, lr, epochs, stop_rel, patience, progress_every, label)
     return RegistrationResult(
         final_theta=theta_of(final_params)[:, None], best_theta=theta_of(best_params)[:, None],
         final_params=final_params, best_params=best_params, losses=losses,

@@ -235,6 +235,11 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
     """The flow engine's loop over ``pairs`` pairs, each a slice of
     ``moving``'s leading axis (one pair: the whole of it); the records, the
     steps and ``max_disp`` with a leading pair axis."""
+    from ..parallel.mesh import Sharded
+
+    if isinstance(moving, Sharded):
+        raise ValueError("the flow engine on a space-sharded volume comes with the "
+                         "space-sharded flow engine's slice (ROADMAP queue 1, item 18)")
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
     if progress_every and pairs > 1:

@@ -24,6 +24,13 @@ shape; a new shape, dtype or device allocates anew and drops the graph. Its
   kernels' counters, and each replay batch adds them back times its
   replays (``native.add_launch_counts``).
 
+Each thread keeps its own level and graphs (context variables). Threads
+that capture on different devices at once (``ShardedCascadeFn`` over a mesh
+of several cards) run inside :func:`concurrent`, which captures with
+``capture_error_mode='thread_local'``. The kernels' launch counters are
+module-wide: with several devices in flight a capture may count another
+thread's launches (the counts, never the results).
+
 A step must make no host read (``.item()``, a branch on a device value) and
 no host-to-device copy: the capture raises, and nothing falls back to the
 eager loop. A step's results live in the static buffers, so the engines
@@ -43,6 +50,9 @@ WARMUP = 2  # eager steps on a side stream before a capture
 
 _GRAPHS: contextvars.ContextVar = contextvars.ContextVar("step_graphs", default=None)
 _LEVEL: contextvars.ContextVar = contextvars.ContextVar("step_level", default=None)
+# how a capture treats other threads' CUDA calls ("thread_local" where threads
+# on other devices capture at the same time)
+_MODE: contextvars.ContextVar = contextvars.ContextVar("capture_mode", default="global")
 
 
 class Eager:
@@ -118,7 +128,7 @@ class StepGraph:
         del saved
         graph = torch.cuda.CUDAGraph()
         before = native.launch_counts()
-        with torch.cuda.graph(graph, pool=self.owner.pool()):
+        with torch.cuda.graph(graph, pool=self.owner.pool(), capture_error_mode=_MODE.get()):
             step()
         after = native.launch_counts()
         self.launches = {k: after[k] - before.get(k, 0) for k in after
@@ -170,6 +180,27 @@ def level(name: str):
         yield
     finally:
         _LEVEL.reset(token)
+
+
+@contextlib.contextmanager
+def concurrent():
+    """Capture inside this block with ``capture_error_mode='thread_local'``:
+    other threads (capturing on other devices) may run CUDA calls meanwhile."""
+    token = _MODE.set("thread_local")
+    try:
+        yield
+    finally:
+        _MODE.reset(token)
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every level inside this block as it comes (no graphs)."""
+    token = _GRAPHS.set(None)
+    try:
+        yield
+    finally:
+        _GRAPHS.reset(token)
 
 
 def session():

@@ -57,7 +57,14 @@ def rigid_register(
     ``progress_every=N`` prints progress every N steps. ``per`` is accepted
     for the reference's signature and unused, as in the JAX package. The
     loop is ``engines/common.fit_matrix`` on one pair, which a cohort runs
-    on B pairs."""
+    on B pairs.
+
+    ``moving`` and ``target`` may be split into slabs over a mesh
+    (``parallel.mesh.shard(x, volume_sharding(mesh))``, the ``space`` axis),
+    as the JAX engine takes sharded arrays: the edge filter, the warp (K1's
+    slab mode) and MSE / SSD / NCC run slab by slab, the parameters on the
+    mesh's first device, and ``warped_best`` comes back split alike. NMI and
+    LNCC, ``method='exact'`` and ``optimizer='lm'`` raise there."""
     del per
     if grad_edges:
         moving = edge_filter(moving)

@@ -247,7 +247,11 @@ def nmi(img1: torch.Tensor, img2: torch.Tensor, bins: int = 256,
 
 def nmi_loss(y: torch.Tensor, yp: torch.Tensor, alpha: float = 1000.0, bins: int = 256,
              patch_size: int = 100, bandwidth: float = 3.0) -> torch.Tensor:
-    """Reference ``NMILoss.forward``: ``mean(|NMI(patches) - 1|) * alpha``."""
+    """Reference ``NMILoss.forward``: ``mean(|NMI(patches) - 1|) * alpha``.
+    Raises ``ValueError`` on slabs (a ``parallel.mesh.Sharded`` volume)."""
+    from .similarity import refuse_slabs
+
+    refuse_slabs("nmi", y, yp)
     p = patch_size
     d = y.ndim - 2
 

@@ -17,6 +17,16 @@ and the coordinates. The kernels take ``q`` in one of three forms:
   (:func:`sweep_flow_passes`; the field's gradient is written channel by
   channel into one buffer).
 
+The affine form also runs on slabs (:func:`sweep_affine_slabs`, the slab
+mode): a volume split along one spatial axis over a mesh
+(``parallel/mesh.py``), each slab's passes launched on its own device with
+positions and coordinates of the whole volume. The pass along the split
+axis reads a halo of ``K + 1`` rows a side (``parallel/halo.py``); its
+backward fetches the upstream gradient's halo and gathers locally, so the
+warp and dsrc are the unsharded launch's to the bit, and each slab's row
+gradient is summed over the slabs in ascending order on the mesh's first
+device.
+
 Dispatch is by device only: a CPU tensor takes the plain versions
 (:func:`sweep_plain`, :func:`sweep_affine_plain`, :func:`sweep_flow_plain`),
 a CUDA tensor launches the kernels (built from the package's own source at
@@ -43,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -54,8 +64,8 @@ SOURCE = native.PKG / "csrc" / "sweep.cu"
 fwd_launches = 0
 bwd_launches = 0
 bwd2_launches = 0
-fwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0}
-bwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0}
+fwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0, "slab": 0}
+bwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0, "slab": 0}
 bwd2_modes = {"affine": 0, "pairs": 0}
 native.count_launches(__name__, "fwd_launches", "bwd_launches", "bwd2_launches", "fwd_modes",
                       "bwd_modes", "bwd2_modes")
@@ -70,6 +80,9 @@ LIB = native.Library(SOURCE, "sweep", {
     "sweep_bwd": (_I, [_I] + [_P] * 7 + [_L, _I, _L] + [_I] * 8 + [_L, _L, _L, _P]),
     "sweep_bwd_work": (_L, [_L, _I, _L, _I, _L]),
     "sweep_bwd2": (_I, [_P] * 9 + [_L, _I, _L] + [_I] * 8 + [_L, _P]),
+    "sweep_slab_fwd": (_I, [_P] * 3 + [_L, _I, _L] + [_I] * 8 + [_L] + [_I] * 7 + [_P]),
+    "sweep_slab_bwd_work": (_L, [_L, _I, _L, _I, _L, _I]),
+    "sweep_slab_bwd": (_I, [_P] * 6 + [_L, _I, _L] + [_I] * 8 + [_L] + [_I] * 7 + [_P]),
 })
 
 
@@ -626,23 +639,29 @@ def _plain_gather(src, dim, mf, mc, fi, ci):
     return vf, vc
 
 
-def _axis_coord_grid(coef: torch.Tensor, offset, spatial) -> torch.Tensor:
+def _axis_coord_grid(coef: torch.Tensor, offset, spatial, starts=None) -> torch.Tensor:
     """``q[o] = coef . o + offset`` over the full grid, shape ``[1, 1, *S]``;
     with one row per pair (``coef [B, d]``, ``offset [B]``) ``[B, 1, *S]``,
-    each pair's grid computed by the same ops as its own."""
+    each pair's grid computed by the same ops as its own. ``starts``: the
+    grid's first voxel in a larger volume (a slab's), each coordinate that
+    volume's."""
     d = len(spatial)
+    starts = (0,) * d if starts is None else tuple(starts)
+
+    def iota(b):
+        return torch.arange(starts[b], starts[b] + spatial[b], dtype=torch.float32,
+                            device=coef.device).view(
+            tuple(spatial[b] if i == b else 1 for i in range(d)))
+
     if coef.ndim == 2:
         lead = (coef.shape[0],) + (1,) * d
         q = torch.reshape(offset, lead)
         for b in range(d):
-            iota = torch.arange(spatial[b], dtype=torch.float32, device=coef.device)
-            q = q + coef[:, b].reshape(lead) * iota.view(
-                tuple(spatial[b] if i == b else 1 for i in range(d)))
+            q = q + coef[:, b].reshape(lead) * iota(b)
         return q[:, None]
     q = offset
     for b in range(d):
-        iota = torch.arange(spatial[b], dtype=torch.float32, device=coef.device)
-        q = q + coef[b] * iota.view(tuple(spatial[b] if i == b else 1 for i in range(d)))
+        q = q + coef[b] * iota(b)
     return q[None, None]
 
 
@@ -732,8 +751,18 @@ def sweep_affine_passes(src: torch.Tensor, passes, windows: Sequence[int],
     transform: on the card one launch a pass over a table ``[N, d, d+1]``.
     ``twice=True`` makes the warp differentiable twice on the card (a chain
     of :class:`_AffinePass`, the same launches forward and backward, and
-    ``sweep_bwd2`` in a second derivative); the plain passes are anyway."""
+    ``sweep_bwd2`` in a second derivative); the plain passes are anyway. A
+    ``parallel.mesh.Sharded`` volume split along a spatial dim takes the
+    slab mode (:func:`sweep_affine_slabs`; differentiable once)."""
+    from ...parallel.mesh import Sharded
+
     windows = tuple(int(K) for K in windows)
+    if isinstance(src, Sharded):
+        if twice:
+            raise ValueError("K1's second order has no slab mode yet: optimizer='lm' on a "
+                             "space-sharded volume comes with the space-sharded flow engine's "
+                             "slice (ROADMAP queue 1, item 18)")
+        return sweep_affine_slabs(src, passes, windows)
     if src.is_cuda:
         table, axes = pass_table(passes)
         if not twice:
@@ -775,6 +804,12 @@ def affine_chain(src: torch.Tensor, table: torch.Tensor, axes, windows) -> torch
 def sweep_flow_passes(src: torch.Tensor, flow: torch.Tensor, K: int) -> torch.Tensor:
     """A separable flow warp of ``src [N, C, *S]`` by ``flow [N, d, *S]``
     (voxels), x-pass first, each pass within the window ``K``."""
+    from ...parallel.mesh import Sharded
+
+    if isinstance(src, Sharded):
+        raise ValueError("K1's flow form has no slab mode yet: a flow warp of a space-sharded "
+                         "volume comes with the space-sharded flow engine's slice (ROADMAP "
+                         "queue 1, item 18)")
     if src.is_cuda:
         return _SeparableFlow.apply(src, flow.to(torch.float32).contiguous(), int(K))
     if src.device.type == "cpu":
@@ -783,3 +818,304 @@ def sweep_flow_passes(src: torch.Tensor, flow: torch.Tensor, K: int) -> torch.Te
             out = sweep_flow_plain(out, flow, axis, K)
         return out
     raise _no_path(src)
+
+
+# -------------------------------------------------------------------- slabs
+
+
+class SlabGeo(NamedTuple):
+    """A slab of a volume split along spatial ``axis``: its first row ``lo``
+    and the volume's extent along that axis."""
+
+    axis: int
+    lo: int
+    extent: int
+
+
+def slab_halo(K: int) -> int:
+    """Rows a side that a pass along the split axis reads around a slab:
+    its outputs' taps forward, the outputs that reach its rows backward."""
+    return int(K) + 1
+
+
+def _slab_args(shape, axis: int, K: int, geo: SlabGeo) -> tuple:
+    """The slab mode's ``(oz, oy, ox, p0, b0, Lb, Xg)`` of a pass along
+    spatial ``axis`` whose output is a slab of ``shape``: along the split
+    axis the slab's rows and a buffer with a halo of ``slab_halo(K)`` rows
+    a side; across it the slab's origin."""
+    d = len(shape) - 2
+    L = shape[2 + axis]
+    origin = [0, 0, 0]
+    if axis == geo.axis:
+        h = slab_halo(K)
+        return (*origin, geo.lo, geo.lo - h, L + 2 * h, geo.extent)
+    origin[3 - d + geo.axis] = geo.lo
+    return (*origin, 0, 0, L, L)
+
+
+def _check_slab(buf: torch.Tensor, table: torch.Tensor, axis: int, K: int, geo: SlabGeo,
+                shape) -> None:
+    _check_image(buf)
+    d = buf.ndim - 2
+    if geo.axis not in range(d) or axis not in range(d) or K < 0:
+        raise ValueError(f"K1's slab mode needs axes in range({d}) and K >= 0, got split axis "
+                         f"{geo.axis}, pass axis {axis}, K {K}")
+    Lb = _slab_args(shape, axis, K, geo)[5]
+    want = tuple(Lb if i == 2 + axis else s for i, s in enumerate(shape))
+    if tuple(buf.shape) != want:
+        raise ValueError(f"K1's slab mode needs a source buffer {want} for a slab {tuple(shape)} "
+                         f"along axis {axis} with K = {K}, got {tuple(buf.shape)}")
+    L = shape[2 + geo.axis]
+    if geo.lo < 0 or geo.lo + L > geo.extent:
+        raise ValueError(f"K1's slab mode: a slab of {L} rows from {geo.lo} is not inside "
+                         f"{geo.extent}")
+    if tuple(table.shape) not in ((d, d + 1), (shape[0], d, d + 1)):
+        raise ValueError(f"K1 needs a table [{d}, {d + 1}] or [{shape[0]}, {d}, {d + 1}], got "
+                         f"{tuple(table.shape)}")
+
+
+def affine_slab_fwd(buf: torch.Tensor, table: torch.Tensor, p: int, axis: int, K: int,
+                    geo: SlabGeo, shape) -> torch.Tensor:
+    """One affine pass on a slab (the slab mode): the slab ``shape``'s
+    outputs of row ``p`` of ``table`` along spatial ``axis``, from ``buf``
+    (the slab itself, or along the split axis the slab with
+    ``slab_halo(K)`` rows of the volume a side, zeros past it)."""
+    shape = tuple(shape)
+    _check_slab(buf, table, axis, int(K), geo, shape)
+    _check_on(buf, table=table)
+    return _fwd_slab(buf, table, p, axis, int(K), geo, shape)
+
+
+def _fwd_slab(buf, table, p, axis, K, geo, shape):
+    out = torch.empty(shape, dtype=buf.dtype, device=buf.device)
+    outer, L, inner, Z, Y, X, vaxis = _image(shape, axis)
+    LIB.launch("sweep_slab_fwd", buf, buf.data_ptr(), _row(table, p), out.data_ptr(), outer, L,
+               inner, K, _DTYPES[buf.dtype], len(shape) - 2, Z, Y, X, vaxis, shape[1],
+               _items(table)[0], *_slab_args(shape, axis, K, geo))
+    _count(True, "slab")
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _slab_work_floats(rows, K, items, Xg) -> int:
+    n = LIB.fns()["sweep_slab_bwd_work"](*rows, K, items, Xg)
+    if n <= 0:
+        raise ValueError(f"K1 has no slab backward tile for rows {rows}, window {K}, "
+                         f"{items} tables and extent {Xg}")
+    return n
+
+
+def _slab_work(shape, axes, windows, geo, items, device) -> torch.Tensor:
+    """The slab backward's workspace for every pass of a warp (the largest),
+    zeroed; each launch leaves its counters 0."""
+    n = max(_slab_work_floats(_rows(shape, 2 + a), K, items, _slab_args(shape, a, K, geo)[6])
+            for a, K in zip(axes, windows))
+    return torch.zeros(n, dtype=torch.float32, device=device)
+
+
+def _bwd_slab(gbuf, buf, table, p, axis, K, geo, shape, need_src, dtable, work=None):
+    """dsrc (or None) of one slab pass, ``gbuf`` the upstream gradient laid
+    out as ``buf``; the slab's share of the row gradient into
+    ``dtable[..., p, :]`` when ``dtable`` is given."""
+    dsrc = torch.empty(shape, dtype=buf.dtype, device=buf.device) if need_src else None
+    stride, items = _items(table)
+    outer, L, inner, Z, Y, X, vaxis = _image(shape, axis)
+    args = _slab_args(shape, axis, K, geo)
+    if dtable is not None and work is None:
+        work = _slab_work(shape, (axis,), (K,), geo, items, buf.device)
+    LIB.launch("sweep_slab_bwd", buf, gbuf.data_ptr(), buf.data_ptr(), _row(table, p),
+               None if dsrc is None else dsrc.data_ptr(),
+               None if work is None else work.data_ptr(),
+               None if dtable is None else _row(dtable, p), outer, L, inner, K,
+               _DTYPES[buf.dtype], len(shape) - 2, Z, Y, X, vaxis, shape[1], stride, *args)
+    _count(False, "slab")
+    return dsrc
+
+
+def affine_slab_bwd(gbuf: torch.Tensor, buf: torch.Tensor, table: torch.Tensor, p: int,
+                    axis: int, K: int, geo: SlabGeo, shape, need_src: bool = True,
+                    need_table: bool = True):
+    """The backward of :func:`affine_slab_fwd`: ``(dsrc, drow)``, ``gbuf``
+    the upstream gradient laid out as ``buf`` (along the split axis with its
+    halo), ``dsrc`` the slab's, ``drow`` the slab's share of the gradient of
+    ``table[..., p, :]``; either may be skipped (None)."""
+    shape = tuple(shape)
+    _check_slab(buf, table, axis, int(K), geo, shape)
+    if gbuf.shape != buf.shape or gbuf.dtype != buf.dtype:
+        raise ValueError("K1's slab backward needs g laid out and typed as the source buffer")
+    _check_on(buf, table=table, g=gbuf)
+    dtable = torch.zeros_like(table) if need_table else None
+    dsrc = _bwd_slab(gbuf, buf, table, p, axis, int(K), geo, shape, need_src, dtable)
+    return dsrc, None if dtable is None else dtable[..., p, :]
+
+
+def _slab_taps(q, dim, K, p0, b0, Lb, Xg):
+    """:func:`_plain_taps` of coordinates at a slab's outputs (global
+    positions from ``p0``) into a buffer of the volume's rows ``[b0, b0 +
+    Lb)``: a tap counts within the window and the volume."""
+    L = q.shape[dim]
+    q0 = torch.floor(q)
+    view = [1] * q.ndim
+    view[dim] = L
+    k = q0 - torch.arange(p0, p0 + L, dtype=torch.float32, device=q.device).view(view)
+    mf = (k >= -K) & (k <= K + 1) & (q0 >= 0) & (q0 <= Xg - 1)
+    mc = (k >= -K - 1) & (k <= K) & (q0 >= -1) & (q0 <= Xg - 2)
+    q0i = torch.nan_to_num(q0, nan=0.0)
+    fi = torch.clamp(q0i - b0, 0.0, Lb - 1.0).long()
+    ci = torch.clamp(q0i + 1.0 - b0, 0.0, Lb - 1.0).long()
+    return q - q0, mf, mc, fi, ci
+
+
+def sweep_affine_slab_plain(buf: torch.Tensor, coef: torch.Tensor, offset, axis: int, K: int,
+                            geo: SlabGeo, shape) -> torch.Tensor:
+    """Plain version of the slab mode: :func:`sweep_affine_plain` of the
+    slab ``shape``'s outputs with the slab's origin applied (each coordinate
+    and tap position the volume's) on the buffer ``buf`` (as
+    :func:`affine_slab_fwd` takes it); differentiable in ``buf``, ``coef``
+    and ``offset``. Each output is the unsharded plain pass's to the bit."""
+    shape = tuple(shape)
+    d = len(shape) - 2
+    dim = 2 + axis
+    _, _, _, p0, b0, Lb, Xg = _slab_args(shape, axis, int(K), geo)
+    starts = [geo.lo if b == geo.axis else 0 for b in range(d)]
+    starts[axis] = p0
+    q = _axis_coord_grid(coef, offset, shape[2:], starts).expand(shape)
+    fr, mf, mc, fi, ci = _slab_taps(q, dim, int(K), p0, b0, Lb, Xg)
+    src = buf.to(torch.float32)
+    vf = torch.where(mf, torch.gather(src, dim, fi), 0.0)
+    vc = torch.where(mc, torch.gather(src, dim, ci), 0.0)
+    out = torch.where(mf, vf * (1.0 - fr), 0.0) + torch.where(mc, vc * fr, 0.0)
+    return out.to(buf.dtype)
+
+
+def _row_of(table: torch.Tensor, p: int) -> tuple:
+    return table[..., p, :-1], table[..., p, -1]
+
+
+def _slab_bwd_plain(gbuf, buf, table, p, axis, K, geo, shape, need_src, dtable):
+    """The plain slab backward, in the kernel's way: dsrc gathered from the
+    upstream gradient of every output that reaches the slab's rows (along the
+    split axis those of the halo, on a zero canvas of the sources they
+    reach), so each entry sums the unsharded pass's terms in its order; the
+    row's gradient from the slab's own outputs."""
+    dim = 2 + axis
+    coef, offset = (t.detach() for t in _row_of(table, p))
+    split = axis == geo.axis
+    h = slab_halo(K)
+    dsrc = None
+    with torch.enable_grad():
+        if dtable is not None:
+            c, o = coef.clone().requires_grad_(True), offset.clone().requires_grad_(True)
+            out = sweep_affine_slab_plain(buf.detach(), c, o, axis, K, geo, shape)
+            g_own = gbuf.narrow(dim, h, shape[dim]) if split else gbuf
+            dc, do = torch.autograd.grad(out, (c, o), g_own)
+            dtable[..., p, :] = torch.cat([dc, do[..., None]], -1)
+        if need_src:
+            if split:  # the outputs of the halo reach rows [lo - 2h, hi + 2h)
+                L = shape[dim]
+                ext = tuple(L + 2 * h if i == dim else s for i, s in enumerate(shape))
+                canvas = torch.zeros(tuple(L + 4 * h if i == dim else s
+                                           for i, s in enumerate(shape)),
+                                     dtype=buf.dtype, device=buf.device, requires_grad=True)
+                out = sweep_affine_slab_plain(canvas, coef, offset, axis, K,
+                                              geo._replace(lo=geo.lo - h), ext)
+                (dc,) = torch.autograd.grad(out, canvas, gbuf)
+                dsrc = dc.narrow(dim, 2 * h, L).contiguous()
+            else:
+                s = buf.detach().requires_grad_(True)
+                out = sweep_affine_slab_plain(s, coef, offset, axis, K, geo, shape)
+                (dsrc,) = torch.autograd.grad(out, s, gbuf)
+    return dsrc
+
+
+def _slab_pass(buf, table, p, axis, K, geo, shape):
+    if buf.is_cuda:
+        return _fwd_slab(buf, table, p, axis, K, geo, shape)
+    if buf.device.type == "cpu":
+        with torch.no_grad():
+            return sweep_affine_slab_plain(buf, *_row_of(table, p), axis, K, geo, shape)
+    raise _no_path(buf)
+
+
+def _slab_pass_bwd(gbuf, buf, table, p, axis, K, geo, shape, need_src, dtable, work):
+    if buf.is_cuda:
+        return _bwd_slab(gbuf, buf, table, p, axis, K, geo, shape, need_src, dtable, work)
+    return _slab_bwd_plain(gbuf, buf, table, p, axis, K, geo, shape, need_src, dtable)
+
+
+class _SlabAffine(torch.autograd.Function):
+    """A separable affine warp of a volume split into slabs, one launch a
+    slab a pass forward and backward (on a CPU slab the plain versions):
+    the pass along the split axis reads each slab's buffer with its halo,
+    and its backward the upstream gradient's halo (``parallel/halo.py``).
+    ``table`` (one, or one per batch item) lives on the mesh's first device
+    and a copy goes to each slab's; the table's gradient is each slab's
+    share summed in ascending slab order on the table's device."""
+
+    @staticmethod
+    def forward(ctx, table, axes, windows, geos, *slabs):
+        from ...parallel import halo
+
+        split = geos[0].axis
+        tables = [table if s.device == table.device else table.to(s.device) for s in slabs]
+        shape = tuple(slabs[0].shape)
+        cur, saved = list(slabs), []
+        for p, (axis, K) in enumerate(zip(axes, windows)):
+            bufs = (halo.fetch(cur, 2 + axis, slab_halo(K), slab_halo(K)) if axis == split
+                    else cur)
+            cur = [_slab_pass(b, t, p, axis, K, geo, shape)
+                   for b, t, geo in zip(bufs, tables, geos)]
+            saved += bufs
+        ctx.save_for_backward(table, *tables, *saved)
+        ctx.axes, ctx.windows, ctx.geos, ctx.shape = axes, windows, geos, shape
+        return tuple(cur)
+
+    @staticmethod
+    @native.differentiable_once
+    def backward(ctx, *gs):
+        from ...parallel import halo
+        from ...parallel.mesh import ordered_sum
+
+        n = len(gs)
+        table, *rest = ctx.saved_tensors
+        tables, saved = rest[:n], rest[n:]
+        need_table = ctx.needs_input_grad[0]
+        need_src = any(ctx.needs_input_grad[4:])
+        split, shape = ctx.geos[0].axis, ctx.shape
+        dtables = [torch.zeros_like(t) if need_table else None for t in tables]
+        works = [None] * n
+        if need_table and tables[0].is_cuda:
+            items = _items(table)[1]
+            works = [_slab_work(shape, ctx.axes, ctx.windows, geo, items, t.device)
+                     for geo, t in zip(ctx.geos, tables)]
+        g = [x.to(saved[0].dtype).contiguous() for x in gs]
+        for p in reversed(range(len(ctx.axes))):
+            want_src = p > 0 or need_src
+            if not (want_src or need_table):
+                break
+            axis, K = ctx.axes[p], ctx.windows[p]
+            gb = halo.fetch(g, 2 + axis, slab_halo(K), slab_halo(K)) if axis == split else g
+            g = [_slab_pass_bwd(gb[k], saved[p * n + k], tables[k], p, axis, K, ctx.geos[k],
+                                shape, want_src, dtables[k], works[k]) for k in range(n)]
+        dtable = ordered_sum(dtables, table.device) if need_table else None
+        return (dtable, None, None, None, *(g if need_src else [None] * n))
+
+
+def sweep_affine_slabs(src, passes, windows: Sequence[int]):
+    """:func:`sweep_affine_passes` on a volume split into slabs (``src`` a
+    ``parallel.mesh.Sharded`` of ``[N, C, *S]`` split along one spatial
+    dim): each slab's passes in the slab mode on its device (the kernels on
+    the card, the plain versions on the CPU), the warp a ``Sharded`` laid
+    out as ``src``, equal to the unsharded warp's to the bit; differentiable
+    once in the slabs and the passes' rows."""
+    from ...parallel.mesh import from_blocks
+
+    dim, _ = src.slab_axis()
+    if dim < 2:
+        raise ValueError(f"K1's slab mode splits a spatial dim, got a split along dim {dim}")
+    slabs = src.shards
+    m = slabs[0].shape[dim]
+    geos = tuple(SlabGeo(dim - 2, k * m, src.shape[dim]) for k in range(len(slabs)))
+    table, axes = pass_table(passes)
+    outs = _SlabAffine.apply(table, axes, tuple(int(K) for K in windows), geos, *slabs)
+    return from_blocks(list(outs), src.sharding, src.shape)

@@ -11,7 +11,10 @@ Every pass goes through kernel K1 (``ops/cuda/sweep.py``): on the card a
 whole warp is one autograd Function whose kernels compute each pass's
 coordinates themselves (from the pass's (coef, offset) or the flow's
 channel); on the CPU each pass builds its coordinate grid and takes K1's
-plain version. The JAX package's three forms of the sweep (unrolled,
+plain version. An affine warp of a volume split into slabs over a mesh
+(``parallel/mesh.py``'s ``space`` axis) runs each slab's passes in K1's slab
+mode, the halo fetched before the pass along the split axis wherever the
+factorization puts it; the warp is the unsharded one to the bit. The JAX package's three forms of the sweep (unrolled,
 ``fori`` and Pallas) and their routing thresholds exist for the TPU and have
 no counterpart here.
 """
@@ -248,7 +251,13 @@ def warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
     spatial = tuple(moving.shape[2:])
     pivot = min_scaled_pivot(theta, spatial, align_corners)
     if pivot < _PIVOT_REL:
+        from ..parallel.mesh import Sharded
         from .resample import warp_affine
+
+        if isinstance(moving, Sharded):
+            raise ValueError(f"warp_affine_separable: theta's per-axis factorization is "
+                             f"degenerate (scaled pivot {pivot:.3g} < {_PIVOT_REL}) and the "
+                             "exact resampler takes no sharded volume")
 
         warnings.warn(
             f"warp_affine_separable: theta's per-axis factorization is "

@@ -1,6 +1,6 @@
 """Cohort registration (counterpart of
 ``torchregister_tpu/parallel/cohort.py``): ``B`` pairs ``[B, 1, *S]``,
-each registered on its own, in one loop on one GPU.
+each registered on its own, in one loop on one GPU or split over a mesh.
 
 In JAX a cohort is ``vmap`` over one engine's ``while_loop``. Here it is
 the engines' loops run on the batch (``engines/common.fit_matrix``,
@@ -10,12 +10,18 @@ own, and keeps each pair's stop state, so every pair stops at the step it
 would stop at alone and its steps after that are masked, as under ``vmap``.
 The single-pair engines run the same loops on one pair.
 
+With a ``mesh`` (``parallel/mesh.py``) the batch splits over its ``data``
+axis, as JAX's ``batch_sharding``: each shard's pairs run that loop on the
+shard's device (``parallel/data.py``) and the results come back in pair
+order on the mesh's first device. What depends on the whole batch is made
+first, as the unsharded call makes it: the edge filter, the random inits,
+the windows of the worst-case init, the U-Net weights drawn pair after pair.
+So each pair of a sharded call equals the unsharded call's to the bit.
+
 Window safety matches the single-pair engines: the sweep windows cover the
 worst-case init over the batch (:func:`_cohort_windows`), and the recovered
 transforms are checked after the run with one host read
-(``engines/common.check_sweep_windows_batch``). The JAX package's ``mesh``
-(a cohort sharded over a device mesh) has no counterpart on one card and
-raises.
+(``engines/common.check_sweep_windows_batch``).
 """
 from __future__ import annotations
 
@@ -23,12 +29,14 @@ import numpy as np
 import torch
 
 from ..engines.affine import affine_theta
-from ..engines.common import check_sweep_windows_batch, fit_matrix, resolve_sweep_windows
-from ..engines.flow import FlowResult, flow_pairs
+from ..engines.common import (check_sweep_windows_batch, defaults_of, fit_matrix,
+                              resolve_sweep_windows)
+from ..engines.flow import FlowResult, _unet, flow_pairs, flow_register
 from ..engines.rigid import init_rigid_params
 from ..losses import resolve_criteria
 from ..ops.edge import edge_filter
 from ..ops.transforms import identity_theta, rigid_theta, rigid_theta_np
+from .data import Shards, concat, run_shards
 
 
 def _cohort_windows(init_thetas_np, spatial, max_shift):
@@ -82,13 +90,13 @@ def register_cohort(
     Inputs that are not tensors (numpy arrays, as the JAX package takes)
     go to the card, and raise without one, as ``Register(device=None)``
     does; tensors stay on their device (a CPU tensor runs on the CPU).
-    ``grad_edges`` filters each pair on its own. ``mesh`` raises
-    ``ValueError`` (one GPU)."""
-    if mesh is not None:
-        raise ValueError(
-            "register_cohort: mesh is not supported by the PyTorch port, which runs a "
-            "cohort as one batched loop on one GPU (the JAX package's parallel/mesh.py "
-            "has no counterpart); pass mesh=None")
+    ``grad_edges`` filters each pair on its own.
+
+    ``mesh`` splits the batch over the mesh's ``data`` axis (a batch that
+    does not split evenly raises ``ValueError``, as JAX's ``device_put``
+    does): inputs go to the mesh's first device, each shard runs on its own,
+    and the result is gathered in pair order there, each pair equal to the
+    unsharded call's to the bit."""
     is_field_flow = mode == "flow" and flow_model == "field"
     if init not in ("identity", "random"):
         raise ValueError(f"init must be 'identity' or 'random' (got {init!r})")
@@ -103,7 +111,9 @@ def register_cohort(
         lr = 0.3 if is_field_flow else 1e-5
     if smooth is None:
         smooth = 0.5 if is_field_flow else 0.0
-    if isinstance(movings, torch.Tensor):
+    if mesh is not None:
+        device = mesh.device_list[0]
+    elif isinstance(movings, torch.Tensor):
         device = movings.device
     elif torch.cuda.is_available():
         device = torch.device("cuda")
@@ -124,6 +134,20 @@ def register_cohort(
     srel = None if stop_rel is None else float(stop_rel)
     if mode not in ("rigid", "affine", "flow"):
         raise ValueError(f"unknown mode {mode!r}")
+    shards = Shards.of(mesh, B) if mesh is not None else None
+
+    def sharded(run, *batch):
+        """``run`` on the whole batch, or on each shard's pairs of ``batch``
+        (tensors with a leading pair axis, or state dicts of them) on its
+        device, joined in pair order."""
+        if shards is None:
+            return run(*batch)
+
+        def job(k):
+            lo, hi = shards.pairs[k][0], shards.pairs[k][-1] + 1
+            return run(*(_take(x, lo, hi, B, shards.devices[k]) for x in batch))
+
+        return concat(run_shards(shards.devices, job), device)
 
     if mode != "flow":
         if grad_edges:  # the edge filter normalizes each pair on its own
@@ -139,25 +163,58 @@ def register_cohort(
             theta_of, inits = affine_theta, [identity.cpu().double().numpy()]
         windows = _cohort_windows(inits, spatial, max_shift) if separable else None
         criteria, w = resolve_criteria(criterions, weights)
-        out = fit_matrix(movings, targets, params0, theta_of, criteria, w, optimizer,
-                         float(lr), int(epochs), windows, separable, srel, int(patience),
-                         None, f"{mode}_register")
+
+        def fit(mov, tgt, p0):
+            return fit_matrix(mov, tgt, p0, theta_of, criteria, w, optimizer, float(lr),
+                              int(epochs), windows, separable, srel, int(patience), None,
+                              f"{mode}_register")
+
+        out = sharded(fit, movings, targets, params0)
         if check_window and separable:
             check_sweep_windows_batch(out.best_theta, spatial, windows,
                                       f"register_cohort ({mode})")
         return out
     generator = (seed if isinstance(seed, torch.Generator)
                  else torch.Generator().manual_seed(int(seed)))
-    _, res = flow_pairs(
-        movings, targets, lr=float(lr), max_epochs=int(epochs), stop_crit=float(stop_crit),
-        n=float(n), criterions=criterions, weights=weights, grad_edges=grad_edges,
-        optimizer=optimizer, depth=depth, generator=generator, method=method,
-        max_disp=int(max_disp), dtype=dtype, check_disp=check_window,
-        flow_model=str(flow_model), smooth=float(smooth), stop_rel=srel,
-        patience=int(patience))
-    if flow_model == "field":
-        flow = res.flow[:, None]
-        return FlowResult(flow=flow, losses=res.losses, steps=res.steps,
-                          converged=res.converged, params=flow, max_disp=res.max_disp)
-    params = res.params if B > 1 else {k: v[None] for k, v in res.params.items()}
-    return res._replace(flow=res.flow[:, None], params=params)
+    options = dict(lr=float(lr), max_epochs=int(epochs), stop_crit=float(stop_crit), n=float(n),
+                   criterions=criterions, weights=weights, grad_edges=grad_edges,
+                   optimizer=optimizer, depth=depth, generator=generator, method=method,
+                   max_disp=int(max_disp), dtype=dtype, check_disp=check_window,
+                   flow_model=str(flow_model), smooth=float(smooth), stop_rel=srel,
+                   patience=int(patience))
+
+    def flow_run(mov, tgt, init=None):
+        _, res = flow_pairs(mov, tgt, **options,
+                            **({} if init is None else {"init_params": init}))
+        if flow_model == "field":
+            flow = res.flow[:, None]
+            return FlowResult(flow=flow, losses=res.losses, steps=res.steps,
+                              converged=res.converged, params=flow, max_disp=res.max_disp)
+        params = (res.params if mov.shape[0] > 1
+                  else {k: v[None] for k, v in res.params.items()})
+        return res._replace(flow=res.flow[:, None], params=params)
+
+    if shards is None:
+        return flow_run(movings, targets)
+    if grad_edges:  # the whole batch filtered once, as the unsharded call filters it
+        movings, targets = edge_filter(movings), edge_filter(targets)
+        options["grad_edges"] = False
+    if flow_model != "unet":
+        return sharded(flow_run, movings, targets)
+    # every pair's weights drawn first, pair after pair, as one call draws them
+    opts = defaults_of(flow_register)
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    net = _unet(movings, float(n), opts["in_c"], depth, opts["use_attention"],
+                opts["use_norm"], dt, None, opts["zero_head"], generator, B if B > 1 else None)
+    init = {k: v.detach() for k, v in net.state_dict().items()}
+    return sharded(flow_run, movings, targets, init)
+
+
+def _take(x, lo: int, hi: int, B: int, device: torch.device):
+    """Pairs ``[lo, hi)`` of ``x`` (a tensor with a leading pair axis, or a
+    state dict of them; one pair's without its pair axis) on ``device``."""
+    if isinstance(x, dict):
+        if B == 1:
+            return {k: v.to(device) for k, v in x.items()}
+        return {k: (v[lo:hi] if hi - lo > 1 else v[lo]).to(device) for k, v in x.items()}
+    return x[lo:hi].to(device)
