@@ -95,7 +95,6 @@ the bound over every term beside it as ``dense_bound_ms``).
 from __future__ import annotations
 
 import functools
-import gc
 import json
 import math
 import os
@@ -204,6 +203,11 @@ REPLACES = {
     # GSPMD splits over the JAX mesh's space axis, with halos
     "sweep_fwd_slab": "torchregister_tpu/ops/pallas/sweep.py:38",
     "sweep_bwd_slab": "torchregister_tpu/ops/pallas/sweep.py:134",
+    # K1's flow form on slabs (the flow engine on a space-sharded volume),
+    # and its second order on slabs (LM there)
+    "sweep_fwd_slab_flow": "torchregister_tpu/ops/pallas/sweep.py:38",
+    "sweep_bwd_slab_flow": "torchregister_tpu/ops/pallas/sweep.py:134",
+    "sweep_bwd2_slab": "torchregister_tpu/ops/pallas/sweep.py:134",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
@@ -226,6 +230,9 @@ NOTES = {"conv3d_wgrad": "replaces _wgrad_xla, XLA code (27 einsums at HIGHEST),
          "kde_dot": "replaces the autodiff backward of kde_pdf's lax.scan, XLA code: the "
                     "exact KDE's sum over points (ds with phi'; the second order's sbar with "
                     "phi''), skipping itself on the binned flag",
+         "sweep_bwd2_slab": "K1's second order on the slabs of a space-sharded volume "
+                            "(LM there): JAX takes it by autodiff of its in-loop XLA sweep "
+                            "under GSPMD",
          "conv3d_wgrad_pairs": "K3's weight gradient with a weight set per pair: "
                                "_wgrad_xla (XLA code) under the JAX cohort's vmap; each "
                                "pair's dw its own, each equal to a single-pair launch"}
@@ -249,7 +256,9 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            **{f"conv3d_{k}_pairs": "torchregister_tpu_torch/csrc/conv3d.cu"
               for k in ("fwd", "dgrad", "wgrad")},
            "sweep_fwd_slab": "torchregister_tpu_torch/csrc/sweep.cu",
-           "sweep_bwd_slab": "torchregister_tpu_torch/csrc/sweep.cu"}
+           "sweep_bwd_slab": "torchregister_tpu_torch/csrc/sweep.cu",
+           **{name: "torchregister_tpu_torch/csrc/sweep.cu"
+              for name in ("sweep_fwd_slab_flow", "sweep_bwd_slab_flow", "sweep_bwd2_slab")}}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
 # three TF32 products (3xTF32), so their f32 rate is a third of TF32's
@@ -1631,7 +1640,6 @@ def _mesh_data(tag: str, recipe_name: str, recipe: dict) -> dict:
     for key in [k for k in cascade_mod._BATCH_CACHE if k and k[-1][0] == "mesh"]:
         del cascade_mod._BATCH_CACHE[key]
     del fn, res, movings, targets, ref
-    gc.collect()  # a factory's step graphs and their owner refer to each other
     torch.cuda.empty_cache()
     return launches
 
@@ -1757,6 +1765,406 @@ def _mesh_space_rigid(smi: str) -> dict:
     return launches
 
 
+# [mesh-flow], [mesh-unet], [mesh-lm]: the flow engine and LM on 4 z-slabs.
+# K1's flow form on slabs at the recipe's fine flow level's window
+# (flow_max_disp), sweep_bwd2 on slabs at K = 8 f32 (the LM paths' window)
+MESH_FLOW_K = 8
+MESH_BWD2_K = 8
+# the recipe's fine flow level (RECIPE: Adam, lr 0.3, MSE + NCC, window 8,
+# plateau stop 1e-3 / 25) with smooth 0.25, at most 60 steps
+MESH_FLOW = dict(flow_model="field", lr=RECIPE["flow_lr"], optimizer="adam",
+                 criterions=["mse", "ncc"], smooth=0.25, max_disp=MESH_FLOW_K, stop_rel=1e-3,
+                 patience=25, max_epochs=60)
+# the field on slabs against the unsharded field after MESH_FLOW's 60 steps
+# (voxels; the losses relative). Adam normalizes each entry's step, so the
+# slab sums' last-bit differences move entries whose gradient is near 0 by
+# up to lr a step, and the runs part: 0.169 voxel and 1.1e-3 on the H100
+# (700 W). The phase prints beside them the same
+# unsharded run on the moving image raised by one ulp, which parts from it
+# alike
+MESH_FLOW_TOL_VOX = 0.5
+MESH_FLOW_LOSS_RTOL = 1e-2
+# RECIPE_UNET's net (n = 8, the depth max_depth_for gives) at its finest
+# flow level's size, 20 steps of the recipe's Adam from a seeded init with
+# the flow head zeroed (the cascade's residual start). Adam at lr 0.3 on a
+# net's weights is chaotic: a last-bit change parts two runs (UNET_RUNS'
+# note), so this run is held to the same first loss and printed beside the
+# unsharded run on the moving image raised by one ulp
+MESH_UNET_SIZE = 120
+MESH_UNET = dict(flow_model="unet", lr=RECIPE_UNET["flow_lr"], optimizer="adam",
+                 criterions=["mse", "ncc"], n=RECIPE_UNET["n"], max_disp=MESH_FLOW_K,
+                 max_epochs=20, zero_head=True)
+# the same net and steps at tests/test_parallel.py:273's lr 1e-3 from the
+# seeded init with its flow head (every layer learns from step 0). On the
+# H100 these runs part too (the one-ulp run further than the slabs: PERF.md
+# §6), so the flow after training is printed, not held, and the slabs'
+# training is held one step at a time: one SGD step (lr 1) from the same
+# init (MESH_UNET_STEP), each weight's step against the unsharded step
+MESH_UNET_JAX_LR = {**MESH_UNET, "lr": 1e-3, "zero_head": False}
+MESH_UNET_STEP = {**MESH_UNET, "optimizer": "sgd", "lr": 1.0, "zero_head": False}
+# tests/test_parallel.py:295's tolerance (JAX's U-Net on slabs against
+# unsharded), held by the net on slabs at fixed weights
+MESH_UNET_RTOL, MESH_UNET_ATOL = 2e-3, 2e-4
+# each weight's step or gradient on slabs against the unsharded one, of that
+# weight's own largest entry: a gradient dropped on slabs is off by 1, while
+# the unsharded net's gradients on the moving image raised by one ulp move
+# by up to 5.0e-2 at the seeded init (H100, 700 W: sums of 118³ products
+# that mostly cancel). A weight whose unsharded gradient moves by more than
+# MESH_UNET_NOISE of its largest entry under that ulp carries rounding
+# only (a bias whose channel the ReLU passes whole into an instance norm):
+# it is printed, not held
+MESH_UNET_GRAD_TOL = 5e-2
+MESH_UNET_NOISE = 0.5
+# LM_RECIPE's coarse matrix level (60³), rigid LM from the identity
+MESH_LM_SIZE = 60
+MESH_LM = dict(epochs=4, criterions=["mse", "ncc"], optimizer="lm", init="identity",
+               check_window=False)
+
+
+def _flow_slab_case():
+    """make_flow_truth_pair's moving image and true field at 240³, a seeded
+    cotangent, the 4 z-slab sharding and its geometry."""
+    moving, _, _, flow = make_flow_truth_pair((SIZE,) * 3, seed=1, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    g = torch.randn(moving.shape, generator=gen, device=DEV)
+    sh = _slab_case()[4]
+    m = SIZE // MESH_SLABS
+    geos = tuple(k1.SlabGeo(0, k * m, SIZE) for k in range(MESH_SLABS))
+    return moving, flow.float().contiguous(), g, sh, geos
+
+
+def _mesh_flow_kernels() -> dict:
+    """K1's flow form on 4 z-slabs at 240³ (K = MESH_FLOW_K): the whole flow
+    warp (the z pass on each slab's buffer with a halo of K + 1 rows, its
+    backward the halos of g and of the field's channel) against the
+    unsharded launches, output, dsrc and the field's gradient to the bit;
+    each slab's z-pass launches against their plain versions. Then
+    ``sweep_slab_bwd2`` (K = 8, f32, make_pair's rigid transform, each pass)
+    against the unsharded ``sweep_bwd2``, gbar and sbar to the bit, the row
+    gradient summed over the slabs within 1e-5 of its largest entry, and
+    against its plain version. f32: 1e-5 of the largest entry."""
+    moving, flow, g, sh, geos = _flow_slab_case()
+    K = MESH_FLOW_K
+    s0, f0 = moving.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    ref = k1._SeparableFlow.apply(s0, f0, K)
+    rds, rdf = torch.autograd.grad(ref, (s0, f0), g)
+    ss, fs = pmesh.shard(moving, sh), pmesh.shard(flow, sh)
+    for t in ss.shards + fs.shards:
+        t.requires_grad_(True)
+    out = k1.sweep_flow_slabs(ss, fs, K)
+    grads = torch.autograd.grad(out.shards, ss.shards + fs.shards, pmesh.shard(g, sh).shards)
+    n = MESH_SLABS
+    eq = {"warp": _same_bits(pmesh.gather(out), ref),
+          "dsrc": _same_bits(torch.cat(grads[:n], 2), rds),
+          "dflow": _same_bits(torch.cat(grads[n:], 2), rdf)}
+    del ref, rds, rdf, out, grads, s0, f0
+    slabs = [s.detach() for s in ss.shards]
+    flows = [f.detach() for f in fs.shards]
+    shape = slabs[0].shape
+    bufs = k1._halo_of(slabs, 0, K, geos)
+    gbufs = k1._halo_of(pmesh.shard(g, sh).shards, 0, K, geos)
+    ubufs = k1._halo_of([f[:, 0:1] for f in flows], 0, K, geos)
+    errs = {"sweep_fwd_slab_flow": 0.0, "sweep_bwd_slab_flow": 0.0}
+    rel = 0.0
+    for k, geo in enumerate(geos):
+        o = k1.flow_slab_fwd(bufs[k], flows[k], 0, K, geo, shape)
+        po = k1.sweep_flow_slab_plain(bufs[k], flows[k][:, 0:1], 0, K, geo, shape)
+        ds, du = k1.flow_slab_bwd(gbufs[k], bufs[k], ubufs[k], 0, K, geo, shape)
+        dfl = torch.zeros_like(flows[k])
+        pds = k1._flow_slab_bwd_plain(gbufs[k], bufs[k], ubufs[k], 0, K, geo, shape, True, dfl)
+        errs["sweep_fwd_slab_flow"] = max(errs["sweep_fwd_slab_flow"], _max_err(o, po))
+        errs["sweep_bwd_slab_flow"] = max(errs["sweep_bwd_slab_flow"], _max_err(ds, pds),
+                                          _max_err(du, dfl[:, 0]))
+        rel = max(rel, _max_err(o, po) / float(po.abs().max()),
+                  _max_err(ds, pds) / float(pds.abs().max()),
+                  _max_err(du, dfl[:, 0]) / float(dfl.abs().max()))
+    del bufs, gbufs, ubufs, slabs, flows
+    torch.cuda.empty_cache()
+    # sweep_bwd2 on slabs
+    src, gg, ubar, table, rbar, axes = _bwd2_case(SIZE, MESH_BWD2_K, torch.float32, 0, 2030)
+    Kb, m = MESH_BWD2_K, SIZE // n
+    bwd2_eq, row_rel, b2_err, b2_rel = True, 0.0, 0.0, 0.0
+
+    def split(x):
+        return list(torch.split(x, m, 2))
+
+    for p, axis in enumerate(axes):
+        gbar, sbar, drow = k1.affine_bwd2(gg, src, table, p, axis, Kb, ubar, rbar[p])
+        bufs, gbufs, ubufs = (k1._halo_of(split(x), axis, Kb, geos) for x in (src, gg, ubar))
+        outs = [k1.affine_slab_bwd2(gb, b, ub, table, p, axis, Kb, geo, shape, rbar[p])
+                for gb, b, ub, geo in zip(gbufs, bufs, ubufs, geos)]
+        bwd2_eq &= _same_bits(torch.cat([o[0] for o in outs], 2), gbar)
+        bwd2_eq &= _same_bits(torch.cat([o[1] for o in outs], 2), sbar)
+        total = pmesh.ordered_sum([o[2] for o in outs], DEV)
+        row_rel = max(row_rel, float((total - drow).abs().max() / drow.abs().max()))
+        for k in (0, n - 1):
+            pg, psb_, pr = k1.sweep_bwd2_slab_plain(gbufs[k], bufs[k], ubufs[k], rbar[p],
+                                                    table[p, :3], table[p, 3], axis, Kb,
+                                                    geos[k], shape)
+            for a, b in ((outs[k][0], pg), (outs[k][1], psb_)):
+                b2_err = max(b2_err, _max_err(a, b))
+                b2_rel = max(b2_rel, _max_err(a, b) / float(b.abs().max()))
+            row_rel = max(row_rel, float((outs[k][2] - pr).abs().max() / pr.abs().max()))
+        del bufs, gbufs, ubufs, outs
+    errs["sweep_bwd2_slab"] = b2_err
+    errs["sweep_slab_bwd2_row_grad_rel"] = row_rel
+    print(f"[kernel] slab mode, {SIZE}³ on {MESH_SLABS} z-slabs: K1's flow form (K={K}, "
+          f"make_flow_truth_pair's moving image and true field) equal to the unsharded "
+          f"launches to the bit {json.dumps(eq)}, each slab's z pass against its plain "
+          f"version: forward {errs['sweep_fwd_slab_flow']:.3g}, backward "
+          f"{errs['sweep_bwd_slab_flow']:.3g} ({rel:.3g} of the largest entry); sweep_slab_bwd2 "
+          f"(K={Kb}, f32) gbar and sbar equal to the unsharded sweep_bwd2 to the bit "
+          f"{bwd2_eq}, against the plain version {b2_err:.3g} ({b2_rel:.3g} of the largest "
+          f"entry), row gradient within {row_rel:.3g} (relative)", flush=True)
+    if not all(eq.values()) or not bwd2_eq or max(rel, b2_rel, row_rel) > 1e-5:
+        raise AssertionError("[kernel] K1's flow form or sweep_bwd2 on slabs disagrees")
+    del src, gg, ubar
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _ulp_up(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every entry raised by one ulp."""
+    return torch.nextafter(x, torch.full_like(x, float("inf")))
+
+
+def _run_pair(fn, m, t, warm: dict) -> tuple:
+    """``fn(m, t)`` after a warm-up ``fn(m, t, **warm)``: ``(result, wall,
+    launches, halo bytes)``, the counts set to 0 just before the timed run."""
+    fn(m, t, **warm)
+    _reset_counts()
+    halo.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(m, t)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _counts(), halo.copied_bytes
+
+
+def _mesh_flow(smi: str) -> dict:
+    """[mesh-flow]: ``flow_register(flow_model='field')`` at the recipe's
+    fine flow level on make_flow_truth_pair's 240³ pair, on 4 z-slabs
+    against the unsharded run: the same steps, the field within
+    ``MESH_FLOW_TOL_VOX`` voxels, the losses within ``MESH_FLOW_LOSS_RTOL``;
+    ms a step, halo bytes a step. Returns the sharded run's launches."""
+    moving, target = make_flow_truth_pair((SIZE,) * 3, seed=1, device=DEV)[:2]
+    sh = _slab_case()[4]
+    fn = functools.partial(flow_register, **MESH_FLOW)
+    warm = {"max_epochs": 2}
+    (_, ref), wall0, _, _ = _run_pair(fn, moving, target, warm)
+    (warped, res), wall1, launches, nbytes = _run_pair(
+        fn, pmesh.shard(moving, sh), pmesh.shard(target, sh), warm)
+    steps = res.steps
+
+    def dev(run):
+        rel = ((run.losses[:steps] - ref.losses[:steps]).abs() / ref.losses[:steps].abs())
+        over = torch.nonzero(rel > 1e-5)
+        return (float((pmesh.gather(run.flow) - ref.flow).abs().max()), float(rel.max()),
+                int(over[0]) if len(over) else None)
+
+    dvox, lrel, first = dev(res)
+    # the same unsharded run on the moving image raised by one ulp
+    other = flow_register(_ulp_up(moving), target, **MESH_FLOW)[1]
+    row = {"steps": steps, "unsharded_steps": ref.steps, "flow_max_abs_dev_vox": dvox,
+           "loss_max_rel_dev": lrel, "first_step_loss_rel_dev_over_1e-5": first,
+           "unsharded_one_ulp": dict(zip(("flow_max_abs_dev_vox", "loss_max_rel_dev",
+                                              "first_step_loss_rel_dev_over_1e-5"),
+                                             dev(other))),
+           "ms_per_step": 1e3 * wall1 / steps,
+           "unsharded_ms_per_step": 1e3 * wall0 / ref.steps,
+           "halo_bytes_per_step": nbytes / steps, "device": smi}
+    print(f"[mesh-flow] flow_register(**{json.dumps(MESH_FLOW)}) on make_flow_truth_pair's "
+          f"{SIZE}³ pair on {MESH_SLABS} z-slabs against unsharded: {json.dumps(row)}; K1 "
+          f"launches of the sharded run "
+          f"{json.dumps({k: v for k, v in launches.items() if k.startswith('sweep') and v})}",
+          flush=True)
+    if (steps != ref.steps or dvox > MESH_FLOW_TOL_VOX or lrel > MESH_FLOW_LOSS_RTOL
+            or not isinstance(warped, pmesh.Sharded)):
+        raise AssertionError(f"[mesh-flow] the field on slabs is off its unsharded run: {row}")
+    _need(launches, ("sweep_fwd_slab_flow", "sweep_bwd_slab_flow", "sweep_fwd_flow",
+                     "sweep_bwd_flow"), "flow_register on slabs")
+    del moving, target, ref, res, warped
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _outside(flow: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of ``flow``'s entries outside ``MESH_UNET_RTOL`` /
+    ``MESH_UNET_ATOL`` of ``ref``."""
+    over = (flow - ref).abs() > MESH_UNET_ATOL + MESH_UNET_RTOL * ref.abs()
+    return float(over.float().mean())
+
+
+def _per_weight(got: dict, ref: dict, ulp: dict) -> dict:
+    """Each weight's ``got`` against ``ref`` (steps or gradients by name), of
+    ``ref``'s largest entry of that weight, beside ``ulp`` (the same on the
+    moving image raised by one ulp); the largest over the weights that carry
+    more than rounding (``MESH_UNET_NOISE``)."""
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    per = {k: [rel(got[k], ref[k]), rel(ulp[k], ref[k])] for k in ref}
+    held = {k: v for k, v in per.items() if v[1] <= MESH_UNET_NOISE}
+    return {"max_rel_dev": max(v[0] for v in held.values()),
+            "worst": dict(sorted(held.items(), key=lambda kv: -kv[1][0])[:3]),
+            "rounding_only": {k: v for k, v in per.items() if k not in held},
+            "per_weight": per}
+
+
+def _unet_slab_check(params: dict, m) -> dict:
+    """The U-Net at ``params`` on the slabs of ``m`` against the same net
+    unsharded: the flow (max |dev| and the share of voxels outside
+    ``MESH_UNET_RTOL`` / ``MESH_UNET_ATOL``) and each weight's gradient of a
+    seeded cotangent (:func:`_per_weight`)."""
+    from torchregister_tpu_torch.engines.flow import _predict_slabs, _unet
+
+    net = _unet(m, RECIPE_UNET["n"], 1, None, True, True, torch.float32, params, False, None)
+    names, weights = zip(*net.named_parameters())
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    sh = _slab_case()[4]
+    ref = net(m)
+    cot = torch.randn(ref.shape, generator=gen, device=DEV)
+
+    def grads(outs, cots):
+        return dict(zip(names, torch.autograd.grad(outs, weights, cots)))
+
+    gref, gulp = grads(ref, cot), grads(net(_ulp_up(m)), cot)
+    got = _predict_slabs(net, pmesh.shard(m, sh), False)
+    gs = grads(got.shards, pmesh.shard(cot, sh).shards)
+    flow, ref = pmesh.gather(got).detach(), ref.detach()
+    return {"flow_max_abs_dev": float((flow - ref).abs().max()),
+            "flow_share_outside_tol": _outside(flow, ref), **_per_weight(gs, gref, gulp)}
+
+
+def _unet_step_check(moving, target) -> dict:
+    """One training step on slabs (``MESH_UNET_STEP``: the whole step, the
+    loss and the warp on slabs, the net's backward, the optimizer) against
+    the unsharded step from the same weights: each weight's step
+    (:func:`_per_weight`)."""
+    sh = _slab_case()[4]
+
+    def params(m, t, epochs=1):
+        return flow_register(m, t, generator=torch.Generator().manual_seed(0),
+                             **{**MESH_UNET_STEP, "max_epochs": epochs})[1].params
+
+    p0 = params(moving, target, 0)
+
+    def step(m, t):
+        return {k: v - p0[k] for k, v in params(m, t).items()}
+
+    return _per_weight(step(pmesh.shard(moving, sh), pmesh.shard(target, sh)),
+                       step(moving, target), step(_ulp_up(moving), target))
+
+
+def _mesh_unet(smi: str) -> dict:
+    """[mesh-unet]: ``flow_register(flow_model='unet')`` with RECIPE_UNET's
+    net at 120³ on 4 z-slabs against the unsharded run, twice: the recipe's
+    Adam (``MESH_UNET``) and at lr 1e-3 (``MESH_UNET_JAX_LR``), each with the
+    same steps and the same first loss (1e-5), the final losses and flows
+    printed beside the unsharded run on the moving image raised by one ulp.
+    Then one SGD step on slabs against the unsharded step
+    (:func:`_unet_step_check`), and at the recipe run's final weights and
+    at the initial ones the net on slabs against the net unsharded
+    (:func:`_unet_slab_check`): the flow within tests/test_parallel.py:295's
+    tolerance, each weight's step or gradient within ``MESH_UNET_GRAD_TOL``
+    of its own largest entry; K3 launches, ms a step. Returns the recipe
+    run's launches."""
+    S = MESH_UNET_SIZE
+    moving, target = make_flow_truth_pair((S,) * 3, seed=1, device=DEV)[:2]
+    sh = _slab_case()[4]
+    warm = {"max_epochs": 2}
+    runs, bad = {}, []
+    for tag, cfg in (("recipe", MESH_UNET), ("lr_1e-3", MESH_UNET_JAX_LR)):
+        def fn(m, t, cfg=cfg, **kw):
+            return flow_register(m, t, generator=torch.Generator().manual_seed(0),
+                                 **{**cfg, **kw})
+
+        (_, ref), wall0, _, _ = _run_pair(fn, moving, target, warm)
+        (warped, res), wall1, counts, nbytes = _run_pair(
+            fn, pmesh.shard(moving, sh), pmesh.shard(target, sh), warm)
+        other = fn(_ulp_up(moving), target)[1]  # the unsharded run, one ulp up
+        flow = pmesh.gather(res.flow)
+        n = ref.steps
+        runs[tag] = {
+            "steps": res.steps, "unsharded_steps": n,
+            "first_loss_rel_dev": float(abs(res.losses[0] - ref.losses[0]) / abs(ref.losses[0])),
+            "final_loss": float(res.losses[res.steps - 1]),
+            "unsharded_final_loss": float(ref.losses[n - 1]),
+            "final_flow_max_abs_dev_vox": float((flow - ref.flow).abs().max()),
+            "final_flow_share_outside_tol": _outside(flow, ref.flow),
+            "unsharded_one_ulp": {
+                "final_loss": float(other.losses[other.steps - 1]),
+                "final_flow_max_abs_dev_vox": float((other.flow - ref.flow).abs().max()),
+                "final_flow_share_outside_tol": _outside(other.flow, ref.flow)},
+            "ms_per_step": 1e3 * wall1 / res.steps, "unsharded_ms_per_step": 1e3 * wall0 / n,
+            "halo_bytes_per_step": nbytes / res.steps}
+        if (res.steps != n or runs[tag]["first_loss_rel_dev"] > 1e-5
+                or not isinstance(warped, pmesh.Sharded)):
+            bad.append(tag)
+        if tag == "recipe":
+            launches, final = counts, res.params
+        del ref, res, other, warped, flow
+    init = flow_register(moving, target, generator=torch.Generator().manual_seed(0),
+                         **{**MESH_UNET, "max_epochs": 0, "zero_head": False})[1].params
+    step = _unet_step_check(moving, target)
+    checks = {"recipe_final_weights": _unet_slab_check(final, moving),
+              "initial_weights": _unet_slab_check(init, moving)}
+    bad += ["sgd_step"] * (step["max_rel_dev"] > MESH_UNET_GRAD_TOL)
+    bad += [k for k, c in checks.items() if c["flow_share_outside_tol"] > 0
+            or c["max_rel_dev"] > MESH_UNET_GRAD_TOL]
+
+    def brief(c):
+        return {k: v for k, v in c.items() if k != "per_weight"}
+
+    row = {**runs, "sgd_step": brief(step),
+           "net_on_slabs": {k: brief(c) for k, c in checks.items()},
+           "k3_launches": {k: launches[k] for k in ("conv3d_fwd", "conv3d_dgrad",
+                                                    "conv3d_wgrad")}, "device": smi}
+    print(f"[mesh-unet] flow_register(**{json.dumps(MESH_UNET)}), then at lr 1e-3 "
+          f"(zero_head off) and one SGD step, with RECIPE_UNET's net on "
+          f"make_flow_truth_pair's {S}³ pair on {MESH_SLABS} z-slabs against unsharded: "
+          f"{json.dumps(row)}", flush=True)
+    if bad:
+        raise AssertionError(f"[mesh-unet] the U-Net on slabs is off the unsharded net "
+                             f"({bad}): {row}")
+    _need(launches, ("conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad", "sweep_fwd_slab_flow",
+                     "sweep_bwd_slab_flow"), "flow_register(flow_model='unet') on slabs")
+    del moving, target
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_lm(smi: str) -> dict:
+    """[mesh-lm]: ``rigid_register(optimizer='lm')`` (``MESH_LM``, the edge
+    filter on) on make_pair's pair at LM_RECIPE's coarse size (60³) on 4
+    z-slabs against the unsharded run: the same iterations, theta within
+    ``MESH_THETA_TOL`` of its largest entry; ms an iteration. Returns the
+    sharded run's launches."""
+    S = MESH_LM_SIZE
+    moving, target = make_pair((S,) * 3, seed=0, device=DEV)
+    sh = _slab_case()[4]
+    fn = functools.partial(rigid_register, **MESH_LM)
+    warm = {"epochs": 1}
+    (_, ref), wall0, _, _ = _run_pair(fn, moving, target, warm)
+    (_, res), wall1, launches, nbytes = _run_pair(
+        fn, pmesh.shard(moving, sh), pmesh.shard(target, sh), warm)
+    rel = float((res.best_theta - ref.best_theta).abs().max() / ref.best_theta.abs().max())
+    hist = float((res.param_history[:res.steps] - ref.param_history[:ref.steps]).abs().max())
+    row = {"iterations": res.steps, "unsharded_iterations": ref.steps,
+           "theta_max_rel_err": rel, "param_history_max_abs_dev": hist,
+           "ms_per_iteration": 1e3 * wall1 / res.steps,
+           "unsharded_ms_per_iteration": 1e3 * wall0 / ref.steps,
+           "halo_bytes_per_iteration": nbytes / res.steps,
+           "sweep_bwd2_slab": launches["sweep_bwd2_slab"], "device": smi}
+    print(f"[mesh-lm] rigid_register(**{json.dumps(MESH_LM)}) on make_pair's {S}³ pair on "
+          f"{MESH_SLABS} z-slabs against unsharded: {json.dumps(row)}", flush=True)
+    if res.steps != ref.steps or rel > MESH_THETA_TOL:
+        raise AssertionError(f"[mesh-lm] LM on slabs is off its unsharded run: {row}")
+    _need(launches, ("sweep_fwd_slab", "sweep_bwd_slab", "sweep_bwd2_slab"),
+          "rigid_register(optimizer='lm') on slabs")
+    return launches
+
+
 def phase_mesh() -> list:
     """The ``data`` axis: ``[cohort]``'s and ``[cohort-unet]``'s kept pairs
     over a mesh that names the card twice; returns the paths' launches.
@@ -1765,16 +2173,21 @@ def phase_mesh() -> list:
             _mesh_data("cohort-unet", "RECIPE_UNET", RECIPE_UNET)]
 
 
-def phase_mesh_space(smi: str) -> tuple[dict, dict, dict]:
-    """The ``space`` axis: K1's slab mode timed (``phase_slab_times``) and
-    held against the unsharded launches and its plain version, then
-    ``rigid_register`` on slabs. Last but ``[busy]``: with the slab work
-    earlier, later phases' profiled device times came back empty on the
-    H100. Returns the slab rows, the deviations and the engine run's
-    launches."""
+def phase_mesh_space(smi: str) -> tuple[dict, dict, list]:
+    """The ``space`` axis: K1's slab modes timed (``phase_slab_times``) and
+    held against the unsharded launches and their plain versions, then
+    ``rigid_register`` on slabs, the flow engine's two modes and LM
+    (``[mesh-flow]``, ``[mesh-unet]``, ``[mesh-lm]``). Last but ``[busy]``:
+    with the slab work earlier, later phases' profiled device times came
+    back empty on the H100. Returns the slab rows, the deviations and the
+    engine runs' launches."""
     rows = phase_slab_times()
+    rows.update(_slab_flow_times())
+    _k3_slab_times()
     errs = _mesh_space_warp()
-    return rows, errs, _mesh_space_rigid(smi)
+    errs.update(_mesh_flow_kernels())
+    paths = [_mesh_space_rigid(smi), _mesh_flow(smi), _mesh_unet(smi), _mesh_lm(smi)]
+    return rows, errs, paths
 
 
 def phase_slab_times() -> dict:
@@ -1832,6 +2245,141 @@ def phase_slab_times() -> dict:
     rows["sweep_fwd_slab"]["halo_ms"] = out["fwd"][[a for a in axes].index(0)]["halo_ms"]
     print(f"[times] slab mode, {SIZE}³ on {MESH_SLABS} z-slabs K={MESH_K} f32, the {MESH_SLABS} "
           f"slab launches of a pass, mean of the 3 passes: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def _slab_flow_times() -> dict:
+    """The slab modes added for the flow engine and LM, at 240³ on 4
+    z-slabs, f32, each slab's 4 launches against the unsharded launch they
+    split, in turns (CUDA events), then each one's device time
+    (``torch.profiler``), and the plain version on the slabs: K1's flow
+    form along the split axis (``sweep_fwd_slab_flow``, ``sweep_bwd_slab_flow``:
+    the z pass of make_flow_truth_pair's field, K = MESH_FLOW_K) and
+    ``sweep_slab_bwd2`` (K = 8, a rigid table, mean of the 3 passes). Bounds:
+    each slab's buffers (halo included) read once and its outputs written
+    once; ~6 operations an output forward, ~10 backward, ~20 for the second
+    order (all bytes-bound at 67 TFLOP/s)."""
+    moving, flow, g, sh, geos = _flow_slab_case()
+    K = MESH_FLOW_K
+    slabs, flows = pmesh.shard(moving, sh).shards, pmesh.shard(flow, sh).shards
+    gslabs = pmesh.shard(g, sh).shards
+    shape = slabs[0].shape
+    bufs = k1._halo_of(slabs, 0, K, geos)
+    gbufs = k1._halo_of(gslabs, 0, K, geos)
+    ubufs = k1._halo_of([f[:, 0:1] for f in flows], 0, K, geos)
+    dflows = [torch.empty_like(f) for f in flows]
+    dflow = torch.empty_like(flow)
+    calls = {"fwd": {"ms": lambda: [k1._fwd_slab_flow(b, f, 0, K, geo, shape)
+                                    for b, f, geo in zip(bufs, flows, geos)],
+                     "unsharded_ms": lambda: k1._fwd_flow(moving, flow, 0, K)},
+             "bwd": {"ms": lambda: [k1._bwd_slab_flow(gb, b, ub, 0, K, geo, shape, True, df)
+                                    for gb, b, ub, geo, df in zip(gbufs, bufs, ubufs, geos,
+                                                                  dflows)],
+                     "unsharded_ms": lambda: k1._bwd_flow(g, moving, flow, 0, K, True, dflow)}}
+    plain = {"fwd": lambda: [k1.sweep_flow_slab_plain(b, f[:, 0:1], 0, K, geo, shape)
+                             for b, f, geo in zip(bufs, flows, geos)],
+             "bwd": lambda: [k1._flow_slab_bwd_plain(gb, b, ub, 0, K, geo, shape, True, df)
+                             for gb, b, ub, geo, df in zip(gbufs, bufs, ubufs, geos, dflows)]}
+    vox = float(moving.numel())
+    buf_bytes = sum(4.0 * b.numel() for b in bufs)
+    nbytes = {"fwd": buf_bytes + 4.0 * vox + 4.0 * vox,            # src, u, out
+              "bwd": 2 * buf_bytes + buf_bytes + 2 * 4.0 * vox}     # g, src, u; dsrc, du
+    rows = {}
+    for kind, ops in (("fwd", 6 * vox), ("bwd", 10 * vox)):
+        row = ps.in_turns(calls[kind])
+        row["device_ms"] = ps.device_ms(calls[kind]["ms"])
+        row["unsharded_device_ms"] = ps.device_ms(calls[kind]["unsharded_ms"])
+        row["plain_ms"] = ps.time_ms(plain[kind], iters=3, warmup=1)
+        row.update(_bound(nbytes[kind], ops))
+        row["unsharded_bound_ms"] = _bound(nbytes[kind] - (buf_bytes - 4.0 * vox)
+                                           * (1 if kind == "fwd" else 3), ops)["bound_ms"]
+        rows[f"sweep_{kind}_slab_flow"] = row
+    rows["sweep_fwd_slab_flow"]["halo_ms"] = ps.time_ms(lambda: k1._halo_of(slabs, 0, K, geos))
+    del bufs, gbufs, ubufs, dflows, dflow, slabs, flows, gslabs
+    torch.cuda.empty_cache()
+    src, gg, ubar, table, rbar, axes = _bwd2_case(SIZE, MESH_BWD2_K, torch.float32, 0, 2031)
+    Kb, m = MESH_BWD2_K, SIZE // MESH_SLABS
+    work = k1._affine_work(src, axes, [Kb] * 3)
+    dtable = torch.empty_like(table)
+    dtables = [torch.zeros_like(table) for _ in geos]
+    works = [k1._slab_work(shape, axes, (Kb,) * 3, geo, 1, src.device) for geo in geos]
+    per = []
+    for p, axis in enumerate(axes):
+        bufs, gbufs, ubufs = (k1._halo_of(list(torch.split(x, m, 2)), axis, Kb, geos)
+                              for x in (src, gg, ubar))
+        fns = {"ms": lambda: [k1._bwd2_slab(gb, b, ub, table, p, axis, Kb, geo, shape, rbar,
+                                            True, True, dt, w)
+                              for gb, b, ub, geo, dt, w in zip(gbufs, bufs, ubufs, geos,
+                                                               dtables, works)],
+               "unsharded_ms": lambda: k1._bwd2_affine(gg, src, table, p, axis, Kb, ubar, rbar,
+                                                       True, True, dtable, work)}
+        row = ps.in_turns(fns)
+        row["device_ms"] = ps.device_ms(fns["ms"], name="sweep_bwd2")
+        row["unsharded_device_ms"] = ps.device_ms(fns["unsharded_ms"], name="sweep_bwd2")
+        row["plain_ms"] = ps.time_ms(lambda: [k1.sweep_bwd2_slab_plain(
+            gb, b, ub, rbar[p], table[p, :3], table[p, 3], axis, Kb, geo, shape)
+            for gb, b, ub, geo in zip(gbufs, bufs, ubufs, geos)], iters=3, warmup=1)
+        row["nbytes"] = 3 * sum(4.0 * b.numel() for b in bufs) + 2 * 4.0 * src.numel()
+        per.append(row)
+        del bufs, gbufs, ubufs
+    mean = {k: None if any(r[k] is None for r in per) else sum(r[k] for r in per) / 3
+            for k in per[0]}
+    nb = mean.pop("nbytes")
+    rows["sweep_bwd2_slab"] = {**mean, **_bound(nb, 20 * float(src.numel())),
+                               "unsharded_bound_ms": psb.bwd2_bound(SIZE, torch.float32)[
+                                   "bound_ms"], "per_pass": per}
+    print(f"[times] slab mode, flow form (z pass, K={K}) and sweep_slab_bwd2 (K={Kb}), "
+          f"{SIZE}³ on {MESH_SLABS} z-slabs f32, the {MESH_SLABS} slab launches against the "
+          f"unsharded launch: {json.dumps(rows)}", flush=True)
+    del src, gg, ubar, work, works
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _k3_slab_times() -> dict:
+    """K3 on slab buffers, as the U-Net runs on 4 z-slabs
+    (``attention_unet.forward_slabs``): the second convolution of the
+    120³ level (8 -> 8 on 118³, the input split by the partition the first
+    convolution leaves, rows [0, 30), [30, 60), [60, 90), [90, 118)): each
+    slab's buffer (its rows and the 2 after them) forward, its cotangent's
+    rows with padding 2 (dgrad; the halo's share goes back by the fetch's
+    backward) and the weight gradient, the 4 launches of each against the
+    unsharded launch, in turns (CUDA events), then their device times. The
+    bound counts each buffer and output once (``_k3_bound``'s terms)."""
+    ci = co = 8
+    edge = 118
+    gen = torch.Generator(device=DEV).manual_seed(118)
+    x = torch.randn((1, ci, edge, edge, edge), generator=gen, device=DEV)
+    w = torch.randn((3, 3, 3, ci, co), generator=gen, device=DEV) / math.sqrt(27 * ci)
+    g = torch.randn((1, co) + (edge - 2,) * 3, generator=gen, device=DEV)
+    w_t = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    parts = ((0, 30), (30, 60), (60, 90), (90, edge))
+    outs = tuple((a, min(b, edge - 2)) for a, b in parts)  # rows.window's output rows
+    bufs = halo.fetch_rows([x[:, :, a:b].contiguous() for a, b in parts], parts, 2,
+                           [(a, b + 2) for a, b in outs])
+    gs = [g[:, :, a:b].contiguous() for a, b in outs]
+    calls = {"fwd": {"ms": lambda: [k3.conv_launch(b, w) for b in bufs],
+                     "unsharded_ms": lambda: k3.conv_launch(x, w)},
+             "dgrad": {"ms": lambda: [k3.conv_launch(gk, w_t, pad=2) for gk in gs],
+                       "unsharded_ms": lambda: k3.conv_launch(g, w_t, pad=2)},
+             "wgrad": {"ms": lambda: [k3.wgrad_launch(b, gk) for b, gk in zip(bufs, gs)],
+                       "unsharded_ms": lambda: k3.wgrad_launch(x, g)}}
+    nbytes = 4.0 * (sum(b.numel() for b in bufs) + co * (edge - 2) ** 3 + 4 * 27 * ci * co)
+    flops = 2.0 * 27 * ci * co * (edge - 2) ** 3
+    rows = {}
+    with torch.no_grad():
+        for kind, fns in calls.items():
+            row = ps.in_turns(fns)
+            row["device_ms"] = ps.device_ms(fns["ms"], name="")
+            row["unsharded_device_ms"] = ps.device_ms(fns["unsharded_ms"], name="")
+            rows[f"conv3d_{kind}_slab"] = {**row, **_bound(nbytes, flops, F32_3XTF32_FLOP_PER_S),
+                                           "unsharded_bound_ms": _k3_bound(ci, co, edge)[
+                                               "bound_ms"]}
+    print(f"[times] slab mode, K3 on slab buffers ({ci}->{co} at {edge}³ on 4 z-slabs of "
+          f"{[b - a for a, b in parts]} rows, f32), the 4 launches against the unsharded "
+          f"launch: {json.dumps(rows)}", flush=True)
+    del x, g, bufs, gs
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3464,7 +4012,6 @@ def main() -> None:
     # the batched factories' graphs and pools go before the timings (the
     # single factories stay: [busy] replays them)
     cascade_mod._BATCH_CACHE.clear()
-    gc.collect()
     torch.cuda.empty_cache()
     # before the profiler first runs (after that each launch costs the host more)
     phase_launch_path(probe_inputs)
@@ -3479,9 +4026,9 @@ def main() -> None:
     lm_rows = phase_lm_times(splat_inputs)
     kde_rows = phase_kde_times(kde_inputs)
     _mark("times")
-    slab_rows, slab_errs, slab_launches = phase_mesh_space(smi)
+    slab_rows, slab_errs, slab_paths = phase_mesh_space(smi)
     errs.update(slab_errs)
-    paths.append(slab_launches)
+    paths += slab_paths
     _mark("mesh space axis")
     total = {name: sum(p.get(name, 0) for p in paths) for name in REPLACES}
     library = {name: k2_times[name]["library_ms"] for name in ("warp_affine", "warp_flow")}
@@ -3537,7 +4084,8 @@ def main() -> None:
                    splat_signed=lm_rows["splat_signed"]["library_ms"], kde_sum=None,
                    kde_dot=None,
                    **{name: r["library_ms"] for name, r in k3_pair_row.items()},
-                   sweep_fwd_slab=None, sweep_bwd_slab=None)
+                   sweep_fwd_slab=None, sweep_bwd_slab=None, sweep_fwd_slab_flow=None,
+                   sweep_bwd_slab_flow=None, sweep_bwd2_slab=None)
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -3587,6 +4135,20 @@ def main() -> None:
         "pass on each slab (backward: dsrc from the halo and the row); bound: each slab's "
         "buffer, halo included, read once; library: none, no PyTorch call resamples at "
         "coordinates of this form")
+    timed_at["sweep_fwd_slab_flow"] = timed_at["sweep_bwd_slab_flow"] = (
+        f"the {MESH_SLABS} slab launches of the pass along the split axis (the flow form's "
+        f"slab mode), make_flow_truth_pair's moving image and true field at {SIZE}^3 on "
+        f"{MESH_SLABS} z-slabs, K={MESH_FLOW_K} f32 (each slab's buffer with a halo of K+1 "
+        "rows a side; backward: the halos of g and of the field's channel); unsharded_ms: "
+        "the one unsharded flow launch of that pass; plain: the plain slab pass on each "
+        "slab; bound: each slab's buffers read once; library: none, no PyTorch call "
+        "resamples at coordinates of this form")
+    timed_at["sweep_bwd2_slab"] = (
+        f"the {MESH_SLABS} slab launches of sweep_slab_bwd2, {SIZE}^3 on {MESH_SLABS} "
+        f"z-slabs, K={MESH_BWD2_K} f32, a rigid table, mean of the 3 passes (the z pass with "
+        "the halos of g, src and ubar); unsharded_ms: the one unsharded sweep_bwd2 launch; "
+        "plain: sweep_bwd2_slab_plain on each slab; library: none, no PyTorch call computes "
+        "K1's second order")
     timed_at["splat_signed"] = ("one launch, the default NMI's 8 x 1M samples of make_pair's "
                                 "moving image at 240^3, weights f - 0.5; library: one "
                                 "scatter_add of both terms")
@@ -3610,6 +4172,8 @@ def main() -> None:
             if name in slab_rows else {}),
          **({"row_grad_max_rel_err": errs["sweep_slab_row_grad_rel"]}
             if name == "sweep_bwd_slab" else {}),
+         **({"row_grad_max_rel_err": errs["sweep_slab_bwd2_row_grad_rel"]}
+            if name == "sweep_bwd2_slab" else {}),
          **(_copy_extras(name, probe_rows) if name in COPIES else {}),
          **({k: probe_rows[name].get(k) for k in SUM_EXTRAS}
             if name in ("slab_sum", "roi_fetch") else {}),

@@ -2150,6 +2150,223 @@ def test_torch_cuda_sweep_slabs_match_unsharded_and_plain(dev, dtype, N, S, n, K
             torch.testing.assert_close(out.float(), plain, rtol=0, atol=tol * scale)
 
 
+def _flow_slab_case(dev, S, n, C, dim, dtype, seed):
+    """A source ``[1, C, S³]``, a smooth field (|u| < 4), an upstream
+    gradient and a ``volume_sharding`` along ``dim`` over a mesh that names
+    the card ``n`` times."""
+    from torchregister_tpu_torch.parallel import mesh as M
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randn((1, C, S, S, S), generator=gen, device=dev).to(dtype)
+    g = torch.randn(src.shape, generator=gen, device=dev).to(dtype)
+    coarse = torch.randn((1, 3, 6, 6, 6), generator=gen, device=dev)
+    flow = 3.5 * torch.tanh(torch.nn.functional.interpolate(coarse, size=(S,) * 3,
+                                                            mode="trilinear"))
+    mesh = M.make_mesh((n,), ("space",), devices=[dev] * n)
+    return src, flow.contiguous(), g, M.volume_sharding(mesh, dim)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,n,K,C,dim", [(240, 4, 8, 1, 0), (24, 8, 8, 1, 0), (32, 4, 3, 3, 2),
+                                         (40, 4, 6, 3, 1)],
+                         ids=["240^3-4-slabs", "24^3-8-slabs", "32^3-x-C3", "40^3-y-C3"])
+def test_torch_cuda_flow_slabs_match_unsharded_and_plain(dev, dtype, S, n, K, C, dim):
+    """K1's flow form in the slab mode: the flow warp of a volume split into
+    slabs by a field split alike (the pass along the split axis on each
+    slab's buffer with a halo of K + 1 rows; its backward the halos of the
+    upstream gradient and of the field's channel) equals the unsharded
+    launches' to the bit, warp and dsrc; the field's gradient to the bit
+    with one channel, within 1e-6 of its largest entry with three (each
+    slab's channel sum); each slab launch against its plain version (f32
+    1e-5, bf16 2^-7 of the largest entry)."""
+    from torchregister_tpu_torch.parallel import mesh as M
+
+    src, flow, g, sh = _flow_slab_case(dev, S, n, C, dim, dtype, 5 + S + C)
+    s0, f0 = src.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    ref = k1._SeparableFlow.apply(s0, f0, K)
+    dsrc, dflow = torch.autograd.grad(ref, (s0, f0), g)
+    ss, fs = M.shard(src, sh), M.shard(flow, sh)
+    for t in ss.shards + fs.shards:
+        t.requires_grad_(True)
+    k1.reset_counts()
+    out = k1.sweep_flow_passes(ss, fs, K)
+    grads = torch.autograd.grad(out.shards, ss.shards + fs.shards, M.shard(g, sh).shards)
+    assert k1.fwd_modes["slab_flow"] == n and k1.bwd_modes["slab_flow"] == n
+    assert k1.fwd_modes["flow"] == 2 * n and k1.bwd_modes["flow"] == 2 * n
+    assert torch.equal(M.gather(out), ref) and torch.equal(torch.cat(grads[:n], 2 + dim), dsrc)
+    got = torch.cat(grads[n:], 2 + dim)
+    if C == 1:
+        assert torch.equal(got, dflow)
+    torch.testing.assert_close(got, dflow, rtol=0, atol=1e-6 * float(dflow.abs().max()))
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    m, axis = S // n, dim
+    slabs, flows, gslabs = ss.shards, fs.shards, M.shard(g, sh).shards
+    bufs = k1._halo_of([s.detach() for s in slabs], axis, K, k1._geos(ss))
+    gbufs = k1._halo_of(gslabs, axis, K, k1._geos(ss))
+    ubufs = k1._halo_of([f.detach()[:, axis:axis + 1] for f in flows], axis, K, k1._geos(ss))
+    for k in (0, n - 1):
+        geo = k1.SlabGeo(axis, k * m, S)
+        shape = slabs[k].shape
+        out = k1.flow_slab_fwd(bufs[k], flows[k].detach(), axis, K, geo, shape)
+        plain = k1.sweep_flow_slab_plain(bufs[k].float(), flows[k].detach()[:, axis:axis + 1],
+                                         axis, K, geo, shape)
+        torch.testing.assert_close(out.float(), plain, rtol=0,
+                                   atol=tol * max(1.0, float(plain.abs().max())))
+        ds, du = k1.flow_slab_bwd(gbufs[k], bufs[k], ubufs[k], axis, K, geo, shape)
+        dflows = torch.zeros_like(flows[k])
+        pds = k1._flow_slab_bwd_plain(gbufs[k].float(), bufs[k].float(), ubufs[k], axis, K,
+                                      geo, shape, True, dflows)
+        torch.testing.assert_close(ds.float(), pds, rtol=0,
+                                   atol=tol * max(1.0, float(pds.abs().max())))
+        torch.testing.assert_close(du, dflows[:, axis], rtol=0,
+                                   atol=tol * max(1.0, float(dflows.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,n,K,split", [(240, 4, 8, 0), (60, 4, 8, 0), (32, 8, 8, 0),
+                                         (40, 4, 6, 2)],
+                         ids=["240^3-4-slabs", "60^3-4-slabs", "32^3-8-slabs", "40^3-x"])
+def test_torch_cuda_bwd2_slabs_match_unsharded_and_plain(dev, dtype, S, n, K, split):
+    """``sweep_slab_bwd2`` (K1's second order on slabs, LM's Hessian on a
+    split volume): each pass of make_pair's rigid transform, gbar and sbar
+    of every slab equal the unsharded ``sweep_bwd2`` launch's to the bit;
+    the slabs' row gradients, summed in ascending order, within 1e-5 of the
+    unsharded one's largest entry; each slab launch against its plain
+    version (f32 1e-5, bf16 2^-7 of the largest entry). Two launches equal
+    each other."""
+    from torchregister_tpu_torch.ops.separable import affine_to_index_map, factor_passes
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    gen = torch.Generator(device=dev).manual_seed(S + K)
+    shape = (1, 1, S, S, S)
+    src, g, u = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    theta = rigid_theta(torch.tensor([0.05, -0.04, 0.03, 0.1, -0.1, 0.05], device=dev))
+    table, axes = k1.pass_table(factor_passes(*affine_to_index_map(theta, (S,) * 3)))
+    table = table.contiguous()
+    rbar = torch.randn(4, generator=gen, device=dev)
+    m = S // n
+    geos = tuple(k1.SlabGeo(split, k * m, S) for k in range(n))
+    slab = (1, 1) + tuple(m if i == split else S for i in range(3))
+
+    def slabs(x):
+        return list(torch.split(x, m, 2 + split))
+
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for p, axis in enumerate(axes):
+        gbar, sbar, drow = k1.affine_bwd2(g, src, table, p, axis, K, u, rbar)
+        bufs, gbufs, ubufs = (k1._halo_of(slabs(x), axis, K, geos) for x in (src, g, u))
+        k1.reset_counts()
+        outs = [k1.affine_slab_bwd2(gb, b, ub, table, p, axis, K, geo, slab, rbar)
+                for gb, b, ub, geo in zip(gbufs, bufs, ubufs, geos)]
+        again = k1.affine_slab_bwd2(gbufs[0], bufs[0], ubufs[0], table, p, axis, K, geos[0],
+                                    slab, rbar)
+        assert k1.bwd2_modes["slab"] == n + 1
+        assert torch.equal(torch.cat([o[0] for o in outs], 2 + split), gbar)
+        assert torch.equal(torch.cat([o[1] for o in outs], 2 + split), sbar)
+        assert all(torch.equal(a, b) for a, b in zip(again, outs[0]))
+        total = outs[0][2]
+        for o in outs[1:]:
+            total = total + o[2]
+        torch.testing.assert_close(total, drow, rtol=0, atol=1e-5 * float(drow.abs().max()))
+        for k in (0, n - 1):
+            pg, ps_, pr = k1.sweep_bwd2_slab_plain(gbufs[k], bufs[k], ubufs[k], rbar,
+                                                   table[p, :3], table[p, 3], axis, K, geos[k],
+                                                   slab)
+            for a, b in ((outs[k][0], pg), (outs[k][1], ps_)):
+                torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                           atol=tol * max(1.0, float(b.float().abs().max())))
+            torch.testing.assert_close(outs[k][2], pr, rtol=0,
+                                       atol=1e-5 * max(1.0, float(pr.abs().max())))
+
+
+@pytest.mark.parametrize("case", ["field", "unet", "lm"])
+def test_torch_cuda_engines_on_slabs_match_unsharded(dev, case):
+    """The engines on a volume split into 4 z-slabs of a mesh that names the
+    card 4 times, against their unsharded runs on the card: the field mode
+    (SGD at lr 10, MSE + NCC, the diffusion term; 32³, 10 steps: the field
+    reaches ~0.45 voxel) with the same steps and the field within 1e-5 of
+    its largest value (SGD's update is linear in the slab sums' rounding;
+    Adam's normalized steps part two runs at entries whose gradient is near
+    0, ``chip_smoke.py`` ``[mesh-flow]``); the U-Net (``n=16``, depth 1; 28³,
+    4 Adam steps at ``tests/test_parallel.py:273``'s lr 1e-3) with the same
+    steps and first loss (1e-5), its convolutions K3 launches, and at the
+    sharded run's final weights the net on slabs within
+    ``tests/test_parallel.py:295``'s tolerance of the net unsharded (Adam
+    parts the two runs' weights on the card, as it parts the unsharded run
+    from itself on an input one ulp up: ``chip_smoke.py`` ``[mesh-unet]``),
+    then one SGD step from the seeded init: each weight's step within 5e-2
+    of its own largest entry of the unsharded step's (the weights whose
+    step one ulp of input moves by half its size carry rounding only, and
+    are not held); rigid LM (make_pair at 32³) with the same iterations and
+    each iteration's parameters within 1e-4 of the largest."""
+    import warnings
+
+    import torchregister_tpu_torch as tr
+    from torchregister_tpu_torch.ops.cuda import conv3d as k3
+    from torchregister_tpu_torch.parallel import mesh as M
+    from torchregister_tpu_torch.synthetic import make_flow_truth_pair, make_pair
+
+    S = {"field": 32, "unet": 28, "lm": 32}[case]
+    if case == "lm":
+        m, t = make_pair((S,) * 3, seed=0, device=dev)
+    else:
+        m, t = make_flow_truth_pair((S,) * 3, seed=1, device=dev)[:2]
+    sh = M.volume_sharding(M.make_mesh((4,), ("space",), devices=[dev] * 4))
+    ms, ts = M.shard(m, sh), M.shard(t, sh)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        if case == "lm":
+            kw = dict(epochs=5, criterions=["mse", "ncc"], optimizer="lm", init="identity",
+                      max_shift=8, check_window=False)
+            _, r0 = tr.rigid_register(m, t, **kw)
+            k1.reset_counts()
+            _, r1 = tr.rigid_register(ms, ts, **kw)
+            assert k1.bwd2_modes["slab"] > 0 and r1.steps == r0.steps
+            # each iteration's parameters (the best pick may swap two
+            # iterations whose losses differ by less than the slab sums'
+            # rounding: tests/test_torch_mesh_flow.py's _same_run)
+            torch.testing.assert_close(r1.param_history, r0.param_history, rtol=0,
+                                       atol=1e-4 * float(r0.param_history.abs().max()))
+            return
+        kw = (dict(flow_model="field", lr=10.0, optimizer="sgd", criterions=["mse", "ncc"],
+                   smooth=0.25, max_disp=4, max_epochs=10) if case == "field" else
+              dict(flow_model="unet", lr=1e-3, optimizer="adam", criterions=["mse"], n=16,
+                   depth=1, max_disp=4, max_epochs=4))
+        _, r0 = tr.flow_register(m, t, **kw)
+        k1.reset_counts()
+        k3.reset_counts()
+        w1, r1 = tr.flow_register(ms, ts, **kw)
+    assert r1.steps == r0.steps and isinstance(w1, M.Sharded)
+    assert k1.fwd_modes["slab_flow"] > 0 and k1.bwd_modes["slab_flow"] > 0
+    if case == "field":
+        torch.testing.assert_close(M.gather(r1.flow), r0.flow, rtol=0,
+                                   atol=1e-5 * float(r0.flow.abs().max()))
+        return
+    from torchregister_tpu_torch.engines.flow import _predict_slabs, _unet
+
+    assert k3.fwd_launches > 0 and k3.dgrad_launches > 0 and k3.wgrad_launches > 0
+    torch.testing.assert_close(r1.losses[0], r0.losses[0], rtol=1e-5, atol=0)
+    net = _unet(m, 16, 1, 1, True, True, torch.float32, r1.params, False, None)
+    with torch.no_grad():
+        torch.testing.assert_close(M.gather(_predict_slabs(net, ms, False)), net(m), rtol=2e-3,
+                                   atol=2e-4)
+    sgd = {**kw, "optimizer": "sgd", "lr": 1.0}
+
+    def params(a, b, epochs=1):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            return tr.flow_register(a, b, **{**sgd, "max_epochs": epochs})[1].params
+
+    p0 = params(m, t, 0)
+    up = torch.nextafter(m, torch.full_like(m, float("inf")))  # one ulp up
+    steps = [{k: v - p0[k] for k, v in params(a, b).items()}
+             for a, b in ((m, t), (ms, ts), (up, t))]
+    for k, ref in steps[0].items():
+        scale = float(ref.abs().max())
+        if float((steps[2][k] - ref).abs().max()) <= 0.5 * scale:
+            assert float((steps[1][k] - ref).abs().max()) <= 5e-2 * scale, k
+
+
 def test_torch_cuda_data_mesh_pairs_equal_unsharded(dev):
     """The ``data`` axis on the card, a mesh that names it twice:
     ``make_cascade_batch_fn(mesh=)`` (one set of step graphs for the device,

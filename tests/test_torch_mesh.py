@@ -340,23 +340,26 @@ def test_torch_mesh_affine_engine_and_criteria_on_slabs():
 
 
 def test_torch_mesh_space_axis_refusals():
-    """Under a ``space`` axis NMI and LNCC raise ``ValueError`` naming the
-    flow engine's slice, as do the flow warp, LM and the exact method; a
-    batch split over ``data`` is not a volume split into slabs."""
+    """Under a ``space`` axis NMI and LNCC raise ``ValueError`` naming their
+    ROADMAP item, as do the exact method (matrix and flow engines) and a
+    batch of pairs over ``data x space``; a batch split over ``data`` is not
+    a volume split into slabs. (The flow engine and LM on slabs run:
+    ``tests/test_torch_mesh_flow.py``.)"""
     vol, tgt = _engine_case()
     sh = _space()
     y, yp = M.shard(torch.from_numpy(vol), sh), M.shard(torch.from_numpy(tgt), sh)
     for crit in (tr.nmi_loss, tr.lncc):
-        with pytest.raises(ValueError, match="space-sharded flow engine's slice"):
+        with pytest.raises(ValueError, match="item 20"):
             crit(y, yp)
-    with pytest.raises(ValueError, match="space-sharded flow engine's slice"):
+    with pytest.raises(ValueError, match="item 20"):
         rigid_register(y, yp, epochs=1, criterions=["nmi"], max_shift=8)
-    with pytest.raises(ValueError, match="space-sharded flow engine's slice"):
-        rigid_register(y, yp, epochs=1, criterions=["mse"], optimizer="lm", max_shift=8)
     with pytest.raises(ValueError, match="method='separable'"):
         rigid_register(y, yp, epochs=1, criterions=["mse"], method="exact")
-    with pytest.raises(ValueError, match="flow engine's slice"):
-        tr.flow_register(y, yp, max_epochs=1, criterions=["mse"], flow_model="field")
+    with pytest.raises(ValueError, match="item 22"):
+        tr.flow_register(y, yp, max_epochs=1, criterions=["mse"], flow_model="field",
+                         method="exact")
+    with pytest.raises(ValueError, match="item 19"):
+        make_cascade_batch_fn(spatial_axis=0, flow_model="field")
     batch = M.shard(torch.zeros((8, 1, 8, 8)), M.batch_sharding(M.make_mesh(devices=CPU8)))
     passes = factor_passes(*affine_to_index_map(rigid_theta(torch.zeros(3)), (8, 8)))
     with pytest.raises(ValueError, match="spatial dim"):
@@ -460,5 +463,5 @@ def test_torch_mesh_cascade_batch_on_the_data_axis(flow_model):
         warnings.simplefilter("ignore", RuntimeWarning)
         _results_equal(fn(movings, targets), make_cascade_batch_fn(**cfg)(movings, targets))
     assert len(fn.fns) == 1
-    with pytest.raises(ValueError, match="space-sharded flow engine's slice"):
+    with pytest.raises(ValueError, match="item 19"):
         make_cascade_batch_fn(mesh=mesh, spatial_axis=0, **cfg)

@@ -95,6 +95,11 @@
 // bit: gbar and sbar add their terms in an order fixed by the positions
 // alone, the row's gradient in one fixed by the card and the item's shape.
 //
+// The slab mode (a volume split into slabs over a mesh, the Slab note
+// below) runs the affine form, its second order and, along the split axis,
+// the flow form, whose backward reads the field's channel as a buffer with
+// the halo (FlowQ's uvol): the halo's outputs reach the slab's rows.
+//
 // Images are f32 or bf16 (the matrix stages sweep bf16 images); coordinates,
 // weights and all sums are f32 and an image output is rounded once.
 
@@ -300,13 +305,17 @@ struct AffineQ {
 
 // kOne: one image (N = C = 1), whose field channel and du are indexed like
 // src. A column then needs no offsets, which cost the backward 15 registers
-// and so a block an SM (63 against 48 registers at 240³, K = 8).
+// and so a block an SM (63 against 48 registers at 240³, K = 8). `uvol` is
+// the voxels of one image of the field's layout: im.vol, but in the slab
+// mode's backward, whose field is a buffer with a halo laid out as src's
+// (du is laid out as the slab's outputs, im.vol an image).
 template <bool kOne>
 struct FlowQ {
   const float* u;      // channel a of the field, batch item 0
   long long un;        // the field's batch stride
   Img im;
   long long dqn, dqc;  // backward: du's batch and channel strides
+  long long uvol;      // voxels of an image of u's layout
   static constexpr bool kRowGrad = false;
   struct Col {
     long long u_off;   // u's index of an element: u_off + e
@@ -316,13 +325,13 @@ struct FlowQ {
   __device__ float at(long long e, int o, int p, int) const {
     if constexpr (kOne) return __fadd_rn(u[e], (float)p);
     const int b = im.by_ob.div(o);
-    return __fadd_rn(u[im.by_c.div(b) * un + (e - (long long)b * im.vol)], (float)p);
+    return __fadd_rn(u[im.by_c.div(b) * un + (e - (long long)b * uvol)], (float)p);
   }
   __device__ Col col(int o, int) const {
     if constexpr (kOne) return {0, 0};
     const int b = im.by_ob.div(o), n = im.by_c.div(b);
-    const long long img = (long long)b * im.vol;
-    return {n * un - img, n * dqn + (b - n * im.C) * dqc - img};
+    return {n * un - (long long)b * uvol,
+            n * dqn + (b - n * im.C) * dqc - (long long)b * im.vol};
   }
   __device__ float at(const Col& c, long long e, int p) const {
     return __fadd_rn(u[c.u_off + e], (float)p);
@@ -713,7 +722,11 @@ sweep_bwd_kernel(const T* __restrict__ g, const T* __restrict__ src, Q qf,
 // boxes need 16-byte strides, which rows of 60 bf16 voxels do not have.
 struct Tile2 {
   long long outer, inner;
-  int X, K;
+  int X, K;               // X: the volume's extent along the axis (the taps' zero test)
+  // the slab mode (the Slab note): the rows are a buffer of Lb positions,
+  // global positions [B0, B0 + Lb), whose outputs are the Lo from local
+  // position P0; outside it Lb = Lo = X and P0 = B0 = 0
+  int Lb, Lo, P0, B0;
   int TI, ti_shift, TO;
   int L, LhM;             // chunk length; staged positions per column (at most)
   int n_chunks;
@@ -737,16 +750,22 @@ constexpr int kTcMin = 8;     // fewest columns a tile is cut to, to reach kFill
 // (tap_code) a staged position
 long long bwd2_buf_bytes(long long ns, int elem) { return (ns * (3LL * elem + 2) + 15) / 16 * 16; }
 
-// false when no tile fits the budget or the tap code does not fit 16 bits
-bool make_tile2(const Rows& r, int elem, Tile2& tl) {
-  const int X = r.L, K = r.K;
+// false when no tile fits the budget or the tap code does not fit 16 bits.
+// The rows hold r.L outputs; in the slab mode (sl) of a buffer of sl.Lb
+// positions of a volume of sl.Xg.
+bool make_tile2(const Rows& r, int elem, Tile2& tl, const Slab* sl = nullptr) {
+  const int Lo = r.L, K = r.K;
   if (4LL * (2LL * K + 4) + 3 > 32767) return false;
-  tl.outer = r.outer; tl.inner = r.inner; tl.X = X; tl.K = K;
-  tl.L = X < kChunk2 ? X : kChunk2;
-  if (2LL * K + 2 > tl.L) tl.L = X;  // the window would stage the halo twice: whole rows
+  tl.outer = r.outer; tl.inner = r.inner; tl.K = K; tl.Lo = Lo;
+  tl.X = sl ? sl->Xg : Lo;
+  tl.Lb = sl ? sl->Lb : Lo;
+  tl.P0 = sl ? sl->p0 - sl->b0 : 0;
+  tl.B0 = sl ? sl->b0 : 0;
+  tl.L = Lo < kChunk2 ? Lo : kChunk2;
+  if (2LL * K + 2 > tl.L) tl.L = Lo;  // the window would stage the halo twice: whole rows
   const long long span = (long long)tl.L + 2LL * K + 2;
-  tl.LhM = (int)(span < X ? span : X);
-  tl.n_chunks = (X + tl.L - 1) / tl.L;
+  tl.LhM = (int)(span < tl.Lb ? span : tl.Lb);
+  tl.n_chunks = (Lo + tl.L - 1) / tl.L;
   int ti_max = 1;
   while (ti_max * 2 <= kCols && ti_max * 2 <= r.inner) ti_max *= 2;
   long long tiles = 0;
@@ -777,7 +796,8 @@ bool make_tile2(const Rows& r, int elem, Tile2& tl) {
 }
 
 // a tile's place: its first column (o0, i0), its chunk from j0, the staged
-// positions [s0, s1)
+// positions [s0, s1) (positions of the buffer: a position x is the volume's
+// B0 + x; only those inside the volume are staged)
 struct TileAt {
   long long o0, i0;
   int j0, s0, s1;
@@ -787,11 +807,11 @@ __device__ __forceinline__ TileAt tile_at(const Tile2& tl, int t) {
   TileAt a;  // 32-bit divisions: a 64-bit one costs some hundred instructions
   const unsigned ct = (unsigned)t / (unsigned)tl.n_chunks;
   const unsigned oi = ct / (unsigned)tl.n_inner_tiles;
-  a.j0 = (int)((unsigned)t - ct * tl.n_chunks) * tl.L;
+  a.j0 = tl.P0 + (int)((unsigned)t - ct * tl.n_chunks) * tl.L;
   a.o0 = (long long)oi * tl.TO;
   a.i0 = (long long)(ct - oi * tl.n_inner_tiles) * tl.TI;
-  a.s0 = max(0, a.j0 - tl.K - 1);
-  a.s1 = min(tl.X, a.j0 + tl.L + tl.K + 1);
+  a.s0 = max(max(0, -tl.B0), a.j0 - tl.K - 1);
+  a.s1 = min(min(tl.Lb, tl.X - tl.B0), a.j0 + tl.L + tl.K + 1);
   return a;
 }
 
@@ -820,9 +840,9 @@ struct Line {
   int nr;
 };
 
-template <bool kPer>
-__device__ __forceinline__ Line line_of(const AffineQ<kPer>& q,
-                                        const typename AffineQ<kPer>::Col& c) {
+template <bool kPer, bool kOrg>
+__device__ __forceinline__ Line line_of(const AffineQ<kPer, kOrg>& q,
+                                        const typename AffineQ<kPer, kOrg>::Col& c) {
   const int a = q.im.axis;
   float P = q.t;
   if (q.d == 3 && a > 0) P = __fadd_rn(P, c.pz);
@@ -842,22 +862,26 @@ __device__ __forceinline__ float line_at(const Line& l, int p) {
 // memory once, each tap code is computed once. A buffer holds src, ubar and
 // g as the image dtype and a 16-bit tap code (tap_code) a staged position,
 // each [TO][LhM][TI]. Null ubar reads as zeros; null gbar, sbar or partials
-// skip that output.
-template <typename T, bool kPer>
+// skip that output. kOrg: the slab mode, whose g, src and ubar are buffers
+// of tl.Lb rows (with a halo along the swept axis) and whose outputs are
+// the tl.Lo rows from tl.P0, at the volume's positions and coordinates, so
+// gbar and sbar are the unsharded launch's to the bit.
+template <typename T, bool kPer, bool kOrg>
 __global__ void __launch_bounds__(kThreads, kBwd2MinBlocks)
 sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
-                  const T* __restrict__ ubar, AffineQ<kPer> qf, AffineQ<kPer> rf,
+                  const T* __restrict__ ubar, AffineQ<kPer, kOrg> qf, AffineQ<kPer, kOrg> rf,
                   T* __restrict__ gbar, T* __restrict__ sbar, float4* __restrict__ partials,
                   unsigned* __restrict__ done, float* __restrict__ drow, long long drn,
                   Tile2 tl) {
   extern __shared__ __align__(16) unsigned char smem2[];
-  AffineQ<kPer> qm = qf, rm = rf;
+  AffineQ<kPer, kOrg> qm = qf, rm = rf;
   qm.load(blockIdx.y);
   rm.load(blockIdx.y);
   const int tid = threadIdx.x;
   const long long ob = (long long)blockIdx.y * tl.outer;  // the item's first row
   const long long inner = tl.inner;
   const int X = tl.X, K = tl.K, TI = tl.TI, axis = qm.im.axis, ns = tl.ns;
+  const int Lb = tl.Lb, Lo = tl.Lo, P0 = tl.P0, B0 = tl.B0;
   // q = ((t + c0 z) + c1 y) + c2 x is rounded monotonically in each product,
   // so with the swept axis's coefficient >= 0 (or NaN: q is NaN and every
   // code alike) each column's floor index never decreases along the row:
@@ -873,7 +897,7 @@ sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
   auto fetch = [&](const TileAt& a, Ahead<T>& ah) {
     const long long o = a.o0 + to, i = a.i0 + ti;
     const bool live = o < tl.outer && i < inner;
-    const long long base = ((ob + o) * X + a.s0) * inner + i;
+    const long long base = ((ob + o) * Lb + a.s0) * inner + i;
     const int Lh = a.s1 - a.s0;
 #pragma unroll
     for (int r = 0; r < kAhead; ++r) {
@@ -892,10 +916,10 @@ sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
     T* bs = reinterpret_cast<T*>(b);
     short* code = reinterpret_cast<short*>(bs + 3 * ns);
     const Line l = line_of(qm, qm.col((int)(ob + o), (int)i));
-    const long long base = ((ob + o) * X + a.s0) * inner + i;
+    const long long base = ((ob + o) * Lb + a.s0) * inner + i;
     const int Lh = a.s1 - a.s0, sb = ti + TI * tl.LhM * to;
     auto put = [&](int p, T sv, T uv, T gv) {
-      const int x = a.s0 + p, e = sb + TI * p;
+      const int x = B0 + a.s0 + p, e = sb + TI * p;  // x: the volume's position
       code[e] = (short)tap_code(taps_of(line_at(l, x), x, X, K), x, K);
       bs[e] = sv;
       bs[ns + e] = uv;
@@ -920,13 +944,14 @@ sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
     const T* bu = bs + ns;
     const T* bg = bs + 2 * ns;
     const short* code = reinterpret_cast<const short*>(bs + 3 * ns);
-    const typename AffineQ<kPer>::Col c = qm.col((int)(ob + o), (int)i);
+    const typename AffineQ<kPer, kOrg>::Col c = qm.col((int)(ob + o), (int)i);
     const Line lq = line_of(qm, c), lv = line_of(rm, rm.col((int)(ob + o), (int)i));
     const int sb = ti + TI * (tl.LhM * to - a.s0);  // staged element of x: sb + TI * x
     auto floor_at = [&](int x) { return x + (code[sb + TI * x] >> 2) - K - 2; };
-    const long long idx0 = ((ob + o) * X + a.j0 + p0) * inner + i;
+    // outputs: the Lo rows from P0 (a position j of the buffer is output j - P0)
+    const long long idx0 = ((ob + o) * Lo + a.j0 - P0 + p0) * inner + i;
     const long long step = (long long)p_step * inner;
-    const int jend = min(a.j0 + tl.L, X);
+    const int jend = min(a.j0 + tl.L, P0 + Lo);
     // gbar and the row's gradient: no loop-carried branch, so positions overlap
     if (gbar || partials) {
       long long idx = idx0;
@@ -937,21 +962,22 @@ sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
         const int f = sb + TI * (j + (cd >> 2) - K - 2);
         const float uf = (cd & 2) ? to_f(bu[f]) : 0.0f;
         const float uc = (cd & 1) ? to_f(bu[f + TI]) : 0.0f;
+        const int jg = B0 + j;  // the volume's position
         if (partials) {
           const float d = __fmul_rn(to_f(bg[s]), __fsub_rn(uc, uf));
-          sums.x = __fadd_rn(sums.x, __fmul_rn(d, axis == 0 ? (float)j : c.z));
-          sums.y = __fadd_rn(sums.y, __fmul_rn(d, axis == 1 ? (float)j : c.y));
-          sums.z = __fadd_rn(sums.z, __fmul_rn(d, axis == 2 ? (float)j : c.x));
+          sums.x = __fadd_rn(sums.x, __fmul_rn(d, axis == 0 ? (float)jg : c.z));
+          sums.y = __fadd_rn(sums.y, __fmul_rn(d, axis == 1 ? (float)jg : c.y));
+          sums.z = __fadd_rn(sums.z, __fmul_rn(d, axis == 2 ? (float)jg : c.x));
           sums.w = __fadd_rn(sums.w, d);
         }
         if (gbar) {
-          const float q = line_at(lq, j);
+          const float q = line_at(lq, jg);
           const float fr = q - floorf(q);  // taps_of's weight
           const float sf = (cd & 2) ? to_f(bs[f]) : 0.0f;
           const float sc = (cd & 1) ? to_f(bs[f + TI]) : 0.0f;
           const float bl = __fadd_rn((cd & 2) ? w_floor(uf, fr) : 0.0f,
                                      (cd & 1) ? w_ceil(uc, fr) : 0.0f);
-          store_f(gbar, idx, __fadd_rn(bl, __fmul_rn(line_at(lv, j), __fsub_rn(sc, sf))));
+          store_f(gbar, idx, __fadd_rn(bl, __fmul_rn(line_at(lv, jg), __fsub_rn(sc, sf))));
         }
       }
     }
@@ -973,9 +999,9 @@ sweep_bwd2_kernel(const T* __restrict__ g, const T* __restrict__ src,
         const int f = x + (cd >> 2) - K - 2;
         if (walk && f > j) break;
         if ((cd & 2) && f == j)
-          acc = __fsub_rn(acc, __fmul_rn(line_at(lv, x), to_f(bg[sx])));
+          acc = __fsub_rn(acc, __fmul_rn(line_at(lv, B0 + x), to_f(bg[sx])));
         else if ((cd & 1) && f + 1 == j)
-          acc = __fadd_rn(acc, __fmul_rn(line_at(lv, x), to_f(bg[sx])));
+          acc = __fadd_rn(acc, __fmul_rn(line_at(lv, B0 + x), to_f(bg[sx])));
       }
       store_f(sbar, idx, acc);
     }
@@ -1081,24 +1107,27 @@ int bwd_dtype(int dtype, const void* g, const void* src, Q q, void* dsrc, void* 
   return (int)cudaErrorInvalidValue;
 }
 
-// sweep_bwd2's tile for the rows of one of `items` batch items, false as
-// item_tile's
-bool item_tile2(const Rows& r, long long items, int elem, Tile2& tl) {
+// sweep_bwd2's tile for the rows of one of `items` batch items (in the slab
+// mode `sl`), false as item_tile's
+bool item_tile2(const Rows& r, long long items, int elem, Tile2& tl,
+                const Slab* sl = nullptr) {
   if (items < 1 || items > 65535 || r.outer % items) return false;
   const Rows ri{r.outer / items, r.inner, r.L, r.K};
-  return rows_ok(ri) && make_tile2(ri, elem, tl);
+  return rows_ok(ri) && make_tile2(ri, elem, tl, sl);
 }
 
-template <typename T, bool kPer>
-int launch_bwd2(const void* g, const void* src, const void* ubar, const AffineQ<kPer>& q,
-                const AffineQ<kPer>& rq, void* gbar, void* sbar, void* work, void* drow,
-                long long items, const Rows& r, cudaStream_t stream) {
+template <typename T, bool kPer, bool kOrg>
+int launch_bwd2(const void* g, const void* src, const void* ubar,
+                const AffineQ<kPer, kOrg>& q, const AffineQ<kPer, kOrg>& rq, void* gbar,
+                void* sbar, void* work, void* drow, long long items, const Rows& r,
+                const Slab* sl, cudaStream_t stream) {
   Tile2 tl;
-  if (!rows_ok(r) || !item_tile2(r, items, sizeof(T), tl)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(r) || !item_tile2(r, items, sizeof(T), tl, sl))
+    return (int)cudaErrorInvalidValue;
   const int smem = (int)(tl.nbuf * tl.buf_bytes);
   static bool opted = false;  // one attribute per instantiation
   if (!opted) {
-    cudaError_t rc = cudaFuncSetAttribute(sweep_bwd2_kernel<T, kPer>,
+    cudaError_t rc = cudaFuncSetAttribute(sweep_bwd2_kernel<T, kPer, kOrg>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           kStageBudget);
     if (rc != cudaSuccess) return (int)rc;
@@ -1115,8 +1144,8 @@ int launch_bwd2(const void* g, const void* src, const void* ubar, const AffineQ<
     int sms = 0, per_sm = 0;
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_bwd2_kernel<T, kPer>,
-                                                         kThreads, smem);
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sweep_bwd2_kernel<T, kPer, kOrg>, kThreads, smem);
     if (rc != cudaSuccess) return (int)rc;
     resident = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
     seen_dev = dev;
@@ -1125,21 +1154,24 @@ int launch_bwd2(const void* g, const void* src, const void* ubar, const AffineQ<
   const long long G = tl.tiles < resident ? tl.tiles : resident;
   unsigned* done = drow ? (unsigned*)work : nullptr;
   float4* partials = drow ? (float4*)work + (items + 3) / 4 : nullptr;
-  sweep_bwd2_kernel<T, kPer><<<dim3((unsigned)G, (unsigned)items), kThreads, smem, stream>>>(
-      (const T*)g, (const T*)src, (const T*)ubar, q, rq, (T*)gbar, (T*)sbar, partials, done,
-      (float*)drow, q.rn, tl);
+  sweep_bwd2_kernel<T, kPer, kOrg>
+      <<<dim3((unsigned)G, (unsigned)items), kThreads, smem, stream>>>(
+          (const T*)g, (const T*)src, (const T*)ubar, q, rq, (T*)gbar, (T*)sbar, partials,
+          done, (float*)drow, q.rn, tl);
   return (int)cudaGetLastError();
 }
 
-template <bool kPer>
+template <bool kPer, bool kOrg = false>
 int bwd2_dtype(int dtype, const void* g, const void* src, const void* ubar,
-               const AffineQ<kPer>& q, const AffineQ<kPer>& rq, void* gbar, void* sbar,
-               void* work, void* drow, long long items, const Rows& r, cudaStream_t s) {
+               const AffineQ<kPer, kOrg>& q, const AffineQ<kPer, kOrg>& rq, void* gbar,
+               void* sbar, void* work, void* drow, long long items, const Rows& r,
+               cudaStream_t s, const Slab* sl = nullptr) {
   if (dtype == 0)
-    return launch_bwd2<float, kPer>(g, src, ubar, q, rq, gbar, sbar, work, drow, items, r, s);
+    return launch_bwd2<float, kPer, kOrg>(g, src, ubar, q, rq, gbar, sbar, work, drow, items, r,
+                                          sl, s);
   if (dtype == 1)
-    return launch_bwd2<__nv_bfloat16, kPer>(g, src, ubar, q, rq, gbar, sbar, work, drow, items,
-                                            r, s);
+    return launch_bwd2<__nv_bfloat16, kPer, kOrg>(g, src, ubar, q, rq, gbar, sbar, work, drow,
+                                                  items, r, sl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1189,8 +1221,10 @@ extern "C" int sweep_fwd(int mode, const void* src, const void* qp, void* out, v
   }
   if (mode == 2) {
     if (one_image(r, im))
-      return fwd_dtype(dtype, src, FlowQ<true>{(const float*)qp, un, im}, out, diff, r, s);
-    return fwd_dtype(dtype, src, FlowQ<false>{(const float*)qp, un, im}, out, diff, r, s);
+      return fwd_dtype(dtype, src, FlowQ<true>{(const float*)qp, un, im, 0, 0, im.vol}, out,
+                       diff, r, s);
+    return fwd_dtype(dtype, src, FlowQ<false>{(const float*)qp, un, im, 0, 0, im.vol}, out,
+                     diff, r, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1242,10 +1276,10 @@ extern "C" int sweep_bwd(int mode, const void* g, const void* src, const void* q
   }
   if (mode == 2) {
     if (one_image(r, im))
-      return bwd_dtype(dtype, g, src, FlowQ<true>{(const float*)qp, un, im, dqn, dqc}, dsrc, dq,
-                       nullptr, nullptr, 0, 1, r, s);
-    return bwd_dtype(dtype, g, src, FlowQ<false>{(const float*)qp, un, im, dqn, dqc}, dsrc, dq,
-                     nullptr, nullptr, 0, 1, r, s);
+      return bwd_dtype(dtype, g, src, FlowQ<true>{(const float*)qp, un, im, dqn, dqc, im.vol},
+                       dsrc, dq, nullptr, nullptr, 0, 1, r, s);
+    return bwd_dtype(dtype, g, src, FlowQ<false>{(const float*)qp, un, im, dqn, dqc, im.vol},
+                     dsrc, dq, nullptr, nullptr, 0, 1, r, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1317,12 +1351,24 @@ extern "C" int sweep_slab_fwd(const void* src, const void* qp, void* out, long l
                          nullptr, r, s, sl);
 }
 
+// Floats of the slab mode's workspace, for sweep_slab_bwd and
+// sweep_slab_bwd2 alike (as sweep_bwd_work), the slab's source buffer of Lb
+// rows along the swept axis.
 extern "C" long long sweep_slab_bwd_work(long long outer, int L, long long inner, int K,
-                                         long long items, int Xg) {
+                                         long long items, int Xg, int Lb) {
   const Rows r{outer, inner, L, K};
   Tile tl;
-  if (!rows_ok(r) || L > Xg || !item_tile(r, items, Xg, tl)) return 0;
-  return work_floats(tl, items);
+  if (!rows_ok(r) || L > Xg || Lb < L || !item_tile(r, items, Xg, tl)) return 0;
+  long long n = work_floats(tl, items);
+  const Slab sl{0, 0, Lb, Xg};  // the tile count depends on Lb and Xg alone
+  for (int elem : {2, 4}) {
+    Tile2 t2;
+    if (item_tile2(r, items, elem, t2, &sl)) {
+      const long long n2 = 4 * (items * t2.tiles + (items + 3) / 4);
+      n = n2 > n ? n2 : n;
+    }
+  }
+  return n;
 }
 
 extern "C" int sweep_slab_bwd(const void* g, const void* src, const void* qp, void* dsrc,
@@ -1342,4 +1388,83 @@ extern "C" int sweep_slab_bwd(const void* g, const void* src, const void* qp, vo
   if (items < 1) return (int)cudaErrorInvalidValue;
   return bwd_dtype<true>(dtype, g, src, AffineQ<false, true>{(const float*)qp, d, im, un},
                          dsrc, nullptr, work, drow, un, items, r, s, sl);
+}
+
+// The slab mode of the affine form's second order: sweep_bwd2 on a slab,
+// its g, src and ubar buffers of the volume's rows [b0, b0 + Lb) along the
+// swept axis (a halo of K + 1 rows a side along the split axis), gbar and
+// sbar the slab's rows [p0, p0 + L), the row's gradient the slab's share
+// (its own outputs), through sweep_slab_bwd_work floats. The geometry is
+// sweep_slab_bwd's; gbar and sbar equal the unsharded launch's to the bit.
+extern "C" int sweep_slab_bwd2(const void* g, const void* src, const void* qp,
+                               const void* ubar, const void* rbar, void* gbar, void* sbar,
+                               void* work, void* drow, long long outer, int L, long long inner,
+                               int K, int dtype, int d, int Z, int Y, int X, int axis, int C,
+                               long long un, int oz, int oy, int ox, int p0, int b0, int Lb,
+                               int Xg, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Rows r{outer, inner, L, K};
+  if (!img_ok(Z, Y, X, axis, C) || (d != 2 && d != 3) ||
+      !slab_ok(L, K, oz, oy, ox, p0, b0, Lb, Xg))
+    return (int)cudaErrorInvalidValue;
+  Img im = make_img(Z, Y, X, axis, C);
+  im.oz = oz; im.oy = oy; im.ox = ox;
+  const Slab sl{p0, b0, Lb, Xg};
+  const long long items = un ? items_of(r, im) : 1;
+  if (items < 1) return (int)cudaErrorInvalidValue;
+  if (un == 0)
+    return bwd2_dtype<false, true>(
+        dtype, g, src, ubar, AffineQ<false, true>{(const float*)qp, d, im, 0},
+        AffineQ<false, true>{(const float*)rbar, d, im, 0}, gbar, sbar, work, drow, items, r, s,
+        &sl);
+  return bwd2_dtype<true, true>(
+      dtype, g, src, ubar, AffineQ<true, true>{(const float*)qp, d, im, un},
+      AffineQ<true, true>{(const float*)rbar, d, im, un}, gbar, sbar, work, drow, items, r, s,
+      &sl);
+}
+
+// The slab mode of the flow form: one pass along the split axis of a slab
+// [N, C, Z, Y, X] (its own extents) holding the volume's rows [p0, p0 + L)
+// of Xg. The forward reads src as a buffer of the volume's rows [b0, b0 +
+// Lb) and the field's channel `up` (batch stride un) at the slab's own
+// outputs, the field being split like the image. The backward reads g, src
+// and the field's channel as buffers of those rows alike (the field's halo
+// gives the coordinates of the halo's outputs, whose taps reach the slab's
+// rows) and writes dsrc and du at the slab's own outputs (du as sweep_bwd's
+// flow form: batch n, channel c at n*dqn + c*dqc). Positions are the
+// volume's, so out, dsrc and du equal the unsharded launch's to the bit.
+extern "C" int sweep_slab_flow_fwd(const void* src, const void* up, void* out, long long outer,
+                                   int L, long long inner, int K, int dtype, int Z, int Y,
+                                   int X, int axis, int C, long long un, int p0, int b0, int Lb,
+                                   int Xg, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Rows r{outer, inner, L, K};
+  if (!img_ok(Z, Y, X, axis, C) || !slab_ok(L, K, 0, 0, 0, p0, b0, Lb, Xg))
+    return (int)cudaErrorInvalidValue;
+  const Img im = make_img(Z, Y, X, axis, C);
+  const Slab sl{p0, b0, Lb, Xg};
+  if (one_image(r, im))
+    return fwd_dtype<true>(dtype, src, FlowQ<true>{(const float*)up, un, im, 0, 0, im.vol}, out,
+                           nullptr, r, s, sl);
+  return fwd_dtype<true>(dtype, src, FlowQ<false>{(const float*)up, un, im, 0, 0, im.vol}, out,
+                         nullptr, r, s, sl);
+}
+
+extern "C" int sweep_slab_flow_bwd(const void* g, const void* src, const void* up, void* dsrc,
+                                   void* dq, long long outer, int L, long long inner, int K,
+                                   int dtype, int Z, int Y, int X, int axis, int C,
+                                   long long un, long long dqn, long long dqc, int p0, int b0,
+                                   int Lb, int Xg, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Rows r{outer, inner, L, K};
+  if (!img_ok(Z, Y, X, axis, C) || !slab_ok(L, K, 0, 0, 0, p0, b0, Lb, Xg))
+    return (int)cudaErrorInvalidValue;
+  const Img im = make_img(Z, Y, X, axis, C);
+  const Slab sl{p0, b0, Lb, Xg};
+  const long long uvol = im.vol / L * Lb;  // an image of the buffers' layout
+  if (one_image(r, im))
+    return bwd_dtype<true>(dtype, g, src, FlowQ<true>{(const float*)up, un, im, dqn, dqc, uvol},
+                           dsrc, dq, nullptr, nullptr, 0, 1, r, s, sl);
+  return bwd_dtype<true>(dtype, g, src, FlowQ<false>{(const float*)up, un, im, dqn, dqc, uvol},
+                         dsrc, dq, nullptr, nullptr, 0, 1, r, s, sl);
 }

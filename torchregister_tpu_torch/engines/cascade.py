@@ -524,12 +524,13 @@ def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config):
     ``config`` (and the mesh). ``mesh`` splits the batch over its ``data``
     axis (:class:`ShardedCascadeFn`), each pair still equal to its unsharded
     run to the bit. ``spatial_axis`` (the ``data x space`` layout) raises
-    ``ValueError``: it comes with the space-sharded flow engine's slice."""
+    ``ValueError`` (ROADMAP queue 1 item 19)."""
     if spatial_axis is not None:
         raise ValueError(
             "make_cascade_batch_fn: spatial_axis (a data x space mesh) is not ported yet: "
-            "ROADMAP queue 1 item 19, after the space-sharded flow engine's slice (item 18). "
-            "The data axis runs: pass mesh= alone")
+            "ROADMAP queue 1 item 19. The data axis runs: pass mesh= alone, and one pair splits "
+            "into slabs: flow_register / rigid_register / affine_register on volumes laid out "
+            "by volume_sharding")
     key = tuple(sorted(config.items()))
     if mesh is not None:
         key += (("mesh", mesh.axis_names, mesh.devices.shape,

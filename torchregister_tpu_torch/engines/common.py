@@ -171,6 +171,22 @@ def make_optimizer(name: str, param: torch.Tensor, lr: float, steps: int, pairs:
                      f"{', or lm for the rigid and affine engines' if second_order else ''})")
 
 
+class SlabOptimizer:
+    """An optimizer of one parameter split into slabs (the flow engine's
+    field on a volume split over the ``space`` axis): one of
+    :func:`make_optimizer`'s a slab, its state on the slab's device, all
+    stepped with the same ``active`` mask. The update is elementwise, so
+    each slab's is the unsharded update's of its entries given the same
+    gradient."""
+
+    def __init__(self, name: str, params: list, lr: float, steps: int):
+        self.opts = [make_optimizer(name, p, lr, steps, second_order=False) for p in params]
+
+    def step(self, grads: list, active: torch.Tensor) -> None:
+        for opt, g in zip(self.opts, grads):
+            opt.step(g, active.to(g.device))
+
+
 def _next_read(i: int, since: int, epochs: int, patience: int | None,
                every: int | None, progress_every: int | None) -> int:
     """The step count at which a loop that has run ``i`` steps, with plateau
@@ -374,7 +390,8 @@ def fit_matrix(moving: torch.Tensor, target: torch.Tensor, params0: torch.Tensor
     if sharded:
         if params0.shape[0] != 1 or not separable:
             raise ValueError("a space-sharded volume registers one pair with "
-                             "method='separable'")
+                             "method='separable' (method='exact' on slabs: ROADMAP queue 1 "
+                             "item 22, K2 on slabs)")
         whole = weighted_loss(criteria, weights)
 
         def loss(y, yp):

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..losses import pair_loss, pair_slices, resolve_criteria
+from ..losses import pair_loss, pair_slices, resolve_criteria, weighted_loss
 from ..models.attention_unet import AttentionUNet, max_depth_for
 from ..ops.edge import edge_filter
 from ..ops.resample import warp_flow
@@ -65,13 +65,44 @@ class FlowResult(NamedTuple):
 
 def _diffusion_energy(flow: torch.Tensor, pairs: int = 1) -> torch.Tensor:
     """Sum over axes of the mean squared forward difference of each pair's
-    slice of ``flow``: ``[pairs]``."""
+    slice of ``flow``: ``[pairs]``. A field split into slabs (one pair, a
+    ``parallel.mesh.Sharded``) takes :func:`_slab_diffusion_energy`."""
+    from ..parallel.mesh import Sharded
+
+    if isinstance(flow, Sharded):
+        return _slab_diffusion_energy(flow)
     f = flow.to(torch.float32)
     total = 0.0
     for a in range(2, flow.ndim):
         d = torch.diff(f, dim=a)
         total = total + torch.stack([torch.mean(x) for x in pair_slices(d * d, pairs)])
     return total
+
+
+def _slab_diffusion_energy(flow) -> torch.Tensor:
+    """:func:`_diffusion_energy` of one field split into slabs (``[1]`` on
+    the mesh's first device): each axis's squared differences summed over
+    each slab in f32 (along the split dim from a buffer of the slab and the
+    row after it, the last slab's difference rows one fewer), the slabs'
+    sums added in ascending slab order and divided by the unsharded count."""
+    from ..parallel import halo
+    from ..parallel.mesh import ordered_sum
+
+    dim, _ = flow.slab_axis()
+    S = flow.shape[dim]
+    slabs = [f.to(torch.float32) for f in flow.shards]
+    parts = halo.equal(S, len(slabs))
+    total = 0.0
+    for a in range(2, flow.ndim):
+        if a == dim:
+            bufs = halo.fetch_rows(slabs, parts, dim, [(lo, min(hi + 1, S)) for lo, hi in parts])
+        else:
+            bufs = slabs
+        diffs = [torch.diff(b, dim=a) for b in bufs]
+        sums = [torch.sum(d * d) for d in diffs]
+        count = math.prod(flow.shape) // flow.shape[a] * (flow.shape[a] - 1)
+        total = total + ordered_sum(sums, flow.device) / count
+    return torch.reshape(total, (1,))
 
 
 def _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params, zero_head,
@@ -234,22 +265,23 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
           patience, zero_head, progress_every) -> tuple[torch.Tensor, FlowResult]:
     """The flow engine's loop over ``pairs`` pairs, each a slice of
     ``moving``'s leading axis (one pair: the whole of it); the records, the
-    steps and ``max_disp`` with a leading pair axis."""
-    from ..parallel.mesh import Sharded
-
-    if isinstance(moving, Sharded):
-        raise ValueError("the flow engine on a space-sharded volume comes with the "
-                         "space-sharded flow engine's slice (ROADMAP queue 1, item 18)")
+    steps and ``max_disp`` with a leading pair axis. ``moving`` and
+    ``target`` may be one pair split alike into slabs over a mesh
+    (``parallel/mesh.py``'s ``Sharded``, the ``space`` axis): the field (or
+    the net's layers, ``attention_unet.forward_slabs``), the warp (K1's slab
+    modes), the criteria, the diffusion term and the optimizer run slab by
+    slab, each on its slab's device, the stop state on the mesh's first
+    device (:class:`_OnSlabs`)."""
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
     if progress_every and pairs > 1:
         raise ValueError("progress_every prints one pair's progress")
+    on = _placement(moving, target, pairs, method)
     if grad_edges:
         moving = edge_filter(moving)
         target = edge_filter(target)
     criteria, w = resolve_criteria(criterions, weights)
-    loss = pair_loss(criteria, w, pairs)
-    ndim = moving.ndim - 2
+    loss = on.loss(criteria, w)
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
     def warp(src, flow):
@@ -257,7 +289,7 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
             return warp_flow_separable(src, flow, max_disp=max_disp)
         return warp_flow(src, flow)
 
-    sess = graph.session()
+    sess = on.session()
     unet = flow_model == "unet"
     if unet:
         model = _unet(moving, n, in_c, depth, use_attention, use_norm, dt, init_params,
@@ -265,9 +297,6 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
         layout = _layout(model)
         param0 = _flatten(model, layout)
         mov_s, tgt_s = moving, target  # the model's own dtype reduces compute
-
-        def predict(x):
-            return checkpoint(model, x, use_reentrant=False) if remat else model(x)
     else:
         if optimizer == "sgd" and lr <= 1e-2:
             warnings.warn(
@@ -277,21 +306,17 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
                 RuntimeWarning,
                 stacklevel=3,
             )
-        mov_s, tgt_s = moving.to(dt), target.to(dt)
-        if init_params is None:
-            init_params = torch.zeros((moving.shape[0], ndim) + tuple(moving.shape[2:]),
-                                      dtype=torch.float32, device=moving.device)
-        param0 = init_params.detach().to(torch.float32).clone()
+        mov_s, tgt_s = on.cast(moving, dt), on.cast(target, dt)
+        param0 = on.field0(init_params)
 
     mov_s, tgt_s = sess.static("moving", mov_s), sess.static("target", tgt_s)
-    param = sess.static("params", param0)
     if unet:
+        param = sess.static("params", param0)
         _bind(model, param, layout)
         net_params = list(model.parameters())
+        opt = _tensor_optimizer(sess, param, optimizer, lr, max_epochs, pairs)
     else:
-        param.requires_grad_(True)
-    opt = make_optimizer(optimizer, param, lr, max_epochs, pairs, second_order=False)
-    opt.state = sess.statics(opt.state, "opt.")
+        param, opt = on.field_params(sess, param0, optimizer, lr, max_epochs)
     device = moving.device
     factor = None if stop_rel is None else float(np.float32(1.0 - stop_rel))
     st = sess.statics({
@@ -305,11 +330,11 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
                              device=device)})
 
     def step():
-        flow, wrt = (predict(mov_s), net_params) if unet else (param, [param])
+        flow, wrt = (on.predict(model, mov_s, remat), net_params) if unet else on.field(param)
         sim = loss(tgt_s, warp(mov_s, flow))
         total = sim + smooth * _diffusion_energy(flow, pairs) if smooth > 0.0 else sim
         grads = torch.autograd.grad(total.sum(), wrt, allow_unused=unet)
-        grad = _flat_grad(grads, layout, _lead(model)) if unet else grads[0]
+        grad = _flat_grad(grads, layout, _lead(model)) if unet else on.field_grad(grads)
         with torch.no_grad():
             active = ~st["stopped"]
             val = total.detach().to(torch.float32)
@@ -348,12 +373,12 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
         lambda: (st["last"] <= stop_crit,), progress_every, report)
     with torch.no_grad():
         if unet:
-            flow = predict(moving).detach()
+            flow = on.detached(on.predict(model, moving, remat))
             params = {k: v.detach().clone() for k, v in model.state_dict().items()}
         else:
-            flow = params = param.detach().clone()
+            flow = params = on.detached(on.field(param)[0], copy=True)
         warped = warp(moving, flow)  # method-consistent final warp
-    maxd = torch.stack([torch.max(torch.abs(f)) for f in pair_slices(flow, pairs)])
+        maxd = on.maxd(flow)
     if check_disp and method == "separable":
         what = flows_over(maxd, max_disp)  # one host read
         if what:
@@ -367,6 +392,164 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
     return warped, FlowResult(
         flow=flow, losses=st["losses"][:, :max_epochs].clone(), steps=steps,
         converged=[bool(c) for c in converged], params=params, max_disp=maxd)
+
+
+def _tensor_optimizer(sess, param, name: str, lr: float, steps: int, pairs: int):
+    """``name``'s optimizer of the one tensor ``param``, its state static in
+    ``sess``."""
+    opt = make_optimizer(name, param, lr, steps, pairs, second_order=False)
+    opt.state = sess.statics(opt.state, "opt.")
+    return opt
+
+
+def _placement(moving, target, pairs: int, method: str):
+    """Where the loop's tensors live: :class:`_OnDevice`, or
+    :class:`_OnSlabs` for a pair split into slabs."""
+    from ..parallel.mesh import Sharded
+
+    if not isinstance(moving, Sharded):
+        return _OnDevice(moving, pairs)
+    if not isinstance(target, Sharded) or target.shape != moving.shape or (
+            target.sharding.spec != moving.sharding.spec or target.mesh is not moving.mesh):
+        raise ValueError("the flow engine on slabs needs moving and target split alike over "
+                         "one mesh")
+    moving.slab_axis()
+    if pairs != 1:
+        raise ValueError("a batch of pairs split into slabs (a data x space mesh) is not "
+                         "ported yet: ROADMAP queue 1 item 19")
+    if method != "separable":
+        raise ValueError("method='exact' on a space-sharded volume is not ported yet: ROADMAP "
+                         "queue 1 item 22 (K2 on slabs); use method='separable'")
+    return _OnSlabs(moving)
+
+
+class _OnDevice:
+    """The loop's layout on one device: ``pairs`` pairs, the field one
+    tensor ``[B, d, *S]``, the step captured by the current session."""
+
+    def __init__(self, moving, pairs: int):
+        self.moving, self.pairs = moving, pairs
+
+    def session(self):
+        return graph.session()
+
+    def loss(self, criteria, w):
+        return pair_loss(criteria, w, self.pairs)
+
+    def cast(self, x, dt):
+        return x.to(dt)
+
+    def predict(self, model, x, remat: bool):
+        return checkpoint(model, x, use_reentrant=False) if remat else model(x)
+
+    def field0(self, init_params) -> torch.Tensor:
+        m = self.moving
+        if init_params is None:
+            return torch.zeros((m.shape[0], m.ndim - 2, *m.shape[2:]), dtype=torch.float32,
+                               device=m.device)
+        return init_params.detach().to(torch.float32).clone()
+
+    def field_params(self, sess, param0, name: str, lr: float, steps: int):
+        param = sess.static("params", param0).requires_grad_(True)
+        return param, _tensor_optimizer(sess, param, name, lr, steps, self.pairs)
+
+    def field(self, param) -> tuple:
+        """The flow of the field's parameters and what to differentiate."""
+        return param, [param]
+
+    def field_grad(self, grads):
+        return grads[0]
+
+    def detached(self, flow, copy: bool = False):
+        return flow.detach().clone() if copy else flow.detach()
+
+    def maxd(self, flow) -> torch.Tensor:
+        return torch.stack([torch.max(torch.abs(f)) for f in pair_slices(flow, self.pairs)])
+
+
+class _OnSlabs(_OnDevice):
+    """The loop's layout for one pair split into slabs: the criteria's slab
+    sums and the records on the mesh's first device, the field and its
+    optimizer's state slab by slab on the slabs' devices (``Sharded``
+    flows), the U-Net's layers on the partition; eager, since one CUDA
+    graph cannot span devices."""
+
+    def __init__(self, moving):
+        super().__init__(moving, 1)
+
+    def session(self):
+        return graph.EAGER
+
+    def loss(self, criteria, w):
+        whole = weighted_loss(criteria, w)
+        return lambda y, yp: torch.reshape(whole(y, yp), (1,))
+
+    def cast(self, x, dt):
+        return x.map(lambda b: b.to(dt))
+
+    def predict(self, model, x, remat: bool):
+        return _predict_slabs(model, x, remat)
+
+    def field0(self, init_params) -> list:
+        return _field_slabs(self.moving, init_params)
+
+    def field_params(self, sess, param0, name: str, lr: float, steps: int):
+        param = [p.requires_grad_(True) for p in param0]
+        return param, common.SlabOptimizer(name, param, lr, steps)
+
+    def field(self, param) -> tuple:
+        return _field_of(self.moving, param), param
+
+    def field_grad(self, grads):
+        return list(grads)
+
+    def detached(self, flow, copy: bool = False):
+        return flow.map(lambda t: t.detach().clone() if copy else t.detach())
+
+    def maxd(self, flow) -> torch.Tensor:
+        """The slabs' maxima, on the mesh's first device."""
+        return torch.stack([torch.max(torch.abs(f)).to(flow.device)
+                            for f in flow.shards]).max().reshape(1)
+
+
+def _field_of(moving, slabs):
+    """A field ``[N, d, *S]`` laid out as the split ``moving`` from its
+    slabs."""
+    from ..parallel.mesh import from_blocks
+
+    shape = (moving.shape[0], moving.ndim - 2, *moving.shape[2:])
+    return from_blocks(list(slabs), moving.sharding, shape)
+
+
+def _field_slabs(moving, init_params) -> list:
+    """The f32 field's slabs, each on its slab's device: zeros, or
+    ``init_params`` (a tensor, or a ``Sharded`` split as ``moving``)."""
+    from ..parallel.mesh import Sharded, shard
+
+    if init_params is None:
+        d = moving.ndim - 2
+        return [torch.zeros((b.shape[0], d, *b.shape[2:]), dtype=torch.float32, device=b.device)
+                for b in moving.shards]
+    if not isinstance(init_params, Sharded):
+        init_params = shard(init_params, moving.sharding)
+    return [b.detach().to(torch.float32).clone() for b in init_params.shards]
+
+
+def _predict_slabs(model, x, remat: bool):
+    """The U-Net's flow of a volume split into slabs
+    (``attention_unet.forward_slabs``), laid out as ``x``."""
+    from ..models.attention_unet import forward_slabs
+    from ..parallel import halo
+    from ..parallel.rows import Rows
+
+    dim, _ = x.slab_axis()
+    parts = halo.equal(x.shape[dim], len(x.shards))
+
+    def run(*blocks):
+        return tuple(forward_slabs(model, Rows(list(blocks), parts, dim)).blocks)
+
+    blocks = checkpoint(run, *x.shards, use_reentrant=False) if remat else run(*x.shards)
+    return _field_of(x, blocks)
 
 
 def flows_over(maxd: torch.Tensor, bound: float) -> str | None:

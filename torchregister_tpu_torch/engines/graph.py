@@ -13,7 +13,8 @@ CUDA device), each level that the cascade names with :func:`level` gets its
 :class:`StepGraph` from ``graphs``. Its ``static`` keeps one buffer a name,
 allocated at the first call and copied into at each later call with the same
 shape; a new shape, dtype or device allocates anew and drops the graph. Its
-``run`` captures the step once and replays it:
+``run`` captures the step once and replays it (a level refers to its
+owner weakly, so dropping a factory frees its graphs and pool at once):
 
 - warm-up: two steps on a side stream (``torch.cuda.graph``'s rule; first
   launches set kernel attributes and fill host-side caches), after which
@@ -28,8 +29,9 @@ Each thread keeps its own level and graphs (context variables). Threads
 that capture on different devices at once (``ShardedCascadeFn`` over a mesh
 of several cards) run inside :func:`concurrent`, which captures with
 ``capture_error_mode='thread_local'``. The kernels' launch counters are
-module-wide: with several devices in flight a capture may count another
-thread's launches (the counts, never the results).
+module-wide (each change of them under ``native.bump``'s lock): with several
+devices in flight a capture may count another thread's launches (the counts,
+never the results).
 
 A step must make no host read (``.item()``, a branch on a device value) and
 no host-to-device copy: the capture raises, and nothing falls back to the
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import weakref
 from typing import Callable
 
 import torch
@@ -80,7 +83,10 @@ class StepGraph:
     graphed = True
 
     def __init__(self, owner: "StepGraphs", name: str):
-        self.owner, self.name = owner, name
+        # a weak reference: the owner holds its levels, so a strong one back
+        # would keep a dropped factory's graphs and pool alive until a
+        # collection of cycles
+        self._owner, self.name = weakref.ref(owner), name
         self.buffers: dict = {}
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict = {}  # the kernels' launches of one replay
@@ -128,7 +134,7 @@ class StepGraph:
         del saved
         graph = torch.cuda.CUDAGraph()
         before = native.launch_counts()
-        with torch.cuda.graph(graph, pool=self.owner.pool(), capture_error_mode=_MODE.get()):
+        with torch.cuda.graph(graph, pool=self._owner().pool(), capture_error_mode=_MODE.get()):
             step()
         after = native.launch_counts()
         self.launches = {k: after[k] - before.get(k, 0) for k in after

@@ -63,8 +63,10 @@ def rigid_register(
     (``parallel.mesh.shard(x, volume_sharding(mesh))``, the ``space`` axis),
     as the JAX engine takes sharded arrays: the edge filter, the warp (K1's
     slab mode) and MSE / SSD / NCC run slab by slab, the parameters on the
-    mesh's first device, and ``warped_best`` comes back split alike. NMI and
-    LNCC, ``method='exact'`` and ``optimizer='lm'`` raise there."""
+    mesh's first device, and ``warped_best`` comes back split alike;
+    ``optimizer='lm'`` differentiates K1's slab mode twice
+    (``sweep_slab_bwd2``). NMI and LNCC and ``method='exact'`` raise there
+    (ROADMAP queue 1 items 20, 22)."""
     del per
     if grad_edges:
         moving = edge_filter(moving)

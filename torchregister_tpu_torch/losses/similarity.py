@@ -39,9 +39,8 @@ def refuse_slabs(name: str, y, yp) -> None:
     """Raise for a criterion that has no form on slabs yet."""
     if _slabs(y, yp) is not None:
         raise ValueError(f"{name} on a space-sharded volume is not ported yet: ROADMAP queue 1 "
-                         "item 20, after the space-sharded flow engine's slice (item 18). Under "
-                         "a space axis use mse, ssd or ncc (the data axis takes every "
-                         "criterion)")
+                         "item 20. Under a space axis use mse, ssd or ncc (the data axis takes "
+                         "every criterion)")
 
 
 def mse(y: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:

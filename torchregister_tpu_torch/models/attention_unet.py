@@ -50,7 +50,7 @@ from torch import nn
 
 from ..ops.cuda.conv3d import conv3x3x3
 from ..ops.pad import pad_spatial
-from ..ops.resize import axis_nearest_resize
+from ..ops.resize import axis_nearest_resize, axis_take
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cudnn.deterministic = True
@@ -364,3 +364,143 @@ class AttentionUNet(nn.Module):
         flow = _per_pair(self.pairs, lambda yb, k, b: _contract_1x1(yb, k) + _bcast(
             b, self.ndim), y.to(torch.float32), self.out_kernel, self.out_bias)
         return (flow, tuple(atts)) if out_att else flow
+
+
+# ------------------------------------------------------------------- slabs
+# The net on a volume split into slabs along one spatial dim (the engine's
+# ``space`` axis, ``engines/flow.py``): each layer on each slab's rows, the
+# partitions derived layer by layer (``parallel/rows.py``). Every op is the
+# single net's, on a slab's block or on a buffer of the rows it reads; a
+# reduction over the volume (the instance norms' moments) adds each slab's
+# f32 partial sums in ascending slab order, and each weight's gradient sums
+# its slabs' copies in ascending slab order. The 3D 3x3x3 convolutions are
+# K3 launches on each slab's buffer (its rows and the 2 after them).
+
+
+def _tap_conv(x, kernel, bias, ndim, dtype):
+    """:class:`TapConv`'s forward (k = 3) of one net on a block."""
+    x, kernel = x.to(dtype), kernel.to(dtype)
+    if ndim == 3:
+        out = conv3x3x3(x, kernel)
+    else:
+        conv = {1: F.conv1d, 2: F.conv2d}[ndim]
+        out = conv(x, kernel.permute((ndim + 1, ndim) + tuple(range(ndim))))
+    return out + _bcast(bias.to(dtype), ndim)
+
+
+def _conv_t(x, kernel, bias, ndim, dtype):
+    """:class:`TapConvTranspose2x`'s forward of one net on a block."""
+    conv_t = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}[ndim]
+    perm = (ndim, ndim + 1) + tuple(range(ndim))
+    return conv_t(x.to(dtype), kernel.to(dtype).permute(perm), stride=2) + _bcast(
+        bias.to(dtype), ndim)
+
+
+def _norm_rows(y, eps: float = 1e-5):
+    """:func:`instance_norm` of a tensor split into slabs: the moments from
+    each slab's f32 partial sums, added in ascending slab order."""
+    from ..parallel import rows
+
+    axes = tuple(range(2, y.blocks[0].ndim))
+    n = math.prod(y.shape()[2:])
+    xf = [b.to(torch.float32) for b in y.blocks]
+    mean = rows.total([torch.sum(b, dim=axes, keepdim=True) for b in xf]) / n
+    mean2 = rows.total([torch.sum(b * b, dim=axes, keepdim=True) for b in xf]) / n
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    scale = torch.rsqrt(var + eps)
+    return y._replace(blocks=[((b - mean.to(b.device)) * scale.to(b.device)).to(blk.dtype)
+                              for b, blk in zip(xf, y.blocks)])
+
+
+def _pad_rows(y, target_spatial, parts):
+    """:func:`pad_spatial` (a centre pad or crop) of a tensor split into
+    slabs to ``target_spatial``, laid out by ``parts``: a row shift along
+    the split dim, the block's own pad or crop across it."""
+    from ..parallel import rows
+
+    split = y.dim - 2
+    delta = target_spatial[split] - y.extent
+    offset = -(delta // 2) if delta >= 0 else (-delta + 1) // 2
+    y = rows.shift(y, offset, parts)
+    return y.map(lambda k, b: pad_spatial(b, tuple(
+        b.shape[2 + i] if i == split else t for i, t in enumerate(target_spatial)), 2))
+
+
+def forward_slabs(net: AttentionUNet, x):
+    """:meth:`AttentionUNet.forward` of one net on a volume split into slabs
+    (``x`` a ``parallel.rows.Rows`` of ``[N, in_c, *S]`` along a spatial
+    dim, each block on its slab's device): the flow ``[N, ndim, *S]`` laid
+    out as ``x`` (see the section note)."""
+    from ..parallel import rows
+
+    if net.pairs is not None:
+        raise ValueError("the U-Net cohort on a space-sharded volume is not ported yet: "
+                         "ROADMAP queue 1 item 19 (pairs over data x space)")
+    nd, dt, dim = net.ndim, net.dtype, x.dim
+    devices = [b.device for b in x.blocks]
+    W = {name: rows.replicate(p, devices) for name, p in net.named_parameters()}
+
+    def conv(y, prefix):
+        kern, bias = W[prefix + ".kernel"], W[prefix + ".bias"]
+        return rows.window(y, lambda k, b: F.relu(_tap_conv(b, kern[k], bias[k], nd, dt)),
+                           3, 1, y.extent - 2)
+
+    def double(y, name):
+        for i in (0, 1):
+            y = conv(y, f"{name}.Conv_{i}")
+            if net.use_norm:
+                y = _norm_rows(y)
+        return y
+
+    def up(y, name):
+        kern, bias = (W[f"{name}.TapConvTranspose2x_0.{w}"] for w in ("kernel", "bias"))
+        y = rows.local(y, lambda k, b: F.relu(_conv_t(b, kern[k], bias[k], nd, dt)), 2)
+        return _norm_rows(y) if net.use_norm else y
+
+    def gate(x, g, name):
+        ik, gk, gb, pk, pb = (W[f"{name}.{w}"] for w in (
+            "input_kernel", "gate_kernel", "gate_bias", "psi_kernel", "psi_bias"))
+        sub = (slice(None), slice(None)) + tuple(
+            slice(None) if 2 + a == dim else slice(None, None, 3) for a in range(nd))
+        a = rows.stride(x, 3).map(lambda k, b: _contract_1x1(b[sub].to(dt), ik[k].to(dt)))
+        b = g.map(lambda k, t: _contract_1x1(t.to(dt), gk[k].to(dt))
+                  + _bcast(gb[k].to(dt), nd))
+        sa, sb = a.shape(), b.shape()
+        # the reference compares only the last spatial dim and pads the
+        # smaller tensor to the other's whole shape
+        if sa[-1] < sb[-1]:
+            a = _pad_rows(a, sb[2:], b.parts)
+        elif sa[-1] > sb[-1]:
+            b = _pad_rows(b, sa[2:], a.parts)
+        else:
+            a = rows.shift(a, 0, b.parts)
+        w = rows.Rows([torch.sigmoid(_contract_1x1(F.relu(ab + bb), pk[k].to(dt))[:, 0]
+                                     + pb[k].to(dt)[0])
+                       for k, (ab, bb) in enumerate(zip(a.blocks, b.blocks))], b.parts, dim - 1)
+        for axis, s_out in enumerate(x.shape()[2:]):
+            if 2 + axis == dim:
+                w = rows.resize(w, x.parts, lambda t, idx: axis_take(t, dim - 1, idx))
+            else:
+                w = w.map(lambda k, t, a=axis, s=s_out: axis_nearest_resize(t, 1 + a, s))
+        gated = rows.Rows([xb * wb[:, None] for xb, wb in zip(x.blocks, w.blocks)], x.parts, dim)
+        return _norm_rows(gated)
+
+    in_spatial, in_parts = x.shape()[2:], x.parts
+    y = x.map(lambda k, b: b.to(dt))
+    skips = []
+    for i in range(net.depth):
+        y = double(y, f"enc{i + 1}")
+        skips.append(y)
+        y = rows.window(y, lambda k, b: _max_pool_cf(b), 2, 2, y.extent // 2)
+    y = up(double(y, "bottleneck"), "up0")
+    for j in range(net.depth - 1, -1, -1):
+        gated = gate(skips[j], y, f"skip{j + 1}") if net.use_attention else skips[j]
+        y = _pad_rows(y, gated.shape()[2:], gated.parts)
+        y = double(rows.Rows([torch.cat([gb, yb.to(gb.dtype)], dim=1)
+                              for gb, yb in zip(gated.blocks, y.blocks)], gated.parts, dim),
+                   f"dec{j + 1}")
+        if j > 0:
+            y = up(y, f"up{net.depth - j}")
+    y = _pad_rows(y, in_spatial, in_parts)
+    ok, ob = W["out_kernel"], W["out_bias"]
+    return y.map(lambda k, b: _contract_1x1(b.to(torch.float32), ok[k]) + _bcast(ob[k], nd))

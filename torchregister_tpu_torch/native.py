@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 from pathlib import Path
 from typing import Sequence
 
@@ -140,6 +141,10 @@ def check_operands(what: str, *operands) -> None:
 # module name -> the names of its launch counters: module-level ints, or
 # dicts of ints (a count by kernel or form)
 COUNTERS: dict = {}
+# every change of a registered counter holds this lock (through ``bump``):
+# a ``+=`` (a read, an add and a write) from threads that drive several
+# devices at once (``parallel/data.run_shards``) would otherwise lose counts
+COUNT_LOCK = threading.Lock()
 
 
 def count_launches(module: str, *names: str) -> None:
@@ -152,27 +157,45 @@ def launch_counts() -> dict:
     """Every registered counter: ``{(module, name, key): n}``, ``key`` None
     for an int counter."""
     out = {}
-    for module, names in COUNTERS.items():
-        mod = sys.modules[module]
-        for name in names:
-            value = getattr(mod, name)
-            if isinstance(value, dict):
-                out.update({(module, name, key): n for key, n in value.items()})
-            else:
-                out[(module, name, None)] = value
+    with COUNT_LOCK:
+        for module, names in COUNTERS.items():
+            mod = sys.modules[module]
+            for name in names:
+                value = getattr(mod, name)
+                if isinstance(value, dict):
+                    out.update({(module, name, key): n for key, n in value.items()})
+                else:
+                    out[(module, name, None)] = value
     return out
+
+
+def _add(module: str, name: str, key, n: int) -> None:
+    mod = sys.modules[module]
+    if key is None:
+        setattr(mod, name, getattr(mod, name) + n)
+    else:
+        getattr(mod, name)[key] += n
+
+
+def bump(module: str, **adds) -> None:
+    """Add to ``module``'s counters under :data:`COUNT_LOCK`: ``name=n`` to
+    an int counter, ``name={key: n}`` to a dict counter's entries."""
+    with COUNT_LOCK:
+        for name, n in adds.items():
+            if isinstance(n, dict):
+                for key, m in n.items():
+                    _add(module, name, key, m)
+            else:
+                _add(module, name, None, n)
 
 
 def add_launch_counts(counts: dict, times: int) -> None:
     """Add ``times`` x each of ``counts`` (as :func:`launch_counts` gives
     them) to the registered counters: a graph's launches times its replays,
     or -1 times the launches its capture counted but never ran."""
-    for (module, name, key), n in counts.items():
-        mod = sys.modules[module]
-        if key is None:
-            setattr(mod, name, getattr(mod, name) + n * times)
-        else:
-            getattr(mod, name)[key] += n * times
+    with COUNT_LOCK:
+        for (module, name, key), n in counts.items():
+            _add(module, name, key, n * times)
 
 
 class _Once(torch.autograd.Function):

@@ -102,7 +102,6 @@ def conv_launch(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> torch.Tensor:
     (``pad=0``) or a dgrad (``pad=2``) launch. bf16 ``x`` with weights of
     another dtype runs the f32 path on ``x`` widened (exact) and rounds the
     output once."""
-    global fwd_launches, dgrad_launches, fwd_pairs_launches, dgrad_pairs_launches
     _check_shapes(x, w, pad)
     _check_cuda("K3", x, w)
     if x.dtype == torch.bfloat16 and w.dtype != torch.bfloat16:
@@ -115,12 +114,8 @@ def conv_launch(x: torch.Tensor, w: torch.Tensor, pad: int = 0) -> torch.Tensor:
                       device=x.device)
     LIB.launch("conv3x3x3", x, x.data_ptr(), wk.data_ptr(), out.data_ptr(), N, Ci, Co, Z, H, W,
                pad, int(per_pair), _DTYPES[x.dtype])
-    if pad:
-        dgrad_launches += 1
-        dgrad_pairs_launches += per_pair
-    else:
-        fwd_launches += 1
-        fwd_pairs_launches += per_pair
+    kind = "dgrad" if pad else "fwd"
+    native.bump(__name__, **{f"{kind}_launches": 1, f"{kind}_pairs_launches": int(per_pair)})
     return out
 
 
@@ -170,7 +165,6 @@ def wgrad_launch(x: torch.Tensor, g: torch.Tensor, per_pair: bool = False) -> to
     both f32 or both bf16), summed over the N items, or with ``per_pair``
     each item's own, ``[N, 3, 3, 3, Ci, Co]`` (each split as a launch on that
     item alone splits it); counts a wgrad launch."""
-    global wgrad_launches, wgrad_pairs_launches
     _check_wgrad_shapes(x, g)
     _check_cuda("K3's weight gradient", x, g)
     if g.dtype != x.dtype or not g.is_contiguous():
@@ -184,8 +178,7 @@ def wgrad_launch(x: torch.Tensor, g: torch.Tensor, per_pair: bool = False) -> to
     dw = torch.empty(lead + (3, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
     LIB.launch("conv3x3x3_wgrad", x, x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
                N, Ci, Co, Z, H, W, splits, int(per_pair), _DTYPES[x.dtype])
-    wgrad_launches += 1
-    wgrad_pairs_launches += per_pair
+    native.bump(__name__, wgrad_launches=1, wgrad_pairs_launches=int(per_pair))
     return dw
 
 

@@ -89,7 +89,6 @@ def kde_sum_launch(s: torch.Tensor, xis: torch.Tensor, h: float, binned: torch.T
     """``[N, P]``: ``sum_l w psi(u)`` (``deriv`` 0: ``phi``, 1: ``phi'``) on
     contiguous f32 CUDA tensors of one device, ``binned`` one int32 (zeros
     when non-zero); the block partials' scratch is allocated here."""
-    global sum_launches
     _check(s, xis)
     ops = [(s, torch.float32), (xis, torch.float32), (binned, torch.int32)]
     if w is not None:
@@ -105,7 +104,7 @@ def kde_sum_launch(s: torch.Tensor, xis: torch.Tensor, h: float, binned: torch.T
     LIB.launch("kde_sum", s, s.data_ptr(), None if w is None else w.data_ptr(),
                xis.data_ptr(), binned.data_ptr(), part.data_ptr(), out.data_ptr(), N, L, P,
                nblk, float(h), int(deriv))
-    sum_launches += 1
+    native.bump(__name__, sum_launches=1)
     return out
 
 
@@ -114,7 +113,6 @@ def kde_dot_launch(g: torch.Tensor, s: torch.Tensor, xis: torch.Tensor, h: float
     """``[N, L]``: ``sum_k g psi(u)`` (``deriv`` 1: ``phi'``, 2: ``phi''``) on
     contiguous f32 CUDA tensors of one device, ``binned`` one int32 (zeros
     when non-zero)."""
-    global dot_launches
     _check(s, xis)
     if g.shape != (s.shape[0], xis.shape[0]):
         raise ValueError(f"kde_dot takes g [N, P], got {tuple(g.shape)}")
@@ -124,7 +122,7 @@ def kde_dot_launch(g: torch.Tensor, s: torch.Tensor, xis: torch.Tensor, h: float
     out = s.new_empty((N, L))
     LIB.launch("kde_dot", s, s.data_ptr(), g.data_ptr(), xis.data_ptr(), binned.data_ptr(),
                out.data_ptr(), N, L, xis.shape[0], float(h), int(deriv))
-    dot_launches += 1
+    native.bump(__name__, dot_launches=1)
     return out
 
 

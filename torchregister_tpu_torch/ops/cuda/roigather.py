@@ -58,7 +58,6 @@ def _validate(vol: torch.Tensor, scalars: torch.Tensor) -> None:
 def roigather_launch(vol: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on a contiguous CUDA ``vol [Z, Y, X]`` (f32) with
     ``scalars [T, 5]`` (int32, same device)."""
-    global launches
     _validate(vol, scalars)
     if not (vol.is_cuda and scalars.is_cuda and vol.device == scalars.device):
         raise ValueError("K2b needs the volume and the scalars on the same CUDA device")
@@ -68,7 +67,7 @@ def roigather_launch(vol: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     Z, Y, X = vol.shape
     out = torch.empty((T, CW, AW * BW), dtype=torch.float32, device=vol.device)
     LIB.launch("roigather", vol, vol.data_ptr(), scalars.data_ptr(), out.data_ptr(), T, Z, Y, X)
-    launches += 1
+    native.bump(__name__, launches=1)
     return out
 
 

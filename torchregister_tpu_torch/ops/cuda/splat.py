@@ -63,7 +63,6 @@ def splat_launch(idx: torch.Tensor, f: torch.Tensor, signed: bool = False) -> to
     ``[0, BINS - 2]``) and ``f`` (f32), one device; the block partials'
     scratch is allocated here. ``signed``: the signed mode (``-f`` into
     ``idx``, ``f`` into ``idx + 1``)."""
-    global launches, signed_launches
     _check(idx, f)
     native.check_operands("splat", (f, torch.float32), (idx, torch.int32))
     N, L = f.shape
@@ -72,10 +71,7 @@ def splat_launch(idx: torch.Tensor, f: torch.Tensor, signed: bool = False) -> to
     H = f.new_empty((N, BINS))
     LIB.launch("splat", f, idx.data_ptr(), f.data_ptr(), part.data_ptr(), H.data_ptr(), N, L,
                nblk, int(signed))
-    if signed:
-        signed_launches += 1
-    else:
-        launches += 1
+    native.bump(__name__, **{"signed_launches" if signed else "launches": 1})
     return H
 
 

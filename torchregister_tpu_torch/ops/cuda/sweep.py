@@ -25,7 +25,15 @@ axis reads a halo of ``K + 1`` rows a side (``parallel/halo.py``); its
 backward fetches the upstream gradient's halo and gathers locally, so the
 warp and dsrc are the unsharded launch's to the bit, and each slab's row
 gradient is summed over the slabs in ascending order on the mesh's first
-device.
+device. The flow form runs on slabs too (:func:`sweep_flow_slabs`, a field
+split like the volume): the passes across the split axis are each slab's
+own flow launches, the pass along it reads the slab's buffer with the halo
+and its backward the halos of the upstream gradient and of the field's
+channel (``sweep_slab_flow_fwd`` / ``_bwd``), so the warp, dsrc and the
+field's gradient are the unsharded launches'. So does the affine form's
+second order (``sweep_slab_bwd2``, LM's Hessian on a split volume): the
+chain :class:`_SlabPass` reads the halos of g, src and the cotangent of
+dsrc, gbar and sbar equal to the unsharded launch's to the bit.
 
 Dispatch is by device only: a CPU tensor takes the plain versions
 (:func:`sweep_plain`, :func:`sweep_affine_plain`, :func:`sweep_flow_plain`),
@@ -64,9 +72,9 @@ SOURCE = native.PKG / "csrc" / "sweep.cu"
 fwd_launches = 0
 bwd_launches = 0
 bwd2_launches = 0
-fwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0, "slab": 0}
-bwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0, "slab": 0}
-bwd2_modes = {"affine": 0, "pairs": 0}
+fwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0, "slab": 0, "slab_flow": 0}
+bwd_modes = {"dense": 0, "affine": 0, "flow": 0, "pairs": 0, "slab": 0, "slab_flow": 0}
+bwd2_modes = {"affine": 0, "pairs": 0, "slab": 0}
 native.count_launches(__name__, "fwd_launches", "bwd_launches", "bwd2_launches", "fwd_modes",
                       "bwd_modes", "bwd2_modes")
 
@@ -81,8 +89,12 @@ LIB = native.Library(SOURCE, "sweep", {
     "sweep_bwd_work": (_L, [_L, _I, _L, _I, _L]),
     "sweep_bwd2": (_I, [_P] * 9 + [_L, _I, _L] + [_I] * 8 + [_L, _P]),
     "sweep_slab_fwd": (_I, [_P] * 3 + [_L, _I, _L] + [_I] * 8 + [_L] + [_I] * 7 + [_P]),
-    "sweep_slab_bwd_work": (_L, [_L, _I, _L, _I, _L, _I]),
+    "sweep_slab_bwd_work": (_L, [_L, _I, _L, _I, _L, _I, _I]),
     "sweep_slab_bwd": (_I, [_P] * 6 + [_L, _I, _L] + [_I] * 8 + [_L] + [_I] * 7 + [_P]),
+    "sweep_slab_bwd2": (_I, [_P] * 9 + [_L, _I, _L] + [_I] * 8 + [_L] + [_I] * 7 + [_P]),
+    "sweep_slab_flow_fwd": (_I, [_P] * 3 + [_L, _I, _L] + [_I] * 7 + [_L] + [_I] * 4 + [_P]),
+    "sweep_slab_flow_bwd": (_I, [_P] * 5 + [_L, _I, _L] + [_I] * 7 + [_L] * 3 + [_I] * 4
+                            + [_P]),
 })
 
 
@@ -97,13 +109,10 @@ def reset_counts() -> None:
 
 
 def _count(forward: bool, mode: str) -> None:
-    global fwd_launches, bwd_launches
     if forward:
-        fwd_launches += 1
-        fwd_modes[mode] += 1
+        native.bump(__name__, fwd_launches=1, fwd_modes={mode: 1})
     else:
-        bwd_launches += 1
-        bwd_modes[mode] += 1
+        native.bump(__name__, bwd_launches=1, bwd_modes={mode: 1})
 
 
 @functools.lru_cache(maxsize=256)
@@ -293,7 +302,6 @@ def _bwd2_affine(g, src, table, p, axis, K, ubar, rbar, need_g, need_src, dtable
     ``p`` is read); the gradient of the pass's table row goes into
     ``dtable[..., p, :]`` when ``dtable`` is given (through ``work``, made
     here when not given)."""
-    global bwd2_launches
     gbar = torch.empty_like(g) if need_g else None
     sbar = torch.empty_like(src) if need_src else None
     stride, items = _items(table)
@@ -307,8 +315,8 @@ def _bwd2_affine(g, src, table, p, axis, K, ubar, rbar, need_g, need_src, dtable
                None if work is None else work.data_ptr(),
                None if dtable is None else _row(dtable, p), outer, L, inner, K,
                _DTYPES[src.dtype], src.ndim - 2, Z, Y, X, vaxis, src.shape[1], stride)
-    bwd2_launches += 1
-    bwd2_modes["pairs" if table.ndim == 3 else "affine"] += 1
+    native.bump(__name__, bwd2_launches=1,
+                bwd2_modes={"pairs" if table.ndim == 3 else "affine": 1})
     return gbar, sbar
 
 
@@ -753,16 +761,12 @@ def sweep_affine_passes(src: torch.Tensor, passes, windows: Sequence[int],
     of :class:`_AffinePass`, the same launches forward and backward, and
     ``sweep_bwd2`` in a second derivative); the plain passes are anyway. A
     ``parallel.mesh.Sharded`` volume split along a spatial dim takes the
-    slab mode (:func:`sweep_affine_slabs`; differentiable once)."""
+    slab mode (:func:`sweep_affine_slabs`, ``twice`` alike)."""
     from ...parallel.mesh import Sharded
 
     windows = tuple(int(K) for K in windows)
     if isinstance(src, Sharded):
-        if twice:
-            raise ValueError("K1's second order has no slab mode yet: optimizer='lm' on a "
-                             "space-sharded volume comes with the space-sharded flow engine's "
-                             "slice (ROADMAP queue 1, item 18)")
-        return sweep_affine_slabs(src, passes, windows)
+        return sweep_affine_slabs(src, passes, windows, twice)
     if src.is_cuda:
         table, axes = pass_table(passes)
         if not twice:
@@ -803,13 +807,13 @@ def affine_chain(src: torch.Tensor, table: torch.Tensor, axes, windows) -> torch
 
 def sweep_flow_passes(src: torch.Tensor, flow: torch.Tensor, K: int) -> torch.Tensor:
     """A separable flow warp of ``src [N, C, *S]`` by ``flow [N, d, *S]``
-    (voxels), x-pass first, each pass within the window ``K``."""
+    (voxels), x-pass first, each pass within the window ``K``. A
+    ``parallel.mesh.Sharded`` ``src`` and ``flow`` split alike into slabs
+    take the slab mode (:func:`sweep_flow_slabs`)."""
     from ...parallel.mesh import Sharded
 
-    if isinstance(src, Sharded):
-        raise ValueError("K1's flow form has no slab mode yet: a flow warp of a space-sharded "
-                         "volume comes with the space-sharded flow engine's slice (ROADMAP "
-                         "queue 1, item 18)")
+    if isinstance(src, Sharded) or isinstance(flow, Sharded):
+        return sweep_flow_slabs(src, flow, K)
     if src.is_cuda:
         return _SeparableFlow.apply(src, flow.to(torch.float32).contiguous(), int(K))
     if src.device.type == "cpu":
@@ -897,18 +901,20 @@ def _fwd_slab(buf, table, p, axis, K, geo, shape):
 
 
 @functools.lru_cache(maxsize=64)
-def _slab_work_floats(rows, K, items, Xg) -> int:
-    n = LIB.fns()["sweep_slab_bwd_work"](*rows, K, items, Xg)
+def _slab_work_floats(rows, K, items, Xg, Lb) -> int:
+    n = LIB.fns()["sweep_slab_bwd_work"](*rows, K, items, Xg, Lb)
     if n <= 0:
         raise ValueError(f"K1 has no slab backward tile for rows {rows}, window {K}, "
-                         f"{items} tables and extent {Xg}")
+                         f"{items} tables, extent {Xg} and a buffer of {Lb}")
     return n
 
 
 def _slab_work(shape, axes, windows, geo, items, device) -> torch.Tensor:
-    """The slab backward's workspace for every pass of a warp (the largest),
-    zeroed; each launch leaves its counters 0."""
-    n = max(_slab_work_floats(_rows(shape, 2 + a), K, items, _slab_args(shape, a, K, geo)[6])
+    """The slab backward's (and ``sweep_slab_bwd2``'s) workspace for every
+    pass of a warp (the largest), zeroed; each launch leaves its counters
+    0."""
+    n = max(_slab_work_floats(_rows(shape, 2 + a), K, items,
+                              *_slab_args(shape, a, K, geo)[6:4:-1])
             for a, K in zip(axes, windows))
     return torch.zeros(n, dtype=torch.float32, device=device)
 
@@ -1101,21 +1107,506 @@ class _SlabAffine(torch.autograd.Function):
         return (dtable, None, None, None, *(g if need_src else [None] * n))
 
 
-def sweep_affine_slabs(src, passes, windows: Sequence[int]):
+def _geos(src) -> tuple:
+    """The :class:`SlabGeo` of each slab of a ``Sharded`` volume split along
+    a spatial dim."""
+    dim, _ = src.slab_axis()
+    if dim < 2:
+        raise ValueError(f"K1's slab mode splits a spatial dim, got a split along dim {dim}")
+    m = src.shards[0].shape[dim]
+    return tuple(SlabGeo(dim - 2, k * m, src.shape[dim]) for k in range(len(src.shards)))
+
+
+def sweep_affine_slabs(src, passes, windows: Sequence[int], twice: bool = False):
     """:func:`sweep_affine_passes` on a volume split into slabs (``src`` a
     ``parallel.mesh.Sharded`` of ``[N, C, *S]`` split along one spatial
     dim): each slab's passes in the slab mode on its device (the kernels on
     the card, the plain versions on the CPU), the warp a ``Sharded`` laid
     out as ``src``, equal to the unsharded warp's to the bit; differentiable
-    once in the slabs and the passes' rows."""
+    once in the slabs and the passes' rows, or with ``twice`` twice (a chain
+    of :class:`_SlabPass`, whose second order is ``sweep_slab_bwd2``)."""
     from ...parallel.mesh import from_blocks
 
-    dim, _ = src.slab_axis()
-    if dim < 2:
-        raise ValueError(f"K1's slab mode splits a spatial dim, got a split along dim {dim}")
-    slabs = src.shards
-    m = slabs[0].shape[dim]
-    geos = tuple(SlabGeo(dim - 2, k * m, src.shape[dim]) for k in range(len(slabs)))
+    geos = _geos(src)
     table, axes = pass_table(passes)
-    outs = _SlabAffine.apply(table, axes, tuple(int(K) for K in windows), geos, *slabs)
+    windows = tuple(int(K) for K in windows)
+    if twice:
+        outs = tuple(src.shards)
+        for p, (axis, K) in enumerate(zip(axes, windows)):
+            outs = _SlabPass.apply(table, p, axis, K, geos, *outs)
+    else:
+        outs = _SlabAffine.apply(table, axes, windows, geos, *src.shards)
+    return from_blocks(list(outs), src.sharding, src.shape)
+
+
+# --------------------------------------------- slabs: the second order (LM)
+
+
+def _bwd2_slab(gbuf, buf, ubuf, table, p, axis, K, geo, shape, rtable, need_g, need_src,
+               dtable, work=None):
+    """``(gbar, sbar)`` of one slab pass's backward (``sweep_slab_bwd2``):
+    ``gbuf``, ``buf`` and ``ubuf`` (None: zeros) laid out as the pass's
+    source buffer, the outputs the slab's; the slab's share of the row's
+    gradient into ``dtable[..., p, :]`` when given."""
+    gbar = torch.empty(shape, dtype=buf.dtype, device=buf.device) if need_g else None
+    sbar = torch.empty(shape, dtype=buf.dtype, device=buf.device) if need_src else None
+    stride, items = _items(table)
+    outer, L, inner, Z, Y, X, vaxis = _image(shape, axis)
+    if dtable is not None and work is None:
+        work = _slab_work(shape, (axis,), (K,), geo, items, buf.device)
+    LIB.launch("sweep_slab_bwd2", buf, gbuf.data_ptr(), buf.data_ptr(), _row(table, p),
+               None if ubuf is None else ubuf.data_ptr(), _row(rtable, p),
+               None if gbar is None else gbar.data_ptr(),
+               None if sbar is None else sbar.data_ptr(),
+               None if work is None else work.data_ptr(),
+               None if dtable is None else _row(dtable, p), outer, L, inner, K,
+               _DTYPES[buf.dtype], len(shape) - 2, Z, Y, X, vaxis, shape[1], stride,
+               *_slab_args(shape, axis, K, geo))
+    native.bump(__name__, bwd2_launches=1, bwd2_modes={"slab": 1})
+    return gbar, sbar
+
+
+def affine_slab_bwd2(gbuf: torch.Tensor, buf: torch.Tensor, ubuf: torch.Tensor | None,
+                     table: torch.Tensor, p: int, axis: int, K: int, geo: SlabGeo, shape,
+                     rbar: torch.Tensor, need_g: bool = True, need_src: bool = True,
+                     need_table: bool = True):
+    """The second order of :func:`affine_slab_fwd` on a slab (the slab mode
+    of :func:`affine_bwd2`): ``gbuf``, ``buf`` and ``ubuf`` (the cotangent
+    of dsrc; None: zeros) laid out as the source buffer, ``rbar`` the
+    cotangent of the row's gradient; returns ``(gbar, sbar, drow)``, the
+    slab's own, ``drow`` its share."""
+    shape = tuple(shape)
+    _check_slab(buf, table, axis, int(K), geo, shape)
+    for name, t in (("g", gbuf), ("ubar", ubuf)):
+        if t is not None and (t.shape != buf.shape or t.dtype != buf.dtype):
+            raise ValueError(f"K1's slab second order needs {name} laid out and typed as the "
+                             "source buffer")
+    _check_on(buf, table=table, g=gbuf, **({} if ubuf is None else {"ubar": ubuf}))
+    rtable = torch.zeros_like(table)
+    rtable[..., p, :] = rbar
+    dtable = torch.zeros_like(table) if need_table else None
+    gbar, sbar = _bwd2_slab(gbuf, buf, ubuf, table, p, axis, int(K), geo, shape, rtable,
+                            need_g, need_src, dtable)
+    return gbar, sbar, None if dtable is None else dtable[..., p, :]
+
+
+def sweep_bwd2_slab_plain(gbuf: torch.Tensor, buf: torch.Tensor, ubuf: torch.Tensor | None,
+                          rbar: torch.Tensor, coef: torch.Tensor, offset, axis: int, K: int,
+                          geo: SlabGeo, shape):
+    """Plain version of :func:`affine_slab_bwd2` (one table): the formulas
+    of :func:`sweep_bwd2_plain` at every position of the buffers (the
+    volume's positions and coordinates, on a canvas with ``K + 1`` zero rows
+    a side), then gbar and sbar at the slab's own rows and the row's
+    gradient from its own outputs. gbar and sbar are the unsharded plain
+    version's to the bit."""
+    shape = tuple(shape)
+    d = len(shape) - 2
+    dim = 2 + axis
+    K = int(K)
+    _, _, _, p0, b0, Lb, Xg = _slab_args(shape, axis, K, geo)
+    h = slab_halo(K)
+    bshape = tuple(buf.shape)
+    starts = [geo.lo if b == geo.axis else 0 for b in range(d)]
+    starts[axis] = b0
+    q = _axis_coord_grid(coef.to(torch.float32), offset, bshape[2:], starts).expand(bshape)
+    v = _axis_coord_grid(rbar[:-1], rbar[-1], bshape[2:], starts).expand(bshape)
+    fr, mf, mc, fi, ci = _slab_taps(q, dim, K, b0, b0 - h, Lb + 2 * h, Xg)
+    pad = _plain_pad(dim, len(bshape))
+    pad[-2:] = [h, h]
+
+    def taps(x):
+        x = torch.nn.functional.pad(x.to(torch.float32), pad)
+        return (torch.where(mf, torch.gather(x, dim, fi), 0.0),
+                torch.where(mc, torch.gather(x, dim, ci), 0.0))
+
+    sf, sc = taps(buf)
+    uf, uc = taps(ubuf) if ubuf is not None else (torch.zeros_like(sf), torch.zeros_like(sf))
+    gf = gbuf.to(torch.float32)
+    own = p0 - b0
+    L = shape[dim]
+    gbar = (torch.where(mf, uf * (1.0 - fr), 0.0) + torch.where(mc, uc * fr, 0.0)
+            + v * (sc - sf)).narrow(dim, own, L)
+    w = v * gf
+    canvas = torch.zeros(tuple(Lb + 2 * h if i == dim else n for i, n in enumerate(bshape)),
+                         dtype=torch.float32, device=buf.device)
+    canvas = canvas.scatter_add(dim, ci, torch.where(mc, w, 0.0))
+    canvas = canvas.scatter_add(dim, fi, torch.where(mf, -w, 0.0))
+    sbar = canvas.narrow(dim, own + h, L)
+    dd = (gf * (uc - uf)).narrow(dim, own, L)
+    ostarts = [geo.lo if b == geo.axis else 0 for b in range(d)]
+    coords = [torch.arange(ostarts[a], ostarts[a] + n, dtype=torch.float32,
+                           device=buf.device).view(tuple(n if i == a else 1 for i in range(d)))
+              for a, n in enumerate(shape[2:])]
+    drow = torch.stack([t.sum() for t in [dd * c for c in coords] + [dd]])
+    return gbar.to(gbuf.dtype), sbar.to(buf.dtype), drow
+
+
+def _slab_bwd2(gbuf, buf, ubuf, table, p, axis, K, geo, shape, rtable, need_g, need_src,
+               dtable, work):
+    if buf.is_cuda:
+        return _bwd2_slab(gbuf, buf, ubuf, table, p, axis, K, geo, shape, rtable, need_g,
+                          need_src, dtable, work)
+    if table.ndim == 3:
+        raise ValueError("K1's slab mode takes one table a volume")
+    gbar, sbar, drow = sweep_bwd2_slab_plain(gbuf, buf, ubuf, rtable[p], *_row_of(table, p),
+                                             axis, K, geo, shape)
+    if dtable is not None:
+        dtable[p] = drow
+    return gbar if need_g else None, sbar if need_src else None
+
+
+def _halo_of(slabs, axis, K, geos):
+    """The slabs' buffers for a pass along ``axis``: with ``slab_halo(K)``
+    rows a side along the split axis, the slabs themselves across it."""
+    from ...parallel import halo
+
+    if axis != geos[0].axis:
+        return [s.contiguous() for s in slabs]
+    h = slab_halo(K)
+    return halo.fetch([s.contiguous() for s in slabs], 2 + axis, h, h)
+
+
+class _SlabPass(torch.autograd.Function):
+    """One pass of a separable affine warp on slabs (row ``p`` of
+    ``table``), differentiable twice: its backward is
+    :class:`_SlabPassBwd`."""
+
+    @staticmethod
+    def forward(ctx, table, p, axis, K, geos, *slabs):
+        shape = tuple(slabs[0].shape)
+        tables = [table if s.device == table.device else table.to(s.device) for s in slabs]
+        bufs = _halo_of(slabs, axis, K, geos)
+        ctx.save_for_backward(table, *slabs)
+        ctx.p, ctx.axis, ctx.K, ctx.geos = p, axis, K, geos
+        return tuple(_slab_pass(b, t, p, axis, K, geo, shape)
+                     for b, t, geo in zip(bufs, tables, geos))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        table, *slabs = ctx.saved_tensors
+        need_table = ctx.needs_input_grad[0]
+        need_src = any(ctx.needs_input_grad[5:])
+        out = _SlabPassBwd.apply(table, ctx.p, ctx.axis, ctx.K, ctx.geos, need_src, need_table,
+                                 len(slabs), *gs, *slabs)
+        return (out[-1], None, None, None, None, *out[:-1])
+
+
+class _SlabPassBwd(torch.autograd.Function):
+    """The backward of one slab pass, ``(table, g slabs, src slabs) ->
+    (dsrc slabs, dtable)`` (``dtable`` zero but for row ``p``, each slab's
+    share summed in ascending slab order; either None when not needed); its
+    backward launches ``sweep_slab_bwd2`` on each slab, with the halos of
+    ``g``, ``src`` and ``ubar`` along the split axis."""
+
+    @staticmethod
+    def forward(ctx, table, p, axis, K, geos, need_src, need_table, n, *gs_slabs):
+        from ...parallel.mesh import ordered_sum
+
+        gs, slabs = gs_slabs[:n], gs_slabs[n:]
+        shape = tuple(slabs[0].shape)
+        tables = [table if s.device == table.device else table.to(s.device) for s in slabs]
+        gs = [g.to(s.dtype).contiguous() for g, s in zip(gs, slabs)]
+        bufs, gbufs = _halo_of(slabs, axis, K, geos), _halo_of(gs, axis, K, geos)
+        dtables = [torch.zeros_like(t) if need_table else None for t in tables]
+        dsrc = [_slab_pass_bwd(gb, b, t, p, axis, K, geo, shape, need_src, dt, None)
+                for gb, b, t, geo, dt in zip(gbufs, bufs, tables, geos, dtables)]
+        ctx.save_for_backward(table, *gs, *slabs)
+        ctx.p, ctx.axis, ctx.K, ctx.geos, ctx.n = p, axis, K, geos, n
+        ctx.set_materialize_grads(False)
+        dtable = ordered_sum(dtables, table.device) if need_table else None
+        return (*(dsrc if need_src else [None] * n), dtable)
+
+    @staticmethod
+    @native.differentiable_once
+    def backward(ctx, *bars):
+        from ...parallel.mesh import ordered_sum
+
+        n, p, axis, K, geos = ctx.n, ctx.p, ctx.axis, ctx.K, ctx.geos
+        table, *rest = ctx.saved_tensors
+        gs, slabs = rest[:n], rest[n:]
+        ubars, dtable_bar = bars[:n], bars[n]
+        need_table = ctx.needs_input_grad[0]
+        need_g = any(ctx.needs_input_grad[8:8 + n])
+        need_src = any(ctx.needs_input_grad[8 + n:])
+        shape = tuple(slabs[0].shape)
+        tables = [table if s.device == table.device else table.to(s.device) for s in slabs]
+        rbar = (torch.zeros_like(table) if dtable_bar is None
+                else dtable_bar.to(torch.float32).contiguous())
+        rtables = [rbar if s.device == rbar.device else rbar.to(s.device) for s in slabs]
+        bufs, gbufs = _halo_of(slabs, axis, K, geos), _halo_of(gs, axis, K, geos)
+        ubufs = [None] * n
+        if any(u is not None for u in ubars):
+            ubufs = _halo_of([torch.zeros_like(s) if u is None else u.to(s.dtype).contiguous()
+                              for u, s in zip(ubars, slabs)], axis, K, geos)
+        dtables = [torch.zeros_like(t) if need_table else None for t in tables]
+        works = [None] * n
+        if need_table and tables[0].is_cuda:
+            works = [_slab_work(shape, (axis,), (K,), geo, _items(table)[1], t.device)
+                     for geo, t in zip(geos, tables)]
+        outs = [_slab_bwd2(gb, b, ub, t, p, axis, K, geo, shape, rt, need_g, need_src, dt, w)
+                for gb, b, ub, t, geo, rt, dt, w in zip(gbufs, bufs, ubufs, tables, geos,
+                                                         rtables, dtables, works)]
+        dtable = ordered_sum(dtables, table.device) if need_table else None
+        return (dtable, None, None, None, None, None, None, None,
+                *[o[0] for o in outs], *[o[1] for o in outs])
+
+
+# ----------------------------------------------------- slabs: the flow form
+
+
+def _check_slab_flow(buf, flow, axis, K, geo, shape, fbuf=False) -> None:
+    _check_image(buf)
+    d = buf.ndim - 2
+    if axis != geo.axis or K < 0:
+        raise ValueError(f"K1's flow slab mode sweeps the split axis {geo.axis} with K >= 0, "
+                         f"got axis {axis}, K {K}")
+    Lb = _slab_args(shape, axis, K, geo)[5]
+    want = tuple(Lb if i == 2 + axis else s for i, s in enumerate(shape))
+    if tuple(buf.shape) != want:
+        raise ValueError(f"K1's flow slab mode needs a source buffer {want} for a slab "
+                         f"{tuple(shape)} with K = {K}, got {tuple(buf.shape)}")
+    fwant = (shape[0], 1 if fbuf else d, *(want if fbuf else shape)[2:])
+    if flow.dtype != torch.float32 or tuple(flow.shape) != fwant:
+        raise ValueError(f"K1's flow slab mode needs a float32 field {fwant}, got "
+                         f"{flow.dtype} {tuple(flow.shape)}")
+    L = shape[2 + axis]
+    if geo.lo < 0 or geo.lo + L > geo.extent:
+        raise ValueError(f"K1's slab mode: a slab of {L} rows from {geo.lo} is not inside "
+                         f"{geo.extent}")
+
+
+def _fwd_slab_flow(buf, flow, axis, K, geo, shape):
+    out = torch.empty(shape, dtype=buf.dtype, device=buf.device)
+    outer, L, inner, Z, Y, X, vaxis = _image(shape, axis)
+    LIB.launch("sweep_slab_flow_fwd", buf, buf.data_ptr(), _channel(flow, axis), out.data_ptr(),
+               outer, L, inner, K, _DTYPES[buf.dtype], Z, Y, X, vaxis, shape[1],
+               flow.stride(0), *_slab_args(shape, axis, K, geo)[3:])
+    _count(True, "slab_flow")
+    return out
+
+
+def _bwd_slab_flow(gbuf, buf, ubuf, axis, K, geo, shape, need_src, dflow):
+    """dsrc (or None) of one flow pass along the split axis, ``gbuf`` and
+    ``ubuf`` (channel ``axis`` of the field, ``[N, 1, ...]``) laid out as
+    ``buf``; the field's gradient into channel ``axis`` of ``dflow`` (the
+    slab's) when given (summed over src's channels)."""
+    C = shape[1]
+    outer, L, inner, Z, Y, X, vaxis = _image(shape, axis)
+    dsrc = torch.empty(shape, dtype=buf.dtype, device=buf.device) if need_src else None
+    du, du_ptr, dqn, dqc = None, None, 0, 0
+    if dflow is not None:
+        if C == 1:
+            du_ptr, dqn = _channel(dflow, axis), dflow.stride(0)
+        else:
+            du = torch.empty(shape, dtype=torch.float32, device=buf.device)
+            du_ptr, dqn, dqc = du.data_ptr(), du.stride(0), du.stride(1)
+    LIB.launch("sweep_slab_flow_bwd", buf, gbuf.data_ptr(), buf.data_ptr(), ubuf.data_ptr(),
+               None if dsrc is None else dsrc.data_ptr(), du_ptr, outer, L, inner, K,
+               _DTYPES[buf.dtype], Z, Y, X, vaxis, C, ubuf.stride(0), dqn, dqc,
+               *_slab_args(shape, axis, K, geo)[3:])
+    _count(False, "slab_flow")
+    if du is not None:
+        dflow[:, axis].copy_(du.sum(1))
+    return dsrc
+
+
+def flow_slab_fwd(buf: torch.Tensor, flow: torch.Tensor, axis: int, K: int, geo: SlabGeo,
+                  shape) -> torch.Tensor:
+    """One flow pass along the split axis on a slab (the flow form's slab
+    mode): the slab ``shape``'s outputs at ``q = o_axis + flow[:, axis]``
+    (``flow`` the slab's field ``[N, d, *slab]``, positions the volume's),
+    from ``buf``, the slab with ``slab_halo(K)`` rows of the volume a side
+    (zeros past it)."""
+    shape = tuple(shape)
+    _check_slab_flow(buf, flow, axis, int(K), geo, shape)
+    _check_on(buf, flow=flow)
+    return _fwd_slab_flow(buf, flow, axis, int(K), geo, shape)
+
+
+def flow_slab_bwd(gbuf: torch.Tensor, buf: torch.Tensor, ubuf: torch.Tensor, axis: int, K: int,
+                  geo: SlabGeo, shape, need_src: bool = True, need_flow: bool = True):
+    """The backward of :func:`flow_slab_fwd`: ``(dsrc, du)``, the slab's,
+    from ``gbuf`` (the upstream gradient) and ``ubuf`` (channel ``axis`` of
+    the field, ``[N, 1, ...]``) laid out as ``buf`` (each with its halo: the
+    halo's outputs reach the slab's rows), ``du [N, *slab]`` the gradient of
+    the slab's ``flow[:, axis]``; either may be skipped (None)."""
+    shape = tuple(shape)
+    _check_slab_flow(buf, ubuf, axis, int(K), geo, shape, fbuf=True)
+    if gbuf.shape != buf.shape or gbuf.dtype != buf.dtype:
+        raise ValueError("K1's slab backward needs g laid out and typed as the source buffer")
+    _check_on(buf, g=gbuf, flow=ubuf)
+    d = len(shape) - 2
+    dflow = (torch.empty((shape[0], d, *shape[2:]), dtype=torch.float32, device=buf.device)
+             if need_flow else None)
+    dsrc = _bwd_slab_flow(gbuf, buf, ubuf, axis, int(K), geo, shape, need_src, dflow)
+    return dsrc, None if dflow is None else dflow[:, axis]
+
+
+def sweep_flow_slab_plain(buf: torch.Tensor, flow: torch.Tensor, axis: int, K: int,
+                          geo: SlabGeo, shape) -> torch.Tensor:
+    """Plain version of the flow form's slab mode: :func:`sweep_flow_plain`
+    of the slab ``shape``'s outputs at the volume's positions (``flow`` the
+    field's channel ``axis`` at those outputs, ``[N, 1, *slab]``) on the
+    buffer ``buf``; differentiable in ``buf`` and ``flow``. Each output is
+    the unsharded plain pass's to the bit."""
+    shape = tuple(shape)
+    d = len(shape) - 2
+    dim = 2 + axis
+    _, _, _, p0, b0, Lb, Xg = _slab_args(shape, axis, int(K), geo)
+    L = shape[dim]
+    ident = torch.arange(p0, p0 + L, dtype=torch.float32, device=flow.device)
+    ident = ident.view(tuple(L if i == axis else 1 for i in range(d)))
+    q = (flow[:, 0].to(torch.float32)[:, None] + ident).expand(shape)
+    fr, mf, mc, fi, ci = _slab_taps(q, dim, int(K), p0, b0, Lb, Xg)
+    src = buf.to(torch.float32)
+    vf = torch.where(mf, torch.gather(src, dim, fi), 0.0)
+    vc = torch.where(mc, torch.gather(src, dim, ci), 0.0)
+    out = torch.where(mf, vf * (1.0 - fr), 0.0) + torch.where(mc, vc * fr, 0.0)
+    return out.to(buf.dtype)
+
+
+def _flow_slab_bwd_plain(gbuf, buf, ubuf, axis, K, geo, shape, need_src, dflow):
+    """The plain slab backward of a flow pass, in the kernel's way: dsrc
+    gathered from the upstream gradient of every output that reaches the
+    slab's rows (those of the halo, at the field's halo, on a zero canvas of
+    the sources they reach), du from the slab's own outputs."""
+    dim = 2 + axis
+    h = slab_halo(K)
+    L = shape[dim]
+    dsrc = None
+    with torch.enable_grad():
+        if dflow is not None:
+            u = ubuf.narrow(dim, h, L).detach().clone().requires_grad_(True)
+            out = sweep_flow_slab_plain(buf.detach(), u, axis, K, geo, shape)
+            (du,) = torch.autograd.grad(out, u, gbuf.narrow(dim, h, L))
+            dflow[:, axis] = du[:, 0]
+        if need_src:
+            ext = tuple(L + 2 * h if i == dim else s for i, s in enumerate(shape))
+            canvas = torch.zeros(tuple(L + 4 * h if i == dim else s for i, s in enumerate(shape)),
+                                 dtype=buf.dtype, device=buf.device, requires_grad=True)
+            out = sweep_flow_slab_plain(canvas, ubuf.detach(), axis, K,
+                                        geo._replace(lo=geo.lo - h), ext)
+            (dc,) = torch.autograd.grad(out, canvas, gbuf)
+            dsrc = dc.narrow(dim, 2 * h, L).contiguous()
+    return dsrc
+
+
+def _flow_pass(src, flow, axis, K):
+    """One flow pass across the split axis on a slab (slab-local: its
+    positions along ``axis`` are the volume's)."""
+    if src.is_cuda:
+        return _fwd_flow(src, flow, axis, K)
+    if src.device.type == "cpu":
+        with torch.no_grad():
+            return sweep_flow_plain(src, flow, axis, K)
+    raise _no_path(src)
+
+
+def _flow_pass_bwd(g, src, flow, axis, K, need_src, dflow):
+    if src.is_cuda:
+        return _bwd_flow(g, src, flow, axis, K, need_src, dflow)
+    with torch.enable_grad():
+        s = src.detach().requires_grad_(need_src)
+        u = flow.detach().requires_grad_(dflow is not None)
+        out = sweep_flow_plain(s, u, axis, K)
+        wrt = [t for t in (s, u) if t.requires_grad]
+        grads = list(torch.autograd.grad(out, wrt, g)) if wrt else []
+    if dflow is not None:
+        dflow[:, axis] = grads[-1][:, axis]
+    return grads[0] if need_src else None
+
+
+def _slab_flow_pass(buf, flow, axis, K, geo, shape):
+    if buf.is_cuda:
+        return _fwd_slab_flow(buf, flow, axis, K, geo, shape)
+    if buf.device.type == "cpu":
+        with torch.no_grad():
+            return sweep_flow_slab_plain(buf, flow[:, axis:axis + 1], axis, K, geo, shape)
+    raise _no_path(buf)
+
+
+def _slab_flow_pass_bwd(gbuf, buf, ubuf, axis, K, geo, shape, need_src, dflow):
+    if buf.is_cuda:
+        return _bwd_slab_flow(gbuf, buf, ubuf, axis, K, geo, shape, need_src, dflow)
+    return _flow_slab_bwd_plain(gbuf, buf, ubuf, axis, K, geo, shape, need_src, dflow)
+
+
+class _SlabFlow(torch.autograd.Function):
+    """A separable flow warp of a volume split into slabs by a field split
+    alike, x-pass first: the passes across the split axis slab by slab, the
+    pass along it in the flow form's slab mode (the slab's buffer with a
+    halo of ``K + 1`` rows a side; its backward the halos of the upstream
+    gradient and of the field's channel). One launch a slab a pass forward
+    and backward (on a CPU slab the plain versions). The warp and dsrc equal
+    the unsharded launch's to the bit; each slab's field gets its own
+    gradient (no gradient flows through the field's halo)."""
+
+    @staticmethod
+    def forward(ctx, K, geos, n, *slabs_flows):
+        slabs, flows = slabs_flows[:n], slabs_flows[n:]
+        split = geos[0].axis
+        shape = tuple(slabs[0].shape)
+        d = len(shape) - 2
+        cur, saved = list(slabs), []
+        for axis in range(d - 1, -1, -1):
+            if axis == split:
+                bufs = _halo_of(cur, axis, K, geos)
+                cur = [_slab_flow_pass(b, f, axis, K, geo, shape)
+                       for b, f, geo in zip(bufs, flows, geos)]
+            else:
+                bufs = cur
+                cur = [_flow_pass(c, f, axis, K) for c, f in zip(cur, flows)]
+            saved += bufs
+        ctx.save_for_backward(*flows, *saved)
+        ctx.K, ctx.geos, ctx.n, ctx.shape = K, geos, n, shape
+        return tuple(cur)
+
+    @staticmethod
+    @native.differentiable_once
+    def backward(ctx, *gs):
+        n, K, geos, shape = ctx.n, ctx.K, ctx.geos, ctx.shape
+        flows, saved = ctx.saved_tensors[:n], ctx.saved_tensors[n:]
+        split = geos[0].axis
+        d = len(shape) - 2
+        need_src = any(ctx.needs_input_grad[3:3 + n])
+        need_flow = any(ctx.needs_input_grad[3 + n:])
+        dflows = [torch.empty_like(f) if need_flow else None for f in flows]
+        g = [x.to(saved[0].dtype).contiguous() for x in gs]
+        for p in reversed(range(d)):  # pass p swept axis d - 1 - p
+            axis = d - 1 - p
+            want_src = p > 0 or need_src
+            if not (want_src or need_flow):
+                break
+            bufs = saved[p * n:(p + 1) * n]
+            if axis == split:
+                gb = _halo_of(g, axis, K, geos)
+                ub = _halo_of([f[:, axis:axis + 1] for f in flows], axis, K, geos)
+                g = [_slab_flow_pass_bwd(gb[k], bufs[k], ub[k], axis, K, geos[k], shape,
+                                         want_src, dflows[k]) for k in range(n)]
+            else:
+                g = [_flow_pass_bwd(g[k], bufs[k], flows[k], axis, K, want_src, dflows[k])
+                     for k in range(n)]
+        return (None, None, None, *(g if need_src else [None] * n),
+                *(dflows if need_flow else [None] * n))
+
+
+def sweep_flow_slabs(src, flow, K: int):
+    """:func:`sweep_flow_passes` on a volume split into slabs: ``src`` and
+    ``flow`` ``parallel.mesh.Sharded`` split alike along one spatial dim,
+    each slab's passes on its device (the kernels on the card, the plain
+    versions on the CPU); the warp a ``Sharded`` laid out as ``src``, equal
+    to the unsharded warp's to the bit; differentiable once in the slabs and
+    the field's."""
+    from ...parallel.mesh import Sharded, from_blocks
+
+    if not (isinstance(src, Sharded) and isinstance(flow, Sharded)) or (
+            src.sharding.spec[2:] != flow.sharding.spec[2:] or src.mesh is not flow.mesh):
+        raise ValueError("a flow warp on slabs needs the volume and the field split alike")
+    geos = _geos(src)
+    d = src.ndim - 2
+    if flow.shape[1] != d or flow.shape[0] != src.shape[0] or flow.shape[2:] != src.shape[2:]:
+        raise ValueError(f"K1 needs a field [N, {d}, *S] of src {tuple(src.shape)}, got "
+                         f"{tuple(flow.shape)}")
+    flows = [f.to(torch.float32).contiguous() for f in flow.shards]
+    outs = _SlabFlow.apply(int(K), geos, len(geos), *src.shards, *flows)
     return from_blocks(list(outs), src.sharding, src.shape)

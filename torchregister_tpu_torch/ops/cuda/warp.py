@@ -120,20 +120,18 @@ def _launch(name: str, src: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
 def warp_affine_launch(src: torch.Tensor, mt: torch.Tensor) -> torch.Tensor:
     """Launch the affine mode on ``src [C, Z, Y, X]`` with the 12 floats of
     :func:`pack_affine`."""
-    global affine_launches
     _validate(src, mt, "mt", (12,))
     out = _launch("warp_affine", src, mt)
-    affine_launches += 1
+    native.bump(__name__, affine_launches=1)
     return out
 
 
 def warp_flow_launch(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Launch the flow mode on ``src [C, Z, Y, X]`` with ``flow [3, Z, Y, X]``
     (voxels, channel ``s`` along axis ``s``)."""
-    global flow_launches
     _validate(src, flow, "flow", (3,) + tuple(src.shape[1:]))
     out = _launch("warp_flow", src, flow)
-    flow_launches += 1
+    native.bump(__name__, flow_launches=1)
     return out
 
 

@@ -56,6 +56,24 @@ def _nearest_maps(in_size: int, out_size: int, device: torch.device):
     return idx, torch.where(runs < start[1:, None], runs, out_size)
 
 
+def axis_take(x: torch.Tensor, axis: int, idx: Sequence[int]) -> torch.Tensor:
+    """``x``'s rows ``idx`` (non-decreasing) along ``axis``, with
+    :class:`_NearestAxis`'s backward (each source row sums its run of
+    outputs in a fixed order): a slab's share of a nearest resize
+    (``parallel/rows.resize``)."""
+    idx = list(idx)
+    n_in, n_out = x.shape[axis], len(idx)
+    if n_out == 0:
+        return x.narrow(axis, 0, 0)
+    outs: list = [[] for _ in range(n_in)]
+    for i, j in enumerate(idx):
+        outs[j].append(i)
+    width = max(len(o) for o in outs)
+    runs = [o + [n_out] * (width - len(o)) for o in outs]
+    return _NearestAxis.apply(x, axis, torch.as_tensor(idx, device=x.device),
+                              torch.as_tensor(runs, device=x.device))
+
+
 def nearest_resize(x: torch.Tensor, out_spatial: Sequence[int]) -> torch.Tensor:
     """Nearest resize of ``x [N, C, *S]`` to ``out_spatial`` (torch
     ``'nearest'``: ``src = (i * in) // out``); keeps the dtype."""

@@ -75,7 +75,7 @@ def _launch(name: str, out_shape, vol: torch.Tensor, idx: torch.Tensor, ints) ->
     native.check_operands(name, (vol, F32), (idx, I32))
     out = vol.new_empty(out_shape)
     LIB.launch(name, vol, vol.data_ptr(), idx.data_ptr(), out.data_ptr(), *ints)
-    launches[name] += 1
+    native.bump(__name__, launches={name: 1})
     return out
 
 
@@ -162,7 +162,7 @@ def slab_sum_launch(vol: torch.Tensor, orgs: torch.Tensor, Bz: int, By: int,
     out = vol.new_empty((T, rows, X))
     LIB.launch("slab_sum", vol, vol.data_ptr(), orgs.data_ptr(), W.data_ptr(), order.data_ptr(),
                out.data_ptr(), T, Z, Y, X, Bz, By, rows)
-    launches["slab_sum"] += 1
+    native.bump(__name__, launches={"slab_sum": 1})
     return out
 
 

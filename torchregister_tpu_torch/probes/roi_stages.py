@@ -61,7 +61,6 @@ def reset_counts() -> None:
 def roi_fetch_launch(volp: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on ``volp [Zp, Yp, Xp]`` (f32, CUDA) with scalars
     ``[T, 5]`` already checked by :func:`check_scalars`."""
-    global launches
     native.check_operands("roi_fetch", (volp, torch.float32), (scal, torch.int32))
     T = scal.shape[0]
     Zp, Yp, Xp = volp.shape
@@ -69,7 +68,7 @@ def roi_fetch_launch(volp: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
     out = volp.new_empty((T, 1, LANES))
     LIB.launch("roi_fetch", volp, volp.data_ptr(), scal.data_ptr(), blk.data_ptr(),
                out.data_ptr(), T, Zp, Yp, Xp)
-    launches += 1
+    native.bump(__name__, launches=1)
     return out
 
 
