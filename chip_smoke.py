@@ -39,7 +39,16 @@ mesh that names the card twice, on 4 of ``[cohort]``'s pairs and 2 of
 and, last but ``[busy]``, the space axis, K1's slab mode at 240³ on 4
 z-slabs (the warp and dsrc equal to the unsharded launches' to the bit, each
 slab launch against its plain version) and ``rigid_register`` on slabs
-against its unsharded run, with the halo bytes and ms a step; the
+against its unsharded run, with the halo bytes and ms a step, then the
+flow engine and LM on slabs, K2's slab mode (``[mesh-exact]``: each slab's
+block equal to the unsharded launch's to the bit; the exact engines and
+the exact final warp on slabs) and the cascade over a ``data x space``
+mesh (``[mesh-batch]``: ``make_cascade_batch_fn(mesh=(2, 4),
+spatial_axis=0, **RECIPE)`` on 4 of ``[cohort]``'s pairs, each equal to
+its own run on one row of slabs to the bit, within ``[cohort]``'s quality
+gate of the unsharded batch, each pair's steps and those of its one-ulp
+runs near the unsharded ones; ``[mesh-batch-unet]``: the U-Net cohort on
+slabs); the
 engines' tensor-op Adam against ``torch.optim.Adam`` on the card
 (``[adam]``), and last, after every timing, the busy share of both
 (``[busy]``); ``Register`` in U-Net mode at the reference width; ``Register``
@@ -208,6 +217,10 @@ REPLACES = {
     "sweep_fwd_slab_flow": "torchregister_tpu/ops/pallas/sweep.py:38",
     "sweep_bwd_slab_flow": "torchregister_tpu/ops/pallas/sweep.py:134",
     "sweep_bwd2_slab": "torchregister_tpu/ops/pallas/sweep.py:134",
+    # K2's slab mode: the same Pallas kernel on the slabs of a volume that
+    # GSPMD splits (the exact warps on slabs, ROADMAP item 22)
+    "warp_affine_slab": "torchregister_tpu/ops/pallas/roigather.py:145",
+    "warp_flow_slab": "torchregister_tpu/ops/pallas/roigather.py:145",
 }
 ALSO_REPLACES = {"conv3d_fwd": "torchregister_tpu/ops/pallas/conv3d.py:203",
                  "conv3d_dgrad": "torchregister_tpu/ops/pallas/conv3d.py:203",
@@ -258,7 +271,9 @@ SOURCES = {"sweep_fwd": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_fwd_slab": "torchregister_tpu_torch/csrc/sweep.cu",
            "sweep_bwd_slab": "torchregister_tpu_torch/csrc/sweep.cu",
            **{name: "torchregister_tpu_torch/csrc/sweep.cu"
-              for name in ("sweep_fwd_slab_flow", "sweep_bwd_slab_flow", "sweep_bwd2_slab")}}
+              for name in ("sweep_fwd_slab_flow", "sweep_bwd_slab_flow", "sweep_bwd2_slab")},
+           "warp_affine_slab": "torchregister_tpu_torch/csrc/warp.cu",
+           "warp_flow_slab": "torchregister_tpu_torch/csrc/warp.cu"}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory,
 # f32 outside the tensor cores, and TF32 on them; K3's kernels take f32 as
 # three TF32 products (3xTF32), so their f32 rate is a third of TF32's
@@ -1153,6 +1168,7 @@ def _counts() -> dict:
             "sweep_bwd2": k1.bwd2_launches,
             **{f"sweep_bwd2_{m}": n for m, n in k1.bwd2_modes.items()},
             "warp_affine": k2.affine_launches, "warp_flow": k2.flow_launches,
+            "warp_affine_slab": k2.affine_slab_launches, "warp_flow_slab": k2.flow_slab_launches,
             "conv3d_fwd": k3.fwd_launches, "conv3d_dgrad": k3.dgrad_launches,
             "conv3d_wgrad": k3.wgrad_launches, "conv3d_fwd_pairs": k3.fwd_pairs_launches,
             "conv3d_dgrad_pairs": k3.dgrad_pairs_launches,
@@ -1387,7 +1403,7 @@ def _pair_quality(kind, res, m, t, truth) -> dict:
 
 # the [cohort] and [cohort-unet] pairs that [mesh] runs again over a data mesh,
 # each against the batched run kept here
-MESH_PAIRS = {"cohort": (0, 1, 4, 5), "cohort-unet": (0, 2)}
+MESH_PAIRS = {"cohort": (0, 1, 4, 5), "cohort-unet": (2, 3)}
 MESH_REFS: dict = {}
 
 
@@ -1487,7 +1503,8 @@ def _batch_against_singles(tag: str, recipe_name: str, recipe: dict, inputs: lis
     if any(c != 1 or r <= 0 for c, r in graphs.values()):
         raise AssertionError(f"[{tag}] a level's step was not captured once: {graphs}")
     idx = MESH_PAIRS[tag]
-    MESH_REFS[tag] = (movings[list(idx)].clone(), targets[list(idx)].clone(), _keep(res, idx))
+    MESH_REFS[tag] = (movings[list(idx)].clone(), targets[list(idx)].clone(), _keep(res, idx),
+                      [(inputs[i][0], inputs[i][1], inputs[i][4]) for i in idx], wall / B)
     del first, res, movings, targets
     torch.cuda.empty_cache()
     return launches
@@ -1613,7 +1630,7 @@ def _mesh_data(tag: str, recipe_name: str, recipe: dict) -> dict:
     """``make_cascade_batch_fn(mesh=make_mesh(devices=[card] * 2))`` on the
     pairs kept from ``[tag]``: every field of every pair equal to the
     unsharded batched run's to the bit; returns its launches."""
-    movings, targets, ref = MESH_REFS.pop(tag)
+    movings, targets, ref = MESH_REFS[tag][:3]
     mesh = make_mesh(devices=[DEV] * 2)
     fn = make_cascade_batch_fn(mesh=mesh, **recipe)
     _reset_counts()
@@ -1636,12 +1653,18 @@ def _mesh_data(tag: str, recipe_name: str, recipe: dict) -> dict:
     if not all(bits.values()) or res.steps != ref.steps:
         raise AssertionError(f"[mesh] {tag}: a sharded pair differs from its unsharded run: "
                              f"{bits}")
-    # the sharded factory's graphs and pool go: later phases need the memory
-    for key in [k for k in cascade_mod._BATCH_CACHE if k and k[-1][0] == "mesh"]:
-        del cascade_mod._BATCH_CACHE[key]
-    del fn, res, movings, targets, ref
+    _drop_mesh_factories()  # their graphs and pools: later phases need the memory
+    del fn, res
     torch.cuda.empty_cache()
     return launches
+
+
+def _drop_mesh_factories() -> None:
+    """Take the factories made on a mesh out of ``make_cascade_batch_fn``'s
+    cache."""
+    for key in [k for k in cascade_mod._BATCH_CACHE
+                if len(k) > 1 and k[-2][0] == "mesh"]:
+        del cascade_mod._BATCH_CACHE[key]
 
 
 def _slab_case():
@@ -2177,17 +2200,481 @@ def phase_mesh_space(smi: str) -> tuple[dict, dict, list]:
     """The ``space`` axis: K1's slab modes timed (``phase_slab_times``) and
     held against the unsharded launches and their plain versions, then
     ``rigid_register`` on slabs, the flow engine's two modes and LM
-    (``[mesh-flow]``, ``[mesh-unet]``, ``[mesh-lm]``). Last but ``[busy]``:
+    (``[mesh-flow]``, ``[mesh-unet]``, ``[mesh-lm]``); then K2's slab mode
+    and the exact method on slabs (``[mesh-exact]``) and the cascade over a
+    ``data x space`` mesh (``[mesh-batch]``, ``[mesh-batch-unet]``). Last but ``[busy]``:
     with the slab work earlier, later phases' profiled device times came
     back empty on the H100. Returns the slab rows, the deviations and the
     engine runs' launches."""
     rows = phase_slab_times()
     rows.update(_slab_flow_times())
     _k3_slab_times()
+    rows.update(_k2_slab_times())
     errs = _mesh_space_warp()
     errs.update(_mesh_flow_kernels())
     paths = [_mesh_space_rigid(smi), _mesh_flow(smi), _mesh_unet(smi), _mesh_lm(smi)]
+    _mark("mesh space axis, one pair")
+    exact_errs, exact_paths = _mesh_exact(smi)
+    errs.update(exact_errs)
+    paths += [*exact_paths, _mesh_batch(smi), _mesh_batch_unet(smi)]
     return rows, errs, paths
+
+
+# [mesh-batch], [mesh-batch-unet], [mesh-exact]: the cascade over a data x
+# space mesh (make_cascade_batch_fn(mesh=, spatial_axis=0)) and K2's slab mode
+MESH_GRID = (2, 4)  # data x space, the card named 8 times
+# [mesh-batch-unet]: RECIPE_UNET's 300 flow epochs cut so that the phase's
+# two slab runs stay near a minute (the net at its width, n=8)
+MESH_BATCH_UNET = {**RECIPE_UNET, "flow_epochs": 40}
+# [mesh-exact]: the engines with method='exact' on 4 z-slabs, a few steps each
+MESH_EXACT_RIGID = dict(lr=3e-3, epochs=5, criterions=["mse"], optimizer="adam",
+                        init="identity", grad_edges=False, method="exact")
+MESH_EXACT_FLOW = dict(flow_model="field", lr=10.0, optimizer="sgd", criterions=["mse"],
+                       smooth=0.25, max_epochs=4, method="exact")
+# the final warp's check: the recipe cut to 2 levels and few epochs, one pair
+MESH_EXACT_CASCADE = {**RECIPE, "final_warp": "exact", "levels": 2, "matrix_levels": 2,
+                      "flow_levels": 2, "flow_smooth": (0.5, 0.25), "rigid_epochs": 60,
+                      "affine_epochs": 30, "flow_epochs": 40}
+
+
+def _grid_mesh(data: int, space: int):
+    return make_mesh((data, space), ("data", "space"), devices=[DEV] * (data * space))
+
+
+def _pair_of(res, b: int, gathered: dict) -> object:
+    """Pair ``b`` of a batched result (``warped``, ``flow`` gathered)."""
+    return res._replace(warped=gathered["warped"][b], theta=res.theta[b],
+                        flow=None if res.flow is None else gathered["flow"][b],
+                        steps={k: v[b] for k, v in res.steps.items()})
+
+
+def _gathered(res) -> dict:
+    return {n: None if getattr(res, n) is None else pmesh.gather(getattr(res, n))
+            for n in ("warped", "flow")}
+
+
+def _space_run(fn, movings, targets) -> tuple:
+    """``fn(movings, targets)`` with the counts set to 0 just before: the
+    result, its wall, launches, and the halo's bytes and fetches."""
+    _reset_counts()
+    halo.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(movings, targets)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, _counts(), halo.copied_bytes, halo.calls
+
+
+def _steps_apart(a: dict, b: dict) -> int:
+    """The largest gap between two runs' steps at a stage's level."""
+    return max(abs(x - y) for k in b for x, y in zip(a[k], b[k]))
+
+
+def _ulp_down(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every entry lowered by one ulp."""
+    return torch.nextafter(x, torch.full_like(x, float("-inf")))
+
+
+def _one_pair(res, b: int):
+    """Pair ``b`` of an unsharded batched result, its pair axis off."""
+    one = _keep(res, [b])
+    return one._replace(warped=one.warped[0], theta=one.theta[0],
+                        flow=None if one.flow is None else one.flow[0],
+                        steps={k: v[0] for k, v in one.steps.items()})
+
+
+def _pairs_equal(res, others: list) -> list:
+    """Each pair ``b`` of ``res`` against ``others[b] = (result, i)``, pair
+    ``i`` of another run: every field to the bit, the steps."""
+    got = _gathered(res)
+    out = []
+    for b, (other, i) in enumerate(others):
+        mine, one = _pair_of(res, b, got), _pair_of(other, i, _gathered(other))
+        same = (mine.steps == one.steps and _same_bits(mine.theta, one.theta)
+                and _same_bits(mine.warped, one.warped)
+                and (mine.flow is None or _same_bits(mine.flow, one.flow)))
+        for n in ("rigid_losses", "affine_losses", "flow_losses"):
+            if getattr(res, n) is not None:
+                same = same and _same_bits(getattr(res, n)[b], getattr(other, n)[i])
+        out.append(same)
+    return out
+
+
+def _level_warp_halo_bytes() -> int:
+    """The halo bytes of one full-transform re-warp at 240³ on 4 z-slabs
+    (``engines/cascade._level_warp``: K = max(8, S // 3), a halo of K + 1
+    rows a side of each slab, f32), forward: the z pass's fetch."""
+    K = max(8, SIZE // 3)
+    m = SIZE // MESH_SLABS
+    return halo.bytes_of((1, 1, m, SIZE, SIZE), 2, MESH_SLABS, K + 1, K + 1, 4)
+
+
+def _steps_envelope(runs: list, b: int) -> dict:
+    """Pair ``b``'s least and greatest steps at each stage's level over
+    ``runs`` (each a list of per-pair step dicts)."""
+    ks = runs[0][b].keys()
+    return {k: [[min(r[b][k][i] for r in runs), max(r[b][k][i] for r in runs)]
+                for i in range(len(runs[0][b][k]))] for k in ks}
+
+
+def _envelopes_apart(a: dict, b: dict) -> int:
+    """The largest gap between two step envelopes at a stage's level (0
+    where they overlap)."""
+    return max(max(0, x[0] - y[1], y[0] - x[1]) for k in a for x, y in zip(a[k], b[k]))
+
+
+def _mesh_batch(smi: str) -> dict:
+    """[mesh-batch]: ``make_cascade_batch_fn(mesh=(2, 4) data x space,
+    spatial_axis=0, **RECIPE)`` on 4 of ``[cohort]``'s 240³ pairs (the rigid
+    seeds 0, 1 and the deformable seeds 1, 2), 2 a row of 4 z-slabs: each
+    pair equal to its own run on a ``(1, 4)`` mesh to the bit; against the
+    unsharded batch (``[cohort]``'s run of these pairs) each pair's quality
+    fields within ``COHORT_QUALITY_TOL``, the absolute gates
+    (``_cohort_gate``), and its steps per stage and level: the slab run's
+    steps and those of the same slab run on the moving images one ulp up
+    and one ulp down, against the unsharded run's and those of the
+    unsharded run on the moving or the target images one ulp up or down,
+    each pair's two envelopes within ``COHORT_STEPS_TOL`` of each other. The
+    plateau stops of ``RECIPE``'s matrix levels (``matrix_stop_rel`` 1e-3,
+    patience 10) move by up to 10 steps under one ulp of input on the H100
+    (PERF.md, PR 21), so one slab run against one unsharded run cannot be
+    held to ±2; each envelope is a pair's own. Prints ms a pair and the halo
+    bytes of the call."""
+    movings, targets, ref, info, cohort_s = MESH_REFS.pop("cohort")
+    B = movings.shape[0]
+    fn = make_cascade_batch_fn(mesh=_grid_mesh(*MESH_GRID), spatial_axis=0, **RECIPE)
+    res, wall, launches, nbytes, fetches = _space_run(fn, movings, targets)
+    one = make_cascade_batch_fn(mesh=_grid_mesh(1, MESH_GRID[1]), spatial_axis=0, **RECIPE)
+    t0 = time.perf_counter()
+    rows = [one(movings[b:b + 1], targets[b:b + 1]) for b in range(B)]
+    torch.cuda.synchronize()
+    wall_one = (time.perf_counter() - t0) / B
+    bits = _pairs_equal(res, [(r, 0) for r in rows])
+    del rows
+    slab_ulps = [fn(_ulp_up(movings), targets).steps, fn(_ulp_down(movings), targets).steps]
+    flat = make_cascade_batch_fn(**RECIPE)
+    ulps = [flat(_ulp_up(movings), targets), flat(_ulp_down(movings), targets),
+            flat(movings, _ulp_up(targets)), flat(movings, _ulp_down(targets))]
+
+    def per_pair(steps):
+        return [{k: v[b] for k, v in steps.items()} for b in range(B)]
+
+    slab_runs = [per_pair(st) for st in (res.steps, *slab_ulps)]
+    flat_runs = [per_pair(st) for st in (ref.steps, *(u.steps for u in ulps))]
+    got = _gathered(res)
+    out, bad = [], []
+    for b, (kind, seed, truth) in enumerate(info):
+        m, t = movings[b:b + 1], targets[b:b + 1]
+        mine, base = _pair_of(res, b, got), _one_pair(ref, b)
+        up = _one_pair(ulps[0], b)
+        if not (bool(torch.isfinite(mine.warped).all()) and bool(torch.isfinite(mine.flow).all())
+                and tuple(mine.warped.shape) == tuple(m.shape)):
+            raise AssertionError(f"[mesh-batch] pair {b} is not a finite volume of its shape")
+        q, q_ref, q_ulp = (_pair_quality(kind, r, m, t, truth) for r in (mine, base, up))
+        env, env_ref = _steps_envelope(slab_runs, b), _steps_envelope(flat_runs, b)
+        dsteps = _envelopes_apart(env, env_ref)
+        dq = max(abs(q[k] - q_ref[k]) for k in q)
+        row = {"pair": f"{kind} seed {seed}", "steps": mine.steps, "unsharded_steps": base.steps,
+               "slab_ulp_steps": [r[b] for r in slab_runs[1:]],
+               "unsharded_ulp_steps": [r[b] for r in flat_runs[1:]],
+               "steps_envelope": env, "unsharded_steps_envelope": env_ref,
+               "envelopes_apart": dsteps, "steps_apart": _steps_apart(mine.steps, base.steps),
+               "quality": q, "unsharded_quality": q_ref,
+               "ulp_quality": q_ulp, "theta_vs_unsharded": _max_err(mine.theta, base.theta),
+               "theta_ulp_vs_unsharded": _max_err(up.theta, base.theta),
+               "flow_vs_unsharded_vox": _max_err(mine.flow, base.flow),
+               "flow_ulp_vs_unsharded_vox": _max_err(up.flow, base.flow),
+               "equal_to_its_row_run": bits[b]}
+        out.append(row)
+        print(f"[mesh-batch] {json.dumps(row)}", flush=True)
+        if dsteps > COHORT_STEPS_TOL or dq > COHORT_QUALITY_TOL:
+            bad.append((b, dsteps, dq))
+        failed = _cohort_gate(kind, seed, q)
+        if failed:
+            raise AssertionError(f"[mesh-batch] {kind} seed {seed} gate failed: {failed}: {q}")
+    print(f"[mesh-batch] make_cascade_batch_fn(mesh=(data {MESH_GRID[0]}, space "
+          f"{MESH_GRID[1]}) naming the card {MESH_GRID[0] * MESH_GRID[1]} times, "
+          f"spatial_axis=0, **RECIPE), {B} pairs at {SIZE}³, {B // MESH_GRID[0]} a row of "
+          f"{MESH_GRID[1]} z-slabs (eager): wall {wall:.3f} s = {wall / B:.4f} s a pair, "
+          f"against {wall_one:.4f} s a pair on a (1, {MESH_GRID[1]}) mesh alone and "
+          f"{cohort_s:.4f} s a pair in [cohort]'s unsharded batch (graphs); halo bytes of the "
+          f"call {nbytes} in {fetches} fetches (a full-transform level re-warp's forward at "
+          f"{SIZE}³ fetches {_level_warp_halo_bytes()} bytes f32); pairs equal to their row "
+          f"runs to the bit {sum(bits)} of {B}; each pair's step envelopes (slabs and 2 "
+          f"one-ulp slab runs; unsharded and 4 one-ulp unsharded runs) apart by "
+          f"{[r['envelopes_apart'] for r in out]} (gate {COHORT_STEPS_TOL}), its slab run's "
+          f"steps from the unsharded run's by {[r['steps_apart'] for r in out]}; {smi}; "
+          f"launches {json.dumps(launches)}", flush=True)
+    if not all(bits):
+        raise AssertionError(f"[mesh-batch] a pair differs from its own row run: {bits}")
+    if bad:
+        raise AssertionError(f"[mesh-batch] pairs off the unsharded batch (pair, envelopes "
+                             f"apart, quality): {bad}")
+    _need(launches, ("sweep_fwd_slab", "sweep_bwd_slab", "sweep_fwd_slab_flow",
+                     "sweep_bwd_slab_flow"), "[mesh-batch]")
+    _drop_mesh_factories()
+    del res, ulps, movings, targets, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_batch_unet(smi: str) -> dict:
+    """[mesh-batch-unet]: ``RECIPE_UNET``'s net (``n=8``) with its flow
+    epochs cut (``MESH_BATCH_UNET``) on ``[cohort-unet]``'s two deformable
+    240³ pairs: on the ``(2, 4)`` mesh (a pair a row of 4 z-slabs: each row's
+    run is that pair's own run on a ``(1, 4)`` mesh) and both on one row of
+    a ``(1, 4)`` mesh (the U-Net cohort on slabs, K3 with a weight set per
+    pair): each pair of the latter equal to its own row run to the bit.
+    The trained flows printed beside the unsharded cohort's and beside the
+    same unsharded cohort run on the moving images raised by one ulp (not
+    gated: Adam parts two runs whose sums differ, ROADMAP queue 3,
+    Watched)."""
+    movings, targets, _, info, _ = MESH_REFS.pop("cohort-unet")
+    B = movings.shape[0]
+    grid = make_cascade_batch_fn(mesh=_grid_mesh(*MESH_GRID), spatial_axis=0, **MESH_BATCH_UNET)
+    rows, wall_rows, launches_rows, _, _ = _space_run(grid, movings, targets)
+    row_fn = make_cascade_batch_fn(mesh=_grid_mesh(1, MESH_GRID[1]), spatial_axis=0,
+                                   **MESH_BATCH_UNET)
+    res, wall, launches, nbytes, fetches = _space_run(row_fn, movings, targets)
+    bits = _pairs_equal(res, [(rows, b) for b in range(B)])
+    flat = make_cascade_batch_fn(**MESH_BATCH_UNET)
+    ref, ulp = flat(movings, targets), flat(_ulp_up(movings), targets)
+    got = _gathered(res)
+    for b, (kind, seed, truth) in enumerate(info):
+        m, t = movings[b:b + 1], targets[b:b + 1]
+        mine, base, up = _pair_of(res, b, got), _one_pair(ref, b), _one_pair(ulp, b)
+        row = {"pair": f"{kind} seed {seed}", "steps": mine.steps, "unsharded_steps": base.steps,
+               "ulp_steps": up.steps, "quality": _pair_quality(kind, mine, m, t, truth),
+               "unsharded_quality": _pair_quality(kind, base, m, t, truth),
+               "ulp_quality": _pair_quality(kind, up, m, t, truth),
+               "flow_vs_unsharded_vox": _max_err(mine.flow, base.flow),
+               "flow_ulp_vs_unsharded_vox": _max_err(up.flow, base.flow),
+               "equal_to_its_row_run": bits[b]}
+        print(f"[mesh-batch-unet] {json.dumps(row)}", flush=True)
+    print(f"[mesh-batch-unet] RECIPE_UNET with flow_epochs={MESH_BATCH_UNET['flow_epochs']} "
+          f"(cut from {RECIPE_UNET['flow_epochs']}), {B} deformable pairs at {SIZE}³: on the "
+          f"({MESH_GRID[0]}, {MESH_GRID[1]}) mesh, a pair a row, wall {wall_rows:.3f} s; both "
+          f"on one row of a (1, {MESH_GRID[1]}) mesh (the U-Net cohort on slabs) wall "
+          f"{wall:.3f} s, halo bytes {nbytes} in {fetches} fetches, K3's per-pair launches "
+          f"fwd {launches['conv3d_fwd_pairs']}, dgrad {launches['conv3d_dgrad_pairs']}, "
+          f"dw {launches['conv3d_wgrad_pairs']}; pairs equal to their own row runs to the bit "
+          f"{sum(bits)} of {B}; {smi}; launches {json.dumps(launches)}", flush=True)
+    if not all(bits):
+        raise AssertionError(f"[mesh-batch-unet] a pair differs from its own row run: {bits}")
+    _need(launches, ("conv3d_fwd_pairs", "conv3d_dgrad_pairs", "conv3d_wgrad_pairs",
+                     "sweep_fwd_slab_flow"), "[mesh-batch-unet]")
+    _drop_mesh_factories()
+    del res, rows, ref, ulp, movings, targets
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) + launches_rows.get(k, 0) for k in launches}
+
+
+def _k2_slab_case():
+    """make_pair's moving image and true rigid theta at 240³, and
+    make_flow_truth_pair's (seed 1) moving image and true field, split into
+    4 z-slabs."""
+    m, _ = make_pair((SIZE,) * 3, seed=0, device=DEV)
+    fm, _, _, flow = make_flow_truth_pair(seed=1, device=DEV)
+    sh = pmesh.volume_sharding(make_mesh((MESH_SLABS,), ("space",), devices=[DEV] * MESH_SLABS))
+    return m, _pair_theta(), fm, flow.to(torch.float32).reshape(1, 3, *(SIZE,) * 3), sh
+
+
+def _k2_slab_buffers(src, sh, mt=None, flow=None):
+    """Each slab's K2 slab-mode call on the buffers ``ops/blocked.py``
+    fetches: ``[(buf, out_shape, origin, start, aux)]`` (the last the map or
+    the slab's field)."""
+    from torchregister_tpu_torch.ops.blocked import _affine_rows, _slab_origin
+
+    spatial = (SIZE,) * 3
+    parts = halo.equal(SIZE, MESH_SLABS)
+    blocks = pmesh.shard(src, sh).shards
+    if mt is not None:
+        host = mt.cpu().numpy()
+        wants = [_affine_rows(host, spatial, 2, lo, hi) for lo, hi in parts]
+        aux = [mt] * MESH_SLABS
+    else:
+        D = math.ceil(float(flow[:, 0].abs().max())) + 1
+        wants = [(max(lo - D, 0), min(hi + D, SIZE)) for lo, hi in parts]
+        aux = [f[0] for f in pmesh.shard(flow, sh).shards]
+    bufs = halo.fetch_rows(blocks, parts, 2, wants)
+    return [(b[0], (hi - lo, SIZE, SIZE), (lo, 0, 0), (w0, 0, 0), a)
+            for b, (lo, hi), (w0, _), a in zip(bufs, parts, wants, aux)]
+
+
+def _mesh_exact(smi: str) -> tuple[dict, list]:
+    """[mesh-exact]: K2's slab mode at 240³ on 4 z-slabs, affine
+    (make_pair's true theta) and flow (make_flow_truth_pair's true field):
+    every slab's block equal to the unsharded launch's to the bit and to its
+    plain version to the bit; ``rigid_register(method='exact')`` and
+    ``flow_register(method='exact', flow_model='field')`` on the slabs
+    against their unsharded runs (``tests/test_torch_mesh_exact.py``'s
+    tolerances); ``make_cascade_batch_fn(final_warp='exact')`` on a
+    ``(1, 4)`` mesh, its final warp equal to the unsharded K2 launches at its
+    own theta and field to the bit. Returns the deviations and the paths'
+    launches."""
+    m, theta, fm, flow, sh = _k2_slab_case()
+    mt = k2.pack_affine(*affine_to_index_map(theta[0], (SIZE,) * 3))
+    errs, eq = {}, {}
+    halo.reset_counts()
+    aff = pmesh.gather(blocked.warp_affine_fast(theta, pmesh.shard(m, sh)))
+    aff_bytes = halo.copied_bytes
+    halo.reset_counts()
+    flw = pmesh.gather(blocked.warp_flow_fast(pmesh.shard(fm, sh), pmesh.shard(flow, sh)))
+    flow_bytes = halo.copied_bytes
+    eq["affine"] = _same_bits(aff[0], k2.warp_affine_launch(m[0].contiguous(), mt))
+    eq["flow"] = _same_bits(flw[0], k2.warp_flow_launch(fm[0].contiguous(), flow[0]))
+    for name, calls in (("warp_affine_slab", _k2_slab_buffers(m, sh, mt=mt)),
+                        ("warp_flow_slab", _k2_slab_buffers(fm, sh, flow=flow))):
+        geo_err, plain_eq = 0.0, True
+        for buf, shape, origin, start, aux in calls:
+            geo = k2.SlabGeo(origin, start, (SIZE,) * 3)
+            kw = {"mt": aux} if name == "warp_affine_slab" else {"flow": aux}
+            got = (k2.warp_affine_slab_launch(buf, aux, shape, geo) if "mt" in kw
+                   else k2.warp_flow_slab_launch(buf, aux, geo))
+            want = k2.warp_plain_slab(buf, shape, geo, **kw)
+            geo_err = max(geo_err, _max_err(got, want))
+            plain_eq = plain_eq and _same_bits(got, want)
+        errs[name] = geo_err
+        eq[f"{name}_plain"] = plain_eq
+    print(f"[mesh-exact] K2's slab mode at {SIZE}³ on {MESH_SLABS} z-slabs: equal to the "
+          f"unsharded launch to the bit {json.dumps(eq)}; fetched bytes: affine {aff_bytes}, "
+          f"flow {flow_bytes}", flush=True)
+    if not all(eq.values()):
+        raise AssertionError(f"[mesh-exact] K2's slab mode disagrees: {eq}")
+    del aff, flw
+    mr, tr_ = make_pair((SIZE,) * 3, seed=0, device=DEV)
+    ms, ts = pmesh.shard(mr, sh), pmesh.shard(tr_, sh)
+    paths = []
+    _, r0 = rigid_register(mr, tr_, **MESH_EXACT_RIGID)
+    _reset_counts()
+    w1, r1 = rigid_register(ms, ts, **MESH_EXACT_RIGID)
+    paths.append(_counts())
+    d_theta = _max_err(r1.best_theta, r0.best_theta) / float(r0.best_theta.abs().max())
+    warp_eq = _same_bits(pmesh.gather(w1), blocked.warp_affine_fast(r1.best_theta, mr))
+    fr, ft = make_flow_truth_pair(seed=1, device=DEV)[:2]
+    fs, fts = pmesh.shard(fr, sh), pmesh.shard(ft, sh)
+    _, f0 = flow_register(fr, ft, **MESH_EXACT_FLOW)
+    _reset_counts()
+    fw1, f1 = flow_register(fs, fts, **MESH_EXACT_FLOW)
+    paths.append(_counts())
+    d_field = _max_err(pmesh.gather(f1.flow), f0.flow) / float(f0.flow.abs().max())
+    print(f"[mesh-exact] rigid_register(method='exact') on {MESH_SLABS} z-slabs, "
+          f"{MESH_EXACT_RIGID['epochs']} Adam steps at {SIZE}³: steps {r1.steps} (unsharded "
+          f"{r0.steps}), best theta within {d_theta:.3g} of its largest entry, warped_best (K2 "
+          f"on slabs) equal to the unsharded K2 at its theta {warp_eq}; flow_register("
+          f"method='exact', field, SGD lr 10, {MESH_EXACT_FLOW['max_epochs']} steps): steps "
+          f"{f1.steps} ({f0.steps}), the field within {d_field:.3g} of its largest value",
+          flush=True)
+    if r1.steps != r0.steps or d_theta > 1e-4 or not warp_eq:
+        raise AssertionError("[mesh-exact] rigid_register(method='exact') on slabs is off")
+    if f1.steps != f0.steps or d_field > 1e-5:
+        raise AssertionError("[mesh-exact] flow_register(method='exact') on slabs is off")
+    del ms, ts, fs, fts, w1, fw1
+    fn = make_cascade_batch_fn(mesh=_grid_mesh(1, MESH_SLABS), spatial_axis=0,
+                               **MESH_EXACT_CASCADE)
+    res, wall, launches, nbytes, _ = _space_run(fn, fr, ft)
+    paths.append(launches)
+    got = _gathered(res)
+    want = k2.warp_flow_launch(
+        k2.warp_affine_launch(fr[0].contiguous(), k2.pack_affine(*affine_to_index_map(
+            res.theta[0, 0], (SIZE,) * 3))), got["flow"][0, 0])
+    final_eq = _same_bits(got["warped"][0, 0], want)
+    print(f"[mesh-exact] make_cascade_batch_fn(mesh=(1, {MESH_SLABS}), spatial_axis=0, "
+          f"final_warp='exact', the recipe cut to 2 levels) on the deformable pair: wall "
+          f"{wall:.3f} s, halo bytes {nbytes}; its final warp equal to the unsharded K2 "
+          f"launches at its theta and field to the bit {final_eq}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if not final_eq:
+        raise AssertionError("[mesh-exact] the exact final warp on slabs differs from K2")
+    _need(launches, ("warp_affine_slab", "warp_flow_slab"), "[mesh-exact] cascade")
+    _drop_mesh_factories()
+    del res, fr, ft, mr, tr_
+    torch.cuda.empty_cache()
+    return errs, paths
+
+
+def _k2_slab_times() -> dict:
+    """K2's slab mode at 240³ on 4 z-slabs (the ``[mesh-exact]`` cases):
+    each mode's 4 slab launches against the one unsharded launch and against
+    the slab mode launched once on the whole volume (its geometry the
+    volume's; the same bits as the unsharded launch), in turns (CUDA
+    events), with device times (``torch.profiler``), the plain version
+    on the slabs, ``F.grid_sample`` on the whole volume with its grid made
+    beforehand (the library call), the fetch's ms and bytes; the bound:
+    each slab's buffer and (flow) field read once, each output written once,
+    against ~60 f32 operations a voxel."""
+    F = torch.nn.functional
+    m, theta, fm, flow, sh = _k2_slab_case()
+    mt = k2.pack_affine(*affine_to_index_map(theta[0], (SIZE,) * 3))
+    o = torch.arange(SIZE, dtype=torch.float32, device=DEV)
+    rows = {}
+    with torch.no_grad():
+        for name in ("warp_affine_slab", "warp_flow_slab"):
+            affine = name == "warp_affine_slab"
+            src = m if affine else fm
+            slabs = pmesh.shard(src, sh)
+            fslabs = None if affine else pmesh.shard(flow, sh)
+            halo.reset_counts()
+            calls = (_k2_slab_buffers(src, sh, mt=mt) if affine
+                     else _k2_slab_buffers(src, sh, flow=flow))
+            fetched = halo.copied_bytes
+
+            def kernel(calls=calls, affine=affine):
+                return [k2.warp_affine_slab_launch(b, a, s, k2.SlabGeo(org, st, (SIZE,) * 3))
+                        if affine else k2.warp_flow_slab_launch(b, a, k2.SlabGeo(
+                            org, st, (SIZE,) * 3)) for b, s, org, st, a in calls]
+
+            def unsharded(src=src, affine=affine):
+                return (k2.warp_affine_launch(src[0].contiguous(), mt) if affine
+                        else k2.warp_flow_launch(src[0].contiguous(), flow[0]))
+
+            def whole(src=src, affine=affine):
+                geo = k2.SlabGeo((0, 0, 0), (0, 0, 0), (SIZE,) * 3)
+                return (k2.warp_affine_slab_launch(src[0].contiguous(), mt, (SIZE,) * 3, geo)
+                        if affine else k2.warp_flow_slab_launch(src[0].contiguous(), flow[0],
+                                                                geo))
+
+            def fetch(slabs=slabs, affine=affine, fslabs=fslabs):
+                return (blocked.warp_affine_fast(theta, slabs) if affine
+                        else blocked.warp_flow_fast(slabs, fslabs))
+
+            if affine:
+                grid = affine_grid(theta, (SIZE,) * 3)
+            else:
+                idx = torch.stack(torch.meshgrid(o, o, o, indexing="ij")) + flow[0]
+                grid = ((2.0 * idx + 1.0) / SIZE - 1.0).flip(0).permute(1, 2, 3, 0)[None] \
+                    .contiguous()
+                del idx
+
+            def library(grid=grid, src=src):
+                return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                                     align_corners=False)
+
+            row = ps.in_turns({"ms": kernel, "unsharded_ms": unsharded,
+                               "whole_volume_slab_mode_ms": whole})
+            if not _same_bits(whole(), unsharded()):
+                raise AssertionError(f"[times] {name} on the whole volume differs from the "
+                                     f"unsharded launch")
+            row["device_ms"] = ps.device_ms(kernel, name="warp_kernel")
+            row["unsharded_device_ms"] = ps.device_ms(unsharded, name="warp_kernel")
+            row["plain_ms"] = ps.time_ms(lambda calls=calls, affine=affine: [
+                k2.warp_plain_slab(b, s, k2.SlabGeo(org, st, (SIZE,) * 3),
+                                   **({"mt": a} if affine else {"flow": a}))
+                for b, s, org, st, a in calls], iters=3, warmup=1)
+            row["library_ms"] = ps.time_ms(library)
+            row["fetch_and_launch_ms"] = ps.time_ms(fetch, iters=5, warmup=1)
+            row["fetched_bytes"] = fetched
+            nbytes = sum(4.0 * b.numel() for b, *_ in calls) + 4.0 * SIZE**3 * (
+                1 if affine else 4)
+            row.update(_bound(nbytes, 60.0 * SIZE**3))
+            row["unsharded_bound_ms"] = pw_bound(name[:-5])["bound_ms"]
+            rows[name] = row
+            del grid, calls
+    print(f"[times] slab mode, K2 at {SIZE}³ on {MESH_SLABS} z-slabs (affine: make_pair's true "
+          f"theta; flow: make_flow_truth_pair's true field), the 4 slab launches against the "
+          f"unsharded launch: {json.dumps(rows)}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_slab_times() -> dict:
@@ -2344,8 +2831,10 @@ def _k3_slab_times() -> dict:
     slab's buffer (its rows and the 2 after them) forward, its cotangent's
     rows with padding 2 (dgrad; the halo's share goes back by the fetch's
     backward) and the weight gradient, the 4 launches of each against the
-    unsharded launch, in turns (CUDA events), then their device times. The
-    bound counts each buffer and output once (``_k3_bound``'s terms)."""
+    unsharded launch and cuDNN on the same four buffers (``F.conv3d``,
+    ``conv3d_input``, ``conv3d_weight``, TF32 off: the library call), in
+    turns (CUDA events), then their device times. The bound counts each
+    buffer and output once (``_k3_bound``'s terms)."""
     ci = co = 8
     edge = 118
     gen = torch.Generator(device=DEV).manual_seed(118)
@@ -2358,12 +2847,19 @@ def _k3_slab_times() -> dict:
     bufs = halo.fetch_rows([x[:, :, a:b].contiguous() for a, b in parts], parts, 2,
                            [(a, b + 2) for a, b in outs])
     gs = [g[:, :, a:b].contiguous() for a, b in outs]
+    w_cudnn = w.permute(4, 3, 0, 1, 2).contiguous()  # cuDNN's layout [Co, Ci, 3, 3, 3]
+    conv_grad = torch.nn.grad
     calls = {"fwd": {"ms": lambda: [k3.conv_launch(b, w) for b in bufs],
-                     "unsharded_ms": lambda: k3.conv_launch(x, w)},
+                     "unsharded_ms": lambda: k3.conv_launch(x, w),
+                     "library_ms": lambda: [torch.nn.functional.conv3d(b, w_cudnn) for b in bufs]},
              "dgrad": {"ms": lambda: [k3.conv_launch(gk, w_t, pad=2) for gk in gs],
-                       "unsharded_ms": lambda: k3.conv_launch(g, w_t, pad=2)},
+                       "unsharded_ms": lambda: k3.conv_launch(g, w_t, pad=2),
+                       "library_ms": lambda: [conv_grad.conv3d_input(b.shape, w_cudnn, gk)
+                                              for b, gk in zip(bufs, gs)]},
              "wgrad": {"ms": lambda: [k3.wgrad_launch(b, gk) for b, gk in zip(bufs, gs)],
-                       "unsharded_ms": lambda: k3.wgrad_launch(x, g)}}
+                       "unsharded_ms": lambda: k3.wgrad_launch(x, g),
+                       "library_ms": lambda: [conv_grad.conv3d_weight(b, w_cudnn.shape, gk)
+                                              for b, gk in zip(bufs, gs)]}}
     nbytes = 4.0 * (sum(b.numel() for b in bufs) + co * (edge - 2) ** 3 + 4 * 27 * ci * co)
     flops = 2.0 * 27 * ci * co * (edge - 2) ** 3
     rows = {}
@@ -2372,12 +2868,13 @@ def _k3_slab_times() -> dict:
             row = ps.in_turns(fns)
             row["device_ms"] = ps.device_ms(fns["ms"], name="")
             row["unsharded_device_ms"] = ps.device_ms(fns["unsharded_ms"], name="")
+            row["library_device_ms"] = ps.device_ms(fns["library_ms"], name="")
             rows[f"conv3d_{kind}_slab"] = {**row, **_bound(nbytes, flops, F32_3XTF32_FLOP_PER_S),
                                            "unsharded_bound_ms": _k3_bound(ci, co, edge)[
                                                "bound_ms"]}
     print(f"[times] slab mode, K3 on slab buffers ({ci}->{co} at {edge}³ on 4 z-slabs of "
           f"{[b - a for a, b in parts]} rows, f32), the 4 launches against the unsharded "
-          f"launch: {json.dumps(rows)}", flush=True)
+          f"launch and cuDNN's 4 calls (library_ms): {json.dumps(rows)}", flush=True)
     del x, g, bufs, gs
     torch.cuda.empty_cache()
     return rows
@@ -4085,7 +4582,9 @@ def main() -> None:
                    kde_dot=None,
                    **{name: r["library_ms"] for name, r in k3_pair_row.items()},
                    sweep_fwd_slab=None, sweep_bwd_slab=None, sweep_fwd_slab_flow=None,
-                   sweep_bwd_slab_flow=None, sweep_bwd2_slab=None)
+                   sweep_bwd_slab_flow=None, sweep_bwd2_slab=None,
+                   **{name: slab_rows[name]["library_ms"]
+                      for name in ("warp_affine_slab", "warp_flow_slab")})
     timed_at = {"sweep_fwd": "one flow-form launch, 240^3 K=8 f32, smooth field, mean of "
                              "axes 0-2; dense_ms: the dense launch on the same q",
                 "warp_affine": "one launch, 240^3 f32, selftest rigid theta",
@@ -4149,6 +4648,14 @@ def main() -> None:
         "the halos of g, src and ubar); unsharded_ms: the one unsharded sweep_bwd2 launch; "
         "plain: sweep_bwd2_slab_plain on each slab; library: none, no PyTorch call computes "
         "K1's second order")
+    timed_at["warp_affine_slab"] = timed_at["warp_flow_slab"] = (
+        f"the {MESH_SLABS} slab launches of K2's slab mode at {SIZE}^3 on {MESH_SLABS} z-slabs "
+        "f32 (affine: make_pair's true theta; flow: make_flow_truth_pair's true field), each "
+        "on the buffer of the source rows its block reaches (fetch_and_launch_ms: the "
+        "fetch and the launches through ops/blocked.py; fetched_bytes: the rows copied from "
+        "other slabs); unsharded_ms: the one unsharded launch; plain: warp_plain_slab on each "
+        "slab; bound: each buffer (and field) read once, each output written once; library: "
+        "one F.grid_sample on the whole volume with its grid made beforehand")
     timed_at["splat_signed"] = ("one launch, the default NMI's 8 x 1M samples of make_pair's "
                                 "moving image at 240^3, weights f - 0.5; library: one "
                                 "scatter_add of both terms")
@@ -4168,7 +4675,7 @@ def main() -> None:
             if name == "sweep_bwd_pairs" else {}),
          **({k: slab_rows[name][k] for k in slab_rows[name]
              if k in ("unsharded_ms", "unsharded_bound_ms", "halo_ms", "device_ms",
-                     "unsharded_device_ms")}
+                     "unsharded_device_ms", "fetch_and_launch_ms", "fetched_bytes")}
             if name in slab_rows else {}),
          **({"row_grad_max_rel_err": errs["sweep_slab_row_grad_rel"]}
             if name == "sweep_bwd_slab" else {}),

@@ -2403,3 +2403,152 @@ def test_torch_cuda_data_mesh_pairs_equal_unsharded(dev):
     a, b = register_cohort(movings, targets, **ukw), register_cohort(movings, targets,
                                                                       mesh=mesh, **ukw)
     assert a.steps == b.steps and _bits_equal(a.flow, b.flow)
+
+
+@pytest.mark.parametrize("S,n,C,split", [(240, 4, 1, 0), (40, 4, 3, 0), (36, 3, 1, 2),
+                                         ((48, 40), 4, 3, 1)],
+                         ids=["240^3-4-z-slabs", "40^3-C3", "36^3-x", "2d"])
+def test_torch_cuda_warp_slabs_match_unsharded_and_plain(dev, S, n, C, split):
+    """K2's slab mode (``ops/blocked.py`` on a volume split into slabs,
+    affine with make_pair's rigid transform and a zoom that takes the direct
+    route, flow with a smooth field): every slab's block equals the
+    unsharded launch's outputs to the bit, and each slab launch equals its
+    plain version (``warp_plain_slab``) to the bit; a buffer that starts
+    before the volume (zeros there) and one empty of rows read 0 where they
+    should."""
+    from torchregister_tpu_torch.ops import blocked
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+    from torchregister_tpu_torch.parallel import halo
+    from torchregister_tpu_torch.parallel import mesh as M
+
+    spatial = (S,) * 3 if isinstance(S, int) else S
+    d = len(spatial)
+    gen = torch.Generator(device=dev).manual_seed(sum(spatial) + C)
+    src = torch.rand((1, C, *spatial), generator=gen, device=dev)
+    p = [0.05, -0.04, 0.03, 0.1, -0.1, 0.05] if d == 3 else [0.1, 0.05, -0.08]
+    thetas = [rigid_theta(torch.tensor(p, device=dev))[None],
+              0.6 * rigid_theta(torch.tensor(p, device=dev))[None]]
+    grid = torch.meshgrid(*[torch.linspace(-1, 1, s, device=dev) for s in spatial],
+                          indexing="ij")
+    flow = torch.stack([3.0 * torch.sin(2.0 * g + a) for a, g in enumerate(grid)])[None]
+    sh = M.volume_sharding(M.make_mesh((n,), ("space",), devices=[dev] * n), split, ndim=d)
+    ss, fs = M.shard(src, sh), M.shard(flow, sh)
+    k2.reset_counts()
+    halo.reset_counts()
+    for theta in thetas:
+        got = blocked.warp_affine_fast(theta, ss)
+        assert _bits_equal(M.gather(got), blocked.warp_affine_fast(theta, src))
+    got = blocked.warp_flow_fast(ss, fs)
+    assert _bits_equal(M.gather(got), blocked.warp_flow_fast(src, flow))
+    assert k2.affine_slab_launches == 2 * n and k2.flow_slab_launches == n
+    assert halo.copied_bytes > 0
+    # one slab launch against its plain version, a buffer that starts before
+    # the volume and one with no rows
+    m = spatial[split] // n
+    blk = tuple(m if a == split else s for a, s in enumerate(spatial))
+    origin = tuple(m if a == split else 0 for a in range(d))
+    mt = k2.pack_affine(*blocked.affine_to_index_map(thetas[0][0], spatial))
+    for start, L in ((m - 5, m + 10), (0, 0)):
+        lo = max(start, 0)
+        buf = torch.zeros((C, *(L if a == split else s for a, s in enumerate(spatial))),
+                          device=dev)
+        have = min(L, spatial[split] - lo) - (lo - start)
+        if have > 0:
+            buf.narrow(1 + split, lo - start, have).copy_(src[0].narrow(1 + split, lo, have))
+        st = tuple(start if a == split else 0 for a in range(d))
+        a = k2.warp_slab(buf, blk, origin, st, spatial, mt=mt)
+        geo = k2.SlabGeo(*((0, *v) if d == 2 else v for v in (origin, st)),
+                         (1, *spatial) if d == 2 else spatial)
+        b3 = buf if d == 3 else buf[:, None]
+        want = k2.warp_plain_slab(b3, (1, *blk) if d == 2 else blk, geo, mt=mt)
+        assert _bits_equal(a, want if d == 3 else want[:, 0])
+        if L == 0:
+            assert not a.any()
+
+
+@pytest.mark.parametrize("split", [0, 2])
+def test_torch_cuda_bwd2_slabs_table_per_pair(dev, split):
+    """``sweep_slab_bwd2`` with a table per pair (LM's Hessian for a batch
+    of pairs on slabs, a row of a ``data x space`` mesh): each pair's gbar,
+    sbar and row gradient equal a single-table launch on that pair's
+    buffers to the bit, on the card and in the plain version."""
+    from torchregister_tpu_torch.ops.separable import affine_to_index_map, factor_passes
+    from torchregister_tpu_torch.ops.transforms import rigid_theta
+
+    S, n, K, B = 40, 4, 8, 3
+    gen = torch.Generator(device=dev).manual_seed(split)
+    src, g, u = (torch.randn((B, 1, S, S, S), generator=gen, device=dev) for _ in range(3))
+    p = torch.tensor([[0.05, -0.04, 0.03, 0.1, -0.1, 0.05], [0.0, 0.1, -0.05, -0.1, 0.0, 0.2],
+                      [-0.1, 0.0, 0.1, 0.05, 0.05, -0.05]], device=dev)
+    table, axes = k1.pass_table(factor_passes(*affine_to_index_map(rigid_theta(p), (S,) * 3)))
+    table = table.contiguous()
+    rbar = torch.randn((B, 3, 4), generator=gen, device=dev)
+    m = S // n
+    geos = tuple(k1.SlabGeo(split, k * m, S) for k in range(n))
+    slab = tuple(m if i == 2 + split else s for i, s in enumerate(src.shape))
+    for p_, axis in enumerate(axes):
+        bufs, gbufs, ubufs = (k1._halo_of(list(torch.split(x, m, 2 + split)), axis, K, geos)
+                              for x in (src, g, u))
+        for k in (0, n - 1):
+            for launch in (True, False):
+                args = (gbufs[k], bufs[k], ubufs[k])
+                if not launch:
+                    args = tuple(a.cpu() for a in args)
+                tab, rt = (table, rbar) if launch else (table.cpu(), rbar.cpu())
+                dt = torch.zeros_like(tab)
+                gbar, sbar = k1._slab_bwd2(*args, tab, p_, axis, K, geos[k], slab, rt, True,
+                                           True, dt, None)
+                for b in range(B):
+                    one = tuple(a[b:b + 1] for a in args)
+                    dt1 = torch.zeros_like(tab[b])
+                    g1, s1 = k1._slab_bwd2(*one, tab[b], p_, axis, K, geos[k], (1, *slab[1:]),
+                                           rt[b], True, True, dt1, None)
+                    assert _bits_equal(gbar[b:b + 1], g1) and _bits_equal(sbar[b:b + 1], s1)
+                    assert _bits_equal(dt[b], dt1)
+
+
+def test_torch_cuda_space_cascade_pairs_equal_their_row_runs(dev):
+    """``make_cascade_batch_fn(mesh=, spatial_axis=0)`` on a ``data x
+    space`` mesh that names the card 4 times (2 x 2), the recipe's field
+    cascade cut to 32³ with the exact final warp, 4 pairs (2 a row): each
+    pair equal to its own run on a ``(1, 2)`` mesh to the bit, through K1's
+    slab modes and K2's; against the unsharded batch (whose sums the slabs
+    round apart, and Adam amplifies) each pair's steps a level within 2 and
+    theta within 1e-2, ``tests/test_torch_cascade_batch.py``'s theta
+    tolerance across frameworks."""
+    import warnings
+
+    from torchregister_tpu_torch.engines.cascade import make_cascade_batch_fn
+    from torchregister_tpu_torch.ops.cuda import warp as k2
+    from torchregister_tpu_torch.parallel import mesh as M
+    from torchregister_tpu_torch.synthetic import RECIPE, make_flow_truth_pair, make_pair
+
+    recipe = {**RECIPE, "rigid_epochs": 40, "affine_epochs": 20, "flow_epochs": 20,
+              "levels": 2, "matrix_levels": 2, "flow_levels": 2, "flow_smooth": (0.5, 0.25),
+              "final_warp": "exact"}
+    pairs = [make_pair((32,) * 3, seed=s, device=dev) for s in (0, 1)] + [
+        make_flow_truth_pair((32,) * 3, seed=s, device=dev)[:2] for s in (1, 2)]
+    movings, targets = torch.cat([m for m, _ in pairs]), torch.cat([t for _, t in pairs])
+    mesh = M.make_mesh((2, 2), ("data", "space"), devices=[dev] * 4)
+    one = M.make_mesh((1, 2), ("data", "space"), devices=[dev] * 2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        k1.reset_counts()
+        k2.reset_counts()
+        got = make_cascade_batch_fn(mesh=mesh, spatial_axis=0, **recipe)(movings, targets)
+        assert k1.fwd_modes["slab"] > 0 and k1.fwd_modes["slab_flow"] > 0
+        assert k2.affine_slab_launches > 0 and k2.flow_slab_launches > 0
+        want = make_cascade_batch_fn(**recipe)(movings, targets)
+        warped, flow = M.gather(got.warped), M.gather(got.flow)
+        for b in range(4):
+            r = make_cascade_batch_fn(mesh=one, spatial_axis=0, **recipe)(
+                movings[b:b + 1], targets[b:b + 1])
+            assert {k: v[0] for k, v in r.steps.items()} == {k: v[b] for k, v in
+                                                            got.steps.items()}
+            assert _bits_equal(r.theta[0], got.theta[b])
+            assert _bits_equal(M.gather(r.warped)[0], warped[b])
+            assert _bits_equal(M.gather(r.flow)[0], flow[b])
+    for stage, levels in got.steps.items():
+        for a, b in zip(levels, want.steps[stage]):
+            assert all(abs(x - y) <= 2 for x, y in zip(a, b)), stage
+    torch.testing.assert_close(got.theta, want.theta, rtol=0, atol=1e-2)

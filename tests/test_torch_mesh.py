@@ -341,10 +341,11 @@ def test_torch_mesh_affine_engine_and_criteria_on_slabs():
 
 def test_torch_mesh_space_axis_refusals():
     """Under a ``space`` axis NMI and LNCC raise ``ValueError`` naming their
-    ROADMAP item, as do the exact method (matrix and flow engines) and a
-    batch of pairs over ``data x space``; a batch split over ``data`` is not
-    a volume split into slabs. (The flow engine and LM on slabs run:
-    ``tests/test_torch_mesh_flow.py``.)"""
+    ROADMAP item (20); a batch split over ``data`` is not a volume split
+    into slabs; ``spatial_axis`` without a mesh raises JAX's
+    ``ValueError``. (The exact method and a batch of pairs over ``data x
+    space`` run since items 22 and 19: ``tests/test_torch_mesh_exact.py``,
+    ``tests/test_torch_mesh_batch.py``; one exact step runs here.)"""
     vol, tgt = _engine_case()
     sh = _space()
     y, yp = M.shard(torch.from_numpy(vol), sh), M.shard(torch.from_numpy(tgt), sh)
@@ -353,12 +354,9 @@ def test_torch_mesh_space_axis_refusals():
             crit(y, yp)
     with pytest.raises(ValueError, match="item 20"):
         rigid_register(y, yp, epochs=1, criterions=["nmi"], max_shift=8)
-    with pytest.raises(ValueError, match="method='separable'"):
-        rigid_register(y, yp, epochs=1, criterions=["mse"], method="exact")
-    with pytest.raises(ValueError, match="item 22"):
-        tr.flow_register(y, yp, max_epochs=1, criterions=["mse"], flow_model="field",
-                         method="exact")
-    with pytest.raises(ValueError, match="item 19"):
+    warped, res = rigid_register(y, yp, epochs=1, criterions=["mse"], method="exact")
+    assert isinstance(warped, M.Sharded) and res.steps == 1
+    with pytest.raises(ValueError, match="requires a mesh with a 'space' axis"):
         make_cascade_batch_fn(spatial_axis=0, flow_model="field")
     batch = M.shard(torch.zeros((8, 1, 8, 8)), M.batch_sharding(M.make_mesh(devices=CPU8)))
     passes = factor_passes(*affine_to_index_map(rigid_theta(torch.zeros(3)), (8, 8)))
@@ -448,8 +446,8 @@ def test_torch_mesh_cascade_batch_on_the_data_axis(flow_model):
     """``make_cascade_batch_fn(mesh=)`` over 2 shards, field and U-Net flow:
     every field of the result equal to the unsharded call's to the bit (one
     factory for the device, its shards one after another); cached on the
-    config and the mesh; ``spatial_axis`` raises ``ValueError`` naming the
-    next slice."""
+    config and the mesh; ``spatial_axis`` on a mesh without a ``space`` axis
+    raises ``ValueError``."""
     cfg = {**CASCADE, "flow_model": flow_model}
     if flow_model == "unet":
         cfg.update(n=16, flow_depth=1)
@@ -463,5 +461,5 @@ def test_torch_mesh_cascade_batch_on_the_data_axis(flow_model):
         warnings.simplefilter("ignore", RuntimeWarning)
         _results_equal(fn(movings, targets), make_cascade_batch_fn(**cfg)(movings, targets))
     assert len(fn.fns) == 1
-    with pytest.raises(ValueError, match="item 19"):
+    with pytest.raises(ValueError, match="space is not found in mesh"):
         make_cascade_batch_fn(mesh=mesh, spatial_axis=0, **cfg)

@@ -321,17 +321,37 @@ def test_torch_mesh_flow_unet_engine_on_slabs(unet_case):
 
 
 def test_torch_mesh_flow_unet_cohort_on_slabs_refused():
-    """The U-Net cohort (a net a pair) on slabs is ROADMAP item 19's."""
+    """The U-Net cohort (a net a pair) on slabs, refused until ROADMAP item
+    19, runs: the net in pair mode on 2 slabs equals each pair's single net
+    on the same slabs to the bit, forward and each weight's gradient; and
+    ``flow_pairs`` on a batch of 2 pairs split into slabs equals each pair
+    run alone on them to the bit."""
     from torchregister_tpu_torch.models.attention_unet import AttentionUNet, forward_slabs
     from torchregister_tpu_torch.parallel.rows import Rows
 
     net = AttentionUNet(3, 1, 32, 1, pairs=2)
-    x = Rows([torch.zeros((2, 1, 12, 24, 24))] * 2, ((0, 12), (12, 24)), 2)
-    with pytest.raises(ValueError, match="item 19"):
-        forward_slabs(net, x)
-    vol = M.shard(torch.zeros((2, 1, 24, 24, 24)), _space(2))
-    with pytest.raises(ValueError, match="item 19"):
-        tflow.flow_pairs(vol, vol, max_epochs=1, criterions=["mse"])
+    net.reset_parameters([torch.Generator().manual_seed(s) for s in (1, 2)])
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 1, 24, 24, 24), dtype=np.float32))
+    parts = ((0, 12), (12, 24))
+    out = forward_slabs(net, Rows(list(torch.split(x, 12, 2)), parts, 2)).blocks
+    g = torch.autograd.grad(sum(o.square().sum() for o in out), list(net.parameters()))
+    for b in range(2):
+        one = AttentionUNet(3, 1, 32, 1)
+        with torch.no_grad():
+            for p, q in zip(one.parameters(), net.parameters()):
+                p.copy_(q[b])
+        ref = forward_slabs(one, Rows(list(torch.split(x[b:b + 1], 12, 2)), parts, 2)).blocks
+        assert all(_same(o[b:b + 1], r) for o, r in zip(out, ref))
+        g1 = torch.autograd.grad(sum(r.square().sum() for r in ref), list(one.parameters()))
+        assert all(_same(a[b], c) for a, c in zip(g, g1))
+    sh = _space(2)
+    vol, tgt = M.shard(x, sh), M.shard(x.flip(3), sh)
+    kw = dict(max_epochs=2, criterions=["mse"], n=32, depth=1, optimizer="adam")
+    _, res = tflow.flow_pairs(vol, tgt, generator=[torch.Generator().manual_seed(s)
+                                                   for s in (1, 2)], **kw)
+    for b, (v1, t1) in enumerate(zip(vol.chunk(2), tgt.chunk(2))):
+        _, r1 = tflow.flow_pairs(v1, t1, generator=torch.Generator().manual_seed(b + 1), **kw)
+        assert _same(M.gather(r1.flow), M.gather(res.flow)[b:b + 1])
 
 
 def test_torch_mesh_flow_lm_2d_on_slabs_matches_jax():

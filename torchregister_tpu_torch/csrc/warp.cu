@@ -66,6 +66,20 @@
 // ops/cuda/warp.py, which runs the same elementwise operations, gives the
 // same bits. q is computed per voxel as written, never stepped.
 //
+// The slab mode (warp_affine_slab, warp_flow_slab; the template's kSlab): a
+// volume split into slabs over a mesh's space axis, each slab's outputs
+// computed on its own device. The output is a block of the volume's outputs
+// from an origin o, and the source a buffer of the volume's voxels from b
+// (the slab's rows and those of its neighbours that its outputs reach). Each
+// thread's z, y and x are the volume's, exact floats stepped by 1 from the
+// origin, so q, the weights and the corner order are the unsharded launch's.
+// A corner is read where it lies in the volume and in the buffer (else 0):
+// where the buffer holds every in-volume corner the block reaches, each
+// output equals the unsharded launch's to the bit. The staged route stages
+// the buffer's rows of its box and zeros elsewhere. Offsets are 32-bit when
+// the buffer, the output block and (flow) the block's field each hold fewer
+// than 2^31 elements.
+//
 // Images and fields are f32. A 2D image is a volume with Z == 1 and
 // q_z == 0: the z = 0 corner has weight 1 and the z = 1 corner is outside.
 //
@@ -120,11 +134,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // fn(pz, py, v) for each voxel of the tile that this thread owns and that
-// lies in the volume: column x, rows y0 + threadIdx.x / TX + j * kThreads/TX,
-// every plane. The coordinates pz, py are stepped as floats (exact
-// integers), v as an offset: no conversion or division per voxel.
+// lies in the output: column x, rows y0 + threadIdx.x / TX + j * kThreads/TX,
+// every plane. The coordinates pz, py (the volume's: the output's origin oz,
+// oy added) are stepped as floats (exact integers), v as an offset into the
+// output: no conversion or division per voxel.
 template <int TZ, int TY, int TX, typename Idx, typename Fn>
-__device__ __forceinline__ void for_voxels(int z0, int y0, int x, int Z, int Y, int X, Fn fn) {
+__device__ __forceinline__ void for_voxels(int z0, int y0, int x, int Z, int Y, int X, int oz,
+                                           int oy, Fn fn) {
   constexpr int kRows = kThreads / TX;
   static_assert(kThreads % TX == 0 && TY % kRows == 0, "tile");
   if (x >= X) return;
@@ -134,42 +150,54 @@ __device__ __forceinline__ void for_voxels(int z0, int y0, int x, int Z, int Y, 
   for (int j = 0; j < TY / kRows; ++j) {
     const int y = y0 + threadIdx.x / TX + j * kRows;
     if (y >= Y) return;
-    const float py = (float)y;
-    float pz = (float)z0;
+    const float py = (float)(y + oy);
+    float pz = (float)(z0 + oz);
     Idx v = ((Idx)z0 * Y + y) * X + x;
 #pragma unroll 2
     for (int k = 0; k < zn; ++k, pz = add(pz, 1.0f), v += plane) fn(pz, py, v);
   }
 }
 
-// The box (ez planes from lz, ey rows from ly, BX columns from xa) of one
-// channel's plane into box ([BZ][BY][BX]) with cp.async; zeros outside the
-// volume. A warp takes a plane, each lane one 16-byte piece of every
-// kRowsPerPass-th row.
+// The source a launch reads: in the slab mode a buffer of the volume's voxels
+// from b (extent n along each axis), and a corner is read where it lies in
+// [lo, hi] (inclusive, the volume and the buffer); else the volume itself
+// (b = 0, [lo, hi] = [0, size - 1]).
+struct Src {
+  int lo[3], hi[3], b[3], Y, X;  // Y, X: the source's row and plane extents
+};
+
+// The box (ez planes from lz, ey rows from ly, BX columns from xa, the
+// volume's coordinates) of one channel's plane of the source into box
+// ([BZ][BY][BX]) with cp.async; zeros where a voxel is not read (outside the
+// volume or the buffer). A warp takes a plane, each lane one 16-byte piece of
+// every kRowsPerPass-th row.
 template <int BY, int BX, typename Idx>
-__device__ __forceinline__ void stage(float* box, const float* plane, int Z, int Y, int X,
-                                      int lz, int ly, int xa, int ez, int ey, bool vec) {
+__device__ __forceinline__ void stage(float* box, const float* plane, const Src& sr, int lz,
+                                      int ly, int xa, int ez, int ey, bool vec) {
   constexpr int kPieces = BX / 4, kRowsPerPass = 32 / kPieces;
   static_assert(kRowsPerPass > 0, "a box row of at most 32 pieces");
   const int lane = threadIdx.x % 32;
   if (lane >= kRowsPerPass * kPieces) return;
   const int r0 = lane / kPieces, i = 4 * (lane % kPieces);
   const int gx = xa + i;
-  const bool whole = vec && gx >= 0 && gx + 4 <= X;  // one 16-byte copy
+  const bool whole = vec && gx >= sr.lo[2] && gx + 4 <= sr.hi[2] + 1;  // one 16-byte copy
   for (int bz = threadIdx.x / 32; bz < ez; bz += kThreads / 32) {
     const int gz = lz + bz;
-    const bool zin = (unsigned)gz < (unsigned)Z;
+    const bool zin = gz >= sr.lo[0] && gz <= sr.hi[0];
     for (int by = r0; by < ey; by += kRowsPerPass) {
       const int gy = ly + by;
       float* dst = box + (bz * BY + by) * BX + i;
-      if (zin && (unsigned)gy < (unsigned)Y) {
-        const float* g = plane + ((Idx)gz * Y + gy) * X + gx;
+      if (zin && gy >= sr.lo[1] && gy <= sr.hi[1]) {
+        const float* g =
+            plane + ((Idx)(gz - sr.b[0]) * sr.Y + (gy - sr.b[1])) * sr.X + (gx - sr.b[2]);
         if (whole) {
           cp_async16(dst, g);
         } else {
           for (int j = 0; j < 4; ++j) {
-            if ((unsigned)(gx + j) < (unsigned)X) cp_async4(dst + j, g + j);
-            else dst[j] = 0.0f;
+            if (gx + j >= sr.lo[2] && gx + j <= sr.hi[2])
+              cp_async4(dst + j, g + j);
+            else
+              dst[j] = 0.0f;
           }
         }
       } else {
@@ -180,14 +208,23 @@ __device__ __forceinline__ void stage(float* box, const float* plane, int Z, int
   cp_async_wait_all();
 }
 
+// The slab mode's geometry: the output's first voxel in the volume (o), the
+// source buffer's first voxel in the volume (b) and its extent (n), and the
+// volume's extent (g); each (z, y, x).
+struct Geo {
+  int o[3], b[3], n[3], g[3];
+};
+
 // kStage: affine 3-D tiles, which stage their box; every other launch (the
 // flow mode, 2-D images) takes the direct route everywhere and has no box.
-template <bool kFlow, typename Idx, int TZ, int TY, int TX, bool kStage, int BZ, int BY,
-          int BX, int kMinBlocks>
+// kSlab: the slab mode (geo); otherwise the output and the source are the
+// volume and geo is not read.
+template <bool kFlow, bool kSlab, typename Idx, int TZ, int TY, int TX, bool kStage, int BZ,
+          int BY, int BX, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     warp_kernel(const float* __restrict__ src, float* __restrict__ out,
                 const float* __restrict__ mt, const float* __restrict__ flow, int C, int Z,
-                int Y, int X, bool vec, int* __restrict__ staged) {
+                int Y, int X, Geo geo, bool vec, int* __restrict__ staged) {
   static_assert(!(kStage && kFlow), "the flow mode never stages");
   constexpr int PZ = BY * BX;
   // |fz*PZ + fy*BX + fx| and the base (x shifted down by at most 3), plus kInt
@@ -195,10 +232,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                 "exact box offsets");
   extern __shared__ float4 smem[];
   float* box = reinterpret_cast<float*>(smem);
-  const Idx nvox = (Idx)Z * Y * X;
+  const Idx nvox = (Idx)Z * Y * X;  // the output's (and the field's) voxels
+  Src sr;
+  const int size[3] = {Z, Y, X};
+  for (int s = 0; s < 3; ++s) {
+    sr.b[s] = kSlab ? geo.b[s] : 0;
+    sr.lo[s] = kSlab ? max(0, geo.b[s]) : 0;
+    sr.hi[s] = kSlab ? min(geo.g[s], geo.b[s] + geo.n[s]) - 1 : size[s] - 1;
+  }
+  sr.Y = kSlab ? geo.n[1] : Y;
+  sr.X = kSlab ? geo.n[2] : X;
+  const Idx nsrc = kSlab ? (Idx)geo.n[0] * sr.Y * sr.X : nvox;
+  const int oz = kSlab ? geo.o[0] : 0, oy = kSlab ? geo.o[1] : 0, ox = kSlab ? geo.o[2] : 0;
   const int z0 = blockIdx.z * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const int x = x0 + threadIdx.x % TX;
-  const float px = (float)x;
+  const float px = (float)(x + ox);
   float m[12], ax[3];
   if (!kFlow) {
     for (int i = 0; i < 12; ++i) m[i] = __ldg(mt + i);
@@ -221,9 +269,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __shared__ float red[6];
     if (threadIdx.x < 32) {
       const int t = threadIdx.x & 7;
-      const float c[3] = {(float)((t & 4) ? min(z0 + TZ, Z) - 1 : z0),
-                          (float)((t & 2) ? min(y0 + TY, Y) - 1 : y0),
-                          (float)((t & 1) ? min(x0 + TX, X) - 1 : x0)};
+      const float c[3] = {(float)(((t & 4) ? min(z0 + TZ, Z) - 1 : z0) + oz),
+                          (float)(((t & 2) ? min(y0 + TY, Y) - 1 : y0) + oy),
+                          (float)(((t & 1) ? min(x0 + TX, X) - 1 : x0) + ox)};
       for (int s = 0; s < 3; ++s) {
         float fmax = floorf(add(add(add(mul(m[4 * s], c[0]), mul(m[4 * s + 1], c[1])),
                                     mul(m[4 * s + 2], c[2])),
@@ -248,15 +296,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     // x: room for the shift to a 16-byte boundary
     if (fits && ext[0] <= BZ && ext[1] <= BY && ext[2] + 3 <= BX) {
       if (threadIdx.x == 0) atomicAdd(staged, 1);
-      const int xa = lo[2] - (vec ? (lo[2] & 3) : 0);  // the box's x, 16-byte aligned
+      // the box's x, 16-byte aligned in the source
+      const int xa = lo[2] - (vec ? ((lo[2] - sr.b[2]) & 3) : 0);
       // the corner f at box + (fz*BY + fy)*BX + fx - base, exact in f32,
       // with kInt folded in as small_int adds it
       const float boff = __fadd_rn((float)-(lo[0] * PZ + lo[1] * BX + xa), kInt);
       for (int c = 0; c < C; ++c) {
         if (c > 0) __syncthreads();  // the previous channel's gathers are done
-        stage<BY, BX, Idx>(box, src + c * nvox, Z, Y, X, lo[0], lo[1], xa, ext[0], ext[1], vec);
+        stage<BY, BX, Idx>(box, src + c * nsrc, sr, lo[0], lo[1], xa, ext[0], ext[1], vec);
         __syncthreads();
-        for_voxels<TZ, TY, TX, Idx>(z0, y0, x, Z, Y, X, [&](float pz, float py, Idx v) {
+        for_voxels<TZ, TY, TX, Idx>(z0, y0, x, Z, Y, X, oz, oy, [&](float pz, float py, Idx v) {
           float q[3], f[3], w[3][2];
           coords(q, pz, py, v);
           for (int s = 0; s < 3; ++s) {
@@ -284,8 +333,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
   }
 
-  const float size1[3] = {(float)(Z - 1), (float)(Y - 1), (float)(X - 1)};
-  for_voxels<TZ, TY, TX, Idx>(z0, y0, x, Z, Y, X, [&](float pz, float py, Idx v) {
+  const float lo_f[3] = {(float)sr.lo[0], (float)sr.lo[1], (float)sr.lo[2]};
+  const float hi_f[3] = {(float)sr.hi[0], (float)sr.hi[1], (float)sr.hi[2]};
+  for_voxels<TZ, TY, TX, Idx>(z0, y0, x, Z, Y, X, oz, oy, [&](float pz, float py, Idx v) {
     float q[3], w[3][2];
     Idx idx[3][2];
     bool ok[3][2];
@@ -295,12 +345,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const float fr = __fsub_rn(q[s], f);
       w[s][0] = __fsub_rn(1.0f, fr);
       w[s][1] = fr;
-      // Range tests in float (false for NaN); the index is taken only for an
-      // in-range corner (below 2^22), so a far-out coordinate never reaches it.
+      // Range tests in float (false for NaN); the index (into the source,
+      // exact: both terms are integers below 2^22) is taken only for an
+      // in-range corner, so a far-out coordinate never reaches it.
       for (int i = 0; i < 2; ++i) {
         const float cs = add(f, (float)i);
-        ok[s][i] = cs >= 0.0f && cs <= size1[s];
-        idx[s][i] = ok[s][i] ? (Idx)small_int(cs) : 0;
+        ok[s][i] = cs >= lo_f[s] && cs <= hi_f[s];
+        idx[s][i] = ok[s][i] ? (Idx)small_int(kSlab ? __fsub_rn(cs, (float)sr.b[s]) : cs) : 0;
       }
     }
     float wc[8];
@@ -312,10 +363,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const int n = 4 * i + 2 * j + k;
           wc[n] = mul(mul(w[0][i], w[1][j]), w[2][k]);
           in[n] = ok[0][i] && ok[1][j] && ok[2][k];
-          off[n] = (idx[0][i] * Y + idx[1][j]) * X + idx[2][k];
+          off[n] = (idx[0][i] * sr.Y + idx[1][j]) * sr.X + idx[2][k];
         }
     for (int c = 0; c < C; ++c) {
-      const float* plane = src + c * nvox;
+      const float* plane = src + c * nsrc;
       float acc = 0.0f;
       for (int n = 0; n < 8; ++n) {
         const float val = in[n] ? __ldg(plane + off[n]) : 0.0f;
@@ -326,11 +377,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   });
 }
 
-template <bool kFlow, typename Idx, int TZ, int TY, int TX, bool kStage, int BZ, int BY,
-          int BX, int kMinBlocks>
+template <bool kFlow, bool kSlab, typename Idx, int TZ, int TY, int TX, bool kStage, int BZ,
+          int BY, int BX, int kMinBlocks>
 int launch_tiles(const float* src, float* out, const float* mt, const float* flow, int C,
-                 int Z, int Y, int X, int* staged, cudaStream_t stream) {
-  auto kernel = warp_kernel<kFlow, Idx, TZ, TY, TX, kStage, BZ, BY, BX, kMinBlocks>;
+                 int Z, int Y, int X, const Geo& geo, int* staged, cudaStream_t stream) {
+  auto kernel = warp_kernel<kFlow, kSlab, Idx, TZ, TY, TX, kStage, BZ, BY, BX, kMinBlocks>;
   constexpr int kBytes = kStage ? (int)sizeof(float) * BZ * BY * BX : 0;
   if (kBytes > 48 * 1024) {
     constexpr int kMaxDevices = 64;
@@ -344,47 +395,63 @@ int launch_tiles(const float* src, float* out, const float* mt, const float* flo
       if (dev < kMaxDevices) ready[dev] = true;
     }
   }
-  const bool vec = X % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  const bool vec = (kSlab ? geo.n[2] : X) % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
   const dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY, (Z + TZ - 1) / TZ);
-  kernel<<<grid, kThreads, kBytes, stream>>>(src, out, mt, flow, C, Z, Y, X, vec, staged);
+  kernel<<<grid, kThreads, kBytes, stream>>>(src, out, mt, flow, C, Z, Y, X, geo, vec, staged);
   return (int)cudaGetLastError();
 }
 
 // The affine mode's 3-D tiles stage a box of up to kBox; the flow mode's
 // 3-D tiles and every 2-D (Z == 1) tile, 1 x 8 x 32, take the direct route
 // (PERF.md §6, K2: staging lost there).
-template <bool kFlow, typename Idx>
+template <bool kFlow, bool kSlab, typename Idx>
 int launch_mode(const float* s, float* o, const float* m, const float* f, int c, int Z, int Y,
-                int X, int* st, cudaStream_t stream) {
+                int X, const Geo& g, int* st, cudaStream_t stream) {
   constexpr int BZ = kBox[0], BY = kBox[1], BX = kBox[2];
   if (Z == 1)
-    return launch_tiles<kFlow, Idx, 1, 8, 32, false, BZ, BY, BX, kDirectBlocks>(
-        s, o, m, f, c, Z, Y, X, st, stream);
+    return launch_tiles<kFlow, kSlab, Idx, 1, 8, 32, false, BZ, BY, BX, kDirectBlocks>(
+        s, o, m, f, c, Z, Y, X, g, st, stream);
   if constexpr (kFlow)
-    return launch_tiles<kFlow, Idx, kFlowTile[0], kFlowTile[1], kFlowTile[2], false, BZ, BY, BX,
-                        kDirectBlocks>(s, o, m, f, c, Z, Y, X, st, stream);
+    return launch_tiles<kFlow, kSlab, Idx, kFlowTile[0], kFlowTile[1], kFlowTile[2], false, BZ,
+                        BY, BX, kDirectBlocks>(s, o, m, f, c, Z, Y, X, g, st, stream);
   else
-    return launch_tiles<kFlow, Idx, kTile[0], kTile[1], kTile[2], kStageAffine, BZ, BY, BX,
-                        kStageAffine ? kStagedBlocks : kDirectBlocks>(s, o, m, f, c, Z, Y, X, st,
-                                                                      stream);
+    return launch_tiles<kFlow, kSlab, Idx, kTile[0], kTile[1], kTile[2], kStageAffine, BZ, BY,
+                        BX, kStageAffine ? kStagedBlocks : kDirectBlocks>(s, o, m, f, c, Z, Y, X,
+                                                                          g, st, stream);
 }
 
-template <bool kFlow>
+bool bad_size(long long n) { return n < 0 || n > kMaxSize; }
+
+// kSlab: geo is the slab mode's (Geo); else the output is the volume, whose
+// extent (Z, Y, X) the source shares.
+template <bool kFlow, bool kSlab>
 int launch(const void* src, void* out, const void* mt, const void* flow, long long C, int Z,
-           int Y, int X, void* staged, cudaStream_t stream) {
+           int Y, int X, const Geo& geo, void* staged, cudaStream_t stream) {
   const long long nvox = (long long)Z * Y * X;
-  if (C < 0 || C > 0x7fffffffLL || Z < 0 || Y < 0 || X < 0 || Z > kMaxSize ||
-      Y > kMaxSize || X > kMaxSize)
+  if (C < 0 || C > 0x7fffffffLL || bad_size(Z) || bad_size(Y) || bad_size(X))
     return (int)cudaErrorInvalidValue;
+  long long nsrc = nvox;
+  if (kSlab) {
+    nsrc = 1;
+    for (int s = 0; s < 3; ++s) {
+      if (bad_size(geo.n[s]) || bad_size(geo.g[s]) || geo.o[s] < 0 ||
+          geo.o[s] + (long long)(s == 0 ? Z : s == 1 ? Y : X) > geo.g[s] ||
+          geo.b[s] < -kMaxSize || geo.b[s] > kMaxSize)
+        return (int)cudaErrorInvalidValue;
+      nsrc *= geo.n[s];
+    }
+  }
   if (nvox == 0 || C == 0) return 0;
   const float *s = (const float*)src, *m = (const float*)mt, *f = (const float*)flow;
-  // the largest tensor the launch indexes: the image and the output (C
-  // channels) or the flow mode's field (3)
+  // the largest tensor the launch indexes: the source and the output (C
+  // channels; in the slab mode the buffer and the slab, each counted) or the
+  // flow mode's field (3, the output's shape)
   const long long planes = kFlow && C < 3 ? 3 : C;
-  if (planes * nvox < (1LL << 31))
-    return launch_mode<kFlow, int>(s, (float*)out, m, f, (int)C, Z, Y, X, (int*)staged, stream);
-  return launch_mode<kFlow, long long>(s, (float*)out, m, f, (int)C, Z, Y, X, (int*)staged,
-                                       stream);
+  if (planes * nvox < (1LL << 31) && C * nsrc < (1LL << 31))
+    return launch_mode<kFlow, kSlab, int>(s, (float*)out, m, f, (int)C, Z, Y, X, geo,
+                                          (int*)staged, stream);
+  return launch_mode<kFlow, kSlab, long long>(s, (float*)out, m, f, (int)C, Z, Y, X, geo,
+                                              (int*)staged, stream);
 }
 
 }  // namespace
@@ -396,10 +463,37 @@ int launch(const void* src, void* out, const void* mt, const void* flow, long lo
 // cudaGetLastError() after the launch.
 extern "C" int warp_affine(const void* src, void* out, const void* mt, long long C, int Z,
                            int Y, int X, void* staged, void* stream) {
-  return launch<false>(src, out, mt, nullptr, C, Z, Y, X, staged, (cudaStream_t)stream);
+  return launch<false, false>(src, out, mt, nullptr, C, Z, Y, X, Geo{}, staged,
+                              (cudaStream_t)stream);
 }
 
 extern "C" int warp_flow(const void* src, void* out, const void* flow, long long C, int Z,
                          int Y, int X, void* staged, void* stream) {
-  return launch<true>(src, out, nullptr, flow, C, Z, Y, X, staged, (cudaStream_t)stream);
+  return launch<true, false>(src, out, nullptr, flow, C, Z, Y, X, Geo{}, staged,
+                             (cudaStream_t)stream);
+}
+
+// The slab mode: out is a block [C, Z, Y, X] of the volume's outputs whose
+// first voxel in the volume is (oz, oy, ox) (flow, [3, Z, Y, X], is the
+// block's field); src is a contiguous buffer [C, nz, ny, nx] of the volume's
+// voxels from (bz, by, bx); the volume is (gz, gy, gx). Each output is the
+// unsharded launch's to the bit when the buffer holds every corner within the
+// volume that the block's outputs reach (a corner outside the volume reads 0,
+// one outside the buffer too).
+extern "C" int warp_affine_slab(const void* src, void* out, const void* mt, long long C, int Z,
+                                int Y, int X, int oz, int oy, int ox, int bz, int by, int bx,
+                                int nz, int ny, int nx, int gz, int gy, int gx, void* staged,
+                                void* stream) {
+  const Geo geo{{oz, oy, ox}, {bz, by, bx}, {nz, ny, nx}, {gz, gy, gx}};
+  return launch<false, true>(src, out, mt, nullptr, C, Z, Y, X, geo, staged,
+                             (cudaStream_t)stream);
+}
+
+extern "C" int warp_flow_slab(const void* src, void* out, const void* flow, long long C, int Z,
+                              int Y, int X, int oz, int oy, int ox, int bz, int by, int bx, int nz,
+                              int ny, int nx, int gz, int gy, int gx, void* staged,
+                              void* stream) {
+  const Geo geo{{oz, oy, ox}, {bz, by, bx}, {nz, ny, nx}, {gz, gy, gx}};
+  return launch<true, true>(src, out, nullptr, flow, C, Z, Y, X, geo, staged,
+                            (cudaStream_t)stream);
 }

@@ -24,7 +24,10 @@ bit. Each stage and level runs inside a :func:`utils.profiling.trace` span
 ``vmap`` of it): :func:`cascade_pairs` runs every level's engine loop on
 the batch (``engines/common.fit_matrix``, ``flow.flow_pairs``: each pair's
 loss, stop and trajectory its own), warps each pair by its own theta and
-flow, and checks the windows with one host read naming the pairs.
+flow, and checks the windows with one host read naming the pairs. The
+batch may be split into slabs over a mesh's ``space`` axis (a row of a
+``data x space`` mesh, :class:`SpaceCascadeFn`): the pyramid, the moments,
+the warps, the engines and the compositions then run slab by slab.
 :func:`register_cascade` is the same code on one pair. The JAX batch
 sizes no window from a concrete theta (under ``vmap`` every theta is
 traced); neither does this one: every window is static.
@@ -167,9 +170,29 @@ def cascade_pairs(moving: torch.Tensor, target: torch.Tensor, **options) -> Casc
     res = _cascade(pairs=moving.shape[0], moving=moving, target=target,
                    **{**defaults_of(register_cascade), **options})
     return res._replace(
-        warped=res.warped[:, None], theta=res.theta[:, None],
-        flow=None if res.flow is None else res.flow[:, None],
+        warped=_pair_axis(res.warped), theta=res.theta[:, None],
+        flow=None if res.flow is None else _pair_axis(res.flow),
         steps={k: [list(s) for s in zip(*v)] for k, v in res.steps.items()})
+
+
+def _pair_axis(x):
+    """``x[:, None]`` of a tensor, or of one split into slabs (each block's,
+    the split dim moved up by one)."""
+    if isinstance(x, torch.Tensor):
+        return x[:, None]
+    from ..parallel.mesh import NamedSharding, Sharded
+
+    spec = (x.sharding.spec[0], None, *x.sharding.spec[1:])
+    return Sharded(x.map(lambda b: b[:, None]).blocks, NamedSharding(x.mesh, spec),
+                   (x.shape[0], 1, *x.shape[1:]))
+
+
+def _max_abs(f) -> torch.Tensor:
+    """``max |f|`` of a tensor, or of one split into slabs (the slabs'
+    maxima, on the mesh's first device)."""
+    if isinstance(f, torch.Tensor):
+        return torch.max(torch.abs(f))
+    return torch.stack([torch.max(torch.abs(b)).to(f.device) for b in f.shards]).max()
 
 
 def _cascade(pairs, moving, target, stages, levels, rigid_epochs, rigid_lr, affine_epochs,
@@ -396,7 +419,7 @@ def _cascade(pairs, moving, target, stages, levels, rigid_epochs, rigid_lr, affi
         check_sweep_windows(theta, moving.shape[2:], max(8, max(moving.shape[2:]) // 3),
                             "register_cascade (composed theta)")
         if flow is not None:
-            maxd = torch.stack([torch.max(torch.abs(f)) for f in pair_slices(flow, pairs)])
+            maxd = torch.stack([_max_abs(f) for f in pair_slices(flow, pairs)])
             what = flows_over(maxd, final_bound)
             if what:
                 warnings.warn(
@@ -510,6 +533,52 @@ class ShardedCascadeFn:
         return concat(run_shards(shards.devices, job), self.mesh.device_list[0])
 
 
+class SpaceCascadeFn:
+    """:func:`make_cascade_batch_fn` over a ``data x space`` mesh (the JAX
+    package's ``cohort_sharding(mesh, spatial_axis=)`` layout):
+    ``fn(movings [B, 1, *S], targets [B, 1, *S]) -> CascadeResult``, the
+    pairs split over the ``data`` axis and spatial dim ``spatial_axis`` of
+    every volume over the ``space`` axis (an uneven split raises JAX's
+    ``ValueError``). Each data position's pairs run :func:`cascade_pairs` on
+    its row of slabs (``parallel.mesh.space_rows``) as one batch: each pair's
+    engines, criteria, U-Net and stop its own, the warps K1's slab modes (K2's
+    with ``final_warp='exact'``), eagerly (one CUDA graph cannot span
+    devices). Rows on distinct devices run in threads of their own
+    (``parallel/data.run_rows``); rows that share a device, one after
+    another. ``warped [B, 1, 1, *S]`` and ``flow [B, 1, d, *S]`` come back
+    split over the mesh (the pairs over ``data``, the spatial dim over
+    ``space``; ``parallel.gather`` reads them), the thetas, losses and steps
+    on the mesh's first device. Each pair equals its own run on one row of
+    the same slabs (a ``(1, n)`` mesh) to the bit."""
+
+    def __init__(self, config: dict, mesh, spatial_axis: int):
+        from ..parallel.mesh import row_meshes
+
+        self.config, self.mesh, self.spatial_axis = dict(config), mesh, int(spatial_axis)
+        self.rows = row_meshes(mesh)
+
+    def __call__(self, movings, targets) -> CascadeResult:
+        from ..parallel.data import concat, run_rows
+        from ..parallel.mesh import Sharded, cohort_sharding, join_rows, shard, space_rows
+
+        sh = cohort_sharding(self.mesh, ndim=movings.ndim - 2, spatial_axis=self.spatial_axis)
+        mov, tgt = (space_rows(shard(x, sh), self.rows) for x in (movings, targets))
+
+        def job(r):
+            with graph.eager():
+                return cascade_pairs(mov[r], tgt[r], **self.config)
+
+        res = run_rows(self.rows, job)
+
+        def join(values):
+            if isinstance(values[0], Sharded):
+                return join_rows(values, self.mesh)
+            return concat(values, self.mesh.device_list[0])
+
+        return CascadeResult(*(join([getattr(r, f) for r in res])
+                               for f in CascadeResult._fields))
+
+
 def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config):
     """The cascade over a batch of independent pairs (counterpart of the JAX
     package's ``make_cascade_batch_fn``, its ``vmap``):
@@ -521,22 +590,29 @@ def make_cascade_batch_fn(mesh=None, spatial_axis=None, **config):
     replayed, as :func:`make_cascade_fn` does, NMI included (each pair's NMI
     call takes its own branch on the device, as JAX's ``vmap`` of the
     ``lax.cond`` keeps each pair's); a failed capture raises. Cached on
-    ``config`` (and the mesh). ``mesh`` splits the batch over its ``data``
-    axis (:class:`ShardedCascadeFn`), each pair still equal to its unsharded
-    run to the bit. ``spatial_axis`` (the ``data x space`` layout) raises
-    ``ValueError`` (ROADMAP queue 1 item 19)."""
-    if spatial_axis is not None:
+    ``config`` (and the mesh and ``spatial_axis``). ``mesh`` splits the batch
+    over its ``data`` axis (:class:`ShardedCascadeFn`), each pair still equal
+    to its unsharded run to the bit; with ``spatial_axis`` (a ``data x
+    space`` mesh) each data position's pairs are also split into slabs along
+    that spatial dim over the ``space`` axis (:class:`SpaceCascadeFn`), each
+    pair equal to its own run on one row of slabs to the bit (and to the
+    unsharded run within the slab sums' rounding)."""
+    if mesh is None and spatial_axis is not None:
         raise ValueError(
-            "make_cascade_batch_fn: spatial_axis (a data x space mesh) is not ported yet: "
-            "ROADMAP queue 1 item 19. The data axis runs: pass mesh= alone, and one pair splits "
-            "into slabs: flow_register / rigid_register / affine_register on volumes laid out "
-            "by volume_sharding")
+            "spatial_axis requires a mesh with a 'space' axis — without "
+            "one the batch would run unsharded and silently ignore it"
+        )
     key = tuple(sorted(config.items()))
     if mesh is not None:
         key += (("mesh", mesh.axis_names, mesh.devices.shape,
-                 tuple(str(d) for d in mesh.device_list)),)
+                 tuple(str(d) for d in mesh.device_list)), ("spatial_axis", spatial_axis))
     fn = _BATCH_CACHE.get(key)
     if fn is None:
-        fn = CascadeFn(config, pairs=True) if mesh is None else ShardedCascadeFn(config, mesh)
+        if mesh is None:
+            fn = CascadeFn(config, pairs=True)
+        elif spatial_axis is None:
+            fn = ShardedCascadeFn(config, mesh)
+        else:
+            fn = SpaceCascadeFn(config, mesh, spatial_axis)
         _BATCH_CACHE[key] = fn
     return fn

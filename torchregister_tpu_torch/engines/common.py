@@ -173,14 +173,15 @@ def make_optimizer(name: str, param: torch.Tensor, lr: float, steps: int, pairs:
 
 class SlabOptimizer:
     """An optimizer of one parameter split into slabs (the flow engine's
-    field on a volume split over the ``space`` axis): one of
-    :func:`make_optimizer`'s a slab, its state on the slab's device, all
+    field on a volume split over the ``space`` axis; ``pairs`` pairs along
+    its leading axis): one of :func:`make_optimizer`'s a slab, its state on the slab's device, all
     stepped with the same ``active`` mask. The update is elementwise, so
     each slab's is the unsharded update's of its entries given the same
     gradient."""
 
-    def __init__(self, name: str, params: list, lr: float, steps: int):
-        self.opts = [make_optimizer(name, p, lr, steps, second_order=False) for p in params]
+    def __init__(self, name: str, params: list, lr: float, steps: int, pairs: int = 1):
+        self.opts = [make_optimizer(name, p, lr, steps, pairs, second_order=False)
+                     for p in params]
 
     def step(self, grads: list, active: torch.Tensor) -> None:
         for opt, g in zip(self.opts, grads):
@@ -375,31 +376,23 @@ def fit_matrix(moving: torch.Tensor, target: torch.Tensor, params0: torch.Tensor
     (``[N, C, *S]``, one theta for its N items); B > 1 pairs take one item
     each (``[B, 1, *S]``). Thetas ``[B, 1, d, d+1]``.
 
-    ``moving`` and ``target`` may be one pair split into slabs over a mesh
-    (``parallel/mesh.py``'s ``Sharded``, the ``space`` axis): the warp runs
-    K1's slab mode, the criteria add each slab's partial sums in ascending
-    slab order, and the parameters and the optimizer's state stay on the
-    mesh's first device. Such a loop runs eagerly (one CUDA graph cannot
-    span devices)."""
-    from ..losses import pair_loss, weighted_loss
+    ``moving`` and ``target`` may be split alike into slabs over a mesh
+    (``parallel/mesh.py``'s ``Sharded``, the ``space`` axis; a row of a
+    ``data x space`` mesh holds B pairs): the warp runs K1's slab mode (a
+    table per pair) or the exact resampler on slabs, each pair's criteria
+    add its own slabs' partial sums in ascending slab order, and the
+    parameters and the optimizer's state stay on the mesh's first device.
+    Such a loop runs eagerly (one CUDA graph cannot span devices)."""
+    from ..losses import pair_loss
     from ..ops.resample import warp_affine
     from ..ops.separable import _warp_affine_separable
     from ..parallel.mesh import Sharded
 
     sharded = isinstance(moving, Sharded)
+    loss = pair_loss(criteria, weights, params0.shape[0])
     if sharded:
-        if params0.shape[0] != 1 or not separable:
-            raise ValueError("a space-sharded volume registers one pair with "
-                             "method='separable' (method='exact' on slabs: ROADMAP queue 1 "
-                             "item 22, K2 on slabs)")
-        whole = weighted_loss(criteria, weights)
-
-        def loss(y, yp):
-            return torch.reshape(whole(y, yp), (1,))
-
         moving_s, target_s = moving, target
     else:
-        loss = pair_loss(criteria, weights, params0.shape[0])
         sess = graph.session()
         moving_s, target_s = sess.static("moving", moving), sess.static("target", target)
     # LM's Hessian differentiates the warp twice: K1's chain of passes

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..losses import pair_loss, pair_slices, resolve_criteria, weighted_loss
+from ..losses import pair_loss, pair_slices, resolve_criteria
 from ..models.attention_unet import AttentionUNet, max_depth_for
 from ..ops.edge import edge_filter
 from ..ops.resample import warp_flow
@@ -65,12 +65,13 @@ class FlowResult(NamedTuple):
 
 def _diffusion_energy(flow: torch.Tensor, pairs: int = 1) -> torch.Tensor:
     """Sum over axes of the mean squared forward difference of each pair's
-    slice of ``flow``: ``[pairs]``. A field split into slabs (one pair, a
-    ``parallel.mesh.Sharded``) takes :func:`_slab_diffusion_energy`."""
+    slice of ``flow``: ``[pairs]``. A field split into slabs (a
+    ``parallel.mesh.Sharded``) takes :func:`_slab_diffusion_energy` on each
+    pair's slabs."""
     from ..parallel.mesh import Sharded
 
     if isinstance(flow, Sharded):
-        return _slab_diffusion_energy(flow)
+        return torch.cat([_slab_diffusion_energy(f) for f in flow.chunk(pairs)])
     f = flow.to(torch.float32)
     total = 0.0
     for a in range(2, flow.ndim):
@@ -266,12 +267,13 @@ def _flow(pairs, moving, target, lr, max_epochs, stop_crit, n, in_c, criterions,
     """The flow engine's loop over ``pairs`` pairs, each a slice of
     ``moving``'s leading axis (one pair: the whole of it); the records, the
     steps and ``max_disp`` with a leading pair axis. ``moving`` and
-    ``target`` may be one pair split alike into slabs over a mesh
-    (``parallel/mesh.py``'s ``Sharded``, the ``space`` axis): the field (or
-    the net's layers, ``attention_unet.forward_slabs``), the warp (K1's slab
-    modes), the criteria, the diffusion term and the optimizer run slab by
-    slab, each on its slab's device, the stop state on the mesh's first
-    device (:class:`_OnSlabs`)."""
+    ``target`` may be split alike into slabs over a mesh
+    (``parallel/mesh.py``'s ``Sharded``, the ``space`` axis; one pair, or a
+    row of a ``data x space`` mesh's pairs): the field (or the nets' layers,
+    ``attention_unet.forward_slabs``), the warp (K1's slab modes, or the
+    exact ``warp_flow`` on slabs), each pair's criteria and diffusion term,
+    and the optimizer run slab by slab, each on its slab's device, the stop
+    state on the mesh's first device (:class:`_OnSlabs`)."""
     if flow_model not in ("unet", "field"):
         raise ValueError(f"flow_model must be unet|field, got {flow_model!r}")
     if progress_every and pairs > 1:
@@ -414,13 +416,7 @@ def _placement(moving, target, pairs: int, method: str):
         raise ValueError("the flow engine on slabs needs moving and target split alike over "
                          "one mesh")
     moving.slab_axis()
-    if pairs != 1:
-        raise ValueError("a batch of pairs split into slabs (a data x space mesh) is not "
-                         "ported yet: ROADMAP queue 1 item 19")
-    if method != "separable":
-        raise ValueError("method='exact' on a space-sharded volume is not ported yet: ROADMAP "
-                         "queue 1 item 22 (K2 on slabs); use method='separable'")
-    return _OnSlabs(moving)
+    return _OnSlabs(moving, pairs)
 
 
 class _OnDevice:
@@ -468,21 +464,15 @@ class _OnDevice:
 
 
 class _OnSlabs(_OnDevice):
-    """The loop's layout for one pair split into slabs: the criteria's slab
+    """The loop's layout for pairs split into slabs (one pair, or a row of
+    a ``data x space`` mesh's pairs): each pair's criteria on its slabs'
     sums and the records on the mesh's first device, the field and its
     optimizer's state slab by slab on the slabs' devices (``Sharded``
     flows), the U-Net's layers on the partition; eager, since one CUDA
     graph cannot span devices."""
 
-    def __init__(self, moving):
-        super().__init__(moving, 1)
-
     def session(self):
         return graph.EAGER
-
-    def loss(self, criteria, w):
-        whole = weighted_loss(criteria, w)
-        return lambda y, yp: torch.reshape(whole(y, yp), (1,))
 
     def cast(self, x, dt):
         return x.map(lambda b: b.to(dt))
@@ -495,7 +485,7 @@ class _OnSlabs(_OnDevice):
 
     def field_params(self, sess, param0, name: str, lr: float, steps: int):
         param = [p.requires_grad_(True) for p in param0]
-        return param, common.SlabOptimizer(name, param, lr, steps)
+        return param, common.SlabOptimizer(name, param, lr, steps, self.pairs)
 
     def field(self, param) -> tuple:
         return _field_of(self.moving, param), param
@@ -507,9 +497,10 @@ class _OnSlabs(_OnDevice):
         return flow.map(lambda t: t.detach().clone() if copy else t.detach())
 
     def maxd(self, flow) -> torch.Tensor:
-        """The slabs' maxima, on the mesh's first device."""
-        return torch.stack([torch.max(torch.abs(f)).to(flow.device)
-                            for f in flow.shards]).max().reshape(1)
+        """Each pair's largest slab maximum, on the mesh's first device."""
+        return torch.stack([torch.stack([torch.max(torch.abs(f)).to(flow.device)
+                                         for f in p.shards]).max()
+                            for p in flow.chunk(self.pairs)])
 
 
 def _field_of(moving, slabs):

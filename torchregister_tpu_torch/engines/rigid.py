@@ -65,8 +65,9 @@ def rigid_register(
     slab mode) and MSE / SSD / NCC run slab by slab, the parameters on the
     mesh's first device, and ``warped_best`` comes back split alike;
     ``optimizer='lm'`` differentiates K1's slab mode twice
-    (``sweep_slab_bwd2``). NMI and LNCC and ``method='exact'`` raise there
-    (ROADMAP queue 1 items 20, 22)."""
+    (``sweep_slab_bwd2``); ``method='exact'`` warps each slab with the exact
+    resampler on the fetched volume, ``warped_best`` with K2's slab mode.
+    NMI and LNCC raise there (ROADMAP queue 1 item 20)."""
     del per
     if grad_edges:
         moving = edge_filter(moving)

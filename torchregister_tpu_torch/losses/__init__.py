@@ -9,7 +9,8 @@ reference discards it, warpings.py:36-40).
 :func:`pair_loss` is the weighted sum over a batch of independent pairs
 (the engines' loops, a cohort): ``[B]``, each criterion called on each
 pair's own slice, so each pair's value and gradient are those of its own
-call.
+call; on a batch split into slabs each pair's slabs, so a pair in a batch
+equals the same pair alone on the same slabs to the bit.
 """
 from __future__ import annotations
 
@@ -71,7 +72,11 @@ def weighted_loss(criteria: Sequence[Criterion], weights: Sequence[float]) -> Cr
 
 def pair_slices(x: torch.Tensor, pairs: int) -> tuple:
     """The ``pairs`` equal slices of ``x``'s leading axis, one a pair (one
-    pair: ``x`` whole)."""
+    pair: ``x`` whole). A batch split into slabs (``parallel.mesh.Sharded``)
+    gives each pair's slabs, so a criterion adds each pair's own slab
+    partials in ascending slab order."""
+    if not isinstance(x, torch.Tensor):
+        return x.chunk(pairs)
     return torch.chunk(x, pairs)
 
 

@@ -374,18 +374,26 @@ class AttentionUNet(nn.Module):
 # reduction over the volume (the instance norms' moments) adds each slab's
 # f32 partial sums in ascending slab order, and each weight's gradient sums
 # its slabs' copies in ascending slab order. The 3D 3x3x3 convolutions are
-# K3 launches on each slab's buffer (its rows and the 2 after them).
+# K3 launches on each slab's buffer (its rows and the 2 after them). In pair
+# mode (the U-Net cohort on a row of a ``data x space`` mesh) K3 takes every
+# pair's weight set in one launch a slab, and every other op that reduces
+# within an item (the bias adds, the norms, the transposed convolutions, the
+# attention gates, the flow head) runs one call a pair on that pair's
+# blocks, as the pair mode does unsharded, so each pair equals its single
+# net on the same slabs to the bit.
 
 
-def _tap_conv(x, kernel, bias, ndim, dtype):
-    """:class:`TapConv`'s forward (k = 3) of one net on a block."""
+def _tap_conv(x, kernel, bias, ndim, dtype, pairs=None):
+    """:class:`TapConv`'s forward (k = 3) on a block (in pair mode a
+    weight set per item)."""
     x, kernel = x.to(dtype), kernel.to(dtype)
     if ndim == 3:
         out = conv3x3x3(x, kernel)
     else:
         conv = {1: F.conv1d, 2: F.conv2d}[ndim]
-        out = conv(x, kernel.permute((ndim + 1, ndim) + tuple(range(ndim))))
-    return out + _bcast(bias.to(dtype), ndim)
+        out = _per_pair(pairs, lambda xb, kb: conv(
+            xb, kb.permute((ndim + 1, ndim) + tuple(range(ndim)))), x, kernel)
+    return _per_pair(pairs, lambda o, b: o + _bcast(b.to(dtype), ndim), out, bias)
 
 
 def _conv_t(x, kernel, bias, ndim, dtype):
@@ -396,11 +404,25 @@ def _conv_t(x, kernel, bias, ndim, dtype):
         bias.to(dtype), ndim)
 
 
-def _norm_rows(y, eps: float = 1e-5):
+def _pair_rows(y, b: int):
+    """Pair ``b``'s blocks of a tensor split into slabs."""
+    return y._replace(blocks=[blk[b:b + 1] for blk in y.blocks])
+
+
+def _cat_rows(parts: list):
+    """The pairs' tensors (alike split) as one, slab by slab."""
+    return parts[0]._replace(blocks=[torch.cat([p.blocks[k] for p in parts])
+                                     for k in range(len(parts[0].blocks))])
+
+
+def _norm_rows(y, pairs=None, eps: float = 1e-5):
     """:func:`instance_norm` of a tensor split into slabs: the moments from
-    each slab's f32 partial sums, added in ascending slab order."""
+    each slab's f32 partial sums, added in ascending slab order (in pair
+    mode each pair's own)."""
     from ..parallel import rows
 
+    if pairs is not None:
+        return _cat_rows([_norm_rows(_pair_rows(y, b), None, eps) for b in range(pairs)])
     axes = tuple(range(2, y.blocks[0].ndim))
     n = math.prod(y.shape()[2:])
     xf = [b.to(torch.float32) for b in y.blocks]
@@ -427,39 +449,43 @@ def _pad_rows(y, target_spatial, parts):
 
 
 def forward_slabs(net: AttentionUNet, x):
-    """:meth:`AttentionUNet.forward` of one net on a volume split into slabs
-    (``x`` a ``parallel.rows.Rows`` of ``[N, in_c, *S]`` along a spatial
-    dim, each block on its slab's device): the flow ``[N, ndim, *S]`` laid
-    out as ``x`` (see the section note)."""
+    """:meth:`AttentionUNet.forward` on a volume split into slabs (``x`` a
+    ``parallel.rows.Rows`` of ``[N, in_c, *S]`` along a spatial dim, each
+    block on its slab's device; in pair mode one item a pair): the flow
+    ``[N, ndim, *S]`` laid out as ``x`` (see the section note)."""
     from ..parallel import rows
 
-    if net.pairs is not None:
-        raise ValueError("the U-Net cohort on a space-sharded volume is not ported yet: "
-                         "ROADMAP queue 1 item 19 (pairs over data x space)")
-    nd, dt, dim = net.ndim, net.dtype, x.dim
+    nd, dt, dim, P = net.ndim, net.dtype, x.dim, net.pairs
+    if P is not None and x.shape()[0] != P:
+        raise ValueError(f"a U-Net of {P} weight sets runs {P} items, got {x.shape()[0]}")
     devices = [b.device for b in x.blocks]
     W = {name: rows.replicate(p, devices) for name, p in net.named_parameters()}
 
     def conv(y, prefix):
         kern, bias = W[prefix + ".kernel"], W[prefix + ".bias"]
-        return rows.window(y, lambda k, b: F.relu(_tap_conv(b, kern[k], bias[k], nd, dt)),
+        return rows.window(y, lambda k, b: F.relu(_tap_conv(b, kern[k], bias[k], nd, dt, P)),
                            3, 1, y.extent - 2)
 
     def double(y, name):
         for i in (0, 1):
             y = conv(y, f"{name}.Conv_{i}")
             if net.use_norm:
-                y = _norm_rows(y)
+                y = _norm_rows(y, P)
         return y
 
     def up(y, name):
         kern, bias = (W[f"{name}.TapConvTranspose2x_0.{w}"] for w in ("kernel", "bias"))
-        y = rows.local(y, lambda k, b: F.relu(_conv_t(b, kern[k], bias[k], nd, dt)), 2)
-        return _norm_rows(y) if net.use_norm else y
+        y = rows.local(y, lambda k, b: F.relu(_per_pair(
+            P, lambda xb, kb, bb: _conv_t(xb, kb, bb, nd, dt), b, kern[k], bias[k])), 2)
+        return _norm_rows(y, P) if net.use_norm else y
 
-    def gate(x, g, name):
-        ik, gk, gb, pk, pb = (W[f"{name}.{w}"] for w in (
-            "input_kernel", "gate_kernel", "gate_bias", "psi_kernel", "psi_bias"))
+    def gate(x, g, name, pair=None):
+        if P is not None and pair is None:
+            return _cat_rows([gate(_pair_rows(x, b), _pair_rows(g, b), name, b)
+                              for b in range(P)])
+        ik, gk, gb, pk, pb = ([w if pair is None else w[pair] for w in W[f"{name}.{v}"]]
+                              for v in ("input_kernel", "gate_kernel", "gate_bias",
+                                        "psi_kernel", "psi_bias"))
         sub = (slice(None), slice(None)) + tuple(
             slice(None) if 2 + a == dim else slice(None, None, 3) for a in range(nd))
         a = rows.stride(x, 3).map(lambda k, b: _contract_1x1(b[sub].to(dt), ik[k].to(dt)))
@@ -503,4 +529,5 @@ def forward_slabs(net: AttentionUNet, x):
             y = up(y, f"up{net.depth - j}")
     y = _pad_rows(y, in_spatial, in_parts)
     ok, ob = W["out_kernel"], W["out_bias"]
-    return y.map(lambda k, b: _contract_1x1(b.to(torch.float32), ok[k]) + _bcast(ob[k], nd))
+    return y.map(lambda k, b: _per_pair(P, lambda yb, kb, bb: _contract_1x1(
+        yb.to(torch.float32), kb) + _bcast(bb, nd), b, ok[k], ob[k]))

@@ -21,6 +21,18 @@ at least 32 voxels a side, and declines (``None``) a transform whose 10^3
 output tile needs more than a 16-wide source window; :func:`warp_affine_fast`
 then runs K2 as usual.
 
+Both exact warps also take a volume split into slabs
+(``parallel.mesh.Sharded``, the ``space`` axis): each slab's outputs come
+from K2's slab mode on a buffer of the source rows they reach, fetched from
+the slabs that hold them (``parallel/halo.py``, which counts the bytes it
+copies): for an affine warp the rows between the floors of the split axis's
+coordinate at the slab's 8 output corners (K2's monotone-box argument; one
+host read of the transform a call), for a flow warp the slab's rows widened
+by the field's largest displacement along the split axis plus one (from
+``max_disp`` when given, else one device reduction and a host read). Rows
+outside the volume are not fetched (they read 0). Each output equals the
+unsharded launch's to the bit.
+
 Forward only, f32 images (K2 and K2b raise ``TypeError`` on any other dtype).
 """
 from __future__ import annotations
@@ -32,6 +44,9 @@ from .cuda import roigather as k2b
 from .cuda import warp as k2
 from .separable import _index_map_np, affine_to_index_map
 from .transforms import as_matrix
+
+# the 8 corners of a box: (z, y, x), each 0 (first) or 1 (last)
+_CORNERS = [(t >> 2 & 1, t >> 1 & 1, t & 1) for t in range(8)]
 
 TILE = 10  # output tile edge of the ROI route
 ROIGATHER_ENABLED = False  # warp_affine_fast tries warp_affine_roi first
@@ -152,6 +167,8 @@ def warp_affine_fast(theta: torch.Tensor, moving: torch.Tensor,
     N = moving.shape[0]
     if theta.shape[0] not in (1, N):
         raise ValueError(f"warp_affine_fast: {theta.shape[0]} thetas for a batch of {N}")
+    if not isinstance(moving, torch.Tensor):
+        return _affine_slabs(theta, moving, align_corners)
     if N > 1:
         if theta.shape[0] == 1:
             # one transform, many volumes: the batch is extra channels
@@ -173,12 +190,122 @@ def warp_flow_fast(src: torch.Tensor, flow: torch.Tensor,
     channel ``i`` along spatial dim ``i``; cast to f32). ``max_disp`` is the
     JAX package's static bound on the displacement, from which it sizes its
     gather blocks; K2 reads each voxel's corners directly and needs no block
-    bound, so the argument is accepted and changes nothing."""
+    bound, so the argument is accepted and changes nothing, on slabs too
+    (there the rows to fetch come from the field itself)."""
     if flow.shape[0] != src.shape[0]:
         raise ValueError(
             f"warp_flow_fast: src batch {src.shape[0]} != flow batch "
             f"{flow.shape[0]} (one flow field per source element)")
+    if not isinstance(src, torch.Tensor) or not isinstance(flow, torch.Tensor):
+        return _flow_slabs(src, flow)
     if src.shape[0] > 1:
         return torch.cat([warp_flow_fast(src[i:i + 1], flow[i:i + 1], max_disp)
                           for i in range(src.shape[0])])
     return k2.warp(src[0], flow=flow[0].to(torch.float32))[None]
+
+
+# ------------------------------------------------------------------- slabs
+
+
+def _slab_layout(src):
+    """``(dim, parts)`` of a volume split into slabs: the split dim and each
+    slab's rows along it."""
+    from ..parallel import halo
+
+    dim, _ = src.slab_axis()
+    if dim < 2:
+        raise ValueError(f"K2's slab mode splits a spatial dim, got a split along dim {dim}")
+    return dim, halo.equal(src.shape[dim], len(src.shards))
+
+
+def _slab_origin(spatial, dim, lo) -> tuple:
+    return tuple(lo if 2 + a == dim else 0 for a in range(len(spatial)))
+
+
+def _affine_rows(mt: np.ndarray, spatial, dim, lo, hi) -> tuple:
+    """The source rows ``[a, b)`` along ``dim`` that an affine block's
+    outputs (rows ``[lo, hi)`` of the split dim) reach: the floors of that
+    axis's coordinate at the block's 8 corners, computed as K2 computes it
+    (f32, round to nearest, in its order), bound every output's corners;
+    clamped to the volume (the whole volume for a non-finite map)."""
+    d = len(spatial)
+    view = (1,) * (3 - d) + tuple(spatial)
+    box = [(0, n - 1) for n in view]
+    kd = dim - 2 + (3 - d)  # the split axis in the kernel's (z, y, x) view
+    box[kd] = (lo, hi - 1)
+    m = mt.astype(np.float32).reshape(3, 4)
+    f32 = np.float32
+    qs = []
+    for corner in _CORNERS:
+        c = [f32(box[a][corner[a]]) for a in range(3)]
+        qs.append(f32(f32(f32(m[kd, 0] * c[0]) + f32(m[kd, 1] * c[1])) + f32(m[kd, 2] * c[2]))
+                  + m[kd, 3])
+    S = spatial[dim - 2]
+    if not all(np.isfinite(q) for q in qs):
+        return 0, S
+    a = int(np.floor(min(qs)))
+    b = int(np.floor(max(qs))) + 2
+    a, b = max(a, 0), min(b, S)
+    return (a, b) if a < b else (0, 0)
+
+
+def _affine_slabs(theta, moving, align_corners):
+    """:func:`warp_affine_fast` of a volume split into slabs: each item's
+    packed map read on the host once, each slab's source rows fetched and
+    its block warped by K2's slab mode on its device."""
+    from ..parallel import halo
+    from ..parallel.mesh import from_blocks
+
+    spatial = tuple(moving.shape[2:])
+    dim, parts = _slab_layout(moving)
+    maps = [k2.pack_affine(*affine_to_index_map(th.to(torch.float32), spatial, align_corners))
+            for th in theta]
+    host = torch.stack(maps).cpu().numpy()  # the one host read
+    N = moving.shape[0]
+    items = range(N) if len(maps) == N else [None]
+    outs: list = [[] for _ in parts]
+    for n in items:
+        blocks = [b if n is None else b[n:n + 1] for b in moving.shards]
+        mt, mt_np = maps[0 if n is None else n], host[0 if n is None else n]
+        wants = [_affine_rows(mt_np, spatial, dim, lo, hi) for lo, hi in parts]
+        bufs = halo.fetch_rows(blocks, parts, dim, wants)
+        for k, ((lo, hi), (a, _), buf) in enumerate(zip(parts, wants, bufs)):
+            flat = buf.reshape((1, -1) + tuple(buf.shape[2:]))[0]
+            out = k2.warp_slab(flat, tuple(blocks[k].shape[2:]), _slab_origin(spatial, dim, lo),
+                               _slab_origin(spatial, dim, a), spatial,
+                               mt=mt.to(buf.device))
+            outs[k].append(out.reshape(blocks[k].shape))
+    return from_blocks([torch.cat(o) for o in outs], moving.sharding, moving.shape)
+
+
+def _flow_slabs(src, flow):
+    """:func:`warp_flow_fast` of a volume and a field split alike into
+    slabs: each slab's rows widened by the item's largest displacement
+    along the split axis plus one (one device reduction, read on the host
+    once: a caller's bound could be short and leave rows unread), fetched,
+    and its block warped by K2's slab mode on its device."""
+    import math
+
+    from ..parallel import halo
+    from ..parallel.mesh import Sharded, from_blocks
+
+    if not (isinstance(src, Sharded) and isinstance(flow, Sharded)) or (
+            src.sharding.spec[2:] != flow.sharding.spec[2:] or src.mesh is not flow.mesh):
+        raise ValueError("warp_flow_fast on slabs needs the volume and the field split alike")
+    spatial = tuple(src.shape[2:])
+    dim, parts = _slab_layout(src)
+    S, N, a = spatial[dim - 2], src.shape[0], dim - 2
+    reach = torch.stack([torch.stack([torch.max(torch.abs(f[n, a])).to(src.device)
+                                      for f in flow.shards]).max()
+                         for n in range(N)]).tolist()  # the one host read
+    outs: list = [[] for _ in parts]
+    for n in range(N):
+        D = math.ceil(reach[n]) + 1 if math.isfinite(reach[n]) else S
+        wants = [(max(lo - D, 0), min(hi + D, S)) for lo, hi in parts]
+        bufs = halo.fetch_rows([b[n:n + 1] for b in src.shards], parts, dim, wants)
+        for k, ((lo, hi), (w0, _), buf) in enumerate(zip(parts, wants, bufs)):
+            f = flow.shards[k][n].to(torch.float32)
+            outs[k].append(k2.warp_slab(buf[0], tuple(f.shape[1:]),
+                                        _slab_origin(spatial, dim, lo),
+                                        _slab_origin(spatial, dim, w0), spatial, flow=f)[None])
+    return from_blocks([torch.cat(o) for o in outs], src.sharding, src.shape)

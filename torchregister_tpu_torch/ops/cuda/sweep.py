@@ -1246,8 +1246,14 @@ def _slab_bwd2(gbuf, buf, ubuf, table, p, axis, K, geo, shape, rtable, need_g, n
     if buf.is_cuda:
         return _bwd2_slab(gbuf, buf, ubuf, table, p, axis, K, geo, shape, rtable, need_g,
                           need_src, dtable, work)
-    if table.ndim == 3:
-        raise ValueError("K1's slab mode takes one table a volume")
+    if table.ndim == 3:  # a table per item: each item's own call, as a single table's
+        one = tuple(shape[1:])
+        outs = [_slab_bwd2(gbuf[b:b + 1], buf[b:b + 1], None if ubuf is None else ubuf[b:b + 1],
+                           table[b], p, axis, K, geo, (1, *one), rtable[b], need_g, need_src,
+                           None if dtable is None else dtable[b], work)
+                for b in range(table.shape[0])]
+        return tuple(torch.cat([o[i] for o in outs]) if outs[0][i] is not None else None
+                     for i in range(2))
     gbar, sbar, drow = sweep_bwd2_slab_plain(gbuf, buf, ubuf, rtable[p], *_row_of(table, p),
                                              axis, K, geo, shape)
     if dtable is not None:

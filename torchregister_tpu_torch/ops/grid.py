@@ -17,32 +17,38 @@ import torch
 
 
 def _axis_coords(size: int, align_corners: bool, dtype=torch.float32,
-                 device=None) -> torch.Tensor:
-    i = torch.arange(size, dtype=dtype, device=device)
+                 device=None, rows: tuple | None = None) -> torch.Tensor:
+    """The normalized coordinates of an axis of ``size`` voxels (``rows =
+    (start, count)``: of those voxels only, each the whole axis's value)."""
+    start, count = (0, size) if rows is None else rows
+    i = torch.arange(start, start + count, dtype=dtype, device=device)
     if align_corners:
         if size == 1:
-            return torch.zeros((1,), dtype=dtype, device=device)
+            return torch.zeros((count,), dtype=dtype, device=device)
         return 2.0 * i / (size - 1) - 1.0
     return (2.0 * i + 1.0) / size - 1.0
 
 
 def normalized_grid(spatial: Sequence[int], align_corners: bool = False,
-                    dtype=torch.float32, device=None) -> torch.Tensor:
+                    dtype=torch.float32, device=None, box=None) -> torch.Tensor:
     """Identity grid of normalized coordinates ``[*spatial, d]``, last axis
-    innermost-first."""
-    axes = [_axis_coords(s, align_corners, dtype, device) for s in spatial]
+    innermost-first; ``box`` (``(start, count)`` an axis, or None for the
+    whole axis) takes a box of the grid, each value the whole grid's."""
+    box = (None,) * len(spatial) if box is None else box
+    axes = [_axis_coords(s, align_corners, dtype, device, r) for s, r in zip(spatial, box)]
     mesh = torch.meshgrid(*axes, indexing="ij")
     return torch.stack(mesh[::-1], dim=-1)
 
 
 def affine_grid(theta: torch.Tensor, spatial: Sequence[int], align_corners: bool = False,
-                dtype=torch.float32) -> torch.Tensor:
+                dtype=torch.float32, box=None) -> torch.Tensor:
     """``F.affine_grid`` semantics: ``theta [N, d, d+1]`` -> grid
     ``[N, *spatial, d]``. Row ``r`` of theta maps the homogeneous normalized
     output coordinate ``(x, y[, z], 1)`` to source coordinate ``r``; computed
-    as explicit multiply-adds in the JAX package's order."""
+    as explicit multiply-adds in the JAX package's order. ``box``: a box of
+    the grid (:func:`normalized_grid`), each value the whole grid's."""
     d = len(spatial)
-    base = normalized_grid(spatial, align_corners, dtype, theta.device)  # [*S, d]
+    base = normalized_grid(spatial, align_corners, dtype, theta.device, box)  # [*S, d]
     theta = theta.to(dtype)
     bcast = theta.reshape(theta.shape[:1] + (1,) * d + theta.shape[1:])
     out = bcast[..., :, d]  # translation column [N, 1...1, d]
@@ -52,10 +58,13 @@ def affine_grid(theta: torch.Tensor, spatial: Sequence[int], align_corners: bool
 
 
 def identity_index_grid(spatial: Sequence[int], dtype=torch.float32,
-                        device=None) -> torch.Tensor:
+                        device=None, box=None) -> torch.Tensor:
     """Identity grid in index coordinates ``[d, *spatial]``, channel ``i``
-    holding the index along spatial dim ``i`` (the layout of flow fields)."""
-    axes = [torch.arange(s, dtype=dtype, device=device) for s in spatial]
+    holding the index along spatial dim ``i`` (the layout of flow fields);
+    ``box`` as :func:`normalized_grid`'s."""
+    box = (None,) * len(spatial) if box is None else box
+    axes = [torch.arange(*((0, s) if r is None else (r[0], r[0] + r[1])), dtype=dtype,
+                         device=device) for s, r in zip(spatial, box)]
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
 
 

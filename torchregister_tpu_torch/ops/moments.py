@@ -20,18 +20,47 @@ import torch
 from .grid import _axis_coords
 
 
+def _pieces(img) -> tuple:
+    """``(pieces, device)``: each piece ``(w, starts)`` of ``img [1, 1, *S]``,
+    ``w = |img|`` in f32 and its first voxel's global index per axis; one
+    piece for a tensor, one a slab (in ascending order) for a volume split
+    into slabs (``parallel.mesh.Sharded``), whose sums the moments add in
+    ascending slab order on the mesh's first device."""
+    if isinstance(img, torch.Tensor):
+        w = torch.abs(img[0, 0]).to(torch.float32)
+        return [(w, (0,) * w.ndim)], w.device
+    dim, _ = img.slab_axis()
+    out = []
+    for k, b in enumerate(img.shards):
+        w = torch.abs(b[0, 0]).to(torch.float32)
+        out.append((w, tuple(k * w.shape[a] if a == dim - 2 else 0 for a in range(w.ndim))))
+    return out, img.device
+
+
+def _total(pieces, device, fn) -> torch.Tensor:
+    """``fn(w, starts)``'s sum over the volume: each piece's f32 sum, the
+    pieces' sums added in their order on ``device``."""
+    from ..parallel.mesh import ordered_sum
+
+    return ordered_sum([torch.sum(fn(w, starts)) for w, starts in pieces], device)
+
+
 def center_of_mass(img: torch.Tensor) -> torch.Tensor:
     """``|img|``-weighted centre of mass of ``img [1,1,*S]`` in index space,
-    per array axis (f32, ``[d]``)."""
-    w = torch.abs(img[0, 0]).to(torch.float32)
-    total = torch.sum(w) + 1e-12
-    d = w.ndim
-    coms = []
-    for a in range(d):
-        idx = torch.arange(w.shape[a], dtype=torch.float32, device=w.device)
-        axes = tuple(i for i in range(d) if i != a)
-        coms.append(torch.sum(torch.sum(w, dim=axes) * idx) / total)
-    return torch.stack(coms)
+    per array axis (f32, ``[d]``); a volume split into slabs sums each
+    slab's mass and moments at global coordinates (:func:`_pieces`)."""
+    pieces, device = _pieces(img)
+    total = _total(pieces, device, lambda w, _: w) + 1e-12
+    d = pieces[0][0].ndim
+
+    def moment(a):
+        def fn(w, starts):
+            idx = torch.arange(starts[a], starts[a] + w.shape[a], dtype=torch.float32,
+                               device=w.device)
+            return torch.sum(w, dim=tuple(i for i in range(d) if i != a)) * idx
+        return fn
+
+    return torch.stack([_total(pieces, device, moment(a)) / total for a in range(d)])
 
 
 def com_translation(moving: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -57,32 +86,44 @@ def com_rigid_params(moving: torch.Tensor, target: torch.Tensor,
 
 def coordinate_moments(img: torch.Tensor):
     """``(com [d], cov [d, d], frame [d, d], lam [d], skew [d])`` of ``img
-    [1, 1, *S]`` in normalized coordinates, theta row order (x first).
+    [1, 1, *S]`` (or its slabs, :func:`_pieces`) in normalized coordinates,
+    theta row order (x first).
     ``frame`` columns are covariance eigenvectors (ascending ``lam``), each
     sign-fixed so its third central moment ``skew`` is non-negative, with a
     right-handed frame restored by flipping the least-skewed axis."""
-    w = torch.abs(img[0, 0]).to(torch.float32)
-    total = torch.sum(w) + 1e-12
-    d = w.ndim
+    pieces, device = _pieces(img)
+    total = _total(pieces, device, lambda w, _: w) + 1e-12
+    d = pieces[0][0].ndim
+    sizes = img.shape[2:]
 
     def bcast(a, axis):
         shape = [1] * d
         shape[axis] = -1
         return a.reshape(shape)
 
-    coords = [_axis_coords(s, False, device=w.device) for s in w.shape]
-    com = torch.stack([torch.sum(w * bcast(coords[a], a)) / total for a in range(d)])
-    centered = [bcast(coords[a], a) - com[a] for a in range(d)]
-    cov = torch.stack([torch.stack([torch.sum(w * centered[a] * centered[b]) / total
-                                    for b in range(d)]) for a in range(d)])
+    def coords(w, starts):  # the global normalized coordinates of a piece's voxels
+        return [bcast(_axis_coords(sizes[a], False, device=w.device).narrow(
+            0, starts[a], w.shape[a]), a) for a in range(d)]
+
+    com = torch.stack([_total(pieces, device, lambda w, st, a=a: w * coords(w, st)[a])
+                       / total for a in range(d)])
+
+    def centered(w, starts):
+        c = coords(w, starts)
+        return [c[a] - com[a].to(w.device) for a in range(d)]
+
+    cov = torch.stack([torch.stack([
+        _total(pieces, device, lambda w, st, a=a, b=b: w * centered(w, st)[a]
+               * centered(w, st)[b]) / total for b in range(d)]) for a in range(d)])
     lam, F = torch.linalg.eigh(cov)  # ascending; columns are eigenvectors
     skew = torch.stack([
-        torch.sum(w * sum(centered[a] * F[a, j] for a in range(d)) ** 3) / total
+        _total(pieces, device, lambda w, st, j=j: w * sum(
+            c * F[a, j].to(w.device) for a, c in enumerate(centered(w, st))) ** 3) / total
         for j in range(d)])
     F = F * torch.where(skew < 0, -1.0, 1.0)[None, :]
     skew = torch.abs(skew)
     det = torch.linalg.det(F)
-    least = torch.arange(d, device=w.device) == torch.argmin(skew)
+    least = torch.arange(d, device=device) == torch.argmin(skew)
     F = F * torch.where((det < 0) & least, -1.0, 1.0)[None, :]
     # array order (z, y, x) -> theta order (x, y, z): reverse the axes
     return (torch.flip(com, (0,)), torch.flip(cov, (0, 1)), torch.flip(F, (0,)), lam,

@@ -89,9 +89,44 @@ def nearest_resize(x: torch.Tensor, out_spatial: Sequence[int]) -> torch.Tensor:
 
 def downsample_avg(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Average-pool ``x [N, C, *S]`` by ``factor`` per spatial dim; trailing
-    remainder voxels are dropped (floor), like the JAX ``reduce_window``."""
+    remainder voxels are dropped (floor), like the JAX ``reduce_window``. A
+    volume split into slabs (``parallel.mesh.Sharded``) gives one split
+    alike (:func:`_downsample_slabs`)."""
+    if not isinstance(x, torch.Tensor):
+        return _downsample_slabs(x, factor)
     pool = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}[x.ndim - 2]
     return pool(x, kernel_size=factor, stride=factor)
+
+
+def _downsample_slabs(x, factor: int):
+    """:func:`downsample_avg` of a volume split into equal slabs along a
+    spatial dim, each output slab on its slab's device and equal to the
+    unsharded pool's rows to the bit (each window is pooled alone). Output
+    slab ``k`` takes the equal ``k``-th share of the pooled rows; its windows
+    read input rows ``[factor lo, factor hi)``, the slab's own where its
+    rows divide by ``factor`` (no copy), else fetched from the neighbours
+    that hold them (``halo.fetch_rows``), as GSPMD's halo does. A pooled
+    extent that does not split evenly over the slabs raises
+    ``ValueError``."""
+    from ..parallel import halo
+    from ..parallel.mesh import from_blocks
+
+    dim, _ = x.slab_axis()
+    n = len(x.shards)
+    S = x.shape[dim]
+    out_rows = S // factor
+    if out_rows % n:
+        raise ValueError(f"downsample_avg on {n} slabs of a dim of {S}: the {out_rows} pooled "
+                         f"rows do not split evenly over the slabs")
+    m = S // n
+    blocks = x.shards
+    if m % factor:
+        parts = halo.equal(out_rows, n)
+        blocks = halo.fetch_rows(blocks, halo.equal(S, n), dim,
+                                 [(factor * lo, factor * hi) for lo, hi in parts])
+    out = [downsample_avg(b, factor) for b in blocks]
+    shape = [s // factor if i >= 2 else s for i, s in enumerate(x.shape)]
+    return from_blocks(out, x.sharding, shape)
 
 
 def max_pool(x: torch.Tensor, k: int = 2, stride: int | None = None) -> torch.Tensor:

@@ -251,13 +251,7 @@ def warp_affine_separable(theta: torch.Tensor, moving: torch.Tensor,
     spatial = tuple(moving.shape[2:])
     pivot = min_scaled_pivot(theta, spatial, align_corners)
     if pivot < _PIVOT_REL:
-        from ..parallel.mesh import Sharded
         from .resample import warp_affine
-
-        if isinstance(moving, Sharded):
-            raise ValueError(f"warp_affine_separable: theta's per-axis factorization is "
-                             f"degenerate (scaled pivot {pivot:.3g} < {_PIVOT_REL}) and the "
-                             "exact resampler takes no sharded volume")
 
         warnings.warn(
             f"warp_affine_separable: theta's per-axis factorization is "

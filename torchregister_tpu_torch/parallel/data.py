@@ -1,7 +1,9 @@
 """The ``data`` axis: a cohort's pairs split into shards over a mesh, each
 shard's pairs registered on its device by the batched loops, the results put
 back in pair order (``register_cohort(mesh=)``,
-``make_cascade_batch_fn(mesh=)``).
+``make_cascade_batch_fn(mesh=)``); on a ``data x space`` mesh each data
+position's row of slabs (:func:`run_rows`, ``make_cascade_batch_fn(mesh=,
+spatial_axis=)``).
 
 Pairs are independent, so shards exchange nothing. Each pair of a shard
 equals its single run to the bit (the batched loops' rule), so each pair of
@@ -53,6 +55,18 @@ def concat(results: Sequence, device: torch.device):
 
 def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def run_rows(rows: Sequence, job: Callable[[int], object]) -> list:
+    """``job(r)`` for each row ``r`` of a ``data x space`` mesh (``rows``:
+    each data position's 1-D space mesh), the results in row order: rows
+    whose devices are disjoint from every other row's run in threads of
+    their own (each with its first device current), rows that share a
+    device one after another in one thread."""
+    keys = [tuple(m.device_list) for m in rows]
+    sets = [set(k) for k in dict.fromkeys(keys)]
+    shared = any(a & b for i, a in enumerate(sets) for b in sets[i + 1:])
+    return run_shards([keys[0][0] if shared else k[0] for k in keys], job)
 
 
 def run_shards(devices: Sequence[torch.device], job: Callable[[int], object]) -> list:

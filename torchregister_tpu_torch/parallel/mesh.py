@@ -191,6 +191,23 @@ class Sharded:
             out[idx] = fn(self.blocks[idx])
         return Sharded(out, self.sharding, self.shape)
 
+    def to(self, dtype: torch.dtype) -> "Sharded":
+        """Every block cast to ``dtype`` (each on its device)."""
+        return self if dtype == self.dtype else self.map(lambda b: b.to(dtype))
+
+    def chunk(self, pairs: int) -> tuple:
+        """``torch.chunk`` along the leading (pair) axis, which must be
+        whole in every block: ``pairs`` tensors laid out as this one, each
+        block a view of this one's."""
+        if self.sharding.spec and self.sharding.spec[0] is not None:
+            raise ValueError(f"chunk splits a whole leading axis, got {self.sharding}")
+        if pairs == 1:
+            return (self,)
+        m = self.shape[0] // pairs
+        shape = (m, *self.shape[1:])
+        return tuple(Sharded(self.map(lambda t, b=b: t.narrow(0, b * m, m)).blocks,
+                             self.sharding, shape) for b in range(pairs))
+
     def slab_axis(self) -> tuple[int, str]:
         """``(dim, mesh_axis)`` of the one dim this tensor splits over a
         1-D mesh axis; raises for any other layout."""
@@ -275,6 +292,55 @@ def gather(xs, device=None) -> torch.Tensor:
             view = view.narrow(dim, start, size)
         view.copy_(xs.blocks[idx])
     return out
+
+
+def row_meshes(mesh: Mesh, data_axis: str = "data", space_axis: str = "space") -> list:
+    """The 1-D ``space_axis`` mesh of each position of ``data_axis`` of a
+    ``data x space`` mesh, in order: the devices of that row of slabs."""
+    for a in (data_axis, space_axis):
+        if a not in mesh.axis_names:
+            raise ValueError(f"Resource axis: {a} is not found in mesh: {mesh.axis_names}.")
+    if len(mesh.axis_names) != 2:
+        raise ValueError(f"a data x space mesh has two axes, got {mesh.axis_names}")
+    grid = mesh.devices
+    if mesh.axis_names.index(data_axis) == 1:
+        grid = grid.T
+    return [Mesh(row.copy(), (space_axis,)) for row in grid]
+
+
+def space_rows(xs: Sharded, rows: Sequence[Mesh]) -> list:
+    """Each ``data`` position's row of slabs of ``xs`` (laid out by
+    :func:`cohort_sharding` with a spatial axis over ``rows``' mesh): a
+    ``Sharded`` of that position's pairs over its row's 1-D ``space`` mesh,
+    split along the same dim (the blocks are ``xs``'s)."""
+    spec = xs.sharding.spec
+    data_axis, space_axis = spec[0], rows[0].axis_names[0]
+    if data_axis is None or space_axis not in spec:
+        raise ValueError(f"space_rows needs the pairs over a data axis and a spatial dim over "
+                         f"{space_axis!r}, got {xs.sharding}")
+    dim = spec.index(space_axis)
+    grid = xs.blocks
+    if xs.mesh.axis_names.index(data_axis) == 1:
+        grid = grid.T
+    shape = (xs.shape[0] // len(rows), *xs.shape[1:])
+    row_spec = tuple(space_axis if i == dim else None for i in range(len(spec)))
+    return [Sharded(grid[r].copy(), NamedSharding(rows[r], row_spec), shape)
+            for r in range(len(rows))]
+
+
+def join_rows(parts: Sequence[Sharded], mesh: Mesh, data_axis: str = "data") -> Sharded:
+    """The inverse of :func:`space_rows`: rows of slabs (each a ``Sharded``
+    of one data position's pairs over its 1-D space mesh) as one tensor over
+    ``mesh``, its pairs split over ``data_axis`` in row order."""
+    first = parts[0]
+    dim, space_axis = first.slab_axis()
+    grid = np.stack([p.blocks for p in parts])
+    if mesh.axis_names.index(data_axis) == 1:
+        grid = grid.T
+    spec = [data_axis] + [None] * (first.ndim - 1)
+    spec[dim] = space_axis
+    shape = (first.shape[0] * len(parts), *first.shape[1:])
+    return Sharded(grid.copy(), NamedSharding(mesh, spec), shape)
 
 
 def ordered_sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:

@@ -88,16 +88,28 @@ def _upsample_slabs(flow, out_spatial):
     return from_blocks(outs, flow.sharding, (*flow.shape[:2], *out_spatial))
 
 
+def _plus(a, b):
+    """``a + b`` of two tensors, or of two alike split into slabs (block by
+    block)."""
+    if isinstance(a, torch.Tensor):
+        return a + b
+    from ..parallel.mesh import from_blocks
+
+    return from_blocks([x + y for x, y in zip(a.shards, b.shards)], a.sharding, a.shape)
+
+
 def compose_flows(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
     """Flow equal to applying ``first`` then ``second`` (both ``[N, d, *S]``,
-    voxels): ``second(x) + first(x + second(x))``, with ``first`` resampled
-    by the exact ``ops/resample.warp_flow``."""
-    return second + warp_flow(first, second)
+    voxels, or both alike split into slabs): ``second(x) + first(x +
+    second(x))``, with ``first`` resampled by the exact
+    ``ops/resample.warp_flow``."""
+    return _plus(second, warp_flow(first, second))
 
 
 def compose_flows_separable(first: torch.Tensor, second: torch.Tensor,
                             max_disp: int) -> torch.Tensor:
     """Flow equal to applying ``first`` then ``second``:
     ``second(x) + first(x + second(x))``, with ``first`` resampled by the
-    separable sweep (``max_disp`` bounds ``second``'s magnitude)."""
-    return second + warp_flow_separable(first, second, max_disp=max_disp)
+    separable sweep (``max_disp`` bounds ``second``'s magnitude); both may
+    be alike split into slabs."""
+    return _plus(second, warp_flow_separable(first, second, max_disp=max_disp))
