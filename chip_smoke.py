@@ -131,6 +131,7 @@ from torchregister_tpu_torch.engines.cascade import (make_cascade_batch_fn, make
 from torchregister_tpu_torch.engines.common import make_optimizer
 from torchregister_tpu_torch.engines.flow import flow_register
 from torchregister_tpu_torch.engines.rigid import rigid_register
+from torchregister_tpu_torch.losses import similarity as tsim
 from torchregister_tpu_torch.losses.nmi import _sample_points, branch_calls, nmi_loss
 from torchregister_tpu_torch.models.attention_unet import conv3x3x3_shapes
 from torchregister_tpu_torch.profile_cascade import busy_profile
@@ -2217,6 +2218,11 @@ def phase_mesh_space(smi: str) -> tuple[dict, dict, list]:
     exact_errs, exact_paths = _mesh_exact(smi)
     errs.update(exact_errs)
     paths += [*exact_paths, _mesh_batch(smi), _mesh_batch_unet(smi)]
+    _mark("mesh space axis, cascades")
+    paths += _mesh_criteria(smi)
+    _mark("mesh-criteria")
+    paths += phase_dryrun(smi)
+    _mark("dryrun")
     return rows, errs, paths
 
 
@@ -2467,6 +2473,200 @@ def _mesh_batch_unet(smi: str) -> dict:
     del res, rows, ref, ulp, movings, targets
     torch.cuda.empty_cache()
     return {k: launches.get(k, 0) + launches_rows.get(k, 0) for k in launches}
+
+
+# [mesh-criteria]: NMI and LNCC on 4 z-slabs at 240³ against the unsharded
+# calls on the same card; the engines' default criteria on slabs
+MESH_LNCC_WIN = 9
+MESH_NMI_PATCH = 100  # nmi_loss's default
+MESH_CRIT_TOL = 1e-6  # the loss (relative) and each slab's gradient (of its largest entry)
+MESH_CRIT_CALLS = 3  # timed calls of each, after one warm-up
+
+
+def _timed_value_and_grad(fn, y, yp) -> tuple:
+    """``fn(y, yp)`` and its gradient in ``yp`` (a tensor, or the slabs of a
+    split volume), ``MESH_CRIT_CALLS`` times after a warm-up: the last
+    value, its gradient (the slabs' put back together), the ms of each call
+    and the halo bytes of the last."""
+    ms = []
+    for i in range(MESH_CRIT_CALLS + 1):
+        if isinstance(yp, torch.Tensor):
+            leaves = [yp.detach().requires_grad_(True)]
+            p = leaves[0]
+        else:
+            p = yp.map(lambda b: b.detach().requires_grad_(True))
+            leaves = p.shards
+        halo.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = fn(y, p)
+        gs = torch.autograd.grad(v, leaves)
+        torch.cuda.synchronize()
+        if i:
+            ms.append(round(1e3 * (time.perf_counter() - t0), 3))
+    dim = 2 if isinstance(yp, torch.Tensor) else yp.slab_axis()[0]
+    return v.detach(), torch.cat(gs, dim), ms, halo.copied_bytes
+
+
+def _mesh_criteria(smi: str) -> list:
+    """[mesh-criteria]: ``nmi_loss`` with its defaults on make_pair's 240³
+    pair (unit range: the binned branch) and on the pair x 1000 (the exact
+    branch), and ``lncc`` (``win=9``), on 4 z-slabs of the card against the
+    unsharded calls: each NMI patch equal to its unsharded value to the bit,
+    the loss within ``MESH_CRIT_TOL`` (relative), each slab's gradient within
+    ``MESH_CRIT_TOL`` of the gradient's largest entry (LNCC: or within the
+    unsharded gradient's own move under one ulp of the moving image, if
+    larger), ms a call (value and
+    gradient) beside the unsharded call's and the bytes fetched; then
+    ``rigid_register`` with its defaults (``criterions=None``,
+    ``grad_edges=True``, SGD, ``ENGINE_STEPS`` steps, as
+    ``[engines-default]``) on slabs against unsharded: the same steps, theta
+    within ``MESH_THETA_TOL``. Returns the slab runs' launches."""
+    moving, target = make_pair((SIZE,) * 3, seed=0, device=DEV)
+    sh = pmesh.volume_sharding(make_mesh((MESH_SLABS,), ("space",),
+                                         devices=[DEV] * MESH_SLABS))
+    nmi = functools.partial(nmi_loss, patch_size=MESH_NMI_PATCH)
+    cases = (("nmi_loss binned", nmi, 1.0), ("nmi_loss exact", nmi, 1000.0),
+             (f"lncc win={MESH_LNCC_WIN}",
+              functools.partial(tsim.lncc, win=MESH_LNCC_WIN), 1.0))
+    failed, paths = [], []
+    for label, fn, scale in cases:
+        y, yp = target * scale, moving * scale
+        ys, yps = pmesh.shard(y, sh), pmesh.shard(yp, sh)
+        uv, ug, ums, _ = _timed_value_and_grad(fn, y, yp)
+        _reset_counts()
+        branch_calls.reset()
+        sv, sg, sms, fetched = _timed_value_and_grad(fn, ys, yps)
+        launches, branches = _counts(), dict(branch_calls)
+        paths.append(launches)
+        row = {"loss": float(sv), "unsharded_loss": float(uv),
+               "loss_rel_err": abs(float(sv) / float(uv) - 1.0) if float(uv) else abs(float(sv)),
+               "grad_max_rel_err": _max_err(sg, ug) / float(ug.abs().max()),
+               "ms": sms, "unsharded_ms": ums, "fetched_bytes": fetched}
+        tol = MESH_CRIT_TOL
+        if fn is not nmi:
+            # LNCC's near-constant windows (make_pair's background) make its
+            # gradient ill-conditioned: the gate is the unsharded gradient's
+            # own move under one ulp of the moving image
+            ulp_g = _timed_value_and_grad(fn, y, _ulp_up(yp))[1]
+            row["unsharded_one_ulp_grad_rel"] = _max_err(ulp_g, ug) / float(ug.abs().max())
+            tol = max(tol, row["unsharded_one_ulp_grad_rel"])
+        if fn is nmi:
+            p = MESH_NMI_PATCH
+            bits = _same_bits(nmi_mod.patch_nmi_slabs(ys, yps, patch_size=p),
+                              nmi_mod.nmi(nmi_mod._patch_rows(y, p), nmi_mod._patch_rows(yp, p),
+                                          bandwidth=3.0)[0])
+            row.update(patch_nmi_bits_equal=bits, branches=branches,
+                       splat=launches["splat"], kde_sum=launches["kde_sum"],
+                       kde_dot=launches["kde_dot"])
+            if not bits:
+                failed.append(f"{label}: a patch's NMI differs from its unsharded value")
+        print(f"[mesh-criteria] {label} at {SIZE}³ on {MESH_SLABS} z-slabs against the "
+              f"unsharded call: {json.dumps(row)} ({smi})", flush=True)
+        if not (row["loss_rel_err"] <= MESH_CRIT_TOL and row["grad_max_rel_err"] <= tol):
+            failed.append(f"{label}: {row}")
+        del ys, yps, sg, ug
+    runs = {}
+    for label, (m, t) in (("unsharded", (moving, target)),
+                          ("slabs", (pmesh.shard(moving, sh), pmesh.shard(target, sh)))):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, res = rigid_register(m, t, epochs=ENGINE_STEPS,
+                                generator=torch.Generator(device=DEV).manual_seed(0))
+        torch.cuda.synchronize()
+        runs[label] = (res, time.perf_counter() - t0, _counts())
+    (ref, wall0, _), (res, wall1, launches) = runs["unsharded"], runs["slabs"]
+    paths.append(launches)
+    rel = float((res.best_theta - ref.best_theta).abs().max() / ref.best_theta.abs().max())
+    row = {"steps": res.steps, "unsharded_steps": ref.steps, "theta_max_rel_err": rel,
+           "ms_per_step": round(1e3 * wall1 / res.steps, 3),
+           "unsharded_ms_per_step": round(1e3 * wall0 / ref.steps, 3)}
+    print(f"[mesh-criteria] rigid_register(criterions=None, grad_edges=True, {ENGINE_STEPS} "
+          f"SGD steps) on make_pair's {SIZE}³ pair on {MESH_SLABS} z-slabs against unsharded: "
+          f"{json.dumps(row)} ({smi}); launches {json.dumps(launches)}", flush=True)
+    if res.steps != ref.steps or res.steps != ENGINE_STEPS or rel > MESH_THETA_TOL:
+        failed.append(f"rigid_register(criterions=None) on slabs: {row}")
+    if failed:
+        raise AssertionError(f"[mesh-criteria] {failed}")
+    _need(launches, ("sweep_fwd_slab", "sweep_bwd_slab", "conv3d_fwd", "splat", "kde_sum",
+                     "kde_dot"), "[mesh-criteria] rigid_register(criterions=None) on slabs")
+    return paths
+
+
+# [dryrun]: the counterpart of __graft_entry__.py on meshes that name the card
+DRYRUN_SIZES = (8, 4, 2)
+DRYRUN_GRAD_TOL = MESH_UNET_GRAD_TOL  # each weight's gradient, of its own largest entry
+DRYRUN_LOSS_RTOL = 1e-5
+
+
+def phase_dryrun(smi: str) -> list:
+    """[dryrun]: ``dryrun.entry()`` once (40³, the U-Net then the exact
+    warp), then ``dryrun.dryrun_multichip(n)`` for ``DRYRUN_SIZES`` with the
+    default devices (the one card named n times); then the ``(4, 2)`` train
+    step against the port's unsharded step at the same weights on
+    ``dryrun.blob_batch``: the loss within ``DRYRUN_LOSS_RTOL``, each
+    weight's gradient within ``DRYRUN_GRAD_TOL`` of its own largest entry
+    (the gap printed), and the Adam-updated weights' largest gap printed
+    beside it, ungated (Adam's first step moves each weight by about lr
+    times the sign of its gradient). Returns the launches of each part."""
+    from torchregister_tpu_torch import dryrun
+
+    paths = []
+    _reset_counts()
+    fn, args = dryrun.entry()
+    warped, flow = fn(*args)
+    torch.cuda.synchronize()
+    paths.append(_counts())
+    if tuple(flow.shape) != (1, 3) + (dryrun.ENTRY_SIZE,) * 3 or not (
+            bool(torch.isfinite(warped).all()) and bool(torch.isfinite(flow).all())):
+        raise AssertionError(f"[dryrun] entry(): warped {tuple(warped.shape)}, flow "
+                             f"{tuple(flow.shape)}, not finite or of the wrong shape")
+    print(f"[dryrun] entry(): warped {tuple(warped.shape)}, flow {tuple(flow.shape)}, finite "
+          f"({smi})", flush=True)
+    for n in DRYRUN_SIZES:
+        _reset_counts()
+        t0 = time.perf_counter()
+        line = dryrun.dryrun_multichip(n)
+        torch.cuda.synchronize()
+        launches = _counts()
+        paths.append(launches)
+        print(f"[dryrun] dryrun_multichip({n}) in {time.perf_counter() - t0:.3f} s ({smi}); "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+        if "space" in line:
+            _need(launches, ("sweep_fwd_slab", "sweep_bwd_slab", "conv3d_fwd", "conv3d_dgrad",
+                             "conv3d_wgrad"), f"[dryrun] dryrun_multichip({n})")
+    mesh, _ = dryrun.dryrun_mesh(8, [DEV] * 8)
+    mov, tgt = dryrun.blob_batch(mesh.shape["data"], device=DEV)
+    sh = dryrun.batch_layout(mesh)
+    out = {}
+    for label, (m, t) in (("unsharded", (mov, tgt)),
+                          ("mesh", (pmesh.shard(mov, sh), pmesh.shard(tgt, sh)))):
+        model = dryrun._net(dryrun.TRAIN_NET, DEV)
+        params, opt = dryrun.init_train_state(model)
+        _reset_counts()
+        loss, grads = dryrun.make_loss_and_grads(model)(params, m, t)
+        dryrun.make_train_step(model)(params, opt, m, t)
+        torch.cuda.synchronize()
+        if label == "mesh":
+            paths.append(_counts())
+        out[label] = (float(loss), grads, {k: v.detach().clone()
+                                           for k, v in model.named_parameters()})
+    (uloss, ugrads, unew), (loss, grads, new) = out["unsharded"], out["mesh"]
+    gaps = {k: float((grads[k] - g).abs().max() / g.abs().max()) for k, g in ugrads.items()}
+    rel = abs(loss / uloss - 1.0)
+    worst = max(gaps, key=gaps.get)
+    step_gap = max(float((new[k] - w).abs().max()) for k, w in unew.items())
+    row = {"loss": loss, "unsharded_loss": uloss, "loss_rel_err": rel,
+           "grad_gap_max": gaps[worst], "grad_gap_weight": worst,
+           "updated_weights_max_gap": step_gap, "lr": dryrun.TRAIN_LR}
+    print(f"[dryrun] the (4, 2) train step against the unsharded step at the same weights on "
+          f"the blob batch ({mesh.shape['data']} pairs, {dryrun.TRAIN_SIZE}³): "
+          f"{json.dumps(row)}; per weight {json.dumps(gaps)} ({smi})", flush=True)
+    if rel > DRYRUN_LOSS_RTOL or gaps[worst] > DRYRUN_GRAD_TOL:
+        raise AssertionError(f"[dryrun] the train step on the mesh is off the unsharded step: "
+                             f"{row}")
+    return paths
 
 
 def _k2_slab_case():

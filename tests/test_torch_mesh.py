@@ -340,20 +340,15 @@ def test_torch_mesh_affine_engine_and_criteria_on_slabs():
 
 
 def test_torch_mesh_space_axis_refusals():
-    """Under a ``space`` axis NMI and LNCC raise ``ValueError`` naming their
-    ROADMAP item (20); a batch split over ``data`` is not a volume split
-    into slabs; ``spatial_axis`` without a mesh raises JAX's
-    ``ValueError``. (The exact method and a batch of pairs over ``data x
-    space`` run since items 22 and 19: ``tests/test_torch_mesh_exact.py``,
-    ``tests/test_torch_mesh_batch.py``; one exact step runs here.)"""
+    """A batch split over ``data`` is not a volume split into slabs;
+    ``spatial_axis`` without a mesh raises JAX's ``ValueError``. (The exact
+    method, a batch of pairs over ``data x space`` and NMI and LNCC on
+    slabs run: ``tests/test_torch_mesh_exact.py``,
+    ``tests/test_torch_mesh_batch.py``, ``tests/test_torch_mesh_criteria.py``;
+    one exact step runs here.)"""
     vol, tgt = _engine_case()
     sh = _space()
     y, yp = M.shard(torch.from_numpy(vol), sh), M.shard(torch.from_numpy(tgt), sh)
-    for crit in (tr.nmi_loss, tr.lncc):
-        with pytest.raises(ValueError, match="item 20"):
-            crit(y, yp)
-    with pytest.raises(ValueError, match="item 20"):
-        rigid_register(y, yp, epochs=1, criterions=["nmi"], max_shift=8)
     warped, res = rigid_register(y, yp, epochs=1, criterions=["mse"], method="exact")
     assert isinstance(warped, M.Sharded) and res.steps == 1
     with pytest.raises(ValueError, match="requires a mesh with a 'space' axis"):

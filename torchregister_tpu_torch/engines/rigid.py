@@ -62,12 +62,13 @@ def rigid_register(
     ``moving`` and ``target`` may be split into slabs over a mesh
     (``parallel.mesh.shard(x, volume_sharding(mesh))``, the ``space`` axis),
     as the JAX engine takes sharded arrays: the edge filter, the warp (K1's
-    slab mode) and MSE / SSD / NCC run slab by slab, the parameters on the
-    mesh's first device, and ``warped_best`` comes back split alike;
+    slab mode) and every criterion run slab by slab (LNCC with a halo of
+    its window, NMI with each patch assembled on one slab: ``losses/``),
+    the parameters on the mesh's first device, and ``warped_best`` comes
+    back split alike;
     ``optimizer='lm'`` differentiates K1's slab mode twice
     (``sweep_slab_bwd2``); ``method='exact'`` warps each slab with the exact
-    resampler on the fetched volume, ``warped_best`` with K2's slab mode.
-    NMI and LNCC raise there (ROADMAP queue 1 item 20)."""
+    resampler on the fetched volume, ``warped_best`` with K2's slab mode."""
     del per
     if grad_edges:
         moving = edge_filter(moving)

@@ -39,6 +39,12 @@ branch to the device counter ``branch_calls``.
 
 Sums run in f32 whatever the input dtype (a bf16 KDE reduction loses the
 density entirely).
+
+On two volumes split alike into slabs (``parallel.mesh.Sharded``, the
+``space`` axis) ``nmi_loss`` assembles each patch on one slab
+(:func:`patch_owners`) and runs the owners' patches as row groups of one
+call (:func:`nmi_groups`): each patch's NMI equals its unsharded value to
+the bit, and no slab gathers the whole volume.
 """
 from __future__ import annotations
 
@@ -104,12 +110,15 @@ def _unit_linspace(n: int, device) -> torch.Tensor:
     return out
 
 
+def _points(hi: torch.Tensor, lo: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` points from ``hi`` down to ``lo``."""
+    return _unit_linspace(steps, hi.device) * (lo - hi) + hi
+
+
 def _sample_points(s: torch.Tensor, steps: int) -> torch.Tensor:
     """``steps`` points from max(s) down to min(s), bounds detached (the
     reference reads them with ``.item()``)."""
-    hi = torch.max(s).detach()
-    lo = torch.min(s).detach()
-    return _unit_linspace(steps, s.device) * (lo - hi) + hi
+    return _points(torch.max(s).detach(), torch.min(s).detach(), steps)
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -193,7 +202,7 @@ def get_pdf(data: torch.Tensor, steps: int = 256, bandwidth: float = 2.0,
     signals = data.reshape(data.shape[0], -1).to(torch.float32)
     hi = torch.max(signals).detach()
     lo = torch.min(signals).detach()
-    xis = _unit_linspace(steps, signals.device) * (lo - hi) + hi
+    xis = _points(hi, lo, steps)
     if method == "exact":
         return kde_pdf(signals, xis, bandwidth)
     if method == "binned":
@@ -201,6 +210,90 @@ def get_pdf(data: torch.Tensor, steps: int = 256, bandwidth: float = 2.0,
     binned = _binned_ok(bandwidth, lo, hi)
     return torch.where(binned, kde_pdf_binned(signals, xis, bandwidth),
                        kde_pdf(signals, xis, bandwidth, binned=binned))
+
+
+def _global_range(groups: list, device) -> tuple:
+    """The max and min over every row group (exact, whatever the order),
+    detached, on ``device``."""
+    his = [torch.max(s).detach().to(device) for s in groups]
+    los = [torch.min(s).detach().to(device) for s in groups]
+    if len(groups) == 1:
+        return his[0], los[0]
+    return torch.max(torch.stack(his)), torch.min(torch.stack(los))
+
+
+def nmi_groups(groups1: list, groups2: list, bins: int = 256, bandwidth: float = 0.1,
+               rows: list | None = None) -> list:
+    """:func:`nmi` of rows given as groups, one a device (a volume's patches
+    assembled on the slabs that own them, ``nmi_loss`` on slabs): groups
+    ``k`` of ``groups1`` and ``groups2`` are ``[N_k, ...]`` on one device.
+    The sample points span the range of every group's rows (an exact max
+    and min over the groups, on the first group's device), the branch is
+    chosen once there and counted once in ``branch_calls``, and each
+    group's histograms (the splat, the exact KDE) run on its own device
+    with copies of the points and the branch flag. ``rows`` gives each
+    group's rows' places among all the rows: the densities' contraction,
+    normalisation and entropies then run on a tensor of every row on each
+    group's device (its own rows in place, the others detached copies of
+    its first), since torch's matrix product and row reductions pick their
+    order by the row count; each row's values then equal its values in one
+    call of every row to the bit. Returns each group's ``(nmi [N_k], mi
+    [N_k])``."""
+    s1 = [g.reshape(g.shape[0], -1).to(torch.float32) for g in groups1]
+    s2 = [g.reshape(g.shape[0], -1).to(torch.float32) for g in groups2]
+    sj = [torch.cat((a, b), dim=1) for a, b in zip(s1, s2)]
+    first = s1[0].device
+    xis1, xis2, xisj = (_points(*_global_range(s, first), bins) for s in (s1, s2, sj))
+    binned = _binned_ok(bandwidth, xisj[-1], xisj[0])
+    branch_calls.add(binned)
+    total = None if rows is None else sum(len(r) for r in rows)
+    out = []
+    for k, (a, b, j) in enumerate(zip(s1, s2, sj)):
+        dev = a.device
+        x1, x2, xj, flag = (t.to(dev) for t in (xis1, xis2, xisj, binned))
+        at = None if rows is None else torch.as_tensor(rows[k], device=dev)
+        out.append(_nmi_rows(a, b, j, x1, x2, xj, flag, bandwidth, at, total))
+    return out
+
+
+def _widen(t: torch.Tensor, at: torch.Tensor, total: int) -> torch.Tensor:
+    """``t``'s rows at places ``at`` of ``total`` rows, the others detached
+    copies of its first row (finite wherever ``t`` is)."""
+    fill = t[:1].detach().expand(total, *t.shape[1:]).contiguous()
+    return fill.index_copy(0, at, t)
+
+
+def _nmi_rows(s1, s2, sj, xis1, xis2, xisj, binned, bandwidth, at=None, total=None):
+    """Each row's ``(nmi, mi)`` from its flat f32 signals, the sample
+    points and the branch (see :func:`nmi`); with ``at``, the row-wise tail
+    on ``total`` rows (:func:`nmi_groups`)."""
+    x0, xe = xisj[0], xisj[-1]  # the joint range spans both marginals
+    L = s1.shape[1]
+    H1 = _binned_histogram(s1, x0, xe)
+    H2 = _binned_histogram(s2, x0, xe)
+    flag = binned.to(torch.int32)
+    exact = [kde_pdf(s, x, bandwidth, binned=flag)
+             for s, x in ((s1, xis1), (s2, xis2), (sj, xisj))]
+    if at is not None:
+        H1, H2, *exact = (_widen(t, at, total) for t in (H1, H2, *exact))
+    hists_binned = (_density_from_hist(H1, x0, xe, xis1, bandwidth, L),
+                    _density_from_hist(H2, x0, xe, xis2, bandwidth, L),
+                    _density_from_hist(H1 + H2, x0, xe, xisj, bandwidth, 2 * L))
+    hist1, hist2, hist_joint = (torch.where(binned, b, e)
+                                for b, e in zip(hists_binned, exact))
+
+    p1 = hist1 / torch.sum(hist1, dim=1, keepdim=True)
+    p2 = hist2 / torch.sum(hist2, dim=1, keepdim=True)
+    pj = hist_joint / torch.sum(hist_joint, dim=1, keepdim=True)
+    # the reference's double negation: entropies come out negative, all alike
+    e1 = -torch.sum(p1 * -torch.log2(p1 + EPSILON), dim=1)
+    e2 = -torch.sum(p2 * -torch.log2(p2 + EPSILON), dim=1)
+    ej = -torch.sum(pj * -torch.log2(pj + EPSILON), dim=1)
+    mi = e1 + e2 - ej
+    n = 2.0 * mi / (e1 + e2)
+    if at is not None:
+        return n.index_select(0, at), mi.index_select(0, at)
+    return n, mi
 
 
 def nmi(img1: torch.Tensor, img2: torch.Tensor, bins: int = 256,
@@ -215,52 +308,117 @@ def nmi(img1: torch.Tensor, img2: torch.Tensor, bins: int = 256,
     device predicate selects one with ``torch.where`` before the
     normalisation, so the other's zeros reach no division and its backward
     gets exact zeros."""
-    s1 = img1.reshape(img1.shape[0], -1).to(torch.float32)
-    s2 = img2.reshape(img2.shape[0], -1).to(torch.float32)
-    sj = torch.cat((s1, s2), dim=1)
-    xis1, xis2, xisj = (_sample_points(s, bins) for s in (s1, s2, sj))
-    binned = _binned_ok(bandwidth, xisj[-1], xisj[0])
-    branch_calls.add(binned)
-    x0, xe = xisj[0], xisj[-1]  # the joint range spans both marginals
-    H1 = _binned_histogram(s1, x0, xe)
-    H2 = _binned_histogram(s2, x0, xe)
-    L = s1.shape[1]
-    hists_binned = (_density_from_hist(H1, x0, xe, xis1, bandwidth, L),
-                    _density_from_hist(H2, x0, xe, xis2, bandwidth, L),
-                    _density_from_hist(H1 + H2, x0, xe, xisj, bandwidth, 2 * L))
-    flag = binned.to(torch.int32)
-    hists_exact = (kde_pdf(s, x, bandwidth, binned=flag)
-                   for s, x in ((s1, xis1), (s2, xis2), (sj, xisj)))
-    hist1, hist2, hist_joint = (torch.where(binned, b, e)
-                                for b, e in zip(hists_binned, hists_exact))
+    return nmi_groups([img1], [img2], bins, bandwidth)[0]
 
-    p1 = hist1 / torch.sum(hist1, dim=1, keepdim=True)
-    p2 = hist2 / torch.sum(hist2, dim=1, keepdim=True)
-    pj = hist_joint / torch.sum(hist_joint, dim=1, keepdim=True)
-    # the reference's double negation: entropies come out negative, all alike
-    e1 = -torch.sum(p1 * -torch.log2(p1 + EPSILON), dim=1)
-    e2 = -torch.sum(p2 * -torch.log2(p2 + EPSILON), dim=1)
-    ej = -torch.sum(pj * -torch.log2(pj + EPSILON), dim=1)
-    mi = e1 + e2 - ej
-    return 2.0 * mi / (e1 + e2), mi
+
+def _patch_rows(x: torch.Tensor, p: int) -> torch.Tensor:
+    """The reference's patches of ``x [B, C, *S]``: resized to ``(2p)^d``
+    by nearest, the raw buffer cut into ``2^d B C`` chunks of ``p^d``."""
+    d = x.ndim - 2
+    x = nearest_resize(x, (2 * p,) * d)
+    return x.reshape(((2**d) * x.shape[0] * x.shape[1],) + (p,) * d)
 
 
 def nmi_loss(y: torch.Tensor, yp: torch.Tensor, alpha: float = 1000.0, bins: int = 256,
              patch_size: int = 100, bandwidth: float = 3.0) -> torch.Tensor:
     """Reference ``NMILoss.forward``: ``mean(|NMI(patches) - 1|) * alpha``.
-    Raises ``ValueError`` on slabs (a ``parallel.mesh.Sharded`` volume)."""
-    from .similarity import refuse_slabs
+    Two volumes split alike into slabs (``parallel.mesh.Sharded``) take
+    their patches' NMI from :func:`patch_nmi_slabs`, averaged on the mesh's
+    first device as the unsharded call averages them."""
+    from .similarity import sharded_pair
 
-    refuse_slabs("nmi", y, yp)
-    p = patch_size
-    d = y.ndim - 2
-
-    def prep(x):
-        x = nearest_resize(x, (2 * p,) * d)
-        return x.reshape(((2**d) * x.shape[0] * x.shape[1],) + (p,) * d)
-
-    n, _ = nmi(prep(y), prep(yp), bins=bins, bandwidth=bandwidth)
+    if sharded_pair(y, yp):
+        n = patch_nmi_slabs(y, yp, bins, patch_size, bandwidth)
+    else:
+        n, _ = nmi(_patch_rows(y, patch_size), _patch_rows(yp, patch_size), bins=bins,
+                   bandwidth=bandwidth)
     return torch.mean(torch.abs(n - 1.0)) * alpha
+
+
+def patch_owners(S: tuple, dim: int, n: int, p: int) -> list:
+    """Which of ``n`` equal slabs along spatial dim ``dim`` of a volume of
+    spatial shape ``S`` assembles each of the ``2^d`` patches of one
+    ``(b, c)`` block (:func:`nmi_loss`). Patch ``k`` is the flat elements
+    ``[k p^d, (k+1) p^d)`` of the resized ``(2p)^d`` block, so it spans
+    resized rows ``[k p^d // R, ceil((k+1) p^d / R))`` of the leading dim (``R
+    = (2p)^(d-1)``). Split along the leading dim, its owner is the slab that
+    holds the source row of its first resized row (a nearest resize reads
+    source row ``(i * in) // out``); split along another dim, every patch
+    reads every slab, and the patches are dealt out in order, ``k n // 2^d``
+    (so no slab assembles the whole volume)."""
+    d = len(S)
+    P, R, K = p**d, (2 * p) ** (d - 1), 2**d
+    if dim != 0:
+        return [k * n // K for k in range(K)]
+    m = S[0] // n
+    return [((k * P // R) * S[0] // (2 * p)) // m for k in range(K)]
+
+
+def _owner_patches(x, p: int, owners: list, dim: int) -> list:
+    """Each owning slab's patches of ``x`` (a ``Sharded`` split along
+    spatial dim ``dim``), on its device: ``(slab, [B C n_k, p^d], ks)``,
+    ``ks`` the patches' indices in a ``(b, c)`` block, ascending. The
+    source rows each owner's patches read come through ``halo.fetch_rows``
+    (along the split dim, or, split along another dim, the whole split dim
+    of the leading rows they read); the other dims are resized on the
+    owner."""
+    from ..parallel import halo
+    from ..ops.resize import axis_nearest_resize, axis_take
+
+    S = tuple(x.shape[2:])
+    d, n = len(S), len(x.shards)
+    P, R, out = p**d, (2 * p) ** (d - 1), 2 * p
+    parts = halo.equal(S[dim], n)
+    groups = {}
+    for k, j in enumerate(owners):
+        groups.setdefault(j, []).append(k)
+    spans = {}
+    for j, ks in groups.items():
+        r0, r1 = ks[0] * P // R, -(-(ks[-1] + 1) * P // R)
+        src = [(i * S[0]) // out for i in range(r0, r1)]
+        spans[j] = (ks, r0, src)
+    if dim == 0:
+        wants = [(spans[j][2][0], spans[j][2][-1] + 1) if j in spans else (0, 0)
+                 for j in range(n)]
+        bufs = halo.fetch_rows(x.shards, parts, 2, wants)
+    else:
+        bufs = {}
+        for j, (_, _, src) in spans.items():
+            lead = [b.narrow(2, src[0], src[-1] + 1 - src[0]) for b in x.shards]
+            wants = [(0, S[dim]) if i == j else (0, 0) for i in range(n)]
+            bufs[j] = halo.fetch_rows(lead, parts, 2 + dim, wants)[j]
+    result = []
+    for j in sorted(spans):
+        ks, r0, src = spans[j]
+        t = axis_take(bufs[j], 2, [s - src[0] for s in src])
+        for a in range(1, d):
+            t = axis_nearest_resize(t, 2 + a, out)
+        flat = t.reshape(t.shape[0], t.shape[1], -1)
+        rows = torch.stack([flat.narrow(2, k * P - r0 * R, P) for k in ks], dim=2)
+        result.append((j, rows.reshape((-1,) + (p,) * d), ks))
+    return result
+
+
+def patch_nmi_slabs(y, yp, bins: int = 256, patch_size: int = 100,
+                    bandwidth: float = 3.0) -> torch.Tensor:
+    """The NMI of each of :func:`nmi_loss`'s patches of two volumes split
+    alike into slabs, in the unsharded call's patch order on the mesh's
+    first device. Each patch is assembled on one owner
+    (:func:`patch_owners`, :func:`_owner_patches`; no slab gathers the whole
+    volume), and the owners' patches are one row group each of
+    :func:`nmi_groups`, so each patch's NMI equals its unsharded value to
+    the bit."""
+    dim, _ = y.slab_axis()
+    p = patch_size
+    owners = patch_owners(tuple(y.shape[2:]), dim - 2, len(y.shards), p)
+    g1 = _owner_patches(y, p, owners, dim - 2)
+    g2 = _owner_patches(yp, p, owners, dim - 2)
+    BC, K = y.shape[0] * y.shape[1], len(owners)
+    rows = [[bc * K + k for bc in range(BC) for k in ks] for _, _, ks in g1]
+    vals = nmi_groups([r for _, r, _ in g1], [r for _, r, _ in g2], bins, bandwidth, rows)
+    first = y.device
+    return torch.cat([v.to(first).reshape(BC, len(ks)) for (v, _), (_, _, ks) in zip(vals, g1)],
+                     dim=1).reshape(-1)
 
 
 def nmi_loss_checked(y: torch.Tensor, yp: torch.Tensor, **kw) -> torch.Tensor:

@@ -448,18 +448,22 @@ def _pad_rows(y, target_spatial, parts):
         b.shape[2 + i] if i == split else t for i, t in enumerate(target_spatial)), 2))
 
 
-def forward_slabs(net: AttentionUNet, x):
+def forward_slabs(net: AttentionUNet, x, weights: dict | None = None):
     """:meth:`AttentionUNet.forward` on a volume split into slabs (``x`` a
     ``parallel.rows.Rows`` of ``[N, in_c, *S]`` along a spatial dim, each
     block on its slab's device; in pair mode one item a pair): the flow
-    ``[N, ndim, *S]`` laid out as ``x`` (see the section note)."""
+    ``[N, ndim, *S]`` laid out as ``x`` (see the section note). ``weights``
+    gives each weight's copy a slab (``{name: [copy, ...]}``, a wider
+    ``parallel.rows.replicate``'s share, whose backward then sums the
+    copies); by default each weight is replicated over the slabs here."""
     from ..parallel import rows
 
     nd, dt, dim, P = net.ndim, net.dtype, x.dim, net.pairs
     if P is not None and x.shape()[0] != P:
         raise ValueError(f"a U-Net of {P} weight sets runs {P} items, got {x.shape()[0]}")
     devices = [b.device for b in x.blocks]
-    W = {name: rows.replicate(p, devices) for name, p in net.named_parameters()}
+    W = weights if weights is not None else {
+        name: rows.replicate(p, devices) for name, p in net.named_parameters()}
 
     def conv(y, prefix):
         kern, bias = W[prefix + ".kernel"], W[prefix + ".bias"]

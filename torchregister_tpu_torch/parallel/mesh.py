@@ -198,15 +198,17 @@ class Sharded:
     def chunk(self, pairs: int) -> tuple:
         """``torch.chunk`` along the leading (pair) axis, which must be
         whole in every block: ``pairs`` tensors laid out as this one, each
-        block a view of this one's."""
+        block a view of this one's. Each block is split by one
+        ``torch.chunk``, one pair too, as ``losses.pair_slices`` splits a
+        tensor: the pairs' gradients then reach each block through one node
+        a call, so a pair's criteria add into it in the same order in a batch
+        as alone."""
         if self.sharding.spec and self.sharding.spec[0] is not None:
             raise ValueError(f"chunk splits a whole leading axis, got {self.sharding}")
-        if pairs == 1:
-            return (self,)
-        m = self.shape[0] // pairs
-        shape = (m, *self.shape[1:])
-        return tuple(Sharded(self.map(lambda t, b=b: t.narrow(0, b * m, m)).blocks,
-                             self.sharding, shape) for b in range(pairs))
+        parts = [torch.chunk(t, pairs) for t in self.shards]
+        shape = (self.shape[0] // pairs, *self.shape[1:])
+        return tuple(from_blocks([p[b] for p in parts], self.sharding, shape)
+                     for b in range(pairs))
 
     def slab_axis(self) -> tuple[int, str]:
         """``(dim, mesh_axis)`` of the one dim this tensor splits over a
@@ -217,6 +219,21 @@ class Sharded:
             raise ValueError(f"expected a tensor split along one dim over the mesh, got "
                              f"{self.sharding}")
         return dims[0], self.sharding.spec[dims[0]]
+
+    def ordered_blocks(self) -> list:
+        """The blocks in the order a sum over the whole tensor adds them: a
+        tensor split along one dim over a 1-D mesh axis gives its slabs in
+        order; a batch split over one mesh axis and a spatial dim over the
+        other (``cohort_sharding`` with a spatial axis) gives them
+        batch-axis-major, then slab. Raises for any other layout."""
+        dims = self.sharding.sharded_dims()
+        if len(dims) != 2 or dims[0] != 0 or len(self.mesh.axis_names) != 2:
+            self.slab_axis()
+            return self.shards
+        grid = self.blocks
+        if self.mesh.axis_names.index(self.sharding.spec[0]) == 1:
+            grid = grid.T
+        return list(grid.flat)
 
     def __repr__(self) -> str:
         return (f"Sharded(shape={tuple(self.shape)}, dtype={self.dtype}, "
